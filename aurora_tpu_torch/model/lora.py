@@ -1,0 +1,67 @@
+"""Per-roll-out-step LoRA (port of ``aurora_tpu/model/lora.py``).
+
+The bank is stored stacked, ``A: (S, r, in)`` and ``B: (S, r, out)``, with ``S = 1`` for the
+"single" and "from_second" modes and ``S = max_steps`` for "all". The kernels never run a
+rank-r side path: :func:`lora_weight_delta` folds the adapter into the weight they read
+(``aurora_tpu/model/swin3d.py:1243-1247``).
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from aurora_tpu_torch.model.config import LoRAMode
+from aurora_tpu_torch.model.nn import uniform_
+
+__all__ = ["LoRA", "lora_weight_delta"]
+
+
+class LoRA(nn.Module):
+    def __init__(
+        self,
+        d_in: int,
+        d_out: int,
+        r: int = 8,
+        max_steps: int = 40,
+        mode: LoRAMode = "single",
+        *,
+        device=None,
+        dtype=None,
+    ):
+        super().__init__()
+        n = max_steps if mode == "all" else 1
+        self.A = nn.Parameter(torch.zeros(n, r, d_in, device=device, dtype=dtype))
+        self.B = nn.Parameter(torch.zeros(n, r, d_out, device=device, dtype=dtype))
+
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        """A with the linear default init, B at zero (the adapter starts as identity)."""
+        uniform_(self.A, gen, fan_in=self.A.shape[-1])
+        with torch.no_grad():
+            self.B.zero_()
+
+
+def lora_weight_delta(
+    A: torch.Tensor,
+    B: torch.Tensor,
+    step: int,
+    *,
+    r: int,
+    alpha: int,
+    max_steps: int,
+    mode: LoRAMode,
+) -> torch.Tensor:
+    """The LoRA correction as an effective-weight delta ``(d_in, d_out)`` for roll-out step
+    ``step``, computed in the parameter dtype: ``x @ (W + delta)`` equals the linear plus
+    the LoRA side path up to one re-association."""
+    scaling = alpha / r
+    if mode in ("single", "from_second"):
+        a, b = A[0], B[0]
+    elif mode == "all":
+        idx = min(max(int(step), 0), A.shape[0] - 1)
+        a, b = A[idx], B[idx]
+    else:
+        raise ValueError(f"Invalid mode: {mode}")
+    delta = (a.T @ b) * scaling
+    active = step < max_steps and (mode != "from_second" or step > 0)
+    return delta * float(active)

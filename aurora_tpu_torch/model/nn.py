@@ -1,0 +1,152 @@
+"""NN primitives of ``aurora_tpu/model/nn.py`` as ``nn.Module``s and functions on tensors.
+
+Conventions kept from the JAX package so the two compare like with like:
+
+* Linear weights are ``(in, out)`` (the JAX layout; torch's own ``nn.Linear`` is
+  ``(out, in)``), bias ``(out,)``.
+* LayerNorm eps is 1e-5. In bf16 it is the shifted-variance form of ``nn.py:67-94``,
+  not textbook LN: f32 statistics taken around a bf16 mean estimate.
+* GELU is the exact erf form.
+* ``AdaptiveLayerNorm`` is FiLM: ``LN(x) * (scale_bias + scale(c)) + shift(c)`` with a
+  zero-initialised modulation linear.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+__all__ = [
+    "acc_dtype",
+    "linear",
+    "layernorm",
+    "gelu",
+    "Linear",
+    "LayerNorm",
+    "MLP",
+    "AdaptiveLayerNorm",
+    "trunc_normal_",
+    "uniform_",
+]
+
+
+def acc_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The accumulation type of a plain version: f64 stays f64, everything else is f32."""
+    return torch.float64 if dtype == torch.float64 else torch.float32
+
+
+def trunc_normal_(t: torch.Tensor, gen: torch.Generator, std: float = 0.02) -> torch.Tensor:
+    """Truncated normal (±2σ), the reference default for linear weights."""
+    with torch.no_grad():
+        return nn.init.trunc_normal_(t, std=std, a=-2 * std, b=2 * std, generator=gen)
+
+
+def uniform_(t: torch.Tensor, gen: torch.Generator, fan_in: int) -> torch.Tensor:
+    """Uniform(-1/sqrt(fan_in), 1/sqrt(fan_in)): the torch conv / LoRA-A default."""
+    bound = 1.0 / math.sqrt(fan_in)
+    with torch.no_grad():
+        return t.uniform_(-bound, bound, generator=gen)
+
+
+def linear(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor] = None):
+    y = x @ weight.to(x.dtype)
+    if bias is not None:
+        y = y + bias.to(x.dtype)
+    return y
+
+
+def layernorm(
+    x: torch.Tensor,
+    weight: Optional[torch.Tensor] = None,
+    bias: Optional[torch.Tensor] = None,
+    eps: float = 1e-5,
+) -> torch.Tensor:
+    """LayerNorm over the last axis (non-affine when ``weight`` is None)."""
+    if x.dtype == torch.bfloat16:
+        mean = x.float().mean(-1, keepdim=True)
+        shift = mean.to(x.dtype)
+        meansq = (x - shift).square().float().mean(-1, keepdim=True)
+        resid = mean - shift.float()
+        var = torch.clamp(meansq - resid.square(), min=0.0)
+        y = ((x.float() - mean) * torch.rsqrt(var + eps)).to(x.dtype)
+    else:
+        mean = x.mean(-1, keepdim=True)
+        var = (x - mean).square().mean(-1, keepdim=True)
+        y = (x - mean) * torch.rsqrt(var + eps)
+    if weight is not None:
+        y = y * weight.to(x.dtype) + bias.to(x.dtype)
+    return y
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """Exact (erf) GELU."""
+    return F.gelu(x)
+
+
+class Linear(nn.Module):
+    """``x @ weight + bias`` with an ``(in, out)`` weight."""
+
+    def __init__(self, d_in: int, d_out: int, bias: bool = True, *, device=None, dtype=None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.zeros(d_in, d_out, device=device, dtype=dtype))
+        self.bias = (
+            nn.Parameter(torch.zeros(d_out, device=device, dtype=dtype)) if bias else None
+        )
+
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        trunc_normal_(self.weight, gen)
+        if self.bias is not None:
+            with torch.no_grad():
+                self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return linear(x, self.weight, self.bias)
+
+
+class LayerNorm(nn.Module):
+    def __init__(self, d: int, *, device=None, dtype=None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(d, device=device, dtype=dtype))
+        self.bias = nn.Parameter(torch.zeros(d, device=device, dtype=dtype))
+
+    def forward(self, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+        return layernorm(x, self.weight, self.bias, eps)
+
+
+class MLP(nn.Module):
+    """Two-layer GELU MLP (``fc1``/``fc2``)."""
+
+    def __init__(self, d_in: int, d_hidden: int, *, device=None, dtype=None):
+        super().__init__()
+        self.fc1 = Linear(d_in, d_hidden, device=device, dtype=dtype)
+        self.fc2 = Linear(d_hidden, d_in, device=device, dtype=dtype)
+
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        self.fc1.reset_parameters(gen)
+        self.fc2.reset_parameters(gen)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fc2(gelu(self.fc1(x)))
+
+
+class AdaptiveLayerNorm(nn.Module):
+    """FiLM adaptive LayerNorm (reference: aurora/model/film.py:14-49)."""
+
+    def __init__(self, dim: int, context_dim: int, *, device=None, dtype=None):
+        super().__init__()
+        # Zero-initialised: the block starts as LN * scale_bias.
+        self.modulation = Linear(context_dim, 2 * dim, device=device, dtype=dtype)
+
+    def shift_scale(self, c: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """The per-batch ``(B, D)`` shift and scale for context ``c: (B, Dc)``."""
+        shift, scale = self.modulation(F.silu(c)).chunk(2, dim=-1)
+        return shift, scale
+
+    def forward(self, x: torch.Tensor, c: torch.Tensor, scale_bias: float = 0.0):
+        shift, scale = self.shift_scale(c)
+        shape = (x.shape[0],) + (1,) * (x.ndim - 2) + (x.shape[-1],)
+        return layernorm(x) * (scale_bias + scale.reshape(shape)) + shift.reshape(shape)

@@ -1,0 +1,429 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (``aurora_tpu_torch``) on one NVIDIA H100.
+
+Phases, each printing one JSON line; any failure raises and the script exits non-zero:
+
+1. device: ``nvidia-smi`` name and power limit, torch and CUDA versions;
+2. build: every ``aurora_tpu_torch/csrc/*.cu`` with ``nvcc`` for ``sm_90a``;
+3. one phase per kernel at the shapes of the production main path: the kernel against its
+   plain PyTorch version on the same inputs, with CUDA-event times of the kernel, the plain
+   version and (roll) ``torch.roll``, median of 10 runs after warm-up, and the bound
+   max(flops / peak, bytes / 3.35 TB/s). Roll (both signs of the shift) must be exact. K2,
+   K3 and K4 each add a branch to a residual (``x + LN(.) * scale + shift``) and round the
+   sum to bf16; their error is the largest ``|kernel - plain|`` less one bf16 ulp of the
+   output (the two may round one f32 value apart), over the largest ``|plain - residual|``,
+   the branch's size: block 6e-3, perceiver core 1e-2. The branch gets unit gain (FiLM
+   scale N(0, 1) in the backbone, LayerNorm weight ~1 in the perceiver), so it is as large
+   as the residual and its error is not hidden under the residual's rounding;
+4. end to end: the 1.3 B production config (LoRA, bf16 backbone stored in bf16, bf16
+   (de-)aggregation values) at full width and depth, seeded random weights with the FiLM
+   and LoRA gates opened, ``rollout`` over the 721 x 1440 / 13-level batch; per-step time,
+   peak memory, per-step launch counts checked against the code; outputs finite and of
+   the right shape; then the same weights on a 121 x 240 grid against the port's own CPU
+   route (the plain versions) as the reference;
+5. the kernels summary line (times per forward step: each main-path shape's time times
+   its launches per step; ``launches`` is the count over the roll-out), the
+   ``nvidia-smi`` line, and the last line ``{"ok": true, "device": {...}}``.
+
+Run from the repository root: ``python3 chip_smoke.py``. It needs one card, and exits
+non-zero without one.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from datetime import datetime
+
+import numpy as np
+
+PEAK_BF16 = 989e12  # dense bf16 tensor-core FLOP/s, H100 SXM
+PEAK_F32 = 67e12  # f32 FLOP/s outside the tensor cores
+HBM = 3.35e12  # bytes/s
+STEPS = 2  # roll-out steps of the end-to-end phase
+REPS = 10  # timed runs per kernel and shape, after 2 warm-up runs
+LEVELS = (50, 100, 150, 200, 250, 300, 400, 500, 600, 700, 850, 925, 1000)
+SURF, STATIC, ATMOS = ("2t", "10u", "10v", "msl"), ("lsm", "z", "slt"), ("z", "u", "v", "t", "q")
+TOL = {"roll3d": 0.0, "window_attention": 6e-3, "mlp_adaln_residual": 6e-3, "perceiver_core": 1e-2}
+SOURCES = {
+    "roll3d": ("aurora_tpu_torch/csrc/roll.cu", "aurora_tpu/ops/roll.py:30"),
+    "window_attention": (
+        "aurora_tpu_torch/csrc/window_attention.cu", "aurora_tpu/model/swin3d.py:810"
+    ),
+    "mlp_adaln_residual": ("aurora_tpu_torch/csrc/mlp.cu", "aurora_tpu/ops/mlp.py:318"),
+    "perceiver_core": ("aurora_tpu_torch/csrc/resampler.cu", "aurora_tpu/ops/resampler.py:77"),
+}
+# Launches per forward step of the main path, from the code: 48 Swin blocks (stage depths
+# 6+6, 10+10, 8+8), the odd-index half shifted (two rolls each); the two perceiver MLP
+# halves; the aggregation and de-aggregation cores.
+EXPECTED = {"roll3d": 48, "window_attention": 48, "mlp_adaln_residual": 50, "perceiver_core": 2}
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def log(*a) -> None:
+    print(*a, file=sys.stderr, flush=True)
+
+
+def branch_err(got, want, residual) -> tuple[float, float]:
+    """``(max |got - want|, branch error)`` of bf16 outputs ``residual + branch``.
+
+    The branch error is the largest ``|got - want|`` less one bf16 ulp of the larger of
+    the two (both round an f32 sum, and two sums an f32 hair apart can round one ulp
+    apart), over the largest ``|want - residual|``.
+    """
+    import torch
+
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    mant, exp = torch.frexp(torch.maximum(g.abs(), w.abs()))
+    ulp = torch.where(mant > 0, torch.ldexp(torch.ones_like(g), exp - 8), 0.0)
+    del g, mant, exp
+    excess = (diff - ulp).clamp_min(0).max().item()
+    size = (w - residual.float()).abs().max().item()
+    return diff.max().item(), excess / (size + 1e-30)
+
+
+def cuda_ms(fn, warmup: int = 2) -> float:
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(REPS):
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        e.synchronize()
+        times.append(s.elapsed_time(e))
+    return float(np.median(times))
+
+
+def bound_ms(flops_bf16=0.0, flops_f32=0.0, nbytes=0.0) -> tuple[float, str]:
+    ops = flops_bf16 / PEAK_BF16 + flops_f32 / PEAK_F32
+    mem = nbytes / HBM
+    return 1e3 * max(ops, mem), "operations" if ops >= mem else "bytes"
+
+
+# ------------------------------------------------------------------------------ kernels
+
+
+def kernel_cases():
+    """One dict per kernel and main-path shape: name, label, launches per step, the kernel,
+    its plain version and the library call (callables), the residual its output adds a
+    branch to (None for roll), and the bound."""
+    import torch
+
+    from aurora_tpu_torch.ops import resampler, roll, window_attention
+    from aurora_tpu_torch.ops.masks import window_group_ids
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    bf = torch.bfloat16
+
+    def rn(*shape, std=1.0, dtype=bf):
+        return (torch.randn(*shape, generator=g, device=dev) * std).to(dtype)
+
+    stages = [  # (C, H, W, D, heads, blocks per step)
+        (4, 180, 360, 512, 8, 12),
+        (4, 90, 180, 1024, 16, 20),
+        (4, 45, 90, 2048, 32, 16),
+    ]
+    ws, ss = (2, 6, 12), (1, 3, 6)
+    for C, H, W, D, heads, nblk in stages:
+        x = rn(1, C, H, W, D)
+        nb = 2 * x.numel() * 2
+        # A shifted block rolls by -ss before its attention and by +ss after it.
+        for shifts in ((-ss[0], -ss[1], -ss[2]), ss):
+            yield dict(
+                name="roll3d", label=f"(1,{C},{H},{W},{D}) shifts {shifts}",
+                per_step=nblk // 2,
+                kernel=lambda x=x, s=shifts: roll.roll3d(x, s),
+                plain=lambda x=x, s=shifts: roll.roll3d_plain(x, s),
+                library=lambda x=x, s=shifts: torch.roll(x, s, dims=(1, 2, 3)),
+                residual=None, bound=bound_ms(nbytes=nb),
+            )
+        del x
+        Hp, Wp = H + (-H) % ws[1], W + (-W) % ws[2]
+        xp = rn(1, C, Hp, Wp, D)
+        args = (
+            rn(D, 3 * D, std=0.02), rn(3 * D, std=0.02), rn(D, D, std=0.02),
+            rn(D, std=0.02, dtype=torch.float32),
+            rn(1, D, std=0.1, dtype=torch.float32), rn(1, D, dtype=torch.float32),
+        )
+        M = C * Hp * Wp
+        nW, N, dh = M // 144, 144, D // heads
+        fl = 2 * M * D * 3 * D + 4 * nW * heads * N * N * dh + 2 * M * D * D
+        nb = 2 * M * D * 2 + 4 * D * D * 2
+        # Shifted blocks mask by group id; unshifted ones have no mask, pad tokens included.
+        for groups in (window_group_ids(C, H, W, ws, ss), None):
+            kind = "masked" if groups is not None else "unmasked"
+            yield dict(
+                name="window_attention", label=f"(1,{C},{Hp},{Wp},{D}) heads {heads}, {kind}",
+                per_step=nblk // 2,
+                kernel=lambda xp=xp, a=args, gr=groups, h=heads:
+                    window_attention.window_attention_tail(xp, *a, gr, ws, h),
+                plain=lambda xp=xp, a=args, gr=groups, h=heads:
+                    window_attention.window_attention_tail_plain(xp, *a, gr, ws, h),
+                library=None, residual=xp, bound=bound_ms(flops_bf16=fl, nbytes=nb),
+            )
+        del xp
+        # FiLM: shift N(0, 0.1), scale N(0, 1).
+        film = (rn(1, D, std=0.1, dtype=torch.float32), rn(1, D, dtype=torch.float32))
+        yield mlp_case(rn, f"backbone ({C * H * W},{D})", C * H * W, D, 4 * D, nblk, film)
+    for label, rows, D in (("agg", 64800 * 3, 512), ("de-agg", 64800 * 13, 1024)):
+        # LayerNorm affine in the FiLM slot: bias ~0, weight ~1.
+        ln2 = (rn(1, D, std=0.1, dtype=torch.float32), 1 + rn(1, D, std=0.1, dtype=torch.float32))
+        yield mlp_case(rn, f"perceiver {label} ({rows},{D})", rows, D, 2048, 1, ln2)
+    for label, K, D, h, Q in (("agg", 13, 512, 16, 3), ("de-agg", 3, 1024, 16, 13)):
+        M, inner, dh = 64800, D, D // h
+        a = dict(
+            ctx=rn(K, M, D, dtype=torch.float32), wk=rn(D, inner, std=0.05, dtype=torch.float32),
+            wv=rn(D, inner, std=0.05, dtype=torch.float32), qh=rn(Q, h, dh, dtype=torch.float32),
+            wout=rn(inner, D, std=0.05, dtype=torch.float32),
+            ln1_w=1 + rn(D, std=0.1, dtype=torch.float32),
+            ln1_b=rn(D, std=0.1, dtype=torch.float32),
+            queries=rn(Q, D, dtype=torch.float32),
+        )
+        kw = dict(scale=dh**-0.5, value_bf16=True)
+        f32 = 2 * K * M * D * inner + 2 * K * M * Q * inner
+        b16 = 2 * K * M * D * inner + 2 * M * Q * inner * D
+        nb = K * M * D * 4 + M * Q * D * 2 + D * inner * 6 + inner * D * 2
+        yield dict(
+            name="perceiver_core", label=f"{label} ctx ({K},{M},{D}) Q {Q}", per_step=1,
+            kernel=lambda a=a, kw=kw: resampler.perceiver_core(**a, **kw),
+            plain=lambda a=a, kw=kw: resampler.perceiver_core_plain(**a, **kw),
+            library=None, residual=a["queries"][None],
+            bound=bound_ms(flops_bf16=b16, flops_f32=f32, nbytes=nb),
+        )
+
+
+def mlp_case(rn, label, rows, D, Hd, per_step, shift_scale):
+    """Both callers pass scale_bias = 0: the blocks' FiLM and the perceiver's LN affine."""
+    import torch
+
+    from aurora_tpu_torch.ops import mlp
+
+    x = rn(1, rows, D)
+    a = (
+        rn(D, Hd, std=0.02), rn(Hd, std=0.02, dtype=torch.float32), rn(Hd, D, std=0.02),
+        rn(D, std=0.02, dtype=torch.float32), *shift_scale,
+    )
+    fl = 4 * rows * D * Hd
+    nb = 2 * rows * D * 2 + 2 * D * Hd * 2
+    return dict(
+        name="mlp_adaln_residual", label=label, per_step=per_step,
+        kernel=lambda: mlp.mlp_adaln_residual(x, *a),
+        plain=lambda: mlp.mlp_adaln_residual_plain(x, *a),
+        library=None, residual=x, bound=bound_ms(flops_bf16=fl, nbytes=nb),
+    )
+
+
+def run_kernel_phases() -> dict:
+    import torch
+
+    summary = {n: dict(max_abs_err=0.0, branch_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
+                       library_ms=None, by={"bytes": 0.0, "operations": 0.0}) for n in TOL}
+    for case in kernel_cases():
+        name = case["name"]
+        got = case["kernel"]()
+        want = case["plain"]()
+        torch.cuda.synchronize()
+        if got.shape != want.shape or got.dtype != want.dtype:
+            raise AssertionError(f"{name} {case['label']}: {got.shape}/{got.dtype} vs "
+                                 f"{want.shape}/{want.dtype}")
+        if not torch.isfinite(got.float()).all():
+            raise AssertionError(f"{name} {case['label']}: non-finite output")
+        if case["residual"] is None:
+            err, rel = (got.float() - want.float()).abs().max().item(), None
+            ok = torch.equal(got, want)
+        else:
+            err, rel = branch_err(got, want, case["residual"])
+            ok = rel <= TOL[name]
+        del got, want
+        ms = cuda_ms(case["kernel"])
+        plain_ms = cuda_ms(case["plain"])
+        lib_ms = cuda_ms(case["library"]) if case["library"] else None
+        b, by = case["bound"]
+        emit(dict(phase="kernel", kernel=name, shape=case["label"], ok=bool(ok),
+                  max_abs_err=err, branch_err=rel, tol=TOL[name], ms=ms, plain_ms=plain_ms,
+                  library_ms=lib_ms, bound_ms=b, bound_by=by, per_step=case["per_step"]))
+        if not ok:
+            raise AssertionError(f"{name} {case['label']}: max abs err {err}, branch error "
+                                 f"{rel} (bound {TOL[name]})")
+        s = summary[name]
+        n = case["per_step"]
+        s["max_abs_err"] = max(s["max_abs_err"], err)
+        s["branch_err"] = max(s["branch_err"], rel or 0.0)
+        s["ms"] += n * ms
+        s["plain_ms"] += n * plain_ms
+        s["bound_ms"] += n * b
+        if lib_ms is not None:
+            s["library_ms"] = (s["library_ms"] or 0.0) + n * lib_ms
+        s["by"][by] += n * b
+        torch.cuda.empty_cache()
+    return summary
+
+
+# ------------------------------------------------------------------------------ end to end
+
+
+def numpy_batch(H: int, W: int, seed: int = 0):
+    from aurora_tpu_torch import Batch, Metadata
+
+    rng = np.random.default_rng(seed)
+    return Batch(
+        surf_vars={k: rng.standard_normal((1, 2, H, W)).astype(np.float32) for k in SURF},
+        static_vars={k: np.abs(rng.standard_normal((H, W))).astype(np.float32) for k in STATIC},
+        atmos_vars={
+            k: rng.standard_normal((1, 2, len(LEVELS), H, W)).astype(np.float32) for k in ATMOS
+        },
+        metadata=Metadata(
+            lat=np.linspace(90, -90, H), lon=np.linspace(0, 360, W, endpoint=False),
+            time=(datetime(2020, 6, 1, 12),), atmos_levels=LEVELS,
+        ),
+    )
+
+
+def open_gates(model, seed: int = 1, std: float = 0.05) -> None:
+    """Seeded noise in every FiLM modulation weight and LoRA B: at fresh init both are zero
+    and every Swin block is an identity, so the kernels would never reach the output."""
+    import torch
+
+    g = torch.Generator(device=model.device).manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if ("modulation" in name and name.endswith("weight")) or name.endswith(".B"):
+                p.copy_(torch.randn(p.shape, generator=g, device=p.device) * std)
+
+
+def run_end_to_end(steps: int, ref_grid: tuple[int, int]) -> dict:
+    import torch
+
+    from aurora_tpu_torch import LARGE_CONFIG, Aurora, cast_backbone_params, rollout
+    from aurora_tpu_torch.ops import _lib
+
+    cfg = LARGE_CONFIG.replace(use_lora=True, autocast=True, agg_bf16=True, deagg_bf16=True)
+    t0 = time.perf_counter()
+    model = Aurora(cfg, device="cuda", seed=0)
+    open_gates(model)
+    cast_backbone_params(model)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    init_s = time.perf_counter() - t0
+    batch = numpy_batch(721, 1440)
+
+    torch.cuda.reset_peak_memory_stats()
+    _lib.reset_launches()
+    step_s, per_step = [], []
+    preds = []
+    t_prev = time.perf_counter()
+    before = dict(_lib.LAUNCHES)
+    for pred in rollout(model, batch, steps=steps):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        step_s.append(now - t_prev)
+        per_step.append({k: _lib.LAUNCHES[k] - before[k] for k in _lib.LAUNCHES})
+        before = dict(_lib.LAUNCHES)
+        preds.append(pred)
+        t_prev = now
+    launches = dict(_lib.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    for i, counts in enumerate(per_step):
+        if counts != EXPECTED:
+            raise AssertionError(f"step {i}: launches {counts} != {EXPECTED}")
+    for i, pred in enumerate(preds):
+        for k, v in {**pred.surf_vars, **pred.atmos_vars}.items():
+            want = (1, 1, 720, 1440) if k in pred.surf_vars else (1, 1, len(LEVELS), 720, 1440)
+            if tuple(v.shape) != want or v.dtype != torch.float32:
+                raise AssertionError(f"step {i} {k}: {tuple(v.shape)} {v.dtype}")
+            if not torch.isfinite(v).all():
+                raise AssertionError(f"step {i} {k}: non-finite values")
+        if pred.metadata.rollout_step != i + 1:
+            raise AssertionError("roll-out step not advanced")
+    emit(dict(phase="end_to_end", grid="721x1440 (720x1440 after crop)", levels=13,
+              params=n_params, init_s=init_s, steps=steps, step_s=step_s,
+              peak_mem_gib=peak / 2**30, launches_per_step=per_step[-1], launches=launches))
+
+    # Reference on a small input: the same weights on the port's CPU route.
+    H, W = ref_grid
+    small = numpy_batch(H, W, seed=1)
+    got = model(small)
+    torch.cuda.synchronize()
+    cpu = model.to("cpu")
+    want = cpu(small)
+    errs = {}
+    for k in SURF:
+        errs[k] = _mean_rel(got.surf_vars[k], want.surf_vars[k])
+    for k in ATMOS:
+        errs[k] = _mean_rel(got.atmos_vars[k], want.atmos_vars[k])
+    worst = max(errs.values())
+    emit(dict(phase="reference", grid=f"{H}x{W}", against="port CPU route (plain versions)",
+              mean_rel=errs, worst=worst, tol=1e-2))
+    if not worst <= 1e-2:
+        raise AssertionError(f"card vs CPU route: mean rel {worst} > 1e-2")
+    return launches
+
+
+def _mean_rel(a, b) -> float:
+    a, b = a.double().cpu(), b.double().cpu()
+    return ((a - b).abs().mean() / (b.abs().mean() + 1e-30)).item()
+
+
+# ------------------------------------------------------------------------------ main
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        log("chip_smoke: no CUDA device; this script runs on the card only")
+        return 1
+    from aurora_tpu_torch.ops import _lib
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    emit(dict(phase="device", nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda,
+              name=torch.cuda.get_device_name(0), count=torch.cuda.device_count()))
+
+    secs = _lib.build(force=True)
+    ptxas = {}
+    for n in _lib.SOURCES:
+        lines = (_lib.BUILD_DIR / f"lib{n}.ptxas.txt").read_text().splitlines()
+        ptxas[n] = [ln.strip() for ln in lines if "registers" in ln or "spill" in ln]
+    emit(dict(phase="build", seconds=secs, ptxas=ptxas))
+
+    summary = run_kernel_phases()
+    launches = run_end_to_end(STEPS, (121, 240))
+    missing = [k for k, v in launches.items() if v == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the main path: {missing}")
+
+    kernels = []
+    for name, s in summary.items():
+        src, replaces = SOURCES[name]
+        kernels.append(dict(
+            name=name, ok=True, route="cuda", source=src, replaces=replaces,
+            launches=launches[name],
+            max_abs_err=s["max_abs_err"], branch_err=s["branch_err"], ms=s["ms"],
+            plain_ms=s["plain_ms"],
+            bound_ms=s["bound_ms"], bound_by=max(s["by"], key=s["by"].get),
+            library_ms=s["library_ms"],
+        ))
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
