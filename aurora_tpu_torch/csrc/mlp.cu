@@ -1,8 +1,14 @@
-// K3: the MLP branch of a block, out = x + LN(fc2(GELU(fc1 x))) * (scale_bias + scale) + shift.
+// K3: the MLP branch of a block, out = x + LN(fc2(GELU(fc1 x))) * (scale_bias + scale) + shift;
+// K8: the MLP alone, out = fc2(GELU(fc1 x)) (mlp_impl="pallas"); and
+// K5: the attention tail after un-windowing, out = shortcut + LN(x @ W + b) * scale + shift.
 //
-// Replaces aurora_tpu/ops/mlp.py::mlp_adaln_residual_fused (pallas_call at mlp.py:419),
-// which kept both weight matrices resident in VMEM and walked the hidden dimension with an
-// in-kernel loop.
+// K3 replaces aurora_tpu/ops/mlp.py::mlp_adaln_residual_fused (pallas_call at mlp.py:419)
+// and K8 mlp_fused (pallas_call at mlp.py:278). Both TPU kernels kept the weight matrices
+// resident in VMEM and walked the hidden dimension with an in-kernel loop; here both are one
+// kernel, mlp_kernel<CW, LN>, that differs only in its epilogue. K5 replaces
+// linear_adaln_residual_fused (pallas_call at mlp.py:604) with the row kernel of
+// row_tail.cuh, its residual read from its own pointer. Bound: bytes (x and shortcut read,
+// out written once; the D x D GEMM is below the card's ~295 flop/byte balance point).
 //
 // Bound on the H100: operations, 4 * rows * D * 4D bf16 flops (~1.1 TFLOP, ~1.1 ms at
 // 989 TF/s, for every backbone stage of the 0.25 deg model). Design: a block of 8 warps
@@ -15,18 +21,20 @@
 // The 4D hidden never reaches device memory. After the last chunk the f32 accumulators
 // take the f32 bias and are rounded; the LayerNorm statistics are reduced across the CW
 // warps of a row through shared memory (two-pass), then FiLM and the residual, rounded.
+// K8 skips the LayerNorm: after the last chunk it adds the f32 bias and rounds.
 // The B fragments are read straight from the (L2-resident) transposed weights. Measured ~19x
 // over the bound, flat across the stages although the weight bytes per block grow 4x per
 // stage: the limiter is this loop's issue rate (no staging, no pipelining, 255 registers,
 // one block per SM), which wgmma tiles fed by TMA would replace.
 #include "common.cuh"
+#include "row_tail.cuh"
 
 namespace {
 
 constexpr int HC = 64;  // hidden chunk
 
-template <int CW>
-__global__ void __launch_bounds__(256, 1) mlp_adaln_kernel(
+template <int CW, bool LN>
+__global__ void __launch_bounds__(256, 1) mlp_kernel(
     const bf16* __restrict__ x, const bf16* __restrict__ w1t, const float* __restrict__ b1,
     const bf16* __restrict__ w2t, const float* __restrict__ b2, const float* __restrict__ shift,
     const float* __restrict__ scale, float scale_bias, long long M, long long rows_per_batch,
@@ -99,6 +107,21 @@ __global__ void __launch_bounds__(256, 1) mlp_adaln_kernel(
       }
     }
     __syncthreads();
+  }
+
+  if constexpr (!LN) {  // K8: out = round(acc + b2)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const long long row = r0 + rl + 8 * half;
+      if (row >= M) continue;
+#pragma unroll
+      for (int j = 0; j < NT2; ++j) {
+        const int n = wc * 256 + j * 8 + 2 * tq;
+        *reinterpret_cast<uint32_t*>(out + row * D + n) =
+            pack_bf16x2(acc[j][2 * half] + b2[n], acc[j][2 * half + 1] + b2[n + 1]);
+      }
+    }
+    return;
   }
 
   // y = round(acc + b2); LayerNorm over the D columns shared by the CW warps of a row.
@@ -175,20 +198,45 @@ __global__ void __launch_bounds__(256, 1) mlp_adaln_kernel(
   }
 }
 
-template <int CW>
+template <int CW, bool LN>
 int launch(const bf16* x, const bf16* w1t, const float* b1, const bf16* w2t, const float* b2,
            const float* shift, const float* scale, bf16* out, float scale_bias, long long M,
            long long rows_per_batch, int Hd, float eps, cudaStream_t stream) {
   constexpr int RB = 16 * (8 / CW), D = 256 * CW;
   const size_t smem = (size_t)RB * (D + 8) * 2 + (size_t)RB * (HC + 8) * 2 +
                       2 * (size_t)RB * CW * sizeof(float);
-  cudaFuncSetAttribute(mlp_adaln_kernel<CW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  cudaFuncSetAttribute(mlp_kernel<CW, LN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        (int)smem);
   const unsigned blocks = (unsigned)((M + RB - 1) / RB);
-  mlp_adaln_kernel<CW><<<blocks, 256, smem, stream>>>(x, w1t, b1, w2t, b2, shift, scale,
-                                                      scale_bias, M, rows_per_batch, Hd, eps,
-                                                      out);
+  mlp_kernel<CW, LN><<<blocks, 256, smem, stream>>>(x, w1t, b1, w2t, b2, shift, scale,
+                                                    scale_bias, M, rows_per_batch, Hd, eps, out);
   return (int)cudaGetLastError();
+}
+
+template <bool LN>
+int launch_d(const void* x, const void* w1t, const float* b1, const void* w2t, const float* b2,
+             const float* shift, const float* scale, void* out, float scale_bias, int M,
+             int rows_per_batch, int D, int Hd, float eps, cudaStream_t stream) {
+  if (Hd % HC) return (int)cudaErrorInvalidValue;
+  auto xb = static_cast<const bf16*>(x);
+  auto w1 = static_cast<const bf16*>(w1t);
+  auto w2 = static_cast<const bf16*>(w2t);
+  auto ob = static_cast<bf16*>(out);
+  switch (D) {
+    case 256:
+      return launch<1, LN>(xb, w1, b1, w2, b2, shift, scale, ob, scale_bias, M, rows_per_batch,
+                           Hd, eps, stream);
+    case 512:
+      return launch<2, LN>(xb, w1, b1, w2, b2, shift, scale, ob, scale_bias, M, rows_per_batch,
+                           Hd, eps, stream);
+    case 1024:
+      return launch<4, LN>(xb, w1, b1, w2, b2, shift, scale, ob, scale_bias, M, rows_per_batch,
+                           Hd, eps, stream);
+    case 2048:
+      return launch<8, LN>(xb, w1, b1, w2, b2, shift, scale, ob, scale_bias, M, rows_per_batch,
+                           Hd, eps, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -201,24 +249,26 @@ extern "C" int mlp_adaln_residual(const void* x, const void* w1t, const float* b
                                   const float* scale, void* out, float scale_bias, int M,
                                   int rows_per_batch, int D, int Hd, float eps,
                                   cudaStream_t stream) {
-  if (Hd % HC) return (int)cudaErrorInvalidValue;
-  auto xb = static_cast<const bf16*>(x);
-  auto w1 = static_cast<const bf16*>(w1t);
-  auto w2 = static_cast<const bf16*>(w2t);
-  auto ob = static_cast<bf16*>(out);
-  switch (D) {
-    case 256:
-      return launch<1>(xb, w1, b1, w2, b2, shift, scale, ob, scale_bias, M, rows_per_batch,
-                       Hd, eps, stream);
-    case 512:
-      return launch<2>(xb, w1, b1, w2, b2, shift, scale, ob, scale_bias, M, rows_per_batch,
-                       Hd, eps, stream);
-    case 1024:
-      return launch<4>(xb, w1, b1, w2, b2, shift, scale, ob, scale_bias, M, rows_per_batch,
-                       Hd, eps, stream);
-    case 2048:
-      return launch<8>(xb, w1, b1, w2, b2, shift, scale, ob, scale_bias, M, rows_per_batch,
-                       Hd, eps, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return launch_d<true>(x, w1t, b1, w2t, b2, shift, scale, out, scale_bias, M, rows_per_batch, D,
+                        Hd, eps, stream);
+}
+
+// K8. x, out: (M, D) bf16 rows; w1t: (Hd, D) bf16; w2t: (D, Hd) bf16; b1: (Hd,), b2: (D,) f32.
+// Returns cudaGetLastError().
+extern "C" int mlp_fused(const void* x, const void* w1t, const float* b1, const void* w2t,
+                         const float* b2, void* out, int M, int D, int Hd, cudaStream_t stream) {
+  return launch_d<false>(x, w1t, b1, w2t, b2, nullptr, nullptr, out, 0.f, M, M, D, Hd, 0.f,
+                         stream);
+}
+
+// K5. x, shortcut, out: (M, D) bf16 rows, rows_per_batch rows per FiLM row; wt: (D, D) bf16
+// (transposed proj weight); b: (D,) f32; shift, gain: (M / rows_per_batch, D) f32 with
+// gain = scale_bias + scale. Returns cudaGetLastError().
+extern "C" int linear_adaln_residual(const void* x, const void* wt, const float* b,
+                                     const void* shortcut, const float* shift, const float* gain,
+                                     void* out, int M, int rows_per_batch, int D, float eps,
+                                     cudaStream_t stream) {
+  return launch_gemm_ln_rows(static_cast<const bf16*>(x), static_cast<const bf16*>(wt), b,
+                             static_cast<const bf16*>(shortcut), nullptr, 0, gain, shift,
+                             rows_per_batch, M, D, D, eps, static_cast<bf16*>(out), stream);
 }

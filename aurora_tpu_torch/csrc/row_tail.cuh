@@ -1,13 +1,15 @@
-// The row kernel shared by K2(b) and K4(b): a projection with a LayerNorm epilogue over
-// whole rows.
+// The row kernel shared by K2(b)/K6(b), K4(b) and K5: a projection with a LayerNorm
+// epilogue over whole rows.
 //
 //   y[r][n]   = bf16( sum_k a[r][k] * wt[n][k] + ybias[n] )        (ybias may be null)
 //   out[r][n] = bf16( res[r'][n] + LN(y[r])[n] * g[r / gdiv][n] + h[r / gdiv][n] )
 //
 // with LN two-pass in f32 (no affine: the affine is g/h) and r' = r, or r % res_mod when
 // res_mod > 0. The residual is bf16 (res_b) or f32 (res_f).
-//   K2 tail:  ybias = f32 bproj, res = the block input x, g/h = per-batch FiLM scale/shift.
-//   K4 tail:  no bias, res = the f32 queries (period Q), g/h = ln1 weight/bias.
+//   K2/K6 tail: ybias = f32 bproj, res = the block input x, g/h = per-batch FiLM scale/shift.
+//   K5:         as K2's tail, with a = the un-windowed attention output, res = the shortcut
+//               and g = scale_bias + scale.
+//   K4 tail:    no bias, res = the f32 queries (period Q), g/h = ln1 weight/bias.
 //
 // A block of 8 warps owns RB = 16 * RW rows. It walks the N output columns in chunks of
 // NC = 32 * CW, each warp a 16 x 32 tile on bf16 mma.sync with f32 accumulation, the

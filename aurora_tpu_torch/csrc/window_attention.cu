@@ -1,8 +1,13 @@
-// K2: shifted-window attention with the Swin block's attention tail.
+// K2, K6 and K7: window attention over 144-token windows with a head dim of 64.
 //
-// Replaces aurora_tpu/model/swin3d.py::_attn_windows_5d_fused_pallas (pallas_call at
-// swin3d.py:924; body _qkv_attn_tail_body, swin3d.py:561-596), which ran qkv, the
-// per-head attention and the tail on a row of whole windows held in VMEM.
+// Replaces three TPU kernels of aurora_tpu/model/swin3d.py that share one body
+// (_qkv_attn_tail_body, swin3d.py:561-596, and its core _heads_attention, :524-558):
+//   K2 _attn_windows_5d_fused_pallas (pallas_call at :924): qkv, attention and the optional
+//      block tail on windows read in place from the padded (B, Cp, Hp, Wp, D) tokens;
+//   K6 _attn_windows_qkv_fused_pallas (pallas_call at :772): the same on pre-partitioned
+//      (B, nW, N, D) windows;
+//   K7 _sdpa_windows_fused_pallas (pallas_call at :651): the attention core alone on packed
+//      (B, nW, N, 3D) qkv, features (q|k|v) x head x dh.
 //
 // Bound on the H100: operations (the qkv GEMM, logits, w@v and proj in bf16; ~0.5 ms at
 // 989 TF/s for a stage-1 block of the 0.25 deg model). A 144 x D window is 590 KB at
@@ -10,20 +15,25 @@
 // needs whole D-wide rows across all heads, so the work is split in two launches:
 //
 // (a) window_attn_kernel: one block of 9 warps per (window, head). Warp w owns tokens
-//     16w..16w+15 of the window (144 = 9 x 16). The window rows stream through shared
-//     memory in k-steps of 32 together with the head's (3 x 64) x 32 weight slice; the
-//     qkv product runs on bf16 mma.sync with f32 accumulation and is rounded, then the
-//     bf16 bias is added and rounded again (swin3d.py:573-577). q, k and v^T of the head
-//     (144 x 64 each) stay in shared memory. The logits of a warp's 16 query rows live in
-//     registers (f32, scaled by 1/sqrt(64), plus 0 / -100 from the (nW, N) group ids), the
-//     softmax is f32 with the rows reduced across each quad, the weights are rounded to
-//     bf16 and fed straight from the accumulators into the w@v product as A fragments.
-//     The head's slice of the rounded output goes to a (B, Cp, Hp, Wp, D) scratch at each
-//     token's own position. Neither qkv nor the logits reach device memory.
-// (b) the row kernel of row_tail.cuh: proj with the f32 bias, rounded; two-pass f32 LN;
-//     FiLM scale/shift per batch element; + the block input; rounded.
+//     16w..16w+15 of the window (144 = 9 x 16). A block first works out the row of each of
+//     its tokens: in place in the 5D grid (K2) or consecutive rows of a partitioned window
+//     (K6, K7). K2/K6: the window rows stream through shared memory in k-steps of 32
+//     together with the head's (3 x 64) x 32 weight slice; the qkv product runs on bf16
+//     mma.sync with f32 accumulation and is rounded, then the bf16 bias is added and
+//     rounded again (swin3d.py:573-577). K7 (PACKED): the head's q, k and v are read from
+//     the packed rows instead. q, k and v^T of the head (144 x 64 each) stay in shared
+//     memory. The logits of a warp's 16 query rows live in registers (f32, scaled by
+//     1/sqrt(64), plus 0 / -100 from the (nW, N) group ids), the softmax is f32 with the
+//     rows reduced across each quad, the weights are rounded to bf16 and fed straight from
+//     the accumulators into the w@v product as A fragments. The head's slice of the rounded
+//     output goes to its token's row of a D-wide output. Neither qkv nor the logits reach
+//     device memory.
+// (b) with the tail only, the row kernel of row_tail.cuh: proj with the f32 bias, rounded;
+//     two-pass f32 LN; FiLM scale/shift per batch element; + the block input; rounded.
+//     Without the tail (swin3d.py:1286-1298, :347-352) launch (a)'s output is the result.
 //
-// The scratch round trip between (a) and (b) is the first thing a later design removes.
+// The round trip of the attention output between (a) and (b) is the first thing a later
+// design removes.
 #include "common.cuh"
 #include "row_tail.cuh"
 
@@ -40,35 +50,14 @@ constexpr int LDV = WN + 8;  // v^T stride
 constexpr size_t SMEM = (size_t)(WN * LDX + 3 * DH * LDX + 2 * WN * LDQ + DH * LDV) * 2 +
                         WN * sizeof(long long) + WN * sizeof(int);
 
-__global__ void __launch_bounds__(THREADS) window_attn_kernel(
-    const bf16* __restrict__ xp, const bf16* __restrict__ wt, const bf16* __restrict__ bqkv,
-    const int* __restrict__ groups, int Cp, int Hp, int Wp, int D, int ws0, int ws1, int ws2,
-    bf16* __restrict__ attn) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* Xs = reinterpret_cast<bf16*>(smem);  // [WN][LDX]
-  bf16* Ws = Xs + WN * LDX;                  // [3 DH][LDX]
-  bf16* Qs = Ws + 3 * DH * LDX;              // [WN][LDQ]
-  bf16* Ks = Qs + WN * LDQ;                  // [WN][LDQ]
-  bf16* Vt = Ks + WN * LDQ;                  // [DH][LDV]
-  long long* rowoff = reinterpret_cast<long long*>(Vt + DH * LDV);  // [WN]
-  int* gs = reinterpret_cast<int*>(rowoff + WN);                    // [WN]
-
-  const int head = blockIdx.x;
-  const int H1 = Hp / ws1, W1 = Wp / ws2;
-  const int nW = (Cp / ws0) * H1 * W1;
-  const int b = blockIdx.y / nW, wi = blockIdx.y % nW;
-  const int c1 = wi / (H1 * W1), h1 = (wi / W1) % H1, w1 = wi % W1;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+// The qkv of one head for the window's 144 rows: 24 n8 tiles per warp (q 0-7, k 8-15,
+// v 16-23) for its 16 tokens, rounded, + the bf16 bias, rounded, into Qs, Ks and Vt.
+__device__ __forceinline__ void project_qkv(const bf16* __restrict__ x, int ldx,
+                                            const bf16* __restrict__ wt,
+                                            const bf16* __restrict__ bqkv, const long long* rowid,
+                                            int D, int head, int tid, int lane, int warp, bf16* Xs,
+                                            bf16* Ws, bf16* Qs, bf16* Ks, bf16* Vt) {
   const int gq = lane >> 2, tq = lane & 3;
-
-  for (int t = tid; t < WN; t += THREADS) {
-    int wc = t / (ws1 * ws2), wh = (t / ws2) % ws1, ww = t % ws2;
-    rowoff[t] = ((((long long)b * Cp + c1 * ws0 + wc) * Hp + h1 * ws1 + wh) * Wp + w1 * ws2 + ww) *
-                (long long)D;
-    if (groups) gs[t] = groups[(long long)wi * WN + t];
-  }
-
-  // qkv of this head: 24 n8 tiles (q 0-7, k 8-15, v 16-23) for the warp's 16 tokens.
   float acc[24][4];
 #pragma unroll
   for (int j = 0; j < 24; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
@@ -77,7 +66,7 @@ __global__ void __launch_bounds__(THREADS) window_attn_kernel(
     for (int i = tid; i < WN * 4; i += THREADS) {
       int t = i >> 2, q = i & 3;
       *reinterpret_cast<uint4*>(Xs + t * LDX + q * 8) =
-          *reinterpret_cast<const uint4*>(xp + rowoff[t] + k0 + q * 8);
+          *reinterpret_cast<const uint4*>(x + rowid[t] * ldx + k0 + q * 8);
     }
     for (int i = tid; i < 3 * DH * 4; i += THREADS) {
       int n = i >> 2, q = i & 3;
@@ -118,6 +107,60 @@ __global__ void __launch_bounds__(THREADS) window_attn_kernel(
         Vt[(d + 1) * LDV + r + 8] = __float2bfloat16_rn(v11);
       }
     }
+  }
+}
+
+// x: token rows of ldx elements (D, or 3D when PACKED); attn: D-wide rows, the same row
+// numbering. Cp > 0: 5D tokens (B, Cp, Hp, Wp, .) with windows (ws0, ws1, ws2) in place;
+// Cp == 0: partitioned windows, row = window * 144 + token.
+template <bool PACKED>
+__global__ void __launch_bounds__(THREADS) window_attn_kernel(
+    const bf16* __restrict__ x, int ldx, const bf16* __restrict__ wt,
+    const bf16* __restrict__ bqkv, const int* __restrict__ groups, int nW, int Cp, int Hp, int Wp,
+    int D, int ws0, int ws1, int ws2, bf16* __restrict__ attn) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* Xs = reinterpret_cast<bf16*>(smem);  // [WN][LDX]
+  bf16* Ws = Xs + WN * LDX;                  // [3 DH][LDX]
+  bf16* Qs = Ws + 3 * DH * LDX;              // [WN][LDQ]
+  bf16* Ks = Qs + WN * LDQ;                  // [WN][LDQ]
+  bf16* Vt = Ks + WN * LDQ;                  // [DH][LDV]
+  long long* rowid = reinterpret_cast<long long*>(Vt + DH * LDV);  // [WN]
+  int* gs = reinterpret_cast<int*>(rowid + WN);                      // [WN]
+
+  const int head = blockIdx.x;
+  const int b = blockIdx.y / nW, wi = blockIdx.y % nW;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gq = lane >> 2, tq = lane & 3;
+
+  for (int t = tid; t < WN; t += THREADS) {
+    if (Cp > 0) {
+      const int H1 = Hp / ws1, W1 = Wp / ws2;
+      const int c1 = wi / (H1 * W1), h1 = (wi / W1) % H1, w1 = wi % W1;
+      const int wc = t / (ws1 * ws2), wh = (t / ws2) % ws1, ww = t % ws2;
+      rowid[t] = (((long long)b * Cp + c1 * ws0 + wc) * Hp + h1 * ws1 + wh) * Wp + w1 * ws2 + ww;
+    } else {
+      rowid[t] = (long long)blockIdx.y * WN + t;
+    }
+    if (groups) gs[t] = groups[(long long)wi * WN + t];
+  }
+  __syncthreads();
+
+  if constexpr (PACKED) {
+    // q, k and v of this head straight from the packed rows, 8 features per load.
+    for (int i = tid; i < WN * 3 * (DH / 8); i += THREADS) {
+      const int t = i / (3 * (DH / 8)), part = (i / (DH / 8)) % 3, d = (i % (DH / 8)) * 8;
+      const uint4 v =
+          *reinterpret_cast<const uint4*>(x + rowid[t] * ldx + part * D + head * DH + d);
+      if (part < 2) {
+        *reinterpret_cast<uint4*>((part == 0 ? Qs : Ks) + t * LDQ + d) = v;
+      } else {
+        const bf16* e = reinterpret_cast<const bf16*>(&v);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) Vt[(d + j) * LDV + t] = e[j];
+      }
+    }
+  } else {
+    project_qkv(x, ldx, wt, bqkv, rowid, D, head, tid, lane, warp, Xs, Ws, Qs, Ks, Vt);
   }
   __syncthreads();
 
@@ -190,36 +233,52 @@ __global__ void __launch_bounds__(THREADS) window_attn_kernel(
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
     const int col = head * DH + j * 8 + 2 * tq;
-    *reinterpret_cast<uint32_t*>(attn + rowoff[q0] + col) = pack_bf16x2(o[j][0], o[j][1]);
-    *reinterpret_cast<uint32_t*>(attn + rowoff[q1] + col) = pack_bf16x2(o[j][2], o[j][3]);
+    *reinterpret_cast<uint32_t*>(attn + rowid[q0] * D + col) = pack_bf16x2(o[j][0], o[j][1]);
+    *reinterpret_cast<uint32_t*>(attn + rowid[q1] * D + col) = pack_bf16x2(o[j][2], o[j][3]);
   }
+}
+
+template <bool PACKED>
+int launch_attn(const void* x, int ldx, const void* wqkv_t, const void* bqkv, const int* groups,
+                void* attn, int B, int nW, int Cp, int Hp, int Wp, int D, int ws0, int ws1,
+                int ws2, int heads, cudaStream_t stream) {
+  if (D != heads * DH || D % KC || (long long)B * nW > 65535) return (int)cudaErrorInvalidValue;
+  cudaFuncSetAttribute(window_attn_kernel<PACKED>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)SMEM);
+  window_attn_kernel<PACKED><<<dim3(heads, B * nW), THREADS, SMEM, stream>>>(
+      static_cast<const bf16*>(x), ldx, static_cast<const bf16*>(wqkv_t),
+      static_cast<const bf16*>(bqkv), groups, nW, Cp, Hp, Wp, D, ws0, ws1, ws2,
+      static_cast<bf16*>(attn));
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// xp, attn, out: (B, Cp, Hp, Wp, D) bf16; wqkv_t: (3D, D) bf16; bqkv: (3D,) bf16;
-// groups: (nW, 144) int32 or null; wproj_t: (D, D) bf16; bproj: (D,) f32;
-// shift, scale: (B, D) f32. Returns cudaGetLastError().
-extern "C" int window_attention_tail(const void* xp, const void* wqkv_t, const void* bqkv,
-                                     const int* groups, const void* wproj_t, const float* bproj,
-                                     const float* shift, const float* scale, void* attn,
-                                     void* out, int B, int Cp, int Hp, int Wp, int D, int ws0,
-                                     int ws1, int ws2, int heads, float eps,
-                                     cudaStream_t stream) {
-  if (ws0 * ws1 * ws2 != WN || D != heads * DH || D % KC) return (int)cudaErrorInvalidValue;
-  cudaFuncSetAttribute(window_attn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)SMEM);
-  const int nW = (Cp / ws0) * (Hp / ws1) * (Wp / ws2);
-  dim3 grid(heads, B * nW);
-  window_attn_kernel<<<grid, THREADS, SMEM, stream>>>(
-      static_cast<const bf16*>(xp), static_cast<const bf16*>(wqkv_t),
-      static_cast<const bf16*>(bqkv), groups, Cp, Hp, Wp, D, ws0, ws1, ws2,
-      static_cast<bf16*>(attn));
-  int err = (int)cudaGetLastError();
-  if (err) return err;
-  const long long rows = (long long)B * Cp * Hp * Wp;
+// K2 (Cp > 0: x, attn, out are (B, Cp, Hp, Wp, D) with windows ws in place) and K6 (Cp == 0:
+// (B, nW, 144, D) windows). wqkv_t: (3D, D) bf16; bqkv: (3D,) bf16; groups: (nW, 144) int32
+// or null. With wproj_t set, the tail: wproj_t (D, D) bf16, bproj (D,) f32, shift/scale
+// (B, D) f32, result in out; without it (wproj_t null) the result is attn and out is unused.
+// Returns cudaGetLastError().
+extern "C" int window_attention(const void* x, const void* wqkv_t, const void* bqkv,
+                                const int* groups, const void* wproj_t, const float* bproj,
+                                const float* shift, const float* scale, void* attn, void* out,
+                                int B, int nW, int Cp, int Hp, int Wp, int D, int ws0, int ws1,
+                                int ws2, int heads, float eps, cudaStream_t stream) {
+  if (Cp > 0 && (ws0 * ws1 * ws2 != WN || (Cp / ws0) * (Hp / ws1) * (Wp / ws2) != nW))
+    return (int)cudaErrorInvalidValue;
+  int err = launch_attn<false>(x, D, wqkv_t, bqkv, groups, attn, B, nW, Cp, Hp, Wp, D, ws0, ws1,
+                               ws2, heads, stream);
+  if (err || !wproj_t) return err;
+  const long long per_batch = (long long)nW * WN;
   return launch_gemm_ln_rows(static_cast<const bf16*>(attn), static_cast<const bf16*>(wproj_t),
-                             bproj, static_cast<const bf16*>(xp), nullptr, 0, scale, shift,
-                             (long long)Cp * Hp * Wp, rows, D, D, eps, static_cast<bf16*>(out),
-                             stream);
+                             bproj, static_cast<const bf16*>(x), nullptr, 0, scale, shift,
+                             per_batch, B * per_batch, D, D, eps, static_cast<bf16*>(out), stream);
+}
+
+// K7: qkv (B, nW, 144, 3D) bf16 packed (q|k|v) x head x 64 -> out (B, nW, 144, D) bf16;
+// groups: (nW, 144) int32 or null. Returns cudaGetLastError().
+extern "C" int sdpa_windows(const void* qkv, const int* groups, void* out, int B, int nW, int D,
+                            int heads, cudaStream_t stream) {
+  return launch_attn<true>(qkv, 3 * D, nullptr, nullptr, groups, out, B, nW, 0, 0, 0, D, 0, 0, 0,
+                           heads, stream);
 }

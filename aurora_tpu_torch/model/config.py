@@ -1,9 +1,22 @@
 """Static model configuration: the fields and presets of ``aurora_tpu/model/config.py``.
 
 The fields are the same, so one dict of keyword arguments builds both packages' configs,
-except the JAX package's TPU routing knobs ``attention_impl``, ``mlp_impl`` and
-``agg_chunk_size``: the port has one route per device (the hand-written kernels on the
-card, their plain versions on the CPU).
+except the JAX package's ``agg_chunk_size`` (a TPU memory knob the port does not need).
+
+The backbone's routing knobs keep the JAX package's values and meanings
+(``aurora_tpu/model/swin3d.py:1193-1377``):
+
+* ``attention_impl``: ``"pallas"`` runs window attention on the padded 5D tokens (K2),
+  ``"pallas_windowed"`` on partitioned windows (K6), ``"xla"`` as plain PyTorch
+  (``sdpa``) with the projections as plain GEMMs;
+* ``mlp_impl``: ``"fused"`` runs the attention tail in the attention kernel (or, under
+  ``"xla"`` attention, as K5) and the whole MLP branch as K3; ``"pallas"`` the MLP alone as
+  K8 with a plain FiLM LayerNorm and residual; ``"xla"`` everything as plain PyTorch.
+
+``"auto"`` resolves to ``"pallas"`` + ``"fused"`` on every device: on CUDA tensors that
+route launches the kernels, on CPU tensors it runs their plain versions. Here the port
+differs from the JAX package, where ``"auto"`` means plain XLA off a TPU. An explicit
+``"xla"`` runs plain PyTorch on the card too, on purpose, as the JAX package's XLA route.
 """
 
 from __future__ import annotations
@@ -22,11 +35,21 @@ __all__ = [
 ]
 
 LoRAMode = Literal["single", "from_second", "all"]
+ATTENTION_IMPLS = ("auto", "pallas", "pallas_windowed", "xla")
+MLP_IMPLS = ("auto", "fused", "pallas", "xla")
 
 
-def _check_scope(scope: str) -> None:
-    if scope not in ("full", "no_outer", "blocks"):
-        raise ValueError(f"remat_scope must be 'full', 'no_outer' or 'blocks', got {scope!r}.")
+def _check(remat_scope: str, attention_impl: str, mlp_impl: str) -> None:
+    if remat_scope not in ("full", "no_outer", "blocks"):
+        raise ValueError(
+            f"remat_scope must be 'full', 'no_outer' or 'blocks', got {remat_scope!r}."
+        )
+    if attention_impl not in ATTENTION_IMPLS:
+        raise ValueError(
+            f"attention_impl must be one of {ATTENTION_IMPLS}, got {attention_impl!r}."
+        )
+    if mlp_impl not in MLP_IMPLS:
+        raise ValueError(f"mlp_impl must be one of {MLP_IMPLS}, got {mlp_impl!r}.")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,9 +70,16 @@ class BackboneConfig:
     remat_scope: str = "full"
     drop_path: float = 0.0
     drop_rate: float = 0.0
+    attention_impl: str = "auto"
+    mlp_impl: str = "auto"
 
     def __post_init__(self):
-        _check_scope(self.remat_scope)
+        _check(self.remat_scope, self.attention_impl, self.mlp_impl)
+
+    def routes(self) -> tuple[str, str]:
+        """``(attention_impl, mlp_impl)`` with ``"auto"`` resolved (module docstring)."""
+        a, m = self.attention_impl, self.mlp_impl
+        return ("pallas" if a == "auto" else a), ("fused" if m == "auto" else m)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,6 +121,8 @@ class AuroraConfig:
     remat_scope: str = "full"
     drop_path: float = 0.0
     drop_rate: float = 0.0
+    attention_impl: str = "auto"
+    mlp_impl: str = "auto"
     variant: str = "base"
     # Production throughput modes: the VALUE path of the decoder's de-aggregation /
     # the encoder's level aggregation runs in bf16 while q/k/logits stay f32.
@@ -101,7 +133,7 @@ class AuroraConfig:
     angle_surf_vars: tuple[str, ...] = ()
 
     def __post_init__(self):
-        _check_scope(self.remat_scope)
+        _check(self.remat_scope, self.attention_impl, self.mlp_impl)
 
     @property
     def timestep(self) -> timedelta:
@@ -129,6 +161,8 @@ class AuroraConfig:
             remat_scope=self.remat_scope,
             drop_path=self.drop_path,
             drop_rate=self.drop_rate,
+            attention_impl=self.attention_impl,
+            mlp_impl=self.mlp_impl,
         )
 
     @property

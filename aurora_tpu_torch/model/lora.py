@@ -3,7 +3,9 @@
 The bank is stored stacked, ``A: (S, r, in)`` and ``B: (S, r, out)``, with ``S = 1`` for the
 "single" and "from_second" modes and ``S = max_steps`` for "all". The kernels never run a
 rank-r side path: :func:`lora_weight_delta` folds the adapter into the weight they read
-(``aurora_tpu/model/swin3d.py:1243-1247``).
+(``aurora_tpu/model/swin3d.py:1243-1247``). Every projection that runs as a plain GEMM (the
+``"xla"`` routes, and the proj outside a fused tail) adds the side path :func:`lora_apply`
+instead, as the JAX package does (``swin3d.py:308-315``, ``:1291-1297``).
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ from torch import nn
 from aurora_tpu_torch.model.config import LoRAMode
 from aurora_tpu_torch.model.nn import uniform_
 
-__all__ = ["LoRA", "lora_weight_delta"]
+__all__ = ["LoRA", "lora_apply", "lora_weight_delta"]
 
 
 class LoRA(nn.Module):
@@ -41,6 +43,39 @@ class LoRA(nn.Module):
             self.B.zero_()
 
 
+def _select(A, B, step: int, mode: LoRAMode):
+    if mode in ("single", "from_second"):
+        return A[0], B[0]
+    if mode == "all":
+        idx = min(max(int(step), 0), A.shape[0] - 1)
+        return A[idx], B[idx]
+    raise ValueError(f"Invalid mode: {mode}")
+
+
+def _active(step: int, max_steps: int, mode: LoRAMode) -> float:
+    return float(step < max_steps and (mode != "from_second" or step > 0))
+
+
+def lora_apply(
+    A: torch.Tensor,
+    B: torch.Tensor,
+    x: torch.Tensor,
+    step: int,
+    *,
+    r: int,
+    alpha: int,
+    max_steps: int,
+    mode: LoRAMode,
+) -> torch.Tensor:
+    """The additive side path ``(x @ A^T) @ B * (alpha / r)`` for roll-out step ``step``
+    (``aurora_tpu/model/lora.py:47-75``), computed in ``x``'s dtype: each product rounds
+    to it, then the scaling, then the step gate."""
+    a, b = _select(A, B, step, mode)
+    out = (x @ a.T.to(x.dtype)) @ b.to(x.dtype)
+    out = out * (alpha / r)
+    return out * _active(step, max_steps, mode)
+
+
 def lora_weight_delta(
     A: torch.Tensor,
     B: torch.Tensor,
@@ -54,14 +89,5 @@ def lora_weight_delta(
     """The LoRA correction as an effective-weight delta ``(d_in, d_out)`` for roll-out step
     ``step``, computed in the parameter dtype: ``x @ (W + delta)`` equals the linear plus
     the LoRA side path up to one re-association."""
-    scaling = alpha / r
-    if mode in ("single", "from_second"):
-        a, b = A[0], B[0]
-    elif mode == "all":
-        idx = min(max(int(step), 0), A.shape[0] - 1)
-        a, b = A[idx], B[idx]
-    else:
-        raise ValueError(f"Invalid mode: {mode}")
-    delta = (a.T @ b) * scaling
-    active = step < max_steps and (mode != "from_second" or step > 0)
-    return delta * float(active)
+    a, b = _select(A, B, step, mode)
+    return (a.T @ b) * (alpha / r) * _active(step, max_steps, mode)

@@ -29,6 +29,9 @@ __all__ = [
     "LayerNorm",
     "MLP",
     "AdaptiveLayerNorm",
+    "sdpa",
+    "split_heads",
+    "merge_heads",
     "trunc_normal_",
     "uniform_",
 ]
@@ -85,6 +88,40 @@ def layernorm(
 def gelu(x: torch.Tensor) -> torch.Tensor:
     """Exact (erf) GELU."""
     return F.gelu(x)
+
+
+def sdpa(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Scaled dot-product attention over ``(..., heads, seq, head_dim)`` tensors, as
+    ``aurora_tpu/model/nn.py:170-189``: the logits are computed in the input dtype (bf16
+    under autocast) and only then widened to f32 for the bias and softmax; the weights are
+    rounded to the input dtype. The window-attention kernels keep the logits f32 from the
+    start, so this is not their plain version."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    logits = torch.einsum("...hqd,...hkd->...hqk", q, k)
+    compute = torch.float32 if logits.dtype == torch.bfloat16 else logits.dtype
+    logits = logits.to(compute) * scale
+    if bias is not None:
+        logits = logits + bias.to(compute)
+    weights = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.einsum("...hqk,...hkd->...hqd", weights, v)
+
+
+def split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """``(..., seq, H*Dh) -> (..., H, seq, Dh)``."""
+    *lead, s, d = x.shape
+    return x.reshape(*lead, s, num_heads, d // num_heads).transpose(-2, -3)
+
+
+def merge_heads(x: torch.Tensor) -> torch.Tensor:
+    """``(..., H, seq, Dh) -> (..., seq, H*Dh)``."""
+    x = x.transpose(-2, -3)
+    *lead, s, h, dh = x.shape
+    return x.reshape(*lead, s, h * dh)
 
 
 class Linear(nn.Module):

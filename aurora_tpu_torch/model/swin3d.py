@@ -1,13 +1,25 @@
 """3D Swin-Transformer U-Net backbone (port of ``aurora_tpu/model/swin3d.py``).
 
 Tokens stay 5D ``(B, C, H, W, D)`` through the backbone. One block is LN-after with FiLM
-on both branches (reference: aurora/model/swin3d.py:440-509):
+on both branches (reference: aurora/model/swin3d.py:440-509). Shifted blocks roll the grid
+by ``-window/2`` before attention and back after it (K1), and the grid is centre-padded to
+window multiples. The rest of a block is routed by ``BackboneConfig.attention_impl`` and
+``mlp_impl`` as ``swin_block_apply`` routes it on one device without a PRNG key
+(``aurora_tpu/model/swin3d.py:1193-1377``):
 
-* shifted blocks roll the grid by ``-window/2`` before attention and back after it (K1);
-* the grid is centre-padded to window multiples; window attention with its whole tail,
-  ``x + LN(proj(attn(x))) * scale + shift``, runs on the padded tokens (K2), with the LoRA
-  adapters folded into the qkv/proj weights;
-* the MLP branch ``x + LN(mlp(x)) * scale + shift`` is one call (K3).
+* attention: ``"pallas"`` runs on the padded 5D tokens (K2); ``"pallas_windowed"`` on
+  partitioned windows (K6); ``"xla"`` as plain PyTorch (``nn.sdpa``, plain GEMMs);
+* ``mlp_impl="fused"``: the attention tail ``x + LN(proj(attn)) * scale + shift`` runs
+  inside K2/K6, or under ``"xla"`` attention after un-windowing as K5; the MLP branch
+  ``x + LN(mlp(x)) * scale + shift`` is one call (K3);
+* ``mlp_impl`` ``"pallas"``/``"xla"``: proj is a plain GEMM with the LoRA side path, the
+  FiLM LayerNorm and residual are plain, and the MLP runs as K8 (``"pallas"``) or plain.
+
+LoRA is folded into the weights a kernel reads (the qkv of K2/K6, the proj of an in-kernel
+or K5 tail), as the JAX package folds it; every plain projection adds the side path. The
+JAX package's fallback from the 5D kernel to the windowed one when no window-row batch fits
+the TPU's VMEM budget (``swin3d.py:1253-1260``) has no counterpart on the card: only
+``"pallas_windowed"`` reaches K6.
 
 Encoder stages double the feature dim by patch merging, decoder stages halve it by patch
 splitting; intermediate skips are additive and the last one a concatenation.
@@ -15,26 +27,44 @@ splitting; intermediate skips are additive and the last one a concatenation.
 
 from __future__ import annotations
 
+from typing import Optional
+
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from aurora_tpu_torch.model.config import BackboneConfig
-from aurora_tpu_torch.model.lora import LoRA, lora_weight_delta
+from aurora_tpu_torch.model.lora import LoRA, lora_apply, lora_weight_delta
 from aurora_tpu_torch.model.nn import (
     AdaptiveLayerNorm,
     LayerNorm,
     Linear,
     MLP,
+    linear,
+    merge_heads,
+    sdpa,
+    split_heads,
 )
-from aurora_tpu_torch.ops.masks import three_sided_padding, window_group_ids
-from aurora_tpu_torch.ops.mlp import mlp_adaln_residual
+from aurora_tpu_torch.ops.masks import (
+    bias_from_groups,
+    group_ids_tensor,
+    three_sided_padding,
+    window_group_ids,
+)
+from aurora_tpu_torch.ops.mlp import linear_adaln_residual, mlp_adaln_residual, mlp_fused
 from aurora_tpu_torch.ops.roll import roll3d
-from aurora_tpu_torch.ops.window_attention import window_attention_tail
+from aurora_tpu_torch.ops.window_attention import (
+    window_attention_tail,
+    window_attention_windowed,
+    window_partition,
+    window_reverse,
+)
 
 __all__ = [
     "Backbone",
     "SwinBlock",
+    "WindowAttention",
     "maybe_adjust_windows",
     "pad_3d",
     "crop_3d",
@@ -70,6 +100,7 @@ class WindowAttention(nn.Module):
     def __init__(self, dim: int, cfg: BackboneConfig, *, device=None, dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
+        self.cfg = cfg
         self.qkv = Linear(dim, 3 * dim, **kw)
         self.proj = Linear(dim, dim, **kw)
         if cfg.use_lora:
@@ -78,6 +109,67 @@ class WindowAttention(nn.Module):
             self.lora_proj = LoRA(dim, dim, **lk)
         else:
             self.lora_qkv = self.lora_proj = None
+
+    def _lora_kw(self) -> dict:
+        cfg = self.cfg
+        return dict(r=cfg.lora_r, alpha=cfg.lora_alpha, max_steps=cfg.lora_steps,
+                    mode=cfg.lora_mode)
+
+    def folded_weight(self, name: str, rollout_step: int) -> torch.Tensor:
+        """The weight of ``qkv``/``proj`` with its LoRA adapter folded in, for a kernel."""
+        w = getattr(self, name).weight
+        lora = getattr(self, f"lora_{name}")
+        if lora is not None:
+            w = w + lora_weight_delta(lora.A, lora.B, rollout_step, **self._lora_kw())
+        return w
+
+    def plain_linear(self, name: str, x: torch.Tensor, rollout_step: int) -> torch.Tensor:
+        """``qkv``/``proj`` as a plain GEMM plus the LoRA side path."""
+        lin = getattr(self, name)
+        out = linear(x, lin.weight, lin.bias)
+        lora = getattr(self, f"lora_{name}")
+        if lora is not None:
+            out = out + lora_apply(lora.A, lora.B, x, rollout_step, **self._lora_kw())
+        return out
+
+    def project(self, x: torch.Tensor, rollout_step: int) -> torch.Tensor:
+        """The plain proj of ``(..., D)`` tokens, on the flattened rows."""
+        return self.plain_linear("proj", x.reshape(-1, x.shape[-1]), rollout_step).reshape(
+            x.shape
+        )
+
+    def forward(
+        self,
+        x: torch.Tensor,
+        num_heads: int,
+        groups: Optional[np.ndarray],
+        rollout_step: int,
+        impl: str,
+        project: bool = True,
+        tail=None,
+    ) -> torch.Tensor:
+        """W-MSA over windows ``x: (B, nW, N, D)`` for ``impl`` ``"pallas_windowed"`` (K6,
+        with or without ``tail``) or ``"xla"`` (``window_attention_apply``,
+        ``aurora_tpu/model/swin3d.py:275-383``). ``project=False`` returns the attention
+        output before proj."""
+        B, nW, N, D = x.shape
+        if impl == "pallas_windowed":
+            out = window_attention_windowed(
+                x, self.folded_weight("qkv", rollout_step), self.qkv.bias, groups, num_heads,
+                tail=tail,
+            )
+            if tail is not None or not project:
+                return out
+            return self.project(out, rollout_step)
+        assert impl == "xla" and tail is None, impl
+        qkv = self.plain_linear("qkv", x.reshape(B * nW * N, D), rollout_step)
+        q, k, v = (split_heads(t, num_heads) for t in qkv.reshape(B, nW, N, 3 * D).chunk(3, -1))
+        bias = None
+        if groups is not None:
+            bias = bias_from_groups(group_ids_tensor(groups, x.device), torch.float32)
+            bias = bias[None, :, None]  # (1, nW, 1, N, N) over (B, nW, h, N, N) logits
+        out = merge_heads(sdpa(q, k, v, bias))  # (B, nW, N, D)
+        return self.project(out, rollout_step) if project else out
 
 
 class SwinBlock(nn.Module):
@@ -89,16 +181,6 @@ class SwinBlock(nn.Module):
         self.attn = WindowAttention(dim, cfg, **kw)
         self.norm2 = AdaptiveLayerNorm(dim, cfg.embed_dim, **kw)
         self.mlp = MLP(dim, int(dim * cfg.mlp_ratio), **kw)
-
-    def _weight(self, lin: Linear, lora, rollout_step: int) -> torch.Tensor:
-        w = lin.weight
-        if lora is not None:
-            cfg = self.cfg
-            w = w + lora_weight_delta(
-                lora.A, lora.B, rollout_step, r=cfg.lora_r, alpha=cfg.lora_alpha,
-                max_steps=cfg.lora_steps, mode=cfg.lora_mode,
-            )
-        return w
 
     def forward(
         self,
@@ -112,29 +194,65 @@ class SwinBlock(nn.Module):
         C, H, W = res
         B, D = x.shape[0], x.shape[-1]
         assert tuple(x.shape[1:4]) == (C, H, W), f"Wrong grid: {x.shape} vs {res}"
+        aimpl, mimpl = self.cfg.routes()
+        fuse_attn_tail = mimpl == "fused"
+        tail_in_kernel = fuse_attn_tail and aimpl in ("pallas", "pallas_windowed")
+        att = self.attn
+
         ws, ss = maybe_adjust_windows(self.cfg.window_size, shift_size, res)
+        shortcut = x
         shifted = any(ss)
         if shifted:
             x = roll3d(x, (-ss[0], -ss[1], -ss[2]))
         pad = ((-C) % ws[0], (-H) % ws[1], (-W) % ws[2])
         groups = window_group_ids(C, H, W, ws, ss) if shifted else None
-        shift1, scale1 = self.norm1.shift_scale(c)
-        att = self.attn
-        xp = window_attention_tail(
-            pad_3d(x, pad),
-            self._weight(att.qkv, att.lora_qkv, rollout_step), att.qkv.bias,
-            self._weight(att.proj, att.lora_proj, rollout_step), att.proj.bias,
-            shift1, scale1, groups, ws, num_heads,
-        )
+        xp = pad_3d(x, pad)
+        _, Cp, Hp, Wp, _ = xp.shape
+
+        tail = None
+        if fuse_attn_tail:
+            shift1, scale1 = self.norm1.shift_scale(c)
+            if tail_in_kernel:
+                tail = (att.folded_weight("proj", rollout_step), att.proj.bias, shift1, scale1)
+        if aimpl == "pallas":
+            xp = window_attention_tail(
+                xp, att.folded_weight("qkv", rollout_step), att.qkv.bias, groups, ws, num_heads,
+                tail=tail,
+            )
+            if not fuse_attn_tail:
+                xp = att.project(xp, rollout_step)
+        else:
+            out = att(window_partition(xp, ws), num_heads, groups, rollout_step, aimpl,
+                      project=not fuse_attn_tail, tail=tail)
+            xp = window_reverse(out, ws, Cp, Hp, Wp)
         x = crop_3d(xp, pad).contiguous()
         if shifted:
             x = roll3d(x, ss)
-        shift2, scale2 = self.norm2.shift_scale(c)
+
+        x = x.reshape(B, C * H * W, D)
+        shortcut = shortcut.reshape(B, C * H * W, D)
+        if tail_in_kernel:
+            pass  # x is already post-residual: the tail ran in the attention kernel
+        elif fuse_attn_tail:
+            x = linear_adaln_residual(
+                x, att.folded_weight("proj", rollout_step), att.proj.bias, shortcut,
+                shift1, scale1,
+            )
+        else:
+            x = shortcut + self.norm1(x, c)
+
         m = self.mlp
-        x = mlp_adaln_residual(
-            x.reshape(B, C * H * W, D),
-            m.fc1.weight, m.fc1.bias, m.fc2.weight, m.fc2.bias, shift2, scale2,
-        )
+        if mimpl == "fused":
+            shift2, scale2 = self.norm2.shift_scale(c)
+            x = mlp_adaln_residual(
+                x, m.fc1.weight, m.fc1.bias, m.fc2.weight, m.fc2.bias, shift2, scale2
+            )
+        else:
+            if mimpl == "pallas":
+                y = mlp_fused(x, m.fc1.weight, m.fc1.bias, m.fc2.weight, m.fc2.bias)
+            else:
+                y = m(x)
+            x = x + self.norm2(y, c)
         return x.reshape(B, C, H, W, D)
 
 

@@ -37,6 +37,10 @@ LAUNCHES: dict[str, int] = {
     "window_attention": 0,
     "mlp_adaln_residual": 0,
     "perceiver_core": 0,
+    "linear_adaln_residual": 0,
+    "window_attention_windowed": 0,
+    "sdpa_windows": 0,
+    "mlp_fused": 0,
 }
 
 _libs: dict[str, ctypes.CDLL] = {}

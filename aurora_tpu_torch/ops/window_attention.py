@@ -1,27 +1,38 @@
-"""K2: shifted-window attention with the block's attention tail.
+"""K2, K6 and K7: window attention over windows of 144 tokens, with the block's optional
+attention tail.
 
-Replaces ``aurora_tpu/model/swin3d.py::_attn_windows_5d_fused_pallas`` (``pl.pallas_call``
-at ``swin3d.py:924``; body ``_qkv_attn_tail_body`` at ``:561-596``). Input and output are
-the padded 5D tokens ``(B, Cp, Hp, Wp, D)``; windows of ``N = prod(ws)`` tokens are read
-in place, tokens in (wc, wh, ww) partition order.
+* K2 :func:`window_attention_tail` replaces ``aurora_tpu/model/swin3d.py::
+  _attn_windows_5d_fused_pallas`` (``pl.pallas_call`` at ``swin3d.py:924``). Input and
+  output are the padded 5D tokens ``(B, Cp, Hp, Wp, D)``; windows are read in place, tokens
+  in (wc, wh, ww) partition order (``attention_impl="pallas"``).
+* K6 :func:`window_attention_windowed` replaces ``_attn_windows_qkv_fused_pallas``
+  (``pl.pallas_call`` at ``swin3d.py:772``): the same over partitioned windows
+  ``(B, nW, N, D)`` (``attention_impl="pallas_windowed"``).
+* K7 :func:`sdpa_windows` replaces ``_sdpa_windows_fused_pallas`` (``pl.pallas_call`` at
+  ``swin3d.py:651``): the attention core alone over packed qkv ``(B, nW, N, 3D)``, features
+  (q|k|v) x head x dh. No model route reaches it, in the JAX package as here; it is the
+  direct test of the core's mask and padding semantics.
 
-Numerics (``swin3d.py:573-596``): ``qkv = round(x @ Wqkv) + bqkv`` (bias added after the
-rounding, in the token dtype); per head f32 logits ``q.k / sqrt(dh)`` plus the mask (0 for
-equal group ids, -100 otherwise; no mask in unshifted blocks, where pad tokens take part);
-softmax weights rounded to the token dtype; f32-accumulated ``w @ v`` rounded; tail
-``x + LN(round(attn @ Wproj + bproj)) * scale + shift`` with f32 ``bproj``, a two-pass f32
-LayerNorm (eps 1e-5) and the residual added in f32.
+Numerics (``_qkv_attn_tail_body``, ``swin3d.py:561-596``, and ``_heads_attention``,
+``:524-558``): ``qkv = round(x @ Wqkv) + bqkv`` (bias added after the rounding, in the token
+dtype); per head f32 logits ``q.k / sqrt(dh)`` plus the mask (0 for equal group ids, -100
+otherwise; no mask in unshifted blocks, where pad tokens take part); softmax weights rounded
+to the token dtype; f32-accumulated ``w @ v`` rounded. With ``tail = (wproj, bproj, shift,
+scale)``: ``x + LN(round(attn @ Wproj + bproj)) * scale + shift`` with f32 ``bproj``, a
+two-pass f32 LayerNorm (eps 1e-5) and the residual added in f32. Without it the attention
+output is returned, before proj.
 
-Kernel (``csrc/window_attention.cu``), two launches behind one wrapper:
+Kernel (``csrc/window_attention.cu``), one or two launches behind each wrapper:
 
-(a) one block of 9 warps per (window, head). It streams the window's rows through the
-    ``(D, 3 dh)`` weight slice of its head on bf16 ``mma.sync`` tiles, keeps the head's
-    q, k and v (144 x 64 each) in shared memory, computes the logits 16 query rows per warp
-    in registers with the mask formed from the ``(nW, N)`` group ids, an f32 softmax, and
-    ``w @ v``, and writes the head's slice of the attention output. The qkv tensor and the
-    logits never reach device memory.
-(b) a row kernel: ``proj -> LN -> * scale + shift -> + x`` on whole rows (a tile of rows
-    runs the projection chunk by chunk into shared memory, then the LayerNorm).
+(a) one block of 9 warps per (window, head). K2 and K6 stream the window's rows through the
+    ``(D, 3 dh)`` weight slice of its head on bf16 ``mma.sync`` tiles; K7 reads the head's
+    q, k and v from the packed rows. q, k and v (144 x 64 each) stay in shared memory; the
+    logits of 16 query rows per warp are computed in registers with the mask formed from
+    the ``(nW, N)`` group ids, an f32 softmax, and ``w @ v``, and the head's slice of the
+    attention output is written. The qkv tensor and the logits never reach device memory.
+(b) with the tail only, a row kernel: ``proj -> LN -> * scale + shift -> + x`` on whole rows
+    (a tile of rows runs the projection chunk by chunk into shared memory, then the
+    LayerNorm).
 
 The attention output (D wide) makes one round trip through device memory between the two;
 removing it is the first redesign item. Bound on the card: operations (qkv, logits, w@v
@@ -40,15 +51,21 @@ import torch
 from aurora_tpu_torch.model.nn import acc_dtype
 from aurora_tpu_torch.ops import _lib
 from aurora_tpu_torch.ops.masks import bias_from_groups, group_ids_tensor
+from aurora_tpu_torch.ops.mlp import film_layernorm_residual
 
 __all__ = [
     "window_partition",
     "window_reverse",
     "window_attention_tail",
     "window_attention_tail_plain",
+    "window_attention_windowed",
+    "window_attention_windowed_plain",
+    "sdpa_windows",
+    "sdpa_windows_plain",
 ]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+Tail = tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
 
 def window_partition(x: torch.Tensor, ws: tuple[int, int, int]) -> torch.Tensor:
@@ -68,109 +85,206 @@ def window_reverse(w: torch.Tensor, ws: tuple[int, int, int], C: int, H: int, W:
     return x.reshape(B, C, H, W, D)
 
 
-def _layernorm_rows(y: torch.Tensor, eps: float) -> torch.Tensor:
-    mean = y.mean(-1, keepdim=True)
-    var = (y - mean).square().mean(-1, keepdim=True)
-    return (y - mean) * torch.rsqrt(var + eps)
+# ------------------------------------------------------------------------ plain versions
+
+
+def sdpa_windows_plain(
+    qkv: torch.Tensor, groups: Optional[np.ndarray], num_heads: int
+) -> torch.Tensor:
+    """Plain version of :func:`sdpa_windows` (``_heads_attention_xla``,
+    ``swin3d.py:415-436``)."""
+    dt, acc = qkv.dtype, acc_dtype(qkv.dtype)
+    B, nW, N, D3 = qkv.shape
+    D = D3 // 3
+    h, dh = num_heads, D // num_heads
+    qkv = qkv.reshape(B, nW, N, 3, h, dh).to(acc)
+    q, k, v = qkv[:, :, :, 0], qkv[:, :, :, 1], qkv[:, :, :, 2]
+    logits = torch.einsum("bwqhd,bwkhd->bwhqk", q, k) * (1.0 / math.sqrt(dh))
+    if groups is not None:
+        g = group_ids_tensor(groups, qkv.device)
+        logits = logits + bias_from_groups(g, acc)[None, :, None]
+    wgt = torch.softmax(logits, dim=-1).to(dt).to(acc)
+    return torch.einsum("bwhqk,bwkhd->bwqhd", wgt, v).to(dt).reshape(B, nW, N, D)
+
+
+def window_attention_windowed_plain(
+    xw: torch.Tensor,
+    wqkv: torch.Tensor,
+    bqkv: torch.Tensor,
+    groups: Optional[np.ndarray],
+    num_heads: int,
+    tail: Optional[Tail] = None,
+    ln_eps: float = 1e-5,
+) -> torch.Tensor:
+    """Plain version of :func:`window_attention_windowed` (``_attn_tail_xla_ref``,
+    ``swin3d.py:458-521``)."""
+    dt, acc = xw.dtype, acc_dtype(xw.dtype)
+    B, nW, N, D = xw.shape
+    qkv = (xw.to(acc) @ wqkv.to(dt).to(acc)).to(dt) + bqkv.to(dt)
+    attn = sdpa_windows_plain(qkv, groups, num_heads)
+    if tail is None:
+        return attn
+    wproj, bproj, shift, scale = tail
+    y = (attn.reshape(B, nW * N, D).to(acc) @ wproj.to(dt).to(acc) + bproj.to(acc)).to(dt)
+    out = film_layernorm_residual(y, xw.reshape(B, nW * N, D), shift, scale, 0.0, ln_eps)
+    return out.reshape(B, nW, N, D)
 
 
 def window_attention_tail_plain(
     xp: torch.Tensor,
     wqkv: torch.Tensor,
     bqkv: torch.Tensor,
-    wproj: torch.Tensor,
-    bproj: torch.Tensor,
-    shift: torch.Tensor,
-    scale: torch.Tensor,
     groups: Optional[np.ndarray],
     ws: tuple[int, int, int],
     num_heads: int,
+    tail: Optional[Tail] = None,
     ln_eps: float = 1e-5,
 ) -> torch.Tensor:
-    """Plain version of :func:`window_attention_tail`: window partition, the math of
-    ``_attn_tail_xla_ref`` (``swin3d.py:458-521``), window reverse."""
-    dt, acc = xp.dtype, acc_dtype(xp.dtype)
-    B, Cp, Hp, Wp, D = xp.shape
-    h, dh = num_heads, D // num_heads
-    xw = window_partition(xp, ws)
-    nW, N = xw.shape[1], xw.shape[2]
-    x2 = xw.reshape(B, nW * N, D)
-    qkv = (x2.to(acc) @ wqkv.to(dt).to(acc)).to(dt) + bqkv.to(dt)
-    qkv = qkv.reshape(B, nW, N, 3, h, dh).to(acc)
-    q, k, v = qkv[:, :, :, 0], qkv[:, :, :, 1], qkv[:, :, :, 2]
-    logits = torch.einsum("bwqhd,bwkhd->bwhqk", q, k) * (1.0 / math.sqrt(dh))
-    if groups is not None:
-        g = group_ids_tensor(groups, xp.device)
-        logits = logits + bias_from_groups(g, acc)[None, :, None]
-    wgt = torch.softmax(logits, dim=-1).to(dt).to(acc)
-    attn = torch.einsum("bwhqk,bwkhd->bwqhd", wgt, v).to(dt).reshape(B, nW * N, D)
-    y = (attn.to(acc) @ wproj.to(dt).to(acc) + bproj.to(acc)).to(dt)
-    ln = _layernorm_rows(y.to(acc), ln_eps)
-    out = x2.to(acc) + (ln * scale.to(acc)[:, None, :] + shift.to(acc)[:, None, :])
-    return window_reverse(out.to(dt).reshape(B, nW, N, D), ws, Cp, Hp, Wp)
+    """Plain version of :func:`window_attention_tail`: window partition, the windowed
+    math, window reverse."""
+    _, Cp, Hp, Wp, _ = xp.shape
+    out = window_attention_windowed_plain(
+        window_partition(xp, ws), wqkv, bqkv, groups, num_heads, tail, ln_eps
+    )
+    return window_reverse(out, ws, Cp, Hp, Wp)
+
+
+# ------------------------------------------------------------------------ kernels
+
+
+def _check_heads(N: int, D: int, num_heads: int, what: str) -> None:
+    if N != 144 or D != 64 * num_heads or D % 128:
+        raise ValueError(
+            f"{what} kernel: needs N=144, dh=64, D % 128 == 0; got N={N}, D={D}, "
+            f"heads={num_heads}"
+        )
+
+
+def _group_ids(groups: Optional[np.ndarray], nW: int, device) -> Optional[torch.Tensor]:
+    if groups is None:
+        return None
+    gid = group_ids_tensor(groups, device)
+    _lib.require(gid, "groups", torch.int32, (nW, 144))
+    return gid
+
+
+def _launch_window_attention(
+    x, wqkv, bqkv, groups, num_heads, tail, ln_eps, nW, geom5d, ws, what
+) -> torch.Tensor:
+    """Launch K2 (``geom5d = (Cp, Hp, Wp)``) or K6 (``geom5d = (0, 0, 0)``)."""
+    B, D = x.shape[0], x.shape[-1]
+    bf, f32 = torch.bfloat16, torch.float32
+    wqkv_t = wqkv.to(bf).t().contiguous()  # (3D, D)
+    bqkv_b = bqkv.to(bf).contiguous()
+    gid = _group_ids(groups, nW, x.device)
+    attn = torch.empty_like(x)
+    out = None
+    tail_ptrs = [None] * 4
+    if tail is not None:
+        wproj, bproj, shift, scale = tail
+        tail_args = (
+            wproj.to(bf).t().contiguous(),  # (D, D)
+            bproj.to(f32).contiguous(),
+            shift.to(f32).reshape(B, D).contiguous(),
+            scale.to(f32).reshape(B, D).contiguous(),
+        )
+        tail_ptrs = [t.data_ptr() for t in tail_args]
+        out = torch.empty_like(x)
+    fn = _lib.kernel("window_attention", "window_attention", [_P] * 10 + [_I] * 10 + [_F, _P])
+    err = fn(
+        x.data_ptr(), wqkv_t.data_ptr(), bqkv_b.data_ptr(),
+        None if gid is None else gid.data_ptr(), *tail_ptrs,
+        attn.data_ptr(), None if out is None else out.data_ptr(),
+        B, nW, *geom5d, D, *ws, num_heads, float(ln_eps), _lib.stream(x),
+    )
+    _lib.check(err, what)
+    _lib.LAUNCHES[what] += 1
+    return attn if out is None else out
 
 
 def window_attention_tail(
     xp: torch.Tensor,
     wqkv: torch.Tensor,
     bqkv: torch.Tensor,
-    wproj: torch.Tensor,
-    bproj: torch.Tensor,
-    shift: torch.Tensor,
-    scale: torch.Tensor,
     groups: Optional[np.ndarray],
     ws: tuple[int, int, int],
     num_heads: int,
+    tail: Optional[Tail] = None,
     ln_eps: float = 1e-5,
 ) -> torch.Tensor:
-    """Window attention plus tail over padded tokens ``xp: (B, Cp, Hp, Wp, D)``.
+    """K2: window attention over padded tokens ``xp: (B, Cp, Hp, Wp, D)``.
 
-    ``wqkv``: ``(D, 3D)`` (LoRA folded in), ``bqkv``: ``(3D,)``; ``wproj``: ``(D, D)``,
-    ``bproj``: ``(D,)``; ``shift``/``scale``: per-batch FiLM ``(B, D)``; ``groups``: the
-    ``(nW, N)`` group ids of a shifted block, or None (no mask). Returns the post-residual
-    tokens, same shape as ``xp``.
+    ``wqkv``: ``(D, 3D)`` (LoRA folded in), ``bqkv``: ``(3D,)``; ``groups``: the ``(nW, N)``
+    group ids of a shifted block, or None (no mask); ``tail``: ``(wproj (D, D) with LoRA
+    folded in, bproj (D,), shift (B, D), scale (B, D))`` or None. Returns the post-residual
+    tokens with the tail, else the attention output before proj; same shape as ``xp``.
 
     CPU tensors take :func:`window_attention_tail_plain`; CUDA tensors launch the kernel,
     which takes bf16 tokens, windows of 144 tokens and a head dim of 64.
     """
     if xp.device.type == "cpu":
-        return window_attention_tail_plain(
-            xp, wqkv, bqkv, wproj, bproj, shift, scale, groups, ws, num_heads, ln_eps
-        )
+        return window_attention_tail_plain(xp, wqkv, bqkv, groups, ws, num_heads, tail, ln_eps)
     B, Cp, Hp, Wp, D = xp.shape
-    N = ws[0] * ws[1] * ws[2]
     _lib.require(xp, "xp", torch.bfloat16)
-    if N != 144 or D != 64 * num_heads or D % 128:
-        raise ValueError(
-            f"window_attention kernel: needs N=144, dh=64, D % 128 == 0; got N={N}, "
-            f"D={D}, heads={num_heads}"
-        )
+    _check_heads(ws[0] * ws[1] * ws[2], D, num_heads, "window_attention")
     if Cp % ws[0] or Hp % ws[1] or Wp % ws[2]:
         raise ValueError(f"padded grid {(Cp, Hp, Wp)} is not a multiple of the window {ws}")
-    bf = torch.bfloat16
-    wqkv_t = wqkv.to(bf).t().contiguous()  # (3D, D)
-    wproj_t = wproj.to(bf).t().contiguous()  # (D, D)
-    bqkv_b = bqkv.to(bf).contiguous()
-    bproj_f = bproj.to(torch.float32).contiguous()
-    shf = shift.to(torch.float32).reshape(B, D).contiguous()
-    scf = scale.to(torch.float32).reshape(B, D).contiguous()
-    gid = None
-    if groups is not None:
-        gid = group_ids_tensor(groups, xp.device)
-        nW = (Cp // ws[0]) * (Hp // ws[1]) * (Wp // ws[2])
-        _lib.require(gid, "groups", torch.int32, (nW, N))
-    attn = torch.empty_like(xp)
-    out = torch.empty_like(xp)
-    fn = _lib.kernel(
-        "window_attention", "window_attention_tail", [_P] * 10 + [_I] * 9 + [_F, _P]
+    nW = (Cp // ws[0]) * (Hp // ws[1]) * (Wp // ws[2])
+    return _launch_window_attention(
+        xp, wqkv, bqkv, groups, num_heads, tail, ln_eps, nW, (Cp, Hp, Wp), ws,
+        "window_attention",
     )
+
+
+def window_attention_windowed(
+    xw: torch.Tensor,
+    wqkv: torch.Tensor,
+    bqkv: torch.Tensor,
+    groups: Optional[np.ndarray],
+    num_heads: int,
+    tail: Optional[Tail] = None,
+    ln_eps: float = 1e-5,
+) -> torch.Tensor:
+    """K6: window attention over partitioned windows ``xw: (B, nW, N, D)``; arguments and
+    result as :func:`window_attention_tail`, in the windows' layout.
+
+    CPU tensors take :func:`window_attention_windowed_plain`; CUDA tensors launch the
+    kernel, which takes bf16 tokens, windows of 144 tokens and a head dim of 64.
+    """
+    if xw.device.type == "cpu":
+        return window_attention_windowed_plain(xw, wqkv, bqkv, groups, num_heads, tail, ln_eps)
+    B, nW, N, D = xw.shape
+    _lib.require(xw, "xw", torch.bfloat16)
+    _check_heads(N, D, num_heads, "window_attention_windowed")
+    return _launch_window_attention(
+        xw, wqkv, bqkv, groups, num_heads, tail, ln_eps, nW, (0, 0, 0), (0, 0, 0),
+        "window_attention_windowed",
+    )
+
+
+def sdpa_windows(
+    qkv: torch.Tensor, groups: Optional[np.ndarray], num_heads: int
+) -> torch.Tensor:
+    """K7: masked per-head attention over packed window rows ``qkv: (B, nW, N, 3D)``
+    (features (q|k|v) x head x dh) -> ``(B, nW, N, D)``; ``groups`` as in
+    :func:`window_attention_tail`.
+
+    CPU tensors take :func:`sdpa_windows_plain`; CUDA tensors launch the kernel, which takes
+    bf16 rows, windows of 144 tokens and a head dim of 64.
+    """
+    if qkv.device.type == "cpu":
+        return sdpa_windows_plain(qkv, groups, num_heads)
+    B, nW, N, D3 = qkv.shape
+    D = D3 // 3
+    _lib.require(qkv, "qkv", torch.bfloat16)
+    _check_heads(N, D, num_heads, "sdpa_windows")
+    gid = _group_ids(groups, nW, qkv.device)
+    out = qkv.new_empty(B, nW, N, D)
+    fn = _lib.kernel("window_attention", "sdpa_windows", [_P] * 3 + [_I] * 4 + [_P])
     err = fn(
-        xp.data_ptr(), wqkv_t.data_ptr(), bqkv_b.data_ptr(),
-        None if gid is None else gid.data_ptr(),
-        wproj_t.data_ptr(), bproj_f.data_ptr(), shf.data_ptr(), scf.data_ptr(),
-        attn.data_ptr(), out.data_ptr(),
-        B, Cp, Hp, Wp, D, ws[0], ws[1], ws[2], num_heads, float(ln_eps), _lib.stream(xp),
+        qkv.data_ptr(), None if gid is None else gid.data_ptr(), out.data_ptr(),
+        B, nW, D, num_heads, _lib.stream(qkv),
     )
-    _lib.check(err, "window_attention_tail")
-    _lib.LAUNCHES["window_attention"] += 1
+    _lib.check(err, "sdpa_windows")
+    _lib.LAUNCHES["sdpa_windows"] += 1
     return out

@@ -1,4 +1,4 @@
-"""The plain PyTorch versions of the port's four kernels against the JAX package's Pallas
+"""The plain PyTorch versions of the port's kernels against the JAX package's Pallas
 kernels, run in interpret mode on the CPU (as tests/test_kernels.py runs them).
 
 The port's kernel wrappers take these plain versions for CPU tensors; on the card the
@@ -20,15 +20,25 @@ import numpy as np
 import pytest
 import torch
 
-from aurora_tpu.model.swin3d import _attn_windows_5d_fused_pallas
+from aurora_tpu.model.swin3d import (
+    _attn_windows_5d_fused_pallas,
+    _attn_windows_qkv_fused_pallas,
+    _sdpa_windows_fused_pallas,
+    window_partition,
+)
 from aurora_tpu.ops.masks import window_group_ids
-from aurora_tpu.ops.mlp import mlp_adaln_residual_fused
+from aurora_tpu.ops.mlp import linear_adaln_residual_fused, mlp_adaln_residual_fused, mlp_fused
 from aurora_tpu.ops.resampler import make_q_major_blockdiag, perceiver_core_fused
 from aurora_tpu.ops.roll import roll3d_pallas
+from aurora_tpu_torch.ops import mlp as t_mlp
 from aurora_tpu_torch.ops.mlp import mlp_adaln_residual
 from aurora_tpu_torch.ops.resampler import perceiver_core
 from aurora_tpu_torch.ops.roll import roll3d
-from aurora_tpu_torch.ops.window_attention import window_attention_tail
+from aurora_tpu_torch.ops.window_attention import (
+    sdpa_windows,
+    window_attention_tail,
+    window_attention_windowed,
+)
 from tests.test_torch_support import max_rel
 
 DTYPES = {"f32": (jnp.float32, torch.float32, 1e-5), "bf16": (jnp.bfloat16, torch.bfloat16, 1e-2)}
@@ -79,7 +89,7 @@ def test_window_attention_matches_pallas(masked, dtype, num_heads):
     want = _attn_windows_5d_fused_pallas(
         xj, wj[0], wj[1], num_heads, groups, ws, interpret=True, tail=tuple(wj[2:])
     )
-    got = window_attention_tail(xt, *wt, groups, ws, num_heads)
+    got = window_attention_tail(xt, wt[0], wt[1], groups, ws, num_heads, tail=tuple(wt[2:]))
     assert got.dtype == xt.dtype and tuple(got.shape) == tuple(want.shape)
     assert max_rel(got, want) < DTYPES[dtype][2]
 
@@ -87,9 +97,123 @@ def test_window_attention_matches_pallas(masked, dtype, num_heads):
 def test_window_attention_mask_matters():
     """The masked and unmasked results differ, so the mask is exercised."""
     ws, groups, _, xt, _, wt = _attn_inputs(True, "f32")
-    masked = window_attention_tail(xt, *wt, groups, ws, 2)
-    unmasked = window_attention_tail(xt, *wt, None, ws, 2)
+    masked = window_attention_tail(xt, wt[0], wt[1], groups, ws, 2, tail=tuple(wt[2:]))
+    unmasked = window_attention_tail(xt, wt[0], wt[1], None, ws, 2, tail=tuple(wt[2:]))
     assert max_rel(masked, unmasked) > 1e-3
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("num_heads", [1, 2])
+def test_window_attention_no_tail_matches_pallas(masked, dtype, num_heads):
+    """K2 without the tail (``mlp_impl`` "pallas"/"xla"): the attention output, before proj."""
+    ws, groups, xj, xt, wj, wt = _attn_inputs(masked, dtype, num_heads)
+    want = _attn_windows_5d_fused_pallas(xj, wj[0], wj[1], num_heads, groups, ws, interpret=True)
+    got = window_attention_tail(xt, wt[0], wt[1], groups, ws, num_heads)
+    assert got.dtype == xt.dtype and tuple(got.shape) == tuple(want.shape)
+    assert max_rel(got, want) < DTYPES[dtype][2]
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("tail", [False, True])
+def test_window_attention_windowed_matches_pallas(tail, masked, dtype):
+    """K6 on partitioned ``(B, nW, N, D)`` windows, with and without the tail."""
+    ws, groups, xj, _, wj, wt = _attn_inputs(masked, dtype)
+    xwj = window_partition(xj, ws)
+    B, C1, H1, W1, N, D = xwj.shape
+    xwj = xwj.reshape(B, C1 * H1 * W1, N, D)
+    xwt = torch.from_numpy(np.array(xwj.astype(jnp.float32))).to(DTYPES[dtype][1])
+    want = _attn_windows_qkv_fused_pallas(
+        xwj, wj[0], wj[1], 2, groups, interpret=True, tail=tuple(wj[2:]) if tail else None
+    )
+    got = window_attention_windowed(
+        xwt, wt[0], wt[1], groups, 2, tail=tuple(wt[2:]) if tail else None
+    )
+    assert got.dtype == xwt.dtype and tuple(got.shape) == tuple(want.shape)
+    assert max_rel(got, want) < DTYPES[dtype][2]
+
+
+def _packed_qkv(dtype: str, seed: int = 3):
+    """Packed ``(B, nW, N, 3D)`` qkv over the shifted windows of a padded (1, 3, 6) grid."""
+    ws, ss = (1, 2, 4), (0, 1, 2)
+    groups = window_group_ids(1, 3, 6, ws, ss)  # pads H 3 -> 4
+    nW, N = groups.shape
+    qkv = np.random.default_rng(seed).standard_normal((2, nW, N, 3 * 16))
+    return groups, qkv
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("masked", [False, True])
+def test_sdpa_windows_matches_pallas(masked, dtype):
+    """K7, the attention core alone over packed qkv."""
+    groups, qkv = _packed_qkv(dtype)
+    groups = groups if masked else None
+    qj, qt = _pair(qkv, dtype)
+    want = _sdpa_windows_fused_pallas(qj, 2, groups, interpret=True)
+    got = sdpa_windows(qt, groups, 2)
+    assert got.dtype == qt.dtype and tuple(got.shape) == tuple(want.shape)
+    assert max_rel(got, want) < DTYPES[dtype][2]
+
+
+def test_sdpa_windows_padding_tokens_isolated():
+    """The form of tests/test_kernels.py::test_fused_window_sdpa_padding_tokens_isolated:
+    garbage in the pad tokens' q/k/v leaves the real tokens' outputs unchanged, in the port
+    as in the JAX kernel."""
+    groups, qkv = _packed_qkv("f32", seed=1)
+    pad = groups == groups.max()
+    garbage = np.where(pad[None, :, :, None], 7.0, qkv)
+    real = ~pad
+    outs = []
+    for a in (qkv, garbage):
+        got = sdpa_windows(torch.from_numpy(a).float(), groups, 2).numpy()
+        want = np.asarray(_sdpa_windows_fused_pallas(jnp.asarray(a, jnp.float32), 2, groups,
+                                                     interpret=True))
+        np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+        outs.append(got)
+    np.testing.assert_allclose(outs[0][:, real], outs[1][:, real], atol=1e-4, rtol=1e-4)
+    assert not np.allclose(outs[0][:, pad], outs[1][:, pad])
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_mlp_fused_matches_pallas(dtype):
+    """K8: ``fc2(GELU(fc1 x))`` with no LayerNorm or residual."""
+    rng = np.random.default_rng(4)
+    B, L, D, Hd = 2, 40, 32, 128
+    x = rng.standard_normal((B, L, D))
+    w = [
+        0.2 * rng.standard_normal((D, Hd)), 0.05 * rng.standard_normal(Hd),
+        0.2 * rng.standard_normal((Hd, D)), 0.05 * rng.standard_normal(D),
+    ]
+    xj, xt = _pair(x, dtype)
+    want = mlp_fused(xj, *[jnp.asarray(a, jnp.float32) for a in w], interpret=True)
+    got = t_mlp.mlp_fused(xt, *[torch.from_numpy(a).float() for a in w])
+    assert got.dtype == xt.dtype and tuple(got.shape) == tuple(want.shape)
+    # f32: the JAX kernel's erf polynomial puts it 2.8e-5 from the float64 result here, the
+    # plain version 2.7e-7; the 5e-5 of the K3 test.
+    assert max_rel(got, want) < (5e-5 if dtype == "f32" else DTYPES[dtype][2])
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("scale_bias", [0.0, 1.0])
+def test_linear_adaln_residual_matches_pallas(scale_bias, dtype):
+    """K5: ``shortcut + LN(x @ W + b) * (scale_bias + scale) + shift``."""
+    rng = np.random.default_rng(5)
+    B, L, D = 2, 40, 32
+    x, shortcut = rng.standard_normal((B, L, D)), rng.standard_normal((B, L, D))
+    w = [0.2 * rng.standard_normal((D, D)), 0.05 * rng.standard_normal(D)]
+    film = [rng.standard_normal((B, D)), 0.3 * rng.standard_normal((B, D))]
+    (xj, xt), (sj, st) = _pair(x, dtype), _pair(shortcut, dtype)
+    want = linear_adaln_residual_fused(
+        xj, *[jnp.asarray(a, jnp.float32) for a in w], sj,
+        *[jnp.asarray(a, jnp.float32) for a in film], scale_bias=scale_bias, interpret=True,
+    )
+    got = t_mlp.linear_adaln_residual(
+        xt, *[torch.from_numpy(a).float() for a in w], st,
+        *[torch.from_numpy(a).float() for a in film], scale_bias=scale_bias,
+    )
+    assert got.dtype == xt.dtype and tuple(got.shape) == tuple(want.shape)
+    assert max_rel(got, want) < DTYPES[dtype][2]
 
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])

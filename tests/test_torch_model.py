@@ -2,7 +2,10 @@
 
 * float64, gates open: one forward step and a 2-step ``rollout`` at mean relative error
   <= 1e-8 per variable. The 73 x 144 grid gives full shifted windows at stage 1, padding
-  at stage 2 and shrunk windows at stage 3.
+  at stage 2 and shrunk windows at stage 3. The forward also under the backbone's other
+  routes (``attention_impl``, ``mlp_impl``): W (pallas_windowed, fused), P (pallas,
+  pallas), X (xla, fused) and (xla, xla), each against the one JAX reference, with the
+  block-level wrappers each route calls counted.
 * The production knobs (bf16 backbone under ``autocast`` with bf16-stored weights, bf16
   values in the level aggregation and de-aggregation) against the JAX package under the
   same knobs. The two round at different points: the JAX CPU route takes its XLA path
@@ -64,6 +67,44 @@ def test_forward_matches_f64(f64_pair):
     assert got.metadata.rollout_step == 1
     assert got.metadata.time == want.metadata.time
     assert tuple(got.atmos_vars["z"].shape) == (1, 1, len(LEVELS), 72, 144)
+
+
+@pytest.fixture(scope="module")
+def f64_reference(f64_pair):
+    jm, params, _, jb = f64_pair
+    return jm.forward(params, jb)
+
+
+# Calls per forward of the wrappers a Swin block routes to: 12 blocks in CFG.
+ROUTE_CALLS = {
+    ("pallas_windowed", "fused"): {"window_attention_windowed": 12, "mlp_adaln_residual": 12},
+    ("pallas", "pallas"): {"window_attention_tail": 12, "mlp_fused": 12},
+    ("xla", "fused"): {"linear_adaln_residual": 12, "mlp_adaln_residual": 12},
+    ("xla", "xla"): {},
+}
+
+
+@pytest.mark.parametrize("route", list(ROUTE_CALLS), ids=["-".join(r) for r in ROUTE_CALLS])
+def test_routes_forward_match_f64(f64_pair, f64_reference, route, monkeypatch):
+    from aurora_tpu_torch.convert import params_from_numpy
+    from aurora_tpu_torch.model import swin3d
+    from aurora_tpu_torch.model.config import AuroraConfig
+
+    _, params, _, jb = f64_pair
+    names = ("window_attention_tail", "window_attention_windowed", "linear_adaln_residual",
+             "mlp_adaln_residual", "mlp_fused")
+    calls = dict.fromkeys(names, 0)
+    for n in names:
+        def spy(*a, _n=n, _f=getattr(swin3d, n), **k):
+            calls[_n] += 1
+            return _f(*a, **k)
+        monkeypatch.setattr(swin3d, n, spy)
+    cfg = AuroraConfig(**CFG, attention_impl=route[0], mlp_impl=route[1])
+    tm = params_from_numpy(numpy_tree(params), cfg, device="cpu", dtype=torch.float64)
+    got = tm(torch_batch(jb))
+    errs = _errors(got, f64_reference)
+    assert max(errs.values()) <= 1e-8, errs
+    assert calls == {n: ROUTE_CALLS[route].get(n, 0) for n in names}
 
 
 def test_rollout_matches_f64(f64_pair):
