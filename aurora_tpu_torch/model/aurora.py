@@ -61,7 +61,6 @@ def _check_supported(cfg: AuroraConfig) -> None:
         "atmos_static_vars": cfg.atmos_static_vars,
         "separate_perceiver": bool(cfg.separate_perceiver),
         "modulation_heads": bool(cfg.modulation_heads),
-        "stabilise_level_agg": cfg.stabilise_level_agg,
         "simulate_indexing_bug": cfg.simulate_indexing_bug,
         "drop_path/drop_rate": cfg.drop_path > 0 or cfg.drop_rate > 0,
         "remat": cfg.remat,

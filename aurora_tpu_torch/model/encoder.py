@@ -56,7 +56,7 @@ class Encoder(nn.Module):
         self.atmos_levels_embed = Linear(D, D, **kw)
         self.level_agg = PerceiverResampler(
             D, D, depth=cfg.enc_depth, head_dim=D // cfg.num_heads, num_heads=cfg.num_heads,
-            mlp_ratio=cfg.mlp_ratio, **kw,
+            mlp_ratio=cfg.mlp_ratio, ln_k_q=cfg.stabilise_level_agg, **kw,
         )
 
     def reset_parameters(self, gen: torch.Generator) -> None:

@@ -25,21 +25,31 @@ __all__ = ["PerceiverResampler", "resampler_shared_query_apply"]
 
 
 class _Attention(nn.Module):
-    def __init__(self, latent_dim, context_dim, head_dim, num_heads, *, device=None, dtype=None):
+    """``ln_k_q`` adds the stabilising LayerNorms of ``stabilise_level_agg`` on the k and q
+    projections, taken over the whole ``inner`` axis before the head split
+    (``aurora_tpu/model/perceiver.py:31-42``)."""
+
+    def __init__(self, latent_dim, context_dim, head_dim, num_heads, ln_k_q=False, *,
+                 device=None, dtype=None):
         super().__init__()
         inner = head_dim * num_heads
         kw = dict(bias=False, device=device, dtype=dtype)
         self.to_q = Linear(latent_dim, inner, **kw)
         self.to_kv = Linear(context_dim, 2 * inner, **kw)
         self.to_out = Linear(inner, latent_dim, **kw)
+        if ln_k_q:
+            self.ln_k = LayerNorm(inner, device=device, dtype=dtype)
+            self.ln_q = LayerNorm(inner, device=device, dtype=dtype)
+        else:
+            self.ln_k = self.ln_q = None
 
 
 class _Layer(nn.Module):
-    def __init__(self, latent_dim, context_dim, head_dim, num_heads, mlp_ratio, *,
+    def __init__(self, latent_dim, context_dim, head_dim, num_heads, mlp_ratio, ln_k_q=False, *,
                  device=None, dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
-        self.attn = _Attention(latent_dim, context_dim, head_dim, num_heads, **kw)
+        self.attn = _Attention(latent_dim, context_dim, head_dim, num_heads, ln_k_q, **kw)
         self.mlp = MLP(latent_dim, int(latent_dim * mlp_ratio), **kw)
         self.ln1 = LayerNorm(latent_dim, **kw)
         self.ln2 = LayerNorm(latent_dim, **kw)
@@ -47,15 +57,16 @@ class _Layer(nn.Module):
 
 class PerceiverResampler(nn.Module):
     def __init__(self, latent_dim, context_dim, depth=1, head_dim=64, num_heads=16,
-                 mlp_ratio=4.0, *, device=None, dtype=None):
+                 mlp_ratio=4.0, ln_k_q=False, *, device=None, dtype=None):
         super().__init__()
         if depth != 1:
             raise NotImplementedError("only depth-1 resamplers are ported")
         self.num_heads = num_heads
+        # The stabilising LayerNorms sit on layer 0 only (perceiver.py:78-81).
         self.layers = nn.ModuleList(
             _Layer(latent_dim, context_dim, head_dim, num_heads, mlp_ratio,
-                   device=device, dtype=dtype)
-            for _ in range(depth)
+                   ln_k_q=ln_k_q and i == 0, device=device, dtype=dtype)
+            for i in range(depth)
         )
 
     def reset_parameters(self, gen: torch.Generator) -> None:
@@ -77,6 +88,8 @@ def resampler_shared_query_apply(
     h = p.num_heads
     Q = queries.shape[0]
     q0 = att.to_q(queries)  # (Q, inner)
+    if att.ln_q is not None:
+        q0 = att.ln_q(q0)
     inner = q0.shape[-1]
     dh = inner // h
     w_kv = att.to_kv.weight
@@ -92,6 +105,7 @@ def resampler_shared_query_apply(
         scale=1.0 / dh**0.5,
         ln_eps=ln_eps,
         value_bf16=value_bf16,
+        lnk=None if att.ln_k is None else (att.ln_k.weight, att.ln_k.bias),
     )  # (M, Q, D_out)
     M, _, D_lat = lat.shape
     mp, ln2 = layer.mlp, layer.ln2

@@ -26,7 +26,7 @@ __all__ = ["LAUNCHES", "reset_launches", "build", "kernel", "check", "stream", "
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("roll", "window_attention", "mlp", "resampler")
+SOURCES = ("roll", "window_attention", "mlp", "resampler", "probes")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
@@ -41,6 +41,12 @@ LAUNCHES: dict[str, int] = {
     "window_attention_windowed": 0,
     "sdpa_windows": 0,
     "mlp_fused": 0,
+    "perceiver_k_stats": 0,
+    "mlp_t": 0,
+    "attn_probe": 0,
+    "attn5d_direct": 0,
+    "gemm_blocked": 0,
+    "smem_probe": 0,
 }
 
 _libs: dict[str, ctypes.CDLL] = {}

@@ -14,6 +14,11 @@ accumulates in bf16 level by level (``resampler.py:204-206``); the out-projectio
 accumulates in f32 and is rounded; LayerNorm is two-pass f32 with the affine ``ln1``, then
 the f32 query residual, then one rounding to the output dtype.
 
+With ``lnk = (weight, bias)`` (the ``ln_k`` of ``stabilise_level_agg``,
+``resampler.py:169-172``) the f32 k of every (level, column) passes a two-pass f32
+LayerNorm over the whole ``inner`` axis, all heads together, with eps fixed at 1e-5 (not
+``ln_eps``) and an f32 affine, before the logits.
+
 Kernel (``csrc/resampler.cu``), two launches behind one wrapper:
 
 (a) one block per (tile of 32 columns, head). Each thread owns one column and an eighth of
@@ -23,6 +28,14 @@ Kernel (``csrc/resampler.cu``), two launches behind one wrapper:
     writes the head's slice of the bf16 weighted sum ``o: (M, Q, inner)``. k, v, the logits
     and the softmax weights never reach device memory.
 (b) the row kernel of K2(b): ``round(o @ Wout) -> LN(ln1) -> + queries`` on whole rows.
+
+With ``lnk``, a launch of its own comes first (counted as ``perceiver_k_stats``): launch (a)
+never sees a whole k row, since a block holds one head of it, so the same grid projects
+k once more and writes each head's mean and centred sum of squares per (level, column);
+launch (a) then merges the heads' pairs exactly (mean of means, sum of the centred squares
+plus ``dh * (mean_h - mean)^2``: the pairwise form of the two-pass variance, no
+``E[k^2] - mean^2``) and normalises its k before the logits. The price is a second f32
+k-projection.
 
 Bound on the card: operations. The f32 k-projection (``K*M*D*inner`` multiply-adds, ~442
 GFLOP at the aggregation shape) runs outside the tensor cores at 67 TF/s, ~6.6 ms; the
@@ -63,6 +76,7 @@ def perceiver_core_plain(
     scale: float,
     ln_eps: float = 1e-5,
     value_bf16: bool = False,
+    lnk: Optional[tuple] = None,
 ) -> torch.Tensor:
     """Plain version of :func:`perceiver_core`."""
     K, M, D = ctx.shape
@@ -74,6 +88,8 @@ def perceiver_core_plain(
     vdt = torch.bfloat16 if value_bf16 else dt
     x2 = ctx.reshape(K * M, D)
     k = x2.to(acc) @ wk.to(dt).to(acc)
+    if lnk is not None:
+        k = _ln_affine(k, lnk[0].to(acc), lnk[1].to(acc), 1e-5)
     v = (x2.to(vdt).to(acc) @ wv.to(vdt).to(acc)).to(vdt)
     logits = torch.einsum("kmhd,qhd->kmqh", k.reshape(K, M, h, dh), qh.to(acc)) * scale
     w = torch.softmax(logits, dim=0).to(vdt)  # (K, M, Q, h)
@@ -105,19 +121,17 @@ def perceiver_core(
 
     ``ctx``: ``(K, M, D)`` k-major context; ``wk``/``wv``: ``(D, inner)`` (the halves of
     ``to_kv``); ``qh``: ``(Q, h, dh)`` projected queries; ``wout``: ``(inner, D_out)``;
-    ``queries``: ``(Q, D_out)``, the residual added after ``ln1``. Returns
+    ``queries``: ``(Q, D_out)``, the residual added after ``ln1``; ``lnk``: the
+    ``(inner,)`` weight and bias of the stabilising ``ln_k``, or None. Returns
     ``(M, Q, D_out)``, bf16 under ``value_bf16``, else in the context dtype.
 
     CPU tensors take :func:`perceiver_core_plain`; CUDA tensors launch the kernel, which
     takes an f32 context with ``value_bf16``, K in (3, 13) and a head dim in (32, 64).
-    The stabilising ``ln_k`` of ``stabilise_level_agg`` is not ported yet.
     """
-    if lnk is not None:
-        raise NotImplementedError("ln_k (stabilise_level_agg) is not ported yet")
     if ctx.device.type == "cpu":
         return perceiver_core_plain(
             ctx, wk, wv, qh, wout, ln1_w, ln1_b, queries,
-            scale=scale, ln_eps=ln_eps, value_bf16=value_bf16,
+            scale=scale, ln_eps=ln_eps, value_bf16=value_bf16, lnk=lnk,
         )
     K, M, D = ctx.shape
     Q, h, dh = qh.shape
@@ -140,10 +154,24 @@ def perceiver_core(
     qres = queries.to(torch.float32).contiguous()
     o = torch.empty(M, Q, inner, device=ctx.device, dtype=torch.bfloat16)
     out = torch.empty(M, Q, D_out, device=ctx.device, dtype=torch.bfloat16)
-    fn = _lib.kernel("resampler", "perceiver_core", [_P] * 10 + [_I] * 7 + [_F, _F, _P])
+    lnk_ptrs = [None] * 3
+    if lnk is not None:
+        lnk_w = lnk[0].to(torch.float32).contiguous()
+        lnk_b = lnk[1].to(torch.float32).contiguous()
+        _lib.require(lnk_w, "lnk weight", torch.float32, (inner,))
+        _lib.require(lnk_b, "lnk bias", torch.float32, (inner,))
+        # Per (level, column, head): the head's mean of k and its centred sum of squares.
+        stats = torch.empty(K, M, h, 2, device=ctx.device, dtype=torch.float32)
+        fn = _lib.kernel("resampler", "perceiver_k_stats", [_P] * 3 + [_I] * 5 + [_P])
+        err = fn(ctx.data_ptr(), wk_f.data_ptr(), stats.data_ptr(), K, M, D, h, dh,
+                 _lib.stream(ctx))
+        _lib.check(err, "perceiver_k_stats")
+        _lib.LAUNCHES["perceiver_k_stats"] += 1
+        lnk_ptrs = [stats.data_ptr(), lnk_w.data_ptr(), lnk_b.data_ptr()]
+    fn = _lib.kernel("resampler", "perceiver_core", [_P] * 13 + [_I] * 7 + [_F, _F, _P])
     err = fn(
         ctx.data_ptr(), wk_f.data_ptr(), wv_b.data_ptr(), qh_f.data_ptr(),
-        wout_t.data_ptr(), lw.data_ptr(), lb.data_ptr(), qres.data_ptr(),
+        wout_t.data_ptr(), lw.data_ptr(), lb.data_ptr(), qres.data_ptr(), *lnk_ptrs,
         o.data_ptr(), out.data_ptr(), K, M, D, h, dh, Q, D_out, float(scale), float(ln_eps),
         _lib.stream(ctx),
     )

@@ -164,10 +164,13 @@ def test_no_jax_or_jax_package_is_loaded():
         "    importlib.import_module(m.name)\n"
         "bad = [n for n in sys.modules if n in ('jax', 'aurora_tpu')\n"
         "       or n.startswith(('jax.', 'aurora_tpu.', 'jaxlib'))]\n"
+        "new = ['ops.probes', 'tools', 'tools.backbone_ablate', 'tools.gemm_probe',\n"
+        "       'tools.smem_probe']\n"
+        "assert all('aurora_tpu_torch.' + n in sys.modules for n in new), new\n"
         "print(len([n for n in sys.modules if n.startswith('aurora_tpu_torch')]), bad)\n"
     )
     count, bad = _run(code).strip().split(" ", 1)
-    assert int(count) >= 20
+    assert int(count) >= 25
     assert bad == "[]"
 
 
@@ -187,7 +190,7 @@ def test_kernel_modules_import_without_nvcc_or_triton():
     code = (
         "import sys; sys.modules['triton'] = None\n"
         "import torch\n"
-        "from aurora_tpu_torch.ops import _lib, mlp, resampler, roll, window_attention\n"
+        "from aurora_tpu_torch.ops import _lib, mlp, probes, resampler, roll, window_attention\n"
         "x = torch.randn(1, 2, 6, 12, 8)\n"
         "assert torch.equal(roll.roll3d(x, (1, 2, 3)), torch.roll(x, (1, 2, 3), (1, 2, 3)))\n"
         "assert sum(_lib.LAUNCHES.values()) == 0 and not _lib._libs\n"
