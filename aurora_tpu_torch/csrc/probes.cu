@@ -1,10 +1,10 @@
-// K9-K13: the kernels of the probe tools (aurora_tpu_torch/tools/).
+// K9-K11 and K13: kernels of the probe tools (aurora_tpu_torch/tools/); K12 gemm_blocked is
+// in gemm.cu.
 //
-// They replace the five Pallas kernels that live in the JAX package's tools:
+// They replace four of the five Pallas kernels that live in the JAX package's tools:
 //   K9  mlp_t          tools/backbone_ablate.py make_mlp_t    (pallas_call at :457)
 //   K10 attn_probe     tools/backbone_ablate.py make_probe     (pallas_call at :598)
 //   K11 attn5d_direct  tools/backbone_ablate.py make_direct    (pallas_call at :877)
-//   K12 gemm_blocked   tools/gemm_probe.py pallas_gemm         (pallas_call at :102)
 //   K13 smem_probe     tools/vmem_probe.py try_size            (pallas_call at :26)
 // Each computes what the TPU kernel computes; what a TPU mode meant (a Mosaic relayout, a
 // sublane reduction, a VMEM ceiling) is given its reading on this card at each kernel.
@@ -13,85 +13,6 @@
 #include "window_attention.cuh"
 
 namespace {
-
-// ------------------------------------------------------------------------------ K12
-// out = round_bf16(A @ W), f32 accumulation; A (M, K) bf16 rows, W (K, N) bf16 as stored.
-// Bound: bytes at the proj shape (K = N = 512), operations at fc2 (K = 2048).
-// The TPU kernel held a row block of MB rows with whole K and N in VMEM. Whole K and N do
-// not fit a block's 227 KB at K = 2048, so MB keeps its meaning as the rows one block walks:
-// block b owns rows [b MB, (b + 1) MB) and loops over 64-row tiles of them; per tile it
-// walks N in chunks of 128 and K in steps of 32 through shared memory. 8 warps as 4 x 2,
-// each a 16 x 64 tile. W is staged as stored, [k][n], and a B fragment is built from two
-// 16-bit loads per register (conflict-free with the padded stride).
-constexpr int G_RT = 64, G_NC = 128, G_KC = 32;
-constexpr int G_LDA = G_KC + 8, G_LDB = G_NC + 8;
-
-__device__ __forceinline__ uint32_t pack_raw(bf16 lo, bf16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo) | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
-}
-
-// B fragment of columns n0..n0+7, k0..k0+15 of a [k][n] tile with leading dimension ld.
-__device__ __forceinline__ void load_b_kn(uint32_t b[2], const bf16* base, int ld, int n0, int k0,
-                                          int lane) {
-  const bf16* p = base + (size_t)(k0 + 2 * (lane & 3)) * ld + n0 + (lane >> 2);
-  b[0] = pack_raw(p[0], p[ld]);
-  b[1] = pack_raw(p[8 * ld], p[9 * ld]);
-}
-
-__global__ void __launch_bounds__(256) gemm_blocked_kernel(const bf16* __restrict__ a,
-                                                           const bf16* __restrict__ w,
-                                                           long long M, int K, int N, int MB,
-                                                           bf16* __restrict__ out) {
-  __shared__ __align__(16) bf16 As[G_RT * G_LDA];
-  __shared__ __align__(16) bf16 Bs[G_KC * G_LDB];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wr = warp >> 1, wc = warp & 1;
-  const int gq = lane >> 2, tq = lane & 3;
-  const long long r_begin = (long long)blockIdx.x * MB;
-  const long long r_end = r_begin + MB < M ? r_begin + MB : M;
-  for (long long r0 = r_begin; r0 < r_end; r0 += G_RT) {
-    for (int n0 = 0; n0 < N; n0 += G_NC) {
-      float acc[8][4];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-      for (int k0 = 0; k0 < K; k0 += G_KC) {
-        __syncthreads();
-        {
-          const int r = tid >> 2, q = tid & 3;  // 64 rows x 4 quads = 256 pieces
-          uint4 v = make_uint4(0, 0, 0, 0);
-          if (r0 + r < r_end) v = *reinterpret_cast<const uint4*>(a + (r0 + r) * K + k0 + q * 8);
-          *reinterpret_cast<uint4*>(As + r * G_LDA + q * 8) = v;
-        }
-        for (int i = tid; i < G_KC * (G_NC / 8); i += 256) {
-          const int kk = i / (G_NC / 8), q = i % (G_NC / 8);
-          *reinterpret_cast<uint4*>(Bs + kk * G_LDB + q * 8) =
-              *reinterpret_cast<const uint4*>(w + (long long)(k0 + kk) * N + n0 + q * 8);
-        }
-        __syncthreads();
-#pragma unroll
-        for (int kk = 0; kk < G_KC; kk += 16) {
-          uint32_t af[4];
-          load_a(af, As, G_LDA, wr * 16, kk, lane);
-#pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            uint32_t bfr[2];
-            load_b_kn(bfr, Bs, G_LDB, wc * 64 + j * 8, kk, lane);
-            mma_16816(acc[j], af, bfr);
-          }
-        }
-      }
-      const long long row = r0 + wr * 16 + gq;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int n = n0 + wc * 64 + j * 8 + 2 * tq;
-        if (row < r_end)
-          *reinterpret_cast<uint32_t*>(out + row * N + n) = pack_bf16x2(acc[j][0], acc[j][1]);
-        if (row + 8 < r_end)
-          *reinterpret_cast<uint32_t*>(out + (row + 8) * N + n) = pack_bf16x2(acc[j][2], acc[j][3]);
-      }
-    }
-  }
-}
 
 // ------------------------------------------------------------------------------ K13
 // out = 2 x + scratch[0][0] with scratch[0][:] = x[0][:], x (8, 128) f32, where scratch is
@@ -497,18 +418,6 @@ int launch_direct(const bf16* x, const bf16* wt, const bf16* b, int B, int Cp, i
 }
 
 }  // namespace
-
-// K12. a: (M, K) bf16; w: (K, N) bf16 as stored; out: (M, N) bf16; MB rows per block.
-// Needs K % 32 == 0 and N % 128 == 0. Returns cudaGetLastError().
-extern "C" int gemm_blocked(const void* a, const void* w, void* out, int M, int K, int N, int MB,
-                            cudaStream_t stream) {
-  if (K % G_KC || N % G_NC || MB <= 0) return (int)cudaErrorInvalidValue;
-  const unsigned blocks = (unsigned)((M + MB - 1) / MB);
-  gemm_blocked_kernel<<<blocks, 256, 0, stream>>>(static_cast<const bf16*>(a),
-                                                  static_cast<const bf16*>(w), M, K, N, MB,
-                                                  static_cast<bf16*>(out));
-  return (int)cudaGetLastError();
-}
 
 // K13. x, out: (8, 128) f32; bytes of dynamic shared memory to opt in to and launch with.
 // Returns the error of the refused attribute or launch (and clears it: neither is sticky),

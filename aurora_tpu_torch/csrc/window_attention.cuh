@@ -1,4 +1,4 @@
-// The window-attention body shared by K2, K6 and K7 (window_attention.cu) and by the probe
+// The window-attention body shared by K2 and K6 (window_attention.cu) and by the probe
 // kernels (probes.cu): 144-token windows, head dim 64, one block of 9 warps per window and
 // head. See window_attention.cu for the kernels' notes.
 //
@@ -27,7 +27,7 @@ constexpr int LDV = WN + 8;  // v^T stride
 constexpr size_t SMEM = (size_t)(WN * LDX + 3 * DH * LDX + 2 * WN * LDQ + DH * LDV) * 2 +
                         WN * sizeof(long long) + WN * sizeof(int);
 
-// Forms of the row softmax. F32 is the model's (K2, K6, K7). The other two exist for the
+// Forms of the row softmax. F32 is the model's (K2, K6). The other two exist for the
 // attention probe: NONE hands the scaled logits on as weights; BF16 rounds the logits to
 // bf16 before the scale and keeps every later value (difference to the row maximum,
 // exponential, row sum, quotient) rounded to bf16.
@@ -276,14 +276,13 @@ struct WindowSmem {
   }
 };
 
-// x: token rows of ldx elements (D, or 3D when PACKED); attn: D-wide rows, the same row
-// numbering. Cp > 0: 5D tokens (B, Cp, Hp, Wp, .) with windows (ws0, ws1, ws2) in place;
-// Cp == 0: partitioned windows, row = window * 144 + token.
-template <bool PACKED>
+// x and attn: D-wide token rows, the same row numbering. Cp > 0: 5D tokens
+// (B, Cp, Hp, Wp, .) with windows (ws0, ws1, ws2) in place; Cp == 0: partitioned windows,
+// row = window * 144 + token.
 __global__ void __launch_bounds__(THREADS) window_attn_kernel(
-    const bf16* __restrict__ x, int ldx, const bf16* __restrict__ wt,
-    const bf16* __restrict__ bqkv, const int* __restrict__ groups, int nW, int Cp, int Hp, int Wp,
-    int D, int ws0, int ws1, int ws2, bf16* __restrict__ attn) {
+    const bf16* __restrict__ x, const bf16* __restrict__ wt, const bf16* __restrict__ bqkv,
+    const int* __restrict__ groups, int nW, int Cp, int Hp, int Wp, int D, int ws0, int ws1,
+    int ws2, bf16* __restrict__ attn) {
   extern __shared__ __align__(16) unsigned char smem[];
   const WindowSmem sm(smem);
 
@@ -297,38 +296,20 @@ __global__ void __launch_bounds__(THREADS) window_attn_kernel(
   }
   __syncthreads();
 
-  if constexpr (PACKED) {
-    // q, k and v of this head straight from the packed rows, 8 features per load.
-    for (int i = tid; i < WN * 3 * (DH / 8); i += THREADS) {
-      const int t = i / (3 * (DH / 8)), part = (i / (DH / 8)) % 3, d = (i % (DH / 8)) * 8;
-      const uint4 v =
-          *reinterpret_cast<const uint4*>(x + sm.rowid[t] * ldx + part * D + head * DH + d);
-      if (part < 2) {
-        *reinterpret_cast<uint4*>((part == 0 ? sm.Qs : sm.Ks) + t * LDQ + d) = v;
-      } else {
-        const bf16* e = reinterpret_cast<const bf16*>(&v);
-#pragma unroll
-        for (int j = 0; j < 8; ++j) sm.Vt[(d + j) * LDV + t] = e[j];
-      }
-    }
-  } else {
-    project_qkv(x, ldx, wt, bqkv, sm.rowid, D, head, tid, lane, warp, sm.Xs, sm.Ws, sm.Qs, sm.Ks,
-                sm.Vt);
-  }
+  project_qkv(x, D, wt, bqkv, sm.rowid, D, head, tid, lane, warp, sm.Xs, sm.Ws, sm.Qs, sm.Ks,
+              sm.Vt);
   __syncthreads();
   attend_store<SOFTMAX_F32>(sm.Qs, sm.Ks, sm.Vt, groups ? sm.gs : nullptr, sm.rowid, D,
                             head * DH, attn, warp, lane);
 }
 
-template <bool PACKED>
-int launch_attn(const void* x, int ldx, const void* wqkv_t, const void* bqkv, const int* groups,
-                void* attn, int B, int nW, int Cp, int Hp, int Wp, int D, int ws0, int ws1,
-                int ws2, int heads, cudaStream_t stream) {
+inline int launch_attn(const void* x, const void* wqkv_t, const void* bqkv, const int* groups,
+                       void* attn, int B, int nW, int Cp, int Hp, int Wp, int D, int ws0, int ws1,
+                       int ws2, int heads, cudaStream_t stream) {
   if (D != heads * DH || D % KC || (long long)B * nW > 65535) return (int)cudaErrorInvalidValue;
-  cudaFuncSetAttribute(window_attn_kernel<PACKED>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)SMEM);
-  window_attn_kernel<PACKED><<<dim3(heads, B * nW), THREADS, SMEM, stream>>>(
-      static_cast<const bf16*>(x), ldx, static_cast<const bf16*>(wqkv_t),
+  cudaFuncSetAttribute(window_attn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM);
+  window_attn_kernel<<<dim3(heads, B * nW), THREADS, SMEM, stream>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(wqkv_t),
       static_cast<const bf16*>(bqkv), groups, nW, Cp, Hp, Wp, D, ws0, ws1, ws2,
       static_cast<bf16*>(attn));
   return (int)cudaGetLastError();

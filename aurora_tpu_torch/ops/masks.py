@@ -79,17 +79,31 @@ def window_group_ids(
     Cp, Hp, Wp = img.shape
     img = img.reshape(Cp // ws[0], ws[0], Hp // ws[1], ws[1], Wp // ws[2], ws[2])
     img = img.transpose(0, 2, 4, 1, 3, 5)  # (C1, H1, W1, wc, wh, ww)
-    return np.ascontiguousarray(img.reshape(-1, ws[0] * ws[1] * ws[2]))
+    ids = np.ascontiguousarray(img.reshape(-1, ws[0] * ws[1] * ws[2]))
+    ids.flags.writeable = False  # shared by every caller of this geometry
+    return ids
 
 
 _device_ids: dict = {}
+_by_identity: dict = {}
 
 
 def group_ids_tensor(groups: np.ndarray, device) -> torch.Tensor:
-    """The ``(nW, N)`` int32 ids as a tensor on ``device``, cached per geometry."""
+    """The ``(nW, N)`` int32 ids as a tensor on ``device``, cached per geometry.
+
+    A read-only array (as :func:`window_group_ids` returns) is found again by identity, so
+    a launch does not hash a megabyte of ids on the host; any other array by its bytes.
+    """
+    frozen = not groups.flags.writeable
+    if frozen:
+        hit = _by_identity.get((id(groups), str(device)))
+        if hit is not None and hit[0] is groups:
+            return hit[1]
     key = (groups.tobytes(), groups.shape, str(device))
     if key not in _device_ids:
-        _device_ids[key] = torch.as_tensor(groups, dtype=torch.int32).to(device)
+        _device_ids[key] = torch.as_tensor(np.array(groups), dtype=torch.int32).to(device)
+    if frozen:
+        _by_identity[id(groups), str(device)] = (groups, _device_ids[key])
     return _device_ids[key]
 
 

@@ -2,7 +2,8 @@
 
 They replace the five Pallas kernels that the JAX package defines inside its tools, each
 with its plain PyTorch version beside it. What a TPU mode meant is given its reading on a
-Hopper card in each wrapper's docstring; the kernels are in ``csrc/probes.cu``.
+Hopper card in each wrapper's docstring; the kernels are in ``csrc/probes.cu``, K12 in
+``csrc/gemm.cu``.
 
 * K9 :func:`mlp_t` replaces ``tools/backbone_ablate.py::make_mlp_t`` (``pl.pallas_call`` at
   ``backbone_ablate.py:457``): the block MLP branch computed feature-major.
@@ -11,7 +12,7 @@ Hopper card in each wrapper's docstring; the kernels are in ``csrc/probes.cu``.
 * K11 :func:`attn5d_direct` replaces ``make_direct(mode)`` (``:877``): window attention whose
   unit of work is a strip of windows of the 5D tokens, gathered on chip.
 * K12 :func:`gemm_blocked` replaces ``tools/gemm_probe.py::pallas_gemm`` (``:102``): a
-  hand-blocked GEMM with a swept row block.
+  hand-blocked GEMM with a swept row block, here a persistent TMA + ``wgmma`` pipeline.
 * K13 :func:`smem_probe` replaces ``tools/vmem_probe.py::try_size`` (``:26``): a trivial
   kernel with a swept fast-memory scratch.
 
@@ -44,8 +45,11 @@ __all__ = [
     "attn5d_direct_plain",
     "attn_probe",
     "attn_probe_plain",
+    "GEMM_TILE",
     "gemm_blocked",
     "gemm_blocked_plain",
+    "gemm_blocked_schedule",
+    "gemm_blocked_unit",
     "mlp_t",
     "mlp_t_plain",
     "smem_optin_bytes",
@@ -69,30 +73,78 @@ def gemm_blocked_plain(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return (a.to(acc) @ w.to(acc)).to(a.dtype)
 
 
+GEMM_TILE = (64, 256, 64)  # rows of a piece, columns and K step of a tile (csrc/gemm.cu)
+
+
+def gemm_blocked_schedule(M: int, K: int, N: int, MB: int) -> tuple[int, int, int]:
+    """``(pieces_per_block, n_tiles, units)`` of the K12 kernel for ``(M, K) @ (K, N)`` under
+    the row block ``MB``, or ``ValueError`` naming the shape.
+
+    Each of the ``M / MB`` row blocks is cut into ``ceil(MB / 64)`` pieces of 64 rows, the
+    last one ragged. The pieces of all row blocks, in order, are paired into tiles (one
+    piece for each consumer warpgroup); a unit is one tile under one of the ``N / 256``
+    column tiles. The kernel takes ``K`` a multiple of 64 and ``N`` of 256.
+    """
+    rows, bn, bk = GEMM_TILE
+    if min(M, K, N, MB) <= 0 or M % MB:
+        raise ValueError(f"gemm_blocked: the row block MB={MB} must divide M={M} (K={K}, N={N})")
+    if K % bk or N % bn:
+        raise ValueError(
+            f"gemm_blocked kernel: needs K % {bk} == 0 and N % {bn} == 0; got ({M}, {K}) @ "
+            f"({K}, {N})"
+        )
+    pieces_per_block = -(-MB // rows)
+    pieces = (M // MB) * pieces_per_block
+    units = -(-pieces // 2) * (N // bn)
+    if max(pieces, units) >= 2**31:
+        raise ValueError(f"gemm_blocked kernel: {units} units for ({M}, {K}) @ ({K}, {N}), MB={MB}")
+    return pieces_per_block, N // bn, units
+
+
+def gemm_blocked_unit(u: int, M: int, MB: int, pieces_per_block: int, n_tiles: int):
+    """Unit ``u`` of the schedule as the kernel decodes it: the ``(first row, rows, first
+    column, columns)`` rectangles of the output it writes, one for each of its pieces (the
+    last tile of an odd number of pieces has one). Column tiles run fastest, so the column
+    tiles of one tile are neighbours in time and ``a`` is read from device memory once."""
+    rows, bn, _ = GEMM_TILE
+    tile, n = divmod(u, n_tiles)
+    out = []
+    for p in (2 * tile, 2 * tile + 1):
+        if p < (M // MB) * pieces_per_block:
+            block, t = divmod(p, pieces_per_block)
+            out.append((block * MB + t * rows, min(rows, MB - t * rows), n * bn, bn))
+    return out
+
+
 def gemm_blocked(a: torch.Tensor, w: torch.Tensor, MB: int) -> torch.Tensor:
     """``round_bf16(a @ w)`` for ``a: (M, K)``, ``w: (K, N)`` as stored, f32 accumulation.
 
-    ``MB`` is the row block. The TPU kernel held ``MB`` rows with whole K and N in VMEM;
-    whole K and N do not fit a block's 227 KB of shared memory at K = 2048, so here ``MB``
-    is the number of rows one block walks, in 64-row tiles, with N in chunks of 128 and K
-    in steps of 32 through shared memory. ``M`` must be a multiple of ``MB``.
+    ``MB`` is the row block and must divide ``M``. The TPU kernel held ``MB`` rows with whole
+    K and N in VMEM per step of a sequential grid. On the card it is the unit of the
+    schedule (:func:`gemm_blocked_schedule`): every row block is cut into 64-row pieces,
+    pairs of pieces form tiles, and the (tile, column tile) units are dealt to one
+    persistent block per SM, so ``MB`` sets where the ragged pieces fall and not how many
+    SMs work. The kernel is a TMA + ``wgmma`` pipeline (``csrc/gemm.cu`` on
+    ``csrc/gemm_sm90.cuh``) that reads ``w`` as stored; a row's sum runs over K in one
+    order, so the result is the same bits for every ``MB``.
 
     CPU tensors take :func:`gemm_blocked_plain`; CUDA tensors launch the kernel, which takes
-    bf16 with K a multiple of 32 and N of 128.
+    bf16 with K a multiple of 64 and N of 256 and raises for other shapes.
     """
-    M, K = a.shape
-    N = w.shape[1]
-    if tuple(w.shape) != (K, N) or MB <= 0 or M % MB:
+    if a.dim() != 2 or w.dim() != 2 or w.shape[0] != a.shape[1]:
+        raise ValueError(f"gemm_blocked: a {tuple(a.shape)}, w {tuple(w.shape)}, MB={MB}")
+    (M, K), N = a.shape, w.shape[1]
+    if MB <= 0 or M % MB:
         raise ValueError(f"gemm_blocked: a {tuple(a.shape)}, w {tuple(w.shape)}, MB={MB}")
     if a.device.type == "cpu":
         return gemm_blocked_plain(a, w)
     _lib.require(a, "a", torch.bfloat16)
     _lib.require(w, "w", torch.bfloat16, (K, N))
-    if K % 32 or N % 128:
-        raise ValueError(f"gemm_blocked kernel: needs K % 32 == 0, N % 128 == 0; got {K}, {N}")
+    pieces_per_block, _, units = gemm_blocked_schedule(M, K, N, MB)
     out = torch.empty(M, N, device=a.device, dtype=torch.bfloat16)
-    fn = _lib.kernel("probes", "gemm_blocked", [_P] * 3 + [_I] * 4 + [_P])
-    err = fn(a.data_ptr(), w.data_ptr(), out.data_ptr(), M, K, N, MB, _lib.stream(a))
+    fn = _lib.kernel("gemm", "gemm_blocked", [_P] * 3 + [_I] * 6 + [_P])
+    err = fn(a.data_ptr(), w.data_ptr(), out.data_ptr(), M, K, N, MB, pieces_per_block, units,
+             _lib.stream(a))
     _lib.check(err, "gemm_blocked")
     _lib.LAUNCHES["gemm_blocked"] += 1
     return out

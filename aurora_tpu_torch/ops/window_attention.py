@@ -25,8 +25,8 @@ output is returned, before proj.
 Kernel (``csrc/window_attention.cu``), one or two launches behind each wrapper:
 
 (a) one block of 9 warps per (window, head). K2 and K6 stream the window's rows through the
-    ``(D, 3 dh)`` weight slice of its head on bf16 ``mma.sync`` tiles; K7 reads the head's
-    q, k and v from the packed rows. q, k and v (144 x 64 each) stay in shared memory; the
+    ``(D, 3 dh)`` weight slice of its head on bf16 ``mma.sync`` tiles. q, k and v (144 x 64
+    each) stay in shared memory; the
     logits of 16 query rows per warp are computed in registers with the mask formed from
     the ``(nW, N)`` group ids, an f32 softmax, and ``w @ v``, and the head's slice of the
     attention output is written. The qkv tensor and the logits never reach device memory.
@@ -37,6 +37,11 @@ Kernel (``csrc/window_attention.cu``), one or two launches behind each wrapper:
 The attention output (D wide) makes one round trip through device memory between the two;
 removing it is the first redesign item. Bound on the card: operations (qkv, logits, w@v
 and proj in bf16 at 989 TF/s).
+
+K7 is a kernel of its own (``csrc/sdpa.cu`` on ``csrc/attention_core.cuh``), bound by bytes:
+persistent blocks, two to an SM, walk runs of (window, head) units through a two-stage ring
+that TMA loads fill while the core of the unit before computes; fragments by ``ldmatrix``,
+the mask as a template parameter kept as bits in registers.
 """
 
 from __future__ import annotations
@@ -62,6 +67,7 @@ __all__ = [
     "window_attention_windowed_plain",
     "sdpa_windows",
     "sdpa_windows_plain",
+    "check_sdpa_windows_shape",
 ]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -158,6 +164,19 @@ def _check_heads(N: int, D: int, num_heads: int, what: str) -> None:
             f"{what} kernel: needs N=144, dh=64, D % 128 == 0; got N={N}, D={D}, "
             f"heads={num_heads}"
         )
+
+
+def check_sdpa_windows_shape(shape: tuple, num_heads: int) -> tuple[int, int, int]:
+    """``(B, nW, D)`` of a packed ``(B, nW, 144, 3D)`` tensor the K7 kernel takes, or
+    ``ValueError`` naming the shape: windows of 144 tokens, ``3D`` packed features with a
+    head dim of 64 and ``D`` a multiple of 128, row and unit counts within 32 bits."""
+    if len(shape) != 4 or shape[3] % 3:
+        raise ValueError(f"sdpa_windows kernel: needs (B, nW, 144, 3D), got {tuple(shape)}")
+    B, nW, N, D3 = shape
+    _check_heads(N, D3 // 3, num_heads, f"sdpa_windows {tuple(shape)}")
+    if B * nW * max(N, num_heads) >= 2**31:
+        raise ValueError(f"sdpa_windows kernel: too many rows or units in {tuple(shape)}")
+    return B, nW, D3 // 3
 
 
 def _group_ids(groups: Optional[np.ndarray], nW: int, device) -> Optional[torch.Tensor]:
@@ -270,17 +289,15 @@ def sdpa_windows(
     :func:`window_attention_tail`.
 
     CPU tensors take :func:`sdpa_windows_plain`; CUDA tensors launch the kernel, which takes
-    bf16 rows, windows of 144 tokens and a head dim of 64.
+    bf16 rows of the shapes :func:`check_sdpa_windows_shape` passes.
     """
     if qkv.device.type == "cpu":
         return sdpa_windows_plain(qkv, groups, num_heads)
-    B, nW, N, D3 = qkv.shape
-    D = D3 // 3
     _lib.require(qkv, "qkv", torch.bfloat16)
-    _check_heads(N, D, num_heads, "sdpa_windows")
+    B, nW, D = check_sdpa_windows_shape(tuple(qkv.shape), num_heads)
     gid = _group_ids(groups, nW, qkv.device)
-    out = qkv.new_empty(B, nW, N, D)
-    fn = _lib.kernel("window_attention", "sdpa_windows", [_P] * 3 + [_I] * 4 + [_P])
+    out = qkv.new_empty(B, nW, 144, D)
+    fn = _lib.kernel("sdpa", "sdpa_windows", [_P] * 3 + [_I] * 4 + [_P])
     err = fn(
         qkv.data_ptr(), None if gid is None else gid.data_ptr(), out.data_ptr(),
         B, nW, D, num_heads, _lib.stream(qkv),

@@ -2,8 +2,8 @@
 
 Counterpart of ``tools/gemm_probe.py``. Its XLA sections are ``torch.matmul`` here (the
 library's time, the yardstick a fused kernel's products have to beat); its Pallas GEMM is
-:func:`aurora_tpu_torch.ops.probes.gemm_blocked`, swept over the row block MB a block
-walks:
+:func:`aurora_tpu_torch.ops.probes.gemm_blocked`, a TMA + ``wgmma`` pipeline swept over the
+row block MB, the unit of its schedule (``blocks`` in a result is the number of row blocks):
 
 1. cuBLAS, output width N in (512, 1024, 2048) at M = 259200, K = 512;
 2. cuBLAS with an f32 output at the proj shape (the cost of the narrower write);

@@ -1,0 +1,143 @@
+"""What holds K12 ``gemm_blocked`` and K7 ``sdpa_windows`` back: each kernel against copies
+of itself with one part switched off, at the shapes the probe tools and the backbone give
+them.
+
+The copies are built from the same sources with a preprocessor switch (``nvcc -D...``) into
+``build/kernels/ablate/`` and called through their C entries; none of them is reachable from
+a wrapper, and all but the ring-depth variants compute wrong results on purpose:
+
+* K12 (``csrc/gemm.cu``): ``no_loads`` (the producer releases stages without a TMA load, so
+  the consumers multiply what the stage holds), ``no_epilogue`` (the product is kept in
+  registers, nothing is stored), both, and a ring of 3 and of 2 stages in place of 4;
+* K7 (``csrc/sdpa.cu``): ``no_core`` (loads, ring and stores only), ``no_loads`` (only the
+  first units are loaded), ``ring_1`` (one stage: no load overlaps a product) and
+  ``mask_every_unit`` (the mask bits rebuilt per unit instead of per window).
+
+Every time is a median of ``--steps`` launches after warm-up (``tools.time_ms``: CUDA
+events, each launch behind a memset that keeps the queue ahead of the host and leaves the
+L2 cold); ``torch.matmul`` is timed the same way beside K12.
+
+Usage: ``python -m aurora_tpu_torch.tools.kernel_ablate [--steps N]`` (needs the card).
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import subprocess
+
+import torch
+
+from aurora_tpu_torch.ops import _lib, probes
+from aurora_tpu_torch.ops.masks import group_ids_tensor, window_group_ids
+from aurora_tpu_torch.tools import card_line, report, resolve_device, result, time_ms
+from aurora_tpu_torch.tools.gemm_probe import FC2, PROJ
+
+GEMM_VARIANTS = {
+    "full": (), "no_loads": ("ABLATE_NO_LOADS",), "no_epilogue": ("ABLATE_NO_EPILOGUE",),
+    "no_loads_no_epilogue": ("ABLATE_NO_LOADS", "ABLATE_NO_EPILOGUE"),
+    "ring_3": ("GEMM_STAGES=3",), "ring_2": ("GEMM_STAGES=2",),
+}
+SDPA_VARIANTS = {
+    "full": (), "no_core": ("ABLATE_NO_CORE",), "no_loads": ("ABLATE_NO_LOADS",),
+    "ring_1": ("SDPA_RING=1",), "mask_every_unit": ("ABLATE_MASK_EVERY_UNIT",),
+}
+STAGES = ((4, 180, 360, 512, 8), (4, 90, 180, 1024, 16), (4, 45, 90, 2048, 32))
+_P, _I = ctypes.c_void_p, ctypes.c_int
+
+
+def build_variants(source: str, variants: dict[str, tuple[str, ...]]) -> dict[str, ctypes.CDLL]:
+    """One ``nvcc`` per variant of ``csrc/<source>.cu``, all started together."""
+    out_dir = _lib.BUILD_DIR / "ablate"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    nvcc = _lib._nvcc()
+    procs = {}
+    for tag, defines in variants.items():
+        so = out_dir / f"lib{source}_{tag}.so"
+        cmd = [nvcc, *_lib.NVCC_FLAGS, *(f"-D{d}" for d in defines), "-I", str(_lib.CSRC),
+               "-o", str(so), str(_lib.CSRC / f"{source}.cu")]
+        procs[tag] = (so, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
+    libs = {}
+    for tag, (so, p) in procs.items():
+        log, _ = p.communicate()
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {source} [{tag}]\n{log.decode(errors='replace')[-4000:]}")
+        libs[tag] = ctypes.CDLL(str(so))
+    return libs
+
+
+def main(argv=None) -> list[dict]:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--device", default=None, help="the card; there is nothing to ablate on the CPU")
+    ap.add_argument("--steps", type=int, default=10)
+    args = ap.parse_args(argv)
+    dev = resolve_device(args.device)
+    if dev.type != "cuda":
+        raise SystemExit("kernel_ablate builds and times CUDA kernels: it needs the card")
+    print(f"device {card_line(dev)}", flush=True)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    bf = torch.bfloat16
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def rn(*shape, std=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev) * std).to(bf)
+
+    def ms(fn) -> float:
+        return time_ms(fn, dev, args.steps)
+
+    out: list[dict] = []
+
+    def emit(label, t, **kw):
+        out.append(report(result(label, t, dev, **kw)))
+
+    gemm = build_variants("gemm", GEMM_VARIANTS)
+    for name, (M, K, N, blocks) in (("proj", PROJ), ("fc2", FC2)):
+        a, w = rn(M, K), rn(K, N, std=0.02)
+        o = torch.empty(M, N, device=dev, dtype=bf)
+        work = dict(flops=2 * M * K * N, nbytes=2 * (M * K + K * N + M * N))
+        emit(f"torch.matmul {name}", ms(lambda: torch.matmul(a, w)), **work)
+        for MB in blocks:
+            if M % MB:
+                continue
+            ppb, _, units = probes.gemm_blocked_schedule(M, K, N, MB)
+            for tag, lib in gemm.items():
+                fn = lib.gemm_blocked
+                fn.argtypes, fn.restype = [_P] * 3 + [_I] * 6 + [_P], _I
+
+                def call(fn=fn):
+                    _lib.check(fn(a.data_ptr(), w.data_ptr(), o.data_ptr(), M, K, N, MB, ppb, units,
+                                  stream), "gemm_blocked variant")
+
+                emit(f"gemm_blocked {name} MB={MB} [{tag}]", ms(call), units=units,
+                     waves=units / torch.cuda.get_device_properties(dev).multi_processor_count,
+                     **work)
+        del a, w, o
+
+    sdpa = build_variants("sdpa", SDPA_VARIANTS)
+    ws, ss = (2, 6, 12), (1, 3, 6)
+    for C, H, W, D, heads in STAGES:
+        Hp, Wp = H + (-H) % ws[1], W + (-W) % ws[2]
+        nW = C * Hp * Wp // 144
+        qkv = rn(1, nW, 144, 3 * D)
+        o = torch.empty(1, nW, 144, D, device=dev, dtype=bf)
+        work = dict(flops=4 * nW * heads * 144 * 144 * 64, nbytes=4 * nW * 144 * D * 2)
+        for groups in (window_group_ids(C, H, W, ws, ss), None):
+            kind = "masked" if groups is not None else "unmasked"
+            gid = None if groups is None else group_ids_tensor(groups, dev)
+            for tag, lib in sdpa.items():
+                if tag == "mask_every_unit" and gid is None:
+                    continue
+                fn = lib.sdpa_windows
+                fn.argtypes, fn.restype = [_P] * 3 + [_I] * 4 + [_P], _I
+
+                def call(fn=fn):
+                    _lib.check(fn(qkv.data_ptr(), None if gid is None else gid.data_ptr(),
+                                  o.data_ptr(), 1, nW, D, heads, stream), "sdpa_windows variant")
+
+                emit(f"sdpa_windows D={D} {kind} [{tag}]", ms(call), **work)
+        del qkv, o
+    return out
+
+
+if __name__ == "__main__":
+    main()

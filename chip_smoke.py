@@ -24,7 +24,12 @@ Phases, each printing one JSON line; any failure raises and the script exits non
    K10-K12 ("rel_ulp"): the same less one bf16 ulp of the output, 6e-3, since one ulp of an
    output in the largest binade is up to 7.8e-3 of the maximum (K11 equals K2 without tail
    bit for bit and is 7.2e-3 from its plain version at stage 3). K11 is also held to K2
-   without tail on the same input;
+   without tail on the same input. K12's outputs under every row block of a shape must be
+   the same bits (all of the tool's row blocks end in a ragged 64-row piece: 2160 = 33 x 64
+   + 48, 3240 = 50 x 64 + 40, 540 = 8 x 64 + 28, 1080 = 16 x 64 + 56; an M = 3240 case per
+   weight shape adds an odd number of pieces, whose last tile has one). K7 at stage 3, whose
+   grid is padded to 48 x 96, must give the real tokens the same bits with garbage in the
+   pad tokens' q, k and v;
 4. end to end, once per route: the main route (``attention_impl``, ``mlp_impl`` auto, auto),
    then W (pallas_windowed, fused), P (pallas, pallas), X (xla, fused) and S (the main
    route with ``stabilise_level_agg=True``: K4 with ``ln_k``).
@@ -78,12 +83,12 @@ SOURCES = {
     "perceiver_core": ("aurora_tpu_torch/csrc/resampler.cu", "aurora_tpu/ops/resampler.py:77"),
     "linear_adaln_residual": ("aurora_tpu_torch/csrc/mlp.cu", "aurora_tpu/ops/mlp.py:539"),
     "window_attention_windowed": (ATTN_SRC, "aurora_tpu/model/swin3d.py:686"),
-    "sdpa_windows": (ATTN_SRC, "aurora_tpu/model/swin3d.py:599"),
+    "sdpa_windows": ("aurora_tpu_torch/csrc/sdpa.cu", "aurora_tpu/model/swin3d.py:599"),
     "mlp_fused": ("aurora_tpu_torch/csrc/mlp.cu", "aurora_tpu/ops/mlp.py:205"),
     "mlp_t": (PROBES_SRC, "tools/backbone_ablate.py:429"),
     "attn_probe": (PROBES_SRC, "tools/backbone_ablate.py:508"),
     "attn5d_direct": (PROBES_SRC, "tools/backbone_ablate.py:818"),
-    "gemm_blocked": (PROBES_SRC, "tools/gemm_probe.py:92"),
+    "gemm_blocked": ("aurora_tpu_torch/csrc/gemm.cu", "tools/gemm_probe.py:92"),
     "smem_probe": (PROBES_SRC, "tools/vmem_probe.py:19"),
 }
 # Launches per forward step of each backbone route, from the code: 48 Swin blocks (stage
@@ -123,30 +128,24 @@ def log(*a) -> None:
     print(*a, file=sys.stderr, flush=True)
 
 
-def cuda_ms(fn, warmup: int = 2) -> float:
+def cuda_ms(fn) -> float:
+    """Median device time of ``fn`` over REPS runs (``tools.time_ms``: CUDA events, each run
+    behind a memset that keeps the queue ahead of the host and leaves the L2 cold)."""
     import torch
 
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(REPS):
-        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        s.record()
-        fn()
-        e.record()
-        e.synchronize()
-        times.append(s.elapsed_time(e))
-    return float(np.median(times))
+    from aurora_tpu_torch.tools import time_ms
+
+    return time_ms(fn, torch.device("cuda", torch.cuda.current_device()), REPS)
 
 
 # ------------------------------------------------------------------------------ kernels
 
 
 def case(name, label, per_step, kernel, plain, bound, check, residual=None, library=None,
-         mode=None, also=None) -> dict:
+         mode=None, also=None, same_bits=None, extra=None) -> dict:
     return dict(name=name, label=label, per_step=per_step, kernel=kernel, plain=plain,
                 bound=bound, check=check, residual=residual, library=library, mode=mode,
-                also=also)
+                also=also, same_bits=same_bits, extra=extra)
 
 
 def kernel_cases():
@@ -154,7 +153,10 @@ def kernel_cases():
     K4: None or "ln_k"), launches per step on the route that runs it (1 per case of a
     tool's sweep), the kernel, its plain version and the library call (callables), the
     check ("exact", "branch" with the residual its output adds a branch to, "rel", or
-    "rel_ulp": "branch" with a zero residual), the bound, and for K11 a second reference (``also``: K2 without tail)."""
+    "rel_ulp": "branch" with a zero residual), the bound, for K11 a second reference
+    (``also``: K2 without tail), for K12 a key (``same_bits``: the outputs of consecutive
+    cases with one key must be the same bits) and for K7 one more check (``extra``: a
+    callable that returns fields for the case's line and raises on failure)."""
     import torch
     import torch.nn.functional as F
 
@@ -247,6 +249,8 @@ def kernel_cases():
                     F.scaled_dot_product_attention(q, k, v, attn_mask=m),
                 check="rel",
                 bound=bound_ms(flops_bf16=4 * nW * heads * N * N * dh, nbytes=4 * M * D * 2),
+                extra=(lambda qkv=qkv, gr=groups, h=heads: pad_tokens_isolated(qkv, gr, h))
+                if groups is not None and (Hp, Wp) != (H, W) else None,
             )
         del xp, xw, qkv, q, k, v
         rows = C * H * W
@@ -315,6 +319,28 @@ def kernel_cases():
     yield from probe_cases(rn)
 
 
+def pad_tokens_isolated(qkv, groups, heads) -> dict:
+    """K7 on a padded grid: garbage in the pad tokens' q, k and v must leave every real
+    token's output the same bits (pad tokens have a group id of their own, the largest)."""
+    import torch
+
+    from aurora_tpu_torch.ops import window_attention
+
+    pad = torch.as_tensor(groups == groups.max(), device=qkv.device)  # (nW, N)
+    if not pad.any() or pad.all():
+        raise AssertionError("pad-token check: the grid has no pad tokens")
+    clean = window_attention.sdpa_windows(qkv, groups, heads)
+    dirty_in = torch.where(pad[None, :, :, None], torch.full_like(qkv, 7.0), qkv)
+    dirty = window_attention.sdpa_windows(dirty_in, groups, heads)
+    torch.cuda.synchronize()
+    real_equal = torch.equal(clean[:, ~pad], dirty[:, ~pad])
+    pad_moved = not torch.equal(clean[:, pad], dirty[:, pad])
+    if not (real_equal and pad_moved):
+        raise AssertionError(f"pad-token check: real tokens bit-equal {real_equal}, pad tokens "
+                             f"changed {pad_moved}")
+    return dict(pad_tokens=int(pad.sum()), real_tokens_bit_equal=True, pad_tokens_changed=True)
+
+
 def probe_cases(rn):
     """The cases of the probe kernels K9-K13, at the shapes the tools sweep."""
     import torch
@@ -375,20 +401,27 @@ def probe_cases(rn):
                            nbytes=2 * nW * N * D * 2 + 3 * D * D * 2),
         )
     del xw
-    # K12: the proj and fc2 shapes under every row block of the tool; cuBLAS beside it.
+    # K12: the proj and fc2 shapes under every row block of the tool; cuBLAS beside it. Then
+    # 3240 rows of each under row blocks that give an odd number of 64-row pieces (51); these
+    # count nothing towards the sweep's sums (per_step 0).
     for name, (M, K, Nn, blocks) in (("proj", PROJ), ("fc2", FC2)):
-        a, w = rn(M, K), rn(K, Nn, std=0.02)
-        for MB in blocks:
-            if M % MB:  # as the tool: 512 and 1024 do not divide 259200
-                continue
-            yield case(
-                "gemm_blocked", f"{name} ({M},{K})x({K},{Nn}) MB {MB}, {M // MB} blocks", 1,
-                kernel=lambda a=a, w=w, MB=MB: probes.gemm_blocked(a, w, MB),
-                plain=lambda a=a, w=w: probes.gemm_blocked_plain(a, w),
-                library=lambda a=a, w=w: torch.matmul(a, w), check="rel_ulp",
-                bound=bound_ms(flops_bf16=2 * M * K * Nn, nbytes=2 * (M * K + K * Nn + M * Nn)),
-            )
-        del a, w
+        for rows, row_blocks, n in ((M, blocks, 1), (3240, (540, 1080, 3240), 0)):
+            a, w = rn(rows, K), rn(K, Nn, std=0.02)
+            for MB in row_blocks:
+                if rows % MB:  # as the tool: 512 and 1024 do not divide 259200
+                    continue
+                pieces = (rows // MB) * -(-MB // 64)
+                yield case(
+                    "gemm_blocked",
+                    f"{name} ({rows},{K})x({K},{Nn}) MB {MB}, {rows // MB} row blocks, {pieces} pieces",
+                    n, kernel=lambda a=a, w=w, MB=MB: probes.gemm_blocked(a, w, MB),
+                    plain=lambda a=a, w=w: probes.gemm_blocked_plain(a, w),
+                    library=lambda a=a, w=w: torch.matmul(a, w), check="rel_ulp",
+                    same_bits=f"{name} {rows}",
+                    bound=bound_ms(flops_bf16=2 * rows * K * Nn,
+                                   nbytes=2 * (rows * K + K * Nn + rows * Nn)),
+                )
+            del a, w
     # K13 with the largest scratch of the tool's sweep that the card's opt-in maximum allows.
     x = rn(8, 128, dtype=f32)
     nbytes = max(k * 1024 for k in SWEEP_KIB if k * 1024 <= probes.smem_optin_bytes())
@@ -433,6 +466,7 @@ def run_kernel_phases() -> dict:
     from aurora_tpu_torch.tools import branch_err, rel_err
 
     summary: dict = {}
+    bits_key, bits_ref = None, None  # the output the next cases of one key must equal
     for case in kernel_cases():
         name = case["name"]
         got = case["kernel"]()
@@ -459,19 +493,30 @@ def run_kernel_phases() -> dict:
         if case["also"] is not None:
             vs_also = branch_err(got, case["also"](), torch.zeros((), device=got.device))[1]
             ok = ok and vs_also <= TOL[name]
+        more = {}
+        if case["same_bits"] != bits_key:
+            bits_key, bits_ref = case["same_bits"], (got if case["same_bits"] else None)
+        elif bits_key is not None:
+            more["same_bits_as_first_row_block"] = torch.equal(got, bits_ref)
+            ok = ok and more["same_bits_as_first_row_block"]
+        if case["extra"] is not None:
+            more.update(case["extra"]())
         del got, want
         ms = cuda_ms(case["kernel"])
         plain_ms = cuda_ms(case["plain"])
         lib_ms = cuda_ms(case["library"]) if case["library"] else None
         b, by = case["bound"]
+        more["of_bound"] = b / ms
+        if lib_ms is not None:
+            more["vs_library"] = ms / lib_ms
         emit(dict(phase="kernel", kernel=name, mode=case["mode"], shape=case["label"],
                   ok=bool(ok), max_abs_err=err, rel_err=rel, check=case["check"],
                   tol=TOL[name], ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b,
-                  bound_by=by, per_step=case["per_step"],
+                  bound_by=by, per_step=case["per_step"], **more,
                   **({} if vs_also is None else {"vs_k2_no_tail": vs_also})))
         if not ok:
             raise AssertionError(f"{name} {case['label']}: max abs err {err}, relative error "
-                                 f"{rel} (bound {TOL[name]})")
+                                 f"{rel} (bound {TOL[name]}) {more}")
         s = summary.setdefault((name, case["mode"]), _totals())
         n = case["per_step"]
         s["max_abs_err"] = max(s["max_abs_err"], err)

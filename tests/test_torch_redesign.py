@@ -1,0 +1,198 @@
+"""The redesigned K12 ``gemm_blocked`` and K7 ``sdpa_windows`` on the CPU: what can be held
+here without the card.
+
+* The library calls that ``chip_smoke.py`` times beside the two kernels compute the kernels'
+  functions: ``F.scaled_dot_product_attention`` with the 0 / -100 mask equals
+  ``sdpa_windows_plain``, ``torch.matmul`` equals ``gemm_blocked_plain`` (f32: 1e-5 of the
+  largest value, accumulation order; bf16: one rounding of the same f32 sums, exact).
+* The host side of K12's schedule covers every output element exactly once, for the probe
+  tool's shapes and for small ragged ones, and the row block changes no bit of the result.
+* The shape rules of the two wrappers, as pure functions.
+* The port names no fused attention operator, and the CUDA branches of the two wrappers
+  reach no library product.
+"""
+
+import ast
+import inspect
+import pathlib
+
+import numpy as np
+import pytest
+import torch
+import torch.nn.functional as F
+
+import aurora_tpu_torch
+from aurora_tpu_torch.ops import probes, window_attention
+from aurora_tpu_torch.ops.masks import bias_from_groups, window_group_ids
+from aurora_tpu_torch.tools.gemm_probe import FC2, PROJ
+
+TOOL_CASES = [(M, K, N, MB) for M, K, N, blocks in (PROJ, FC2) for MB in blocks if M % MB == 0]
+SMALL_CASES = [(192, 64, 256, 192), (192, 64, 256, 96), (192, 64, 256, 32), (1000, 128, 512, 40),
+               (1000, 128, 512, 200), (3240, 64, 256, 1080), (90, 64, 256, 30), (7, 64, 256, 7)]
+
+
+# ------------------------------------------------------------------------------ yardsticks
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_sdpa_library_call_is_the_function_of_k7(masked):
+    ws, ss = (1, 2, 4), (0, 1, 2)
+    groups = window_group_ids(1, 3, 6, ws, ss)  # pads H 3 -> 4: pad tokens take part
+    nW, N = groups.shape
+    heads, dh = 2, 8
+    qkv = torch.from_numpy(np.random.default_rng(0).standard_normal((1, nW, N, 3 * heads * dh))).float()
+    want = window_attention.sdpa_windows_plain(qkv, groups if masked else None, heads)
+    q, k, v = qkv.view(nW, N, 3, heads, dh).permute(2, 0, 3, 1, 4).unbind(0)
+    mask = bias_from_groups(torch.from_numpy(groups.copy()), torch.float32)[:, None] if masked else None
+    got = F.scaled_dot_product_attention(q, k, v, attn_mask=mask)  # (nW, heads, N, dh)
+    got = got.permute(0, 2, 1, 3).reshape(1, nW, N, heads * dh)
+    assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_matmul_is_the_function_of_k12(dtype):
+    rng = np.random.default_rng(1)
+    a = torch.from_numpy(rng.standard_normal((96, 64))).float().to(dtype)
+    w = torch.from_numpy(0.1 * rng.standard_normal((64, 256))).float().to(dtype)
+    got, want = torch.matmul(a, w), probes.gemm_blocked_plain(a, w)
+    assert got.dtype == want.dtype
+    if dtype == torch.float32:
+        assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+    else:
+        # Both round one f32 sum per element; sums in another order may round one ulp apart.
+        assert (got.float() - want.float()).abs().max().item() <= 2**-7 * want.float().abs().max().item()
+
+
+# ------------------------------------------------------------------------------ K12 schedule
+
+
+def _cover(M, K, N, MB):
+    """Times each (row, column tile) is written under the schedule, and the units."""
+    ppb, n_tiles, units = probes.gemm_blocked_schedule(M, K, N, MB)
+    rows, bn, _ = probes.GEMM_TILE
+    count = np.zeros((M, n_tiles), np.int32)
+    for u in range(units):
+        rects = probes.gemm_blocked_unit(u, M, MB, ppb, n_tiles)
+        assert 1 <= len(rects) <= 2
+        for r0, nr, c0, nc in rects:
+            assert nc == bn and c0 % bn == 0 and 0 < nr <= rows
+            assert r0 // MB == (r0 + nr - 1) // MB, "a piece stays inside its row block"
+            assert (r0 % MB) % rows == 0
+            count[r0:r0 + nr, c0 // bn] += 1
+    return count, units
+
+
+@pytest.mark.parametrize("M,K,N,MB", TOOL_CASES + SMALL_CASES)
+def test_gemm_schedule_covers_every_element_once(M, K, N, MB):
+    count, units = _cover(M, K, N, MB)
+    assert count.min() == 1 and count.max() == 1
+    pieces = (M // MB) * -(-MB // 64)
+    assert units == -(-pieces // 2) * (N // 256)
+
+
+def test_gemm_schedule_keeps_column_tiles_of_a_tile_together():
+    """Column tiles run fastest: units 2t and 2t + 1 are the two column tiles of tile t, so
+    blocks that run side by side read the same rows of ``a``."""
+    M, K, N, MB = 2160 * 4, 512, 512, 2160
+    ppb, n_tiles, units = probes.gemm_blocked_schedule(M, K, N, MB)
+    assert n_tiles == 2
+    for u in range(0, units, n_tiles):
+        first, other = (probes.gemm_blocked_unit(u + n, M, MB, ppb, n_tiles) for n in range(2))
+        assert [r[:2] for r in other] == [r[:2] for r in first]
+        assert {r[2] for r in first} == {0} and {r[2] for r in other} == {256}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gemm_blocked_same_bits_for_every_row_block(dtype):
+    rng = np.random.default_rng(2)
+    a = torch.from_numpy(rng.standard_normal((240, 64))).float().to(dtype)
+    w = torch.from_numpy(0.1 * rng.standard_normal((64, 256))).float().to(dtype)
+    outs = [probes.gemm_blocked(a, w, MB) for MB in (240, 120, 80, 48, 30, 1)]
+    assert all(torch.equal(outs[0], o) for o in outs[1:])
+    assert torch.equal(outs[0], probes.gemm_blocked_plain(a, w))
+    for MB in (0, -8, 7, 241, 100):
+        with pytest.raises(ValueError, match="MB"):
+            probes.gemm_blocked(a, w, MB)
+
+
+# ------------------------------------------------------------------------------ shape rules
+
+
+@pytest.mark.parametrize("M,K,N,MB,word", [
+    (96, 32, 256, 32, "K % 64"), (96, 96, 256, 32, "K % 64"), (96, 64, 128, 32, "N % 256"),
+    (96, 64, 384, 32, "N % 256"), (96, 64, 256, 40, "MB=40"), (96, 64, 256, 0, "MB=0"),
+    (0, 64, 256, 32, "M=0"),
+])
+def test_gemm_schedule_refuses_other_shapes(M, K, N, MB, word):
+    with pytest.raises(ValueError) as e:
+        probes.gemm_blocked_schedule(M, K, N, MB)
+    msg = str(e.value)
+    assert word.split(" ")[0].rstrip("=0123456789") in msg and str(K) in msg and str(N) in msg
+
+
+@pytest.mark.parametrize("M,K,N,MB", TOOL_CASES)
+def test_gemm_schedule_takes_the_tools_shapes(M, K, N, MB):
+    ppb, n_tiles, units = probes.gemm_blocked_schedule(M, K, N, MB)
+    assert (ppb, n_tiles) == (-(-MB // 64), N // 256) and units > 0
+    assert MB % 64, "every row block of the tool ends in a ragged piece"
+
+
+@pytest.mark.parametrize("shape,heads", [
+    ((1, 4, 144, 3 * 512), 8), ((2, 1800, 144, 3 * 512), 8), ((1, 128, 144, 3 * 2048), 32),
+])
+def test_sdpa_shape_rule_takes_the_backbones_shapes(shape, heads):
+    assert window_attention.check_sdpa_windows_shape(shape, heads) == (shape[0], shape[1], shape[3] // 3)
+
+
+@pytest.mark.parametrize("shape,heads", [
+    ((1, 4, 128, 3 * 512), 8),      # windows of 128 tokens
+    ((1, 4, 144, 3 * 512), 16),     # head dim 32
+    ((1, 4, 144, 3 * 64), 1),       # D = 64: not a multiple of 128
+    ((1, 4, 144, 3 * 512 + 1), 8),  # not 3D features
+    ((4, 144, 3 * 512), 8),         # no batch dimension
+    ((4096, 4096, 144, 3 * 512), 8),  # more rows than 32 bits count
+])
+def test_sdpa_shape_rule_refuses_other_shapes(shape, heads):
+    with pytest.raises(ValueError) as e:
+        window_attention.check_sdpa_windows_shape(shape, heads)
+    assert str(shape[-1]) in str(e.value) or str(shape[-1] // 3) in str(e.value)
+
+
+# ------------------------------------------------------------------------------ sources
+
+PORT = pathlib.Path(aurora_tpu_torch.__file__).resolve().parent
+
+
+def test_port_names_no_fused_attention_operator():
+    hits = [str(p.relative_to(PORT)) for p in sorted(PORT.rglob("*.py"))
+            if "scaled_dot_product_attention" in p.read_text()]
+    assert hits == []
+
+
+def _cuda_branch(fn):
+    """The statements of ``fn`` after its ``if <tensor>.device.type == "cpu": return ...``."""
+    body = ast.parse(inspect.getsource(fn)).body[0].body
+    for i, node in enumerate(body):
+        if isinstance(node, ast.If) and 'device.type == "cpu"' in ast.unparse(node.test).replace("'", '"'):
+            assert isinstance(node.body[-1], ast.Return) and not node.orelse
+            return body[i + 1:]
+    raise AssertionError(f"{fn.__name__}: no CPU branch found")
+
+
+@pytest.mark.parametrize("fn", [probes.gemm_blocked, window_attention.sdpa_windows],
+                         ids=["gemm_blocked", "sdpa_windows"])
+def test_cuda_branch_reaches_no_library_product(fn):
+    branch = _cuda_branch(fn)
+    assert branch, "the CUDA branch launches the kernel"
+    names = set()
+    for stmt in branch:
+        for node in ast.walk(stmt):
+            assert not (isinstance(node, ast.BinOp) and isinstance(node.op, ast.MatMult))
+            if isinstance(node, ast.Attribute):
+                names.add(node.attr)
+            elif isinstance(node, ast.Name):
+                names.add(node.id)
+    banned = {"matmul", "mm", "bmm", "einsum", "addmm", "linear", "softmax", "t", "transpose",
+              "gemm_blocked_plain", "sdpa_windows_plain"}
+    assert not names & banned, names & banned
+    assert "kernel" in names and "LAUNCHES" in names
