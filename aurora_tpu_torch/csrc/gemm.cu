@@ -45,8 +45,7 @@ namespace {
 #define GEMM_STAGES 4
 #endif
 using Ring = sm90::GemmRing<GEMM_STAGES>;
-constexpr int OUT_WARP_BYTES = 16 * 128;  // a warp's 16 rows x 64 columns of bf16
-constexpr int OUT_BYTES = Ring::CONSUMER_WARPS * OUT_WARP_BYTES;
+constexpr int OUT_BYTES = Ring::CONSUMER_WARPS * Ring::OUT_WARP_BYTES;
 constexpr int GEMM_THREADS = 384;                 // consumers 0-255, producer warpgroup 256-383
 constexpr size_t GEMM_SMEM = 1024 + Ring::STAGES * Ring::STAGE_BYTES + OUT_BYTES + Ring::BAR_BYTES;
 
@@ -87,12 +86,8 @@ __global__ void __launch_bounds__(GEMM_THREADS, 1) gemm_blocked_kernel(
   } else {
     sm90::reg_alloc<232>();
     const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
-    const int gq = lane >> 2, tq = lane & 3;
-    // The warp's staging rows (16 x 128 bytes, swizzled as a TMA box would be): where this
-    // thread writes its accumulators' rows gq and gq + 8, and where it reads 16-byte pieces.
-    unsigned char* mine = raw + (staging - raw_addr) + (tid >> 5) * OUT_WARP_BYTES;
-    unsigned char* put = mine + gq * 128 + tq * 4;
-    const int get_row = lane >> 3, get_chunk = lane & 7;
+    // The warp's staging rows (16 x 128 bytes, swizzled as a TMA box would be).
+    unsigned char* mine = raw + (staging - raw_addr) + (tid >> 5) * Ring::OUT_WARP_BYTES;
     Ring::Pos pos;
     float acc[128];
     for (int u = blockIdx.x; u < units; u += gridDim.x) {
@@ -104,25 +99,8 @@ __global__ void __launch_bounds__(GEMM_THREADS, 1) gemm_blocked_kernel(
 #endif
       if (p >= pieces) continue;
       const int row0 = (p % pieces_per_block) * 64 + warp * 16;  // the warp's first row in its block
-      bf16* dst = out + ((long long)(p / pieces_per_block) * MB + row0) * N + n0 + get_chunk * 8;
-#pragma unroll
-      for (int c = 0; c < Ring::BN / 64; ++c) {
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const int i = 4 * (8 * c + j);  // the accumulators of n8 tile 8c + j
-          unsigned char* at = put + ((j ^ gq) << 4);
-          *reinterpret_cast<uint32_t*>(at) = pack_bf16x2(acc[i], acc[i + 1]);
-          *reinterpret_cast<uint32_t*>(at + 8 * 128) = pack_bf16x2(acc[i + 2], acc[i + 3]);
-        }
-        __syncwarp();
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int r = 4 * i + get_row;
-          const uint4 v = *reinterpret_cast<const uint4*>(mine + sm90::swz128(r, get_chunk));
-          if (row0 + r < MB) *reinterpret_cast<uint4*>(dst + (long long)r * N + 64 * c) = v;
-        }
-        __syncwarp();
-      }
+      bf16* dst = out + ((long long)(p / pieces_per_block) * MB + row0) * N + n0;
+      Ring::store_warp_tile(acc, mine, dst, N, MB - row0, lane);
     }
   }
 }
@@ -142,28 +120,16 @@ extern "C" int gemm_blocked(const void* a, const void* w, void* out, int M, int 
   const long long pieces = (long long)(M / MB) * pieces_per_block;
   if (pieces > 0x7fffffffLL || (long long)units != (pieces + 1) / 2 * (N / Ring::BN))
     return (int)cudaErrorInvalidValue;
-  const uint64_t blocks = (uint64_t)(M / MB);
-  const uint32_t box_rows = MB < 64 ? MB : 64;
   CUtensorMap map_a, map_w;
   cudaError_t e;
-  {
-    const uint64_t dims[3] = {(uint64_t)K, (uint64_t)MB, blocks};
-    const uint64_t strides[2] = {(uint64_t)K * 2, (uint64_t)MB * K * 2};
-    const uint32_t box[3] = {Ring::BK, box_rows, 1};
-    if ((e = sm90::make_map_bf16(&map_a, a, 3, dims, strides, box)) != cudaSuccess) return (int)e;
-  }
-  {
-    const uint64_t dims[2] = {(uint64_t)N, (uint64_t)K};
-    const uint64_t strides[1] = {(uint64_t)N * 2};
-    const uint32_t box[2] = {64, Ring::BK};
-    if ((e = sm90::make_map_bf16(&map_w, w, 2, dims, strides, box)) != cudaSuccess) return (int)e;
-  }
+  if ((e = Ring::make_map_a(&map_a, a, M, K, MB)) != cudaSuccess) return (int)e;
+  if ((e = Ring::make_map_w(&map_w, w, K, N)) != cudaSuccess) return (int)e;
   const int sms = sm90::sm_count();
   if (sms <= 0) return (int)cudaErrorUnknown;
   cudaFuncSetAttribute(gemm_blocked_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        (int)GEMM_SMEM);
   gemm_blocked_kernel<<<units < sms ? units : sms, GEMM_THREADS, GEMM_SMEM, stream>>>(
       map_a, map_w, static_cast<bf16*>(out), MB, N, pieces_per_block, (int)pieces, N / Ring::BN, units, K / Ring::BK,
-      box_rows * Ring::BK * 2);
+      Ring::a_box_bytes(MB));
   return (int)cudaGetLastError();
 }

@@ -1,7 +1,8 @@
 // A bf16 GEMM mainloop for Hopper: a ring of shared-memory stages that one producer thread
 // fills by TMA and that consumer warpgroups multiply with wgmma, f32 sums in registers.
-// A kernel puts its own tile walk and epilogue around it (gemm.cu is the first; the fused
-// MLP, projection and attention kernels are meant to take it with their epilogues).
+// A kernel puts its own tile walk and epilogue around it: gemm.cu (K12) and mlp.cu (K3, K8:
+// two products with a GELU and a LayerNorm-statistics epilogue); the fused projection and
+// attention kernels are meant to take it with their epilogues.
 //
 // The tile of one block is 2 x 64 rows x BN columns, K in steps of 64:
 //   A  (rows x K, K contiguous): two TMA boxes of 64 k x 64 rows per stage, one for each
@@ -29,6 +30,7 @@
 // flight: the group of step k is committed before the group of step k - 1 is waited for.
 #pragma once
 
+#include "common.cuh"
 #include "tma_sm90.cuh"
 
 namespace sm90 {
@@ -189,6 +191,24 @@ struct GemmRing {
     }
   }
 
+  // Consumer warpgroup wg (0 or 1), all 128 threads: the four wgmma of the stage at `pos`
+  // into acc (the warpgroup's 64 x 256 part of the tile), committed as one group and not
+  // waited for. `accumulate` is 0 for a tile's first stage. The caller advances `pos`,
+  // waits for the group and releases the stage; between this and the wait it may do work
+  // that leaves acc alone (mlp.cu runs the previous tile's GELU there).
+  __device__ static void consume_step(float (&acc)[128], uint32_t tiles, uint32_t bars,
+                                      const Pos& pos, int wg, int accumulate) {
+    mbar_wait(full(bars, pos.stage), pos.phase);
+    const uint32_t a = tiles + pos.stage * STAGE_BYTES + wg * A_BOX_BYTES;
+    const uint32_t b = tiles + pos.stage * STAGE_BYTES + A_BYTES;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      wgmma_m64n256k16(acc, desc_sw128(a + kk * 32, 16, 1024),
+                       desc_sw128(b + kk * 2048, B_BOX_BYTES, 1024), accumulate | kk);
+    wgmma_commit();
+  }
+
   // Consumer warpgroup wg (0 or 1), all 128 threads: acc = the warpgroup's 64 x 256 part of
   // the tile's product over k_steps stages. On return every wgmma has completed and every
   // stage is released. `elected`: one lane per warp (it makes the warp's arrivals).
@@ -196,15 +216,7 @@ struct GemmRing {
                                       int k_steps, int wg, bool elected) {
     int prev = -1;
     for (int ks = 0; ks < k_steps; ++ks) {
-      mbar_wait(full(bars, pos.stage), pos.phase);
-      const uint32_t a = tiles + pos.stage * STAGE_BYTES + wg * A_BOX_BYTES;
-      const uint32_t b = tiles + pos.stage * STAGE_BYTES + A_BYTES;
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk)
-        wgmma_m64n256k16(acc, desc_sw128(a + kk * 32, 16, 1024),
-                         desc_sw128(b + kk * 2048, B_BOX_BYTES, 1024), (ks | kk) != 0);
-      wgmma_commit();
+      consume_step(acc, tiles, bars, pos, wg, ks);
       if (prev >= 0) {
         wgmma_wait<1>();
         if (elected) mbar_arrive(empty(bars, prev));
@@ -215,6 +227,56 @@ struct GemmRing {
     wgmma_wait<0>();
     if (elected && prev >= 0) mbar_arrive(empty(bars, prev));
   }
+
+  // Epilogue store, one warp: its 16 x 256 accumulators, rounded to bf16, to rows
+  // dst, dst + ld, .. (dst: the warp's first row at the tile's first column), the first
+  // `rows_left` of the 16 only. 64 columns at a time pass through OUT_WARP_BYTES of shared
+  // memory of the warp's own (`mine`; 4-byte stores, conflict-free under the 128-byte
+  // swizzle), which turns the wgmma fragment layout into 16-byte stores of whole 128-byte
+  // row pieces. Only the warp synchronises.
+  static constexpr int OUT_WARP_BYTES = 16 * 128;
+  __device__ static void store_warp_tile(const float (&acc)[128], unsigned char* mine, bf16* dst,
+                                         long long ld, int rows_left, int lane) {
+    const int gq = lane >> 2, tq = lane & 3;
+    unsigned char* put = mine + gq * 128 + tq * 4;  // this thread's rows gq and gq + 8
+    const int get_row = lane >> 3, get_chunk = lane & 7;
+#pragma unroll
+    for (int c = 0; c < BN / 64; ++c) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int i = 4 * (8 * c + j);  // the accumulators of n8 tile 8c + j
+        unsigned char* at = put + ((j ^ gq) << 4);
+        *reinterpret_cast<uint32_t*>(at) = pack_bf16x2(acc[i], acc[i + 1]);
+        *reinterpret_cast<uint32_t*>(at + 8 * 128) = pack_bf16x2(acc[i + 2], acc[i + 3]);
+      }
+      __syncwarp();
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = 4 * i + get_row;
+        const uint4 v = *reinterpret_cast<const uint4*>(mine + swz128(r, get_chunk));
+        if (r < rows_left)
+          *reinterpret_cast<uint4*>(dst + (long long)r * ld + 64 * c + get_chunk * 8) = v;
+      }
+      __syncwarp();
+    }
+  }
+
+  // Host: the tensor map of A, (M, K) bf16 rows seen as M / MB row blocks of MB rows
+  // (dimensions k, row in block, block; boxes of 64 k x min(MB, 64) rows), and of W, (K, N)
+  // bf16 as stored (boxes of 64 n x 64 k). a_box_bytes(MB) is what one A box brings.
+  static cudaError_t make_map_a(CUtensorMap* map, const void* a, int M, int K, int MB) {
+    const uint64_t dims[3] = {(uint64_t)K, (uint64_t)MB, (uint64_t)(M / MB)};
+    const uint64_t strides[2] = {(uint64_t)K * 2, (uint64_t)MB * K * 2};
+    const uint32_t box[3] = {BK, (uint32_t)(MB < 64 ? MB : 64), 1};
+    return make_map_bf16(map, a, 3, dims, strides, box);
+  }
+  static cudaError_t make_map_w(CUtensorMap* map, const void* w, int K, int N) {
+    const uint64_t dims[2] = {(uint64_t)N, (uint64_t)K};
+    const uint64_t strides[1] = {(uint64_t)N * 2};
+    const uint32_t box[2] = {64, BK};
+    return make_map_bf16(map, w, 2, dims, strides, box);
+  }
+  static uint32_t a_box_bytes(int MB) { return (uint32_t)(MB < 64 ? MB : 64) * BK * 2; }
 };
 
 }  // namespace sm90

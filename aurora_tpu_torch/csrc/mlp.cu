@@ -3,262 +3,427 @@
 // K5: the attention tail after un-windowing, out = shortcut + LN(x @ W + b) * scale + shift.
 //
 // K3 replaces aurora_tpu/ops/mlp.py::mlp_adaln_residual_fused (pallas_call at mlp.py:419)
-// and K8 mlp_fused (pallas_call at mlp.py:278). Both TPU kernels kept the weight matrices
-// resident in VMEM and walked the hidden dimension with an in-kernel loop; here both are one
-// kernel, mlp_kernel<CW, LN>, that differs only in its epilogue. K5 replaces
-// linear_adaln_residual_fused (pallas_call at mlp.py:604) with the row kernel of
-// row_tail.cuh, its residual read from its own pointer. Bound: bytes (x and shortcut read,
-// out written once; the D x D GEMM is below the card's ~295 flop/byte balance point).
+// and K8 mlp_fused (pallas_call at mlp.py:278). K5 replaces linear_adaln_residual_fused
+// (pallas_call at mlp.py:604) with the row kernel of row_tail.cuh, its residual read from
+// its own pointer. K5's bound: bytes (x and shortcut read, out written once; the D x D GEMM
+// is below the card's ~295 flop/byte balance point).
 //
-// Bound on the H100: operations, 4 * rows * D * 4D bf16 flops (~1.1 TFLOP, ~1.1 ms at
-// 989 TF/s, for every backbone stage of the 0.25 deg model). Design: a block of 8 warps
-// owns RB = 16 * 8 / CW rows (CW = D / 256 column warps) for the whole hidden dimension.
-// The rows sit in shared memory; the hidden dimension is walked in chunks of 64:
-//   fc1: each warp a 16 x (64 / CW) tile on bf16 mma.sync, + f32 bias, rounded,
-//        exact-erf GELU in f32, rounded, into a shared 64-wide chunk;
-//   fc2: each warp accumulates its 16 x 256 slice of the output in registers (128 f32 per
-//        thread) from that chunk.
-// The 4D hidden never reaches device memory. After the last chunk the f32 accumulators
-// take the f32 bias and are rounded; the LayerNorm statistics are reduced across the CW
-// warps of a row through shared memory (two-pass), then FiLM and the residual, rounded.
-// K8 skips the LayerNorm: after the last chunk it adds the f32 bias and rounds.
-// The B fragments are read straight from the (L2-resident) transposed weights. Measured ~19x
-// over the bound, flat across the stages although the weight bytes per block grow 4x per
-// stage: the limiter is this loop's issue rate (no staging, no pipelining, 255 registers,
-// one block per SM), which wgmma tiles fed by TMA would replace.
+// K3 / K8. Bound on the H100: operations, 4 * rows * D * Hd bf16 flops (~1.1 TFLOP, 1.1 ms
+// at 989 TF/s, for every backbone stage of the 0.25 degree model). Both TPU kernels kept the
+// weights in VMEM and the hidden activations on chip. Here they are two products on the
+// TMA + wgmma mainloop of gemm_sm90.cuh (one persistent block an SM, (2 x 64) x 256 tiles, W1
+// (D, Hd) and W2 (Hd, D) read as stored as MN-major operands), with the hidden activations
+// passed between them through device memory, rows_chunk x Hd bf16 in a scratch of at most
+// 256 MB that the wrapper allocates:
+//
+//   mlp_fc1_kernel:  hid = bf16(gelu_erf(bf16(x W1 + b1)))            K = D,  N = Hd
+//   mlp_fc2_kernel:  y = bf16(hid W2 + b2), K8's result               K = Hd, N = D
+//   mlp_ln_rows_kernel (K3): out = bf16(x + LN(y) * (scale_bias + scale[b]) + shift[b])
+//
+// Why the hidden leaves the chip. A consumer warpgroup holds a 64 x 256 tile of f32 sums in
+// 128 registers a thread. fc2 of a 64-row piece needs 64 x D sums, 2 / 4 / 8 such tiles at
+// D = 512 / 1024 / 2048, beside fc1's own 128: more than the 232 registers a consumer has.
+// Splitting D over blocks repeats fc1 D / 256 times, and a cluster that passes hidden chunks
+// through distributed shared memory runs its blocks in lockstep, which cost K12 what it
+// saved. So the hidden makes one round trip (1.06 GB written and read at stage 1, 0.63 ms
+// of memory time under ~1.1 ms of tensor-core time: both products stay operation-bound,
+// narrowly). That round trip is this design's known distance from the bound, which stays
+// the operations'. The kernel boundary orders the hidden's ordinary stores before the next
+// kernel's TMA reads, so no cross-proxy fence is needed.
+//
+// The GELU epilogue. At stage 1 a tile is 8 K steps, ~8,200 clocks of the SM's tensor cores,
+// and its 32,768 exact-erf GELUs with two roundings are ~27 instructions each (erff picks
+// the coefficients of its two ranges with selects): about as many scheduler clocks for 8
+// warps on 4 schedulers. The two warpgroups share each stage's W box (a tile of 128 rows moves the
+// fewest bytes from L2 for each flop), so they cannot take turns a tile apart: the ring
+// would have to hold a whole tile of stages. Instead each warp overlaps its own epilogue
+// with its own asynchronous products: at a tile's end it adds the bias (from a copy of the
+// tile's 256 values of b1 in shared memory), rounds and parks the 16 x 256 pre-activations
+// as bf16 in 8 KB of shared memory of its own (64 KB a block; that leaves room for a ring of
+// 3 stages); during the first 8 K steps of the next tile, around the wait that follows each
+// stage's wgmma commit, it takes an eighth of the parked values (16 a thread), applies the
+// GELU and stores whole 128-byte lines. The last tile's values are finished after the loop.
+// fc1 therefore needs K = D >= 512. Measured (PERF.md): arithmetic and wgmma of one SM
+// hardly overlap. The GELU's time is its instruction count at one instruction a clock and
+// scheduler, added to the products' time; parking saves ~0.15 ms of the ~0.7 ms that the
+// epilogue adds to the products' ~0.7 ms at stage 1. Three other forms were built, measured
+// slower or no faster, and taken out again: the warpgroups' tiles offset by the ring's depth
+// on a fixed column tile per block, each warpgroup running the epilogue from its
+// accumulators while the other multiplies on (correct, fc1 a third slower: the multiplying
+// warpgroup gains nothing while the other computes); warpgroup 1 taking its share of the
+// parked tile before it starts a stage's products and warpgroup 0 after (twice as slow);
+// erff's small-argument polynomial alone where a warp vote allows it (13 instructions for
+// 27, but a gain within the timing's spread at the test's activations, and none at stages 2-3).
+//
+// The LayerNorm epilogue. A row of D spans D / 256 tiles, which run side by side on
+// neighbouring blocks (the hidden rows are read from device memory once). fc2's epilogue
+// (once per Hd / 64 >= 32 K steps, not overlapped) rounds y = bf16(acc + b2), stores it to
+// `out`, and writes per row and tile the mean and the centred sum of squares of its 256
+// rounded values (two passes over registers, quad shuffles). mlp_ln_rows_kernel, a warp a
+// row, merges the D / 256 pairs exactly (equal counts: mean of means, sum of the centred
+// squares plus 256 times the squared mean offsets; no E[y^2] - mean^2), normalises, applies
+// FiLM row (row_base + row) / rows_per_batch, adds x in f32 and overwrites y in place.
+// Rows past the chunk's end arrive as zeros from the TMA; they are neither stored nor enter
+// any statistic (every row's values live in its own quad).
+//
+// ptxas (sm_90a, CUDA 12.8): both GEMM kernels 168 registers at launch (consumers 232 after
+// setmaxnreg, the producer warpgroup 40), no spills; dynamic shared memory 222,256 bytes
+// (fc1: 3 stages x 48 KB + 64 KB parked + 8 KB of bias copies + barriers) and 214,080 (fc2:
+// 4 stages + 16 KB of output staging); the row kernel 32 registers, no spills.
+//
+// tools/kernel_ablate.py builds copies with -DABLATE_NO_GELU (round only), -DABLATE_NO_LN
+// (K3 with K8's epilogue and no row kernel), -DABLATE_NO_LOADS, -DABLATE_NO_EPILOGUE (both
+// products, nothing parked or stored), -DABLATE_LOCKSTEP (a tile's GELU right after its last
+// product, the tensor cores idle meanwhile, as in K12's epilogue) and -DABLATE_ONLY_FC1 /
+// -DABLATE_ONLY_FC2 (one of the two products alone; fc2 then reads what the scratch holds).
 #include "common.cuh"
+#include "gemm_sm90.cuh"
 #include "row_tail.cuh"
 
 namespace {
 
-constexpr int HC = 64;  // hidden chunk
+using Ring1 = sm90::GemmRing<3>;  // fc1: a stage's room goes to the parked pre-activations
+using Ring2 = sm90::GemmRing<4>;
+constexpr int MLP_THREADS = 384;             // consumers 0-255, producer warpgroup 256-383
+constexpr int PARK_WARP_BYTES = 16 * 512;    // a warp's 16 rows x 256 columns of bf16
+constexpr int FC1_GELU_STEPS = 8;             // the K steps a tile's GELU is spread over
+constexpr int BIAS_WARP_BYTES = 256 * 4;     // a warp's copy of the tile's 256 values of b1
+constexpr size_t FC1_SMEM = 1024 + Ring1::STAGES * Ring1::STAGE_BYTES +
+                            Ring1::CONSUMER_WARPS * (PARK_WARP_BYTES + BIAS_WARP_BYTES) +
+                            Ring1::BAR_BYTES;
+constexpr size_t FC2_SMEM = 1024 + Ring2::STAGES * Ring2::STAGE_BYTES +
+                            Ring2::CONSUMER_WARPS * Ring2::OUT_WARP_BYTES + Ring2::BAR_BYTES;
 
-template <int CW, bool LN>
-__global__ void __launch_bounds__(256, 1) mlp_kernel(
-    const bf16* __restrict__ x, const bf16* __restrict__ w1t, const float* __restrict__ b1,
-    const bf16* __restrict__ w2t, const float* __restrict__ b2, const float* __restrict__ shift,
-    const float* __restrict__ scale, float scale_bias, long long M, long long rows_per_batch,
-    int Hd, float eps, bf16* __restrict__ out) {
-  constexpr int RW = 8 / CW;
-  constexpr int RB = 16 * RW;
-  constexpr int D = 256 * CW;
-  constexpr int LDX = D + 8;
-  constexpr int LDH = HC + 8;
-  constexpr int NT1 = 8 / CW;  // fc1 n8 tiles per warp
-  constexpr int NT2 = 32;      // fc2 n8 tiles per warp (256 columns)
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* Xs = reinterpret_cast<bf16*>(smem);                // [RB][LDX]
-  bf16* Hs = Xs + RB * LDX;                                // [RB][LDH]
-  float* red_sum = reinterpret_cast<float*>(Hs + RB * LDH);  // [RB][CW]
-  float* red_sq = red_sum + RB * CW;                         // [RB][CW]
+// One product's schedule over a chunk of `rows` rows: pieces of 64 rows (the last ragged),
+// paired into tiles; unit u is column tile u % n_tiles of tile u / n_tiles, whose warpgroup
+// g takes piece 2 (u / n_tiles) + g. Units go round-robin to the blocks, column tile
+// fastest, so a tile's column tiles run at the same time and its rows are read once. Past
+// the last piece (an odd count) a warpgroup repeats the last piece and stores nothing.
+struct Sched {
+  int rows, pieces, n_tiles, units, k_steps;
+  uint32_t a_box_bytes;
+};
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wr = warp / CW, wc = warp % CW;
-  const int gq = lane >> 2, tq = lane & 3;
-  const long long r0 = (long long)blockIdx.x * RB;
-
-  for (int i = tid; i < RB * (D / 8); i += 256) {
-    int r = i / (D / 8), q = i % (D / 8);
-    uint4 v = make_uint4(0, 0, 0, 0);
-    if (r0 + r < M) v = *reinterpret_cast<const uint4*>(x + (r0 + r) * D + q * 8);
-    *reinterpret_cast<uint4*>(Xs + r * LDX + q * 8) = v;
-  }
-  __syncthreads();
-
-  float acc[NT2][4];
-#pragma unroll
-  for (int j = 0; j < NT2; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-  const int rl = wr * 16 + gq;  // local rows rl and rl + 8
-
-  for (int h0 = 0; h0 < Hd; h0 += HC) {
-    float a1[NT1][4];
-#pragma unroll
-    for (int j = 0; j < NT1; ++j) a1[j][0] = a1[j][1] = a1[j][2] = a1[j][3] = 0.f;
-    const int c1 = wc * (HC / CW);
-    for (int k = 0; k < D; k += 16) {
-      uint32_t af[4];
-      load_a(af, Xs, LDX, wr * 16, k, lane);
-#pragma unroll
-      for (int j = 0; j < NT1; ++j) {
-        uint32_t bfr[2];
-        load_b(bfr, w1t, D, h0 + c1 + j * 8, k, lane);
-        mma_16816(a1[j], af, bfr);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < NT1; ++j) {
-      const int col = c1 + j * 8 + 2 * tq;
-      const float bb0 = b1[h0 + col], bb1 = b1[h0 + col + 1];
-      *reinterpret_cast<uint32_t*>(Hs + rl * LDH + col) = pack_bf16x2(
-          gelu_erf(bf16r(a1[j][0] + bb0)), gelu_erf(bf16r(a1[j][1] + bb1)));
-      *reinterpret_cast<uint32_t*>(Hs + (rl + 8) * LDH + col) = pack_bf16x2(
-          gelu_erf(bf16r(a1[j][2] + bb0)), gelu_erf(bf16r(a1[j][3] + bb1)));
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < HC; k += 16) {
-      uint32_t af[4];
-      load_a(af, Hs, LDH, wr * 16, k, lane);
-#pragma unroll
-      for (int j = 0; j < NT2; ++j) {
-        uint32_t bfr[2];
-        load_b(bfr, w2t, Hd, wc * 256 + j * 8, h0 + k, lane);
-        mma_16816(acc[j], af, bfr);
-      }
-    }
-    __syncthreads();
-  }
-
-  if constexpr (!LN) {  // K8: out = round(acc + b2)
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const long long row = r0 + rl + 8 * half;
-      if (row >= M) continue;
-#pragma unroll
-      for (int j = 0; j < NT2; ++j) {
-        const int n = wc * 256 + j * 8 + 2 * tq;
-        *reinterpret_cast<uint32_t*>(out + row * D + n) =
-            pack_bf16x2(acc[j][2 * half] + b2[n], acc[j][2 * half + 1] + b2[n + 1]);
-      }
-    }
-    return;
-  }
-
-  // y = round(acc + b2); LayerNorm over the D columns shared by the CW warps of a row.
-  float s0 = 0.f, s1 = 0.f;
-#pragma unroll
-  for (int j = 0; j < NT2; ++j) {
-    const int n = wc * 256 + j * 8 + 2 * tq;
-    const float bb0 = b2[n], bb1 = b2[n + 1];
-    acc[j][0] = bf16r(acc[j][0] + bb0);
-    acc[j][1] = bf16r(acc[j][1] + bb1);
-    acc[j][2] = bf16r(acc[j][2] + bb0);
-    acc[j][3] = bf16r(acc[j][3] + bb1);
-    s0 += acc[j][0] + acc[j][1];
-    s1 += acc[j][2] + acc[j][3];
-  }
-  s0 = quad_sum(s0);
-  s1 = quad_sum(s1);
-  if (tq == 0) {
-    red_sum[rl * CW + wc] = s0;
-    red_sum[(rl + 8) * CW + wc] = s1;
-  }
-  __syncthreads();
-  float mean0 = 0.f, mean1 = 0.f;
-#pragma unroll
-  for (int c = 0; c < CW; ++c) {
-    mean0 += red_sum[rl * CW + c];
-    mean1 += red_sum[(rl + 8) * CW + c];
-  }
-  mean0 /= D;
-  mean1 /= D;
-  float q0 = 0.f, q1 = 0.f;
-#pragma unroll
-  for (int j = 0; j < NT2; ++j) {
-    float d;
-    d = acc[j][0] - mean0; q0 += d * d;
-    d = acc[j][1] - mean0; q0 += d * d;
-    d = acc[j][2] - mean1; q1 += d * d;
-    d = acc[j][3] - mean1; q1 += d * d;
-  }
-  q0 = quad_sum(q0);
-  q1 = quad_sum(q1);
-  if (tq == 0) {
-    red_sq[rl * CW + wc] = q0;
-    red_sq[(rl + 8) * CW + wc] = q1;
-  }
-  __syncthreads();
-  float var0 = 0.f, var1 = 0.f;
-#pragma unroll
-  for (int c = 0; c < CW; ++c) {
-    var0 += red_sq[rl * CW + c];
-    var1 += red_sq[(rl + 8) * CW + c];
-  }
-  const float rstd0 = rsqrtf(var0 / D + eps), rstd1 = rsqrtf(var1 / D + eps);
-
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int r = rl + 8 * half;
-    const long long row = r0 + r;
-    if (row >= M) continue;
-    const long long bi = (row / rows_per_batch) * D;
-    const float mean = half ? mean1 : mean0, rstd = half ? rstd1 : rstd0;
-#pragma unroll
-    for (int j = 0; j < NT2; ++j) {
-      const int n = wc * 256 + j * 8 + 2 * tq;
-      const float2 xv =
-          __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(Xs + r * LDX + n));
-      const float y0 = acc[j][2 * half], y1 = acc[j][2 * half + 1];
-      const float o0 =
-          xv.x + ((y0 - mean) * rstd * (scale_bias + scale[bi + n]) + shift[bi + n]);
-      const float o1 =
-          xv.y + ((y1 - mean) * rstd * (scale_bias + scale[bi + n + 1]) + shift[bi + n + 1]);
-      *reinterpret_cast<uint32_t*>(out + row * D + n) = pack_bf16x2(o0, o1);
-    }
+template <class Ring>
+__device__ __forceinline__ void produce_units(const CUtensorMap* map_a, const CUtensorMap* map_w,
+                                              uint32_t tiles, uint32_t bars, const Sched& s) {
+  typename Ring::Pos pos;
+  const int block[2] = {0, 0};
+  for (int u = blockIdx.x; u < s.units; u += gridDim.x) {
+    const int p = 2 * (u / s.n_tiles);
+    const int row0[2] = {64 * p, 64 * min(p + 1, s.pieces - 1)};
+    Ring::produce_tile(map_a, map_w, tiles, bars, pos, row0, block, (u % s.n_tiles) * Ring::BN,
+                       s.k_steps, s.a_box_bytes);
   }
 }
 
-template <int CW, bool LN>
-int launch(const bf16* x, const bf16* w1t, const float* b1, const bf16* w2t, const float* b2,
-           const float* shift, const float* scale, bf16* out, float scale_bias, long long M,
-           long long rows_per_batch, int Hd, float eps, cudaStream_t stream) {
-  constexpr int RB = 16 * (8 / CW), D = 256 * CW;
-  const size_t smem = (size_t)RB * (D + 8) * 2 + (size_t)RB * (HC + 8) * 2 +
-                      2 * (size_t)RB * CW * sizeof(float);
-  cudaFuncSetAttribute(mlp_kernel<CW, LN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)smem);
-  const unsigned blocks = (unsigned)((M + RB - 1) / RB);
-  mlp_kernel<CW, LN><<<blocks, 256, smem, stream>>>(x, w1t, b1, w2t, b2, shift, scale,
-                                                    scale_bias, M, rows_per_batch, Hd, eps, out);
-  return (int)cudaGetLastError();
+// gelu_erf of 8 bf16 values packed in 16 bytes, in f32, rounded and packed again.
+__device__ __forceinline__ uint4 gelu_bf16x8(uint4 v) {
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+  uint32_t o[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float lo = __uint_as_float(w[i] << 16), hi = __uint_as_float(w[i] & 0xffff0000u);
+#ifdef ABLATE_NO_GELU
+    o[i] = pack_bf16x2(lo, hi);
+#else
+    o[i] = pack_bf16x2(gelu_erf(lo), gelu_erf(hi));
+#endif
+  }
+  return make_uint4(o[0], o[1], o[2], o[3]);
 }
 
+// Sixteenth h (0-15) of a warp's parked 16 x 256 pre-activations: rows 4 (h & 3).. + 3 of
+// the 64 columns 64 (h >> 2).. through the GELU to dst (the warp's first row at the tile's
+// first column), rows below rows_left only. A parked row is 512 bytes of 16-byte pieces,
+// piece q stored at q ^ (row & 7): lane l takes row 4 (h & 3) + (l >> 3) and piece
+// 8 (h >> 2) + (l & 7), conflict-free, and eight lanes store one whole 128-byte line.
+__device__ __forceinline__ void gelu_sixteenth(const unsigned char* parked, int h, bf16* dst,
+                                               long long ld, int rows_left, int lane) {
+  const int r = 4 * (h & 3) + (lane >> 3), q = 8 * (h >> 2) + (lane & 7);
+  const uint4 v =
+      gelu_bf16x8(*reinterpret_cast<const uint4*>(parked + r * 512 + ((q ^ (r & 7)) << 4)));
+  if (r < rows_left) *reinterpret_cast<uint4*>(dst + (long long)r * ld + 8 * q) = v;
+}
+
+__global__ void __launch_bounds__(MLP_THREADS, 1) mlp_fc1_kernel(
+    const __grid_constant__ CUtensorMap map_x, const __grid_constant__ CUtensorMap map_w1,
+    const float* __restrict__ b1, bf16* __restrict__ hid, int Hd, const Sched s) {
+  using Ring = Ring1;
+  extern __shared__ unsigned char raw[];
+  const uint32_t raw_addr = sm90::smem_u32(raw);
+  const uint32_t tiles = (raw_addr + 1023u) & ~1023u;
+  const uint32_t park = tiles + Ring::STAGES * Ring::STAGE_BYTES;
+  const uint32_t bias = park + Ring::CONSUMER_WARPS * PARK_WARP_BYTES;
+  const uint32_t bars = bias + Ring::CONSUMER_WARPS * BIAS_WARP_BYTES;
+  const int tid = threadIdx.x;
+
+  if (tid == 0) Ring::init(bars);
+  __syncthreads();
+
+  if (tid >= 256) {
+    sm90::reg_dealloc<40>();
+    if (tid == 256) produce_units<Ring>(&map_x, &map_w1, tiles, bars, s);
+  } else {
+    sm90::reg_alloc<232>();
+    const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+    const int gq = lane >> 2, tq = lane & 3;
+    unsigned char* parked = raw + (park - raw_addr) + (tid >> 5) * PARK_WARP_BYTES;
+    float* my_b1 = reinterpret_cast<float*>(raw + (bias - raw_addr) + (tid >> 5) * BIAS_WARP_BYTES);
+    typename Ring::Pos pos;
+    float acc[128];
+    bf16* pend = nullptr;  // where the parked tile goes: its first row and column in hid
+    int pend_rows = 0;
+    for (int u = blockIdx.x; u < s.units; u += gridDim.x) {
+      const int p = 2 * (u / s.n_tiles) + wg;
+      const int n0 = (u % s.n_tiles) * Ring::BN;
+      // The tile's 256 values of b1 into the warp's own copy, under the first products.
+      const float4* b1v = reinterpret_cast<const float4*>(b1 + n0) + 2 * lane;
+      const float4 bias_lo = b1v[0], bias_hi = b1v[1];
+      int prev = -1;
+#pragma unroll
+      for (int ks = 0; ks < FC1_GELU_STEPS; ++ks) {
+        Ring::consume_step(acc, tiles, bars, pos, wg, ks);
+        if (ks == 0) {
+          reinterpret_cast<float4*>(my_b1)[2 * lane] = bias_lo;
+          reinterpret_cast<float4*>(my_b1)[2 * lane + 1] = bias_hi;
+        }
+        // Half of this step's share of the parked tile with two wgmma groups in flight, then
+        // the stage before goes back to the producer, then the other half.
+        if (pend) gelu_sixteenth(parked, 2 * ks, pend, Hd, pend_rows, lane);
+        if (prev >= 0) {
+          sm90::wgmma_wait<1>();
+          if (lane == 0) sm90::mbar_arrive(Ring::empty(bars, prev));
+        }
+        if (pend) gelu_sixteenth(parked, 2 * ks + 1, pend, Hd, pend_rows, lane);
+        prev = pos.stage;
+        pos.advance();
+      }
+      for (int ks = FC1_GELU_STEPS; ks < s.k_steps; ++ks) {
+        Ring::consume_step(acc, tiles, bars, pos, wg, ks);
+        sm90::wgmma_wait<1>();
+        if (lane == 0) sm90::mbar_arrive(Ring::empty(bars, prev));
+        prev = pos.stage;
+        pos.advance();
+      }
+      sm90::wgmma_wait<0>();
+      if (lane == 0) sm90::mbar_arrive(Ring::empty(bars, prev));
+#ifdef ABLATE_NO_EPILOGUE
+      if (acc[0] != 123.456f) continue;  // never equal: the product is kept, nothing parked
+#endif
+      pend = nullptr;
+      if (p >= s.pieces) continue;
+      // Park bf16(acc + b1) in the fragment's own rows gq and gq + 8, n8 tile j at piece j.
+      __syncwarp();
+      unsigned char* put = parked + gq * 512 + tq * 4;
+#pragma unroll
+      for (int j = 0; j < 32; ++j) {
+        const float2 b = *reinterpret_cast<const float2*>(my_b1 + 8 * j + 2 * tq);
+        unsigned char* at = put + ((j ^ gq) << 4);
+        *reinterpret_cast<uint32_t*>(at) = pack_bf16x2(acc[4 * j] + b.x, acc[4 * j + 1] + b.y);
+        *reinterpret_cast<uint32_t*>(at + 8 * 512) =
+            pack_bf16x2(acc[4 * j + 2] + b.x, acc[4 * j + 3] + b.y);
+      }
+      __syncwarp();
+      const int row0 = 64 * p + 16 * warp;
+      pend = hid + (long long)row0 * Hd + n0;
+      pend_rows = s.rows - row0;
+#ifdef ABLATE_LOCKSTEP
+      for (int h = 0; h < 16; ++h) gelu_sixteenth(parked, h, pend, Hd, pend_rows, lane);
+      pend = nullptr;
+#endif
+    }
+    if (pend)
+      for (int h = 0; h < 16; ++h) gelu_sixteenth(parked, h, pend, Hd, pend_rows, lane);
+  }
+}
+
+// LN: also stats[row * n_tiles + column tile] = (mean, centred sum of squares) of the row's
+// 256 rounded values in the tile.
 template <bool LN>
-int launch_d(const void* x, const void* w1t, const float* b1, const void* w2t, const float* b2,
-             const float* shift, const float* scale, void* out, float scale_bias, int M,
-             int rows_per_batch, int D, int Hd, float eps, cudaStream_t stream) {
-  if (Hd % HC) return (int)cudaErrorInvalidValue;
-  auto xb = static_cast<const bf16*>(x);
-  auto w1 = static_cast<const bf16*>(w1t);
-  auto w2 = static_cast<const bf16*>(w2t);
-  auto ob = static_cast<bf16*>(out);
-  switch (D) {
-    case 256:
-      return launch<1, LN>(xb, w1, b1, w2, b2, shift, scale, ob, scale_bias, M, rows_per_batch,
-                           Hd, eps, stream);
-    case 512:
-      return launch<2, LN>(xb, w1, b1, w2, b2, shift, scale, ob, scale_bias, M, rows_per_batch,
-                           Hd, eps, stream);
-    case 1024:
-      return launch<4, LN>(xb, w1, b1, w2, b2, shift, scale, ob, scale_bias, M, rows_per_batch,
-                           Hd, eps, stream);
-    case 2048:
-      return launch<8, LN>(xb, w1, b1, w2, b2, shift, scale, ob, scale_bias, M, rows_per_batch,
-                           Hd, eps, stream);
-    default: return (int)cudaErrorInvalidValue;
+__global__ void __launch_bounds__(MLP_THREADS, 1) mlp_fc2_kernel(
+    const __grid_constant__ CUtensorMap map_hid, const __grid_constant__ CUtensorMap map_w2,
+    const float* __restrict__ b2, bf16* __restrict__ out, float2* __restrict__ stats, int D,
+    const Sched s) {
+  using Ring = Ring2;
+  extern __shared__ unsigned char raw[];
+  const uint32_t raw_addr = sm90::smem_u32(raw);
+  const uint32_t tiles = (raw_addr + 1023u) & ~1023u;
+  const uint32_t staging = tiles + Ring::STAGES * Ring::STAGE_BYTES;
+  const uint32_t bars = staging + Ring::CONSUMER_WARPS * Ring::OUT_WARP_BYTES;
+  const int tid = threadIdx.x;
+
+  if (tid == 0) Ring::init(bars);
+  __syncthreads();
+
+  if (tid >= 256) {
+    sm90::reg_dealloc<40>();
+    if (tid == 256) produce_units<Ring>(&map_hid, &map_w2, tiles, bars, s);
+  } else {
+    sm90::reg_alloc<232>();
+    const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+    const int gq = lane >> 2, tq = lane & 3;
+    unsigned char* mine = raw + (staging - raw_addr) + (tid >> 5) * Ring::OUT_WARP_BYTES;
+    typename Ring::Pos pos;
+    float acc[128];
+    for (int u = blockIdx.x; u < s.units; u += gridDim.x) {
+      const int p = 2 * (u / s.n_tiles) + wg;
+      const int nt = u % s.n_tiles, n0 = nt * Ring::BN;
+      Ring::consume_tile(acc, tiles, bars, pos, s.k_steps, wg, lane == 0);
+#ifdef ABLATE_NO_EPILOGUE
+      if (acc[0] != 123.456f) continue;  // never equal: the product is kept, nothing stored
+#endif
+      if (p >= s.pieces) continue;
+      const int row0 = 64 * p + 16 * warp;  // the warp's first row; this thread: + gq, + gq + 8
+#pragma unroll
+      for (int j = 0; j < 32; ++j) {
+        const float2 b = *reinterpret_cast<const float2*>(b2 + n0 + 8 * j + 2 * tq);
+        acc[4 * j] = bf16r(acc[4 * j] + b.x);
+        acc[4 * j + 1] = bf16r(acc[4 * j + 1] + b.y);
+        acc[4 * j + 2] = bf16r(acc[4 * j + 2] + b.x);
+        acc[4 * j + 3] = bf16r(acc[4 * j + 3] + b.y);
+      }
+      if constexpr (LN) {
+        float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+        for (int j = 0; j < 32; ++j) {
+          s0 += acc[4 * j] + acc[4 * j + 1];
+          s1 += acc[4 * j + 2] + acc[4 * j + 3];
+        }
+        const float m0 = quad_sum(s0) * (1.f / 256.f), m1 = quad_sum(s1) * (1.f / 256.f);
+        float q0 = 0.f, q1 = 0.f;
+#pragma unroll
+        for (int j = 0; j < 32; ++j) {
+          float d;
+          d = acc[4 * j] - m0; q0 += d * d;
+          d = acc[4 * j + 1] - m0; q0 += d * d;
+          d = acc[4 * j + 2] - m1; q1 += d * d;
+          d = acc[4 * j + 3] - m1; q1 += d * d;
+        }
+        q0 = quad_sum(q0);
+        q1 = quad_sum(q1);
+        if (tq == 0) {
+          const int r = row0 + gq;
+          if (r < s.rows) stats[(long long)r * s.n_tiles + nt] = make_float2(m0, q0);
+          if (r + 8 < s.rows) stats[(long long)(r + 8) * s.n_tiles + nt] = make_float2(m1, q1);
+        }
+      }
+      Ring::store_warp_tile(acc, mine, out + (long long)row0 * D + n0, D, s.rows - row0, lane);
+    }
   }
+}
+
+// K3's last step, a warp a row: out (holding y) = bf16(x + LN(y) * gain + shift) in place.
+__global__ void __launch_bounds__(256) mlp_ln_rows_kernel(
+    const bf16* __restrict__ x, bf16* __restrict__ out, const float2* __restrict__ stats,
+    const float* __restrict__ shift, const float* __restrict__ scale, float scale_bias, int rows,
+    long long row_base, long long rows_per_batch, int D, float eps) {
+  const int row = blockIdx.x * 8 + (threadIdx.x >> 5), lane = threadIdx.x & 31;
+  if (row >= rows) return;
+  const int n_tiles = D / 256;
+  const float2* st = stats + (long long)row * n_tiles;
+  float mean = 0.f;
+  for (int i = 0; i < n_tiles; ++i) mean += st[i].x;
+  mean /= n_tiles;
+  float m2 = 0.f;
+  for (int i = 0; i < n_tiles; ++i) {
+    const float d = st[i].x - mean;
+    m2 += st[i].y + 256.f * d * d;
+  }
+  const float rstd = rsqrtf(m2 / D + eps);
+  const long long film = ((row_base + row) / rows_per_batch) * D;
+  for (int c = 0; c < n_tiles; ++c) {
+    const int n = 256 * c + 8 * lane;
+    const long long at = (long long)row * D + n;
+    const uint4 yv = *reinterpret_cast<const uint4*>(out + at);
+    const uint4 xv = *reinterpret_cast<const uint4*>(x + at);
+    const uint32_t yw[4] = {yv.x, yv.y, yv.z, yv.w}, xw[4] = {xv.x, xv.y, xv.z, xv.w};
+    uint32_t ow[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 sc = *reinterpret_cast<const float2*>(scale + film + n + 2 * i);
+      const float2 sh = *reinterpret_cast<const float2*>(shift + film + n + 2 * i);
+      const float y0 = __uint_as_float(yw[i] << 16), y1 = __uint_as_float(yw[i] & 0xffff0000u);
+      const float x0 = __uint_as_float(xw[i] << 16), x1 = __uint_as_float(xw[i] & 0xffff0000u);
+      ow[i] = pack_bf16x2(x0 + ((y0 - mean) * rstd * (scale_bias + sc.x) + sh.x),
+                          x1 + ((y1 - mean) * rstd * (scale_bias + sc.y) + sh.y));
+    }
+    *reinterpret_cast<uint4*>(out + at) = make_uint4(ow[0], ow[1], ow[2], ow[3]);
+  }
+}
+
+Sched make_sched(int rows, int K, int N) {
+  Sched s;
+  s.rows = rows;
+  s.pieces = (rows + 63) / 64;
+  s.n_tiles = N / 256;
+  s.units = (s.pieces + 1) / 2 * s.n_tiles;
+  s.k_steps = K / 64;
+  s.a_box_bytes = Ring1::a_box_bytes(rows);
+  return s;
 }
 
 }  // namespace
 
-// x, out: (M, D) bf16 rows, rows_per_batch rows per FiLM row; w1t: (Hd, D) bf16;
-// w2t: (D, Hd) bf16; b1: (Hd,), b2: (D,), shift/scale: (M / rows_per_batch, D) f32.
-// Returns cudaGetLastError().
-extern "C" int mlp_adaln_residual(const void* x, const void* w1t, const float* b1,
-                                  const void* w2t, const float* b2, const float* shift,
-                                  const float* scale, void* out, float scale_bias, int M,
-                                  int rows_per_batch, int D, int Hd, float eps,
-                                  cudaStream_t stream) {
-  return launch_d<true>(x, w1t, b1, w2t, b2, shift, scale, out, scale_bias, M, rows_per_batch, D,
-                        Hd, eps, stream);
-}
+// K3 (ln != 0) and K8 (ln == 0) on one chunk of rows. x, out: (rows, D) bf16; w1: (D, Hd) and
+// w2: (Hd, D) bf16 as stored; b1: (Hd,), b2: (D,) f32; hid: scratch of rows x Hd bf16. K3
+// only: stats, scratch of rows x D / 256 float2; shift, scale: (batch, D) f32, the row
+// (row_base + row) / rows_per_batch of each. Takes D in {512, 1024, 2048}, Hd % 256 == 0,
+// Hd >= 512. Returns cudaGetLastError(), cudaErrorInvalidValue for a shape it does not take,
+// or cudaErrorUnknown where no tensor map could be encoded.
+extern "C" int mlp_rows(const void* x, const void* w1, const float* b1, const void* w2,
+                        const float* b2, void* hid, void* out, float* stats, const float* shift,
+                        const float* scale, float scale_bias, int rows, long long row_base,
+                        long long rows_per_batch, int D, int Hd, float eps, int ln,
+                        cudaStream_t stream) {
+  if (rows <= 0 || rows > (1 << 24) || (D != 512 && D != 1024 && D != 2048) || Hd < 512 ||
+      Hd % 256 || (ln && rows_per_batch <= 0))
+    return (int)cudaErrorInvalidValue;
+#ifdef ABLATE_NO_LN
+  ln = 0;
+#endif
+  CUtensorMap map_x, map_w1, map_hid, map_w2;
+  cudaError_t e;
+  if ((e = Ring1::make_map_a(&map_x, x, rows, D, rows)) != cudaSuccess) return (int)e;
+  if ((e = Ring1::make_map_w(&map_w1, w1, D, Hd)) != cudaSuccess) return (int)e;
+  if ((e = Ring2::make_map_a(&map_hid, hid, rows, Hd, rows)) != cudaSuccess) return (int)e;
+  if ((e = Ring2::make_map_w(&map_w2, w2, Hd, D)) != cudaSuccess) return (int)e;
+  const int sms = sm90::sm_count();
+  if (sms <= 0) return (int)cudaErrorUnknown;
+  const Sched s1 = make_sched(rows, D, Hd), s2 = make_sched(rows, Hd, D);
+  bf16* ob = static_cast<bf16*>(out);
 
-// K8. x, out: (M, D) bf16 rows; w1t: (Hd, D) bf16; w2t: (D, Hd) bf16; b1: (Hd,), b2: (D,) f32.
-// Returns cudaGetLastError().
-extern "C" int mlp_fused(const void* x, const void* w1t, const float* b1, const void* w2t,
-                         const float* b2, void* out, int M, int D, int Hd, cudaStream_t stream) {
-  return launch_d<false>(x, w1t, b1, w2t, b2, nullptr, nullptr, out, 0.f, M, M, D, Hd, 0.f,
-                         stream);
+#ifndef ABLATE_ONLY_FC2
+  cudaFuncSetAttribute(mlp_fc1_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)FC1_SMEM);
+  mlp_fc1_kernel<<<s1.units < sms ? s1.units : sms, MLP_THREADS, FC1_SMEM, stream>>>(
+      map_x, map_w1, b1, static_cast<bf16*>(hid), Hd, s1);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+#endif
+#ifdef ABLATE_ONLY_FC1
+  return (int)cudaSuccess;
+#endif
+
+  const int grid2 = s2.units < sms ? s2.units : sms;
+  if (ln) {
+    cudaFuncSetAttribute(mlp_fc2_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)FC2_SMEM);
+    mlp_fc2_kernel<true><<<grid2, MLP_THREADS, FC2_SMEM, stream>>>(
+        map_hid, map_w2, b2, ob, reinterpret_cast<float2*>(stats), D, s2);
+  } else {
+    cudaFuncSetAttribute(mlp_fc2_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)FC2_SMEM);
+    mlp_fc2_kernel<false><<<grid2, MLP_THREADS, FC2_SMEM, stream>>>(map_hid, map_w2, b2, ob,
+                                                                    nullptr, D, s2);
+  }
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+#ifndef ABLATE_NO_EPILOGUE
+  if (ln)
+    mlp_ln_rows_kernel<<<(rows + 7) / 8, 256, 0, stream>>>(
+        static_cast<const bf16*>(x), ob, reinterpret_cast<const float2*>(stats), shift, scale,
+        scale_bias, rows, row_base, rows_per_batch, D, eps);
+#endif
+  return (int)cudaGetLastError();
 }
 
 // K5. x, shortcut, out: (M, D) bf16 rows, rows_per_batch rows per FiLM row; wt: (D, D) bf16

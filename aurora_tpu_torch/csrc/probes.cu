@@ -434,6 +434,13 @@ extern "C" int smem_probe(const float* x, float* out, int bytes, cudaStream_t st
   return (int)cudaGetLastError();
 }
 
+// A kernel that does nothing, one thread: what a launch costs, the yardstick of K13's time.
+__global__ void empty_kernel() {}
+extern "C" int empty_launch(cudaStream_t stream) {
+  empty_kernel<<<1, 1, 0, stream>>>();
+  return (int)cudaGetLastError();
+}
+
 // cudaDevAttrMaxSharedMemoryPerBlockOptin of the current device into *bytes.
 extern "C" int smem_optin_bytes(int* bytes) {
   int dev = 0;

@@ -17,18 +17,26 @@ and is rounded to the input dtype; GELU is the exact erf form in f32, rounded; L
 two-pass in f32 with eps 1e-5 (hard-coded in K5, as at ``mlp.py:599``); the residual is added
 in f32 and the result rounded.
 
-Kernels (``csrc/mlp.cu``). K3 and K8 are one kernel with two epilogues: a block of 8 warps
-owns a tile of ``16 * 8 / CW`` rows (``CW = D / 256``) for the whole hidden dimension. It
-keeps the row tile in shared memory, walks the hidden dimension in chunks of 64 (fc1 on bf16
-``mma.sync`` tensor-core tiles, GELU, the rounded chunk into shared memory) and accumulates
-fc2 in registers, 128 f32 per thread, so the 4D-wide hidden never reaches device memory.
-K3 then runs LayerNorm, FiLM and the residual on the accumulators; K8 adds the bias and
-rounds. Bound on the card: operations (``4 * rows * D * 4D`` bf16 flops; about 1.1 ms per
-backbone call at 989 TF/s). This first design runs ~19x over it: its time is flat across
-the three stages (PERF.md) although the weight bytes each block streams from L2 grow 4x per
-stage, so what holds it back is the issue rate of its unstaged, unpipelined ``mma.sync``
-loop at one block per SM (255 registers), not the weights. K5 is the row kernel of
-``csrc/row_tail.cuh`` (K2's tail) with the shortcut as its residual; its bound is bytes.
+Kernels (``csrc/mlp.cu``). K3 and K8 are two products on the TMA + ``wgmma`` mainloop of
+``csrc/gemm_sm90.cuh`` (one persistent block an SM, (2 x 64) x 256 tiles, both weights read
+as stored: no transposed copy), chunk of rows by chunk of rows (:func:`mlp_row_chunks`):
+``mlp_fc1_kernel`` writes ``hid = bf16(GELU(bf16(x W1 + b1)))`` to a scratch of at most
+256 MB, ``mlp_fc2_kernel`` reads it back by TMA and writes ``y = bf16(hid W2 + b2)``, which is
+K8's result. For K3 it also writes each row's mean and centred sum of squares per 256-column
+tile, and ``mlp_ln_rows_kernel`` (a warp a row) merges them exactly, normalises, applies FiLM
+and the residual in place. The hidden cannot stay on chip at these widths: a consumer
+warpgroup's 64 x 256 f32 tile is 128 registers a thread and fc2 needs D / 256 such tiles
+beside fc1's own. The round trip (1.06 GB each way at stage 1, 0.63 ms of memory time under
+~1.1 ms of tensor-core time) is the design's known distance from the bound, which stays the
+operations' (``4 * rows * D * Hd`` bf16 flops; 1.1 ms per backbone call at 989 TF/s). The
+GELU of a tile is as long as its products at D = 512, so each warp parks the rounded
+pre-activations in shared memory (64 KB a block, which leaves a ring of 3 stages) and
+applies the GELU during the next tile's first 8 K steps, while its own asynchronous products
+run (that hides only part of it: arithmetic and ``wgmma`` of one SM hardly overlap,
+PERF.md). ptxas: 168 registers at launch (consumers 232, producer 40), no spills;
+222,256 and 214,080 bytes of dynamic shared memory (fc1, fc2); the row kernel 32 registers.
+Times in PERF.md. K5 is the row kernel of ``csrc/row_tail.cuh`` (K2's tail) with the
+shortcut as its residual; its bound is bytes.
 """
 
 from __future__ import annotations
@@ -41,6 +49,8 @@ from aurora_tpu_torch.model.nn import acc_dtype
 from aurora_tpu_torch.ops import _lib
 
 __all__ = [
+    "MLP_SCRATCH_BYTES",
+    "check_mlp_shape",
     "film_layernorm_residual",
     "linear_adaln_residual",
     "linear_adaln_residual_plain",
@@ -48,9 +58,13 @@ __all__ = [
     "mlp_adaln_residual_plain",
     "mlp_fused",
     "mlp_fused_plain",
+    "mlp_row_chunks",
 ]
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+MLP_SCRATCH_BYTES = 256 << 20  # the most a call allocates for the hidden activations
+# csrc/mlp.cu::mlp_rows
+_MLP_ROWS_ARGS = [_P] * 10 + [_F, _I, _L, _L, _I, _I, _F, _I, _P]
 
 
 def film_layernorm_residual(
@@ -120,19 +134,76 @@ def _same_device(x: torch.Tensor, **tensors: torch.Tensor) -> None:
             raise ValueError(f"{n} must be on {x.device}")
 
 
-def _check_mlp(D: int, Hd: int, w2: torch.Tensor, what: str) -> None:
-    if D not in (256, 512, 1024, 2048) or Hd % 64 or tuple(w2.shape) != (Hd, D):
-        raise ValueError(f"{what} kernel: unsupported D={D}, hidden={Hd}")
+def check_mlp_shape(M: int, D: int, Hd: int) -> None:
+    """The shapes K3 and K8 take on the card: M rows of D in (512, 1024, 2048) features (a
+    tile is 256 columns and fc1 spreads a tile's GELU over 8 K steps of 64) and a hidden
+    width that is a multiple of 256, at least 512. Raises ``ValueError`` otherwise."""
+    if D not in (512, 1024, 2048):
+        raise ValueError(f"mlp kernel: D={D} is not one of 512, 1024, 2048 (M={M}, hidden={Hd})")
+    if Hd < 512 or Hd % 256:
+        raise ValueError(f"mlp kernel: hidden={Hd} is not a multiple of 256 >= 512 (M={M}, D={D})")
+    if not 0 < M < 2**31:
+        raise ValueError(f"mlp kernel: M={M} rows (D={D}, hidden={Hd})")
+
+
+def mlp_row_chunks(M: int, Hd: int, cap: int = MLP_SCRATCH_BYTES) -> list[tuple[int, int]]:
+    """``(first row, rows)`` of the chunks K3 / K8 run one after the other, so that the bf16
+    hidden activations of a chunk (``rows * Hd * 2`` bytes) fit ``cap``: every chunk but the
+    last has the most rows that do, a multiple of 128 (a tile's rows)."""
+    rows = cap // (2 * Hd) // 128 * 128
+    if rows <= 0:
+        raise ValueError(f"mlp kernel: {cap} bytes of scratch hold no 128 rows of hidden={Hd}")
+    return [(r0, min(rows, M - r0)) for r0 in range(0, M, rows)]
 
 
 def _mlp_weights(w1, b1, w2, b2):
-    """The kernels' operands: weights transposed to ``(out, in)`` bf16 (rows are
-    B-fragment columns), biases f32."""
+    """K9's operands: weights transposed to ``(out, in)`` bf16 (rows are B-fragment
+    columns), biases f32."""
     bf, f32 = torch.bfloat16, torch.float32
     return (
         w1.to(bf).t().contiguous(), b1.to(f32).contiguous(),
         w2.to(bf).t().contiguous(), b2.to(f32).contiguous(),
     )
+
+
+def _mlp_operands(x, w1, b1, w2, b2):
+    """K3's and K8's operands: the weights as stored, ``(in, out)`` bf16 (no copy where they
+    are stored so), the biases f32; all checked."""
+    bf, f32 = torch.bfloat16, torch.float32
+    D, Hd = x.shape[-1], w1.shape[1]
+    _lib.require(x, "x", bf)
+    check_mlp_shape(x.numel() // D, D, Hd)
+    ops = (w1.to(bf).contiguous(), b1.to(f32).contiguous(),
+           w2.to(bf).contiguous(), b2.to(f32).contiguous())
+    for t, name, shape in zip(ops, ("w1", "b1", "w2", "b2"), ((D, Hd), (Hd,), (Hd, D), (D,))):
+        _lib.require(t, name, t.dtype, shape)
+    return ops
+
+
+def _mlp_rows(fn, x, ops, out, film=None) -> None:
+    """Run ``fn`` (``mlp_rows`` of ``csrc/mlp.cu``) chunk by chunk on ``x``, ``out``:
+    ``(M, D)`` bf16. ``film``: K3's ``(shift, scale, scale_bias, rows_per_batch, ln_eps)``
+    with ``shift``/``scale`` ``(B, D)`` f32, or None for K8. Allocates the scratch."""
+    M, D = x.shape
+    w1, b1, w2, b2 = ops
+    Hd = w1.shape[1]
+    chunks = mlp_row_chunks(M, Hd)
+    most = chunks[0][1]
+    hid = torch.empty(most * Hd, dtype=torch.bfloat16, device=x.device)
+    if film is None:
+        film_args = (None, None, None, 0.0)
+        per_batch, eps = 1, 0.0
+    else:
+        shift, scale, scale_bias, per_batch, eps = film
+        stats = torch.empty(most * (D // 256) * 2, dtype=torch.float32, device=x.device)
+        film_args = (stats.data_ptr(), shift.data_ptr(), scale.data_ptr(), float(scale_bias))
+    for r0, rows in chunks:
+        err = fn(
+            x.data_ptr() + 2 * r0 * D, w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+            hid.data_ptr(), out.data_ptr() + 2 * r0 * D, *film_args,
+            rows, r0, per_batch, D, Hd, float(eps), int(film is not None), _lib.stream(x),
+        )
+        _lib.check(err, "mlp_rows")
 
 
 def mlp_adaln_residual(
@@ -149,28 +220,20 @@ def mlp_adaln_residual(
     """``x + LN(fc2(GELU(fc1 x))) * (scale_bias + scale) + shift`` for ``x: (B, L, D)``,
     weights ``(in, out)``, FiLM ``shift``/``scale`` ``(B, D)``.
 
-    CPU tensors take :func:`mlp_adaln_residual_plain`; CUDA tensors launch the kernel,
-    which takes bf16 tokens with D in (256, 512, 1024, 2048) and a hidden width that is a
-    multiple of 64.
+    CPU tensors take :func:`mlp_adaln_residual_plain`; CUDA tensors launch the kernels, which
+    take bf16 tokens of the shapes of :func:`check_mlp_shape` (D in (512, 1024, 2048), a
+    hidden width that is a multiple of 256).
     """
     if x.device.type == "cpu":
         return mlp_adaln_residual_plain(x, w1, b1, w2, b2, shift, scale, scale_bias, ln_eps)
     B, L, D = x.shape
-    Hd = w1.shape[1]
-    _lib.require(x, "x", torch.bfloat16)
-    _check_mlp(D, Hd, w2, "mlp_adaln_residual")
-    w1t, b1f, w2t, b2f = _mlp_weights(w1, b1, w2, b2)
+    ops = _mlp_operands(x, w1, b1, w2, b2)
     shf = shift.to(torch.float32).reshape(B, D).contiguous()
     scf = scale.to(torch.float32).reshape(B, D).contiguous()
-    _same_device(x, w1t=w1t, w2t=w2t, b1=b1f, b2=b2f, shift=shf, scale=scf)
+    _same_device(x, w1=ops[0], b1=ops[1], w2=ops[2], b2=ops[3], shift=shf, scale=scf)
     out = torch.empty_like(x)
-    fn = _lib.kernel("mlp", "mlp_adaln_residual", [_P] * 8 + [_F, _I, _I, _I, _I, _F, _P])
-    err = fn(
-        x.data_ptr(), w1t.data_ptr(), b1f.data_ptr(), w2t.data_ptr(), b2f.data_ptr(),
-        shf.data_ptr(), scf.data_ptr(), out.data_ptr(), float(scale_bias),
-        B * L, L, D, Hd, float(ln_eps), _lib.stream(x),
-    )
-    _lib.check(err, "mlp_adaln_residual")
+    fn = _lib.kernel("mlp", "mlp_rows", _MLP_ROWS_ARGS)
+    _mlp_rows(fn, x.view(B * L, D), ops, out.view(B * L, D), (shf, scf, scale_bias, L, ln_eps))
     _lib.LAUNCHES["mlp_adaln_residual"] += 1
     return out
 
@@ -180,24 +243,18 @@ def mlp_fused(
 ) -> torch.Tensor:
     """``fc2(GELU(fc1 x))`` for ``x: (..., D)``, weights ``(in, out)``.
 
-    CPU tensors take :func:`mlp_fused_plain`; CUDA tensors launch the kernel (K3's loop with
-    a bias-and-round epilogue), which takes bf16 tokens with D in (256, 512, 1024, 2048) and
-    a hidden width that is a multiple of 64.
+    CPU tensors take :func:`mlp_fused_plain`; CUDA tensors launch the kernels (K3's two
+    products; fc2's epilogue adds the bias and rounds), which take bf16 tokens of the shapes
+    of :func:`check_mlp_shape`.
     """
     if x.device.type == "cpu":
         return mlp_fused_plain(x, w1, b1, w2, b2)
-    D, Hd = x.shape[-1], w1.shape[1]
-    _lib.require(x, "x", torch.bfloat16)
-    _check_mlp(D, Hd, w2, "mlp_fused")
-    w1t, b1f, w2t, b2f = _mlp_weights(w1, b1, w2, b2)
-    _same_device(x, w1t=w1t, w2t=w2t, b1=b1f, b2=b2f)
+    D = x.shape[-1]
+    ops = _mlp_operands(x, w1, b1, w2, b2)
+    _same_device(x, w1=ops[0], b1=ops[1], w2=ops[2], b2=ops[3])
     out = torch.empty_like(x)
-    fn = _lib.kernel("mlp", "mlp_fused", [_P] * 6 + [_I, _I, _I, _P])
-    err = fn(
-        x.data_ptr(), w1t.data_ptr(), b1f.data_ptr(), w2t.data_ptr(), b2f.data_ptr(),
-        out.data_ptr(), x.numel() // D, D, Hd, _lib.stream(x),
-    )
-    _lib.check(err, "mlp_fused")
+    fn = _lib.kernel("mlp", "mlp_rows", _MLP_ROWS_ARGS)
+    _mlp_rows(fn, x.view(-1, D), ops, out.view(-1, D))
     _lib.LAUNCHES["mlp_fused"] += 1
     return out
 

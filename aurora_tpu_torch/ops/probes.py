@@ -53,6 +53,7 @@ __all__ = [
     "mlp_t",
     "mlp_t_plain",
     "smem_optin_bytes",
+    "empty_launch",
     "smem_probe",
     "smem_probe_plain",
 ]
@@ -189,6 +190,13 @@ def smem_probe(x: torch.Tensor, nbytes: int) -> torch.Tensor:
         raise SharedMemoryRefused(int(nbytes), err)
     _lib.LAUNCHES["smem_probe"] += 1
     return out
+
+
+def empty_launch(device: torch.device) -> None:
+    """Launch a kernel that does nothing on ``device``'s current stream: timed beside K13,
+    whose own time is what a launch costs. No kernel of the port: it counts nowhere."""
+    fn = _lib.kernel("probes", "empty_launch", [_P])
+    _lib.check(fn(torch.cuda.current_stream(device).cuda_stream), "empty_launch")
 
 
 def smem_optin_bytes() -> int:

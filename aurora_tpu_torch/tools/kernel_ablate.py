@@ -1,11 +1,17 @@
-"""What holds K12 ``gemm_blocked`` and K7 ``sdpa_windows`` back: each kernel against copies
-of itself with one part switched off, at the shapes the probe tools and the backbone give
-them.
+"""What holds K3 ``mlp_adaln_residual`` / K8 ``mlp_fused``, K12 ``gemm_blocked`` and K7
+``sdpa_windows`` back: each kernel against copies of itself with one part switched off, at
+the shapes the probe tools, the backbone and the perceiver give them.
 
 The copies are built from the same sources with a preprocessor switch (``nvcc -D...``) into
 ``build/kernels/ablate/`` and called through their C entries; none of them is reachable from
 a wrapper, and all but the ring-depth variants compute wrong results on purpose:
 
+* K3 / K8 (``csrc/mlp.cu``, at the three backbone shapes and the de-aggregation shape):
+  ``no_gelu`` (the hidden is rounded only), ``no_ln`` (K3 with K8's epilogue and no row
+  kernel), ``no_loads``, ``no_epilogue`` (both products, nothing parked or stored, no row
+  kernel), ``lockstep`` (a tile's GELU runs right after its last product instead of under
+  the next tile's), and ``only_fc1`` / ``only_fc2`` (one of the two products alone);
+  ``torch.matmul`` for fc1 and for fc2 is timed beside them;
 * K12 (``csrc/gemm.cu``): ``no_loads`` (the producer releases stages without a TMA load, so
   the consumers multiply what the stage holds), ``no_epilogue`` (the product is kept in
   registers, nothing is stored), both, and a ring of 3 and of 2 stages in place of 4;
@@ -28,7 +34,7 @@ import subprocess
 
 import torch
 
-from aurora_tpu_torch.ops import _lib, probes
+from aurora_tpu_torch.ops import _lib, mlp, probes
 from aurora_tpu_torch.ops.masks import group_ids_tensor, window_group_ids
 from aurora_tpu_torch.tools import card_line, report, resolve_device, result, time_ms
 from aurora_tpu_torch.tools.gemm_probe import FC2, PROJ
@@ -38,6 +44,14 @@ GEMM_VARIANTS = {
     "no_loads_no_epilogue": ("ABLATE_NO_LOADS", "ABLATE_NO_EPILOGUE"),
     "ring_3": ("GEMM_STAGES=3",), "ring_2": ("GEMM_STAGES=2",),
 }
+MLP_VARIANTS = {
+    "full": (), "no_gelu": ("ABLATE_NO_GELU",), "no_ln": ("ABLATE_NO_LN",),
+    "no_loads": ("ABLATE_NO_LOADS",), "no_epilogue": ("ABLATE_NO_EPILOGUE",),
+    "lockstep": ("ABLATE_LOCKSTEP",), "only_fc1": ("ABLATE_ONLY_FC1",),
+    "only_fc2": ("ABLATE_ONLY_FC2",),
+}
+# rows, D, hidden: the backbone's three stages and the perceiver's de-aggregation call
+MLP_SHAPES = ((259200, 512, 2048), (64800, 1024, 4096), (16200, 2048, 8192), (842400, 1024, 2048))
 SDPA_VARIANTS = {
     "full": (), "no_core": ("ABLATE_NO_CORE",), "no_loads": ("ABLATE_NO_LOADS",),
     "ring_1": ("SDPA_RING=1",), "mask_every_unit": ("ABLATE_MASK_EVERY_UNIT",),
@@ -90,8 +104,42 @@ def main(argv=None) -> list[dict]:
     def emit(label, t, **kw):
         out.append(report(result(label, t, dev, **kw)))
 
-    gemm = build_variants("gemm", GEMM_VARIANTS)
-    for name, (M, K, N, blocks) in (("proj", PROJ), ("fc2", FC2)):
+    def ablate_mlp():
+        mlps = build_variants("mlp", MLP_VARIANTS)
+        for shape in MLP_SHAPES:
+            ablate_mlp_shape(mlps, *shape)
+
+    def ablate_mlp_shape(mlps, M, D, Hd):
+        f32 = torch.float32
+        x, o = rn(1, M, D), torch.empty(M, D, device=dev, dtype=bf)
+        ops = (rn(D, Hd, std=0.02), rn(Hd, std=0.02).to(f32), rn(Hd, D, std=0.02),
+               rn(D, std=0.02).to(f32))
+        film = (rn(1, D, std=0.1).to(f32), rn(1, D).to(f32), 0.0, M, 1e-5)
+        hid = rn(M, Hd)
+        work = dict(flops=4 * M * D * Hd, nbytes=2 * M * D * 2 + 2 * D * Hd * 2)
+        emit(f"torch.matmul fc1 ({M},{D})x({D},{Hd})", ms(lambda: torch.matmul(x[0], ops[0])),
+             flops=2 * M * D * Hd)
+        emit(f"torch.matmul fc2 ({M},{Hd})x({Hd},{D})", ms(lambda: torch.matmul(hid, ops[2])),
+             flops=2 * M * D * Hd)
+        del hid
+        for kernel, f in (("mlp_adaln_residual", film), ("mlp_fused", None)):
+            for tag, lib in mlps.items():
+                if f is None and tag == "no_ln":
+                    continue
+                fn = lib.mlp_rows
+                fn.argtypes, fn.restype = mlp._MLP_ROWS_ARGS, _I
+
+                def call(fn=fn, f=f):
+                    mlp._mlp_rows(fn, x[0], ops, o, f)
+
+                emit(f"{kernel} ({M},{D}) hidden {Hd} [{tag}]", ms(call), **work)
+
+    def ablate_gemm():
+        gemm = build_variants("gemm", GEMM_VARIANTS)
+        for name, shape in (("proj", PROJ), ("fc2", FC2)):
+            ablate_gemm_shape(gemm, name, *shape)
+
+    def ablate_gemm_shape(gemm, name, M, K, N, blocks):
         a, w = rn(M, K), rn(K, N, std=0.02)
         o = torch.empty(M, N, device=dev, dtype=bf)
         work = dict(flops=2 * M * K * N, nbytes=2 * (M * K + K * N + M * N))
@@ -111,11 +159,14 @@ def main(argv=None) -> list[dict]:
                 emit(f"gemm_blocked {name} MB={MB} [{tag}]", ms(call), units=units,
                      waves=units / torch.cuda.get_device_properties(dev).multi_processor_count,
                      **work)
-        del a, w, o
 
-    sdpa = build_variants("sdpa", SDPA_VARIANTS)
-    ws, ss = (2, 6, 12), (1, 3, 6)
-    for C, H, W, D, heads in STAGES:
+    def ablate_sdpa():
+        sdpa = build_variants("sdpa", SDPA_VARIANTS)
+        for stage in STAGES:
+            ablate_sdpa_stage(sdpa, *stage)
+
+    def ablate_sdpa_stage(sdpa, C, H, W, D, heads):
+        ws, ss = (2, 6, 12), (1, 3, 6)
         Hp, Wp = H + (-H) % ws[1], W + (-W) % ws[2]
         nW = C * Hp * Wp // 144
         qkv = rn(1, nW, 144, 3 * D)
@@ -135,7 +186,10 @@ def main(argv=None) -> list[dict]:
                                   o.data_ptr(), 1, nW, D, heads, stream), "sdpa_windows variant")
 
                 emit(f"sdpa_windows D={D} {kind} [{tag}]", ms(call), **work)
-        del qkv, o
+
+    ablate_mlp()
+    ablate_gemm()
+    ablate_sdpa()
     return out
 
 

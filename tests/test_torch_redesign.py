@@ -1,5 +1,5 @@
-"""The redesigned K12 ``gemm_blocked`` and K7 ``sdpa_windows`` on the CPU: what can be held
-here without the card.
+"""The redesigned K12 ``gemm_blocked``, K7 ``sdpa_windows`` and K3 / K8 (``mlp_adaln_residual``,
+``mlp_fused``) on the CPU: what can be held here without the card.
 
 * The library calls that ``chip_smoke.py`` times beside the two kernels compute the kernels'
   functions: ``F.scaled_dot_product_attention`` with the 0 / -100 mask equals
@@ -8,8 +8,11 @@ here without the card.
 * The host side of K12's schedule covers every output element exactly once, for the probe
   tool's shapes and for small ragged ones, and the row block changes no bit of the result.
 * The shape rules of the two wrappers, as pure functions.
-* The port names no fused attention operator, and the CUDA branches of the two wrappers
+* The port names no fused attention operator, and the CUDA branches of the four wrappers
   reach no library product.
+* K3's LayerNorm as its kernels compute it (per 256-column tile a mean and a centred sum of
+  squares, merged exactly) equals the two-pass form of ``film_layernorm_residual``; the
+  row-chunk rule that bounds K3's and K8's scratch covers every row once.
 """
 
 import ast
@@ -22,7 +25,7 @@ import torch
 import torch.nn.functional as F
 
 import aurora_tpu_torch
-from aurora_tpu_torch.ops import probes, window_attention
+from aurora_tpu_torch.ops import mlp, probes, window_attention
 from aurora_tpu_torch.ops.masks import bias_from_groups, window_group_ids
 from aurora_tpu_torch.tools.gemm_probe import FC2, PROJ
 
@@ -179,8 +182,10 @@ def _cuda_branch(fn):
     raise AssertionError(f"{fn.__name__}: no CPU branch found")
 
 
-@pytest.mark.parametrize("fn", [probes.gemm_blocked, window_attention.sdpa_windows],
-                         ids=["gemm_blocked", "sdpa_windows"])
+@pytest.mark.parametrize(
+    "fn",
+    [probes.gemm_blocked, window_attention.sdpa_windows, mlp.mlp_adaln_residual, mlp.mlp_fused],
+    ids=["gemm_blocked", "sdpa_windows", "mlp_adaln_residual", "mlp_fused"])
 def test_cuda_branch_reaches_no_library_product(fn):
     branch = _cuda_branch(fn)
     assert branch, "the CUDA branch launches the kernel"
@@ -193,6 +198,100 @@ def test_cuda_branch_reaches_no_library_product(fn):
             elif isinstance(node, ast.Name):
                 names.add(node.id)
     banned = {"matmul", "mm", "bmm", "einsum", "addmm", "linear", "softmax", "t", "transpose",
-              "gemm_blocked_plain", "sdpa_windows_plain"}
+              "gemm_blocked_plain", "sdpa_windows_plain", "mlp_adaln_residual_plain",
+              "mlp_fused_plain", "_mlp_weights", "F", "functional"}
     assert not names & banned, names & banned
     assert "kernel" in names and "LAUNCHES" in names
+
+
+# ------------------------------------------------------------------------------ K3 / K8
+
+# rows, D, hidden of the calls the 1.3 B model makes: three backbone stages, the perceiver's
+# aggregation and de-aggregation MLP halves.
+MLP_CARD_SHAPES = [(259200, 512, 2048), (64800, 1024, 4096), (16200, 2048, 8192),
+                   (194400, 512, 2048), (842400, 1024, 2048)]
+
+
+def _tiled_film_layernorm_residual(y, residual, shift, scale, scale_bias, eps, tile=256):
+    """K3's LayerNorm as ``csrc/mlp.cu`` computes it, in f32: fc2's epilogue gives each
+    256-column tile of a row its mean and centred sum of squares; the row kernel merges the
+    D / 256 pairs (equal counts: mean of means; centred squares plus 256 times the squared
+    offsets of the means), normalises, applies FiLM and adds the residual."""
+    B, L, D = y.shape
+    yt = y.float().reshape(B, L, D // tile, tile)
+    mean_t = yt.sum(-1) * (1.0 / tile)
+    m2_t = (yt - mean_t[..., None]).square().sum(-1)
+    mean = mean_t.sum(-1) / (D // tile)
+    m2 = (m2_t + tile * (mean_t - mean[..., None]).square()).sum(-1)
+    rstd = torch.rsqrt(m2 / D + eps)
+    ln = (y.float() - mean[..., None]) * rstd[..., None]
+    mod = ln * (scale_bias + scale.float()[:, None, :]) + shift.float()[:, None, :]
+    return (residual.float() + mod).to(residual.dtype), mean, m2 / D
+
+
+@pytest.mark.parametrize("D", [256, 512, 1024, 2048])
+def test_tiled_layernorm_equals_two_pass(D):
+    rng = np.random.default_rng(D)
+    B, L = 2, 5
+    y = rng.standard_normal((B, L, D)).astype(np.float32)
+    y[0, 1] += 100.0   # a row with a large mean: E[y^2] - mean^2 loses its variance
+    y[1, 2, : D // 2] += 30.0  # tiles of one row with different means
+    y = torch.from_numpy(y)
+    x = torch.from_numpy(rng.standard_normal((B, L, D)).astype(np.float32))
+    shift = torch.from_numpy(0.1 * rng.standard_normal((B, D)).astype(np.float32))
+    scale = torch.from_numpy(rng.standard_normal((B, D)).astype(np.float32))
+    want = mlp.film_layernorm_residual(y, x, shift, scale, 0.5, 1e-5)
+    got, mean, var = _tiled_film_layernorm_residual(y, x, shift, scale, 0.5, 1e-5)
+    branch = (want - x).abs().max().item()
+    # f32 rounding: the two means of the row near 100 may differ by an ulp of 100 (7.6e-6).
+    assert (got - want).abs().max().item() <= 2e-5 * branch
+    # The variance of a row near 1000: the merged centred squares hold it, the one-pass form
+    # E[y^2] - mean^2 that the kernels avoid does not.
+    far = y[:1, :1] + 1000.0
+    _, _, var = _tiled_film_layernorm_residual(far, far, shift[:1], scale[:1], 0.0, 1e-5)
+    exact = far.double().var(-1, unbiased=False).item()
+    assert abs(var.item() - exact) <= 1e-4 * exact
+    naive = (far.square().mean(-1) - far.mean(-1).square()).item()
+    assert abs(naive - exact) > 1e-2 * exact
+
+
+@pytest.mark.parametrize("M,D,Hd", MLP_CARD_SHAPES + [(100, 512, 512), (65536, 512, 2048),
+                                                     (65537, 512, 2048), (1, 2048, 8192)])
+def test_mlp_row_chunks_cover_every_row_once(M, D, Hd):
+    chunks = mlp.mlp_row_chunks(M, Hd)
+    seen = np.zeros(M, np.int32)
+    for r0, rows in chunks:
+        assert rows > 0 and rows * Hd * 2 <= mlp.MLP_SCRATCH_BYTES
+        seen[r0:r0 + rows] += 1
+    assert seen.min() == 1 and seen.max() == 1
+    assert [r0 for r0, _ in chunks] == sorted(r0 for r0, _ in chunks)
+    assert all(rows == chunks[0][1] and rows % 128 == 0 for _, rows in chunks[:-1])
+    assert chunks[0][1] == max(rows for _, rows in chunks)  # the scratch is sized by the first
+
+
+def test_mlp_row_chunks_follow_the_cap():
+    assert mlp.MLP_SCRATCH_BYTES == 256 << 20
+    want = [(r, min(128, 1000 - r)) for r in range(0, 1000, 128)]
+    assert mlp.mlp_row_chunks(1000, 512, cap=128 * 512 * 2) == want
+    assert mlp.mlp_row_chunks(16200, 8192) == [(0, 16200)]
+    assert len(mlp.mlp_row_chunks(842400, 2048)) == 13
+    with pytest.raises(ValueError, match="scratch"):
+        mlp.mlp_row_chunks(1000, 512, cap=1000)
+
+
+@pytest.mark.parametrize("M,D,Hd", MLP_CARD_SHAPES)
+def test_mlp_shape_rule_takes_the_card_shapes(M, D, Hd):
+    mlp.check_mlp_shape(M, D, Hd)
+
+
+@pytest.mark.parametrize("M,D,Hd,word", [
+    (1000, 256, 1024, "D=256"), (1000, 768, 3072, "D=768"), (1000, 4096, 16384, "D=4096"),
+    (1000, 512, 2000, "hidden=2000"), (1000, 512, 256, "hidden=256"),
+    (1000, 1024, 4160, "hidden=4160"),
+    (0, 512, 2048, "M=0"), (2**31, 512, 2048, f"M={2**31}"),
+])
+def test_mlp_shape_rule_refuses_other_shapes(M, D, Hd, word):
+    with pytest.raises(ValueError) as e:
+        mlp.check_mlp_shape(M, D, Hd)
+    msg = str(e.value)
+    assert word in msg and f"D={D}" in msg and f"hidden={Hd}" in msg
