@@ -1,8 +1,8 @@
 // The attention core of one (window, head): 144 tokens, head dim 64, as inline pieces over
 // q, k and v tiles that a TMA load has put into shared memory as they are stored:
 // [token][64 features], 128-byte rows under the 128-byte swizzle (tma_sm90.cuh swz128), each
-// tile 18,432 bytes and 1024-byte aligned. sdpa.cu (K7) is the first kernel on it; the
-// window-attention kernels are meant to take the same pieces after their qkv projection.
+// tile 18,432 bytes and 1024-byte aligned. The ring kernel of sdpa_sm90.cuh runs it for K7
+// (sdpa.cu) and for K2 / K6 after their qkv projection (window_attention.cu).
 //
 // Tensor cores: mma.sync m16n8k16, not wgmma. 144 = 9 x 16 fills nine warps' m16 tiles
 // with nothing wasted, where wgmma's 64-row tiles would leave the third three-quarters
@@ -145,12 +145,15 @@ __device__ __forceinline__ void core_weights_v(float (&o)[8][4], const uint32_t 
   }
 }
 
-// The warp's 16 x 64 result, rounded, to rows row0 + 16 warp.. and columns col0.. of the
-// D-wide output. It goes through the warp's own 16 rows of the q tile (no other warp reads
-// them, and this warp's logits are done), so that each lane stores 16 bytes and eight lanes
-// a row's whole 128 bytes.
-__device__ __forceinline__ void core_store(const float (&o)[8][4], uint32_t q, long long row0, int D,
-                                           int col0, bf16* __restrict__ out, int warp, int lane) {
+// The warp's 16 x 64 result, rounded, to columns col0.. of the D-wide output, token t of the
+// window to row rows.row(base, t) (sdpa_sm90.cuh: consecutive rows, or the window's rows in
+// place in a 5D grid). It goes through the warp's own 16 rows of the q tile (no other warp
+// reads them, and this warp's logits are done), so that each lane stores 16 bytes and eight
+// lanes a row's whole 128 bytes.
+template <class Rows>
+__device__ __forceinline__ void core_store(const float (&o)[8][4], uint32_t q, const Rows& rows,
+                                           long long base, int D, int col0, bf16* __restrict__ out,
+                                           int warp, int lane) {
   const int gq = lane >> 2, tq = lane & 3;
   const uint32_t mine = q + (warp * 16 + gq) * 128 + tq * 4;
 #pragma unroll
@@ -169,7 +172,7 @@ __device__ __forceinline__ void core_store(const float (&o)[8][4], uint32_t q, l
                  : "=r"(val.x), "=r"(val.y), "=r"(val.z), "=r"(val.w)
                  : "r"(q + sm90::swz128(r, chunk))
                  : "memory");
-    *reinterpret_cast<uint4*>(out + (row0 + r) * D + col0 + chunk * 8) = val;
+    *reinterpret_cast<uint4*>(out + rows.row(base, r) * D + col0 + chunk * 8) = val;
   }
 }
 

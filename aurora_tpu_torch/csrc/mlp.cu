@@ -17,8 +17,9 @@
 // 256 MB that the wrapper allocates:
 //
 //   mlp_fc1_kernel:  hid = bf16(gelu_erf(bf16(x W1 + b1)))            K = D,  N = Hd
-//   mlp_fc2_kernel:  y = bf16(hid W2 + b2), K8's result               K = Hd, N = D
-//   mlp_ln_rows_kernel (K3): out = bf16(x + LN(y) * (scale_bias + scale[b]) + shift[b])
+//   fc2, gemm_bias_kernel:  y = bf16(hid W2 + b2), K8's result        K = Hd, N = D
+//   ln_rows_kernel (K3): out = bf16(x + LN(y) * (scale_bias + scale[b]) + shift[b])
+// (fc2's kernel and the row kernel live in gemm_rows_sm90.cuh: K2 and K6 run them too.)
 //
 // Why the hidden leaves the chip. A consumer warpgroup holds a 64 x 256 tile of f32 sums in
 // 128 registers a thread. fc2 of a 64-row piece needs 64 x D sums, 2 / 4 / 8 such tiles at
@@ -59,7 +60,7 @@
 // neighbouring blocks (the hidden rows are read from device memory once). fc2's epilogue
 // (once per Hd / 64 >= 32 K steps, not overlapped) rounds y = bf16(acc + b2), stores it to
 // `out`, and writes per row and tile the mean and the centred sum of squares of its 256
-// rounded values (two passes over registers, quad shuffles). mlp_ln_rows_kernel, a warp a
+// rounded values (two passes over registers, quad shuffles). ln_rows_kernel, a warp a
 // row, merges the D / 256 pairs exactly (equal counts: mean of means, sum of the centred
 // squares plus 256 times the squared mean offsets; no E[y^2] - mean^2), normalises, applies
 // FiLM row (row_base + row) / rows_per_batch, adds x in f32 and overwrites y in place.
@@ -77,45 +78,18 @@
 // product, the tensor cores idle meanwhile, as in K12's epilogue) and -DABLATE_ONLY_FC1 /
 // -DABLATE_ONLY_FC2 (one of the two products alone; fc2 then reads what the scratch holds).
 #include "common.cuh"
-#include "gemm_sm90.cuh"
+#include "gemm_rows_sm90.cuh"
 #include "row_tail.cuh"
 
 namespace {
 
 using Ring1 = sm90::GemmRing<3>;  // fc1: a stage's room goes to the parked pre-activations
-using Ring2 = sm90::GemmRing<4>;
-constexpr int MLP_THREADS = 384;             // consumers 0-255, producer warpgroup 256-383
 constexpr int PARK_WARP_BYTES = 16 * 512;    // a warp's 16 rows x 256 columns of bf16
 constexpr int FC1_GELU_STEPS = 8;             // the K steps a tile's GELU is spread over
 constexpr int BIAS_WARP_BYTES = 256 * 4;     // a warp's copy of the tile's 256 values of b1
 constexpr size_t FC1_SMEM = 1024 + Ring1::STAGES * Ring1::STAGE_BYTES +
                             Ring1::CONSUMER_WARPS * (PARK_WARP_BYTES + BIAS_WARP_BYTES) +
                             Ring1::BAR_BYTES;
-constexpr size_t FC2_SMEM = 1024 + Ring2::STAGES * Ring2::STAGE_BYTES +
-                            Ring2::CONSUMER_WARPS * Ring2::OUT_WARP_BYTES + Ring2::BAR_BYTES;
-
-// One product's schedule over a chunk of `rows` rows: pieces of 64 rows (the last ragged),
-// paired into tiles; unit u is column tile u % n_tiles of tile u / n_tiles, whose warpgroup
-// g takes piece 2 (u / n_tiles) + g. Units go round-robin to the blocks, column tile
-// fastest, so a tile's column tiles run at the same time and its rows are read once. Past
-// the last piece (an odd count) a warpgroup repeats the last piece and stores nothing.
-struct Sched {
-  int rows, pieces, n_tiles, units, k_steps;
-  uint32_t a_box_bytes;
-};
-
-template <class Ring>
-__device__ __forceinline__ void produce_units(const CUtensorMap* map_a, const CUtensorMap* map_w,
-                                              uint32_t tiles, uint32_t bars, const Sched& s) {
-  typename Ring::Pos pos;
-  const int block[2] = {0, 0};
-  for (int u = blockIdx.x; u < s.units; u += gridDim.x) {
-    const int p = 2 * (u / s.n_tiles);
-    const int row0[2] = {64 * p, 64 * min(p + 1, s.pieces - 1)};
-    Ring::produce_tile(map_a, map_w, tiles, bars, pos, row0, block, (u % s.n_tiles) * Ring::BN,
-                       s.k_steps, s.a_box_bytes);
-  }
-}
 
 // gelu_erf of 8 bf16 values packed in 16 bytes, in f32, rounded and packed again.
 __device__ __forceinline__ uint4 gelu_bf16x8(uint4 v) {
@@ -146,7 +120,7 @@ __device__ __forceinline__ void gelu_sixteenth(const unsigned char* parked, int 
   if (r < rows_left) *reinterpret_cast<uint4*>(dst + (long long)r * ld + 8 * q) = v;
 }
 
-__global__ void __launch_bounds__(MLP_THREADS, 1) mlp_fc1_kernel(
+__global__ void __launch_bounds__(ROWS_THREADS, 1) mlp_fc1_kernel(
     const __grid_constant__ CUtensorMap map_x, const __grid_constant__ CUtensorMap map_w1,
     const float* __restrict__ b1, bf16* __restrict__ hid, int Hd, const Sched s) {
   using Ring = Ring1;
@@ -238,131 +212,6 @@ __global__ void __launch_bounds__(MLP_THREADS, 1) mlp_fc1_kernel(
   }
 }
 
-// LN: also stats[row * n_tiles + column tile] = (mean, centred sum of squares) of the row's
-// 256 rounded values in the tile.
-template <bool LN>
-__global__ void __launch_bounds__(MLP_THREADS, 1) mlp_fc2_kernel(
-    const __grid_constant__ CUtensorMap map_hid, const __grid_constant__ CUtensorMap map_w2,
-    const float* __restrict__ b2, bf16* __restrict__ out, float2* __restrict__ stats, int D,
-    const Sched s) {
-  using Ring = Ring2;
-  extern __shared__ unsigned char raw[];
-  const uint32_t raw_addr = sm90::smem_u32(raw);
-  const uint32_t tiles = (raw_addr + 1023u) & ~1023u;
-  const uint32_t staging = tiles + Ring::STAGES * Ring::STAGE_BYTES;
-  const uint32_t bars = staging + Ring::CONSUMER_WARPS * Ring::OUT_WARP_BYTES;
-  const int tid = threadIdx.x;
-
-  if (tid == 0) Ring::init(bars);
-  __syncthreads();
-
-  if (tid >= 256) {
-    sm90::reg_dealloc<40>();
-    if (tid == 256) produce_units<Ring>(&map_hid, &map_w2, tiles, bars, s);
-  } else {
-    sm90::reg_alloc<232>();
-    const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
-    const int gq = lane >> 2, tq = lane & 3;
-    unsigned char* mine = raw + (staging - raw_addr) + (tid >> 5) * Ring::OUT_WARP_BYTES;
-    typename Ring::Pos pos;
-    float acc[128];
-    for (int u = blockIdx.x; u < s.units; u += gridDim.x) {
-      const int p = 2 * (u / s.n_tiles) + wg;
-      const int nt = u % s.n_tiles, n0 = nt * Ring::BN;
-      Ring::consume_tile(acc, tiles, bars, pos, s.k_steps, wg, lane == 0);
-#ifdef ABLATE_NO_EPILOGUE
-      if (acc[0] != 123.456f) continue;  // never equal: the product is kept, nothing stored
-#endif
-      if (p >= s.pieces) continue;
-      const int row0 = 64 * p + 16 * warp;  // the warp's first row; this thread: + gq, + gq + 8
-#pragma unroll
-      for (int j = 0; j < 32; ++j) {
-        const float2 b = *reinterpret_cast<const float2*>(b2 + n0 + 8 * j + 2 * tq);
-        acc[4 * j] = bf16r(acc[4 * j] + b.x);
-        acc[4 * j + 1] = bf16r(acc[4 * j + 1] + b.y);
-        acc[4 * j + 2] = bf16r(acc[4 * j + 2] + b.x);
-        acc[4 * j + 3] = bf16r(acc[4 * j + 3] + b.y);
-      }
-      if constexpr (LN) {
-        float s0 = 0.f, s1 = 0.f;
-#pragma unroll
-        for (int j = 0; j < 32; ++j) {
-          s0 += acc[4 * j] + acc[4 * j + 1];
-          s1 += acc[4 * j + 2] + acc[4 * j + 3];
-        }
-        const float m0 = quad_sum(s0) * (1.f / 256.f), m1 = quad_sum(s1) * (1.f / 256.f);
-        float q0 = 0.f, q1 = 0.f;
-#pragma unroll
-        for (int j = 0; j < 32; ++j) {
-          float d;
-          d = acc[4 * j] - m0; q0 += d * d;
-          d = acc[4 * j + 1] - m0; q0 += d * d;
-          d = acc[4 * j + 2] - m1; q1 += d * d;
-          d = acc[4 * j + 3] - m1; q1 += d * d;
-        }
-        q0 = quad_sum(q0);
-        q1 = quad_sum(q1);
-        if (tq == 0) {
-          const int r = row0 + gq;
-          if (r < s.rows) stats[(long long)r * s.n_tiles + nt] = make_float2(m0, q0);
-          if (r + 8 < s.rows) stats[(long long)(r + 8) * s.n_tiles + nt] = make_float2(m1, q1);
-        }
-      }
-      Ring::store_warp_tile(acc, mine, out + (long long)row0 * D + n0, D, s.rows - row0, lane);
-    }
-  }
-}
-
-// K3's last step, a warp a row: out (holding y) = bf16(x + LN(y) * gain + shift) in place.
-__global__ void __launch_bounds__(256) mlp_ln_rows_kernel(
-    const bf16* __restrict__ x, bf16* __restrict__ out, const float2* __restrict__ stats,
-    const float* __restrict__ shift, const float* __restrict__ scale, float scale_bias, int rows,
-    long long row_base, long long rows_per_batch, int D, float eps) {
-  const int row = blockIdx.x * 8 + (threadIdx.x >> 5), lane = threadIdx.x & 31;
-  if (row >= rows) return;
-  const int n_tiles = D / 256;
-  const float2* st = stats + (long long)row * n_tiles;
-  float mean = 0.f;
-  for (int i = 0; i < n_tiles; ++i) mean += st[i].x;
-  mean /= n_tiles;
-  float m2 = 0.f;
-  for (int i = 0; i < n_tiles; ++i) {
-    const float d = st[i].x - mean;
-    m2 += st[i].y + 256.f * d * d;
-  }
-  const float rstd = rsqrtf(m2 / D + eps);
-  const long long film = ((row_base + row) / rows_per_batch) * D;
-  for (int c = 0; c < n_tiles; ++c) {
-    const int n = 256 * c + 8 * lane;
-    const long long at = (long long)row * D + n;
-    const uint4 yv = *reinterpret_cast<const uint4*>(out + at);
-    const uint4 xv = *reinterpret_cast<const uint4*>(x + at);
-    const uint32_t yw[4] = {yv.x, yv.y, yv.z, yv.w}, xw[4] = {xv.x, xv.y, xv.z, xv.w};
-    uint32_t ow[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 sc = *reinterpret_cast<const float2*>(scale + film + n + 2 * i);
-      const float2 sh = *reinterpret_cast<const float2*>(shift + film + n + 2 * i);
-      const float y0 = __uint_as_float(yw[i] << 16), y1 = __uint_as_float(yw[i] & 0xffff0000u);
-      const float x0 = __uint_as_float(xw[i] << 16), x1 = __uint_as_float(xw[i] & 0xffff0000u);
-      ow[i] = pack_bf16x2(x0 + ((y0 - mean) * rstd * (scale_bias + sc.x) + sh.x),
-                          x1 + ((y1 - mean) * rstd * (scale_bias + sc.y) + sh.y));
-    }
-    *reinterpret_cast<uint4*>(out + at) = make_uint4(ow[0], ow[1], ow[2], ow[3]);
-  }
-}
-
-Sched make_sched(int rows, int K, int N) {
-  Sched s;
-  s.rows = rows;
-  s.pieces = (rows + 63) / 64;
-  s.n_tiles = N / 256;
-  s.units = (s.pieces + 1) / 2 * s.n_tiles;
-  s.k_steps = K / 64;
-  s.a_box_bytes = Ring1::a_box_bytes(rows);
-  return s;
-}
-
 }  // namespace
 
 // K3 (ln != 0) and K8 (ln == 0) on one chunk of rows. x, out: (rows, D) bf16; w1: (D, Hd) and
@@ -386,8 +235,8 @@ extern "C" int mlp_rows(const void* x, const void* w1, const float* b1, const vo
   cudaError_t e;
   if ((e = Ring1::make_map_a(&map_x, x, rows, D, rows)) != cudaSuccess) return (int)e;
   if ((e = Ring1::make_map_w(&map_w1, w1, D, Hd)) != cudaSuccess) return (int)e;
-  if ((e = Ring2::make_map_a(&map_hid, hid, rows, Hd, rows)) != cudaSuccess) return (int)e;
-  if ((e = Ring2::make_map_w(&map_w2, w2, Hd, D)) != cudaSuccess) return (int)e;
+  if ((e = RowsRing::make_map_a(&map_hid, hid, rows, Hd, rows)) != cudaSuccess) return (int)e;
+  if ((e = RowsRing::make_map_w(&map_w2, w2, Hd, D)) != cudaSuccess) return (int)e;
   const int sms = sm90::sm_count();
   if (sms <= 0) return (int)cudaErrorUnknown;
   const Sched s1 = make_sched(rows, D, Hd), s2 = make_sched(rows, Hd, D);
@@ -396,7 +245,7 @@ extern "C" int mlp_rows(const void* x, const void* w1, const float* b1, const vo
 #ifndef ABLATE_ONLY_FC2
   cudaFuncSetAttribute(mlp_fc1_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        (int)FC1_SMEM);
-  mlp_fc1_kernel<<<s1.units < sms ? s1.units : sms, MLP_THREADS, FC1_SMEM, stream>>>(
+  mlp_fc1_kernel<<<s1.units < sms ? s1.units : sms, ROWS_THREADS, FC1_SMEM, stream>>>(
       map_x, map_w1, b1, static_cast<bf16*>(hid), Hd, s1);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
 #endif
@@ -404,22 +253,14 @@ extern "C" int mlp_rows(const void* x, const void* w1, const float* b1, const vo
   return (int)cudaSuccess;
 #endif
 
-  const int grid2 = s2.units < sms ? s2.units : sms;
-  if (ln) {
-    cudaFuncSetAttribute(mlp_fc2_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         (int)FC2_SMEM);
-    mlp_fc2_kernel<true><<<grid2, MLP_THREADS, FC2_SMEM, stream>>>(
-        map_hid, map_w2, b2, ob, reinterpret_cast<float2*>(stats), D, s2);
-  } else {
-    cudaFuncSetAttribute(mlp_fc2_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         (int)FC2_SMEM);
-    mlp_fc2_kernel<false><<<grid2, MLP_THREADS, FC2_SMEM, stream>>>(map_hid, map_w2, b2, ob,
-                                                                    nullptr, D, s2);
-  }
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  const int err = ln ? launch_gemm_bias<EPI_BIAS_STATS>(map_hid, map_w2, b2, ob,
+                                                        reinterpret_cast<float2*>(stats), D, s2,
+                                                        stream)
+                     : launch_gemm_bias<EPI_BIAS>(map_hid, map_w2, b2, ob, nullptr, D, s2, stream);
+  if (err) return err;
 #ifndef ABLATE_NO_EPILOGUE
   if (ln)
-    mlp_ln_rows_kernel<<<(rows + 7) / 8, 256, 0, stream>>>(
+    ln_rows_kernel<<<(rows + 7) / 8, 256, 0, stream>>>(
         static_cast<const bf16*>(x), ob, reinterpret_cast<const float2*>(stats), shift, scale,
         scale_bias, rows, row_base, rows_per_batch, D, eps);
 #endif

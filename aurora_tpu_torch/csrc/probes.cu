@@ -36,8 +36,8 @@ __global__ void __launch_bounds__(1024) smem_probe_kernel(const float* __restric
 // The qkv projection and the attention core, unmasked, on partitioned windows
 // (nW, 144, D), in the probe's modes. SM picks the softmax form (window_attention.cuh);
 // NO_CORE returns q, the first D features of the rounded, biased qkv. The grid's x extent
-// is the schedule: `heads` gives one block per (window, head), K6's schedule (the TPU
-// kernel's Python loop over heads); 1 gives one block per window that walks its heads with
+// is the schedule: `heads` gives one block per (window, head) (the TPU kernel's Python loop
+// over heads); 1 gives one block per window that walks its heads with
 // q, k and v of one head at a time in shared memory (the TPU kernel's "batched" forms,
 // all heads in one batched product: the same numbers in another schedule).
 template <int SM, bool NO_CORE>
@@ -121,7 +121,8 @@ __global__ void __launch_bounds__(THREADS) attn_fulld_kernel(const bf16* __restr
 //         arithmetically in strip order (line of the strip, column), straight into shared
 //         memory and double-buffered: the next slab and weight slice are in flight while
 //         the current one is multiplied.
-// Both write each window's result back in place and equal K2 without tail.
+// Both write each window's result back in place: K2 without tail's function, its qkv
+// projected on mma.sync where K2's is on wgmma, so the two may round apart.
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const unsigned sa = (unsigned)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(sa), "l"(src));

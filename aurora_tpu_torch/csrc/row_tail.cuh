@@ -1,14 +1,14 @@
-// The row kernel shared by K2(b)/K6(b), K4(b) and K5: a projection with a LayerNorm
-// epilogue over whole rows.
+// The row kernel shared by K4(b) and K5: a projection with a LayerNorm epilogue over whole
+// rows. (K2 and K6 ran their tail on it until their redesign; their tail is now the proj
+// GEMM and row kernel of gemm_rows_sm90.cuh, which K5 is to take next.)
 //
 //   y[r][n]   = bf16( sum_k a[r][k] * wt[n][k] + ybias[n] )        (ybias may be null)
 //   out[r][n] = bf16( res[r'][n] + LN(y[r])[n] * g[r / gdiv][n] + h[r / gdiv][n] )
 //
 // with LN two-pass in f32 (no affine: the affine is g/h) and r' = r, or r % res_mod when
 // res_mod > 0. The residual is bf16 (res_b) or f32 (res_f).
-//   K2/K6 tail: ybias = f32 bproj, res = the block input x, g/h = per-batch FiLM scale/shift.
-//   K5:         as K2's tail, with a = the un-windowed attention output, res = the shortcut
-//               and g = scale_bias + scale.
+//   K5:         ybias = f32 bproj, a = the un-windowed attention output, res = the shortcut,
+//               g = scale_bias + scale and h = shift, per batch element.
 //   K4 tail:    no bias, res = the f32 queries (period Q), g/h = ln1 weight/bias.
 //
 // A block of 8 warps owns RB = 16 * RW rows. It walks the N output columns in chunks of

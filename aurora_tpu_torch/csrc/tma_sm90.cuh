@@ -1,7 +1,7 @@
 // Hopper's asynchronous-copy primitives as thin wrappers of their PTX: mbarriers, the Tensor
 // Memory Accelerator's tiled loads (TMA), the proxy fence between ordinary and asynchronous
 // accesses of shared memory, the 128-byte swizzle, and the host side's tensor maps.
-// gemm_sm90.cuh (the wgmma mainloop) and sdpa.cu (the attention core's ring) build on it.
+// gemm_sm90.cuh (the wgmma mainloop) and sdpa_sm90.cuh (the attention core's ring) build on it.
 //
 // Conventions. Shared-memory operands are 32-bit shared-space addresses (smem_u32). An
 // mbarrier's phase parity: a fresh barrier is in phase 0; mbar_wait(bar, p) returns once the
@@ -89,6 +89,16 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+// The 5D form: a box of a 5D map, e.g. a whole window of the padded token grid.
+__device__ __forceinline__ void tma_load_5d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6, %7}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(c4)
+      : "memory");
+}
+
 // Orders this thread's ordinary shared-memory accesses before later accesses by the
 // asynchronous proxy (a TMA load overwriting the same bytes).
 __device__ __forceinline__ void fence_proxy_async() {
@@ -120,17 +130,17 @@ inline EncodeTiledFn encode_tiled_fn() {
   return fn;
 }
 
-// A bf16 tensor map of `rank` (2 or 3) dimensions, innermost first: `dims` in elements,
-// `strides` of dimensions 1.. in bytes (multiples of 16), `box` in elements with an
-// innermost box of 64 elements = 128 bytes, the 128-byte swizzle, zeros outside the tensor.
-// Returns cudaSuccess, or cudaErrorUnknown where the encoding is refused.
+// A bf16 tensor map of `rank` (2 to 5) dimensions, innermost first: `dims` in elements,
+// `strides` of dimensions 1.. in bytes (multiples of 16), `box` in elements (each at most
+// 256) with an innermost box of 64 elements = 128 bytes, the 128-byte swizzle, zeros outside
+// the tensor. Returns cudaSuccess, or cudaErrorUnknown where the encoding is refused.
 inline cudaError_t make_map_bf16(CUtensorMap* map, const void* base, int rank, const uint64_t* dims,
                                  const uint64_t* strides, const uint32_t* box) {
   EncodeTiledFn encode = encode_tiled_fn();
-  if (!encode) return cudaErrorUnknown;
-  const cuuint32_t ones[3] = {1, 1, 1};
-  cuuint64_t d[3], s[2];
-  cuuint32_t b[3];
+  if (!encode || rank < 2 || rank > 5) return cudaErrorUnknown;
+  const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
+  cuuint64_t d[5], s[4];
+  cuuint32_t b[5];
   for (int i = 0; i < rank; ++i) d[i] = dims[i], b[i] = box[i];
   for (int i = 0; i + 1 < rank; ++i) s[i] = strides[i];
   const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank,

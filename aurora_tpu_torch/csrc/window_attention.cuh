@@ -1,6 +1,7 @@
-// The window-attention body shared by K2 and K6 (window_attention.cu) and by the probe
-// kernels (probes.cu): 144-token windows, head dim 64, one block of 9 warps per window and
-// head. See window_attention.cu for the kernels' notes.
+// The window-attention body of the probe kernels K10 and K11 (probes.cu): 144-token windows,
+// head dim 64, one block of 9 warps per window and head, the qkv projection of the head on
+// unstaged mma.sync tiles in front of the core. (K2 and K6 run on the TMA + wgmma ring and
+// the core of sdpa_sm90.cuh instead: window_attention.cu.)
 //
 // Pieces, each for the warp's 16 query rows (warp w owns tokens 16w..16w+15):
 //   project_qkv   qkv of one 64-wide head slice for the window's 144 rows into Qs, Ks, Vt
@@ -27,7 +28,7 @@ constexpr int LDV = WN + 8;  // v^T stride
 constexpr size_t SMEM = (size_t)(WN * LDX + 3 * DH * LDX + 2 * WN * LDQ + DH * LDV) * 2 +
                         WN * sizeof(long long) + WN * sizeof(int);
 
-// Forms of the row softmax. F32 is the model's (K2, K6). The other two exist for the
+// Forms of the row softmax. F32 is the model's. The other two exist for the
 // attention probe: NONE hands the scaled logits on as weights; BF16 rounds the logits to
 // bf16 before the scale and keeps every later value (difference to the row maximum,
 // exponential, row sum, quotient) rounded to bf16.
@@ -275,44 +276,5 @@ struct WindowSmem {
     gs = reinterpret_cast<int*>(rowid + WN);               // [WN]
   }
 };
-
-// x and attn: D-wide token rows, the same row numbering. Cp > 0: 5D tokens
-// (B, Cp, Hp, Wp, .) with windows (ws0, ws1, ws2) in place; Cp == 0: partitioned windows,
-// row = window * 144 + token.
-__global__ void __launch_bounds__(THREADS) window_attn_kernel(
-    const bf16* __restrict__ x, const bf16* __restrict__ wt, const bf16* __restrict__ bqkv,
-    const int* __restrict__ groups, int nW, int Cp, int Hp, int Wp, int D, int ws0, int ws1,
-    int ws2, bf16* __restrict__ attn) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const WindowSmem sm(smem);
-
-  const int head = blockIdx.x;
-  const int b = blockIdx.y / nW, wi = blockIdx.y % nW;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-
-  for (int t = tid; t < WN; t += THREADS) {
-    sm.rowid[t] = window_row(b, Cp > 0 ? wi : (int)blockIdx.y, t, Cp, Hp, Wp, ws0, ws1, ws2);
-    if (groups) sm.gs[t] = groups[(long long)wi * WN + t];
-  }
-  __syncthreads();
-
-  project_qkv(x, D, wt, bqkv, sm.rowid, D, head, tid, lane, warp, sm.Xs, sm.Ws, sm.Qs, sm.Ks,
-              sm.Vt);
-  __syncthreads();
-  attend_store<SOFTMAX_F32>(sm.Qs, sm.Ks, sm.Vt, groups ? sm.gs : nullptr, sm.rowid, D,
-                            head * DH, attn, warp, lane);
-}
-
-inline int launch_attn(const void* x, const void* wqkv_t, const void* bqkv, const int* groups,
-                       void* attn, int B, int nW, int Cp, int Hp, int Wp, int D, int ws0, int ws1,
-                       int ws2, int heads, cudaStream_t stream) {
-  if (D != heads * DH || D % KC || (long long)B * nW > 65535) return (int)cudaErrorInvalidValue;
-  cudaFuncSetAttribute(window_attn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM);
-  window_attn_kernel<<<dim3(heads, B * nW), THREADS, SMEM, stream>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(wqkv_t),
-      static_cast<const bf16*>(bqkv), groups, nW, Cp, Hp, Wp, D, ws0, ws1, ws2,
-      static_cast<bf16*>(attn));
-  return (int)cudaGetLastError();
-}
 
 }  // namespace

@@ -124,6 +124,13 @@ class Aurora(nn.Module):
     def device(self) -> torch.device:
         return self.encoder.surf_level_encoding.device
 
+    def batch_transform_hook(self, batch: Batch) -> Batch:
+        """Transform the batch right after receiving it, before ``forward`` crops it and
+        before ``rollout`` starts its history (``aurora_tpu/model/aurora.py:473-475``). The
+        identity here; a variant overrides it. Must be idempotent: ``rollout`` calls it once
+        and ``forward`` again on every step."""
+        return batch
+
     def prepare_encodings(self, batch: Batch, dtype: torch.dtype) -> EncoderEncodings:
         """All Fourier encodings, computed on the host in float64 (rounded to float32)."""
         cfg = self.cfg
@@ -194,8 +201,11 @@ class Aurora(nn.Module):
 
     @torch.no_grad()
     def forward(self, batch: Batch) -> Batch:
-        """One prediction step: returns a :class:`Batch` one timestep ahead."""
+        """One prediction step: returns a :class:`Batch` one timestep ahead. Its static
+        variables are the (cropped) ones the caller passed, as the JAX package returns them,
+        not the device copies the model computed with."""
         cfg = self.cfg
+        batch = self.batch_transform_hook(batch)
         batch = batch.crop(patch_size=cfg.patch_size)
         # The compute dtype is the encoder's: the backbone may be stored in bf16.
         dtype = self.encoder.surf_level_encoding.dtype
@@ -208,7 +218,7 @@ class Aurora(nn.Module):
         md = batch.metadata
         return Batch(
             surf_vars={k: v[:, None] for k, v in surf_pred.items()},
-            static_vars=dict(b.static_vars),
+            static_vars=dict(batch.static_vars),
             atmos_vars={k: v[:, None] for k, v in atmos_pred.items()},
             metadata=Metadata(
                 lat=md.lat,

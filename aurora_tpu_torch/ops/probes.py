@@ -309,8 +309,8 @@ def attn_probe(xw, wqkv, bqkv, num_heads: int, mode: str) -> torch.Tensor:
     ``xw: (B, nW, 144, D)``, ``wqkv: (D, 3D)``, ``bqkv: (3D,)`` or ``(1, 3D)``, in one of
     :data:`ATTN_PROBE_MODES`; the numbers of each mode are in :func:`attn_probe_plain`.
 
-    ``baseline`` is K6 without tail and mask: one block per (window, head), the TPU
-    kernel's loop over heads. The TPU kernel's ``batched_heads``/``bf16_batched`` put all
+    ``baseline`` is K6's function without tail and mask: one block per (window, head), the
+    TPU kernel's loop over heads. The TPU kernel's ``batched_heads``/``bf16_batched`` put all
     heads into one batched product: the same numbers in another schedule. On the card the
     other schedule is one block per window that walks its heads with q, k and v of one
     head at a time in shared memory. ``fulld`` (one head of width D) exceeds a block's

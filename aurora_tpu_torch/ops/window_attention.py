@@ -22,23 +22,28 @@ scale)``: ``x + LN(round(attn @ Wproj + bproj)) * scale + shift`` with f32 ``bpr
 two-pass f32 LayerNorm (eps 1e-5) and the residual added in f32. Without it the attention
 output is returned, before proj.
 
-Kernel (``csrc/window_attention.cu``), one or two launches behind each wrapper:
+Kernels (``csrc/window_attention.cu``), two CUDA launches behind a K2 / K6 call without the
+tail and four with it, all on the shared Hopper headers and PyTorch's current stream:
 
-(a) one block of 9 warps per (window, head). K2 and K6 stream the window's rows through the
-    ``(D, 3 dh)`` weight slice of its head on bf16 ``mma.sync`` tiles. q, k and v (144 x 64
-    each) stay in shared memory; the
-    logits of 16 query rows per warp are computed in registers with the mask formed from
-    the ``(nW, N)`` group ids, an f32 softmax, and ``w @ v``, and the head's slice of the
-    attention output is written. The qkv tensor and the logits never reach device memory.
-(b) with the tail only, a row kernel: ``proj -> LN -> * scale + shift -> + x`` on whole rows
-    (a tile of rows runs the projection chunk by chunk into shared memory, then the
-    LayerNorm).
+1. qkv: the persistent TMA + ``wgmma`` ring of ``csrc/gemm_sm90.cuh`` over the token rows in
+   their stored order, ``Wqkv (D, 3D)`` read as stored; the epilogue rounds, adds the bf16
+   bias and rounds again into a ``(rows, 3D)`` bf16 scratch.
+2. core: K7's ring kernel (``csrc/sdpa_sm90.cuh``: two blocks of 9 warps an SM, a 2-stage
+   ring of q/k/v boxes by TMA, ``ldmatrix`` core, mask bits). K6 reads the scratch's packed
+   rows through a 2D tensor map; K2 reads each window in place through a 5D tensor map of
+   the scratch (box ``{64, ws2, ws1, ws0, 1}``), which lands in ``window_partition``'s token
+   order, and writes each token's result to its own row of the 5D grid.
+3. with the tail, proj on the same ring (``Wproj`` as stored, f32 bias) with a LayerNorm
+   statistics epilogue: per row and 256-column tile a mean and a centred sum of squares;
+4. with the tail, K3's row kernel: the statistics merged exactly, FiLM, the residual ``x``.
 
-The attention output (D wide) makes one round trip through device memory between the two;
-removing it is the first redesign item. Bound on the card: operations (qkv, logits, w@v
-and proj in bf16 at 989 TF/s).
+The wrapper allocates the scratch: qkv (796 / 398 / 226 MB at the three backbone stages of
+the 0.25 deg model), and with the tail the attention output and the statistics. Weights are
+passed as stored, with no transposed copy; a cast happens only where one is not already
+bf16 (``Wqkv``, ``bqkv``, ``Wproj``) or f32 (``bproj``, FiLM). Bound on the card: operations (qkv, logits, w@v and proj in bf16 at
+989 TF/s).
 
-K7 is a kernel of its own (``csrc/sdpa.cu`` on ``csrc/attention_core.cuh``), bound by bytes:
+K7 is a kernel of its own (``csrc/sdpa.cu`` on ``csrc/sdpa_sm90.cuh``), bound by bytes:
 persistent blocks, two to an SM, walk runs of (window, head) units through a two-stage ring
 that TMA loads fill while the core of the unit before computes; fragments by ``ldmatrix``,
 the mask as a template parameter kept as bits in registers.
@@ -68,6 +73,7 @@ __all__ = [
     "sdpa_windows",
     "sdpa_windows_plain",
     "check_sdpa_windows_shape",
+    "check_window_attention_shape",
 ]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -179,6 +185,43 @@ def check_sdpa_windows_shape(shape: tuple, num_heads: int) -> tuple[int, int, in
     return B, nW, D3 // 3
 
 
+WINDOW_ATTENTION_D = (512, 1024, 2048)
+
+
+def check_window_attention_shape(
+    shape: tuple, num_heads: int, ws: Optional[tuple[int, int, int]] = None
+) -> tuple[int, int, int]:
+    """``(B, nW, rows)`` of the tokens K2 and K6 take on the card, or ``ValueError`` naming
+    the shape. K2: ``shape = (B, Cp, Hp, Wp, D)`` with windows ``ws`` in place; K6:
+    ``shape = (B, nW, N, D)`` and ``ws`` None. ``D`` in (512, 1024, 2048) (``3D`` is whole
+    256-column tiles of the qkv product, and the LayerNorm statistics come in 256-column
+    tiles), a head dim of 64, windows of 144 tokens, a grid of whole windows, at most
+    ``2**24`` rows."""
+    what = f"window_attention kernel {tuple(shape)}, heads {num_heads}"
+    if len(shape) != (5 if ws is not None else 4):
+        raise ValueError(f"{what}: needs (B, Cp, Hp, Wp, D) with ws, or (B, nW, 144, D)")
+    B, D = shape[0], shape[-1]
+    if D not in WINDOW_ATTENTION_D:
+        raise ValueError(f"{what}: D={D} is not one of 512, 1024, 2048")
+    if D != 64 * num_heads:
+        raise ValueError(f"{what}: head dim D / heads = {D / num_heads:g}, needs 64")
+    if ws is None:
+        nW, N = shape[1], shape[2]
+    else:
+        Cp, Hp, Wp = shape[1:4]
+        N = ws[0] * ws[1] * ws[2]
+        if Cp % ws[0] or Hp % ws[1] or Wp % ws[2]:
+            raise ValueError(f"{what}: padded grid {(Cp, Hp, Wp)} is not a multiple of the "
+                             f"window {tuple(ws)}")
+        nW = (Cp // ws[0]) * (Hp // ws[1]) * (Wp // ws[2])
+    if N != 144:
+        raise ValueError(f"{what}: windows of N={N} tokens, needs 144")
+    rows = B * nW * N
+    if not 0 < rows <= 2**24:
+        raise ValueError(f"{what}: {rows} token rows, needs 1..2**24")
+    return B, nW, rows
+
+
 def _group_ids(groups: Optional[np.ndarray], nW: int, device) -> Optional[torch.Tensor]:
     if groups is None:
         return None
@@ -187,38 +230,61 @@ def _group_ids(groups: Optional[np.ndarray], nW: int, device) -> Optional[torch.
     return gid
 
 
-def _launch_window_attention(
-    x, wqkv, bqkv, groups, num_heads, tail, ln_eps, nW, geom5d, ws, what
+# csrc/window_attention.cu::window_attention
+_WINDOW_ATTENTION_ARGS = [_P] * 12 + [_I] * 10 + [_F, _P]
+
+
+def _window_attention_call(
+    fn, x, wqkv, bqkv, groups, num_heads, tail, ln_eps, nW, rows, geom5d, ws, what
 ) -> torch.Tensor:
-    """Launch K2 (``geom5d = (Cp, Hp, Wp)``) or K6 (``geom5d = (0, 0, 0)``)."""
+    """Run ``fn`` (``window_attention`` of ``csrc/window_attention.cu``, or an ablated copy)
+    as K2 (``geom5d = (Cp, Hp, Wp)``) or K6 (``geom5d = (0, 0, 0)``): 2 CUDA launches
+    without the tail, 4 with it. Allocates the scratch; the weights go as stored (a cast
+    only to bf16 / f32 where they are stored otherwise)."""
     B, D = x.shape[0], x.shape[-1]
     bf, f32 = torch.bfloat16, torch.float32
-    wqkv_t = wqkv.to(bf).t().contiguous()  # (3D, D)
-    bqkv_b = bqkv.to(bf).contiguous()
-    gid = _group_ids(groups, nW, x.device)
+    ops = {"wqkv": (wqkv.to(bf).contiguous(), (D, 3 * D)),
+           "bqkv": (bqkv.to(bf).contiguous(), (3 * D,))}
+    qkv = x.new_empty(rows, 3 * D)
     attn = torch.empty_like(x)
-    out = None
-    tail_ptrs = [None] * 4
+    out = stats = None
     if tail is not None:
         wproj, bproj, shift, scale = tail
-        tail_args = (
-            wproj.to(bf).t().contiguous(),  # (D, D)
-            bproj.to(f32).contiguous(),
-            shift.to(f32).reshape(B, D).contiguous(),
-            scale.to(f32).reshape(B, D).contiguous(),
+        ops.update(
+            wproj=(wproj.to(bf).contiguous(), (D, D)),
+            bproj=(bproj.to(f32).contiguous(), (D,)),
+            shift=(shift.to(f32).reshape(B, D).contiguous(), (B, D)),
+            scale=(scale.to(f32).reshape(B, D).contiguous(), (B, D)),
         )
-        tail_ptrs = [t.data_ptr() for t in tail_args]
+        stats = torch.empty(rows, D // 256, 2, dtype=f32, device=x.device)
         out = torch.empty_like(x)
-    fn = _lib.kernel("window_attention", "window_attention", [_P] * 10 + [_I] * 10 + [_F, _P])
+    # The tensor maps' bases and the kernels' 16-byte loads and stores need 16-byte
+    # alignment; fresh allocations and parameters have it, a view may not.
+    if x.data_ptr() % 16:
+        raise ValueError(f"{what}: the tokens must be 16-byte aligned")
+    for name, (t, shape) in ops.items():
+        _lib.require(t, name, t.dtype, shape)
+        if t.device != x.device or t.data_ptr() % 16:
+            raise ValueError(f"{what}: {name} must be on {x.device}, 16-byte aligned")
+    gid = _group_ids(groups, nW, x.device)
+    ptr = {k: t.data_ptr() for k, (t, _) in ops.items()}
     err = fn(
-        x.data_ptr(), wqkv_t.data_ptr(), bqkv_b.data_ptr(),
-        None if gid is None else gid.data_ptr(), *tail_ptrs,
-        attn.data_ptr(), None if out is None else out.data_ptr(),
+        x.data_ptr(), ptr["wqkv"], ptr["bqkv"], None if gid is None else gid.data_ptr(),
+        *(ptr.get(k) for k in ("wproj", "bproj", "shift", "scale")),
+        qkv.data_ptr(), attn.data_ptr(), None if stats is None else stats.data_ptr(),
+        None if out is None else out.data_ptr(),
         B, nW, *geom5d, D, *ws, num_heads, float(ln_eps), _lib.stream(x),
     )
     _lib.check(err, what)
-    _lib.LAUNCHES[what] += 1
     return attn if out is None else out
+
+
+def _launch_window_attention(x, *args, what: str) -> torch.Tensor:
+    """K2 or K6 (arguments as :func:`_window_attention_call`), counted in ``LAUNCHES``."""
+    fn = _lib.kernel("window_attention", "window_attention", _WINDOW_ATTENTION_ARGS)
+    out = _window_attention_call(fn, x, *args, what)
+    _lib.LAUNCHES[what] += 1
+    return out
 
 
 def window_attention_tail(
@@ -238,20 +304,17 @@ def window_attention_tail(
     folded in, bproj (D,), shift (B, D), scale (B, D))`` or None. Returns the post-residual
     tokens with the tail, else the attention output before proj; same shape as ``xp``.
 
-    CPU tensors take :func:`window_attention_tail_plain`; CUDA tensors launch the kernel,
-    which takes bf16 tokens, windows of 144 tokens and a head dim of 64.
+    CPU tensors take :func:`window_attention_tail_plain`; CUDA tensors launch the kernels
+    (2 CUDA launches, 4 with the tail), which take bf16 tokens of the shapes
+    :func:`check_window_attention_shape` passes.
     """
     if xp.device.type == "cpu":
         return window_attention_tail_plain(xp, wqkv, bqkv, groups, ws, num_heads, tail, ln_eps)
-    B, Cp, Hp, Wp, D = xp.shape
     _lib.require(xp, "xp", torch.bfloat16)
-    _check_heads(ws[0] * ws[1] * ws[2], D, num_heads, "window_attention")
-    if Cp % ws[0] or Hp % ws[1] or Wp % ws[2]:
-        raise ValueError(f"padded grid {(Cp, Hp, Wp)} is not a multiple of the window {ws}")
-    nW = (Cp // ws[0]) * (Hp // ws[1]) * (Wp // ws[2])
+    _, nW, rows = check_window_attention_shape(tuple(xp.shape), num_heads, ws)
     return _launch_window_attention(
-        xp, wqkv, bqkv, groups, num_heads, tail, ln_eps, nW, (Cp, Hp, Wp), ws,
-        "window_attention",
+        xp, wqkv, bqkv, groups, num_heads, tail, ln_eps, nW, rows, tuple(xp.shape[1:4]), ws,
+        what="window_attention",
     )
 
 
@@ -268,16 +331,16 @@ def window_attention_windowed(
     result as :func:`window_attention_tail`, in the windows' layout.
 
     CPU tensors take :func:`window_attention_windowed_plain`; CUDA tensors launch the
-    kernel, which takes bf16 tokens, windows of 144 tokens and a head dim of 64.
+    kernels (2 CUDA launches, 4 with the tail), which take bf16 tokens of the shapes
+    :func:`check_window_attention_shape` passes.
     """
     if xw.device.type == "cpu":
         return window_attention_windowed_plain(xw, wqkv, bqkv, groups, num_heads, tail, ln_eps)
-    B, nW, N, D = xw.shape
     _lib.require(xw, "xw", torch.bfloat16)
-    _check_heads(N, D, num_heads, "window_attention_windowed")
+    _, nW, rows = check_window_attention_shape(tuple(xw.shape), num_heads)
     return _launch_window_attention(
-        xw, wqkv, bqkv, groups, num_heads, tail, ln_eps, nW, (0, 0, 0), (0, 0, 0),
-        "window_attention_windowed",
+        xw, wqkv, bqkv, groups, num_heads, tail, ln_eps, nW, rows, (0, 0, 0), (0, 0, 0),
+        what="window_attention_windowed",
     )
 
 

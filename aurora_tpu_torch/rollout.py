@@ -17,6 +17,8 @@ __all__ = ["rollout"]
 
 def rollout(model: Aurora, batch: Batch, steps: int) -> Generator[Batch, None, None]:
     """Roll the model out for ``steps`` steps, yielding the prediction after each step."""
+    # The batch in its model form before the history is concatenated.
+    batch = model.batch_transform_hook(batch)
     batch = batch.crop(model.cfg.patch_size)
     for _ in range(steps):
         pred = model(batch)

@@ -1,6 +1,7 @@
-"""What holds K3 ``mlp_adaln_residual`` / K8 ``mlp_fused``, K12 ``gemm_blocked`` and K7
-``sdpa_windows`` back: each kernel against copies of itself with one part switched off, at
-the shapes the probe tools, the backbone and the perceiver give them.
+"""What holds K3 ``mlp_adaln_residual`` / K8 ``mlp_fused``, K12 ``gemm_blocked``, K7
+``sdpa_windows`` and K2 / K6 ``window_attention(_windowed)`` back: each kernel against copies
+of itself with one part switched off, at the shapes the probe tools, the backbone and the
+perceiver give them.
 
 The copies are built from the same sources with a preprocessor switch (``nvcc -D...``) into
 ``build/kernels/ablate/`` and called through their C entries; none of them is reachable from
@@ -17,7 +18,15 @@ a wrapper, and all but the ring-depth variants compute wrong results on purpose:
   registers, nothing is stored), both, and a ring of 3 and of 2 stages in place of 4;
 * K7 (``csrc/sdpa.cu``): ``no_core`` (loads, ring and stores only), ``no_loads`` (only the
   first units are loaded), ``ring_1`` (one stage: no load overlaps a product) and
-  ``mask_every_unit`` (the mask bits rebuilt per unit instead of per window).
+  ``mask_every_unit`` (the mask bits rebuilt per unit instead of per window);
+* K2 / K6 (``csrc/window_attention.cu``, at the three backbone stages, masked, with the
+  tail): ``only_qkv`` (the qkv product alone), ``only_core`` (the attention core alone, on
+  what the qkv scratch holds), ``only_tail`` (proj and the row kernel alone, on what the
+  attention scratch holds), ``no_loads`` (no TMA load in any of the launches), and the two
+  halves of the qkv round trip through device memory: ``only_qkv_no_store`` (the product
+  without its epilogue's store) and ``only_core_no_loads`` (the core without reading the
+  scratch); ``torch.matmul`` at the qkv and proj shapes is timed beside them. ``only_core``
+  of K2 against K6 is the cost of reading windows in place through the 5D map.
 
 Every time is a median of ``--steps`` launches after warm-up (``tools.time_ms``: CUDA
 events, each launch behind a memset that keeps the queue ahead of the host and leaves the
@@ -35,6 +44,7 @@ import subprocess
 import torch
 
 from aurora_tpu_torch.ops import _lib, mlp, probes
+from aurora_tpu_torch.ops import window_attention as wa
 from aurora_tpu_torch.ops.masks import group_ids_tensor, window_group_ids
 from aurora_tpu_torch.tools import card_line, report, resolve_device, result, time_ms
 from aurora_tpu_torch.tools.gemm_probe import FC2, PROJ
@@ -55,6 +65,12 @@ MLP_SHAPES = ((259200, 512, 2048), (64800, 1024, 4096), (16200, 2048, 8192), (84
 SDPA_VARIANTS = {
     "full": (), "no_core": ("ABLATE_NO_CORE",), "no_loads": ("ABLATE_NO_LOADS",),
     "ring_1": ("SDPA_RING=1",), "mask_every_unit": ("ABLATE_MASK_EVERY_UNIT",),
+}
+WINDOW_VARIANTS = {
+    "full": (), "only_qkv": ("ABLATE_ONLY_QKV",), "only_core": ("ABLATE_ONLY_CORE",),
+    "only_tail": ("ABLATE_ONLY_TAIL",), "no_loads": ("ABLATE_NO_LOADS",),
+    "only_qkv_no_store": ("ABLATE_ONLY_QKV", "ABLATE_NO_EPILOGUE"),
+    "only_core_no_loads": ("ABLATE_ONLY_CORE", "ABLATE_NO_LOADS"),
 }
 STAGES = ((4, 180, 360, 512, 8), (4, 90, 180, 1024, 16), (4, 45, 90, 2048, 32))
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -187,9 +203,44 @@ def main(argv=None) -> list[dict]:
 
                 emit(f"sdpa_windows D={D} {kind} [{tag}]", ms(call), **work)
 
+    def ablate_window():
+        libs = build_variants("window_attention", WINDOW_VARIANTS)
+        for stage in STAGES:
+            ablate_window_stage(libs, *stage)
+
+    def ablate_window_stage(libs, C, H, W, D, heads):
+        ws, ss = (2, 6, 12), (1, 3, 6)
+        Hp, Wp = H + (-H) % ws[1], W + (-W) % ws[2]
+        rows = C * Hp * Wp
+        nW = rows // 144
+        xp, xw = rn(1, C, Hp, Wp, D), rn(1, nW, 144, D)
+        wqkv, bqkv = rn(D, 3 * D, std=0.02), rn(3 * D, std=0.02)
+        tail = (rn(D, D, std=0.02), rn(D, std=0.02).float(), rn(1, D, std=0.1).float(),
+                rn(1, D).float())
+        groups = window_group_ids(C, H, W, ws, ss)
+        a = xp.view(rows, D)
+        emit(f"torch.matmul qkv ({rows},{D})x({D},{3 * D})", ms(lambda: torch.matmul(a, wqkv)),
+             flops=6 * rows * D * D)
+        emit(f"torch.matmul proj ({rows},{D})x({D},{D})", ms(lambda: torch.matmul(a, tail[0])),
+             flops=2 * rows * D * D)
+        work = dict(flops=8 * rows * D * D + 4 * nW * heads * 144 * 144 * 64,
+                    nbytes=2 * rows * D * 2 + 4 * D * D * 2)
+        for name, x, geom, wsx in (("window_attention", xp, (C, Hp, Wp), ws),
+                                   ("window_attention_windowed", xw, (0, 0, 0), (0, 0, 0))):
+            for tag, lib in libs.items():
+                fn = lib.window_attention
+                fn.argtypes, fn.restype = wa._WINDOW_ATTENTION_ARGS, _I
+
+                def call(fn=fn, x=x, geom=geom, wsx=wsx, name=name):
+                    wa._window_attention_call(fn, x, wqkv, bqkv, groups, heads, tail, 1e-5, nW,
+                                              rows, geom, wsx, name)
+
+                emit(f"{name} D={D} masked, tail [{tag}]", ms(call), **work)
+
     ablate_mlp()
     ablate_gemm()
     ablate_sdpa()
+    ablate_window()
     return out
 
 

@@ -22,9 +22,16 @@ Phases, each printing one JSON line; any failure raises and the script exits non
    its error is not hidden under the residual's rounding. Outputs with no residual (K2
    and K6 without the tail, K7, K8): max ``|kernel - plain|`` over max ``|plain|``, 6e-3.
    K10-K12 ("rel_ulp"): the same less one bf16 ulp of the output, 6e-3, since one ulp of an
-   output in the largest binade is up to 7.8e-3 of the maximum (K11 equals K2 without tail
-   bit for bit and is 7.2e-3 from its plain version at stage 3). K11 is also held to K2
-   without tail on the same input. K12's outputs under every row block of a shape must be
+   output in the largest binade is up to 7.8e-3 of the maximum (K11, on the probes' own
+   projection, is 7.2e-3 from its plain version at stage 3 by max |error| / max |output|).
+   K11 is also held to K2 without tail on the same input, by the same 6e-3 "rel_ulp" bound:
+   the two project qkv on different tensor-core paths, so they may round apart. K2 and K6
+   are one function with two row addressings: K6 on ``window_partition(xp)``, reversed,
+   must be K2's bits on ``xp`` (every K2 case, with and without the tail); a K2 and a K6
+   case at the 121 x 240 grid's stage 1 (7200 = 112 x 64 + 32 rows) have a ragged last
+   piece; K2 at stage 3, masked, must give the real tokens the same bits with garbage in
+   the pad tokens. K2, K6, K3 and K8 are checked again on the output of their last timed
+   run. K12's outputs under every row block of a shape must be
    the same bits (all of the tool's row blocks end in a ragged 64-row piece: 2160 = 33 x 64
    + 48, 3240 = 50 x 64 + 40, 540 = 8 x 64 + 28, 1080 = 16 x 64 + 56; an M = 3240 case per
    weight shape adds an odd number of pieces, whose last tile has one). K7 at stage 3, whose
@@ -155,9 +162,9 @@ def kernel_cases():
     check ("exact", "branch" with the residual its output adds a branch to, "rel", or
     "rel_ulp": "branch" with a zero residual), the bound, for K11 a second reference
     (``also``: K2 without tail), for K12 a key (``same_bits``: the outputs of consecutive
-    cases with one key must be the same bits), for K7 and K3 one more check (``extra``: a
-    callable that returns fields for the case's line and raises on failure) and for K3 and
-    K8 ``recheck``: the check is made again on the output of the last timed run."""
+    cases with one key must be the same bits), for K7, K3 and K2 one more check (``extra``: a
+    callable that returns fields for the case's line and raises on failure) and for K2, K6,
+    K3 and K8 ``recheck``: the check is made again on the output of the last timed run."""
     import torch
     import torch.nn.functional as F
 
@@ -213,6 +220,12 @@ def kernel_cases():
                           bound=bound_ms(flops_bf16=fl, nbytes=nb))
                 # K2 with the tail runs on the main route, without it on route P; K6 with
                 # the tail on route W, without it under (pallas_windowed, pallas/xla).
+                def k2_extra(xp=xp, gr=groups, h=heads, t=t, pad=(Hp, Wp) != (H, W)):
+                    more = k6_equals_k2(xp, wqkv, bqkv, gr, ws, h, t)
+                    if gr is not None and t is not None and pad:
+                        more.update(k2_pad_tokens_isolated(xp, wqkv, bqkv, gr, ws, h, t))
+                    return more
+
                 yield case(
                     "window_attention", f"(1,{C},{Hp},{Wp},{D}) heads {heads}, {kind}, {mode}",
                     nblk // 2, residual=xp,
@@ -220,7 +233,7 @@ def kernel_cases():
                         window_attention.window_attention_tail(xp, wqkv, bqkv, gr, ws, h, t),
                     plain=lambda xp=xp, gr=groups, h=heads, t=t:
                         window_attention.window_attention_tail_plain(xp, wqkv, bqkv, gr, ws, h, t),
-                    **kw,
+                    extra=k2_extra, recheck=True, **kw,
                 )
                 yield case(
                     "window_attention_windowed",
@@ -230,7 +243,7 @@ def kernel_cases():
                     plain=lambda xw=xw, gr=groups, h=heads, t=t:
                         window_attention.window_attention_windowed_plain(
                             xw, wqkv, bqkv, gr, h, t),
-                    **kw,
+                    recheck=True, **kw,
                 )
             # K7 on packed qkv; the library yardstick is SDPA on the same q, k, v (views
             # (nW, heads, N, dh) of the packed rows) with the same -100/0 mask.
@@ -280,6 +293,33 @@ def kernel_cases():
             bound=bound_ms(flops_bf16=2 * rows * D * D, nbytes=3 * rows * D * 2 + D * D * 2),
         )
         del xr, sc
+    # K2 and K6 at the 121 x 240 grid's stage 1 (the routes' reference runs): 7200 rows, whose
+    # last 64-row piece is ragged. Masked, with the tail. Count nothing towards the sums.
+    C, H, W, D, heads = 4, 30, 60, 512, 8
+    xp, nW = rn(1, C, H, W, D), C * H * W // 144
+    xw = rn(1, nW, 144, D)
+    groups = window_group_ids(C, H, W, ws, ss)
+    wqkv, bqkv = rn(D, 3 * D, std=0.02), rn(3 * D, std=0.02)
+    tail = (rn(D, D, std=0.02), rn(D, std=0.02, dtype=torch.float32),
+            rn(1, D, std=0.1, dtype=torch.float32), rn(1, D, dtype=torch.float32))
+    kw = dict(mode="tail", check="branch", recheck=True, bound=bound_ms(
+        flops_bf16=8 * C * H * W * D * D + 4 * nW * heads * 144 * 144 * 64,
+        nbytes=2 * C * H * W * D * 2 + 4 * D * D * 2))
+    yield case(
+        "window_attention", f"(1,{C},{H},{W},{D}) heads {heads}, 121 x 240, ragged, masked", 0,
+        residual=xp,
+        kernel=lambda: window_attention.window_attention_tail(xp, wqkv, bqkv, groups, ws, heads, tail),
+        plain=lambda: window_attention.window_attention_tail_plain(
+            xp, wqkv, bqkv, groups, ws, heads, tail), **kw,
+    )
+    yield case(
+        "window_attention_windowed", f"(1,{nW},144,{D}) heads {heads}, 121 x 240, ragged, masked",
+        0, residual=xw,
+        kernel=lambda: window_attention.window_attention_windowed(xw, wqkv, bqkv, groups, heads, tail),
+        plain=lambda: window_attention.window_attention_windowed_plain(
+            xw, wqkv, bqkv, groups, heads, tail), **kw,
+    )
+    del xp, xw
     for label, rows, D in (("agg", 64800 * 3, 512), ("de-agg", 64800 * 13, 1024)):
         # LayerNorm affine in the FiLM slot: bias ~0, weight ~1.
         ln2 = (rn(1, D, std=0.1, dtype=torch.float32), 1 + rn(1, D, std=0.1, dtype=torch.float32))
@@ -346,6 +386,49 @@ def pad_tokens_isolated(qkv, groups, heads) -> dict:
     if not (real_equal and pad_moved):
         raise AssertionError(f"pad-token check: real tokens bit-equal {real_equal}, pad tokens "
                              f"changed {pad_moved}")
+    return dict(pad_tokens=int(pad.sum()), real_tokens_bit_equal=True, pad_tokens_changed=True)
+
+
+def k6_equals_k2(xp, wqkv, bqkv, groups, ws, heads, tail) -> dict:
+    """K6 on the partitioned windows of ``xp``, reversed, must be K2's bits on ``xp``: one
+    function, two row addressings (packed rows through a 2D map, windows in place through a
+    5D one)."""
+    import torch
+
+    from aurora_tpu_torch.ops import window_attention as wa
+
+    _, C, H, W, _ = xp.shape
+    k2 = wa.window_attention_tail(xp, wqkv, bqkv, groups, ws, heads, tail)
+    k6 = wa.window_attention_windowed(wa.window_partition(xp, ws).contiguous(), wqkv, bqkv,
+                                      groups, heads, tail)
+    torch.cuda.synchronize()
+    if not torch.equal(wa.window_reverse(k6, ws, C, H, W), k2):
+        raise AssertionError("K6 on window_partition(xp), reversed, differs from K2 on xp")
+    return dict(k6_on_partition_equals_k2=True)
+
+
+def k2_pad_tokens_isolated(xp, wqkv, bqkv, groups, ws, heads, tail) -> dict:
+    """K2 on a padded grid, masked: garbage in the pad tokens of ``xp`` must leave every real
+    token's output the same bits (pad tokens have a group id of their own, the largest; in
+    a shifted block they lie where the roll put them; proj and the LayerNorm work row by
+    row)."""
+    import torch
+
+    from aurora_tpu_torch.ops import window_attention as wa
+
+    _, Cp, Hp, Wp, _ = xp.shape
+    pad_w = torch.as_tensor(groups == groups.max(), device=xp.device)  # (nW, N)
+    pad = wa.window_reverse(pad_w[None, :, :, None], ws, Cp, Hp, Wp)[0, ..., 0]
+    clean = wa.window_attention_tail(xp, wqkv, bqkv, groups, ws, heads, tail)
+    dirty = wa.window_attention_tail(
+        torch.where(pad[None, ..., None], torch.full_like(xp, 7.0), xp), wqkv, bqkv, groups, ws,
+        heads, tail)
+    torch.cuda.synchronize()
+    real_equal = torch.equal(clean[:, ~pad], dirty[:, ~pad])
+    pad_moved = not torch.equal(clean[:, pad], dirty[:, pad])
+    if not (real_equal and pad_moved):
+        raise AssertionError(f"K2 pad-token check: real tokens bit-equal {real_equal}, pad "
+                             f"tokens changed {pad_moved}")
     return dict(pad_tokens=int(pad.sum()), real_tokens_bit_equal=True, pad_tokens_changed=True)
 
 

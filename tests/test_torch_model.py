@@ -19,6 +19,7 @@
   and ``triton``.
 """
 
+import dataclasses
 import os
 import subprocess
 import sys
@@ -119,6 +120,71 @@ def test_rollout_matches_f64(f64_pair):
         errs = _errors(g, w)
         assert max(errs.values()) <= 1e-8, (step, errs)
         assert g.metadata.rollout_step == step + 1
+
+
+def test_forward_returns_the_callers_static_vars(f64_pair, f64_reference):
+    """The static fields of a prediction are the caller's cropped arrays, as
+    ``aurora_tpu/model/aurora.py:556`` returns them, not the model's cast copies: a float32
+    model given float64 inputs returns them float64, with the JAX forward's values."""
+    from aurora_tpu_torch.convert import params_from_numpy
+    from aurora_tpu_torch.model.config import AuroraConfig
+
+    _, params, _, jb = f64_pair
+    tm32 = params_from_numpy(numpy_tree(params), AuroraConfig(**CFG), device="cpu")
+    assert tm32.encoder.surf_level_encoding.dtype == torch.float32
+    got = tm32(torch_batch(jb))
+    assert set(got.static_vars) == set(f64_reference.static_vars)
+    for k, want in f64_reference.static_vars.items():
+        want = np.asarray(want)
+        assert want.dtype == np.float64 and got.static_vars[k].dtype == torch.float64, k
+        assert np.array_equal(np.asarray(got.static_vars[k]), want), k
+
+
+def _with_2t_doubled(batch):
+    return dataclasses.replace(
+        batch, surf_vars={**batch.surf_vars, "2t": 2 * batch.surf_vars["2t"]})
+
+
+def _hooked_model(params, hook):
+    """The port model of ``params`` whose ``batch_transform_hook`` is ``hook``."""
+    from aurora_tpu_torch import Aurora
+    from aurora_tpu_torch.convert import load_numpy_params
+    from aurora_tpu_torch.model.config import AuroraConfig
+
+    class Hooked(Aurora):
+        def batch_transform_hook(self, batch):
+            return hook(batch)
+
+    model = Hooked(AuroraConfig(**CFG), device="cpu", dtype=torch.float64, seed=None)
+    return load_numpy_params(model, numpy_tree(params))
+
+
+def test_batch_transform_hook_runs_first_in_forward(f64_pair):
+    """``forward`` applies the hook before anything else (``aurora_tpu/model/aurora.py:526``):
+    a hook that doubles ``2t`` gives the base model's prediction on the doubled batch. The
+    port against itself, on the small 17 x 32 batch."""
+    _, params, tm, _ = f64_pair
+    batch = torch_batch(make_batch(levels=LEVELS))
+    got = _hooked_model(params, _with_2t_doubled)(batch)
+    want = tm(_with_2t_doubled(batch))
+    for k in want.surf_vars:
+        assert torch.equal(got.surf_vars[k], want.surf_vars[k]), k
+    for k in want.atmos_vars:
+        assert torch.equal(got.atmos_vars[k], want.atmos_vars[k]), k
+    assert not torch.equal(want.surf_vars["2t"], tm(batch).surf_vars["2t"])
+
+
+def test_rollout_applies_the_hook_before_its_history(f64_pair):
+    """``rollout`` hands the caller's batch, uncropped, to the hook once before the first
+    step (``aurora_tpu/rollout.py:26``); ``forward`` applies it again."""
+    from aurora_tpu_torch import rollout
+
+    _, params, _, _ = f64_pair
+    seen = []
+    model = _hooked_model(params, lambda b: seen.append(b.spatial_shape) or b)
+    preds = list(rollout(model, torch_batch(make_batch(levels=LEVELS)), steps=1))
+    assert len(preds) == 1 and preds[0].metadata.rollout_step == 1
+    assert seen == [(17, 32), (16, 32)]
 
 
 def test_production_knobs_match_jax_production():

@@ -8,8 +8,9 @@
 * The host side of K12's schedule covers every output element exactly once, for the probe
   tool's shapes and for small ragged ones, and the row block changes no bit of the result.
 * The shape rules of the two wrappers, as pure functions.
-* The port names no fused attention operator, and the CUDA branches of the four wrappers
-  reach no library product.
+* The port names no fused attention operator, and the CUDA branches of the six wrappers
+  (K12, K7, K3, K8, K2, K6), with the private helpers they call, reach no library product
+  and make no transposed copy of a weight.
 * K3's LayerNorm as its kernels compute it (per 256-column tile a mean and a centred sum of
   squares, merged exactly) equals the two-pass form of ``film_layernorm_residual``; the
   row-chunk rule that bounds K3's and K8's scratch covers every row once.
@@ -182,10 +183,27 @@ def _cuda_branch(fn):
     raise AssertionError(f"{fn.__name__}: no CPU branch found")
 
 
+def _helpers(fn, branch):
+    """The module's private functions that ``branch`` calls, and those they call in turn
+    (K2 / K6 launch through two)."""
+    module = inspect.getmodule(fn)
+    found, todo = {}, list(branch)
+    while todo:
+        for n in ast.walk(todo.pop()):
+            if isinstance(n, ast.Call) and isinstance(n.func, ast.Name):
+                f = getattr(module, n.func.id, None)
+                if n.func.id.startswith("_") and inspect.isfunction(f) and n.func.id not in found:
+                    found[n.func.id] = f
+                    todo.append(ast.parse(inspect.getsource(f)))
+    return list(found.values())
+
+
 @pytest.mark.parametrize(
     "fn",
-    [probes.gemm_blocked, window_attention.sdpa_windows, mlp.mlp_adaln_residual, mlp.mlp_fused],
-    ids=["gemm_blocked", "sdpa_windows", "mlp_adaln_residual", "mlp_fused"])
+    [probes.gemm_blocked, window_attention.sdpa_windows, mlp.mlp_adaln_residual, mlp.mlp_fused,
+     window_attention.window_attention_tail, window_attention.window_attention_windowed],
+    ids=["gemm_blocked", "sdpa_windows", "mlp_adaln_residual", "mlp_fused",
+         "window_attention_tail", "window_attention_windowed"])
 def test_cuda_branch_reaches_no_library_product(fn):
     branch = _cuda_branch(fn)
     assert branch, "the CUDA branch launches the kernel"
@@ -197,9 +215,19 @@ def test_cuda_branch_reaches_no_library_product(fn):
                 names.add(node.attr)
             elif isinstance(node, ast.Name):
                 names.add(node.id)
-    banned = {"matmul", "mm", "bmm", "einsum", "addmm", "linear", "softmax", "t", "transpose",
-              "gemm_blocked_plain", "sdpa_windows_plain", "mlp_adaln_residual_plain",
-              "mlp_fused_plain", "_mlp_weights", "F", "functional"}
+    # In the private helpers the branch calls: what they call or reach as an attribute.
+    for helper in _helpers(fn, branch):
+        for node in ast.walk(ast.parse(inspect.getsource(helper))):
+            assert not (isinstance(node, ast.BinOp) and isinstance(node.op, ast.MatMult))
+            if isinstance(node, ast.Attribute):
+                names.add(node.attr)
+            elif isinstance(node, ast.Call) and isinstance(node.func, ast.Name):
+                names.add(node.func.id)
+    banned = {"matmul", "mm", "bmm", "einsum", "addmm", "linear", "softmax", "t", "T", "mT",
+              "transpose", "permute", "gemm_blocked_plain", "sdpa_windows_plain",
+              "mlp_adaln_residual_plain", "mlp_fused_plain", "_mlp_weights",
+              "window_attention_tail_plain", "window_attention_windowed_plain", "F",
+              "functional"}
     assert not names & banned, names & banned
     assert "kernel" in names and "LAUNCHES" in names
 
