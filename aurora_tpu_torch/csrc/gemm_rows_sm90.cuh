@@ -1,18 +1,24 @@
 // A product over a chunk of token rows on the TMA + wgmma ring of gemm_sm90.cuh, with a bias
-// epilogue, and the LayerNorm row kernel that follows it. mlp.cu (K3's and K8's fc2) and
-// window_attention.cu (K2's and K6's qkv and proj) run them.
+// epilogue, and the LayerNorm row kernel that follows it. mlp.cu (K3's and K8's fc2, K5),
+// window_attention.cu (K2's and K6's qkv and proj) and resampler.cu (K4's v and
+// out-projection; its ln_k sums of squares take the ring with an epilogue of their own) run
+// them.
 //
 //   gemm_bias_kernel<EPI>: y = A W + bias over `rows` rows, A (rows, K) bf16 rows, W (K, N)
 //     bf16 as stored (an MN-major wgmma operand, no transposed copy), one persistent block an
 //     SM, (2 x 64) x 256 tiles on a ring of 4 stages. The epilogue, by EPI:
 //       EPI_BIAS        y = bf16(acc + b), b f32                           (K8's fc2)
 //       EPI_BIAS_STATS  the same, and per row and 256-column tile the mean and the centred sum
-//                       of squares of the tile's 256 rounded values         (K3's fc2; proj)
+//                       of squares of the tile's 256 rounded values         (K3's fc2; proj; K5)
 //       EPI_QKV         y = bf16(bf16(acc) + b), b bf16: the bias added after the rounding
 //                       (aurora_tpu/model/swin3d.py:573-577)                 (qkv)
+//       EPI_ROUND       y = bf16(acc), no bias                              (K4's v)
+//       EPI_STATS       the same, with EPI_BIAS_STATS's statistics          (K4's out-projection)
 //     y leaves through each warp's swizzled staging (GemmRing::store_warp_tile).
-//   ln_rows_kernel: a warp a row, out (holding y) = bf16(x + LN(y) (scale_bias + scale[f]) +
-//     shift[f]) in place, f = (row_base + row) / rows_per_batch. It merges the D / 256 tile
+//   ln_rows_kernel<Res>: a warp a row, out (holding y) = bf16(x + LN(y) (scale_bias + scale[f])
+//     + shift[f]) in place, f = (row_base + row) / rows_per_batch, x the row's residual: its own
+//     row of a bf16 matrix (RowsResidual: K2, K3, K5, K6) or row (row_base + row) % period of
+//     an f32 matrix (PeriodicResidual: K4's queries). It merges the D / 256 tile
 //     statistics exactly (equal counts: mean of means, the centred squares plus 256 times
 //     the squared offsets of the means; no E[y^2] - mean^2), so a row's column tiles run side
 //     by side on neighbouring blocks and A is read from device memory once.
@@ -32,7 +38,7 @@ constexpr int ROWS_THREADS = 384;  // consumers 0-255, producer warpgroup 256-38
 constexpr size_t ROWS_GEMM_SMEM = 1024 + RowsRing::STAGES * RowsRing::STAGE_BYTES +
                                   RowsRing::CONSUMER_WARPS * RowsRing::OUT_WARP_BYTES +
                                   RowsRing::BAR_BYTES;
-enum { EPI_BIAS = 0, EPI_BIAS_STATS = 1, EPI_QKV = 2 };
+enum { EPI_BIAS = 0, EPI_BIAS_STATS = 1, EPI_QKV = 2, EPI_ROUND = 3, EPI_STATS = 4 };
 
 // One product's schedule over a chunk of `rows` rows: pieces of 64 rows (the last ragged),
 // paired into tiles; unit u is column tile u % n_tiles of tile u / n_tiles, whose warpgroup
@@ -68,9 +74,9 @@ __device__ __forceinline__ void produce_units(const CUtensorMap* map_a, const CU
   }
 }
 
-// out: (rows, N) bf16. bias: (N,) f32, or bf16 for EPI_QKV. EPI_BIAS_STATS: also
-// stats[row * n_tiles + column tile] = (mean, centred sum of squares) of the row's 256
-// rounded values in the tile.
+// out: (rows, N) bf16. bias: (N,) f32, bf16 for EPI_QKV, unused (null) for EPI_ROUND and
+// EPI_STATS. EPI_BIAS_STATS and EPI_STATS: also stats[row * n_tiles + column tile] = (mean,
+// centred sum of squares) of the row's 256 rounded values in the tile.
 template <int EPI>
 __global__ void __launch_bounds__(ROWS_THREADS, 1) gemm_bias_kernel(
     const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_w,
@@ -117,6 +123,11 @@ __global__ void __launch_bounds__(ROWS_THREADS, 1) gemm_bias_kernel(
           acc[4 * j + 1] = bf16r(bf16r(acc[4 * j + 1]) + b.y);
           acc[4 * j + 2] = bf16r(bf16r(acc[4 * j + 2]) + b.x);
           acc[4 * j + 3] = bf16r(bf16r(acc[4 * j + 3]) + b.y);
+        } else if constexpr (EPI == EPI_ROUND || EPI == EPI_STATS) {
+          acc[4 * j] = bf16r(acc[4 * j]);
+          acc[4 * j + 1] = bf16r(acc[4 * j + 1]);
+          acc[4 * j + 2] = bf16r(acc[4 * j + 2]);
+          acc[4 * j + 3] = bf16r(acc[4 * j + 3]);
         } else {
           const float2 b = *reinterpret_cast<const float2*>(static_cast<const float*>(bias) + n);
           acc[4 * j] = bf16r(acc[4 * j] + b.x);
@@ -125,7 +136,7 @@ __global__ void __launch_bounds__(ROWS_THREADS, 1) gemm_bias_kernel(
           acc[4 * j + 3] = bf16r(acc[4 * j + 3] + b.y);
         }
       }
-      if constexpr (EPI == EPI_BIAS_STATS) {
+      if constexpr (EPI == EPI_BIAS_STATS || EPI == EPI_STATS) {
         float s0 = 0.f, s1 = 0.f;
 #pragma unroll
         for (int j = 0; j < 32; ++j) {
@@ -168,9 +179,39 @@ int launch_gemm_bias(const CUtensorMap& map_a, const CUtensorMap& map_w, const v
   return (int)cudaGetLastError();
 }
 
-// A warp a row: out (holding y) = bf16(x + LN(y) * gain + shift) in place.
+// The residual x of ln_rows_kernel's row `row` (of the launch), columns n..n + 7.
+// RowsResidual: the row's own row of a (rows, D) bf16 matrix (K2, K3, K5, K6).
+struct RowsResidual {
+  const bf16* x;
+  __device__ __forceinline__ void load8(int row, long long, int D, int n, float (&v)[8]) const {
+    const uint4 xv = *reinterpret_cast<const uint4*>(x + (long long)row * D + n);
+    const uint32_t xw[4] = {xv.x, xv.y, xv.z, xv.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      v[2 * i] = __uint_as_float(xw[i] << 16);
+      v[2 * i + 1] = __uint_as_float(xw[i] & 0xffff0000u);
+    }
+  }
+};
+// PeriodicResidual: row (row_base + row) % period of a (period, D) f32 matrix (K4's queries,
+// one for each of the Q rows of a token column).
+struct PeriodicResidual {
+  const float* x;
+  int period;
+  __device__ __forceinline__ void load8(int row, long long row_base, int D, int n,
+                                        float (&v)[8]) const {
+    const float* src = x + ((row_base + row) % period) * D + n;
+    const float4 a = *reinterpret_cast<const float4*>(src);
+    const float4 b = *reinterpret_cast<const float4*>(src + 4);
+    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+    v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+  }
+};
+
+// A warp a row: out (holding y) = bf16(x + LN(y) * gain + shift) in place, x from `res`.
+template <class Res>
 __global__ void __launch_bounds__(256) ln_rows_kernel(
-    const bf16* __restrict__ x, bf16* __restrict__ out, const float2* __restrict__ stats,
+    const Res res, bf16* __restrict__ out, const float2* __restrict__ stats,
     const float* __restrict__ shift, const float* __restrict__ scale, float scale_bias, int rows,
     long long row_base, long long rows_per_batch, int D, float eps) {
   const int row = blockIdx.x * 8 + (threadIdx.x >> 5), lane = threadIdx.x & 31;
@@ -191,17 +232,17 @@ __global__ void __launch_bounds__(256) ln_rows_kernel(
     const int n = 256 * c + 8 * lane;
     const long long at = (long long)row * D + n;
     const uint4 yv = *reinterpret_cast<const uint4*>(out + at);
-    const uint4 xv = *reinterpret_cast<const uint4*>(x + at);
-    const uint32_t yw[4] = {yv.x, yv.y, yv.z, yv.w}, xw[4] = {xv.x, xv.y, xv.z, xv.w};
+    float xv[8];
+    res.load8(row, row_base, D, n, xv);
+    const uint32_t yw[4] = {yv.x, yv.y, yv.z, yv.w};
     uint32_t ow[4];
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const float2 sc = *reinterpret_cast<const float2*>(scale + film + n + 2 * i);
       const float2 sh = *reinterpret_cast<const float2*>(shift + film + n + 2 * i);
       const float y0 = __uint_as_float(yw[i] << 16), y1 = __uint_as_float(yw[i] & 0xffff0000u);
-      const float x0 = __uint_as_float(xw[i] << 16), x1 = __uint_as_float(xw[i] & 0xffff0000u);
-      ow[i] = pack_bf16x2(x0 + ((y0 - mean) * rstd * (scale_bias + sc.x) + sh.x),
-                          x1 + ((y1 - mean) * rstd * (scale_bias + sc.y) + sh.y));
+      ow[i] = pack_bf16x2(xv[2 * i] + ((y0 - mean) * rstd * (scale_bias + sc.x) + sh.x),
+                          xv[2 * i + 1] + ((y1 - mean) * rstd * (scale_bias + sc.y) + sh.y));
     }
     *reinterpret_cast<uint4*>(out + at) = make_uint4(ow[0], ow[1], ow[2], ow[3]);
   }

@@ -166,29 +166,38 @@ struct GemmRing {
     mbar_fence_init();
   }
 
-  // Producer, one thread: the k_steps stages of one tile. Warpgroup g's A box is taken at
-  // rows row0[g].. of row block block[g]; a_box_bytes is a box's size (a box cut to a short
-  // row block is smaller than A_BOX_BYTES). The B boxes are columns n0.. of the weight.
+  // Producer, one thread: the stage at `pos`, once it is free. Warpgroup g's A box is taken
+  // at k ka, rows row0[g].. of row block block[g]; a_box_bytes is a box's size (a box cut to
+  // a short row block is smaller than A_BOX_BYTES). The B boxes are k kb, columns n0.. of the
+  // weight.
+  __device__ static void produce_step(const CUtensorMap* map_a, const CUtensorMap* map_b,
+                                      uint32_t tiles, uint32_t bars, Pos& pos,
+                                      const int (&row0)[2], const int (&block)[2], int ka, int kb,
+                                      int n0, uint32_t a_box_bytes) {
+    mbar_wait(empty(bars, pos.stage), pos.phase ^ 1);
+    const uint32_t bar = full(bars, pos.stage);
+    const uint32_t a = tiles + pos.stage * STAGE_BYTES;
+#ifdef ABLATE_NO_LOADS  // tools/kernel_ablate.py: the consumers multiply what the stage holds
+    mbar_arrive(bar);
+#else
+    mbar_arrive_expect_tx(bar, 2 * a_box_bytes + B_BYTES);
+    tma_load_3d(a, map_a, bar, ka, row0[0], block[0]);
+    tma_load_3d(a + A_BOX_BYTES, map_a, bar, ka, row0[1], block[1]);
+#pragma unroll
+    for (int j = 0; j < BN / 64; ++j)
+      tma_load_2d(a + A_BYTES + j * B_BOX_BYTES, map_b, bar, n0 + 64 * j, kb);
+#endif
+    pos.advance();
+  }
+
+  // Producer, one thread: the k_steps stages of one tile, A and B both at k ks * BK.
   __device__ static void produce_tile(const CUtensorMap* map_a, const CUtensorMap* map_b,
                                       uint32_t tiles, uint32_t bars, Pos& pos,
                                       const int (&row0)[2], const int (&block)[2], int n0,
                                       int k_steps, uint32_t a_box_bytes) {
-    for (int ks = 0; ks < k_steps; ++ks) {
-      mbar_wait(empty(bars, pos.stage), pos.phase ^ 1);
-      const uint32_t bar = full(bars, pos.stage);
-      const uint32_t a = tiles + pos.stage * STAGE_BYTES;
-#ifdef ABLATE_NO_LOADS  // tools/kernel_ablate.py: the consumers multiply what the stage holds
-      mbar_arrive(bar);
-#else
-      mbar_arrive_expect_tx(bar, 2 * a_box_bytes + B_BYTES);
-      tma_load_3d(a, map_a, bar, ks * BK, row0[0], block[0]);
-      tma_load_3d(a + A_BOX_BYTES, map_a, bar, ks * BK, row0[1], block[1]);
-#pragma unroll
-      for (int j = 0; j < BN / 64; ++j)
-        tma_load_2d(a + A_BYTES + j * B_BOX_BYTES, map_b, bar, n0 + 64 * j, ks * BK);
-#endif
-      pos.advance();
-    }
+    for (int ks = 0; ks < k_steps; ++ks)
+      produce_step(map_a, map_b, tiles, bars, pos, row0, block, ks * BK, ks * BK, n0,
+                   a_box_bytes);
   }
 
   // Consumer warpgroup wg (0 or 1), all 128 threads: the four wgmma of the stage at `pos`

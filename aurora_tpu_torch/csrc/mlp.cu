@@ -1,12 +1,15 @@
 // K3: the MLP branch of a block, out = x + LN(fc2(GELU(fc1 x))) * (scale_bias + scale) + shift;
 // K8: the MLP alone, out = fc2(GELU(fc1 x)) (mlp_impl="pallas"); and
-// K5: the attention tail after un-windowing, out = shortcut + LN(x @ W + b) * scale + shift.
+// K5: the attention tail after un-windowing, out = shortcut + LN(x W + b) * (scale_bias + scale)
+//     + shift.
 //
-// K3 replaces aurora_tpu/ops/mlp.py::mlp_adaln_residual_fused (pallas_call at mlp.py:419)
-// and K8 mlp_fused (pallas_call at mlp.py:278). K5 replaces linear_adaln_residual_fused
-// (pallas_call at mlp.py:604) with the row kernel of row_tail.cuh, its residual read from
-// its own pointer. K5's bound: bytes (x and shortcut read, out written once; the D x D GEMM
-// is below the card's ~295 flop/byte balance point).
+// K3 replaces aurora_tpu/ops/mlp.py::mlp_adaln_residual_fused (pallas_call at mlp.py:419),
+// K8 mlp_fused (pallas_call at mlp.py:278) and K5 linear_adaln_residual_fused (pallas_call at
+// mlp.py:604). K5 is K2's tail on rows (linear_adaln_residual below): proj with the f32 bias
+// and the LayerNorm statistics per 256-column tile (gemm_bias_kernel<EPI_BIAS_STATS>, W (D, D)
+// as stored), then ln_rows_kernel with the shortcut as the residual, FiLM row row / L and
+// eps 1e-5 (mlp.py:599). K5's bound: operations at D >= 1024, bytes at D = 512 (x and the
+// shortcut read, out written once; 2 rows D^2 bf16 flops).
 //
 // K3 / K8. Bound on the H100: operations, 4 * rows * D * Hd bf16 flops (~1.1 TFLOP, 1.1 ms
 // at 989 TF/s, for every backbone stage of the 0.25 degree model). Both TPU kernels kept the
@@ -79,7 +82,6 @@
 // -DABLATE_ONLY_FC2 (one of the two products alone; fc2 then reads what the scratch holds).
 #include "common.cuh"
 #include "gemm_rows_sm90.cuh"
-#include "row_tail.cuh"
 
 namespace {
 
@@ -261,20 +263,37 @@ extern "C" int mlp_rows(const void* x, const void* w1, const float* b1, const vo
 #ifndef ABLATE_NO_EPILOGUE
   if (ln)
     ln_rows_kernel<<<(rows + 7) / 8, 256, 0, stream>>>(
-        static_cast<const bf16*>(x), ob, reinterpret_cast<const float2*>(stats), shift, scale,
-        scale_bias, rows, row_base, rows_per_batch, D, eps);
+        RowsResidual{static_cast<const bf16*>(x)}, ob, reinterpret_cast<const float2*>(stats),
+        shift, scale, scale_bias, rows, row_base, rows_per_batch, D, eps);
 #endif
   return (int)cudaGetLastError();
 }
 
-// K5. x, shortcut, out: (M, D) bf16 rows, rows_per_batch rows per FiLM row; wt: (D, D) bf16
-// (transposed proj weight); b: (D,) f32; shift, gain: (M / rows_per_batch, D) f32 with
-// gain = scale_bias + scale. Returns cudaGetLastError().
-extern "C" int linear_adaln_residual(const void* x, const void* wt, const float* b,
-                                     const void* shortcut, const float* shift, const float* gain,
-                                     void* out, int M, int rows_per_batch, int D, float eps,
+// K5 on rows of tokens. x, shortcut, out: (rows, D) bf16, rows_per_batch rows per FiLM row;
+// w: (D, D) bf16 as stored; b: (D,) f32; shift, scale: (rows / rows_per_batch, D) f32; stats:
+// scratch of rows x D / 256 float2. Two launches. Takes D in {512, 1024, 2048}. Returns
+// cudaGetLastError(), cudaErrorInvalidValue for a shape it does not take, or cudaErrorUnknown
+// where no tensor map could be encoded.
+extern "C" int linear_adaln_residual(const void* x, const void* w, const float* b,
+                                     const void* shortcut, const float* shift, const float* scale,
+                                     float scale_bias, float* stats, void* out, int rows,
+                                     long long rows_per_batch, int D, float eps,
                                      cudaStream_t stream) {
-  return launch_gemm_ln_rows(static_cast<const bf16*>(x), static_cast<const bf16*>(wt), b,
-                             static_cast<const bf16*>(shortcut), nullptr, 0, gain, shift,
-                             rows_per_batch, M, D, D, eps, static_cast<bf16*>(out), stream);
+  if (rows <= 0 || rows > (1 << 24) || (D != 512 && D != 1024 && D != 2048) ||
+      rows_per_batch <= 0)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap map_x, map_w;
+  cudaError_t e;
+  if ((e = RowsRing::make_map_a(&map_x, x, rows, D, rows)) != cudaSuccess) return (int)e;
+  if ((e = RowsRing::make_map_w(&map_w, w, D, D)) != cudaSuccess) return (int)e;
+  bf16* ob = static_cast<bf16*>(out);
+  const int err = launch_gemm_bias<EPI_BIAS_STATS>(map_x, map_w, b, ob,
+                                                   reinterpret_cast<float2*>(stats), D,
+                                                   make_sched(rows, D, D), stream);
+  if (err) return err;
+  ln_rows_kernel<<<(rows + 7) / 8, 256, 0, stream>>>(
+      RowsResidual{static_cast<const bf16*>(shortcut)}, ob,
+      reinterpret_cast<const float2*>(stats), shift, scale, scale_bias, rows, 0, rows_per_batch,
+      D, eps);
+  return (int)cudaGetLastError();
 }

@@ -139,7 +139,7 @@ extern "C" int window_attention(const void* x, const void* wqkv, const void* bqk
                                          make_sched((int)rows, D, D), stream);
   if (err) return err;
   ln_rows_kernel<<<(unsigned)((rows + 7) / 8), 256, 0, stream>>>(
-      static_cast<const bf16*>(x), ob, reinterpret_cast<const float2*>(stats), shift, scale,
-      0.f, (int)rows, 0, (long long)nW * CORE_N, D, eps);
+      RowsResidual{static_cast<const bf16*>(x)}, ob, reinterpret_cast<const float2*>(stats),
+      shift, scale, 0.f, (int)rows, 0, (long long)nW * CORE_N, D, eps);
   return (int)cudaGetLastError();
 }

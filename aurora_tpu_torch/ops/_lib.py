@@ -41,7 +41,6 @@ LAUNCHES: dict[str, int] = {
     "window_attention_windowed": 0,
     "sdpa_windows": 0,
     "mlp_fused": 0,
-    "perceiver_k_stats": 0,
     "mlp_t": 0,
     "attn_probe": 0,
     "attn5d_direct": 0,

@@ -17,26 +17,34 @@ and is rounded to the input dtype; GELU is the exact erf form in f32, rounded; L
 two-pass in f32 with eps 1e-5 (hard-coded in K5, as at ``mlp.py:599``); the residual is added
 in f32 and the result rounded.
 
-Kernels (``csrc/mlp.cu``). K3 and K8 are two products on the TMA + ``wgmma`` mainloop of
-``csrc/gemm_sm90.cuh`` (one persistent block an SM, (2 x 64) x 256 tiles, both weights read
-as stored: no transposed copy), chunk of rows by chunk of rows (:func:`mlp_row_chunks`):
-``mlp_fc1_kernel`` writes ``hid = bf16(GELU(bf16(x W1 + b1)))`` to a scratch of at most
-256 MB, ``mlp_fc2_kernel`` reads it back by TMA and writes ``y = bf16(hid W2 + b2)``, which is
-K8's result. For K3 it also writes each row's mean and centred sum of squares per 256-column
-tile, and ``mlp_ln_rows_kernel`` (a warp a row) merges them exactly, normalises, applies FiLM
-and the residual in place. The hidden cannot stay on chip at these widths: a consumer
-warpgroup's 64 x 256 f32 tile is 128 registers a thread and fc2 needs D / 256 such tiles
-beside fc1's own. The round trip (1.06 GB each way at stage 1, 0.63 ms of memory time under
-~1.1 ms of tensor-core time) is the design's known distance from the bound, which stays the
-operations' (``4 * rows * D * Hd`` bf16 flops; 1.1 ms per backbone call at 989 TF/s). The
-GELU of a tile is as long as its products at D = 512, so each warp parks the rounded
-pre-activations in shared memory (64 KB a block, which leaves a ring of 3 stages) and
-applies the GELU during the next tile's first 8 K steps, while its own asynchronous products
-run (that hides only part of it: arithmetic and ``wgmma`` of one SM hardly overlap,
-PERF.md). ptxas: 168 registers at launch (consumers 232, producer 40), no spills;
-222,256 and 214,080 bytes of dynamic shared memory (fc1, fc2); the row kernel 32 registers.
-Times in PERF.md. K5 is the row kernel of ``csrc/row_tail.cuh`` (K2's tail) with the
-shortcut as its residual; its bound is bytes.
+Kernels (``csrc/mlp.cu``), on the TMA + ``wgmma`` mainloop of ``csrc/gemm_sm90.cuh`` (one
+persistent block an SM, (2 x 64) x 256 tiles, every weight read as stored: no transposed
+copy) and the product and row kernels of ``csrc/gemm_rows_sm90.cuh``:
+
+* K3 and K8 are two products, chunk of rows by chunk of rows (:func:`mlp_row_chunks`):
+  ``mlp_fc1_kernel`` writes ``hid = bf16(GELU(bf16(x W1 + b1)))`` to a scratch of at most
+  256 MB, fc2 (``gemm_bias_kernel``) reads it back by TMA and writes ``y = bf16(hid W2 +
+  b2)``, which is K8's result. For K3 it also writes each row's mean and centred sum of
+  squares per 256-column tile, and ``ln_rows_kernel`` (a warp a row) merges them exactly,
+  normalises, applies FiLM and the residual in place. The hidden cannot stay on chip at
+  these widths: a consumer warpgroup's 64 x 256 f32 tile is 128 registers a thread and fc2
+  needs D / 256 such tiles beside fc1's own. The round trip (1.06 GB each way at stage 1,
+  0.63 ms of memory time under ~1.1 ms of tensor-core time) is the design's known distance
+  from the bound, which stays the operations' (``4 * rows * D * Hd`` bf16 flops; 1.1 ms per
+  backbone call at 989 TF/s). The GELU of a tile is as long as its products at D = 512, so
+  each warp parks the rounded pre-activations in shared memory (64 KB a block, which leaves
+  a ring of 3 stages) and applies the GELU during the next tile's first 8 K steps, while its
+  own asynchronous products run (that hides only part of it: arithmetic and ``wgmma`` of one
+  SM hardly overlap, PERF.md). ptxas: 168 registers at launch (consumers 232, producer 40),
+  no spills; 222,256 and 214,080 bytes of dynamic shared memory (fc1, fc2); the row kernel
+  32 registers.
+* K5 is K2's tail on rows, two launches: proj with the f32 bias and the LayerNorm statistics
+  (``gemm_bias_kernel<EPI_BIAS_STATS>``, ``w`` as stored), then ``ln_rows_kernel`` with the
+  shortcut as the residual, ``scale_bias + scale`` as the gain and FiLM row ``row / L``. It
+  takes D in (512, 1024, 2048) (:func:`check_linear_shape`). Its bound is bytes at D = 512,
+  operations above.
+
+Times in PERF.md.
 """
 
 from __future__ import annotations
@@ -50,6 +58,7 @@ from aurora_tpu_torch.ops import _lib
 
 __all__ = [
     "MLP_SCRATCH_BYTES",
+    "check_linear_shape",
     "check_mlp_shape",
     "film_layernorm_residual",
     "linear_adaln_residual",
@@ -65,6 +74,8 @@ _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlon
 MLP_SCRATCH_BYTES = 256 << 20  # the most a call allocates for the hidden activations
 # csrc/mlp.cu::mlp_rows
 _MLP_ROWS_ARGS = [_P] * 10 + [_F, _I, _L, _L, _I, _I, _F, _I, _P]
+# csrc/mlp.cu::linear_adaln_residual
+_LINEAR_ARGS = [_P] * 6 + [_F, _P, _P, _I, _L, _I, _F, _P]
 
 
 def film_layernorm_residual(
@@ -144,6 +155,17 @@ def check_mlp_shape(M: int, D: int, Hd: int) -> None:
         raise ValueError(f"mlp kernel: hidden={Hd} is not a multiple of 256 >= 512 (M={M}, D={D})")
     if not 0 < M < 2**31:
         raise ValueError(f"mlp kernel: M={M} rows (D={D}, hidden={Hd})")
+
+
+def check_linear_shape(M: int, D: int) -> None:
+    """The shapes K5 takes on the card: M rows of D in (512, 1024, 2048) features (its
+    product's column tiles and the row kernel's 256-column statistics), at most 2^24 rows.
+    Raises ``ValueError`` otherwise."""
+    if D not in (512, 1024, 2048):
+        raise ValueError(
+            f"linear_adaln_residual kernel: D={D} is not one of 512, 1024, 2048 (M={M})")
+    if not 0 < M <= 2**24:
+        raise ValueError(f"linear_adaln_residual kernel: M={M} rows (D={D})")
 
 
 def mlp_row_chunks(M: int, Hd: int, cap: int = MLP_SCRATCH_BYTES) -> list[tuple[int, int]]:
@@ -271,26 +293,34 @@ def linear_adaln_residual(
     """``shortcut + LN(x @ w + b) * (scale_bias + scale) + shift`` for ``x``/``shortcut``
     ``(B, L, D)``, ``w: (D, D)``, FiLM ``(B, D)``.
 
-    CPU tensors take :func:`linear_adaln_residual_plain`; CUDA tensors launch the kernel,
-    which takes bf16 tokens with D a multiple of 64 up to 1024, or of 128 up to 2048.
+    CPU tensors take :func:`linear_adaln_residual_plain`; CUDA tensors launch the kernels,
+    which take bf16 tokens of the shapes of :func:`check_linear_shape`.
     """
     if x.device.type == "cpu":
         return linear_adaln_residual_plain(x, w, b, shortcut, shift, scale, scale_bias)
     B, L, D = x.shape
     _lib.require(x, "x", torch.bfloat16)
     _lib.require(shortcut, "shortcut", torch.bfloat16, (B, L, D))
-    if tuple(w.shape) != (D, D) or D > 2048 or D % (64 if D <= 1024 else 128):
-        raise ValueError(f"linear_adaln_residual kernel: unsupported D={D}, w {tuple(w.shape)}")
-    wt = w.to(torch.bfloat16).t().contiguous()
-    bf = b.to(torch.float32).contiguous()
-    shf = shift.to(torch.float32).reshape(B, D).contiguous()
-    gain = (scale_bias + scale.to(torch.float32)).reshape(B, D).contiguous()
-    _same_device(x, w=wt, b=bf, shift=shf, scale=gain)
+    check_linear_shape(B * L, D)
+    ops = {
+        "w": w.to(torch.bfloat16).contiguous(), "b": b.to(torch.float32).contiguous(),
+        "shift": shift.to(torch.float32).reshape(B, D).contiguous(),
+        "scale": scale.to(torch.float32).reshape(B, D).contiguous(),
+    }
+    for name, shape in (("w", (D, D)), ("b", (D,)), ("shift", (B, D)), ("scale", (B, D))):
+        _lib.require(ops[name], name, ops[name].dtype, shape)
+    # The tensor maps' bases and the kernels' 16-byte loads and stores need 16-byte alignment.
+    for name, tensor in (("x", x), ("shortcut", shortcut), ("w", ops["w"])):
+        if tensor.data_ptr() % 16:
+            raise ValueError(f"linear_adaln_residual: {name} must be 16-byte aligned")
+    _same_device(x, shortcut=shortcut, **ops)
+    stats = torch.empty(B * L, D // 256, 2, dtype=torch.float32, device=x.device)
     out = torch.empty_like(x)
-    fn = _lib.kernel("mlp", "linear_adaln_residual", [_P] * 7 + [_I, _I, _I, _F, _P])
+    fn = _lib.kernel("mlp", "linear_adaln_residual", _LINEAR_ARGS)
     err = fn(
-        x.data_ptr(), wt.data_ptr(), bf.data_ptr(), shortcut.data_ptr(), shf.data_ptr(),
-        gain.data_ptr(), out.data_ptr(), B * L, L, D, 1e-5, _lib.stream(x),
+        x.data_ptr(), ops["w"].data_ptr(), ops["b"].data_ptr(), shortcut.data_ptr(),
+        ops["shift"].data_ptr(), ops["scale"].data_ptr(), float(scale_bias), stats.data_ptr(),
+        out.data_ptr(), B * L, L, D, 1e-5, _lib.stream(x),
     )
     _lib.check(err, "linear_adaln_residual")
     _lib.LAUNCHES["linear_adaln_residual"] += 1

@@ -19,27 +19,33 @@ With ``lnk = (weight, bias)`` (the ``ln_k`` of ``stabilise_level_agg``,
 LayerNorm over the whole ``inner`` axis, all heads together, with eps fixed at 1e-5 (not
 ``ln_eps``) and an f32 affine, before the logits.
 
-Kernel (``csrc/resampler.cu``), two launches behind one wrapper:
+Kernel (``csrc/resampler.cu``), six launches behind one wrapper call (one count in
+``LAUNCHES``), on the shared Hopper headers:
 
-(a) one block per (tile of 32 columns, head). Each thread owns one column and an eighth of
-    the head dim; it accumulates k (f32 products) and v (bf16 operands, f32 sums) for all K
-    levels in registers while the context streams through shared memory, then reduces the
-    per-query logits across the 8 threads of its column, takes the softmax over K and
-    writes the head's slice of the bf16 weighted sum ``o: (M, Q, inner)``. k, v, the logits
-    and the softmax weights never reach device memory.
-(b) the row kernel of K2(b): ``round(o @ Wout) -> LN(ln1) -> + queries`` on whole rows.
+0. the fold (once a call): k enters the result only through the logits, so
+   ``logits = ctx @ Wkq`` with ``Wkq[c, (q, h)] = scale * sum_d wk[c, h dh + d] qh[q, h, d]``
+   (the JAX kernel's ``k @ wq_bd`` re-associated: 442 -> 41 GFLOP of f32 work at the
+   aggregation shape). With ``lnk``, ``k - mean(k) = ctx @ Wc`` with the centred weights
+   ``Wc = wk - rowmean(wk)``, so ``logits = rstd * (ctx @ Wkq') + const`` (``Wkq'`` folds the
+   ``ln_k`` weight into ``Wc``, ``const`` its bias) and only ``rstd`` needs ``ctx @ Wc``,
+   of which each row's sum of squares is kept. Sums in f64 on the card;
+1. the f32 logits on the FFMA pipes, one pass over the context that also writes its bf16
+   rounding (with ``lnk`` also the bf16 remainder); with ``lnk`` then ``ctx @ Wc`` on the
+   TMA + ``wgmma`` ring in three bf16 parts (context and ``Wc`` each a bf16 value plus a bf16
+   remainder; the logits stay at f32's level), keeping each row's sum of squares;
+2. ``v`` on the TMA + ``wgmma`` ring of ``gemm_rows_sm90.cuh``, ``wv`` read as stored;
+3. the mix: per (column, query, head) the softmax over K, the weights rounded, the
+   level-order bf16 sum, into ``o (M, Q, inner)``;
+4. the out-projection on the same ring, ``wout`` as stored, with LayerNorm statistics per
+   256-column tile;
+5. the row kernel: ``ln1``, the f32 query residual of period Q, one rounding.
 
-With ``lnk``, a launch of its own comes first (counted as ``perceiver_k_stats``): launch (a)
-never sees a whole k row, since a block holds one head of it, so the same grid projects
-k once more and writes each head's mean and centred sum of squares per (level, column);
-launch (a) then merges the heads' pairs exactly (mean of means, sum of the centred squares
-plus ``dh * (mean_h - mean)^2``: the pairwise form of the two-pass variance, no
-``E[k^2] - mean^2``) and normalises its k before the logits. The price is a second f32
-k-projection.
+Launches 1-5 run once for each chunk of token columns (:func:`perceiver_column_chunks`), so
+that their scratch stays under :data:`PERCEIVER_SCRATCH_BYTES`.
+``tests/test_torch_resampler_redesign.py`` repeats the kernels' arithmetic in PyTorch.
 
-Bound on the card: operations. The f32 k-projection (``K*M*D*inner`` multiply-adds, ~442
-GFLOP at the aggregation shape) runs outside the tensor cores at 67 TF/s, ~6.6 ms; the
-context read is ~0.5 ms. This simple design also runs the v-projection on the f32 pipes.
+Bound on the card: operations, the folded f32 logits at 67 TF/s and the bf16 products at
+989 TF/s (with ``lnk``, the three parts of ``ctx @ Wc`` among them). Times in ``PERF.md``.
 """
 
 from __future__ import annotations
@@ -52,9 +58,19 @@ import torch
 from aurora_tpu_torch.model.nn import acc_dtype
 from aurora_tpu_torch.ops import _lib
 
-__all__ = ["perceiver_core", "perceiver_core_plain"]
+__all__ = [
+    "PERCEIVER_SCRATCH_BYTES",
+    "check_perceiver_shape",
+    "perceiver_column_bytes",
+    "perceiver_column_chunks",
+    "perceiver_core",
+    "perceiver_core_plain",
+]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+PERCEIVER_SCRATCH_BYTES = 512 << 20  # the most a call allocates for one chunk's scratch
+# csrc/resampler.cu::perceiver_core
+_PERCEIVER_CORE_ARGS = [_P] * 21 + [_I] * 8 + [_F, _F, _P]
 
 
 def _ln_affine(y: torch.Tensor, w: torch.Tensor, b: torch.Tensor, eps: float):
@@ -102,6 +118,116 @@ def perceiver_core_plain(
     return (ln.reshape(M, Q, -1) + queries.to(acc)[None]).to(out_dt)
 
 
+def check_perceiver_shape(
+    K: int, M: int, D: int, heads: int, dh: int, Q: int, D_out: int, value_bf16: bool = True
+) -> None:
+    """The shapes K4 takes on the card: ``value_bf16``; ``(K, dh)`` in ``((13, 32), (3, 64))``
+    (the aggregation and the de-aggregation); ``D`` a multiple of 64 (a K step of the ring);
+    ``inner = heads * dh`` a multiple of 256 up to 2048 (a column tile of the ring; the mix
+    gives a column at most a block); ``D_out`` in ``(512, 1024, 2048)`` (the row kernel's
+    tiles). Raises ``ValueError`` otherwise."""
+    if not value_bf16 or (K, dh) not in ((13, 32), (3, 64)):
+        raise ValueError(
+            f"perceiver_core kernel: needs value_bf16 and (K, dh) in ((13, 32), (3, 64)); "
+            f"got value_bf16={value_bf16}, K={K}, dh={dh}"
+        )
+    inner = heads * dh
+    if D <= 0 or D % 64 or inner % 256 or inner > 2048:
+        raise ValueError(
+            f"perceiver_core kernel: needs D % 64 == 0 and inner % 256 == 0 up to 2048; got "
+            f"D={D}, inner={inner}"
+        )
+    if D_out not in (512, 1024, 2048):
+        raise ValueError(f"perceiver_core kernel: D_out={D_out} is not one of 512, 1024, 2048")
+    if M <= 0:
+        raise ValueError(f"perceiver_core kernel: M={M} columns")
+
+
+def perceiver_column_bytes(K: int, D: int, inner: int, Q: int, heads: int, D_out: int,
+                           lnk: bool) -> int:
+    """The scratch K4's launches 1-5 take for one token column: the bf16 context (with
+    ``lnk`` also its remainder and the sums of squares), bf16 v, the f32 logits, bf16 ``o``
+    and the row statistics."""
+    return (K * D * 2 + (K * D * 2 + K * -(-inner // 256) * 4 if lnk else 0) + K * inner * 2
+            + K * Q * heads * 4 + Q * inner * 2 + Q * -(-D_out // 256) * 8)
+
+
+def perceiver_column_chunks(
+    M: int, K: int, D: int, inner: int, Q: int, heads: int, D_out: int, lnk: bool,
+    cap: int = PERCEIVER_SCRATCH_BYTES,
+) -> list[tuple[int, int]]:
+    """``(first column, columns)`` of the chunks K4's launches 1-5 run one after the other, so
+    that a chunk's scratch (:func:`perceiver_column_bytes` a column) fits ``cap``: as few
+    chunks as fit, every one but the last of the same multiple of 128 columns."""
+    per_col = perceiver_column_bytes(K, D, inner, Q, heads, D_out, lnk)
+    most = min(cap // per_col, 65535 * 128 // K) // 128 * 128
+    if most <= 0:
+        raise ValueError(f"perceiver_core kernel: {cap} bytes of scratch hold no 128 columns "
+                         f"({per_col} bytes a column)")
+    n = -(-M // most)  # chunks
+    if n == 1:
+        return [(0, M)]
+    even = -(-M // n)
+    cols = -(-even // 128) * 128  # <= most: even <= most, a multiple of 128
+    return [(m0, min(cols, M - m0)) for m0 in range(0, M, cols)]
+
+
+def _perceiver_core_call(fn, ctx, wk, wv, qh, wout, ln1_w, ln1_b, queries, scale, ln_eps,
+                         value_bf16, lnk) -> torch.Tensor:
+    """Run ``fn`` (``perceiver_core`` of ``csrc/resampler.cu``, or an ablated copy): the fold,
+    then launches 1-5 chunk by chunk of columns. Allocates the scratch; the weights go as
+    stored (a cast only to bf16 / f32 where they are stored otherwise)."""
+    K, M, D = ctx.shape
+    Q, h, dh = qh.shape
+    inner, D_out = h * dh, wout.shape[1]
+    bf, f32 = torch.bfloat16, torch.float32
+    _lib.require(ctx, "ctx", f32)
+    check_perceiver_shape(K, M, D, h, dh, Q, D_out, value_bf16)
+    ops = {
+        "wk": (wk.to(f32).contiguous(), (D, inner)),
+        "wv": (wv.to(bf).contiguous(), (D, inner)),
+        "qh": (qh.to(f32).reshape(Q, inner).contiguous(), (Q, inner)),
+        "wout": (wout.to(bf).contiguous(), (inner, D_out)),
+        "ln1_w": (ln1_w.to(f32).contiguous(), (D_out,)),
+        "ln1_b": (ln1_b.to(f32).contiguous(), (D_out,)),
+        "queries": (queries.to(f32).contiguous(), (Q, D_out)),
+    }
+    if lnk is not None:
+        ops.update(lnk_w=(lnk[0].to(f32).contiguous(), (inner,)),
+                   lnk_b=(lnk[1].to(f32).contiguous(), (inner,)))
+    # The tensor maps' bases and the kernels' 16-byte loads and stores need 16-byte
+    # alignment; fresh allocations and parameters have it, a view may not.
+    if ctx.data_ptr() % 16:
+        raise ValueError("perceiver_core: the context must be 16-byte aligned")
+    for name, (t, shape) in ops.items():
+        _lib.require(t, name, t.dtype, shape)
+        if t.device != ctx.device or t.data_ptr() % 16:
+            raise ValueError(f"perceiver_core: {name} must be on {ctx.device}, 16-byte aligned")
+    QH, ln_k = Q * h, lnk is not None
+    mc = perceiver_column_chunks(M, K, D, inner, Q, h, D_out, ln_k)[0][1]
+
+    def new(*shape, dtype=bf, when=True):
+        return torch.empty(*shape, dtype=dtype, device=ctx.device) if when else None
+
+    scratch = dict(
+        wb=new(D, -(-QH // 64) * 64, dtype=f32), cst=new(QH, dtype=f32, when=ln_k),
+        w3=new(3 * D, inner, when=ln_k), ctxb=new(K * mc, D), ctxlo=new(K * mc, D, when=ln_k),
+        v=new(K * mc, inner), logits=new(K * mc, QH, dtype=f32),
+        sq=new(K * mc, inner // 256, dtype=f32, when=ln_k), o=new(mc, Q, inner),
+        stats=new(mc * Q, D_out // 256, 2, dtype=f32),
+    )
+    out = new(M, Q, D_out)
+    ptr = {k: t.data_ptr() for k, (t, _) in ops.items()}
+    err = fn(
+        ctx.data_ptr(), *(ptr[k] for k in ("wk", "wv", "qh", "wout", "ln1_w", "ln1_b", "queries")),
+        ptr.get("lnk_w"), ptr.get("lnk_b"),
+        *(None if t is None else t.data_ptr() for t in scratch.values()), out.data_ptr(),
+        K, M, mc, D, h, dh, Q, D_out, float(scale), float(ln_eps), _lib.stream(ctx),
+    )
+    _lib.check(err, "perceiver_core")
+    return out
+
+
 def perceiver_core(
     ctx: torch.Tensor,
     wk: torch.Tensor,
@@ -125,56 +251,16 @@ def perceiver_core(
     ``(inner,)`` weight and bias of the stabilising ``ln_k``, or None. Returns
     ``(M, Q, D_out)``, bf16 under ``value_bf16``, else in the context dtype.
 
-    CPU tensors take :func:`perceiver_core_plain`; CUDA tensors launch the kernel, which
-    takes an f32 context with ``value_bf16``, K in (3, 13) and a head dim in (32, 64).
+    CPU tensors take :func:`perceiver_core_plain`; CUDA tensors launch the kernels, which
+    take an f32 context with ``value_bf16`` and the shapes of :func:`check_perceiver_shape`.
     """
     if ctx.device.type == "cpu":
         return perceiver_core_plain(
             ctx, wk, wv, qh, wout, ln1_w, ln1_b, queries,
             scale=scale, ln_eps=ln_eps, value_bf16=value_bf16, lnk=lnk,
         )
-    K, M, D = ctx.shape
-    Q, h, dh = qh.shape
-    inner = h * dh
-    D_out = wout.shape[1]
-    _lib.require(ctx, "ctx", torch.float32)
-    if not value_bf16 or (K, dh) not in ((13, 32), (3, 64)) or D % 32 or inner % 128:
-        raise ValueError(
-            f"perceiver_core kernel: needs value_bf16 and (K, dh) in ((13, 32), (3, 64)); "
-            f"got value_bf16={value_bf16}, K={K}, dh={dh}, D={D}"
-        )
-    if D_out not in (512, 1024, 2048):
-        raise ValueError(f"perceiver_core kernel: unsupported D_out={D_out}")
-    wk_f = wk.to(torch.float32).contiguous()
-    wv_b = wv.to(torch.bfloat16).contiguous()
-    qh_f = qh.to(torch.float32).reshape(Q, inner).contiguous()
-    wout_t = wout.to(torch.bfloat16).t().contiguous()  # (D_out, inner)
-    lw = ln1_w.to(torch.float32).contiguous()
-    lb = ln1_b.to(torch.float32).contiguous()
-    qres = queries.to(torch.float32).contiguous()
-    o = torch.empty(M, Q, inner, device=ctx.device, dtype=torch.bfloat16)
-    out = torch.empty(M, Q, D_out, device=ctx.device, dtype=torch.bfloat16)
-    lnk_ptrs = [None] * 3
-    if lnk is not None:
-        lnk_w = lnk[0].to(torch.float32).contiguous()
-        lnk_b = lnk[1].to(torch.float32).contiguous()
-        _lib.require(lnk_w, "lnk weight", torch.float32, (inner,))
-        _lib.require(lnk_b, "lnk bias", torch.float32, (inner,))
-        # Per (level, column, head): the head's mean of k and its centred sum of squares.
-        stats = torch.empty(K, M, h, 2, device=ctx.device, dtype=torch.float32)
-        fn = _lib.kernel("resampler", "perceiver_k_stats", [_P] * 3 + [_I] * 5 + [_P])
-        err = fn(ctx.data_ptr(), wk_f.data_ptr(), stats.data_ptr(), K, M, D, h, dh,
-                 _lib.stream(ctx))
-        _lib.check(err, "perceiver_k_stats")
-        _lib.LAUNCHES["perceiver_k_stats"] += 1
-        lnk_ptrs = [stats.data_ptr(), lnk_w.data_ptr(), lnk_b.data_ptr()]
-    fn = _lib.kernel("resampler", "perceiver_core", [_P] * 13 + [_I] * 7 + [_F, _F, _P])
-    err = fn(
-        ctx.data_ptr(), wk_f.data_ptr(), wv_b.data_ptr(), qh_f.data_ptr(),
-        wout_t.data_ptr(), lw.data_ptr(), lb.data_ptr(), qres.data_ptr(), *lnk_ptrs,
-        o.data_ptr(), out.data_ptr(), K, M, D, h, dh, Q, D_out, float(scale), float(ln_eps),
-        _lib.stream(ctx),
-    )
-    _lib.check(err, "perceiver_core")
+    fn = _lib.kernel("resampler", "perceiver_core", _PERCEIVER_CORE_ARGS)
+    out = _perceiver_core_call(fn, ctx, wk, wv, qh, wout, ln1_w, ln1_b, queries, scale, ln_eps,
+                               value_bf16, lnk)
     _lib.LAUNCHES["perceiver_core"] += 1
     return out

@@ -1,7 +1,7 @@
 """What holds K3 ``mlp_adaln_residual`` / K8 ``mlp_fused``, K12 ``gemm_blocked``, K7
-``sdpa_windows`` and K2 / K6 ``window_attention(_windowed)`` back: each kernel against copies
-of itself with one part switched off, at the shapes the probe tools, the backbone and the
-perceiver give them.
+``sdpa_windows``, K2 / K6 ``window_attention(_windowed)`` and K4 ``perceiver_core`` back: each
+kernel against copies of itself with one part switched off, at the shapes the probe tools,
+the backbone and the perceiver give them.
 
 The copies are built from the same sources with a preprocessor switch (``nvcc -D...``) into
 ``build/kernels/ablate/`` and called through their C entries; none of them is reachable from
@@ -26,7 +26,13 @@ a wrapper, and all but the ring-depth variants compute wrong results on purpose:
   halves of the qkv round trip through device memory: ``only_qkv_no_store`` (the product
   without its epilogue's store) and ``only_core_no_loads`` (the core without reading the
   scratch); ``torch.matmul`` at the qkv and proj shapes is timed beside them. ``only_core``
-  of K2 against K6 is the cost of reading windows in place through the 5D map.
+  of K2 against K6 is the cost of reading windows in place through the 5D map;
+* K4 (``csrc/resampler.cu``, at the aggregation's shape with and without ``ln_k`` and the
+  de-aggregation's): ``only_logits`` (the fold and the f32 logits pass, which also writes
+  the bf16 context; with ``ln_k`` also the sums of squares of the context times the centred
+  weights), ``only_v`` (the v product), ``only_mix`` (the softmax and level-order
+  sum) and ``only_tail`` (the out-projection and the row kernel), each on what the scratch
+  holds; ``torch.matmul`` at the v and out-projection shapes is timed beside them.
 
 Every time is a median of ``--steps`` launches after warm-up (``tools.time_ms``: CUDA
 events, each launch behind a memset that keeps the queue ahead of the host and leaves the
@@ -43,7 +49,7 @@ import subprocess
 
 import torch
 
-from aurora_tpu_torch.ops import _lib, mlp, probes
+from aurora_tpu_torch.ops import _lib, mlp, probes, resampler
 from aurora_tpu_torch.ops import window_attention as wa
 from aurora_tpu_torch.ops.masks import group_ids_tensor, window_group_ids
 from aurora_tpu_torch.tools import card_line, report, resolve_device, result, time_ms
@@ -73,6 +79,12 @@ WINDOW_VARIANTS = {
     "only_core_no_loads": ("ABLATE_ONLY_CORE", "ABLATE_NO_LOADS"),
 }
 STAGES = ((4, 180, 360, 512, 8), (4, 90, 180, 1024, 16), (4, 45, 90, 2048, 32))
+RESAMPLER_VARIANTS = {
+    "full": (), "only_logits": ("ABLATE_ONLY_LOGITS",), "only_v": ("ABLATE_ONLY_V",),
+    "only_mix": ("ABLATE_ONLY_MIX",), "only_tail": ("ABLATE_ONLY_TAIL",),
+}
+# label, K, D, heads, Q: the level aggregation and de-aggregation over 64800 token columns
+PERCEIVER_SHAPES = (("agg", 13, 512, 16, 3), ("de-agg", 3, 1024, 16, 13))
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
@@ -237,10 +249,43 @@ def main(argv=None) -> list[dict]:
 
                 emit(f"{name} D={D} masked, tail [{tag}]", ms(call), **work)
 
+    def ablate_resampler():
+        libs = build_variants("resampler", RESAMPLER_VARIANTS)
+        for shape in PERCEIVER_SHAPES:
+            ablate_resampler_shape(libs, *shape)
+
+    def ablate_resampler_shape(libs, label, K, D, h, Q, M=64800):
+        f32 = torch.float32
+        inner, dh = D, D // h
+        a = dict(ctx=rn(K, M, D).to(f32), wk=rn(D, inner, std=0.05).to(f32),
+                 wv=rn(D, inner, std=0.05), qh=rn(Q, h, dh).to(f32), wout=rn(inner, D, std=0.05),
+                 ln1_w=1 + rn(D, std=0.1).to(f32), ln1_b=rn(D, std=0.1).to(f32),
+                 queries=rn(Q, D).to(f32))
+        xv, o = rn(K * M, D), rn(M * Q, inner)
+        emit(f"torch.matmul v ({K * M},{D})x({D},{inner})", ms(lambda: torch.matmul(xv, a["wv"])),
+             flops=2 * K * M * D * inner)
+        emit(f"torch.matmul out-projection ({M * Q},{inner})x({inner},{D})",
+             ms(lambda: torch.matmul(o, a["wout"])), flops=2 * M * Q * inner * D)
+        del xv, o
+        lnks = [None]
+        if label == "agg":
+            lnks.append((1 + rn(inner, std=0.1).to(f32), rn(inner, std=0.1).to(f32)))
+        for lnk in lnks:
+            for tag, lib in libs.items():
+                fn = lib.perceiver_core
+                fn.argtypes, fn.restype = resampler._PERCEIVER_CORE_ARGS, _I
+
+                def call(fn=fn, lnk=lnk):
+                    resampler._perceiver_core_call(fn, *a.values(), dh**-0.5, 1e-5, True, lnk)
+
+                emit(f"perceiver_core {label} ({K},{M},{D}) Q {Q}{', ln_k' if lnk else ''} [{tag}]",
+                     ms(call))
+
     ablate_mlp()
     ablate_gemm()
     ablate_sdpa()
     ablate_window()
+    ablate_resampler()
     return out
 
 

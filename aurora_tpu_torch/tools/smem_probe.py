@@ -27,13 +27,12 @@ SWEEP_KIB = (48, 64, 96, 128, 160, 192, 224, 227, 228, 232, 256)
 # launch code: window_attention.cu's qkv and proj products (gemm_rows_sm90.cuh: 4 stages of
 # 48 KB, 16 KB of output staging, barriers; its core asks for 111,648, sdpa.cu the same);
 # mlp.cu's fc1 (3 stages of 48 KB, 64 KB of parked pre-activations, 8 KB of bias copies,
-# barriers; fc2 asks for 214,080); row_tail.cuh at
-# N = 2048 (32 x 40 + 128 x 40 + 32 x 2056 bf16);
-# resampler.cu at K = 13 ((13 x 32 x 33 + 2 x 32 x 32) f32); probes.cu in mode fulld at
-# D = 512 (FULLD_FIXED + 512 x 152 bf16).
+# barriers; fc2 and K5's proj ask for 214,080); resampler.cu's products on the ring of
+# gemm_rows_sm90.cuh (v, the out-projection, ln_k's sums of squares; its logits pass asks for
+# 3 stages of 128 x 36 + 32 x 64 f32, 79,872); probes.cu in mode fulld at D = 512
+# (FULLD_FIXED + 512 x 152 bf16).
 PORT_SMEM_REQUESTS = {
-    "window_attention": 214080, "mlp": 222256, "row_tail": 144384, "resampler": 63104,
-    "probes": 225152,
+    "window_attention": 214080, "mlp": 222256, "resampler": 214080, "probes": 225152,
 }
 
 

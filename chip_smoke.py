@@ -12,7 +12,8 @@ Phases, each printing one JSON line; any failure raises and the script exits non
    kernel, the plain version and the library call where one computes the same function
    (``torch.roll`` for K1, ``F.scaled_dot_product_attention`` with the -100/0 mask for
    K7, ``torch.matmul`` for K12), median of 10 runs after warm-up, and the bound
-   max(flops / peak, bytes / 3.35 TB/s). Roll (both signs of the shift) and the
+   max(flops / peak, bytes / 3.35 TB/s) (K4: of the folded work its kernels do, with the
+   bound of the TPU kernel's work beside it). Roll (both signs of the shift) and the
    shared-memory probe must be exact. K2-K6 with their tail and K9 add a
    branch to a residual (``x + LN(.) * scale + shift``) and round the sum to bf16; their
    error is the largest ``|kernel - plain|`` less one bf16 ulp of the output (the two may
@@ -36,7 +37,8 @@ Phases, each printing one JSON line; any failure raises and the script exits non
    + 48, 3240 = 50 x 64 + 40, 540 = 8 x 64 + 28, 1080 = 16 x 64 + 56; an M = 3240 case per
    weight shape adds an odd number of pieces, whose last tile has one). K7 at stage 3, whose
    grid is padded to 48 x 96, must give the real tokens the same bits with garbage in the
-   pad tokens' q, k and v;
+   pad tokens' q, k and v. K4 also runs at the 121 x 240 grid's M = 1800 columns (a ragged
+   last tile of rows; no count towards the sums);
 4. end to end, once per route: the main route (``attention_impl``, ``mlp_impl`` auto, auto),
    then W (pallas_windowed, fused), P (pallas, pallas), X (xla, fused) and S (the main
    route with ``stabilise_level_agg=True``: K4 with ``ln_k``).
@@ -54,7 +56,8 @@ Phases, each printing one JSON line; any failure raises and the script exits non
    shape's time times its launches per step on the route that runs it, ``launches`` the
    count over that route's roll-out; K9-K13: the sum over one sweep of the tool's cases,
    ``launches`` the count over the tools phase; K2 and K6 carry their no-tail mode under
-   ``no_tail``, K4 its ``ln_k`` form under ``ln_k``), the ``nvidia-smi`` line, and the last
+   ``no_tail``, K4 its ``ln_k`` form under ``ln_k`` and the bound of the TPU kernel's work
+   under ``bound_of_tpu_work_ms``), the ``nvidia-smi`` line, and the last
    line ``{"ok": true, "device": {...}}``.
 
 Run from the repository root: ``python3 chip_smoke.py``. It needs one card, and exits
@@ -102,9 +105,8 @@ SOURCES = {
 # depths 6+6, 10+10, 8+8), the odd-index half shifted (two rolls each) on every route; one
 # attention kernel per block (K2, K6, or K5 after the plain attention of "xla"); one MLP
 # kernel per block (K3, or K8 under mlp_impl "pallas"); K3 in the two perceiver MLP
-# halves and K4 in the aggregation and de-aggregation cores on every route. Under
-# stabilise_level_agg the aggregation's K4 takes one launch more, counted on its own: the
-# statistics of k for ln_k.
+# halves and K4 in the aggregation and de-aggregation cores on every route (route S: the
+# aggregation's with ln_k).
 _ALWAYS = {"roll3d": 48, "perceiver_core": 2}
 _MAIN = {**_ALWAYS, "window_attention": 48, "mlp_adaln_residual": 50}
 ROUTES = {  # name: (config knobs, launches per step of the kernels it runs)
@@ -115,8 +117,7 @@ ROUTES = {  # name: (config knobs, launches per step of the kernels it runs)
           {**_ALWAYS, "window_attention": 48, "mlp_fused": 48, "mlp_adaln_residual": 2}),
     "X": (dict(attention_impl="xla", mlp_impl="fused"),
           {**_ALWAYS, "linear_adaln_residual": 48, "mlp_adaln_residual": 50}),
-    "S": (dict(attention_impl="auto", mlp_impl="auto", stabilise_level_agg=True),
-          {**_MAIN, "perceiver_k_stats": 1}),
+    "S": (dict(attention_impl="auto", mlp_impl="auto", stabilise_level_agg=True), _MAIN),
 }
 TOOL_KERNELS = ("mlp_t", "attn_probe", "attn5d_direct", "gemm_blocked", "smem_probe")
 # The route whose roll-out gives a kernel's launches and per-step weights in the summary
@@ -329,42 +330,55 @@ def kernel_cases():
     film2 = (rn(2, 512, std=0.1, dtype=torch.float32), rn(2, 512, dtype=torch.float32))
     yield mlp_case(rn, "B = 2, (2,200,512): a tile straddles the FiLM rows", 200, 512, 2048, 0,
                    film2, B=2)
-    for label, K, D, h, Q in (("agg", 13, 512, 16, 3), ("de-agg", 3, 1024, 16, 13)):
-        M, inner, dh = 64800, D, D // h
-        a = dict(
-            ctx=rn(K, M, D, dtype=torch.float32), wk=rn(D, inner, std=0.05, dtype=torch.float32),
-            wv=rn(D, inner, std=0.05, dtype=torch.float32), qh=rn(Q, h, dh, dtype=torch.float32),
-            wout=rn(inner, D, std=0.05, dtype=torch.float32),
-            ln1_w=1 + rn(D, std=0.1, dtype=torch.float32),
-            ln1_b=rn(D, std=0.1, dtype=torch.float32),
-            queries=rn(Q, D, dtype=torch.float32),
-        )
-        kw = dict(scale=dh**-0.5, value_bf16=True)
-        f32 = 2 * K * M * D * inner + 2 * K * M * Q * inner
-        b16 = 2 * K * M * D * inner + 2 * M * Q * inner * D
-        nb = K * M * D * 4 + M * Q * D * 2 + D * inner * 6 + inner * D * 2
-        yield case(
-            "perceiver_core", f"{label} ctx ({K},{M},{D}) Q {Q}", 1,
-            kernel=lambda a=a, kw=kw: resampler.perceiver_core(**a, **kw),
-            plain=lambda a=a, kw=kw: resampler.perceiver_core_plain(**a, **kw),
-            check="branch", residual=a["queries"][None],
-            bound=bound_ms(flops_bf16=b16, flops_f32=f32, nbytes=nb),
-        )
-        if label == "agg":
-            # K4 with ln_k (stabilise_level_agg): the aggregation only. The LayerNorm of k
-            # adds ~8 f32 operations per value of k to the function's work.
-            lnk = (1 + rn(inner, std=0.1, dtype=torch.float32),
-                   rn(inner, std=0.1, dtype=torch.float32))
-            yield case(
-                "perceiver_core", f"{label} ctx ({K},{M},{D}) Q {Q}, ln_k", 1, mode="ln_k",
-                kernel=lambda a=a, kw=kw, lnk=lnk: resampler.perceiver_core(**a, **kw, lnk=lnk),
-                plain=lambda a=a, kw=kw, lnk=lnk:
-                    resampler.perceiver_core_plain(**a, **kw, lnk=lnk),
-                check="branch", residual=a["queries"][None],
-                bound=bound_ms(flops_bf16=b16, flops_f32=f32 + 8 * K * M * inner, nbytes=nb),
-            )
-        del a
+    # K4 at the 0.25 degree grid's M = 64800 token columns, then at the 121 x 240 grid's 1800
+    # (13 x 1800 and 3 x 1800 rows: ragged last row tiles; counts nothing towards the sums).
+    for M, per_step in ((64800, 1), (1800, 0)):
+        for label, K, D, h, Q in (("agg", 13, 512, 16, 3), ("de-agg", 3, 1024, 16, 13)):
+            yield from perceiver_cases(rn, label, K, M, D, h, Q, per_step)
     yield from probe_cases(rn)
+
+
+def perceiver_cases(rn, label, K, M, D, h, Q, per_step):
+    """K4 on the (de-)aggregation's shapes; with ln_k for the aggregation (route S). The
+    bound is that of the folded work the kernels do (f32 logits from (D, Q h) weights; the v
+    product and the out-projection in bf16, with ln_k also the product with the centred
+    weights in three bf16 parts); the bound of the TPU kernel's work (the f32 k projection,
+    logits from k) beside it."""
+    import torch
+
+    from aurora_tpu_torch.ops import resampler
+    from aurora_tpu_torch.tools import bound_ms
+
+    f32 = torch.float32
+    inner, dh = D, D // h
+    a = dict(
+        ctx=rn(K, M, D, dtype=f32), wk=rn(D, inner, std=0.05, dtype=f32),
+        wv=rn(D, inner, std=0.05, dtype=f32), qh=rn(Q, h, dh, dtype=f32),
+        wout=rn(inner, D, std=0.05, dtype=f32), ln1_w=1 + rn(D, std=0.1, dtype=f32),
+        ln1_b=rn(D, std=0.1, dtype=f32), queries=rn(Q, D, dtype=f32),
+    )
+    kw = dict(scale=dh**-0.5, value_bf16=True)
+    b16 = 2 * K * M * D * inner + 2 * M * Q * inner * D
+    nb = K * M * D * 4 + M * Q * D * 2 + D * inner * 6 + inner * D * 2
+    lnks = [None]
+    if label == "agg":
+        lnks.append((1 + rn(inner, std=0.1, dtype=f32), rn(inner, std=0.1, dtype=f32)))
+    for lnk in lnks:
+        # With ln_k, ctx Wc in three bf16 products (the kernels' split form).
+        split = 3 * 2 * K * M * D * inner if lnk is not None else 0
+        # The TPU kernel's work: the f32 k projection and logits from k; ln_k adds ~8 f32
+        # operations per value of k.
+        tpu = 2 * K * M * D * inner + 2 * K * M * Q * inner + (8 * K * M * inner if lnk else 0)
+        tpu_bound = bound_ms(flops_bf16=b16, flops_f32=tpu, nbytes=nb)[0]
+        yield case(
+            "perceiver_core", f"{label} ctx ({K},{M},{D}) Q {Q}" + (", ln_k" if lnk else ""),
+            per_step, mode="ln_k" if lnk is not None else None,
+            kernel=lambda lnk=lnk: resampler.perceiver_core(**a, **kw, lnk=lnk),
+            plain=lambda lnk=lnk: resampler.perceiver_core_plain(**a, **kw, lnk=lnk),
+            check="branch", residual=a["queries"][None],
+            bound=bound_ms(flops_bf16=b16 + split, flops_f32=2 * K * M * D * Q * h, nbytes=nb),
+            extra=lambda b=tpu_bound: dict(bound_of_tpu_work_ms=b),
+        )
 
 
 def pad_tokens_isolated(qkv, groups, heads) -> dict:
@@ -667,6 +681,9 @@ def run_kernel_phases() -> dict:
         if lib_ms is not None:
             s["library_ms"] = (s["library_ms"] or 0.0) + n * lib_ms
         s["by"][by] += n * b
+        if "bound_of_tpu_work_ms" in more:  # K4: the TPU kernel's work, beside the folded
+            s["bound_of_tpu_work_ms"] = s.get("bound_of_tpu_work_ms", 0.0) + n * more[
+                "bound_of_tpu_work_ms"]
         torch.cuda.empty_cache()
     return summary
 
@@ -856,9 +873,10 @@ def main() -> int:
     launches["tools"] = run_tools()
 
     def entry(s: dict, n_launches: int) -> dict:
+        more = {k: s[k] for k in ("bound_of_tpu_work_ms",) if k in s}
         return dict(launches=n_launches, max_abs_err=s["max_abs_err"], err=s["err"],
                     ms=s["ms"], plain_ms=s["plain_ms"], bound_ms=s["bound_ms"],
-                    bound_by=max(s["by"], key=s["by"].get), library_ms=s["library_ms"])
+                    bound_by=max(s["by"], key=s["by"].get), library_ms=s["library_ms"], **more)
 
     kernels = []
     for name in TOL:
@@ -873,8 +891,8 @@ def main() -> int:
             n = launches["P"][name] if name == "window_attention" else 0
             e["no_tail"] = entry(summary[name, "no tail"], n)
         if (name, "ln_k") in summary:
-            # K4 with ln_k runs in route S's aggregation: once per statistics launch.
-            e["ln_k"] = entry(summary[name, "ln_k"], launches["S"]["perceiver_k_stats"])
+            # K4 with ln_k is route S's aggregation: one of its two K4 launches a step.
+            e["ln_k"] = entry(summary[name, "ln_k"], launches["S"][name] // 2)
         kernels.append(e)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

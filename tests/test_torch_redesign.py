@@ -8,9 +8,9 @@
 * The host side of K12's schedule covers every output element exactly once, for the probe
   tool's shapes and for small ragged ones, and the row block changes no bit of the result.
 * The shape rules of the two wrappers, as pure functions.
-* The port names no fused attention operator, and the CUDA branches of the six wrappers
-  (K12, K7, K3, K8, K2, K6), with the private helpers they call, reach no library product
-  and make no transposed copy of a weight.
+* The port names no fused attention operator, and the CUDA branches of the eight wrappers
+  (K12, K7, K3, K8, K2, K6, K4, K5), with the private helpers they call, reach no library
+  product and make no transposed copy of a weight.
 * K3's LayerNorm as its kernels compute it (per 256-column tile a mean and a centred sum of
   squares, merged exactly) equals the two-pass form of ``film_layernorm_residual``; the
   row-chunk rule that bounds K3's and K8's scratch covers every row once.
@@ -26,7 +26,7 @@ import torch
 import torch.nn.functional as F
 
 import aurora_tpu_torch
-from aurora_tpu_torch.ops import mlp, probes, window_attention
+from aurora_tpu_torch.ops import mlp, probes, resampler, window_attention
 from aurora_tpu_torch.ops.masks import bias_from_groups, window_group_ids
 from aurora_tpu_torch.tools.gemm_probe import FC2, PROJ
 
@@ -201,9 +201,11 @@ def _helpers(fn, branch):
 @pytest.mark.parametrize(
     "fn",
     [probes.gemm_blocked, window_attention.sdpa_windows, mlp.mlp_adaln_residual, mlp.mlp_fused,
-     window_attention.window_attention_tail, window_attention.window_attention_windowed],
+     window_attention.window_attention_tail, window_attention.window_attention_windowed,
+     resampler.perceiver_core, mlp.linear_adaln_residual],
     ids=["gemm_blocked", "sdpa_windows", "mlp_adaln_residual", "mlp_fused",
-         "window_attention_tail", "window_attention_windowed"])
+         "window_attention_tail", "window_attention_windowed", "perceiver_core",
+         "linear_adaln_residual"])
 def test_cuda_branch_reaches_no_library_product(fn):
     branch = _cuda_branch(fn)
     assert branch, "the CUDA branch launches the kernel"
@@ -227,7 +229,8 @@ def test_cuda_branch_reaches_no_library_product(fn):
               "transpose", "permute", "gemm_blocked_plain", "sdpa_windows_plain",
               "mlp_adaln_residual_plain", "mlp_fused_plain", "_mlp_weights",
               "window_attention_tail_plain", "window_attention_windowed_plain", "F",
-              "functional"}
+              "functional", "perceiver_core_plain", "perceiver_core_mirror",
+              "fold_logit_weights", "linear_adaln_residual_plain"}
     assert not names & banned, names & banned
     assert "kernel" in names and "LAUNCHES" in names
 
