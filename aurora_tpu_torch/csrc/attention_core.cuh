@@ -126,6 +126,68 @@ __device__ __forceinline__ void core_pack(uint32_t (&wf)[9][4], const float (&s)
   }
 }
 
+// The probe's forms of the weights (K10, attn_probe.cu), beside the model's softmax:
+// CORE_NO_SOFTMAX hands on the scaled f32 logits, rounded, as the weights; CORE_SOFTMAX_BF16
+// rounds the logits to bf16 before the scale (1/8, exact) and every later value to bf16:
+// the difference to the row maximum, its exponential, the row sum (summed in f32) and the
+// quotient, in the order of aurora_tpu_torch/ops/probes.py::attn_probe_plain. A row's 144
+// logits are all in the quad's registers, so the maximum is known before any exponential.
+enum { CORE_SOFTMAX = 0, CORE_NO_SOFTMAX = 1, CORE_SOFTMAX_BF16 = 2 };
+
+__device__ __forceinline__ void core_pack_scaled(uint32_t (&wf)[9][4], const float (&s)[18][4]) {
+#pragma unroll
+  for (int kt = 0; kt < 9; ++kt) {
+    wf[kt][0] = pack_bf16x2(s[2 * kt][0] * 0.125f, s[2 * kt][1] * 0.125f);
+    wf[kt][1] = pack_bf16x2(s[2 * kt][2] * 0.125f, s[2 * kt][3] * 0.125f);
+    wf[kt][2] = pack_bf16x2(s[2 * kt + 1][0] * 0.125f, s[2 * kt + 1][1] * 0.125f);
+    wf[kt][3] = pack_bf16x2(s[2 * kt + 1][2] * 0.125f, s[2 * kt + 1][3] * 0.125f);
+  }
+}
+
+// CORE_SOFTMAX_BF16 in place: on return s are the rounded exponentials and l0, l1 the
+// rounded row sums (rows g and g + 8). exp(d) is taken as exp2(d log2 e), a few f32 ulps
+// from expf and far inside the bf16 rounding that follows.
+__device__ __forceinline__ void core_softmax_bf16(float (&s)[18][4], float& l0, float& l1) {
+  constexpr float L2E = 1.4426950408889634f;
+  float m0 = -3.0e38f, m1 = -3.0e38f;
+#pragma unroll
+  for (int j = 0; j < 18; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = bf16r(s[j][e]) * 0.125f;
+    m0 = fmaxf(m0, fmaxf(s[j][0], s[j][1]));
+    m1 = fmaxf(m1, fmaxf(s[j][2], s[j][3]));
+  }
+  m0 = quad_max(m0);
+  m1 = quad_max(m1);
+  l0 = 0.f;
+  l1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < 18; ++j) {
+    s[j][0] = bf16r(exp2f(bf16r(s[j][0] - m0) * L2E));
+    s[j][1] = bf16r(exp2f(bf16r(s[j][1] - m0) * L2E));
+    s[j][2] = bf16r(exp2f(bf16r(s[j][2] - m1) * L2E));
+    s[j][3] = bf16r(exp2f(bf16r(s[j][3] - m1) * L2E));
+    l0 += s[j][0] + s[j][1];
+    l1 += s[j][2] + s[j][3];
+  }
+  l0 = bf16r(quad_sum(l0));
+  l1 = bf16r(quad_sum(l1));
+}
+
+// The weights s / l, each quotient rounded to bf16, as A fragments. The quotient is
+// __fdividef's (within 2 f32 ulps for the row sums' range, 1 <= l <= 144), far inside the
+// bf16 rounding that follows; an IEEE division a weight cost most of this form's time.
+__device__ __forceinline__ void core_pack_div(uint32_t (&wf)[9][4], const float (&s)[18][4],
+                                              float l0, float l1) {
+#pragma unroll
+  for (int kt = 0; kt < 9; ++kt) {
+    wf[kt][0] = pack_bf16x2(__fdividef(s[2 * kt][0], l0), __fdividef(s[2 * kt][1], l0));
+    wf[kt][1] = pack_bf16x2(__fdividef(s[2 * kt][2], l1), __fdividef(s[2 * kt][3], l1));
+    wf[kt][2] = pack_bf16x2(__fdividef(s[2 * kt + 1][0], l0), __fdividef(s[2 * kt + 1][1], l0));
+    wf[kt][3] = pack_bf16x2(__fdividef(s[2 * kt + 1][2], l1), __fdividef(s[2 * kt + 1][3], l1));
+  }
+}
+
 // o = w @ v for the warp's 16 rows: 8 n8 feature tiles, v read as [token][feature].
 __device__ __forceinline__ void core_weights_v(float (&o)[8][4], const uint32_t (&wf)[9][4],
                                                uint32_t v, int lane) {

@@ -15,13 +15,14 @@
 //       EPI_ROUND       y = bf16(acc), no bias                              (K4's v)
 //       EPI_STATS       the same, with EPI_BIAS_STATS's statistics          (K4's out-projection)
 //     y leaves through each warp's swizzled staging (GemmRing::store_warp_tile).
-//   ln_rows_kernel<Res>: a warp a row, out (holding y) = bf16(x + LN(y) (scale_bias + scale[f])
-//     + shift[f]) in place, f = (row_base + row) / rows_per_batch, x the row's residual: its own
-//     row of a bf16 matrix (RowsResidual: K2, K3, K5, K6) or row (row_base + row) % period of
-//     an f32 matrix (PeriodicResidual: K4's queries). It merges the D / 256 tile
-//     statistics exactly (equal counts: mean of means, the centred squares plus 256 times
-//     the squared offsets of the means; no E[y^2] - mean^2), so a row's column tiles run side
-//     by side on neighbouring blocks and A is read from device memory once.
+//   ln_rows_kernel<Res, TILE>: a warp a row, out (holding y) = bf16(x + LN(y) (scale_bias +
+//     scale[f]) + shift[f]) in place, f = (row_base + row) / rows_per_batch, x the row's
+//     residual: its own row of a bf16 matrix (RowsResidual: K2, K3, K5, K6, K9) or row
+//     (row_base + row) % period of an f32 matrix (PeriodicResidual: K4's queries). It merges
+//     the D / TILE tile statistics exactly (equal counts: mean of means, the centred squares
+//     plus TILE times the squared offsets of the means; no E[y^2] - mean^2; TILE is 256, or
+//     K9's 128 feature rows), so a row's column tiles run side by side on neighbouring
+//     blocks and A is read from device memory once.
 // Rows past the chunk's end arrive as zeros from the TMA; they are neither stored nor enter
 // any statistic (every row's values live in its own quad). A kernel boundary orders one
 // launch's ordinary stores before the next launch's TMA reads, so no cross-proxy fence is
@@ -209,14 +210,16 @@ struct PeriodicResidual {
 };
 
 // A warp a row: out (holding y) = bf16(x + LN(y) * gain + shift) in place, x from `res`.
-template <class Res>
+// The statistics come per TILE columns of a row: 256 (fc2 and proj tiles), or 128 (K9's
+// feature tiles, mlp_t.cu).
+template <class Res, int TILE = 256>
 __global__ void __launch_bounds__(256) ln_rows_kernel(
     const Res res, bf16* __restrict__ out, const float2* __restrict__ stats,
     const float* __restrict__ shift, const float* __restrict__ scale, float scale_bias, int rows,
     long long row_base, long long rows_per_batch, int D, float eps) {
   const int row = blockIdx.x * 8 + (threadIdx.x >> 5), lane = threadIdx.x & 31;
   if (row >= rows) return;
-  const int n_tiles = D / 256;
+  const int n_tiles = D / TILE;
   const float2* st = stats + (long long)row * n_tiles;
   float mean = 0.f;
   for (int i = 0; i < n_tiles; ++i) mean += st[i].x;
@@ -224,11 +227,11 @@ __global__ void __launch_bounds__(256) ln_rows_kernel(
   float m2 = 0.f;
   for (int i = 0; i < n_tiles; ++i) {
     const float d = st[i].x - mean;
-    m2 += st[i].y + 256.f * d * d;
+    m2 += st[i].y + (float)TILE * d * d;
   }
   const float rstd = rsqrtf(m2 / D + eps);
   const long long film = ((row_base + row) / rows_per_batch) * D;
-  for (int c = 0; c < n_tiles; ++c) {
+  for (int c = 0; c < D / 256; ++c) {
     const int n = 256 * c + 8 * lane;
     const long long at = (long long)row * D + n;
     const uint4 yv = *reinterpret_cast<const uint4*>(out + at);

@@ -24,6 +24,19 @@
 //      leading offset 8192 (the next 64 n: the next box); a k16 step adds 2048 bytes.
 // Every stage and box starts on a 1024-byte boundary, as the swizzle requires.
 //
+// The operand forms are template parameters of the ring (A_MN, B_MN); the form above,
+// GemmRing<S> = GemmRing<S, false, true>, is every kernel's but K9's. K9 (mlp_t.cu) makes
+// the WEIGHT the A operand and the tokens the N dimension, so both of its forms have an
+// MN-major A:
+//   MN-major A (A_MN): warpgroup g's box is 64 m x 64 k of a weight W (K x M) as stored,
+//      columns m0 + 64 g..: each row one k with 64 m = 128 bytes, swizzled. The atom is
+//      8 k x 64 m; stride offset 1024 (the next 8 k), leading offset the next 64 m (one box:
+//      unused at m64); a k16 step adds 2048 bytes. wgmma's transpose bit for A is set.
+//   K-major B (!B_MN): the tokens as stored, (N x K, K contiguous): one box of up to 256 rows
+//      (n) x 64 k, 128-byte rows under the swizzle, as the K-major A: stride offset 1024,
+//      a k16 step adds 32 bytes, transpose bit clear.
+// The producer of those forms is produce_step_wa; the caller loads B's part of the stage.
+//
 // Ring protocol: full[s] (1 arrival + the stage's bytes) and empty[s] (one arrival per
 // consumer warp, after the warp's wgmma reading the stage have completed). The producer
 // runs ahead by up to STAGES stages, across tiles. The consumers keep one wgmma group in
@@ -68,6 +81,8 @@ __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t leading_b
 // + (accumulate ? d : 0). Thread layout of d: warp w of the warpgroup holds rows 16w..16w+15;
 // d[4j..4j+3] are the m16n8 accumulator of columns 8j..8j+7 (rows g and g + 8, columns 2t,
 // 2t + 1 with g = lane / 4, t = lane % 4).
+// TA, TB: the transpose bits (0 K-major, 1 MN-major); A K-major and B MN-major by default.
+template <int TA = 0, int TB = 1>
 __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t desc_a, uint64_t desc_b,
                                                  int accumulate) {
   asm volatile(
@@ -91,7 +106,7 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t desc_
       "%104, %105, %106, %107, %108, %109, %110, %111, "
       "%112, %113, %114, %115, %116, %117, %118, %119, "
       "%120, %121, %122, %123, %124, %125, %126, %127}, "
-      "%128, %129, p, 1, 1, 0, 1;\n"  // scale-a, scale-b = 1; A K-major (0), B MN-major (1)
+      "%128, %129, p, 1, 1, %131, %132;\n"  // scale-a, scale-b = 1; the transpose bits
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
@@ -125,19 +140,19 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t desc_
         "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
         "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(TA), "n"(TB));
 }
 
 // The ring of a (2 x 64) x 256 tile with K steps of 64. `tiles` is the 1024-byte aligned
 // shared-space address of STAGES stages of STAGE_BYTES; `bars` that of 2 STAGES mbarriers
 // (8 bytes each): full[0..STAGES), then empty[0..STAGES).
-template <int STAGES_>
+template <int STAGES_, bool A_MN = false, bool B_MN = true>
 struct GemmRing {
   static constexpr int BM = 128, BN = 256, BK = 64, STAGES = STAGES_;
   static constexpr int CONSUMER_WARPS = 8;         // two warpgroups of 64 rows each
-  static constexpr int A_BOX_BYTES = 64 * BK * 2;  // 8 KB: 64 rows of 128 bytes
+  static constexpr int A_BOX_BYTES = 64 * BK * 2;  // 8 KB: 64 rows (A_MN: 64 k) of 128 bytes
   static constexpr int A_BYTES = 2 * A_BOX_BYTES;
-  static constexpr int B_BOX_BYTES = BK * 64 * 2;  // 8 KB: 64 k of 64 n
+  static constexpr int B_BOX_BYTES = BK * 64 * 2;  // 8 KB: 64 k of 64 n (!B_MN: 64 n of 64 k)
   static constexpr int B_BYTES = B_BOX_BYTES * (BN / 64);
   static constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
   static constexpr int BAR_BYTES = 2 * STAGES * 8;
@@ -190,6 +205,28 @@ struct GemmRing {
     pos.advance();
   }
 
+  // Producer, one thread, weight-as-A forms (A_MN): the stage at `pos`, once it is free.
+  // Warpgroup g's A box is columns m0 + 64 g.. of map_w (W (K, M) as stored, boxes of 64 m
+  // x 64 k) at k; load_b(address, barrier) asks for B's part of the stage, b_bytes of it.
+  template <class LoadB>
+  __device__ static void produce_step_wa(const CUtensorMap* map_w, uint32_t tiles, uint32_t bars,
+                                         Pos& pos, int m0, int k, uint32_t b_bytes,
+                                         const LoadB& load_b) {
+    static_assert(A_MN, "the weight is the A operand");
+    mbar_wait(empty(bars, pos.stage), pos.phase ^ 1);
+    const uint32_t bar = full(bars, pos.stage);
+    const uint32_t a = tiles + pos.stage * STAGE_BYTES;
+#ifdef ABLATE_NO_LOADS
+    mbar_arrive(bar);
+#else
+    mbar_arrive_expect_tx(bar, A_BYTES + b_bytes);
+    tma_load_2d(a, map_w, bar, m0, k);
+    tma_load_2d(a + A_BOX_BYTES, map_w, bar, m0 + 64, k);
+    load_b(a + A_BYTES, bar);
+#endif
+    pos.advance();
+  }
+
   // Producer, one thread: the k_steps stages of one tile, A and B both at k ks * BK.
   __device__ static void produce_tile(const CUtensorMap* map_a, const CUtensorMap* map_b,
                                       uint32_t tiles, uint32_t bars, Pos& pos,
@@ -213,8 +250,11 @@ struct GemmRing {
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk)
-      wgmma_m64n256k16(acc, desc_sw128(a + kk * 32, 16, 1024),
-                       desc_sw128(b + kk * 2048, B_BOX_BYTES, 1024), accumulate | kk);
+      wgmma_m64n256k16<A_MN, B_MN>(acc, A_MN ? desc_sw128(a + kk * 2048, A_BOX_BYTES, 1024)
+                                              : desc_sw128(a + kk * 32, 16, 1024),
+                                   B_MN ? desc_sw128(b + kk * 2048, B_BOX_BYTES, 1024)
+                                        : desc_sw128(b + kk * 32, 16, 1024),
+                                   accumulate | kk);
     wgmma_commit();
   }
 

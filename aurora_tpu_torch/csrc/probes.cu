@@ -1,14 +1,13 @@
-// K9-K11 and K13: kernels of the probe tools (aurora_tpu_torch/tools/); K12 gemm_blocked is
-// in gemm.cu.
+// K11 and K13: kernels of the probe tools (aurora_tpu_torch/tools/); K12 gemm_blocked is in
+// gemm.cu, K9 mlp_t in mlp_t.cu and K10 attn_probe in attn_probe.cu.
 //
-// They replace four of the five Pallas kernels that live in the JAX package's tools:
-//   K9  mlp_t          tools/backbone_ablate.py make_mlp_t    (pallas_call at :457)
-//   K10 attn_probe     tools/backbone_ablate.py make_probe     (pallas_call at :598)
+// They replace two of the five Pallas kernels that live in the JAX package's tools:
 //   K11 attn5d_direct  tools/backbone_ablate.py make_direct    (pallas_call at :877)
 //   K13 smem_probe     tools/vmem_probe.py try_size            (pallas_call at :26)
 // Each computes what the TPU kernel computes; what a TPU mode meant (a Mosaic relayout, a
-// sublane reduction, a VMEM ceiling) is given its reading on this card at each kernel.
-// All are simple mma.sync designs; their times stand in PERF.md beside their bounds.
+// VMEM ceiling) is given its reading on this card at each kernel. K11 is the first
+// mma.sync design of window_attention.cuh, which no other kernel includes; its time stands
+// in PERF.md beside its bound.
 #include "common.cuh"
 #include "window_attention.cuh"
 
@@ -30,84 +29,6 @@ __global__ void __launch_bounds__(1024) smem_probe_kernel(const float* __restric
   __syncthreads();
   const float touched = (float)(*last) - 1.f;  // 0 when the byte held
   out[tid] = 2.f * x[tid] + scratch[0] + touched;
-}
-
-// ------------------------------------------------------------------------------ K10
-// The qkv projection and the attention core, unmasked, on partitioned windows
-// (nW, 144, D), in the probe's modes. SM picks the softmax form (window_attention.cuh);
-// NO_CORE returns q, the first D features of the rounded, biased qkv. The grid's x extent
-// is the schedule: `heads` gives one block per (window, head) (the TPU kernel's Python loop
-// over heads); 1 gives one block per window that walks its heads with
-// q, k and v of one head at a time in shared memory (the TPU kernel's "batched" forms,
-// all heads in one batched product: the same numbers in another schedule).
-template <int SM, bool NO_CORE>
-__global__ void __launch_bounds__(THREADS) attn_probe_kernel(const bf16* __restrict__ x,
-                                                             const bf16* __restrict__ wt,
-                                                             const bf16* __restrict__ bqkv, int D,
-                                                             int heads, bf16* __restrict__ out) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const WindowSmem sm(smem);
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  for (int t = tid; t < WN; t += THREADS) sm.rowid[t] = (long long)blockIdx.y * WN + t;
-  __syncthreads();
-  for (int head = blockIdx.x; head < heads; head += gridDim.x) {
-    project_qkv(x, D, wt, bqkv, sm.rowid, D, head, tid, lane, warp, sm.Xs, sm.Ws, sm.Qs, sm.Ks,
-                sm.Vt);
-    __syncthreads();
-    if constexpr (NO_CORE) {
-      for (int i = tid; i < WN * (DH / 8); i += THREADS) {
-        const int t = i / (DH / 8), q = i % (DH / 8);
-        *reinterpret_cast<uint4*>(out + sm.rowid[t] * D + head * DH + q * 8) =
-            *reinterpret_cast<const uint4*>(sm.Qs + t * LDQ + q * 8);
-      }
-    } else {
-      attend_store<SM>(sm.Qs, sm.Ks, sm.Vt, nullptr, sm.rowid, D, head * DH, out, warp, lane);
-    }
-  }
-}
-
-// Mode fulld: one head as wide as D (scale still 1/8). q, k and v of a window are 3 x 144 x D
-// values, 442 KB at D = 512, beyond a block's shared memory, and the logits body is written
-// for 64-wide operands. So one block per window tiles the head dim in chunks of 64: per
-// chunk it projects q, k and v of those 64 features (a "head" of the projection), adds the
-// chunk's q k^T to the f32 logits in registers, and keeps v^T of every chunk in shared
-// memory ([D][LDV]); after the last chunk the softmax runs once and w @ v chunk by chunk.
-constexpr size_t FULLD_FIXED =
-    (size_t)(WN * LDX + 3 * DH * LDX + 2 * WN * LDQ) * 2 + WN * sizeof(long long);
-
-__global__ void __launch_bounds__(THREADS) attn_fulld_kernel(const bf16* __restrict__ x,
-                                                             const bf16* __restrict__ wt,
-                                                             const bf16* __restrict__ bqkv, int D,
-                                                             bf16* __restrict__ out) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* Xs = reinterpret_cast<bf16*>(smem);
-  bf16* Ws = Xs + WN * LDX;
-  bf16* Qs = Ws + 3 * DH * LDX;
-  bf16* Ks = Qs + WN * LDQ;
-  long long* rowid = reinterpret_cast<long long*>(Ks + WN * LDQ);
-  bf16* Vall = reinterpret_cast<bf16*>(rowid + WN);  // [D][LDV]
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  for (int t = tid; t < WN; t += THREADS) rowid[t] = (long long)blockIdx.x * WN + t;
-  __syncthreads();
-  float s[18][4];
-#pragma unroll
-  for (int j = 0; j < 18; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-  const int chunks = D / DH;
-  for (int c = 0; c < chunks; ++c) {
-    project_qkv(x, D, wt, bqkv, rowid, D, c, tid, lane, warp, Xs, Ws, Qs, Ks,
-                Vall + (size_t)c * DH * LDV);
-    __syncthreads();
-    qk_logits(s, Qs, Ks, warp, lane);
-  }
-  float l0, l1;
-  softmax_rows<SOFTMAX_F32>(s, nullptr, warp, lane, l0, l1);
-  uint32_t wf[WN / 16][4];
-  pack_weights(wf, s, l0, l1);
-  for (int c = 0; c < chunks; ++c) {
-    float o[8][4];
-    weights_v(o, wf, Vall + (size_t)c * DH * LDV, lane);
-    store_o(o, rowid, D, c * DH, out, warp, lane);
-  }
 }
 
 // ------------------------------------------------------------------------------ K11
@@ -193,218 +114,9 @@ __global__ void __launch_bounds__(THREADS) attn5d_direct_kernel(
                   sm.Vt);
     }
     __syncthreads();
-    attend_store<SOFTMAX_F32>(sm.Qs, sm.Ks, sm.Vt, nullptr, sm.rowid, D, head * DH, out, warp,
+    attend_store(sm.Qs, sm.Ks, sm.Vt, nullptr, sm.rowid, D, head * DH, out, warp,
                               lane);
   }
-}
-
-// ------------------------------------------------------------------------------ K9
-// out = x + LN(round(fc2 GELU(round(fc1 x + b1)) + b2)) * sc + sh: K3's function at
-// scale_bias = 0 with per-feature sc/sh, computed feature-major as the TPU kernel did.
-// Bound: operations (4 rows D 4D bf16 flops). Where K3 has the tokens as the rows of its
-// tensor-core tiles and each thread's registers run along a token's features, here the
-// WEIGHT is the row operand: h^T (hidden x tokens) = W1^T x^T and out^T (D x tokens) =
-// W2^T h^T. The A fragments come from the transposed weights (w1t (Hd, D), w2t (D, Hd),
-// reduction dim contiguous), the B fragments from the token rows as stored (x is [token][k])
-// and from the hidden chunk kept as [token][hidden] in shared memory. A block of 8 warps
-// walks its R rows in tiles of RT = 32768 / D tokens; warp w owns features [w D/8, (w+1) D/8)
-// of out^T for all RT tokens (128 f32 accumulators per thread, as K3). The hidden stays on
-// chip in chunks of 64. The LayerNorm reduces down the accumulator's rows: over a thread's
-// m16 tiles, across the 8 lanes that share a token column, then across the 8 warps through
-// shared memory (two passes). The result is written back into the token tile in shared
-// memory (the transpose back) and leaves in 16-byte row pieces.
-constexpr int T_HC = 64;
-
-template <int D>
-__global__ void __launch_bounds__(256, 1) mlp_t_kernel(
-    const bf16* __restrict__ x, const bf16* __restrict__ w1t, const float* __restrict__ b1,
-    const bf16* __restrict__ w2t, const float* __restrict__ b2, const float* __restrict__ sh,
-    const float* __restrict__ sc, long long L, int R, int Hd, float eps, bf16* __restrict__ out) {
-  constexpr int RT = 32768 / D;  // tokens per tile: 64, 32, 16
-  constexpr int NT = RT / 8;     // n8 token tiles
-  constexpr int MT = D / 128;    // fc2 m16 feature tiles per warp
-  constexpr int NT1 = RT / 16;   // fc1 n8 tiles per warp (4 m16 hidden tiles x NT over 8 warps)
-  constexpr int LDX = D + 8, LDH = T_HC + 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* Xs = reinterpret_cast<bf16*>(smem);           // [RT][LDX]
-  bf16* Hs = Xs + RT * LDX;                           // [RT][LDH]
-  float* red = reinterpret_cast<float*>(Hs + RT * LDH);  // [8][RT]
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int gq = lane >> 2, tq = lane & 3;
-  const long long r_begin = (long long)blockIdx.x * R;
-  const long long r_end = r_begin + R < L ? r_begin + R : L;
-  const int mt1 = warp & 3, nb1 = (warp >> 2) * NT1;
-  const int f_warp = warp * (D / 8);
-
-  for (long long t0 = r_begin; t0 < r_end; t0 += RT) {
-    __syncthreads();  // the previous tile has left Xs
-    for (int i = tid; i < RT * (D / 8); i += 256) {
-      const int r = i / (D / 8), q = i % (D / 8);
-      uint4 v = make_uint4(0, 0, 0, 0);
-      if (t0 + r < r_end) v = *reinterpret_cast<const uint4*>(x + (t0 + r) * D + q * 8);
-      *reinterpret_cast<uint4*>(Xs + r * LDX + q * 8) = v;
-    }
-    __syncthreads();
-
-    float acc[MT][NT][4];
-#pragma unroll
-    for (int i = 0; i < MT; ++i)
-#pragma unroll
-      for (int j = 0; j < NT; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
-
-    for (int h0 = 0; h0 < Hd; h0 += T_HC) {
-      // fc1: 16 hidden features (rows) x 8 * NT1 tokens (columns) per warp.
-      float a1[NT1][4];
-#pragma unroll
-      for (int j = 0; j < NT1; ++j) a1[j][0] = a1[j][1] = a1[j][2] = a1[j][3] = 0.f;
-      for (int k = 0; k < D; k += 16) {
-        uint32_t af[4];
-        load_a(af, w1t, D, h0 + mt1 * 16, k, lane);
-#pragma unroll
-        for (int j = 0; j < NT1; ++j) {
-          uint32_t bfr[2];
-          load_b(bfr, Xs, LDX, (nb1 + j) * 8, k, lane);
-          mma_16816(a1[j], af, bfr);
-        }
-      }
-      {
-        const int hid = mt1 * 16 + gq;
-        const float bb0 = b1[h0 + hid], bb1 = b1[h0 + hid + 8];
-#pragma unroll
-        for (int j = 0; j < NT1; ++j) {
-          const int tok = (nb1 + j) * 8 + 2 * tq;
-          Hs[tok * LDH + hid] = __float2bfloat16_rn(gelu_erf(bf16r(a1[j][0] + bb0)));
-          Hs[(tok + 1) * LDH + hid] = __float2bfloat16_rn(gelu_erf(bf16r(a1[j][1] + bb0)));
-          Hs[tok * LDH + hid + 8] = __float2bfloat16_rn(gelu_erf(bf16r(a1[j][2] + bb1)));
-          Hs[(tok + 1) * LDH + hid + 8] = __float2bfloat16_rn(gelu_erf(bf16r(a1[j][3] + bb1)));
-        }
-      }
-      __syncthreads();
-      // fc2: the warp's D / 8 features (rows) x all RT tokens (columns).
-#pragma unroll
-      for (int k = 0; k < T_HC; k += 16) {
-        uint32_t bfr[NT][2];
-#pragma unroll
-        for (int j = 0; j < NT; ++j) load_b(bfr[j], Hs, LDH, j * 8, k, lane);
-#pragma unroll
-        for (int i = 0; i < MT; ++i) {
-          uint32_t af[4];
-          load_a(af, w2t, Hd, f_warp + i * 16, h0 + k, lane);
-#pragma unroll
-          for (int j = 0; j < NT; ++j) mma_16816(acc[i][j], af, bfr[j]);
-        }
-      }
-      __syncthreads();
-    }
-
-    // y = round(acc + b2), then the LayerNorm down the feature rows of each token column.
-    // A thread holds, per token tile j, tokens 2 tq and 2 tq + 1 (e = 0, 1).
-    float s[NT][2];
-#pragma unroll
-    for (int j = 0; j < NT; ++j) s[j][0] = s[j][1] = 0.f;
-#pragma unroll
-    for (int i = 0; i < MT; ++i) {
-      const int f = f_warp + i * 16 + gq;
-      const float bb0 = b2[f], bb1 = b2[f + 8];
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        acc[i][j][0] = bf16r(acc[i][j][0] + bb0);
-        acc[i][j][1] = bf16r(acc[i][j][1] + bb0);
-        acc[i][j][2] = bf16r(acc[i][j][2] + bb1);
-        acc[i][j][3] = bf16r(acc[i][j][3] + bb1);
-        s[j][0] += acc[i][j][0] + acc[i][j][2];
-        s[j][1] += acc[i][j][1] + acc[i][j][3];
-      }
-    }
-    float mean[NT][2], rstd[NT][2];
-#pragma unroll
-    for (int pass = 0; pass < 2; ++pass) {
-      if (pass == 1) {
-#pragma unroll
-        for (int j = 0; j < NT; ++j) s[j][0] = s[j][1] = 0.f;
-#pragma unroll
-        for (int i = 0; i < MT; ++i)
-#pragma unroll
-          for (int j = 0; j < NT; ++j) {
-            float d;
-            d = acc[i][j][0] - mean[j][0]; s[j][0] += d * d;
-            d = acc[i][j][2] - mean[j][0]; s[j][0] += d * d;
-            d = acc[i][j][1] - mean[j][1]; s[j][1] += d * d;
-            d = acc[i][j][3] - mean[j][1]; s[j][1] += d * d;
-          }
-      }
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          float v = s[j][e];
-          v += __shfl_xor_sync(0xffffffffu, v, 4);
-          v += __shfl_xor_sync(0xffffffffu, v, 8);
-          v += __shfl_xor_sync(0xffffffffu, v, 16);
-          if (gq == 0) red[warp * RT + j * 8 + 2 * tq + e] = v;
-        }
-      __syncthreads();
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          float v = 0.f;
-#pragma unroll
-          for (int w8 = 0; w8 < 8; ++w8) v += red[w8 * RT + j * 8 + 2 * tq + e];
-          if (pass == 0) mean[j][e] = v / D;
-          else rstd[j][e] = rsqrtf(v / D + eps);
-        }
-      __syncthreads();
-    }
-
-    // out = x + LN(y) * sc + sh, written over x in the token tile (the transpose back).
-#pragma unroll
-    for (int i = 0; i < MT; ++i)
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int f = f_warp + i * 16 + gq + 8 * half;
-        const float g = sc[f], hsh = sh[f];
-#pragma unroll
-        for (int j = 0; j < NT; ++j)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            bf16* px = Xs + (j * 8 + 2 * tq + e) * LDX + f;
-            const float y = acc[i][j][2 * half + e];
-            *px = __float2bfloat16_rn(__bfloat162float(*px) +
-                                      ((y - mean[j][e]) * rstd[j][e] * g + hsh));
-          }
-      }
-    __syncthreads();
-    for (int i = tid; i < RT * (D / 8); i += 256) {
-      const int r = i / (D / 8), q = i % (D / 8);
-      if (t0 + r < r_end)
-        *reinterpret_cast<uint4*>(out + (t0 + r) * D + q * 8) =
-            *reinterpret_cast<const uint4*>(Xs + r * LDX + q * 8);
-    }
-  }
-}
-
-template <int D>
-int launch_mlp_t(const bf16* x, const bf16* w1t, const float* b1, const bf16* w2t, const float* b2,
-                 const float* sh, const float* sc, long long L, int R, int Hd, float eps, bf16* out,
-                 cudaStream_t stream) {
-  constexpr int RT = 32768 / D;
-  const size_t smem = (size_t)RT * (D + 8) * 2 + (size_t)RT * (T_HC + 8) * 2 + 8 * RT * sizeof(float);
-  cudaFuncSetAttribute(mlp_t_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  const unsigned blocks = (unsigned)((L + R - 1) / R);
-  mlp_t_kernel<D><<<blocks, 256, smem, stream>>>(x, w1t, b1, w2t, b2, sh, sc, L, R, Hd, eps, out);
-  return (int)cudaGetLastError();
-}
-
-template <int SM, bool NO_CORE>
-int launch_attn_probe(const bf16* x, const bf16* wt, const bf16* b, int nW, int D, int heads,
-                      int grid_x, bf16* out, cudaStream_t stream) {
-  cudaFuncSetAttribute(attn_probe_kernel<SM, NO_CORE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)SMEM);
-  attn_probe_kernel<SM, NO_CORE><<<dim3(grid_x, nW), THREADS, SMEM, stream>>>(x, wt, b, D, heads,
-                                                                               out);
-  return (int)cudaGetLastError();
 }
 
 template <bool VEC>
@@ -450,34 +162,6 @@ extern "C" int smem_optin_bytes(int* bytes) {
   return (int)e;
 }
 
-// K10. x, out: (nW, 144, D) bf16; wqkv_t: (3D, D) bf16; bqkv: (3D,) bf16; heads = D / 64.
-// mode: 0 baseline, 1 no_softmax, 2 no_core, 3 fulld, 4 bf16_core, 5 batched_heads,
-// 6 bf16_batched. Returns cudaGetLastError().
-extern "C" int attn_probe(const void* x, const void* wqkv_t, const void* bqkv, void* out, int nW,
-                          int D, int heads, int mode, cudaStream_t stream) {
-  if (D != heads * DH || D % KC || nW > 65535) return (int)cudaErrorInvalidValue;
-  auto xb = static_cast<const bf16*>(x);
-  auto wt = static_cast<const bf16*>(wqkv_t);
-  auto bb = static_cast<const bf16*>(bqkv);
-  auto ob = static_cast<bf16*>(out);
-  switch (mode) {
-    case 0: return launch_attn_probe<SOFTMAX_F32, false>(xb, wt, bb, nW, D, heads, heads, ob, stream);
-    case 1: return launch_attn_probe<SOFTMAX_NONE, false>(xb, wt, bb, nW, D, heads, heads, ob, stream);
-    case 2: return launch_attn_probe<SOFTMAX_F32, true>(xb, wt, bb, nW, D, heads, heads, ob, stream);
-    case 3: {
-      const size_t smem = FULLD_FIXED + (size_t)D * LDV * 2;
-      cudaFuncSetAttribute(attn_fulld_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)smem);
-      attn_fulld_kernel<<<nW, THREADS, smem, stream>>>(xb, wt, bb, D, ob);
-      return (int)cudaGetLastError();
-    }
-    case 4: return launch_attn_probe<SOFTMAX_BF16, false>(xb, wt, bb, nW, D, heads, heads, ob, stream);
-    case 5: return launch_attn_probe<SOFTMAX_F32, false>(xb, wt, bb, nW, D, heads, 1, ob, stream);
-    case 6: return launch_attn_probe<SOFTMAX_BF16, false>(xb, wt, bb, nW, D, heads, 1, ob, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-
 // K11. x, out: (B, Cp, Hp, Wp, D) bf16 with windows (ws0, ws1, ws2) of 144 tokens in place;
 // wqkv_t: (3D, D) bf16; bqkv: (3D,) bf16; vec: 1 for mode vec, 0 for mode loop.
 // Returns cudaGetLastError().
@@ -493,23 +177,4 @@ extern "C" int attn5d_direct(const void* x, const void* wqkv_t, const void* bqkv
   auto ob = static_cast<bf16*>(out);
   return vec ? launch_direct<true>(xb, wt, bb, B, Cp, Hp, Wp, D, ws0, ws1, ws2, heads, ob, stream)
              : launch_direct<false>(xb, wt, bb, B, Cp, Hp, Wp, D, ws0, ws1, ws2, heads, ob, stream);
-}
-
-// K9. x, out: (L, D) bf16 rows; w1t: (Hd, D) bf16; w2t: (D, Hd) bf16; b1: (Hd,), b2, sh, sc:
-// (D,) f32; R: rows per block. D in (512, 1024, 2048), Hd % 64 == 0.
-// Returns cudaGetLastError().
-extern "C" int mlp_t(const void* x, const void* w1t, const float* b1, const void* w2t,
-                     const float* b2, const float* sh, const float* sc, void* out, int L, int R,
-                     int D, int Hd, float eps, cudaStream_t stream) {
-  if (Hd % T_HC || R <= 0) return (int)cudaErrorInvalidValue;
-  auto xb = static_cast<const bf16*>(x);
-  auto w1 = static_cast<const bf16*>(w1t);
-  auto w2 = static_cast<const bf16*>(w2t);
-  auto ob = static_cast<bf16*>(out);
-  switch (D) {
-    case 512: return launch_mlp_t<512>(xb, w1, b1, w2, b2, sh, sc, L, R, Hd, eps, ob, stream);
-    case 1024: return launch_mlp_t<1024>(xb, w1, b1, w2, b2, sh, sc, L, R, Hd, eps, ob, stream);
-    case 2048: return launch_mlp_t<2048>(xb, w1, b1, w2, b2, sh, sc, L, R, Hd, eps, ob, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
 }

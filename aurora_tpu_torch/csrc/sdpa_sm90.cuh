@@ -1,6 +1,7 @@
 // The ring kernel of the attention core: masked per-head attention over 144-token windows of
 // packed qkv rows (features (q|k|v) x head x 64). K7 (sdpa.cu) runs it on packed rows; K2 and
-// K6 (window_attention.cu) run it on the qkv their projection launch wrote. How a unit's
+// K6 (window_attention.cu) run it on the qkv their projection launch wrote; K10
+// (attn_probe.cu) runs it unmasked with the probe's forms of the weights. How a unit's
 // q, k and v boxes are found and where its result rows go is a template parameter:
 //   PackedRows   window w's token t is row 144 w + t of a (windows 144, 3D) tensor, seen
 //                through a 2D tensor map with boxes of {64 features, 144 rows} (K7, K6);
@@ -96,7 +97,7 @@ __device__ __forceinline__ void sdpa_load(const Windows& win, const CUtensorMap*
   win.load(map, dst, bar, u / heads, u % heads);
 }
 
-template <bool MASKED, class Windows>
+template <bool MASKED, class Windows, int SM = CORE_SOFTMAX>
 __global__ void __launch_bounds__(SDPA_THREADS, 2) sdpa_windows_kernel(
     const __grid_constant__ CUtensorMap map_qkv, const Windows win, const int* __restrict__ groups,
     bf16* __restrict__ out, int nW, int D, int heads, int units, int run) {
@@ -152,10 +153,18 @@ __global__ void __launch_bounds__(SDPA_THREADS, 2) sdpa_windows_kernel(
 #pragma unroll
     for (int j = 0; j < 18; ++j) sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.f;
     core_logits(sc, q, q + CORE_TILE_BYTES, warp, lane);
-    float inv0, inv1;
-    core_softmax<MASKED>(sc, neq, inv0, inv1);
     uint32_t wf[9][4];
-    core_pack(wf, sc, inv0, inv1);
+    if constexpr (SM == CORE_SOFTMAX) {
+      float inv0, inv1;
+      core_softmax<MASKED>(sc, neq, inv0, inv1);
+      core_pack(wf, sc, inv0, inv1);
+    } else if constexpr (SM == CORE_NO_SOFTMAX) {
+      core_pack_scaled(wf, sc);
+    } else {
+      float l0, l1;
+      core_softmax_bf16(sc, l0, l1);
+      core_pack_div(wf, sc, l0, l1);
+    }
     core_weights_v(o, wf, q + 2 * CORE_TILE_BYTES, lane);
 #endif
     core_store(o, q, win, win.base(window), D, head * 64, out, warp, lane);
@@ -183,24 +192,28 @@ __global__ void __launch_bounds__(SDPA_THREADS, 2) sdpa_windows_kernel(
 }
 
 // Launches the ring over `units` = windows x heads units; out is D wide, rows as `win` says.
+// SM: the form of the weights (attention_core.cuh; the probe's forms take no mask). A
+// block's run of units is a multiple of `group` (K10's batched modes: whole windows).
 // Returns cudaGetLastError(), or cudaErrorUnknown where the SM count cannot be read.
-template <class Windows>
+template <class Windows, int SM = CORE_SOFTMAX>
 int launch_sdpa(const CUtensorMap& map, const Windows& win, const int* groups, bf16* out, int nW,
-                int D, int heads, int units, cudaStream_t stream) {
+                int D, int heads, int units, cudaStream_t stream, int group = 1) {
   // Runs of units as long as two blocks an SM need, and no block without a unit.
   const int slots = 2 * sm90::sm_count();
   if (slots <= 0) return (int)cudaErrorUnknown;
-  const int run = (units + slots - 1) / slots;
+  int run = (units + slots - 1) / slots;
+  run = (run + group - 1) / group * group;
   const int blocks = (units + run - 1) / run;
   if (groups) {
+    if constexpr (SM != CORE_SOFTMAX) return (int)cudaErrorInvalidValue;
     cudaFuncSetAttribute(sdpa_windows_kernel<true, Windows>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SDPA_SMEM);
     sdpa_windows_kernel<true, Windows><<<blocks, SDPA_THREADS, SDPA_SMEM, stream>>>(
         map, win, groups, out, nW, D, heads, units, run);
   } else {
-    cudaFuncSetAttribute(sdpa_windows_kernel<false, Windows>,
+    cudaFuncSetAttribute(sdpa_windows_kernel<false, Windows, SM>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SDPA_SMEM);
-    sdpa_windows_kernel<false, Windows><<<blocks, SDPA_THREADS, SDPA_SMEM, stream>>>(
+    sdpa_windows_kernel<false, Windows, SM><<<blocks, SDPA_THREADS, SDPA_SMEM, stream>>>(
         map, win, groups, out, nW, D, heads, units, run);
   }
   return (int)cudaGetLastError();

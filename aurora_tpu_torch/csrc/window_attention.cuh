@@ -1,13 +1,14 @@
-// The window-attention body of the probe kernels K10 and K11 (probes.cu): 144-token windows,
-// head dim 64, one block of 9 warps per window and head, the qkv projection of the head on
-// unstaged mma.sync tiles in front of the core. (K2 and K6 run on the TMA + wgmma ring and
-// the core of sdpa_sm90.cuh instead: window_attention.cu.)
+// The window-attention body of the probe kernel K11 (probes.cu), its only user: 144-token
+// windows, head dim 64, one block of 9 warps per window and head, the qkv projection of the
+// head on unstaged mma.sync tiles in front of the core. (K2, K6 and K10 run on the TMA +
+// wgmma ring and the core of sdpa_sm90.cuh instead: window_attention.cu, attn_probe.cu.)
+// K11's redesign retires it.
 //
 // Pieces, each for the warp's 16 query rows (warp w owns tokens 16w..16w+15):
 //   project_qkv   qkv of one 64-wide head slice for the window's 144 rows into Qs, Ks, Vt
 //                 (project_step per k-step of 32, then project_finish);
 //   qk_logits     s += Q K^T on the tensor cores, f32 in registers (18 n8 tiles);
-//   softmax_rows  the row softmax of s in one of three forms (below);
+//   softmax_rows  the row softmax of s (f32);
 //   pack_weights  the weights rounded to bf16 as A fragments;
 //   weights_v     o += w @ v from those fragments and Vt;
 //   store_o       the 16 x 64 result into the tokens' rows of a D-wide output.
@@ -27,12 +28,6 @@ constexpr int LDQ = DH + 8;  // q / k stride
 constexpr int LDV = WN + 8;  // v^T stride
 constexpr size_t SMEM = (size_t)(WN * LDX + 3 * DH * LDX + 2 * WN * LDQ + DH * LDV) * 2 +
                         WN * sizeof(long long) + WN * sizeof(int);
-
-// Forms of the row softmax. F32 is the model's. The other two exist for the
-// attention probe: NONE hands the scaled logits on as weights; BF16 rounds the logits to
-// bf16 before the scale and keeps every later value (difference to the row maximum,
-// exponential, row sum, quotient) rounded to bf16.
-enum { SOFTMAX_F32 = 0, SOFTMAX_NONE = 1, SOFTMAX_BF16 = 2 };
 
 // One k-step of the qkv product of a head: the warp's 16 tokens (A from Xs, [WN][LDX])
 // against the head's 3 x 64 weight rows (B from Ws, [3 DH][LDX]); 24 n8 tiles per warp
@@ -141,10 +136,9 @@ __device__ __forceinline__ void qk_logits(float s[18][4], const bf16* Qs, const 
   }
 }
 
-// The row softmax of the raw logits s, scale 1/sqrt(64). On return s / l are the weights
-// (rows gq and gq + 8 of the warp's tile divide by l0 and l1). gs: the window's 144 group
-// ids (0 for equal ids, -100 otherwise), or null for no mask.
-template <int SM>
+// The row softmax of the raw logits s, scale 1/sqrt(64), in f32. On return s / l are the
+// weights (rows gq and gq + 8 of the warp's tile divide by l0 and l1). gs: the window's 144
+// group ids (0 for equal ids, -100 otherwise), or null for no mask.
 __device__ __forceinline__ void softmax_rows(float s[18][4], const int* gs, int warp, int lane,
                                              float& l0, float& l1) {
   const int gq = lane >> 2, tq = lane & 3;
@@ -155,10 +149,7 @@ __device__ __forceinline__ void softmax_rows(float s[18][4], const int* gs, int 
   for (int j = 0; j < 18; ++j) {
     const int kc = j * 8 + 2 * tq;
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      if constexpr (SM == SOFTMAX_BF16) s[j][e] = bf16r(s[j][e]);
-      s[j][e] *= scale;
-    }
+    for (int e = 0; e < 4; ++e) s[j][e] *= scale;
     if (gs) {
       const int gk0 = gs[kc], gk1 = gs[kc + 1], g0 = gs[q0], g1 = gs[q1];
       s[j][0] += (g0 == gk0) ? 0.f : -100.f;
@@ -169,36 +160,21 @@ __device__ __forceinline__ void softmax_rows(float s[18][4], const int* gs, int 
     m0 = fmaxf(m0, fmaxf(s[j][0], s[j][1]));
     m1 = fmaxf(m1, fmaxf(s[j][2], s[j][3]));
   }
-  if constexpr (SM == SOFTMAX_NONE) {
-    l0 = l1 = 1.f;
-    return;
-  }
   m0 = quad_max(m0);
   m1 = quad_max(m1);
   l0 = 0.f;
   l1 = 0.f;
 #pragma unroll
   for (int j = 0; j < 18; ++j) {
-    if constexpr (SM == SOFTMAX_BF16) {
-      s[j][0] = bf16r(expf(bf16r(s[j][0] - m0)));
-      s[j][1] = bf16r(expf(bf16r(s[j][1] - m0)));
-      s[j][2] = bf16r(expf(bf16r(s[j][2] - m1)));
-      s[j][3] = bf16r(expf(bf16r(s[j][3] - m1)));
-    } else {
-      s[j][0] = expf(s[j][0] - m0);
-      s[j][1] = expf(s[j][1] - m0);
-      s[j][2] = expf(s[j][2] - m1);
-      s[j][3] = expf(s[j][3] - m1);
-    }
+    s[j][0] = expf(s[j][0] - m0);
+    s[j][1] = expf(s[j][1] - m0);
+    s[j][2] = expf(s[j][2] - m1);
+    s[j][3] = expf(s[j][3] - m1);
     l0 += s[j][0] + s[j][1];
     l1 += s[j][2] + s[j][3];
   }
   l0 = quad_sum(l0);
   l1 = quad_sum(l1);
-  if constexpr (SM == SOFTMAX_BF16) {
-    l0 = bf16r(l0);
-    l1 = bf16r(l1);
-  }
 }
 
 // The rounded weights s / l as A fragments: two neighbouring n8 tiles form one fragment.
@@ -243,7 +219,6 @@ __device__ __forceinline__ void store_o(const float o[8][4], const long long* ro
 }
 
 // Logits, softmax, w @ v and the store for one head whose q, k and v^T sit in Qs, Ks, Vt.
-template <int SM>
 __device__ __forceinline__ void attend_store(const bf16* Qs, const bf16* Ks, const bf16* Vt,
                                              const int* gs, const long long* rowid, int D,
                                              int col0, bf16* __restrict__ attn, int warp,
@@ -253,7 +228,7 @@ __device__ __forceinline__ void attend_store(const bf16* Qs, const bf16* Ks, con
   for (int j = 0; j < 18; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
   qk_logits(s, Qs, Ks, warp, lane);
   float l0, l1;
-  softmax_rows<SM>(s, gs, warp, lane, l0, l1);
+  softmax_rows(s, gs, warp, lane, l0, l1);
   uint32_t wf[WN / 16][4];
   pack_weights(wf, s, l0, l1);
   float o[8][4];

@@ -178,16 +178,6 @@ def mlp_row_chunks(M: int, Hd: int, cap: int = MLP_SCRATCH_BYTES) -> list[tuple[
     return [(r0, min(rows, M - r0)) for r0 in range(0, M, rows)]
 
 
-def _mlp_weights(w1, b1, w2, b2):
-    """K9's operands: weights transposed to ``(out, in)`` bf16 (rows are B-fragment
-    columns), biases f32."""
-    bf, f32 = torch.bfloat16, torch.float32
-    return (
-        w1.to(bf).t().contiguous(), b1.to(f32).contiguous(),
-        w2.to(bf).t().contiguous(), b2.to(f32).contiguous(),
-    )
-
-
 def _mlp_operands(x, w1, b1, w2, b2):
     """K3's and K8's operands: the weights as stored, ``(in, out)`` bf16 (no copy where they
     are stored so), the biases f32; all checked."""

@@ -2,13 +2,16 @@
 
 They replace the five Pallas kernels that the JAX package defines inside its tools, each
 with its plain PyTorch version beside it. What a TPU mode meant is given its reading on a
-Hopper card in each wrapper's docstring; the kernels are in ``csrc/probes.cu``, K12 in
-``csrc/gemm.cu``.
+Hopper card in each wrapper's docstring. K9 is ``csrc/mlp_t.cu`` and K10
+``csrc/attn_probe.cu``, both on the shared TMA + ``wgmma`` headers; K11 and K13 are
+``csrc/probes.cu``, K12 ``csrc/gemm.cu``.
 
 * K9 :func:`mlp_t` replaces ``tools/backbone_ablate.py::make_mlp_t`` (``pl.pallas_call`` at
-  ``backbone_ablate.py:457``): the block MLP branch computed feature-major.
+  ``backbone_ablate.py:457``): the block MLP branch computed feature-major, the weight as
+  the row operand of both products and the tokens as their wide dimension.
 * K10 :func:`attn_probe` replaces ``make_probe(mode)`` (``:598``): the qkv projection and the
-  unmasked attention core on partitioned windows in seven timing modes.
+  unmasked attention core on partitioned windows in seven timing modes, on K6's qkv
+  product and K7's core.
 * K11 :func:`attn5d_direct` replaces ``make_direct(mode)`` (``:877``): window attention whose
   unit of work is a strip of windows of the 5D tokens, gathered on chip.
 * K12 :func:`gemm_blocked` replaces ``tools/gemm_probe.py::pallas_gemm`` (``:102``): a
@@ -17,7 +20,8 @@ Hopper card in each wrapper's docstring; the kernels are in ``csrc/probes.cu``, 
   kernel with a swept fast-memory scratch.
 
 On a CUDA tensor every wrapper launches its kernel or raises; the plain versions run for
-CPU tensors only (and beside the kernels in the checks on the card).
+CPU tensors only (and beside the kernels in the checks on the card). K9 and K10 read their
+weights as stored; only K11 still casts and transposes its ``wqkv`` on every call.
 """
 
 from __future__ import annotations
@@ -29,7 +33,7 @@ import torch
 
 from aurora_tpu_torch.model.nn import acc_dtype
 from aurora_tpu_torch.ops import _lib
-from aurora_tpu_torch.ops.mlp import _mlp_weights, mlp_adaln_residual_plain
+from aurora_tpu_torch.ops.mlp import MLP_SCRATCH_BYTES, mlp_adaln_residual_plain
 from aurora_tpu_torch.ops.window_attention import (
     _check_heads,
     window_attention_windowed_plain,
@@ -50,8 +54,11 @@ __all__ = [
     "gemm_blocked_plain",
     "gemm_blocked_schedule",
     "gemm_blocked_unit",
+    "MLP_T_TILE",
     "mlp_t",
+    "mlp_t_item",
     "mlp_t_plain",
+    "mlp_t_schedule",
     "smem_optin_bytes",
     "empty_launch",
     "smem_probe",
@@ -219,22 +226,68 @@ def mlp_t_plain(x, w1, b1, w2, b2, sh, sc, ln_eps: float = 1e-5) -> torch.Tensor
     )[0]
 
 
+MLP_T_TILE = (256, 128)  # tokens and features of a tile of both products (csrc/mlp_t.cu)
+
+
+def mlp_t_schedule(L: int, D: int, Hd: int, R: int, cap: int = MLP_SCRATCH_BYTES) -> dict:
+    """K9's schedule on the card for ``x: (L, D)``, hidden ``Hd`` and the row block ``R``,
+    or ``ValueError`` naming the shape.
+
+    A unit is ``R`` consecutive tokens (``R`` must divide ``L``), cut into
+    ``tiles_per_unit = ceil(R / 256)`` token tiles from its first row, so no tile straddles
+    two units. The bf16 hidden ``h^T`` of a chunk of whole units, each padded to
+    ``padded_unit = 256 tiles_per_unit`` columns, must fit ``cap`` (K3's scratch cap); the
+    chunks (``(first unit, units)``) are as equal as whole units allow. ``items`` gives each
+    chunk's work items of fc1 and of fc2: (token tile, 128-feature tile) pairs over ``Hd``
+    and over ``D`` features.
+    """
+    T, F = MLP_T_TILE
+    if R <= 0 or L % R:
+        raise ValueError(f"mlp_t: the row block R={R} must divide L={L}")
+    tpu = -(-R // T)
+    n_units = L // R
+    most = cap // (2 * Hd * tpu * T)
+    if most <= 0:
+        raise ValueError(f"mlp_t kernel: {cap} bytes of scratch hold no unit of R={R}, hidden={Hd}")
+    per = -(-n_units // -(-n_units // most))
+    chunks = [(u0, min(per, n_units - u0)) for u0 in range(0, n_units, per)]
+    return dict(tiles_per_unit=tpu, padded_unit=tpu * T, units_per_chunk=per, chunks=chunks,
+                items=[(uc * tpu * (Hd // F), uc * tpu * (D // F)) for _, uc in chunks])
+
+
+def mlp_t_item(i: int, unit0: int, R: int, tiles_per_unit: int, m_tiles: int):
+    """Item ``i`` of a launch over the chunk that starts at unit ``unit0``, as the kernel
+    decodes it: ``(first row, rows, first feature)`` of the ``rows x 128`` block of the
+    output it computes (``m_tiles``: ``Hd / 128`` for fc1, ``D / 128`` for fc2). Feature
+    tiles run fastest, so the blocks that run side by side read the same tokens."""
+    T, F = MLP_T_TILE
+    tile, mt = divmod(i, m_tiles)
+    u, t = divmod(tile, tiles_per_unit)
+    return (unit0 + u) * R + t * T, min(T, R - t * T), mt * F
+
+
 def mlp_t(x, w1, b1, w2, b2, sh, sc, R: int, ln_eps: float = 1e-5) -> torch.Tensor:
     """``x + LN(round(fc2 GELU(round(fc1 x + b1)) + b2)) * sc + sh`` for ``x: (L, D)``,
     ``w1: (D, H)``, ``w2: (H, D)``, ``b1: (H, 1)``, ``b2``/``sh``/``sc``: ``(D, 1)``;
     the numbers of K3 at ``scale_bias = 0``, computed feature-major.
 
     The TPU kernel transposed its ``(R, D)`` row tile once so that both products have the
-    tokens as their wide N dimension and the LayerNorm reduces over sublanes. On the card
-    the same choice reads: the weight is the row (A) operand of the tensor-core tile and
-    the tokens its columns, the hidden stays on chip as (hidden chunk, token tile), and the
-    LayerNorm reduces down the accumulator's rows, across lanes and then across warps
-    through shared memory, where K3 reduces along a thread's own registers. ``R`` stays
-    the number of token rows one block walks (in tiles of ``32768 / D`` tokens), so
-    ``L / R`` blocks run; it must divide ``L``.
+    weight as the row operand and the tokens as their wide N dimension, and the LayerNorm
+    reduces down the features. On the card both products run in that form on the TMA +
+    ``wgmma`` ring (``csrc/mlp_t.cu``): A is the weight as stored (an MN-major operand, no
+    transposed copy), N the tokens; fc1's tile of ``h^T`` goes through the GELU into a
+    hidden scratch, fc2's tile of ``y^T`` gives each token the LayerNorm statistics of its
+    128 features (a reduction down the accumulator's rows) and goes back to token-major
+    rows through shared memory; K3's row kernel merges the ``D / 128`` statistics, applies
+    the FiLM row and adds ``x``.
 
-    CPU tensors take :func:`mlp_t_plain`; CUDA tensors launch the kernel, which takes bf16
-    rows with D in (512, 1024, 2048) and a hidden width that is a multiple of 64.
+    What ``R`` sets on the card: it must divide ``L`` and is the schedule's unit, ``R``
+    consecutive tokens whose 256-token tiles start at its first row (a ragged last tile
+    where 256 does not divide ``R``); the work is (token tile, feature tile) items over one
+    persistent block an SM, so every ``R`` fills the card (:func:`mlp_t_schedule`).
+
+    CPU tensors take :func:`mlp_t_plain`; CUDA tensors launch the kernels, which take bf16
+    rows with D in (512, 1024, 2048) and a hidden width that is a multiple of 128.
     """
     L, D = x.shape
     Hd = w1.shape[1]
@@ -242,23 +295,44 @@ def mlp_t(x, w1, b1, w2, b2, sh, sc, R: int, ln_eps: float = 1e-5) -> torch.Tens
         raise ValueError(f"mlp_t: the row block R={R} must divide L={L}")
     if x.device.type == "cpu":
         return mlp_t_plain(x, w1, b1, w2, b2, sh, sc, ln_eps)
-    _lib.require(x, "x", torch.bfloat16)
-    if D not in (512, 1024, 2048) or Hd % 64 or tuple(w2.shape) != (Hd, D):
-        raise ValueError(f"mlp_t kernel: unsupported D={D}, hidden={Hd}")
-    w1t, b1f, w2t, b2f = _mlp_weights(w1, b1.reshape(-1), w2, b2.reshape(-1))
-    shf = sh.to(torch.float32).reshape(-1).contiguous()
-    scf = sc.to(torch.float32).reshape(-1).contiguous()
-    for n, t, shape in (("b1", b1f, (Hd,)), ("b2", b2f, (D,)), ("sh", shf, (D,)), ("sc", scf, (D,))):
-        _lib.require(t, n, torch.float32, shape)
-    out = torch.empty_like(x)
-    fn = _lib.kernel("probes", "mlp_t", [_P] * 8 + [_I] * 4 + [_F, _P])
-    err = fn(
-        x.data_ptr(), w1t.data_ptr(), b1f.data_ptr(), w2t.data_ptr(), b2f.data_ptr(),
-        shf.data_ptr(), scf.data_ptr(), out.data_ptr(), L, R, D, Hd, float(ln_eps),
-        _lib.stream(x),
-    )
-    _lib.check(err, "mlp_t")
+    out = _mlp_t_call(_lib.kernel("mlp_t", "mlp_t", _MLP_T_ARGS), x, w1, b1, w2, b2, sh, sc, R,
+                      ln_eps)
     _lib.LAUNCHES["mlp_t"] += 1
+    return out
+
+
+_MLP_T_ARGS = [_P] * 10 + [_I] * 5 + [_F, _P]
+
+
+def _mlp_t_call(fn, x, w1, b1, w2, b2, sh, sc, R, ln_eps) -> torch.Tensor:
+    """Run ``fn`` (``mlp_t`` of ``csrc/mlp_t.cu``, or an ablated copy) on checked operands:
+    the weights as stored (a cast only where they are stored in another type), the
+    scratch allocated here."""
+    bf, f32 = torch.bfloat16, torch.float32
+    L, D = x.shape
+    Hd = w1.shape[1]
+    _lib.require(x, "x", bf)
+    if D not in (512, 1024, 2048) or Hd <= 0 or Hd % MLP_T_TILE[1]:
+        raise ValueError(f"mlp_t kernel: unsupported D={D}, hidden={Hd}")
+    sched = mlp_t_schedule(L, D, Hd, R)
+    ops = {"w1": (w1.to(bf).contiguous(), (D, Hd)), "w2": (w2.to(bf).contiguous(), (Hd, D)),
+           "b1": (b1.to(f32).reshape(-1).contiguous(), (Hd,))}
+    for n, t in (("b2", b2), ("sh", sh), ("sc", sc)):
+        ops[n] = (t.to(f32).reshape(-1).contiguous(), (D,))
+    # The tensor maps' bases and the 16-byte loads and stores need 16-byte alignment.
+    for name, (t, shape) in {"x": (x, (L, D)), **ops}.items():
+        _lib.require(t, name, t.dtype, shape)
+        if t.device != x.device or t.data_ptr() % 16:
+            raise ValueError(f"mlp_t: {name} must be on {x.device}, 16-byte aligned")
+    hid = torch.empty(Hd, sched["units_per_chunk"] * sched["padded_unit"], dtype=bf,
+                      device=x.device)
+    stats = torch.empty(L, D // MLP_T_TILE[1], 2, dtype=f32, device=x.device)
+    out = torch.empty_like(x)
+    p = {k: t.data_ptr() for k, (t, _) in ops.items()}
+    err = fn(x.data_ptr(), p["w1"], p["b1"], p["w2"], p["b2"], p["sh"], p["sc"], hid.data_ptr(),
+             stats.data_ptr(), out.data_ptr(), L, R, D, Hd, sched["units_per_chunk"],
+             float(ln_eps), _lib.stream(x))
+    _lib.check(err, "mlp_t")
     return out
 
 
@@ -309,40 +383,61 @@ def attn_probe(xw, wqkv, bqkv, num_heads: int, mode: str) -> torch.Tensor:
     ``xw: (B, nW, 144, D)``, ``wqkv: (D, 3D)``, ``bqkv: (3D,)`` or ``(1, 3D)``, in one of
     :data:`ATTN_PROBE_MODES`; the numbers of each mode are in :func:`attn_probe_plain`.
 
-    ``baseline`` is K6's function without tail and mask: one block per (window, head), the
-    TPU kernel's loop over heads. The TPU kernel's ``batched_heads``/``bf16_batched`` put all
-    heads into one batched product: the same numbers in another schedule. On the card the
-    other schedule is one block per window that walks its heads with q, k and v of one
-    head at a time in shared memory. ``fulld`` (one head of width D) exceeds a block's
-    shared memory with q, k and v of a window (442 KB at D = 512), so its block tiles the
-    head dim in chunks of 64, sums the chunks' logits in registers and keeps v of every
-    chunk in shared memory; it takes D = 512 only. ``no_softmax``, ``no_core`` and
-    ``fulld`` are wrong as attention by construction and right against their plain
-    versions.
+    On the card (``csrc/attn_probe.cu``) the qkv product is K6's (the TMA + ``wgmma`` ring,
+    ``wqkv`` read as stored, into a ``(rows, 3D)`` scratch); ``no_core`` stops there and
+    returns its first D columns, as the TPU mode computed the whole product. The core is
+    K7's ring kernel with the weights in the mode's form (f32 softmax, the scaled logits
+    rounded, or a softmax rounded to bf16 at every step). ``baseline`` and ``bf16_core`` keep
+    the TPU kernel's loop over heads as the unit (window, head); the TPU kernel's
+    ``batched_heads``/``bf16_batched`` put all heads into one batched product: the same
+    numbers in another schedule, here a unit of one window that walks its heads. So
+    ``baseline`` is K6 without tail and mask, bit for bit, and each batched mode gives its
+    per-head mode's bits. ``fulld`` (one head of width D, scale 1/8) has a ``wgmma`` core of
+    its own that streams q, k and v of a window (442 KB at D = 512) through shared memory in
+    chunks of 64 features; it takes D = 512 only. ``no_softmax``, ``no_core`` and ``fulld``
+    are wrong as attention by construction and right against their plain versions.
 
-    CPU tensors take :func:`attn_probe_plain`; CUDA tensors launch the kernel, which takes
-    bf16 tokens, windows of 144 tokens and a head dim of 64.
+    CPU tensors take :func:`attn_probe_plain`; CUDA tensors launch the kernels, which take
+    bf16 tokens, windows of 144 tokens, a head dim of 64 and D a multiple of 256.
     """
     if mode not in ATTN_PROBE_MODES:
         raise ValueError(f"attn_probe mode must be one of {ATTN_PROBE_MODES}, got {mode!r}")
     if xw.device.type == "cpu":
         return attn_probe_plain(xw, wqkv, bqkv, num_heads, mode)
-    B, nW, N, D = xw.shape
-    _lib.require(xw, "xw", torch.bfloat16)
-    _check_heads(N, D, num_heads, "attn_probe")
-    if mode == "fulld" and D != 512:
-        raise ValueError(f"attn_probe kernel: mode fulld takes D = 512, got {D}")
-    wt = wqkv.to(torch.bfloat16).t().contiguous()  # (3D, D)
-    bq = bqkv.to(torch.bfloat16).reshape(-1).contiguous()
-    _lib.require(wt, "wqkv", torch.bfloat16, (3 * D, D))
-    _lib.require(bq, "bqkv", torch.bfloat16, (3 * D,))
-    out = torch.empty_like(xw)
-    fn = _lib.kernel("probes", "attn_probe", [_P] * 4 + [_I] * 4 + [_P])
-    err = fn(xw.data_ptr(), wt.data_ptr(), bq.data_ptr(), out.data_ptr(), B * nW, D, num_heads,
-             ATTN_PROBE_MODES.index(mode), _lib.stream(xw))
-    _lib.check(err, f"attn_probe[{mode}]")
+    out = _attn_probe_call(_lib.kernel("attn_probe", "attn_probe", _ATTN_PROBE_ARGS), xw, wqkv,
+                           bqkv, num_heads, mode)
     _lib.LAUNCHES["attn_probe"] += 1
     return out
+
+
+_ATTN_PROBE_ARGS = [_P] * 5 + [_I] * 4 + [_P]
+
+
+def _attn_probe_call(fn, xw, wqkv, bqkv, num_heads, mode) -> torch.Tensor:
+    """Run ``fn`` (``attn_probe`` of ``csrc/attn_probe.cu``, or an ablated copy) on checked
+    operands: ``wqkv`` as stored (a cast only where it is stored in another type), the qkv
+    scratch allocated here."""
+    bf = torch.bfloat16
+    B, nW, N, D = xw.shape
+    _lib.require(xw, "xw", bf)
+    _check_heads(N, D, num_heads, "attn_probe")
+    if D % 256:
+        raise ValueError(f"attn_probe kernel: D={D} is not a multiple of 256")
+    if mode == "fulld" and D != 512:
+        raise ValueError(f"attn_probe kernel: mode fulld takes D = 512, got {D}")
+    ops = {"wqkv": (wqkv.to(bf).contiguous(), (D, 3 * D)),
+           "bqkv": (bqkv.to(bf).reshape(-1).contiguous(), (3 * D,))}
+    for name, (t, shape) in {"xw": (xw, (B, nW, N, D)), **ops}.items():
+        _lib.require(t, name, bf, shape)
+        if t.device != xw.device or t.data_ptr() % 16:
+            raise ValueError(f"attn_probe: {name} must be on {xw.device}, 16-byte aligned")
+    qkv = xw.new_empty(B, nW, N, 3 * D)
+    out = None if mode == "no_core" else torch.empty_like(xw)
+    err = fn(xw.data_ptr(), ops["wqkv"][0].data_ptr(), ops["bqkv"][0].data_ptr(), qkv.data_ptr(),
+             None if out is None else out.data_ptr(), B * nW, D, num_heads,
+             ATTN_PROBE_MODES.index(mode), _lib.stream(xw))
+    _lib.check(err, f"attn_probe[{mode}]")
+    return qkv[..., :D] if out is None else out
 
 
 # ------------------------------------------------------------------------------ K11

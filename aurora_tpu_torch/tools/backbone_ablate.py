@@ -16,7 +16,7 @@ modulations opened) and the kernels at the backbone's stage shapes in one proces
   attn          K6 without its tail, masked and unmasked, per stage
   rollfuse      the shifted block's layout chain with K1 against torch.roll
   attn5d_check  backbone under attention_impl "pallas" against "pallas_windowed"
-  mlp_t         K9, the feature-major MLP branch, per stage and row block R
+  mlp_t         K9, the feature-major MLP branch, per stage and row block R (units of R tokens)
   attn_probe    K10, the attention kernel's timing modes at the stage-1 shape
   attn5d        K11, the strip kernel against the chain partition -> K6 -> reverse
 
@@ -309,7 +309,7 @@ def main(argv=None, *, cfg: Optional[AuroraConfig] = None) -> list[dict]:
                 _, err = branch_err(probes.mlp_t(*a, R), want, xs)
                 emit(f"s{stage} mlp_t R={R} (L={Ls},D={Ds})", loop_ms(lambda: probes.mlp_t(*a, R)),
                      flops=4 * Ls * Ds * Hs, nbytes=(2 * Ls * Ds + 2 * Ds * Hs) * 2, err=err,
-                     stage=stage, R=R, blocks=Ls // R)
+                     stage=stage, R=R, units=Ls // R)
             del xs, a, want
 
     if "attn_probe" in variants:

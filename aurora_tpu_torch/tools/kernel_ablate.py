@@ -1,7 +1,7 @@
 """What holds K3 ``mlp_adaln_residual`` / K8 ``mlp_fused``, K12 ``gemm_blocked``, K7
-``sdpa_windows``, K2 / K6 ``window_attention(_windowed)`` and K4 ``perceiver_core`` back: each
-kernel against copies of itself with one part switched off, at the shapes the probe tools,
-the backbone and the perceiver give them.
+``sdpa_windows``, K2 / K6 ``window_attention(_windowed)``, K4 ``perceiver_core``, K9 ``mlp_t``
+and K10 ``attn_probe`` back: each kernel against copies of itself with one part switched
+off, at the shapes the probe tools, the backbone and the perceiver give them.
 
 The copies are built from the same sources with a preprocessor switch (``nvcc -D...``) into
 ``build/kernels/ablate/`` and called through their C entries; none of them is reachable from
@@ -32,7 +32,16 @@ a wrapper, and all but the ring-depth variants compute wrong results on purpose:
   the bf16 context; with ``ln_k`` also the sums of squares of the context times the centred
   weights), ``only_v`` (the v product), ``only_mix`` (the softmax and level-order
   sum) and ``only_tail`` (the out-projection and the row kernel), each on what the scratch
-  holds; ``torch.matmul`` at the v and out-projection shapes is timed beside them.
+  holds; ``torch.matmul`` at the v and out-projection shapes is timed beside them, and for
+  ``ln_k`` at the shape of the context times the centred key weights (the kernels take that
+  product in three bf16 parts);
+* K9 (``csrc/mlp_t.cu``, at the tool's stages and row blocks 1800 and 5400): ``only_fc1``,
+  ``no_gelu`` (the hidden rounded only), ``no_stats`` (no LayerNorm statistics, no row
+  kernel) and ``no_transpose`` (y^T stored as it lies instead of back to token-major rows);
+  ``torch.matmul`` for fc1 and for fc2 beside them;
+* K10 (``csrc/attn_probe.cu``, at the tool's stage-1 shape): ``only_qkv`` and ``only_core``
+  (on what the qkv scratch holds) in every mode; ``torch.matmul`` at the qkv shape beside
+  them, and at K11's qkv shapes (its padded grids, stages 1-3).
 
 Every time is a median of ``--steps`` launches after warm-up (``tools.time_ms``: CUDA
 events, each launch behind a memset that keeps the queue ahead of the host and leaves the
@@ -83,6 +92,12 @@ RESAMPLER_VARIANTS = {
     "full": (), "only_logits": ("ABLATE_ONLY_LOGITS",), "only_v": ("ABLATE_ONLY_V",),
     "only_mix": ("ABLATE_ONLY_MIX",), "only_tail": ("ABLATE_ONLY_TAIL",),
 }
+MLP_T_VARIANTS = {
+    "full": (), "only_fc1": ("ABLATE_ONLY_FC1",), "no_gelu": ("ABLATE_NO_GELU",),
+    "no_stats": ("ABLATE_NO_STATS",), "no_transpose": ("ABLATE_NO_TRANSPOSE",),
+}
+ATTN_PROBE_VARIANTS = {"full": (), "only_qkv": ("ABLATE_ONLY_QKV",),
+                       "only_core": ("ABLATE_ONLY_CORE",)}
 # label, K, D, heads, Q: the level aggregation and de-aggregation over 64800 token columns
 PERCEIVER_SHAPES = (("agg", 13, 512, 16, 3), ("de-agg", 3, 1024, 16, 13))
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -270,6 +285,10 @@ def main(argv=None) -> list[dict]:
         lnks = [None]
         if label == "agg":
             lnks.append((1 + rn(inner, std=0.1).to(f32), rn(inner, std=0.1).to(f32)))
+            xc, wc = rn(K * M, D), rn(D, inner, std=0.05)
+            emit(f"torch.matmul ctx Wc ({K * M},{D})x({D},{inner}) (ln_k: three bf16 of them)",
+                 ms(lambda: torch.matmul(xc, wc)), flops=2 * K * M * D * inner)
+            del xc, wc
         for lnk in lnks:
             for tag, lib in libs.items():
                 fn = lib.perceiver_core
@@ -281,6 +300,53 @@ def main(argv=None) -> list[dict]:
                 emit(f"perceiver_core {label} ({K},{M},{D}) Q {Q}{', ln_k' if lnk else ''} [{tag}]",
                      ms(call))
 
+    def ablate_mlp_t():
+        libs = build_variants("mlp_t", MLP_T_VARIANTS)
+        f32 = torch.float32
+        for C, H, W, D, _ in STAGES:
+            L, Hd = C * H * W, 4 * D
+            x = rn(L, D)
+            a = (x, rn(D, Hd, std=0.02), rn(Hd, 1, std=0.02).to(f32), rn(Hd, D, std=0.02),
+                 rn(D, 1, std=0.02).to(f32), rn(D, 1, std=0.1).to(f32), rn(D, 1).to(f32))
+            hid = rn(L, Hd)
+            emit(f"torch.matmul fc1 ({L},{D})x({D},{Hd})", ms(lambda: torch.matmul(x, a[1])),
+                 flops=2 * L * D * Hd)
+            emit(f"torch.matmul fc2 ({L},{Hd})x({Hd},{D})", ms(lambda: torch.matmul(hid, a[3])),
+                 flops=2 * L * D * Hd)
+            del hid
+            for R in (1800, 5400):
+                if L % R:
+                    continue
+                for tag, lib in libs.items():
+                    fn = lib.mlp_t
+                    fn.argtypes, fn.restype = probes._MLP_T_ARGS, _I
+                    emit(f"mlp_t ({L},{D}) R {R} [{tag}]",
+                         ms(lambda fn=fn, R=R: probes._mlp_t_call(fn, *a, R, 1e-5)),
+                         flops=4 * L * D * Hd, nbytes=2 * L * D * 2 + 2 * D * Hd * 2)
+            del x, a
+
+    def ablate_attn_probe():
+        libs = build_variants("attn_probe", ATTN_PROBE_VARIANTS)
+        # K11's qkv shapes: its padded grids, stages 1-3.
+        for C, H, W, D, _ in STAGES:
+            rows = C * (H + (-H) % 6) * (W + (-W) % 12)
+            a, w = rn(rows, D), rn(D, 3 * D, std=0.02)
+            emit(f"torch.matmul qkv ({rows},{D})x({D},{3 * D})", ms(lambda: torch.matmul(a, w)),
+                 flops=6 * rows * D * D)
+            del a, w
+        nW, D, heads = 1800, 512, 8
+        xw, wqkv, bqkv = rn(1, nW, 144, D), rn(D, 3 * D, std=0.02), rn(1, 3 * D, std=0.02)
+        for mode in probes.ATTN_PROBE_MODES:
+            for tag, lib in libs.items():
+                if mode == "no_core" and tag == "only_core":
+                    continue
+                fn = lib.attn_probe
+                fn.argtypes, fn.restype = probes._ATTN_PROBE_ARGS, _I
+                emit(f"attn_probe (1,{nW},144,{D}) {mode} [{tag}]",
+                     ms(lambda fn=fn, m=mode: probes._attn_probe_call(fn, xw, wqkv, bqkv, heads, m)))
+
+    ablate_mlp_t()
+    ablate_attn_probe()
     ablate_mlp()
     ablate_gemm()
     ablate_sdpa()

@@ -26,7 +26,10 @@ Phases, each printing one JSON line; any failure raises and the script exits non
    output in the largest binade is up to 7.8e-3 of the maximum (K11, on the probes' own
    projection, is 7.2e-3 from its plain version at stage 3 by max |error| / max |output|).
    K11 is also held to K2 without tail on the same input, by the same 6e-3 "rel_ulp" bound:
-   the two project qkv on different tensor-core paths, so they may round apart. K2 and K6
+   the two project qkv on different tensor-core paths, so they may round apart. K9 is also
+   held to K3 at scale_bias 0 on the same inputs by the "branch" measure (6e-3; feature-major
+   tiles sum in another order). K10's ``baseline`` must give K6 without tail's bits on the
+   same windows, ``batched_heads`` ``baseline``'s and ``bf16_batched`` ``bf16_core``'s. K2 and K6
    are one function with two row addressings: K6 on ``window_partition(xp)``, reversed,
    must be K2's bits on ``xp`` (every K2 case, with and without the tail); a K2 and a K6
    case at the 121 x 240 grid's stage 1 (7200 = 112 x 64 + 32 rows) have a ragged last
@@ -86,6 +89,8 @@ TOL = {
 }
 ATTN_SRC = "aurora_tpu_torch/csrc/window_attention.cu"
 PROBES_SRC = "aurora_tpu_torch/csrc/probes.cu"
+MLP_T_SRC = "aurora_tpu_torch/csrc/mlp_t.cu"
+ATTN_PROBE_SRC = "aurora_tpu_torch/csrc/attn_probe.cu"
 SOURCES = {
     "roll3d": ("aurora_tpu_torch/csrc/roll.cu", "aurora_tpu/ops/roll.py:30"),
     "window_attention": (ATTN_SRC, "aurora_tpu/model/swin3d.py:810"),
@@ -95,8 +100,8 @@ SOURCES = {
     "window_attention_windowed": (ATTN_SRC, "aurora_tpu/model/swin3d.py:686"),
     "sdpa_windows": ("aurora_tpu_torch/csrc/sdpa.cu", "aurora_tpu/model/swin3d.py:599"),
     "mlp_fused": ("aurora_tpu_torch/csrc/mlp.cu", "aurora_tpu/ops/mlp.py:205"),
-    "mlp_t": (PROBES_SRC, "tools/backbone_ablate.py:429"),
-    "attn_probe": (PROBES_SRC, "tools/backbone_ablate.py:508"),
+    "mlp_t": (MLP_T_SRC, "tools/backbone_ablate.py:429"),
+    "attn_probe": (ATTN_PROBE_SRC, "tools/backbone_ablate.py:508"),
     "attn5d_direct": (PROBES_SRC, "tools/backbone_ablate.py:818"),
     "gemm_blocked": ("aurora_tpu_torch/csrc/gemm.cu", "tools/gemm_probe.py:92"),
     "smem_probe": (PROBES_SRC, "tools/vmem_probe.py:19"),
@@ -468,10 +473,11 @@ def probe_cases(rn):
             if L % R:
                 continue
             yield case(
-                "mlp_t", f"({L},{D}) R {R}, {L // R} blocks", 1, residual=x,
+                "mlp_t", f"({L},{D}) R {R}, {L // R} units", 1, residual=x,
                 kernel=lambda a=a, R=R: probes.mlp_t(*a, R),
                 plain=lambda a=a: probes.mlp_t_plain(*a), check="branch",
                 bound=bound_ms(flops_bf16=4 * L * D * Hd, nbytes=2 * L * D * 2 + 2 * D * Hd * 2),
+                extra=lambda a=a, R=R: k9_against_k3(a, R),
             )
         del x, a
         # K11 on the padded grid, against its plain version and K2 without tail.
@@ -496,6 +502,12 @@ def probe_cases(rn):
     nW, D, heads = 1800, 512, 8
     xw, wqkv, bqkv = rn(1, nW, N, D), rn(D, 3 * D, std=0.02), rn(1, 3 * D, std=0.02)
     proj, core = 2 * nW * N * D * 3 * D, 4 * nW * N * N * D
+    same = {"baseline": ("K6 without tail", lambda: window_attention.window_attention_windowed(
+                xw, wqkv, bqkv.reshape(-1), None, heads)),
+            "batched_heads": ("baseline", lambda: probes.attn_probe(xw, wqkv, bqkv, heads,
+                                                                     "baseline")),
+            "bf16_batched": ("bf16_core", lambda: probes.attn_probe(xw, wqkv, bqkv, heads,
+                                                                     "bf16_core"))}
     for mode in probes.ATTN_PROBE_MODES:
         yield case(
             "attn_probe", f"(1,{nW},{N},{D}) heads {heads}, {mode}", 1,
@@ -504,6 +516,9 @@ def probe_cases(rn):
             check="rel_ulp",
             bound=bound_ms(flops_bf16=proj + (0 if mode == "no_core" else core),
                            nbytes=2 * nW * N * D * 2 + 3 * D * D * 2),
+            extra=(lambda m=mode: same_bits_as(
+                lambda: probes.attn_probe(xw, wqkv, bqkv, heads, m), *same[m]))
+            if mode in same else None,
         )
     del xw
     # K12: the proj and fc2 shapes under every row block of the tool; cuBLAS beside it. Then
@@ -537,6 +552,37 @@ def probe_cases(rn):
         # K13's time is a launch's floor: a kernel that does nothing, timed the same way.
         extra=lambda: dict(empty_kernel_ms=cuda_ms(lambda: probes.empty_launch(x.device))),
     )
+
+
+def k9_against_k3(a, R) -> dict:
+    """K9 against K3 at scale_bias = 0 on the same inputs (sc / sh as one FiLM row), by the
+    branch measure and its 6e-3 bound: one function, the products summed in another order
+    (feature-major tiles), so bits are not expected."""
+    import torch
+
+    from aurora_tpu_torch.ops import mlp, probes
+    from aurora_tpu_torch.tools import branch_err
+
+    x, w1, b1, w2, b2, sh, sc = a
+    got = probes.mlp_t(*a, R)
+    k3 = mlp.mlp_adaln_residual(x[None], w1, b1.reshape(-1), w2, b2.reshape(-1),
+                                sh.reshape(1, -1), sc.reshape(1, -1))[0]
+    torch.cuda.synchronize()
+    err = branch_err(got, k3, x)[1]
+    if not err <= TOL["mlp_t"]:
+        raise AssertionError(f"K9 R {R} against K3 at scale_bias 0: branch error {err}")
+    return dict(vs_k3_branch_err=err)
+
+
+def same_bits_as(kernel, what, other) -> dict:
+    """K10's schedules and K6: ``kernel()`` must give ``other()``'s bits."""
+    import torch
+
+    got, want = kernel(), other()
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(f"attn_probe: not the bits of {what}")
+    return {f"same_bits_as_{what.replace(' ', '_')}": True}
 
 
 def mlp_case(rn, label, rows, D, Hd, per_step, shift_scale, B=1, ragged=False):

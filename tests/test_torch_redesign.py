@@ -8,9 +8,9 @@
 * The host side of K12's schedule covers every output element exactly once, for the probe
   tool's shapes and for small ragged ones, and the row block changes no bit of the result.
 * The shape rules of the two wrappers, as pure functions.
-* The port names no fused attention operator, and the CUDA branches of the eight wrappers
-  (K12, K7, K3, K8, K2, K6, K4, K5), with the private helpers they call, reach no library
-  product and make no transposed copy of a weight.
+* The port names no fused attention operator, and the CUDA branches of the ten wrappers
+  (K12, K7, K3, K8, K2, K6, K4, K5, K9, K10), with the private helpers they call, reach no
+  library product and make no transposed copy of a weight.
 * K3's LayerNorm as its kernels compute it (per 256-column tile a mean and a centred sum of
   squares, merged exactly) equals the two-pass form of ``film_layernorm_residual``; the
   row-chunk rule that bounds K3's and K8's scratch covers every row once.
@@ -202,10 +202,10 @@ def _helpers(fn, branch):
     "fn",
     [probes.gemm_blocked, window_attention.sdpa_windows, mlp.mlp_adaln_residual, mlp.mlp_fused,
      window_attention.window_attention_tail, window_attention.window_attention_windowed,
-     resampler.perceiver_core, mlp.linear_adaln_residual],
+     resampler.perceiver_core, mlp.linear_adaln_residual, probes.mlp_t, probes.attn_probe],
     ids=["gemm_blocked", "sdpa_windows", "mlp_adaln_residual", "mlp_fused",
          "window_attention_tail", "window_attention_windowed", "perceiver_core",
-         "linear_adaln_residual"])
+         "linear_adaln_residual", "mlp_t", "attn_probe"])
 def test_cuda_branch_reaches_no_library_product(fn):
     branch = _cuda_branch(fn)
     assert branch, "the CUDA branch launches the kernel"
@@ -230,7 +230,8 @@ def test_cuda_branch_reaches_no_library_product(fn):
               "mlp_adaln_residual_plain", "mlp_fused_plain", "_mlp_weights",
               "window_attention_tail_plain", "window_attention_windowed_plain", "F",
               "functional", "perceiver_core_plain", "perceiver_core_mirror",
-              "fold_logit_weights", "linear_adaln_residual_plain"}
+              "fold_logit_weights", "linear_adaln_residual_plain", "mlp_t_plain",
+              "attn_probe_plain"}
     assert not names & banned, names & banned
     assert "kernel" in names and "LAUNCHES" in names
 
