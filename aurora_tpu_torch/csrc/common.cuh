@@ -1,13 +1,11 @@
 // Shared device helpers of the port's kernels: bf16 rounding, the m16n8k16 bf16
-// tensor-core product (mma.sync, f32 accumulation) and its fragment loads.
+// tensor-core product (mma.sync, f32 accumulation), quad and warp reductions, the GELU.
 //
 // Fragment layout of mma.sync.m16n8k16 (g = lane / 4, t = lane % 4):
 //   A (16x16, row-major): a0 = (g, 2t..2t+1), a1 = (g+8, 2t..), a2 = (g, 2t+8..),
 //                          a3 = (g+8, 2t+8..)
 //   B (16x8, "col"):       b0 = (k 2t..2t+1, n g), b1 = (k 2t+8.., n g)
 //   C (16x8, f32):         c0,c1 = (g, 2t..2t+1), c2,c3 = (g+8, 2t..2t+1)
-// Every operand here is stored with its reduction dimension contiguous: A as [row][k],
-// B as [n][k]. A pair of neighbouring k then is one 32-bit load, low half first.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -31,28 +29,6 @@ __device__ __forceinline__ void mma_16816(float c[4], const uint32_t a[4], const
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// A fragment of rows r0..r0+15, k0..k0+15 of a [row][k] tile with leading dimension ld.
-__device__ __forceinline__ void load_a(uint32_t a[4], const bf16* base, int ld, int r0, int k0,
-                                       int lane) {
-  const bf16* p = base + (size_t)(r0 + (lane >> 2)) * ld + k0 + 2 * (lane & 3);
-  a[0] = ld32(p);
-  a[1] = ld32(p + 8 * (size_t)ld);
-  a[2] = ld32(p + 8);
-  a[3] = ld32(p + 8 * (size_t)ld + 8);
-}
-
-// B fragment of columns n0..n0+7, k0..k0+15 of an [n][k] tile with leading dimension ld.
-__device__ __forceinline__ void load_b(uint32_t b[2], const bf16* base, int ld, int n0, int k0,
-                                       int lane) {
-  const bf16* p = base + (size_t)(n0 + (lane >> 2)) * ld + k0 + 2 * (lane & 3);
-  b[0] = ld32(p);
-  b[1] = ld32(p + 8);
 }
 
 __device__ __forceinline__ float quad_sum(float v) {

@@ -1,7 +1,8 @@
 // The ring kernel of the attention core: masked per-head attention over 144-token windows of
 // packed qkv rows (features (q|k|v) x head x 64). K7 (sdpa.cu) runs it on packed rows; K2 and
 // K6 (window_attention.cu) run it on the qkv their projection launch wrote; K10
-// (attn_probe.cu) runs it unmasked with the probe's forms of the weights. How a unit's
+// (attn_probe.cu) runs it unmasked with the probe's forms of the weights; K11
+// (attn5d_direct.cu) runs K2's unmasked in two work orders. How a unit's
 // q, k and v boxes are found and where its result rows go is a template parameter:
 //   PackedRows   window w's token t is row 144 w + t of a (windows 144, 3D) tensor, seen
 //                through a 2D tensor map with boxes of {64 features, 144 rows} (K7, K6);
@@ -10,6 +11,8 @@
 //                memory innermost first, so token t = (wc ws1 + wh) ws2 + ww: window_partition's
 //                order, and the same 18,432 bytes of 128-byte rows under the 128-byte swizzle
 //                as the 2D box (the swizzle is a function of the shared-memory address only).
+// The same struct says which (window, head) a unit u is (`unit`): head fastest, so a window's
+// heads follow each other, unless the struct orders them otherwise (K11's strips).
 //
 // The kernel (K7's design):
 //   * blocks of 9 warps, two to an SM (18 warps are 5 on one scheduler, which leaves a
@@ -45,6 +48,10 @@ constexpr size_t SDPA_SMEM = 1024 + SDPA_STAGES * SDPA_STAGE_BYTES + SDPA_STAGES
 // Window w's token t at row 144 w + t; the map is 2D, (3D features, windows 144 rows).
 struct PackedRows {
   int D;
+  __device__ void unit(int u, int heads, int& window, int& head) const {
+    window = u / heads;
+    head = u % heads;
+  }
   __device__ long long base(int window) const { return (long long)window * CORE_N; }
   __device__ long long row(long long base, int t) const { return base + t; }
   __device__ void load(const CUtensorMap* map, uint32_t dst, uint32_t bar, int window,
@@ -60,6 +67,10 @@ struct PackedRows {
 // (B, Cp, Hp, Wp, .) grid; the map is 5D, (3D, Wp, Hp, Cp, B).
 struct GridWindows {
   int D, nW, H1, W1, Cp, Hp, Wp, ws0, ws1, ws2;
+  __device__ void unit(int u, int heads, int& window, int& head) const {
+    window = u / heads;
+    head = u % heads;
+  }
   // The grid coordinates of the window's token 0.
   __device__ void origin(int window, int& b, int& c, int& h, int& w) const {
     b = window / nW;
@@ -88,13 +99,15 @@ struct GridWindows {
   }
 };
 
-// One thread: ask the TMA for q, k and v of unit u (head u % heads of window u / heads) into
+// One thread: ask the TMA for q, k and v of unit u (the (window, head) of win.unit) into
 // the stage at `dst`, completing on `bar`.
 template <class Windows>
 __device__ __forceinline__ void sdpa_load(const Windows& win, const CUtensorMap* map, uint32_t dst,
                                           uint32_t bar, int u, int heads) {
+  int window, head;
+  win.unit(u, heads, window, head);
   sm90::mbar_arrive_expect_tx(bar, SDPA_STAGE_BYTES);
-  win.load(map, dst, bar, u / heads, u % heads);
+  win.load(map, dst, bar, window, head);
 }
 
 template <bool MASKED, class Windows, int SM = CORE_SOFTMAX>
@@ -128,7 +141,8 @@ __global__ void __launch_bounds__(SDPA_THREADS, 2) sdpa_windows_kernel(
   int s = 0;
   uint32_t phase = 0;
   for (int u = u_begin; u < u_end; ++u) {
-    const int window = u / heads, head = u % heads;
+    int window, head;
+    win.unit(u, heads, window, head);
     if constexpr (MASKED) {
 #ifdef ABLATE_MASK_EVERY_UNIT
       mask_window = -1;
@@ -225,6 +239,18 @@ inline cudaError_t make_map_packed(CUtensorMap* map, const void* qkv, long long 
   const uint64_t strides[1] = {(uint64_t)3 * D * 2};
   const uint32_t box[2] = {64, CORE_N};
   return sm90::make_map_bf16(map, qkv, 2, dims, strides, box);
+}
+
+// The 5D map of a padded (B, Cp, Hp, Wp, 3D) qkv grid: dims {3D, Wp, Hp, Cp, B}, boxes of
+// {64, ws2, ws1, ws0, 1}, one window's 64 features of one part.
+inline cudaError_t make_map_grid(CUtensorMap* map, const void* qkv, int B, int Cp, int Hp, int Wp,
+                                 int D, int ws0, int ws1, int ws2) {
+  const uint64_t row = (uint64_t)3 * D * 2;  // bytes of one token's qkv
+  const uint64_t dims[5] = {(uint64_t)3 * D, (uint64_t)Wp, (uint64_t)Hp, (uint64_t)Cp,
+                            (uint64_t)B};
+  const uint64_t strides[4] = {row, row * Wp, row * Wp * Hp, row * Wp * Hp * Cp};
+  const uint32_t box[5] = {64, (uint32_t)ws2, (uint32_t)ws1, (uint32_t)ws0, 1};
+  return sm90::make_map_bf16(map, qkv, 5, dims, strides, box);
 }
 
 }  // namespace

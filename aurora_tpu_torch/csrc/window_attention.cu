@@ -74,12 +74,7 @@ int launch_core(const void* qkv, const int* groups, bf16* attn, int B, int nW, i
       return (int)e;
     return launch_sdpa(map, PackedRows{D}, groups, attn, nW, D, heads, units, stream);
   }
-  const uint64_t row = (uint64_t)3 * D * 2;  // bytes of one token's qkv
-  const uint64_t dims[5] = {(uint64_t)3 * D, (uint64_t)Wp, (uint64_t)Hp, (uint64_t)Cp,
-                            (uint64_t)B};
-  const uint64_t strides[4] = {row, row * Wp, row * Wp * Hp, row * Wp * Hp * Cp};
-  const uint32_t box[5] = {64, (uint32_t)ws2, (uint32_t)ws1, (uint32_t)ws0, 1};
-  if ((e = sm90::make_map_bf16(&map, qkv, 5, dims, strides, box)) != cudaSuccess) return (int)e;
+  if ((e = make_map_grid(&map, qkv, B, Cp, Hp, Wp, D, ws0, ws1, ws2)) != cudaSuccess) return (int)e;
   const GridWindows win{D, nW, Hp / ws1, Wp / ws2, Cp, Hp, Wp, ws0, ws1, ws2};
   return launch_sdpa(map, win, groups, attn, nW, D, heads, units, stream);
 }

@@ -21,7 +21,12 @@ from aurora_tpu_torch.model.nn import LayerNorm, Linear, MLP
 from aurora_tpu_torch.ops.mlp import mlp_adaln_residual
 from aurora_tpu_torch.ops.resampler import perceiver_core
 
-__all__ = ["PerceiverResampler", "resampler_shared_query_apply"]
+__all__ = [
+    "PerceiverResampler",
+    "resampler_shared_query_apply",
+    "shared_query_core_args",
+    "shared_query_mlp",
+]
 
 
 class _Attention(nn.Module):
@@ -75,14 +80,16 @@ class PerceiverResampler(nn.Module):
                 m.reset_parameters(gen)
 
 
-def resampler_shared_query_apply(
+def shared_query_core_args(
     p: PerceiverResampler,
     queries: torch.Tensor,
     ctx: torch.Tensor,
     ln_eps: float = 1e-5,
     value_bf16: bool = False,
-) -> torch.Tensor:
-    """``queries: (Q, D)``, k-major context ``ctx: (K, M, D)`` -> ``(M, Q, D)``."""
+) -> tuple[tuple, dict]:
+    """The positional and keyword arguments of layer 0's :func:`perceiver_core` call (K4):
+    the query projection, once on ``queries: (Q, D)``, and the weights as the layer holds
+    them."""
     layer = p.layers[0]
     att = layer.attn
     h = p.num_heads
@@ -93,25 +100,34 @@ def resampler_shared_query_apply(
     inner = q0.shape[-1]
     dh = inner // h
     w_kv = att.to_kv.weight
-    lat = perceiver_core(
-        ctx,
-        w_kv[:, :inner],
-        w_kv[:, inner:],
-        q0.reshape(Q, h, dh),
-        att.to_out.weight,
-        layer.ln1.weight,
-        layer.ln1.bias,
-        queries,
-        scale=1.0 / dh**0.5,
-        ln_eps=ln_eps,
-        value_bf16=value_bf16,
-        lnk=None if att.ln_k is None else (att.ln_k.weight, att.ln_k.bias),
-    )  # (M, Q, D_out)
-    M, _, D_lat = lat.shape
-    mp, ln2 = layer.mlp, layer.ln2
+    args = (ctx, w_kv[:, :inner], w_kv[:, inner:], q0.reshape(Q, h, dh), att.to_out.weight,
+            layer.ln1.weight, layer.ln1.bias, queries)
+    kwargs = dict(scale=1.0 / dh**0.5, ln_eps=ln_eps, value_bf16=value_bf16,
+                  lnk=None if att.ln_k is None else (att.ln_k.weight, att.ln_k.bias))
+    return args, kwargs
+
+
+def shared_query_mlp(p: PerceiverResampler, lat: torch.Tensor, ln_eps: float = 1e-5) -> torch.Tensor:
+    """Layer 0's MLP half on K4's ``(M, Q, D)`` result: ``lat + LN(mlp(lat))`` as one K3 call
+    with the LayerNorm affine in the FiLM slot."""
+    M, Q, D_lat = lat.shape
+    mp, ln2 = p.layers[0].mlp, p.layers[0].ln2
     out = mlp_adaln_residual(
         lat.reshape(1, M * Q, D_lat),
         mp.fc1.weight, mp.fc1.bias, mp.fc2.weight, mp.fc2.bias,
         shift=ln2.bias[None], scale=ln2.weight[None], scale_bias=0.0, ln_eps=ln_eps,
     )
     return out.reshape(M, Q, D_lat)
+
+
+def resampler_shared_query_apply(
+    p: PerceiverResampler,
+    queries: torch.Tensor,
+    ctx: torch.Tensor,
+    ln_eps: float = 1e-5,
+    value_bf16: bool = False,
+) -> torch.Tensor:
+    """``queries: (Q, D)``, k-major context ``ctx: (K, M, D)`` -> ``(M, Q, D)``: K4, then
+    the MLP half (K3)."""
+    args, kwargs = shared_query_core_args(p, queries, ctx, ln_eps, value_bf16)
+    return shared_query_mlp(p, perceiver_core(*args, **kwargs), ln_eps)

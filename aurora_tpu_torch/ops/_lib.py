@@ -27,7 +27,7 @@ __all__ = ["LAUNCHES", "reset_launches", "build", "kernel", "check", "stream", "
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("roll", "window_attention", "mlp", "resampler", "probes", "gemm", "sdpa", "mlp_t",
-           "attn_probe")
+           "attn_probe", "attn5d_direct")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",

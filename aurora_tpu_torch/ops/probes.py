@@ -2,9 +2,9 @@
 
 They replace the five Pallas kernels that the JAX package defines inside its tools, each
 with its plain PyTorch version beside it. What a TPU mode meant is given its reading on a
-Hopper card in each wrapper's docstring. K9 is ``csrc/mlp_t.cu`` and K10
-``csrc/attn_probe.cu``, both on the shared TMA + ``wgmma`` headers; K11 and K13 are
-``csrc/probes.cu``, K12 ``csrc/gemm.cu``.
+Hopper card in each wrapper's docstring. K9 is ``csrc/mlp_t.cu``, K10 ``csrc/attn_probe.cu``,
+K11 ``csrc/attn5d_direct.cu`` and K12 ``csrc/gemm.cu``, all on the shared TMA + ``wgmma``
+headers; K13 is ``csrc/probes.cu``.
 
 * K9 :func:`mlp_t` replaces ``tools/backbone_ablate.py::make_mlp_t`` (``pl.pallas_call`` at
   ``backbone_ablate.py:457``): the block MLP branch computed feature-major, the weight as
@@ -12,16 +12,17 @@ Hopper card in each wrapper's docstring. K9 is ``csrc/mlp_t.cu`` and K10
 * K10 :func:`attn_probe` replaces ``make_probe(mode)`` (``:598``): the qkv projection and the
   unmasked attention core on partitioned windows in seven timing modes, on K6's qkv
   product and K7's core.
-* K11 :func:`attn5d_direct` replaces ``make_direct(mode)`` (``:877``): window attention whose
-  unit of work is a strip of windows of the 5D tokens, gathered on chip.
+* K11 :func:`attn5d_direct` replaces ``make_direct(mode)`` (``:877``): window attention on
+  the 5D tokens whose two modes are two schedules of the windows, whole strips or one
+  window at a time, on K2's qkv ring and K7's core.
 * K12 :func:`gemm_blocked` replaces ``tools/gemm_probe.py::pallas_gemm`` (``:102``): a
   hand-blocked GEMM with a swept row block, here a persistent TMA + ``wgmma`` pipeline.
 * K13 :func:`smem_probe` replaces ``tools/vmem_probe.py::try_size`` (``:26``): a trivial
   kernel with a swept fast-memory scratch.
 
 On a CUDA tensor every wrapper launches its kernel or raises; the plain versions run for
-CPU tensors only (and beside the kernels in the checks on the card). K9 and K10 read their
-weights as stored; only K11 still casts and transposes its ``wqkv`` on every call.
+CPU tensors only (and beside the kernels in the checks on the card). Every wrapper reads its
+weights as stored.
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ from aurora_tpu_torch.ops import _lib
 from aurora_tpu_torch.ops.mlp import MLP_SCRATCH_BYTES, mlp_adaln_residual_plain
 from aurora_tpu_torch.ops.window_attention import (
     _check_heads,
+    check_window_attention_shape,
     window_attention_windowed_plain,
     window_partition,
     window_reverse,
@@ -47,6 +49,8 @@ __all__ = [
     "SharedMemoryRefused",
     "attn5d_direct",
     "attn5d_direct_plain",
+    "attn5d_schedule",
+    "attn5d_unit",
     "attn_probe",
     "attn_probe_plain",
     "GEMM_TILE",
@@ -466,41 +470,90 @@ def attn5d_direct_plain(x5, wqkv, bqkv, ws, num_heads: int, mode: str) -> torch.
     return out
 
 
+def attn5d_unit(u: int, mode: str, heads: int, W1: int) -> tuple[int, int]:
+    """``(window, head)`` of unit ``u`` of K11's core launch, decoded as
+    ``csrc/attn5d_direct.cu`` decodes it. Windows are numbered in ``window_partition``'s order
+    (``b nW + (c1 H1 + h1) W1 + w1``), so strip ``s`` holds windows ``s W1 .. s W1 + W1 - 1``.
+    ``loop``: the heads of one window in turn (K2's order); ``vec``: the ``W1`` windows of a
+    strip for one head, then the strip's next head."""
+    if mode == "loop":
+        return u // heads, u % heads
+    item = u // W1
+    return (item // heads) * W1 + u % W1, item % heads
+
+
+def attn5d_schedule(B: int, Cp: int, Hp: int, Wp: int, ws, heads: int, mode: str,
+                    slots: int = 2 * 132) -> dict:
+    """The work of K11's core launch as ``launch_sdpa`` (``csrc/sdpa_sm90.cuh``) cuts it:
+    ``units`` = windows x heads, runs of ``run`` units per block (about ``units / slots``,
+    rounded up to whole items of ``group`` units: ``W1`` in mode ``vec``, 1 in ``loop``) and
+    ``blocks`` of them. ``slots``: two blocks an SM, 264 on the H100. Decode a unit with
+    :func:`attn5d_unit`."""
+    if mode not in ATTN5D_MODES:
+        raise ValueError(f"attn5d_direct mode must be one of {ATTN5D_MODES}, got {mode!r}")
+    if Cp % ws[0] or Hp % ws[1] or Wp % ws[2]:
+        raise ValueError(f"padded grid {(Cp, Hp, Wp)} is not a multiple of the window {ws}")
+    W1 = Wp // ws[2]
+    nW = (Cp // ws[0]) * (Hp // ws[1]) * W1
+    units = B * nW * heads
+    group = W1 if mode == "vec" else 1
+    run = -(-units // slots)
+    run = -(-run // group) * group
+    return dict(units=units, run=run, blocks=-(-units // run), group=group, W1=W1, nW=nW)
+
+
 def attn5d_direct(x5, wqkv, bqkv, ws, num_heads: int, mode: str) -> torch.Tensor:
     """Unmasked window attention without tail on padded 5D tokens
     ``x5: (B, Cp, Hp, Wp, D)`` with windows ``ws`` read in place; ``wqkv: (D, 3D)``,
     ``bqkv: (3D,)``. The numbers of K2 without tail and of the chain partition -> K6
     without tail -> reverse.
 
-    The unit of work is the TPU kernel's: the ``(ws0, ws1, Wp)`` strip of ``Wp / ws2``
-    windows, gathered on chip. A strip is 4.4 MB at stage 1, far beyond shared memory, so
-    a block (one per strip and head) walks its windows and holds one window's 144 x 32
-    channel slab at a time. ``loop`` (the TPU kernel's one slice per window) gathers each
-    slab from device memory through a table of row numbers with register-staged 16-byte
-    loads; ``vec`` (the TPU kernel's one relayout of the strip) brings the slabs in by one
-    pass of asynchronous 16-byte copies addressed arithmetically in strip order, straight
-    into shared memory and double-buffered against the tensor-core work.
+    On the card (``csrc/attn5d_direct.cu``) this is K2 without tail's two launches: the qkv
+    product on the TMA + ``wgmma`` ring over the grid's rows in stored order (``wqkv`` read
+    as stored) into a ``(rows, 3D)`` scratch, then K7's ring core reading each window in
+    place through the 5D tensor map, unmasked. The TPU kernel's two modes are two work
+    orders of the core (:func:`attn5d_schedule`): ``vec`` (one relayout of a whole strip)
+    has a block take whole ``(ws0, ws1, Wp)`` strips of ``Wp / ws2`` windows, one head at a
+    time; ``loop`` (one slice per window) takes one window at a time with its heads in
+    turn. Both give K2 without tail's bits.
 
-    CPU tensors take :func:`attn5d_direct_plain`; CUDA tensors launch the kernel, which
-    takes bf16 tokens, windows of 144 tokens and a head dim of 64.
+    CPU tensors take :func:`attn5d_direct_plain`; CUDA tensors launch the kernels, which
+    take bf16 tokens of the shapes K2 takes (``check_window_attention_shape``).
     """
     if mode not in ATTN5D_MODES:
         raise ValueError(f"attn5d_direct mode must be one of {ATTN5D_MODES}, got {mode!r}")
-    B, Cp, Hp, Wp, D = x5.shape
+    _, Cp, Hp, Wp, _ = x5.shape
     if Cp % ws[0] or Hp % ws[1] or Wp % ws[2]:
         raise ValueError(f"padded grid {(Cp, Hp, Wp)} is not a multiple of the window {ws}")
     if x5.device.type == "cpu":
         return attn5d_direct_plain(x5, wqkv, bqkv, ws, num_heads, mode)
-    _lib.require(x5, "x5", torch.bfloat16)
-    _check_heads(ws[0] * ws[1] * ws[2], D, num_heads, "attn5d_direct")
-    wt = wqkv.to(torch.bfloat16).t().contiguous()
-    bq = bqkv.to(torch.bfloat16).reshape(-1).contiguous()
-    _lib.require(wt, "wqkv", torch.bfloat16, (3 * D, D))
-    _lib.require(bq, "bqkv", torch.bfloat16, (3 * D,))
-    out = torch.empty_like(x5)
-    fn = _lib.kernel("probes", "attn5d_direct", [_P] * 4 + [_I] * 10 + [_P])
-    err = fn(x5.data_ptr(), wt.data_ptr(), bq.data_ptr(), out.data_ptr(), B, Cp, Hp, Wp, D, *ws,
-             num_heads, int(mode == "vec"), _lib.stream(x5))
-    _lib.check(err, f"attn5d_direct[{mode}]")
+    out = _attn5d_direct_call(_lib.kernel("attn5d_direct", "attn5d_direct", _ATTN5D_ARGS), x5,
+                              wqkv, bqkv, ws, num_heads, mode)
     _lib.LAUNCHES["attn5d_direct"] += 1
+    return out
+
+
+_ATTN5D_ARGS = [_P] * 5 + [_I] * 10 + [_P]
+
+
+def _attn5d_direct_call(fn, x5, wqkv, bqkv, ws, num_heads, mode) -> torch.Tensor:
+    """Run ``fn`` (``attn5d_direct`` of ``csrc/attn5d_direct.cu``, or an ablated copy) on
+    checked operands: ``wqkv`` as stored (a cast only where it is stored in another type),
+    the qkv scratch allocated here."""
+    bf = torch.bfloat16
+    _lib.require(x5, "x5", bf)
+    _, _, rows = check_window_attention_shape(tuple(x5.shape), num_heads, ws)
+    B, Cp, Hp, Wp, D = x5.shape
+    ops = {"wqkv": (wqkv.to(bf).contiguous(), (D, 3 * D)),
+           "bqkv": (bqkv.to(bf).reshape(-1).contiguous(), (3 * D,))}
+    for name, (t, shape) in {"x5": (x5, tuple(x5.shape)), **ops}.items():
+        _lib.require(t, name, bf, shape)
+        if t.device != x5.device or t.data_ptr() % 16:
+            raise ValueError(f"attn5d_direct: {name} must be on {x5.device}, 16-byte aligned")
+    qkv = x5.new_empty(rows, 3 * D)
+    out = torch.empty_like(x5)
+    err = fn(x5.data_ptr(), ops["wqkv"][0].data_ptr(), ops["bqkv"][0].data_ptr(), qkv.data_ptr(),
+             out.data_ptr(), B, Cp, Hp, Wp, D, *ws, num_heads, int(mode == "vec"),
+             _lib.stream(x5))
+    _lib.check(err, f"attn5d_direct[{mode}]")
     return out

@@ -1,15 +1,20 @@
-"""The probe tools of the port, run as ``python -m aurora_tpu_torch.tools.<name>``:
+"""The tools of the port, run as ``python -m aurora_tpu_torch.tools.<name>``:
 
 * :mod:`~aurora_tpu_torch.tools.backbone_ablate` (counterpart of ``tools/backbone_ablate.py``),
 * :mod:`~aurora_tpu_torch.tools.gemm_probe` (``tools/gemm_probe.py``),
-* :mod:`~aurora_tpu_torch.tools.smem_probe` (``tools/vmem_probe.py``).
+* :mod:`~aurora_tpu_torch.tools.smem_probe` (``tools/vmem_probe.py``),
+* :mod:`~aurora_tpu_torch.tools.perf_breakdown`, :mod:`~aurora_tpu_torch.tools.encoder_breakdown`
+  and :mod:`~aurora_tpu_torch.tools.decoder_breakdown` (``tools/{perf,encoder,decoder}_
+  breakdown.py``): the main step part by part;
+* :mod:`~aurora_tpu_torch.tools.kernel_ablate` (the card only): the redesigned kernels
+  against ablated builds of themselves.
 
 Each has a ``main(argv=None)`` that prints one line per result and returns the results as
 a list of dicts. They run on the card unless ``--device cpu`` is given; on the CPU every
 kernel wrapper takes its plain version and the times are host times of those, good for
 rehearsing the control flow and nothing else. Every result names its device.
 
-This module holds what the three share: the card's published peaks, timing, the error
+This module holds what they share: the card's published peaks, timing, the error
 measures and the result line.
 """
 

@@ -18,7 +18,7 @@ modulations opened) and the kernels at the backbone's stage shapes in one proces
   attn5d_check  backbone under attention_impl "pallas" against "pallas_windowed"
   mlp_t         K9, the feature-major MLP branch, per stage and row block R (units of R tokens)
   attn_probe    K10, the attention kernel's timing modes at the stage-1 shape
-  attn5d        K11, the strip kernel against the chain partition -> K6 -> reverse
+  attn5d        K11 in both work orders against the chain partition -> K6 -> reverse
 
 Times are medians of ``--steps`` runs after warm-up: CUDA events around a kernel or a
 chain, the host clock around a synchronised backbone pass, which also reports

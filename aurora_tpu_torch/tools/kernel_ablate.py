@@ -1,7 +1,8 @@
 """What holds K3 ``mlp_adaln_residual`` / K8 ``mlp_fused``, K12 ``gemm_blocked``, K7
-``sdpa_windows``, K2 / K6 ``window_attention(_windowed)``, K4 ``perceiver_core``, K9 ``mlp_t``
-and K10 ``attn_probe`` back: each kernel against copies of itself with one part switched
-off, at the shapes the probe tools, the backbone and the perceiver give them.
+``sdpa_windows``, K2 / K6 ``window_attention(_windowed)``, K4 ``perceiver_core``, K9 ``mlp_t``,
+K10 ``attn_probe`` and K11 ``attn5d_direct`` back: each kernel against copies of itself with
+one part switched off, at the shapes the probe tools, the backbone and the perceiver give
+them.
 
 The copies are built from the same sources with a preprocessor switch (``nvcc -D...``) into
 ``build/kernels/ablate/`` and called through their C entries; none of them is reachable from
@@ -40,8 +41,10 @@ a wrapper, and all but the ring-depth variants compute wrong results on purpose:
   kernel) and ``no_transpose`` (y^T stored as it lies instead of back to token-major rows);
   ``torch.matmul`` for fc1 and for fc2 beside them;
 * K10 (``csrc/attn_probe.cu``, at the tool's stage-1 shape): ``only_qkv`` and ``only_core``
-  (on what the qkv scratch holds) in every mode; ``torch.matmul`` at the qkv shape beside
-  them, and at K11's qkv shapes (its padded grids, stages 1-3).
+  (on what the qkv scratch holds) in every mode;
+* K11 (``csrc/attn5d_direct.cu``, at the tool's padded grids, stages 1-3): ``only_qkv`` and
+  ``only_core`` (on what the qkv scratch holds) in both work orders, ``torch.matmul`` at the
+  qkv shape beside them.
 
 Every time is a median of ``--steps`` launches after warm-up (``tools.time_ms``: CUDA
 events, each launch behind a memset that keeps the queue ahead of the host and leaves the
@@ -98,6 +101,7 @@ MLP_T_VARIANTS = {
 }
 ATTN_PROBE_VARIANTS = {"full": (), "only_qkv": ("ABLATE_ONLY_QKV",),
                        "only_core": ("ABLATE_ONLY_CORE",)}
+ATTN5D_VARIANTS = ATTN_PROBE_VARIANTS
 # label, K, D, heads, Q: the level aggregation and de-aggregation over 64800 token columns
 PERCEIVER_SHAPES = (("agg", 13, 512, 16, 3), ("de-agg", 3, 1024, 16, 13))
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -327,13 +331,6 @@ def main(argv=None) -> list[dict]:
 
     def ablate_attn_probe():
         libs = build_variants("attn_probe", ATTN_PROBE_VARIANTS)
-        # K11's qkv shapes: its padded grids, stages 1-3.
-        for C, H, W, D, _ in STAGES:
-            rows = C * (H + (-H) % 6) * (W + (-W) % 12)
-            a, w = rn(rows, D), rn(D, 3 * D, std=0.02)
-            emit(f"torch.matmul qkv ({rows},{D})x({D},{3 * D})", ms(lambda: torch.matmul(a, w)),
-                 flops=6 * rows * D * D)
-            del a, w
         nW, D, heads = 1800, 512, 8
         xw, wqkv, bqkv = rn(1, nW, 144, D), rn(D, 3 * D, std=0.02), rn(1, 3 * D, std=0.02)
         for mode in probes.ATTN_PROBE_MODES:
@@ -345,8 +342,30 @@ def main(argv=None) -> list[dict]:
                 emit(f"attn_probe (1,{nW},144,{D}) {mode} [{tag}]",
                      ms(lambda fn=fn, m=mode: probes._attn_probe_call(fn, xw, wqkv, bqkv, heads, m)))
 
+    def ablate_attn5d_direct():
+        libs = build_variants("attn5d_direct", ATTN5D_VARIANTS)
+        ws = (2, 6, 12)
+        for C, H, W, D, heads in STAGES:
+            Hp, Wp = H + (-H) % ws[1], W + (-W) % ws[2]
+            rows, nW = C * Hp * Wp, C * Hp * Wp // 144
+            x5, wqkv, bqkv = rn(1, C, Hp, Wp, D), rn(D, 3 * D, std=0.02), rn(3 * D, std=0.02)
+            a = x5.view(rows, D)
+            emit(f"torch.matmul qkv ({rows},{D})x({D},{3 * D})", ms(lambda: torch.matmul(a, wqkv)),
+                 flops=6 * rows * D * D)
+            work = dict(flops=6 * rows * D * D + 4 * nW * heads * 144 * 144 * 64,
+                        nbytes=2 * rows * D * 2 + 3 * D * D * 2)
+            for mode in probes.ATTN5D_MODES:
+                for tag, lib in libs.items():
+                    fn = lib.attn5d_direct
+                    fn.argtypes, fn.restype = probes._ATTN5D_ARGS, _I
+                    emit(f"attn5d_direct (1,{C},{Hp},{Wp},{D}) {mode} [{tag}]",
+                         ms(lambda fn=fn, m=mode: probes._attn5d_direct_call(
+                             fn, x5, wqkv, bqkv, ws, heads, m)), **work)
+            del x5, a
+
     ablate_mlp_t()
     ablate_attn_probe()
+    ablate_attn5d_direct()
     ablate_mlp()
     ablate_gemm()
     ablate_sdpa()

@@ -29,10 +29,12 @@ SWEEP_KIB = (48, 64, 96, 128, 160, 192, 224, 227, 228, 232, 256)
 # mlp.cu's fc1 (3 stages of 48 KB, 64 KB of parked pre-activations, 8 KB of bias copies,
 # barriers; fc2 and K5's proj ask for 214,080); resampler.cu's products on the ring of
 # gemm_rows_sm90.cuh (v, the out-projection, ln_k's sums of squares; its logits pass asks for
-# 3 stages of 128 x 36 + 32 x 64 f32, 79,872); probes.cu in mode fulld at D = 512
-# (FULLD_FIXED + 512 x 152 bf16).
+# 3 stages of 128 x 36 + 32 x 64 f32, 79,872); attn_probe.cu and attn5d_direct.cu, whose qkv
+# products are window_attention.cu's (attn_probe.cu's fulld core asks for 4 stages of 43,008,
+# 173,120).
 PORT_SMEM_REQUESTS = {
-    "window_attention": 214080, "mlp": 222256, "resampler": 214080, "probes": 225152,
+    "window_attention": 214080, "mlp": 222256, "resampler": 214080, "attn_probe": 214080,
+    "attn5d_direct": 214080,
 }
 
 

@@ -23,10 +23,10 @@ Phases, each printing one JSON line; any failure raises and the script exits non
    its error is not hidden under the residual's rounding. Outputs with no residual (K2
    and K6 without the tail, K7, K8): max ``|kernel - plain|`` over max ``|plain|``, 6e-3.
    K10-K12 ("rel_ulp"): the same less one bf16 ulp of the output, 6e-3, since one ulp of an
-   output in the largest binade is up to 7.8e-3 of the maximum (K11, on the probes' own
-   projection, is 7.2e-3 from its plain version at stage 3 by max |error| / max |output|).
-   K11 is also held to K2 without tail on the same input, by the same 6e-3 "rel_ulp" bound:
-   the two project qkv on different tensor-core paths, so they may round apart. K9 is also
+   output in the largest binade is up to 7.8e-3 of the maximum. K11 runs K2 without tail's
+   launches in two work orders: in both modes it must give K2 without tail's bits on the
+   same input. K13's bound is the larger of its byte bound and an empty kernel's launch,
+   timed the same way in the same run: no kernel takes less. K9 is also
    held to K3 at scale_bias 0 on the same inputs by the "branch" measure (6e-3; feature-major
    tiles sum in another order). K10's ``baseline`` must give K6 without tail's bits on the
    same windows, ``batched_heads`` ``baseline``'s and ``bf16_batched`` ``bf16_core``'s. K2 and K6
@@ -50,7 +50,11 @@ Phases, each printing one JSON line; any failure raises and the script exits non
    FiLM and LoRA gates opened, ``rollout`` over the 721 x 1440 / 13-level batch; per-step
    time, peak memory, per-step launch counts (counts set to 0 just before the roll-out)
    checked against the code; outputs finite and of the right shape; then the same weights
-   on a 121 x 240 grid against the port's own CPU run of the same route as the reference;
+   on a 121 x 240 grid against the port's own CPU run of the same route as the reference.
+   After the main route's roll-out, the breakdown: ``perf_breakdown``, ``encoder_breakdown``
+   and ``decoder_breakdown`` as a user runs them, in process, on the main route's model at
+   720 x 1440 (one JSON line per row, with the launches of one call of its part); the level
+   aggregation and de-aggregation must have launched K4 and K3, the backbone K1-K3;
 5. tools: the probe tools as a user runs them, in process, at the full 0.25 degree token
    grid: ``backbone_ablate`` with every variant, ``gemm_probe`` and ``smem_probe`` (counts
    set to 0 just before); K9-K13 must each have launched, and the backbones under
@@ -73,14 +77,14 @@ import json
 import subprocess
 import sys
 import time
-from datetime import datetime
 
-import numpy as np
-
-STEPS = 2  # roll-out steps of the end-to-end phase
+# Roll-out steps of the end-to-end phase. The second step still uploads the caller's host
+# history (rollout concatenates it with the first prediction on the card); the third is the
+# first steady one.
+STEPS = 3
 REPS = 10  # timed runs per kernel and shape, after 2 warm-up runs
 LEVELS = (50, 100, 150, 200, 250, 300, 400, 500, 600, 700, 850, 925, 1000)
-SURF, STATIC, ATMOS = ("2t", "10u", "10v", "msl"), ("lsm", "z", "slt"), ("z", "u", "v", "t", "q")
+SURF, ATMOS = ("2t", "10u", "10v", "msl"), ("z", "u", "v", "t", "q")
 TOL = {
     "roll3d": 0.0, "window_attention": 6e-3, "mlp_adaln_residual": 6e-3, "perceiver_core": 1e-2,
     "linear_adaln_residual": 6e-3, "window_attention_windowed": 6e-3, "sdpa_windows": 6e-3,
@@ -89,6 +93,7 @@ TOL = {
 }
 ATTN_SRC = "aurora_tpu_torch/csrc/window_attention.cu"
 PROBES_SRC = "aurora_tpu_torch/csrc/probes.cu"
+ATTN5D_SRC = "aurora_tpu_torch/csrc/attn5d_direct.cu"
 MLP_T_SRC = "aurora_tpu_torch/csrc/mlp_t.cu"
 ATTN_PROBE_SRC = "aurora_tpu_torch/csrc/attn_probe.cu"
 SOURCES = {
@@ -102,7 +107,7 @@ SOURCES = {
     "mlp_fused": ("aurora_tpu_torch/csrc/mlp.cu", "aurora_tpu/ops/mlp.py:205"),
     "mlp_t": (MLP_T_SRC, "tools/backbone_ablate.py:429"),
     "attn_probe": (ATTN_PROBE_SRC, "tools/backbone_ablate.py:508"),
-    "attn5d_direct": (PROBES_SRC, "tools/backbone_ablate.py:818"),
+    "attn5d_direct": (ATTN5D_SRC, "tools/backbone_ablate.py:818"),
     "gemm_blocked": ("aurora_tpu_torch/csrc/gemm.cu", "tools/gemm_probe.py:92"),
     "smem_probe": (PROBES_SRC, "tools/vmem_probe.py:19"),
 }
@@ -155,10 +160,10 @@ def cuda_ms(fn) -> float:
 
 
 def case(name, label, per_step, kernel, plain, bound, check, residual=None, library=None,
-         mode=None, also=None, same_bits=None, extra=None, recheck=False) -> dict:
+         mode=None, same_bits=None, extra=None, recheck=False) -> dict:
     return dict(name=name, label=label, per_step=per_step, kernel=kernel, plain=plain,
                 bound=bound, check=check, residual=residual, library=library, mode=mode,
-                also=also, same_bits=same_bits, extra=extra, recheck=recheck)
+                same_bits=same_bits, extra=extra, recheck=recheck)
 
 
 def kernel_cases():
@@ -166,10 +171,10 @@ def kernel_cases():
     K4: None or "ln_k"), launches per step on the route that runs it (1 per case of a
     tool's sweep), the kernel, its plain version and the library call (callables), the
     check ("exact", "branch" with the residual its output adds a branch to, "rel", or
-    "rel_ulp": "branch" with a zero residual), the bound, for K11 a second reference
-    (``also``: K2 without tail), for K12 a key (``same_bits``: the outputs of consecutive
-    cases with one key must be the same bits), for K7, K3 and K2 one more check (``extra``: a
-    callable that returns fields for the case's line and raises on failure) and for K2, K6,
+    "rel_ulp": "branch" with a zero residual), the bound, for K12 a key (``same_bits``: the
+    outputs of consecutive cases with one key must be the same bits), for K7, K3, K2, K9-K11
+    and K13 one more check (``extra``: a callable that returns fields for the case's line and
+    raises on failure) and for K2, K6,
     K3 and K8 ``recheck``: the check is made again on the output of the last timed run."""
     import torch
     import torch.nn.functional as F
@@ -480,7 +485,7 @@ def probe_cases(rn):
                 extra=lambda a=a, R=R: k9_against_k3(a, R),
             )
         del x, a
-        # K11 on the padded grid, against its plain version and K2 without tail.
+        # K11 on the padded grid, against its plain version; K2 without tail's bits.
         Hp, Wp = H + (-H) % ws[1], W + (-W) % ws[2]
         nW = C * Hp * Wp // N
         x5, wqkv, bqkv = rn(1, C, Hp, Wp, D), rn(D, 3 * D, std=0.02), rn(3 * D, std=0.02)
@@ -492,10 +497,11 @@ def probe_cases(rn):
                     probes.attn5d_direct(x5, w, b, ws, h, m),
                 plain=lambda x5=x5, w=wqkv, b=bqkv, h=heads, m=mode:
                     probes.attn5d_direct_plain(x5, w, b, ws, h, m),
-                also=lambda x5=x5, w=wqkv, b=bqkv, h=heads:
-                    window_attention.window_attention_tail(x5, w, b, None, ws, h, None),
                 check="rel_ulp",
                 bound=bound_ms(flops_bf16=fl, nbytes=2 * nW * N * D * 2 + 3 * D * D * 2),
+                extra=lambda x5=x5, w=wqkv, b=bqkv, h=heads, m=mode: same_bits_as(
+                    lambda: probes.attn5d_direct(x5, w, b, ws, h, m), "K2 without tail",
+                    lambda: window_attention.window_attention_tail(x5, w, b, None, ws, h, None)),
             )
         del x5
     # K10: the seven modes at the stage-1 shape.
@@ -543,14 +549,17 @@ def probe_cases(rn):
                 )
             del a, w
     # K13 with the largest scratch of the tool's sweep that the card's opt-in maximum allows.
+    # Its bound: the larger of its bytes' time and a launch's floor (a kernel that does
+    # nothing, timed the same way in this run), since no kernel takes less than a launch.
     x = rn(8, 128, dtype=f32)
     nbytes = max(k * 1024 for k in SWEEP_KIB if k * 1024 <= probes.smem_optin_bytes())
+    byte_bound, by = bound_ms(nbytes=2 * x.numel() * 4)
+    empty_ms = cuda_ms(lambda: probes.empty_launch(x.device))
     yield case(
         "smem_probe", f"(8,128) f32, {nbytes} bytes of shared memory", 1,
         kernel=lambda: probes.smem_probe(x, nbytes), plain=lambda: probes.smem_probe_plain(x),
-        check="exact", bound=bound_ms(nbytes=2 * x.numel() * 4),
-        # K13's time is a launch's floor: a kernel that does nothing, timed the same way.
-        extra=lambda: dict(empty_kernel_ms=cuda_ms(lambda: probes.empty_launch(x.device))),
+        check="exact", bound=(max(byte_bound, empty_ms), by),
+        extra=lambda: dict(empty_kernel_ms=empty_ms, byte_bound_ms=byte_bound),
     )
 
 
@@ -575,13 +584,13 @@ def k9_against_k3(a, R) -> dict:
 
 
 def same_bits_as(kernel, what, other) -> dict:
-    """K10's schedules and K6: ``kernel()`` must give ``other()``'s bits."""
+    """K10's and K11's schedules, K6 and K2: ``kernel()`` must give ``other()``'s bits."""
     import torch
 
     got, want = kernel(), other()
     torch.cuda.synchronize()
     if not torch.equal(got, want):
-        raise AssertionError(f"attn_probe: not the bits of {what}")
+        raise AssertionError(f"not the bits of {what}")
     return {f"same_bits_as_{what.replace(' ', '_')}": True}
 
 
@@ -672,10 +681,6 @@ def run_kernel_phases() -> dict:
                 err = (got.float() - want.float()).abs().max().item()
                 rel = rel_err(got, want)
             ok = rel <= TOL[name]
-        vs_also = None
-        if case["also"] is not None:
-            vs_also = branch_err(got, case["also"](), torch.zeros((), device=got.device))[1]
-            ok = ok and vs_also <= TOL[name]
         more = {}
         if case["same_bits"] != bits_key:
             bits_key, bits_ref = case["same_bits"], (got if case["same_bits"] else None)
@@ -712,8 +717,7 @@ def run_kernel_phases() -> dict:
         emit(dict(phase="kernel", kernel=name, mode=case["mode"], shape=case["label"],
                   ok=bool(ok), max_abs_err=err, rel_err=rel, check=case["check"],
                   tol=TOL[name], ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b,
-                  bound_by=by, per_step=case["per_step"], **more,
-                  **({} if vs_also is None else {"vs_k2_no_tail": vs_also})))
+                  bound_by=by, per_step=case["per_step"], **more))
         if not ok:
             raise AssertionError(f"{name} {case['label']}: max abs err {err}, relative error "
                                  f"{rel} (bound {TOL[name]}) {more}")
@@ -727,6 +731,9 @@ def run_kernel_phases() -> dict:
         if lib_ms is not None:
             s["library_ms"] = (s["library_ms"] or 0.0) + n * lib_ms
         s["by"][by] += n * b
+        for k in ("empty_kernel_ms", "byte_bound_ms"):  # K13: the two sides of its bound
+            if k in more:
+                s[k] = more[k]
         if "bound_of_tpu_work_ms" in more:  # K4: the TPU kernel's work, beside the folded
             s["bound_of_tpu_work_ms"] = s.get("bound_of_tpu_work_ms", 0.0) + n * more[
                 "bound_of_tpu_work_ms"]
@@ -737,54 +744,26 @@ def run_kernel_phases() -> dict:
 # ------------------------------------------------------------------------------ end to end
 
 
-def numpy_batch(H: int, W: int, seed: int = 0):
-    from aurora_tpu_torch import Batch, Metadata
-
-    rng = np.random.default_rng(seed)
-    return Batch(
-        surf_vars={k: rng.standard_normal((1, 2, H, W)).astype(np.float32) for k in SURF},
-        static_vars={k: np.abs(rng.standard_normal((H, W))).astype(np.float32) for k in STATIC},
-        atmos_vars={
-            k: rng.standard_normal((1, 2, len(LEVELS), H, W)).astype(np.float32) for k in ATMOS
-        },
-        metadata=Metadata(
-            lat=np.linspace(90, -90, H), lon=np.linspace(0, 360, W, endpoint=False),
-            time=(datetime(2020, 6, 1, 12),), atmos_levels=LEVELS,
-        ),
-    )
-
-
-def open_gates(model, seed: int = 1, std: float = 0.05) -> None:
-    """Seeded noise in every FiLM modulation weight and LoRA B: at fresh init both are zero
-    and every Swin block is an identity, so the kernels would never reach the output."""
+def run_route(name: str, steps: int, ref_grid: tuple[int, int], then=None) -> dict:
+    """The roll-out of one backbone route; returns the launches over it. ``then(model)``
+    runs after the roll-out's checks, before the reference."""
     import torch
 
-    g = torch.Generator(device=model.device).manual_seed(seed)
-    with torch.no_grad():
-        for name, p in model.named_parameters():
-            if ("modulation" in name and name.endswith("weight")) or name.endswith(".B"):
-                p.copy_(torch.randn(p.shape, generator=g, device=p.device) * std)
-
-
-def run_route(name: str, steps: int, ref_grid: tuple[int, int]) -> dict:
-    """The roll-out of one backbone route; returns the launches over it."""
-    import torch
-
-    from aurora_tpu_torch import LARGE_CONFIG, Aurora, cast_backbone_params, rollout
+    from aurora_tpu_torch import rollout
     from aurora_tpu_torch.ops import _lib
+    from aurora_tpu_torch.tools.perf_breakdown import build_model, numpy_batch, production_config
 
     knobs, counts = ROUTES[name]
     expected = {k: counts.get(k, 0) for k in _lib.LAUNCHES}
-    cfg = LARGE_CONFIG.replace(use_lora=True, autocast=True, agg_bf16=True, deagg_bf16=True,
-                               **knobs)
+    # The production model (LoRA, bf16 backbone stored in bf16, bf16 (de-)aggregation values),
+    # FiLM and LoRA gates opened.
+    cfg = production_config().replace(**knobs)
     t0 = time.perf_counter()
-    model = Aurora(cfg, device="cuda", seed=0)
-    open_gates(model)
-    cast_backbone_params(model)
+    model = build_model(cfg, "cuda")
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
     init_s = time.perf_counter() - t0
-    batch = numpy_batch(721, 1440)
+    batch = numpy_batch(cfg, 721, 1440)
 
     torch.cuda.reset_peak_memory_stats()
     _lib.reset_launches()
@@ -819,10 +798,12 @@ def run_route(name: str, steps: int, ref_grid: tuple[int, int]) -> dict:
               grid="721x1440 (720x1440 after crop)", levels=13, params=n_params, init_s=init_s,
               steps=steps, step_s=step_s, peak_mem_gib=peak / 2**30,
               launches_per_step=per_step[-1], launches=launches))
+    if then is not None:
+        then(model)
 
     # Reference on a small input: the same weights on the port's CPU run of the same route.
     H, W = ref_grid
-    small = numpy_batch(H, W, seed=1)
+    small = numpy_batch(cfg, H, W, seed=1)
     got = model(small)
     torch.cuda.synchronize()
     cpu = model.to("cpu")
@@ -845,6 +826,49 @@ def run_route(name: str, steps: int, ref_grid: tuple[int, int]) -> dict:
 def _mean_rel(a, b) -> float:
     a, b = a.double().cpu(), b.double().cpu()
     return ((a - b).abs().mean() / (b.abs().mean() + 1e-30)).item()
+
+
+# ------------------------------------------------------------------------------ breakdown
+
+# Kernels each part of the breakdown must launch: K4 and K3 in the level aggregation and
+# de-aggregation, K1-K3 in the backbone.
+BREAKDOWN_KERNELS = {
+    ("perf_breakdown", "encoder"): ("perceiver_core", "mlp_adaln_residual"),
+    ("perf_breakdown", "backbone (bf16)"): ("roll3d", "window_attention", "mlp_adaln_residual"),
+    ("perf_breakdown", "decoder"): ("perceiver_core", "mlp_adaln_residual"),
+    ("encoder_breakdown", "encoder FULL"): ("perceiver_core", "mlp_adaln_residual"),
+    ("encoder_breakdown", "level aggregation"): ("perceiver_core", "mlp_adaln_residual"),
+    ("decoder_breakdown", "deaggregate FULL"): ("perceiver_core", "mlp_adaln_residual"),
+    ("decoder_breakdown", "  K4 perceiver_core"): ("perceiver_core",),
+    ("decoder_breakdown", "  K3 MLP half"): ("mlp_adaln_residual",),
+}
+
+
+def run_breakdown(model) -> None:
+    """The three breakdown tools as a user runs them, in process, on the main route's model
+    at 720 x 1440 (``perf_breakdown`` on the 721 x 1440 batch it crops). Each row must have
+    launched the kernels of its part."""
+    import torch
+
+    from aurora_tpu_torch.tools import decoder_breakdown, encoder_breakdown, perf_breakdown
+
+    t0 = time.perf_counter()
+    seen = set()
+    for tool in (perf_breakdown, encoder_breakdown, decoder_breakdown):
+        name = tool.__name__.rsplit(".", 1)[1]
+        for r in tool.main(["--steps", "3"], model=model):
+            emit(dict(phase="breakdown", tool=name, **r))
+            need = BREAKDOWN_KERNELS.get((name, r["label"]), ())
+            missing = [k for k in need if not r["launches"].get(k)]
+            if missing:
+                raise AssertionError(f"breakdown {name} {r['label']!r}: kernels never "
+                                     f"launched: {missing}")
+            seen.add((name, r["label"]))
+        torch.cuda.empty_cache()
+    absent = sorted(set(BREAKDOWN_KERNELS) - seen)
+    if absent:
+        raise AssertionError(f"breakdown: rows missing {absent}")
+    emit(dict(phase="breakdown", seconds=time.perf_counter() - t0))
 
 
 # ------------------------------------------------------------------------------ tools
@@ -912,14 +936,16 @@ def main() -> int:
     summary = run_kernel_phases()
     launches = {}
     for route in ROUTES:
-        launches[route] = run_route(route, STEPS, (121, 240))
+        launches[route] = run_route(route, STEPS, (121, 240),
+                                    then=run_breakdown if route == "main" else None)
         missing = [k for k, n in ROUTES[route][1].items() if launches[route][k] == 0]
         if missing:
             raise AssertionError(f"route {route}: kernels never launched: {missing}")
     launches["tools"] = run_tools()
 
     def entry(s: dict, n_launches: int) -> dict:
-        more = {k: s[k] for k in ("bound_of_tpu_work_ms",) if k in s}
+        more = {k: s[k] for k in ("bound_of_tpu_work_ms", "empty_kernel_ms", "byte_bound_ms")
+                if k in s}
         return dict(launches=n_launches, max_abs_err=s["max_abs_err"], err=s["err"],
                     ms=s["ms"], plain_ms=s["plain_ms"], bound_ms=s["bound_ms"],
                     bound_by=max(s["by"], key=s["by"].get), library_ms=s["library_ms"], **more)

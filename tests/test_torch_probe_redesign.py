@@ -8,9 +8,11 @@ without the card.
 * K9's LayerNorm as its kernels compute it (per 128-feature tile of ``y^T`` a mean and a
   centred sum of squares down the tile's rows, merged exactly by K3's row kernel) equals
   the two-pass form.
-* Neither wrapper's CUDA branch makes a transposed copy of a weight, and the old K9 / K10
-  kernels and K9's weight helper are gone; only K11 still includes
-  ``csrc/window_attention.cuh``.
+* No wrapper's CUDA branch (K9, K10, K11) makes a transposed copy of a weight, and the old
+  K9 / K10 / K11 kernels, K9's weight helper and ``csrc/window_attention.cuh`` are gone.
+* K11's two work orders (``ops/probes.py::attn5d_schedule`` and ``attn5d_unit``, which
+  ``csrc/attn5d_direct.cu`` decodes the same way) cover every (window, head) once, and
+  ``vec`` gives each block whole strips for one head.
 """
 
 import ast
@@ -22,7 +24,7 @@ import pytest
 import torch
 
 import aurora_tpu_torch
-from aurora_tpu_torch.ops import mlp, probes
+from aurora_tpu_torch.ops import _lib, mlp, probes
 from tests.test_torch_redesign import _cuda_branch, _helpers
 
 # (L, D) of the backbone's stages at the 0.25 degree grid, each R of the tool that divides L.
@@ -130,7 +132,8 @@ TRANSPOSES = {"t", "T", "mT", "mH", "H", "transpose", "permute", "swapaxes", "sw
               "movedim", "_mlp_weights"}
 
 
-@pytest.mark.parametrize("fn", [probes.mlp_t, probes.attn_probe], ids=["mlp_t", "attn_probe"])
+@pytest.mark.parametrize("fn", [probes.mlp_t, probes.attn_probe, probes.attn5d_direct],
+                         ids=["mlp_t", "attn_probe", "attn5d_direct"])
 def test_cuda_branch_makes_no_transposed_weight_copy(fn):
     """The CUDA branch and the private helpers it calls read the weights as stored: no
     ``.t()``, ``.T`` or ``.transpose`` (or any other transposing call) reaches them."""
@@ -149,14 +152,71 @@ def test_cuda_branch_makes_no_transposed_weight_copy(fn):
 
 
 def test_old_probe_kernels_are_gone_and_only_k11_includes_the_old_body():
+    """The first designs are gone: K11 was the old body's last user, and now no source
+    includes it. K11's entry point is on the shared headers, as K9's and K10's are."""
     assert not hasattr(mlp, "_mlp_weights")
     sources = {p.name: p.read_text() for p in CSRC.iterdir() if p.suffix in (".cu", ".cuh")}
-    for name in ("mlp_t_kernel", "attn_probe_kernel", "attn_fulld_kernel"):
+    assert "window_attention.cuh" not in sources
+    for name in ("mlp_t_kernel", "attn_probe_kernel", "attn_fulld_kernel", "attn5d_direct_kernel",
+                 "window_attention.cuh"):
         assert not any(name in text for text in sources.values()), name
-    users = sorted(n for n, text in sources.items() if '#include "window_attention.cuh"' in text)
-    assert users == ["probes.cu"]
-    assert "attn5d_direct" in sources["probes.cu"]
     assert 'extern "C" int mlp_t(' in sources["mlp_t.cu"]
     assert 'extern "C" int attn_probe(' in sources["attn_probe.cu"]
-    for entry in ('int mlp_t(', 'int attn_probe('):
+    assert 'extern "C" int attn5d_direct(' in sources["attn5d_direct.cu"]
+    for src in ("attn_probe.cu", "attn5d_direct.cu"):
+        assert '#include "gemm_rows_sm90.cuh"' in sources[src]
+        assert '#include "sdpa_sm90.cuh"' in sources[src]
+    for entry in ('int mlp_t(', 'int attn_probe(', 'int attn5d_direct('):
         assert entry not in sources["probes.cu"]
+    assert "attn5d_direct" in _lib.SOURCES
+
+
+# ------------------------------------------------------------------------------ K11
+
+# (B, Cp, Hp, Wp, heads): the tool's padded grids at stages 1-3, then small and ragged ones
+# (units no multiple of the slots; a run that ends inside the last block; B = 2).
+ATTN5D_GRIDS = [(1, 4, 180, 360, 8), (1, 4, 90, 180, 16), (1, 4, 48, 96, 32),
+                (1, 2, 12, 24, 2), (2, 4, 18, 36, 4), (1, 2, 30, 60, 8), (3, 2, 6, 132, 3)]
+WS = (2, 6, 12)
+
+
+@pytest.mark.parametrize("mode", probes.ATTN5D_MODES)
+@pytest.mark.parametrize("B,Cp,Hp,Wp,heads", ATTN5D_GRIDS)
+def test_attn5d_schedule_covers_every_window_and_head_once(B, Cp, Hp, Wp, heads, mode):
+    sched = probes.attn5d_schedule(B, Cp, Hp, Wp, WS, heads, mode)
+    units, run, W1 = sched["units"], sched["run"], sched["W1"]
+    nW = (Cp // WS[0]) * (Hp // WS[1]) * W1
+    assert sched["nW"] == nW and units == B * nW * heads
+    assert run % sched["group"] == 0 and (sched["blocks"] - 1) * run < units <= sched["blocks"] * run
+    seen = np.zeros((B * nW, heads), np.int64)
+    for blk in range(sched["blocks"]):
+        mine = [probes.attn5d_unit(u, mode, heads, W1)
+                for u in range(blk * run, min((blk + 1) * run, units))]
+        assert mine, "no block without a unit"
+        for window, head in mine:
+            seen[window, head] += 1
+        if mode == "vec":  # whole strips, one head at a time: (strip, head) items of W1 units
+            items = [mine[i:i + W1] for i in range(0, len(mine), W1)]
+            for item in items:
+                strips = {w // W1 for w, _ in item}
+                assert len(item) == W1 and len(strips) == 1 and len({h for _, h in item}) == 1
+                assert sorted(w % W1 for w, _ in item) == list(range(W1))
+        else:  # one window at a time, its heads in turn
+            assert [u % heads for u in range(blk * run, blk * run + len(mine))] == [h for _, h in mine]
+    assert seen.min() == 1 and seen.max() == 1
+
+
+@pytest.mark.parametrize("B,Cp,Hp,Wp,heads", ATTN5D_GRIDS[:3])
+def test_attn5d_schedule_fills_the_card_at_the_tool_stages(B, Cp, Hp, Wp, heads):
+    """Both orders keep at least 240 of the 264 slots (two blocks an SM) busy in one wave:
+    a block per strip would have run 60 / 30 / 16 blocks."""
+    for mode in probes.ATTN5D_MODES:
+        sched = probes.attn5d_schedule(B, Cp, Hp, Wp, WS, heads, mode)
+        assert 240 <= sched["blocks"] <= 264, (mode, sched)
+
+
+def test_attn5d_schedule_refuses_bad_arguments():
+    with pytest.raises(ValueError, match="mode"):
+        probes.attn5d_schedule(1, 2, 12, 24, WS, 2, "scan")
+    with pytest.raises(ValueError, match="multiple"):
+        probes.attn5d_schedule(1, 2, 12, 20, WS, 2, "vec")

@@ -202,10 +202,11 @@ def _helpers(fn, branch):
     "fn",
     [probes.gemm_blocked, window_attention.sdpa_windows, mlp.mlp_adaln_residual, mlp.mlp_fused,
      window_attention.window_attention_tail, window_attention.window_attention_windowed,
-     resampler.perceiver_core, mlp.linear_adaln_residual, probes.mlp_t, probes.attn_probe],
+     resampler.perceiver_core, mlp.linear_adaln_residual, probes.mlp_t, probes.attn_probe,
+     probes.attn5d_direct],
     ids=["gemm_blocked", "sdpa_windows", "mlp_adaln_residual", "mlp_fused",
          "window_attention_tail", "window_attention_windowed", "perceiver_core",
-         "linear_adaln_residual", "mlp_t", "attn_probe"])
+         "linear_adaln_residual", "mlp_t", "attn_probe", "attn5d_direct"])
 def test_cuda_branch_reaches_no_library_product(fn):
     branch = _cuda_branch(fn)
     assert branch, "the CUDA branch launches the kernel"
@@ -231,7 +232,7 @@ def test_cuda_branch_reaches_no_library_product(fn):
               "window_attention_tail_plain", "window_attention_windowed_plain", "F",
               "functional", "perceiver_core_plain", "perceiver_core_mirror",
               "fold_logit_weights", "linear_adaln_residual_plain", "mlp_t_plain",
-              "attn_probe_plain"}
+              "attn_probe_plain", "attn5d_direct_plain"}
     assert not names & banned, names & banned
     assert "kernel" in names and "LAUNCHES" in names
 
