@@ -8,17 +8,35 @@ CPU tensors every kernel wrapper takes its plain PyTorch version instead.
 from aurora_tpu_torch.batch import Batch, Metadata
 from aurora_tpu_torch.model.aurora import (
     Aurora,
+    Aurora12hPretrained,
+    AuroraAirPollution,
+    AuroraHighRes,
     AuroraPretrained,
+    AuroraSmall,
+    AuroraSmallPretrained,
+    AuroraWave,
     cast_backbone_params,
 )
-from aurora_tpu_torch.model.config import LARGE_CONFIG, SMALL_CONFIG, AuroraConfig
+from aurora_tpu_torch.model.config import (
+    HIGHRES_CONFIG,
+    LARGE_CONFIG,
+    SMALL_CONFIG,
+    AuroraConfig,
+)
 from aurora_tpu_torch.rollout import rollout
 
 __all__ = [
     "Aurora",
+    "Aurora12hPretrained",
+    "AuroraAirPollution",
     "AuroraConfig",
+    "AuroraHighRes",
     "AuroraPretrained",
+    "AuroraSmall",
+    "AuroraSmallPretrained",
+    "AuroraWave",
     "Batch",
+    "HIGHRES_CONFIG",
     "LARGE_CONFIG",
     "Metadata",
     "SMALL_CONFIG",

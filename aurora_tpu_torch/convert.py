@@ -41,17 +41,21 @@ def _to_tensor(a, like: torch.Tensor) -> torch.Tensor:
     return torch.from_numpy(np.array(a)).to(device=like.device, dtype=like.dtype)
 
 
-def load_numpy_params(model: torch.nn.Module, tree) -> torch.nn.Module:
+def load_numpy_params(model: torch.nn.Module, tree, *, strict: bool = True) -> torch.nn.Module:
     """Load a JAX-layout parameter tree into ``model`` in place, keeping each port
-    parameter's device and dtype."""
+    parameter's device and dtype. ``strict``: fail on a leaf that names no parameter and on
+    a parameter the tree does not set; otherwise load the leaves that name a parameter.
+    A shape mismatch always fails."""
     leaves = flatten_tree(tree)
     params = dict(model.named_parameters())
     unconsumed = sorted(set(leaves) - set(params))
     unset = sorted(set(params) - set(leaves))
-    if unconsumed or unset:
+    if strict and (unconsumed or unset):
         raise ValueError(f"tree/model mismatch: unconsumed leaves {unconsumed}, unset {unset}")
     with torch.no_grad():
         for name, p in params.items():
+            if name not in leaves:
+                continue
             value = _to_tensor(leaves[name], p)
             if value.shape != p.shape:
                 raise ValueError(f"{name}: shape {tuple(value.shape)} != {tuple(p.shape)}")

@@ -140,9 +140,27 @@ class AuroraConfig:
         return timedelta(hours=self.timestep_hours)
 
     @property
+    def dynamic_var_names(self) -> tuple[str, ...]:
+        return ("tod_cos", "tod_sin", "dow_cos", "dow_sin", "doy_cos", "doy_sin")
+
+    @property
+    def all_static_vars(self) -> tuple[str, ...]:
+        """Static variables including the time features of ``dynamic_vars``."""
+        if self.dynamic_vars:
+            return self.static_vars + self.dynamic_var_names
+        return self.static_vars
+
+    @property
     def all_surf_vars(self) -> tuple[str, ...]:
         """Surface variables as seen by the patch embedding (surface + static)."""
-        return self.surf_vars + self.static_vars
+        return self.surf_vars + self.all_static_vars
+
+    @property
+    def all_atmos_vars(self) -> tuple[str, ...]:
+        """Atmospheric variables as seen by the patch embedding."""
+        if self.atmos_static_vars:
+            return self.atmos_vars + tuple(f"static_{v}" for v in self.all_static_vars)
+        return self.atmos_vars
 
     @property
     def backbone(self) -> BackboneConfig:

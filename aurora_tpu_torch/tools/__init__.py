@@ -7,7 +7,10 @@
   and :mod:`~aurora_tpu_torch.tools.decoder_breakdown` (``tools/{perf,encoder,decoder}_
   breakdown.py``): the main step part by part;
 * :mod:`~aurora_tpu_torch.tools.kernel_ablate` (the card only): the redesigned kernels
-  against ablated builds of themselves.
+  against ablated builds of themselves;
+* :mod:`~aurora_tpu_torch.tools.variant_bench` and :mod:`~aurora_tpu_torch.tools.highres_bench`
+  (``tools/variant_bench.py``, ``tools/highres_bench.py``): roll-outs of the air-pollution,
+  wave and 0.1 degree models at their own grids.
 
 Each has a ``main(argv=None)`` that prints one line per result and returns the results as
 a list of dicts. They run on the card unless ``--device cpu`` is given; on the CPU every

@@ -124,7 +124,7 @@ def step_parts(model: Aurora, batch: Batch) -> dict[str, Callable[[], object]]:
         surf_names, atmos_names = tuple(b.surf_vars), tuple(b.atmos_vars)
 
         def encoder():
-            return model.encoder(b.surf_vars, static, b.atmos_vars, enc)
+            return model.encoder(b.surf_vars, static, b.atmos_vars, enc, levels)
 
         x = encoder()
 
@@ -145,7 +145,7 @@ def step_parts(model: Aurora, batch: Batch) -> dict[str, Callable[[], object]]:
         "encoder": encoder,
         "backbone (bf16)" if cfg.autocast else "backbone": backbone,
         "decoder": lambda: model.decoder(y, surf_names, atmos_names, enc.levels_dec, patch_res,
-                                         H, W),
+                                         H, W, levels),
     }
     return {k: torch.no_grad()(f) for k, f in parts.items()}
 

@@ -59,7 +59,22 @@ Phases, each printing one JSON line; any failure raises and the script exits non
    grid: ``backbone_ablate`` with every variant, ``gemm_probe`` and ``smem_probe`` (counts
    set to 0 just before); K9-K13 must each have launched, and the backbones under
    ``attention_impl`` "pallas" and "pallas_windowed" must agree within the bf16 block bound;
-6. the kernels summary line, one entry per kernel (K1-K8: times per forward step, each
+6. variants: the released models AirPollution (451 x 900, patch 3), Wave (721 x 1440),
+   HighRes (1801 x 3600, patch 10) and 12h (721 x 1440), each at its full width, depth and
+   grid with the production knobs. The weights are each released checkpoint's keys and
+   shapes (``tests/data/ckpt_manifests.json``) filled with seeded values at the scale of the
+   port's init (FiLM and LoRA ``B`` opened), loaded through the port's checkpoint code:
+   AirPollution from a ``.ckpt`` file written with ``torch.save`` (``load_checkpoint_local``),
+   the others in memory (``convert_reference_checkpoint``). Each rolls out 3 steps through
+   ``tools.variant_bench`` / ``tools.highres_bench`` (12h through the same roll-out), counts
+   set to 0 just before: step times, peak memory, launches per step checked against the code;
+   the outputs are the user's variables after the hooks (no ``_mod``, sin/cos or density
+   channel) at the right shapes, finite but for the wave model's NaN where it predicts no
+   waves. Then the same weights on a reference grid (121 x 240; HighRes 241 x 480) against
+   the port's CPU run: mean relative error <= 1e-2 per output variable where both are finite,
+   and the points where the wave NaN masks differ (a density within the card's error of 1/2)
+   at most 5%. ``AuroraSmallPretrained`` (D = 256) must raise the kernels' ``ValueError``;
+7. the kernels summary line, one entry per kernel (K1-K8: times per forward step, each
    shape's time times its launches per step on the route that runs it, ``launches`` the
    count over that route's roll-out; K9-K13: the sum over one sweep of the tool's cases,
    ``launches`` the count over the tools phase; K2 and K6 carry their no-tail mode under
@@ -908,6 +923,229 @@ def run_tools() -> dict:
     return launches
 
 
+# ------------------------------------------------------------------------------ variants
+
+MANIFESTS = "tests/data/ckpt_manifests.json"
+# Launches per forward step of the released variants, from the code: K1 twice in each shifted
+# block (half the blocks), K2 once a block, K3 once a block plus once in each perceiver's
+# MLP half, K4 once in the aggregation and once in each de-aggregation. AirPollution
+# de-aggregates twice (``level_decoder_alternate`` for the chemistry variables and their
+# ``_mod`` heads); the wave model's aggregation is K4 with ``ln_k``, one count as without it;
+# HighRes has stage depths (6, 8, 8) / (8, 8, 6), 44 blocks.
+_B48 = {"roll3d": 48, "window_attention": 48}
+_B44 = {"roll3d": 44, "window_attention": 44}
+VARIANT_RUNS = {  # name: (facade, full grid, reference grid, launches per step)
+    "pollution": ("AuroraAirPollution", (451, 900), (121, 240),
+                  {**_B48, "mlp_adaln_residual": 51, "perceiver_core": 3}),
+    "wave": ("AuroraWave", (721, 1440), (121, 240),
+             {**_B48, "mlp_adaln_residual": 50, "perceiver_core": 2}),
+    "highres": ("AuroraHighRes", (1801, 3600), (241, 480),
+                {**_B44, "mlp_adaln_residual": 46, "perceiver_core": 2}),
+    "12h": ("Aurora12hPretrained", (721, 1440), (121, 240),
+            {**_B48, "mlp_adaln_residual": 50, "perceiver_core": 2}),
+}
+# The variant loaded from a reference-format ``.ckpt`` file (the most schema migrations);
+# the others pass their state dict in memory through the same converter.
+VIA_FILE = "pollution"
+NAN_FLIP_TOL = 5e-2  # share of points whose wave NaN mask differs between the card and CPU
+
+
+def reference_weights(manifest: dict, cfg, seed: int) -> dict:
+    """A released checkpoint's keys and shapes (``tests/data/ckpt_manifests.json``) filled
+    with seeded values at the scale of the port's own init, in reference format (torch
+    names and layouts, float32 numpy on the host): linear weights N(0, 0.02) clipped at 2
+    sigma, biases N(0, 0.02), LayerNorm weights 1, patch-embed kernels and biases and LoRA
+    ``A`` uniform(+-1/sqrt(fan in)), the feature combiners at 0.5 / 0; the FiLM modulations
+    and LoRA ``B`` opened at N(0, 0.05), as ``perf_breakdown.build_model`` opens them. Made
+    on the card in one pool and copied to the host once."""
+    import math
+
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    sizes = {k: math.prod(s) for k, s in manifest.items()}
+    pool = torch.empty(sum(sizes.values()), device="cuda")
+    patch_fan = cfg.max_history_size * cfg.patch_size**2
+    spans, off = {}, 0
+    for k, shape in manifest.items():
+        seg = pool[off:off + sizes[k]]
+        spans[k] = (off, tuple(shape))
+        off += sizes[k]
+        if "feature_combiner" in k:
+            seg.fill_(0.5 if k.endswith("weight") else 0.0)
+        elif k.endswith("lora_B") or "ln_modulation" in k and k.endswith("weight"):
+            seg.normal_(0.0, 0.05, generator=g)
+        elif k.endswith("lora_A"):
+            b = 1 / math.sqrt(shape[-1])
+            seg.uniform_(-b, b, generator=g)
+        elif "token_embeds" in k:  # (D, 1, T, P, P) kernels and their bias
+            b = 1 / math.sqrt(patch_fan)
+            seg.uniform_(-b, b, generator=g)
+        elif len(shape) == 1 and k.endswith("weight"):  # LayerNorm
+            seg.fill_(1.0)
+        else:
+            seg.normal_(0.0, 0.02, generator=g).clamp_(-0.04, 0.04)
+    host = pool.cpu().numpy()
+    del pool
+    return {k: host[o:o + math.prod(s)].reshape(s) for k, (o, s) in spans.items()}
+
+
+def load_variant(name: str, manifest: dict):
+    """The production model of one released variant on the card, with its weights loaded
+    through the port's checkpoint code: from a ``.ckpt`` file for ``VIA_FILE``, else the
+    state dict in memory through ``convert_reference_checkpoint``. Returns the model and a
+    dict of what the load took."""
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    import aurora_tpu_torch
+    from aurora_tpu_torch import cast_backbone_params
+    from aurora_tpu_torch.checkpoint import convert_reference_checkpoint
+    from aurora_tpu_torch.convert import load_numpy_params
+    from aurora_tpu_torch.tools.perf_breakdown import production_config
+
+    cls = getattr(aurora_tpu_torch, VARIANT_RUNS[name][0])
+    cfg = production_config(cls.default_config())
+    t0 = time.perf_counter()
+    sd = reference_weights(manifest, cfg, seed=0)
+    info = dict(weights_s=time.perf_counter() - t0,
+                values=sum(v.size for v in sd.values()))
+    model = cls(cfg, device="cuda", seed=None)
+    t0 = time.perf_counter()
+    if name == VIA_FILE:
+        with tempfile.TemporaryDirectory() as d:
+            path = Path(d) / cls.default_checkpoint_name
+            torch.save({k: torch.from_numpy(v) for k, v in sd.items()}, path)
+            info.update(via="file", file=path.name, file_bytes=path.stat().st_size,
+                        save_s=time.perf_counter() - t0)
+            del sd
+            t0 = time.perf_counter()
+            model.load_checkpoint_local(path)
+            torch.cuda.synchronize()
+            info["load_s"] = time.perf_counter() - t0
+    else:
+        load_numpy_params(model, convert_reference_checkpoint(sd, cfg))
+        torch.cuda.synchronize()
+        info.update(via="memory", load_s=time.perf_counter() - t0)
+        del sd
+    return cast_backbone_params(model), info
+
+
+def expected_outputs(cfg) -> tuple[set, set]:
+    """The variables a prediction of ``cfg``'s model holds after its hooks: the user's raw
+    variables (the wave model's angles and densities folded back), no ``_mod`` head."""
+    surf = cfg.surf_vars
+    if cfg.variant == "wave":
+        surf = ("2t", "10u", "10v", "msl") + cfg.density_channel_surf_vars
+    return set(surf), set(cfg.atmos_vars)
+
+
+def run_variant(name: str, manifest: dict, steps: int) -> None:
+    """One released variant: the weights through the checkpoint path, a roll-out of
+    ``steps`` steps at its full grid through the tools (launches per step checked, counts set
+    to 0 just before), the outputs' variables, shapes and values, then the same weights on
+    the reference grid against the port's own CPU run."""
+    import torch
+
+    from aurora_tpu_torch.ops import _lib
+    from aurora_tpu_torch.tools import highres_bench, variant_bench
+
+    facade, (H, W), (h, w), expected = VARIANT_RUNS[name]
+    model, info = load_variant(name, manifest)
+    cfg = model.cfg
+    _lib.reset_launches()
+    if name in variant_bench.VARIANTS:
+        r = variant_bench.main(["--variants", name, "--steps", str(steps)],
+                               models={name: model})[0]
+    elif name == "highres":
+        r = highres_bench.main(["--steps", str(steps)], model=model)[0]
+    else:  # The 12 h model: the base variables, through the same roll-out.
+        r = variant_bench.run_rollout(model, variant_bench.raw_batch(cfg, H, W, device="cuda"),
+                                      steps)
+    launches = dict(_lib.LAUNCHES)
+    for i, got in enumerate(r["launches_per_step"]):
+        if got != expected:
+            raise AssertionError(f"variant {name} step {i}: launches {got} != {expected}")
+    surf, atmos = expected_outputs(cfg)
+    Hc, Wc = H - H % cfg.patch_size, W
+    want_shapes = {**{k: [1, 1, Hc, Wc] for k in surf},
+                   **{k: [1, 1, len(LEVELS), Hc, Wc] for k in atmos}}
+    if r["outputs"] != want_shapes:
+        raise AssertionError(f"variant {name}: outputs {r['outputs']} != {want_shapes}")
+    may_nan = set(cfg.density_channel_surf_vars)
+    bad = {k: (r["nan_points"][k], r["inf_points"][k]) for k in want_shapes
+           if r["inf_points"][k] or (r["nan_points"][k] and k not in may_nan)}
+    if bad or r["rollout_step"] != steps:
+        raise AssertionError(f"variant {name}: non-finite outputs {bad}")
+    emit(dict(phase="variant", variant=name, facade=facade, grid=f"{H}x{W}",
+              patch_size=cfg.patch_size, params=sum(p.numel() for p in model.parameters()),
+              **info, steps=steps, step_s=r["step_s"], peak_mem_gib=r["peak_mem_gib"],
+              launches_per_step=r["launches_per_step"][-1], expected_per_step=expected,
+              launches=launches, nan_points={k: v for k, v in r["nan_points"].items() if v}))
+
+    # The same weights on the reference grid: the card against the port's CPU run.
+    small = variant_bench.raw_batch(cfg, h, w, seed=1, absolute=name != "highres")
+    got = model(small)
+    torch.cuda.synchronize()
+    cpu = model.to("cpu")
+    del model
+    torch.cuda.empty_cache()
+    want = cpu(small)
+    errs, flips = {}, {}
+    for k in sorted(surf | atmos):
+        g = (got.surf_vars if k in surf else got.atmos_vars)[k].double().cpu()
+        c = (want.surf_vars if k in surf else want.atmos_vars)[k].double()
+        both = torch.isfinite(g) & torch.isfinite(c)
+        errs[k] = _mean_rel(g[both], c[both])
+        flips[k] = int((torch.isnan(g) != torch.isnan(c)).sum())
+    worst = max(errs.values())
+    flip_share = sum(flips.values()) / sum(v.numel() for v in {
+        **want.surf_vars, **want.atmos_vars}.values())
+    emit(dict(phase="reference", variant=name, grid=f"{h}x{w}",
+              against="port CPU run (plain versions)", mean_rel=errs, worst=worst, tol=1e-2,
+              nan_mask_differs={k: v for k, v in flips.items() if v}, nan_flip_share=flip_share))
+    if not worst <= 1e-2:
+        raise AssertionError(f"variant {name}: card vs CPU: mean rel {worst} > 1e-2")
+    # A density point flips where the predicted density is within the card's error of 1/2;
+    # no other variable may be NaN on one side only.
+    if flip_share > NAN_FLIP_TOL or any(v for k, v in flips.items() if k not in may_nan):
+        raise AssertionError(f"variant {name}: NaN masks differ at {flips}")
+
+
+def small_refused_on_card() -> None:
+    """``AuroraSmallPretrained`` (D = 256) on the card with the production knobs: its forward
+    raises the kernels' ``ValueError`` for the width before any kernel launches; nothing
+    falls back to a plain version."""
+    from aurora_tpu_torch import AuroraSmallPretrained
+    from aurora_tpu_torch.ops import _lib
+    from aurora_tpu_torch.tools import variant_bench
+    from aurora_tpu_torch.tools.perf_breakdown import production_config
+
+    model = AuroraSmallPretrained(production_config(AuroraSmallPretrained.default_config()),
+                                  device="cuda")
+    _lib.reset_launches()
+    try:
+        model(variant_bench.raw_batch(model.cfg, 121, 240, seed=1))
+    except ValueError as e:
+        launched = sum(_lib.LAUNCHES.values())
+        emit(dict(phase="variant", variant="small", refused=str(e), launches=launched))
+        if "256" not in str(e) or launched:
+            raise AssertionError(f"AuroraSmallPretrained: refused for another reason: {e}")
+        return
+    raise AssertionError("AuroraSmallPretrained ran on the card")
+
+
+def run_variants(steps: int) -> None:
+    manifests = json.loads(open(MANIFESTS).read())
+    t0 = time.perf_counter()
+    for name, (facade, *_rest) in VARIANT_RUNS.items():
+        run_variant(name, manifests[facade], steps)
+    small_refused_on_card()
+    emit(dict(phase="variants", seconds=time.perf_counter() - t0))
+
+
 # ------------------------------------------------------------------------------ main
 
 
@@ -942,6 +1180,7 @@ def main() -> int:
         if missing:
             raise AssertionError(f"route {route}: kernels never launched: {missing}")
     launches["tools"] = run_tools()
+    run_variants(STEPS)
 
     def entry(s: dict, n_launches: int) -> dict:
         more = {k: s[k] for k in ("bound_of_tpu_work_ms", "empty_kernel_ms", "byte_bound_ms")
