@@ -23,7 +23,7 @@ from aurora_tpu_torch.model.config import (
     SMALL_CONFIG,
     AuroraConfig,
 )
-from aurora_tpu_torch.rollout import rollout
+from aurora_tpu_torch.rollout import rollout, rollout_scan
 
 __all__ = [
     "Aurora",
@@ -42,4 +42,5 @@ __all__ = [
     "SMALL_CONFIG",
     "cast_backbone_params",
     "rollout",
+    "rollout_scan",
 ]

@@ -152,3 +152,28 @@ class Batch:
     def to(self, device=None, dtype: Optional[torch.dtype] = None) -> "Batch":
         """Every variable as a tensor on ``device`` (and of ``dtype``, if given)."""
         return self._fmap(lambda v: torch.as_tensor(v).to(device=device, dtype=dtype))
+
+    def astype(self, dtype: torch.dtype) -> "Batch":
+        """Every variable as ``dtype``, on the device it lies on; ``lat``/``lon`` stay host
+        arrays of at least float32 (float64 for a float64 batch)."""
+        lat_lon = np.float64 if dtype == torch.float64 else np.float32
+        md = self.metadata
+        return Batch(
+            surf_vars={k: torch.as_tensor(v).to(dtype) for k, v in self.surf_vars.items()},
+            static_vars={k: torch.as_tensor(v).to(dtype) for k, v in self.static_vars.items()},
+            atmos_vars={k: torch.as_tensor(v).to(dtype) for k, v in self.atmos_vars.items()},
+            metadata=Metadata(
+                lat=_host(md.lat).astype(lat_lon),
+                lon=_host(md.lon).astype(lat_lon),
+                time=md.time,
+                atmos_levels=md.atmos_levels,
+                rollout_step=md.rollout_step,
+            ),
+        )
+
+    def to_numpy(self) -> "Batch":
+        """Every variable as a host NumPy array (``.cpu()`` waits for the device)."""
+        return self._fmap(_host)
+
+    def replace(self, **kwargs) -> "Batch":
+        return dataclasses.replace(self, **kwargs)

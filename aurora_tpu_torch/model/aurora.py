@@ -54,6 +54,7 @@ __all__ = [
     "AuroraWave",
     "PREDICT_DIFFERENCE_HISTORY_DIM",
     "cast_backbone_params",
+    "grid_encodings",
     "resolve_device",
 ]
 
@@ -174,6 +175,28 @@ def _wave_post_decoder(surf_pred, static_norm, cfg: AuroraConfig):
     return out
 
 
+def _on_device(a, device, dtype) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(a)).to(device=device, dtype=dtype)
+
+
+def grid_encodings(cfg: AuroraConfig, lat, lon, atmos_levels, dtype: torch.dtype,
+                   device) -> dict[str, torch.Tensor]:
+    """``pos``/``scale`` ``(L, D)``, ``levels`` ``(C_A, D)``, ``levels_dec`` ``(C_A, 2D)`` and
+    ``lead_time`` ``(D,)`` of a grid: host float64 arithmetic, rounded once to ``dtype`` on
+    ``device``. Constants of the grid, the levels and the config."""
+    D = cfg.embed_dim
+    pos, scale = pos_scale_enc_cached(D, lat, lon, cfg.patch_size)
+    levels = np.asarray(atmos_levels, dtype=np.float64)
+    lead = lead_time_expansion(np.array(cfg.timestep_hours, np.float64), D)
+    return dict(
+        pos=_on_device(pos, device, dtype),
+        scale=_on_device(scale, device, dtype),
+        levels=_on_device(levels_expansion(levels, D), device, dtype),
+        levels_dec=_on_device(levels_expansion(levels, cfg.decoder_embed_dim), device, dtype),
+        lead_time=_on_device(lead, device, dtype),
+    )
+
+
 def cast_backbone_params(model: "Aurora", dtype: torch.dtype = torch.bfloat16) -> "Aurora":
     """Store the backbone weights in ``dtype`` (in place). Under ``autocast`` the backbone
     computes in bf16 and every kernel casts its weights per use, so bf16 storage gives the
@@ -200,6 +223,7 @@ class Aurora(nn.Module):
         **overrides,
     ):
         super().__init__()
+        self._grid_encodings = None  # (key, tensors) of grid_encodings
         cfg = cfg or self.default_config()
         if overrides:
             cfg = cfg.replace(**overrides)
@@ -275,37 +299,64 @@ class Aurora(nn.Module):
         and ``forward`` again on every step."""
         return batch
 
-    def prepare_encodings(self, batch: Batch, dtype: torch.dtype) -> EncoderEncodings:
-        """All Fourier encodings, computed on the host in float64 (rounded to float32)."""
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        """The dtype the model takes its inputs in: the encoder's (the backbone may be stored
+        in bf16)."""
+        return self.encoder.surf_level_encoding.dtype
+
+    def _apply(self, fn, *args, **kwargs):
+        # ``model.to`` and its kin: the device copy of the grid encodings is of the old
+        # device or dtype, so it goes now rather than at the next step.
+        self._grid_encodings = None
+        return super()._apply(fn, *args, **kwargs)
+
+    def grid_encodings(self, metadata: Metadata, dtype: torch.dtype) -> dict[str, torch.Tensor]:
+        """The encodings that are constants of the grid and the config: ``pos``, ``scale``,
+        ``levels``, ``levels_dec`` and ``lead_time`` (:func:`grid_encodings`'s values).
+
+        One copy on the model's device is kept on the instance for the last (grid contents,
+        levels, patch, widths, timestep, dtype, device) asked for; another key replaces it,
+        so two grids in turn never hold two copies (0.27 GB at 0.25 degrees). It is not a
+        buffer and never enters the ``state_dict``."""
         cfg = self.cfg
-        D = cfg.embed_dim
-        md = batch.metadata
-        lat = np.asarray(md.lat, dtype=np.float64)
-        lon = np.asarray(md.lon, dtype=np.float64)
-        pos, scale = pos_scale_enc_cached(D, lat, lon, cfg.patch_size)
-        levels = np.asarray(md.atmos_levels, dtype=np.float64)
-        abs_hours = np.array([t.timestamp() / 3600 for t in md.time], dtype=np.float64)
+        lat = np.asarray(metadata.lat, dtype=np.float64)
+        lon = np.asarray(metadata.lon, dtype=np.float64)
+        levels = tuple(float(x) for x in metadata.atmos_levels)
+        key = (lat.shape, lat.tobytes(), lon.shape, lon.tobytes(), levels, cfg.patch_size,
+               cfg.embed_dim, cfg.decoder_embed_dim, cfg.timestep_hours, dtype, self.device)
+        if self._grid_encodings is None or self._grid_encodings[0] != key:
+            self._grid_encodings = None  # The old copy goes before the new one is made.
+            self._grid_encodings = (key, grid_encodings(cfg, lat, lon, levels, dtype,
+                                                        self.device))
+        return self._grid_encodings[1]
 
-        def dev(a):
-            return torch.as_tensor(np.asarray(a)).to(device=self.device, dtype=dtype)
-
+    def step_encodings(self, times, dtype: torch.dtype):
+        """The encodings that change from step to step, on the model's device: the absolute
+        time ``(B, D)`` of ``times`` (one per batch element) and, for ``dynamic_vars`` models,
+        the ``(B, 6)`` time features in the order of ``AuroraConfig.dynamic_var_names``
+        (else None). Host float64, rounded once to ``dtype``."""
+        cfg = self.cfg
+        abs_hours = np.array([t.timestamp() / 3600 for t in times], dtype=np.float64)
+        absolute_time = _on_device(absolute_time_expansion(abs_hours, cfg.embed_dim),
+                                   self.device, dtype)
         dynamic = None
-        if cfg.dynamic_vars:  # Order of AuroraConfig.dynamic_var_names.
-            dynamic = dev([
+        if cfg.dynamic_vars:
+            dynamic = _on_device([
                 [np.cos(2 * np.pi * t.hour / 24), np.sin(2 * np.pi * t.hour / 24),
                  np.cos(2 * np.pi * t.weekday() / 7), np.sin(2 * np.pi * t.weekday() / 7),
                  np.cos(2 * np.pi * t.day / 365.25), np.sin(2 * np.pi * t.day / 365.25)]
-                for t in md.time
-            ])
-        return EncoderEncodings(
-            pos=dev(pos),
-            scale=dev(scale),
-            levels=dev(levels_expansion(levels, D)),
-            levels_dec=dev(levels_expansion(levels, cfg.decoder_embed_dim)),
-            lead_time=dev(lead_time_expansion(np.array(cfg.timestep_hours, np.float64), D)),
-            absolute_time=dev(absolute_time_expansion(abs_hours, D)),
-            dynamic_scalars=dynamic,
-        )
+                for t in times
+            ], self.device, dtype)
+        return absolute_time, dynamic
+
+    def prepare_encodings(self, batch: Batch, dtype: torch.dtype) -> EncoderEncodings:
+        """All Fourier encodings, computed on the host in float64 (rounded to ``dtype``): the
+        grid's constants from the model's device copy, the step's own made anew."""
+        md = batch.metadata
+        absolute_time, dynamic = self.step_encodings(md.time, dtype)
+        return EncoderEncodings(**self.grid_encodings(md, dtype), absolute_time=absolute_time,
+                                dynamic_scalars=dynamic)
 
     def forward_core(self, surf, static, atmos, enc: EncoderEncodings, rollout_step: int,
                      atmos_levels):
@@ -375,8 +426,7 @@ class Aurora(nn.Module):
         cfg = self.cfg
         batch = self.batch_transform_hook(batch)
         batch = batch.crop(patch_size=cfg.patch_size)
-        # The compute dtype is the encoder's: the backbone may be stored in bf16.
-        dtype = self.encoder.surf_level_encoding.dtype
+        dtype = self.compute_dtype
         enc = self.prepare_encodings(batch, torch.float32 if dtype == torch.bfloat16 else dtype)
         b = batch.to(self.device, dtype)
         surf_pred, atmos_pred = self.forward_core(

@@ -10,12 +10,16 @@
   against ablated builds of themselves;
 * :mod:`~aurora_tpu_torch.tools.variant_bench` and :mod:`~aurora_tpu_torch.tools.highres_bench`
   (``tools/variant_bench.py``, ``tools/highres_bench.py``): roll-outs of the air-pollution,
-  wave and 0.1 degree models at their own grids.
+  wave and 0.1 degree models at their own grids;
+* :mod:`~aurora_tpu_torch.tools.bench` (``bench.py``, ``tools/rollout_scan_bench.py``): the
+  benchmark entry, one configuration's ``rollout`` or ``rollout_scan`` step by step, with
+  peak memory and the device's idle share.
 
-Each has a ``main(argv=None)`` that prints one line per result and returns the results as
-a list of dicts. They run on the card unless ``--device cpu`` is given; on the CPU every
-kernel wrapper takes its plain version and the times are host times of those, good for
-rehearsing the control flow and nothing else. Every result names its device.
+Each has a ``main(argv=None)`` that prints one line per result and returns the results (a
+list of dicts; ``bench``: one dict, its last line). They run on the card unless ``--device
+cpu`` is given; on the CPU every kernel wrapper takes its plain version and the times are
+host times of those, good for rehearsing the control flow and nothing else. Every result
+names its device.
 
 This module holds what they share: the card's published peaks, timing, the error
 measures and the result line.

@@ -7,11 +7,11 @@ weights, bf16 values in the level aggregation and de-aggregation; seeded random 
 the FiLM modulations and LoRA ``B`` opened) and a seeded batch of 13 levels, history 2, then
 times each part on its inputs as the step hands them over:
 
-  prepare_encodings               ``Aurora.prepare_encodings``: the host float64 encodings
-                                  (computed once per grid, then cached), rounded to float32
-                                  and uploaded, as every step runs it
+  prepare_encodings               ``Aurora.prepare_encodings`` as every step runs it: the
+                                  grid's constants from the model's device copy, the step's
+                                  absolute time (host float64, rounded to float32) uploaded
   batch upload                    ``Batch.to`` of the batch as a steady roll-out step gets
-                                  it: the history on the card, the static fields on the host
+                                  it: every field on the card, uploaded once by ``rollout``
   batch upload (host arrays, first step)   the same of the caller's host arrays
   Aurora.forward (whole step)     what a steady roll-out step runs: prepare_encodings, the
                                   batch upload, forward_core and the returned batch
@@ -38,7 +38,6 @@ Usage: ``python -m aurora_tpu_torch.tools.perf_breakdown [--device cpu] [--steps
 from __future__ import annotations
 
 import argparse
-import dataclasses
 from datetime import datetime
 from typing import Callable, Optional
 
@@ -103,19 +102,15 @@ def step_parts(model: Aurora, batch: Batch) -> dict[str, Callable[[], object]]:
     backbone's outputs, the backbone's and the decoder's inputs, are computed once here."""
     cfg = model.cfg
     P = cfg.patch_size
-    dtype = model.encoder.surf_level_encoding.dtype
+    dtype = model.compute_dtype
     enc_dtype = torch.float32 if dtype == torch.bfloat16 else dtype
     crop = batch.crop(P)
     H, W = crop.spatial_shape
     patch_res = (cfg.latent_levels, H // P, W // P)
     levels = tuple(crop.metadata.atmos_levels)
-    # A steady roll-out step's batch: the history (predictions fed back) on the card, the
-    # static fields as the caller passed them.
-    steady = dataclasses.replace(
-        crop, surf_vars={k: torch.as_tensor(v).to(model.device, dtype)
-                         for k, v in crop.surf_vars.items()},
-        atmos_vars={k: torch.as_tensor(v).to(model.device, dtype)
-                    for k, v in crop.atmos_vars.items()})
+    # A steady roll-out step's batch: every field on the card, as ``rollout`` uploads it once
+    # and feeds the predictions back.
+    steady = crop.to(model.device, dtype)
     with torch.no_grad():
         enc = model.prepare_encodings(steady, enc_dtype)
         b = steady.to(model.device, dtype)

@@ -56,10 +56,10 @@ WAVE_RAW = ("swh", "mwd", "mwp", "pp1d", "shww", "mdww", "mpww", "shts", "mdts",
             "swh1", "mwd1", "mwp1", "swh2", "mwd2", "mwp2", "wind", "dwi")
 
 
-def build_variant(cls: type[Aurora], device, seed: int = 0) -> Aurora:
-    """``cls`` with its default config and the production knobs, seeded weights, gates
-    opened, the backbone stored in bf16."""
-    model = cls(production_config(cls.default_config()), device=device, seed=seed)
+def build_variant(cls: type[Aurora], device, seed: int = 0, cfg=None) -> Aurora:
+    """``cls`` with its default config (or ``cfg``) and the production knobs, seeded
+    weights, gates opened, the backbone stored in bf16."""
+    model = cls(production_config(cfg or cls.default_config()), device=device, seed=seed)
     open_gates(model)
     return cast_backbone_params(model)
 

@@ -54,7 +54,13 @@ Phases, each printing one JSON line; any failure raises and the script exits non
    After the main route's roll-out, the breakdown: ``perf_breakdown``, ``encoder_breakdown``
    and ``decoder_breakdown`` as a user runs them, in process, on the main route's model at
    720 x 1440 (one JSON line per row, with the launches of one call of its part); the level
-   aggregation and de-aggregation must have launched K4 and K3, the backbone K1-K3;
+   aggregation and de-aggregation must have launched K4 and K3, the backbone K1-K3. Then the
+   roll-outs, on the same model, as ``tools.bench`` measures them: ``rollout``,
+   ``rollout_scan`` and ``rollout_scan(host_offload=True)``, 5 steps each from one
+   721 x 1440 batch of host arrays (step times, peak memory, steps per second, the idle share
+   of two steady steps from ``torch.profiler``); launches per step as the main route's; the
+   three the same bits step by step (or within 1e-3 mean relative); the host-offload peak
+   within one prediction of a 2-step host-offload roll-out's; the caller's arrays unchanged;
 5. tools: the probe tools as a user runs them, in process, at the full 0.25 degree token
    grid: ``backbone_ablate`` with every variant, ``gemm_probe`` and ``smem_probe`` (counts
    set to 0 just before); K9-K13 must each have launched, and the backbones under
@@ -70,8 +76,10 @@ Phases, each printing one JSON line; any failure raises and the script exits non
    set to 0 just before: step times, peak memory, launches per step checked against the code;
    the outputs are the user's variables after the hooks (no ``_mod``, sin/cos or density
    channel) at the right shapes, finite but for the wave model's NaN where it predicts no
-   waves. Then the same weights on a reference grid (121 x 240; HighRes 241 x 480) against
-   the port's CPU run: mean relative error <= 1e-2 per output variable where both are finite,
+   waves. Then the variant's own config, widths, hooks and grid at two blocks per backbone
+   stage (the second shifted: it must launch K1 and K2), seeded on the card, on a reference
+   grid (121 x 240; HighRes 241 x 480) against the port's CPU run of the same weights: mean
+   relative error <= 1e-2 per output variable where both are finite,
    and the points where the wave NaN masks differ (a density within the card's error of 1/2)
    at most 5%. ``AuroraSmallPretrained`` (D = 256) must raise the kernels' ``ValueError``;
 7. the kernels summary line, one entry per kernel (K1-K8: times per forward step, each
@@ -93,10 +101,15 @@ import subprocess
 import sys
 import time
 
-# Roll-out steps of the end-to-end phase. The second step still uploads the caller's host
-# history (rollout concatenates it with the first prediction on the card); the third is the
-# first steady one.
+# Roll-out steps of the end-to-end and variants phases. ``rollout`` uploads the caller's
+# history once, before the first step, so the second step is the first steady one.
 STEPS = 3
+# Roll-out steps of the rollout_scan phase, and of its short host-offload roll-out whose peak
+# memory the full one's is held to.
+SCAN_STEPS, SHORT_STEPS = 5, 2
+# Bound on the mean relative difference between the three roll-outs if a kernel turns out
+# not to give the same bits from run to run (they are expected to be equal).
+SCAN_AGREE_TOL = 1e-3
 REPS = 10  # timed runs per kernel and shape, after 2 warm-up runs
 LEVELS = (50, 100, 150, 200, 250, 300, 400, 500, 600, 700, 850, 925, 1000)
 SURF, ATMOS = ("2t", "10u", "10v", "msl"), ("z", "u", "v", "t", "q")
@@ -886,6 +899,92 @@ def run_breakdown(model) -> None:
     emit(dict(phase="breakdown", seconds=time.perf_counter() - t0))
 
 
+# ------------------------------------------------------------------------------ roll-outs
+
+
+def run_rollouts(model) -> None:
+    """The port's three roll-outs on the main route's model, as ``tools.bench`` measures
+    them (``bench.measure``: every step's time, launches and peak memory, steps per second,
+    the idle share of two steady steps), each of SCAN_STEPS steps from one 721 x 1440 batch
+    of host arrays: ``rollout``, ``rollout_scan`` and ``rollout_scan(host_offload=True)``.
+    Launches per step as ``ROUTES["main"]``; the three agree step by step (the same bits, or
+    within SCAN_AGREE_TOL mean relative); the host-offload roll-out's peak memory exceeds a
+    SHORT_STEPS one's by less than one prediction; the caller's arrays are unchanged."""
+    import numpy as np
+    import torch
+
+    from aurora_tpu_torch.ops import _lib
+    from aurora_tpu_torch.tools import bench
+
+    t0 = time.perf_counter()
+    model, batch = bench.build("main", model.device, model=model)
+    groups = ("surf_vars", "static_vars", "atmos_vars")
+    before = {(g, k): np.array(v) for g in groups for k, v in getattr(batch, g).items()}
+    expected = ROUTES["main"][1]
+    rows, first = {}, None
+    for kind in bench.ROLLOUTS:
+        _lib.reset_launches()
+        row, preds = bench.measure(model, batch, kind, SCAN_STEPS)
+        row["launches"] = dict(_lib.LAUNCHES)  # over its timed, profiled and free-running runs
+        preds = [p.to_numpy() for p in preds]
+        torch.cuda.empty_cache()
+        rows[kind] = row
+        missing = [k for k in expected if not row["launches"][k]]
+        if missing:
+            raise AssertionError(f"{kind}: kernels never launched: {missing}")
+        for i, got in enumerate(row["launches_per_step"]):
+            if got != expected:
+                raise AssertionError(f"{kind} step {i}: launches {got} != {expected}")
+        for i, p in enumerate(preds):
+            for k, v in {**p.surf_vars, **p.atmos_vars}.items():
+                if not np.isfinite(v).all():
+                    raise AssertionError(f"{kind} step {i} {k}: non-finite values")
+        if first is None:
+            first = preds
+        else:
+            row["against_loop"] = agreement(first, preds)
+            if not row["against_loop"]["worst_mean_rel"] <= SCAN_AGREE_TOL:
+                raise AssertionError(f"{kind} against rollout: {row['against_loop']}")
+        emit(dict(phase="rollout_scan", **row))
+    short = bench.timed(model, batch, "scan_offload", SHORT_STEPS)[0]["peak_mem_gib"]
+    full = rows["scan_offload"]["peak_mem_gib"]
+    pred_gib = sum(v.nbytes for v in {**first[0].surf_vars, **first[0].atmos_vars}.values())
+    pred_gib /= 2**30
+    changed = [gk for gk, v in before.items() if not np.array_equal(getattr(batch, gk[0])[gk[1]], v)]
+    emit(dict(phase="rollout_scan", seconds=time.perf_counter() - t0,
+              offload_peak_mem_gib={SHORT_STEPS: short, SCAN_STEPS: full},
+              prediction_gib=pred_gib, callers_arrays_changed=changed))
+    if not full - short < pred_gib:
+        raise AssertionError(f"host offload: peak {full} GiB at {SCAN_STEPS} steps against "
+                             f"{short} at {SHORT_STEPS}: more than one prediction "
+                             f"({pred_gib} GiB)")
+    if changed:
+        raise AssertionError(f"the roll-outs wrote to the caller's arrays {changed}")
+
+
+def agreement(want: list, got: list) -> dict:
+    """Whether two roll-outs' predictions (host arrays) are the same bits, step by step, and
+    their worst mean relative difference."""
+    import numpy as np
+
+    same, worst = True, 0.0
+    for w, g in zip(want, got, strict=True):
+        for k, a in {**w.surf_vars, **w.atmos_vars}.items():
+            b = (g.surf_vars if k in w.surf_vars else g.atmos_vars)[k]
+            if not np.array_equal(a, b):
+                same = False
+                a64, b64 = a.astype(np.float64), b.astype(np.float64)
+                worst = max(worst, float(np.abs(a64 - b64).mean() / (np.abs(a64).mean() + 1e-30)))
+    return dict(bit_equal=same, worst_mean_rel=worst)
+
+
+def run_main_phases(model) -> None:
+    """What runs on the main route's model after its roll-out: the breakdown tools, then the
+    three roll-outs."""
+    run_breakdown(model)
+    run_rollouts(model)
+
+
 # ------------------------------------------------------------------------------ tools
 
 
@@ -990,6 +1089,13 @@ def reference_weights(manifest: dict, cfg, seed: int) -> dict:
     return {k: host[o:o + math.prod(s)].reshape(s) for k, (o, s) in spans.items()}
 
 
+def type_of(name: str):
+    """The facade class of a variant."""
+    import aurora_tpu_torch
+
+    return getattr(aurora_tpu_torch, VARIANT_RUNS[name][0])
+
+
 def load_variant(name: str, manifest: dict):
     """The production model of one released variant on the card, with its weights loaded
     through the port's checkpoint code: from a ``.ckpt`` file for ``VIA_FILE``, else the
@@ -1000,13 +1106,12 @@ def load_variant(name: str, manifest: dict):
 
     import torch
 
-    import aurora_tpu_torch
     from aurora_tpu_torch import cast_backbone_params
     from aurora_tpu_torch.checkpoint import convert_reference_checkpoint
     from aurora_tpu_torch.convert import load_numpy_params
     from aurora_tpu_torch.tools.perf_breakdown import production_config
 
-    cls = getattr(aurora_tpu_torch, VARIANT_RUNS[name][0])
+    cls = type_of(name)
     cfg = production_config(cls.default_config())
     t0 = time.perf_counter()
     sd = reference_weights(manifest, cfg, seed=0)
@@ -1085,14 +1190,26 @@ def run_variant(name: str, manifest: dict, steps: int) -> None:
               launches_per_step=r["launches_per_step"][-1], expected_per_step=expected,
               launches=launches, nan_points={k: v for k, v in r["nan_points"].items() if v}))
 
-    # The same weights on the reference grid: the card against the port's CPU run.
+    # The reference: the variant's own config, widths, hooks and grid at two blocks per
+    # backbone stage (one unshifted, one shifted: K1 and K2's masked attention run on the
+    # variant's own token grid), seeded on the card, on the reference grid; the card against
+    # the port's CPU run of the same weights.
+    del model
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    shallow = cfg.replace(encoder_depths=(2,) * len(cfg.encoder_depths),
+                          decoder_depths=(2,) * len(cfg.decoder_depths))
+    model = variant_bench.build_variant(type_of(name), "cuda", cfg=shallow)
     small = variant_bench.raw_batch(cfg, h, w, seed=1, absolute=name != "highres")
+    before = dict(_lib.LAUNCHES)
     got = model(small)
     torch.cuda.synchronize()
+    ref_launches = {k: n - before[k] for k, n in _lib.LAUNCHES.items() if n != before[k]}
     cpu = model.to("cpu")
     del model
     torch.cuda.empty_cache()
     want = cpu(small)
+    del cpu
     errs, flips = {}, {}
     for k in sorted(surf | atmos):
         g = (got.surf_vars if k in surf else got.atmos_vars)[k].double().cpu()
@@ -1104,8 +1221,13 @@ def run_variant(name: str, manifest: dict, steps: int) -> None:
     flip_share = sum(flips.values()) / sum(v.numel() for v in {
         **want.surf_vars, **want.atmos_vars}.values())
     emit(dict(phase="reference", variant=name, grid=f"{h}x{w}",
+              depths=(shallow.encoder_depths, shallow.decoder_depths), launches=ref_launches,
               against="port CPU run (plain versions)", mean_rel=errs, worst=worst, tol=1e-2,
-              nan_mask_differs={k: v for k, v in flips.items() if v}, nan_flip_share=flip_share))
+              nan_mask_differs={k: v for k, v in flips.items() if v}, nan_flip_share=flip_share,
+              seconds=time.perf_counter() - t0))
+    missing = [k for k in ("roll3d", "window_attention") if not ref_launches.get(k)]
+    if missing:
+        raise AssertionError(f"variant {name}: the reference run never launched {missing}")
     if not worst <= 1e-2:
         raise AssertionError(f"variant {name}: card vs CPU: mean rel {worst} > 1e-2")
     # A density point flips where the predicted density is within the card's error of 1/2;
@@ -1175,7 +1297,7 @@ def main() -> int:
     launches = {}
     for route in ROUTES:
         launches[route] = run_route(route, STEPS, (121, 240),
-                                    then=run_breakdown if route == "main" else None)
+                                    then=run_main_phases if route == "main" else None)
         missing = [k for k, n in ROUTES[route][1].items() if launches[route][k] == 0]
         if missing:
             raise AssertionError(f"route {route}: kernels never launched: {missing}")
