@@ -14,7 +14,8 @@ a model, with the JAX package's layouts:
 The tree's path ``a.b.0.c`` is the port's parameter name, so a model built on the ``meta``
 device gives the structure a tree is validated against without allocating a weight. Native
 save and restore are ``torch.save`` / ``torch.load(weights_only=True)`` of a model's
-``state_dict``. The leaves are numpy arrays: nothing here needs JAX.
+``state_dict``, and of a training state (the model's and the optimiser's state dicts and the
+step). The leaves are numpy arrays: nothing here needs JAX.
 """
 
 from __future__ import annotations
@@ -42,6 +43,8 @@ __all__ = [
     "load_checkpoint",
     "save_params",
     "restore_params",
+    "save_train_state",
+    "restore_train_state",
 ]
 
 _RESAMPLER_RE = re.compile(
@@ -479,3 +482,23 @@ def restore_params(path, like: torch.nn.Module | None = None):
         return sd
     like.load_state_dict(sd)
     return like
+
+
+def save_train_state(path, model: torch.nn.Module, optimizer, step: int = 0) -> None:
+    """Save a training state, the model's and the optimiser's state dicts and the step, with
+    ``torch.save`` (the counterpart of ``aurora_tpu/checkpoint.py:497-536``, whose Orbax
+    format is not carried over). ``optimizer``: the bound optimiser of
+    :func:`aurora_tpu_torch.training.adamw` (AdamW moments, the accumulated gradient of a
+    ``MultiSteps`` cycle and its count), or any object with ``state_dict``."""
+    torch.save({"params": model.state_dict(), "opt_state": optimizer.state_dict(),
+                "step": int(step)}, path)
+
+
+def restore_train_state(path, model: torch.nn.Module, optimizer) -> int:
+    """Load a state saved by :func:`save_train_state` into ``model`` and ``optimizer`` (built
+    as for the save, the optimiser bound to the model); returns the step. The tensors land on
+    the model's device, in its dtypes."""
+    state = torch.load(path, map_location="cpu", weights_only=True)
+    model.load_state_dict(state["params"])
+    optimizer.load_state_dict(state["opt_state"])
+    return int(state["step"])

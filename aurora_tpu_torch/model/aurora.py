@@ -2,7 +2,9 @@
 variants (port of ``aurora_tpu/model/aurora.py``).
 
 ``forward`` runs normalise -> clamp -> variant pre-hook -> encoder (f32) -> backbone (bf16
-under ``autocast``) -> decoder -> variant post-hook -> gated clamps -> unnormalise. The
+under ``autocast``) -> decoder -> variant post-hook -> gated clamps -> unnormalise
+(``forward_core``, which keeps gradients and is what the train steps call; ``forward`` is
+the ``no_grad`` step on a :class:`Batch`). The
 Fourier encodings are computed on the host in float64. The model runs on the card unless
 the caller passes ``device="cpu"``. The variants (air pollution, ocean waves) are hook
 functions dispatched on ``cfg.variant`` plus a host-side ``batch_transform_hook``; each
@@ -33,7 +35,7 @@ from aurora_tpu_torch.model.config import (
 )
 from aurora_tpu_torch.model.decoder import Decoder
 from aurora_tpu_torch.model.encoder import Encoder, EncoderEncodings
-from aurora_tpu_torch.model.nn import Linear
+from aurora_tpu_torch.model.nn import Linear, checkpointed, full_f32_products
 from aurora_tpu_torch.model.swin3d import Backbone
 from aurora_tpu_torch.normalisation import (
     normalise_atmos_var,
@@ -54,6 +56,7 @@ __all__ = [
     "AuroraWave",
     "PREDICT_DIFFERENCE_HISTORY_DIM",
     "cast_backbone_params",
+    "full_f32_products",
     "grid_encodings",
     "resolve_device",
 ]
@@ -84,14 +87,10 @@ def resolve_device(device=None) -> torch.device:
 
 
 def _check_supported(cfg: AuroraConfig) -> None:
-    """The training knobs wait for the training port; every inference knob is ported."""
-    unported = {
-        "drop_path/drop_rate": cfg.drop_path > 0 or cfg.drop_rate > 0,
-        "remat": cfg.remat,
-    }
-    missing = [k for k, v in unported.items() if v]
-    if missing:
-        raise NotImplementedError(f"not ported yet: {', '.join(missing)}")
+    """The stochastic training knobs wait for a port of their own; every other knob is
+    ported."""
+    if cfg.drop_path > 0 or cfg.drop_rate > 0:
+        raise NotImplementedError("not ported yet: drop_path/drop_rate")
 
 
 # ------------------------------------------------------------------- variant hooks
@@ -230,10 +229,6 @@ class Aurora(nn.Module):
         _check_supported(cfg)
         self.cfg = cfg
         dev = resolve_device(device)
-        if dev.type == "cuda":
-            # The encoder, decoder and perceiver q/k run full f32, as the JAX reference.
-            torch.backends.cuda.matmul.allow_tf32 = False
-            torch.backends.cudnn.allow_tf32 = False
         kw = dict(device=dev, dtype=dtype)
         self.encoder = Encoder(cfg, **kw)
         self.backbone = Backbone(cfg.backbone, **kw)
@@ -361,8 +356,18 @@ class Aurora(nn.Module):
     def forward_core(self, surf, static, atmos, enc: EncoderEncodings, rollout_step: int,
                      atmos_levels):
         """Unnormalised ``surf (B, T, H, W)``, ``static (H, W)``, ``atmos (B, T, C, H, W)``
-        -> unnormalised predictions ``(B, H, W)`` / ``(B, C, H, W)``."""
+        -> unnormalised predictions ``(B, H, W)`` / ``(B, C, H, W)``.
+
+        Keeps gradients (the train steps call it, as the JAX train step calls
+        ``forward_core``). With ``cfg.remat`` under ``remat_scope="full"`` the encoder, the
+        backbone and the decoder are each rematerialised as a whole
+        (``aurora_tpu/model/aurora.py:311-368``), the backbone's stages and blocks inside."""
+        with full_f32_products():
+            return self._forward_core(surf, static, atmos, enc, rollout_step, atmos_levels)
+
+    def _forward_core(self, surf, static, atmos, enc, rollout_step, atmos_levels):
         cfg = self.cfg
+        outer = cfg.remat and cfg.remat_scope == "full"
         stats = dict(cfg.surf_stats)
         B, T, H, W = next(iter(surf.values())).shape
         patch_res = (cfg.latent_levels, H // cfg.patch_size, W // cfg.patch_size)
@@ -383,15 +388,17 @@ class Aurora(nn.Module):
         elif cfg.variant == "wave":
             surf_t = _wave_pre_encoder(surf_t, cfg)
 
-        x = self.encoder(surf_t, static_exp, atmos_t, enc, atmos_levels)
+        x = checkpointed(outer, self.encoder, surf_t, static_exp, atmos_t, enc, atmos_levels)
         if cfg.autocast:
-            x = self.backbone(x.to(torch.bfloat16), enc.lead_time, rollout_step, patch_res)
+            x = checkpointed(outer, self.backbone, x.to(torch.bfloat16), enc.lead_time,
+                             rollout_step, patch_res)
             x = x.to(torch.float32)
         else:
-            x = self.backbone(x, enc.lead_time, rollout_step, patch_res)
+            x = checkpointed(outer, self.backbone, x, enc.lead_time, rollout_step, patch_res)
         # The decoder's variables are the hook-supplemented ones.
-        surf_pred, atmos_pred = self.decoder(
-            x, tuple(surf_t), tuple(atmos_t), enc.levels_dec, patch_res, H, W, atmos_levels
+        surf_pred, atmos_pred = checkpointed(
+            outer, self.decoder, x, tuple(surf_t), tuple(atmos_t), enc.levels_dec, patch_res,
+            H, W, atmos_levels,
         )
 
         if cfg.variant == "air_pollution":

@@ -17,7 +17,7 @@ import torch
 from torch import nn
 
 from aurora_tpu_torch.model.config import AuroraConfig
-from aurora_tpu_torch.model.nn import Linear, linear
+from aurora_tpu_torch.model.nn import Linear, full_f32_products, linear
 from aurora_tpu_torch.model.perceiver import PerceiverResampler, resampler_shared_query_apply
 from aurora_tpu_torch.normalisation import level_to_str
 
@@ -107,6 +107,7 @@ class Decoder(nn.Module):
         # Under value_bf16 the heads read bf16 and accumulate in f32 (_head_linear).
         return out if value_bf16 else out.to(x.dtype)
 
+    @full_f32_products()
     def forward(self, x, surf_names, atmos_names, levels_encode, patch_res, H: int, W: int,
                 atmos_levels=None):
         """Tokens ``(B, C_l * Hp * Wp, 2D)`` -> surface ``{name: (B, H, W)}`` and

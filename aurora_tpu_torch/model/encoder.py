@@ -17,7 +17,7 @@ import torch
 from torch import nn
 
 from aurora_tpu_torch.model.config import AuroraConfig
-from aurora_tpu_torch.model.nn import LayerNorm, Linear, MLP, trunc_normal_
+from aurora_tpu_torch.model.nn import LayerNorm, Linear, MLP, full_f32_products, trunc_normal_
 from aurora_tpu_torch.model.patchembed import LevelPatchEmbed
 from aurora_tpu_torch.model.perceiver import PerceiverResampler, resampler_shared_query_apply
 from aurora_tpu_torch.normalisation import level_to_str
@@ -94,6 +94,7 @@ class Encoder(nn.Module):
         )  # (B * L, C_l, D)
         return out.reshape(B, L, -1, D).transpose(1, 2).to(x.dtype)
 
+    @full_f32_products()
     def forward(self, surf_vars, static_vars, atmos_vars, enc: EncoderEncodings,
                 atmos_levels=None):
         """``surf_vars[k]: (B, T, H, W)``, ``static_vars[k]: (B, T, H, W)`` (expanded),

@@ -13,15 +13,20 @@ Conventions kept from the JAX package so the two compare like with like:
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 __all__ = [
     "acc_dtype",
+    "checkpointed",
+    "full_f32_products",
+    "matmul_acc",
     "linear",
     "layernorm",
     "gelu",
@@ -40,6 +45,49 @@ __all__ = [
 def acc_dtype(dtype: torch.dtype) -> torch.dtype:
     """The accumulation type of a plain version: f64 stays f64, everything else is f32."""
     return torch.float64 if dtype == torch.float64 else torch.float32
+
+
+def matmul_acc(a: torch.Tensor, b: torch.Tensor, fast: bool = False) -> torch.Tensor:
+    """``a @ b`` accumulated in f32 (f64 for f64 operands of one dtype) and returned in the
+    accumulation type: the JAX package's ``dot_general(..., preferred_element_type=f32)``.
+
+    ``fast=False`` (the kernels' plain versions) widens both operands first, so a bf16 product
+    runs as an f32 one. ``fast=True`` (the forms the backward differentiates,
+    :mod:`aurora_tpu_torch.ops.ad`) multiplies in the operands' dtype, which on the card is a
+    bf16 product accumulating in f32, rounded once to bf16 before it is widened. In float64
+    the two are one computation."""
+    acc = acc_dtype(a.dtype)
+    if fast:
+        return (a @ b).to(acc)
+    return a.to(acc) @ b.to(acc)
+
+
+@contextlib.contextmanager
+def full_f32_products():
+    """Full-f32 products and convolutions on the card (TF32 off) for the model's own calls,
+    the caller's settings restored on exit. The encoder, the decoder and the perceiver's q
+    and k run in f32 as the JAX reference does; PyTorch would run f32 convolutions in TF32
+    by default, and a caller may have switched TF32 on for its products. ``Encoder.forward``,
+    ``Decoder.forward`` and ``Aurora.forward_core`` run inside it; the train steps hold it
+    over their backward too."""
+    matmul, cudnn = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = matmul
+        torch.backends.cudnn.allow_tf32 = cudnn
+
+
+def checkpointed(on: bool, fn, *args):
+    """``fn(*args)``; with ``on``, rematerialised: its activations are not kept for the
+    backward, which runs ``fn`` again (``jax.checkpoint``'s counterpart, non-reentrant
+    ``torch.utils.checkpoint``). A region inside another one runs once more for each region
+    around it: the backward of the outer one replays it, then its own backward."""
+    if not on:
+        return fn(*args)
+    return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
 
 
 def trunc_normal_(t: torch.Tensor, gen: torch.Generator, std: float = 0.02) -> torch.Tensor:

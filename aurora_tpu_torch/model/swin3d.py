@@ -23,6 +23,10 @@ the TPU's VMEM budget (``swin3d.py:1253-1260``) has no counterpart on the card: 
 
 Encoder stages double the feature dim by patch merging, decoder stages halve it by patch
 splitting; intermediate skips are additive and the last one a concatenation.
+
+With ``remat`` each block is rematerialised in the backward, and under ``remat_scope``
+"full" and "no_outer" each stage too (``aurora_tpu/model/swin3d.py:1585-1586``,
+``:1632-1634``, ``:1673-1675``); the whole backbone is wrapped by the model under "full".
 """
 
 from __future__ import annotations
@@ -41,6 +45,7 @@ from aurora_tpu_torch.model.nn import (
     LayerNorm,
     Linear,
     MLP,
+    checkpointed,
     linear,
     merge_heads,
     sdpa,
@@ -363,8 +368,14 @@ class Backbone(nn.Module):
         half = tuple(w // 2 for w in self.cfg.window_size)
         for i, block in enumerate(layer.blocks):
             shift = (0, 0, 0) if i % 2 == 0 else half
-            x = block(x, c, res, shift, num_heads, rollout_step)
+            x = checkpointed(self.cfg.remat, block, x, c, res, shift, num_heads, rollout_step)
         return x
+
+    def _run_layer(self, layer, x, c, res, num_heads, rollout_step):
+        """One stage, rematerialised as a whole under ``remat_scope`` "full" / "no_outer"."""
+        cfg = self.cfg
+        on = cfg.remat and cfg.remat_scope in ("full", "no_outer")
+        return checkpointed(on, self._run_blocks, layer, x, c, res, num_heads, rollout_step)
 
     def forward(self, x, lead_time_encode, rollout_step: int, patch_res):
         cfg = self.cfg
@@ -378,15 +389,15 @@ class Backbone(nn.Module):
         x = x.reshape(B, *patch_res, D)
         skips = []
         for i, layer in enumerate(self.encoder_layers):
-            x = self._run_blocks(layer, x, c, all_enc_res[i], cfg.encoder_num_heads[i],
-                                 rollout_step)
+            x = self._run_layer(layer, x, c, all_enc_res[i], cfg.encoder_num_heads[i],
+                                rollout_step)
             skips.append(x)
             if layer.downsample is not None:
                 x = layer.downsample(x, all_enc_res[i])
         for i, layer in enumerate(self.decoder_layers):
             index = n_dec - i - 1
-            x = self._run_blocks(layer, x, c, all_enc_res[index], cfg.decoder_num_heads[i],
-                                 rollout_step)
+            x = self._run_layer(layer, x, c, all_enc_res[index], cfg.decoder_num_heads[i],
+                                rollout_step)
             if layer.upsample is not None:
                 x = layer.upsample(x, all_enc_res[index], padded_outs[index - 1])
             if 0 < i < n_dec - 1:

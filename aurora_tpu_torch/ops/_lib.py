@@ -7,7 +7,9 @@ kernel (or at :func:`build`). Nothing here runs when a module is imported: the C
 import every kernel module on machines without ``nvcc`` or a card.
 
 Every wrapper adds one to its entry in :data:`LAUNCHES` where it launches its kernel and
-nowhere else, so a run can show that its main path went through the kernels.
+nowhere else, so a run can show that its main path went through the kernels. A forward call
+counts once under its wrapper's key whether or not it records a gradient; K1's launch in a
+backward counts under ``roll3d_bwd``.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ NVCC_FLAGS = (
 
 LAUNCHES: dict[str, int] = {
     "roll3d": 0,
+    "roll3d_bwd": 0,  # K1 launched by the backward of a roll (the shifts negated)
     "window_attention": 0,
     "mlp_adaln_residual": 0,
     "perceiver_core": 0,

@@ -44,6 +44,13 @@ copy) and the product and row kernels of ``csrc/gemm_rows_sm90.cuh``:
   takes D in (512, 1024, 2048) (:func:`check_linear_shape`). Its bound is bytes at D = 512,
   operations above.
 
+Gradients (:mod:`aurora_tpu_torch.ops.ad`, the counterpart of the JAX package's
+``kernel_with_xla_grad`` at ``mlp.py:302-314``, ``:445-536``, ``:629-645``): under grad mode a
+call whose inputs require a gradient launches the kernels and saves its inputs; the backward
+differentiates the plain math with bf16 products (:func:`aurora_tpu_torch.model.nn.matmul_acc`
+with ``fast``), chunk of rows by chunk of rows so that the f32 hidden layer of a chunk stays
+under ``ad.GRAD_CHUNK_BYTES``, the weights' gradients summed over the chunks in f32.
+
 Times in PERF.md.
 """
 
@@ -53,8 +60,8 @@ import ctypes
 
 import torch
 
-from aurora_tpu_torch.model.nn import acc_dtype
-from aurora_tpu_torch.ops import _lib
+from aurora_tpu_torch.model.nn import acc_dtype, matmul_acc
+from aurora_tpu_torch.ops import _lib, ad
 
 __all__ = [
     "MLP_SCRATCH_BYTES",
@@ -98,14 +105,23 @@ def film_layernorm_residual(
     return (residual.to(acc) + mod).to(dt)
 
 
+def _mlp(x, w1, b1, w2, b2, fast: bool) -> torch.Tensor:
+    dt, acc = x.dtype, acc_dtype(x.dtype)
+    hid = (matmul_acc(x, w1.to(dt), fast) + b1.to(acc)).to(dt)
+    hid = torch.nn.functional.gelu(hid.to(acc)).to(dt)
+    return (matmul_acc(hid, w2.to(dt), fast) + b2.to(acc)).to(dt)
+
+
 def mlp_fused_plain(
     x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor
 ) -> torch.Tensor:
     """Plain version of :func:`mlp_fused`."""
-    dt, acc = x.dtype, acc_dtype(x.dtype)
-    hid = (x.to(acc) @ w1.to(dt).to(acc) + b1.to(acc)).to(dt)
-    hid = torch.nn.functional.gelu(hid.to(acc)).to(dt)
-    return (hid.to(acc) @ w2.to(dt).to(acc) + b2.to(acc)).to(dt)
+    return _mlp(x, w1, b1, w2, b2, fast=False)
+
+
+def _mlp_fused_grad(x, w1, b1, w2, b2, part=None):
+    """What the backward of :func:`mlp_fused` differentiates: the plain math, bf16 products."""
+    return _mlp(x, w1, b1, w2, b2, fast=True)
 
 
 def mlp_adaln_residual_plain(
@@ -124,6 +140,12 @@ def mlp_adaln_residual_plain(
     return film_layernorm_residual(y, x, shift, scale, scale_bias, ln_eps)
 
 
+def _mlp_adaln_residual_grad(x, w1, b1, w2, b2, shift, scale, scale_bias, ln_eps, part=None):
+    """What the backward of :func:`mlp_adaln_residual` differentiates."""
+    y = _mlp(x, w1, b1, w2, b2, fast=True)
+    return film_layernorm_residual(y, x, shift, scale, scale_bias, ln_eps)
+
+
 def linear_adaln_residual_plain(
     x: torch.Tensor,
     w: torch.Tensor,
@@ -134,9 +156,27 @@ def linear_adaln_residual_plain(
     scale_bias: float = 0.0,
 ) -> torch.Tensor:
     """Plain version of :func:`linear_adaln_residual`."""
+    return _linear_adaln_residual(x, w, b, shortcut, shift, scale, scale_bias, fast=False)
+
+
+def _linear_adaln_residual(x, w, b, shortcut, shift, scale, scale_bias, fast: bool):
     dt, acc = x.dtype, acc_dtype(x.dtype)
-    y = (x.to(acc) @ w.to(dt).to(acc) + b.to(acc)).to(dt)
+    y = (matmul_acc(x, w.to(dt), fast) + b.to(acc)).to(dt)
     return film_layernorm_residual(y, shortcut, shift, scale, scale_bias, 1e-5)
+
+
+def _linear_adaln_residual_grad(x, w, b, shortcut, shift, scale, scale_bias, part=None):
+    """What the backward of :func:`linear_adaln_residual` differentiates."""
+    return _linear_adaln_residual(x, w, b, shortcut, shift, scale, scale_bias, fast=True)
+
+
+def _row_chunks(x: torch.Tensor, n_args: int, f32_per_row: int, dim: int = 1) -> ad.Chunks:
+    """The backward's chunks of rows (axis ``dim`` of ``x``, the first of ``n_args``
+    arguments; the rest whole): as many rows as keep ``f32_per_row`` f32 values a row,
+    over the whole batch, under ``ad.GRAD_CHUNK_BYTES``."""
+    per = 4 * f32_per_row * max(1, x.numel() // (x.shape[dim] * x.shape[-1]))
+    return ad.Chunks((dim,) + (None,) * (n_args - 1), dim,
+                     ad.chunk_bounds(x.shape[dim], ad.GRAD_CHUNK_BYTES // per))
 
 
 def _same_device(x: torch.Tensor, **tensors: torch.Tensor) -> None:
@@ -238,6 +278,19 @@ def mlp_adaln_residual(
     """
     if x.device.type == "cpu":
         return mlp_adaln_residual_plain(x, w1, b1, w2, b2, shift, scale, scale_bias, ln_eps)
+    args = (x, w1, b1, w2, b2, shift, scale, scale_bias, ln_eps)
+    if ad.needs_grad(*args):
+        return _mlp_adaln_residual_differentiable(*args)
+    return _mlp_adaln_residual_launch(*args)
+
+
+def _mlp_adaln_residual_differentiable(*args):
+    x, w1 = args[:2]
+    return ad.kernel_with_plain_grad(_mlp_adaln_residual_launch, _mlp_adaln_residual_grad,
+                                     chunks=_row_chunks(x, len(args), w1.shape[1]))(*args)
+
+
+def _mlp_adaln_residual_launch(x, w1, b1, w2, b2, shift, scale, scale_bias, ln_eps):
     B, L, D = x.shape
     ops = _mlp_operands(x, w1, b1, w2, b2)
     shf = shift.to(torch.float32).reshape(B, D).contiguous()
@@ -261,6 +314,19 @@ def mlp_fused(
     """
     if x.device.type == "cpu":
         return mlp_fused_plain(x, w1, b1, w2, b2)
+    args = (x, w1, b1, w2, b2)
+    if ad.needs_grad(*args):
+        return _mlp_fused_differentiable(*args)
+    return _mlp_fused_launch(*args)
+
+
+def _mlp_fused_differentiable(*args):
+    x, w1 = args[:2]
+    chunks = _row_chunks(x, len(args), w1.shape[1], dim=max(0, x.dim() - 2))
+    return ad.kernel_with_plain_grad(_mlp_fused_launch, _mlp_fused_grad, chunks=chunks)(*args)
+
+
+def _mlp_fused_launch(x, w1, b1, w2, b2):
     D = x.shape[-1]
     ops = _mlp_operands(x, w1, b1, w2, b2)
     _same_device(x, w1=ops[0], b1=ops[1], w2=ops[2], b2=ops[3])
@@ -288,6 +354,21 @@ def linear_adaln_residual(
     """
     if x.device.type == "cpu":
         return linear_adaln_residual_plain(x, w, b, shortcut, shift, scale, scale_bias)
+    args = (x, w, b, shortcut, shift, scale, scale_bias)
+    if ad.needs_grad(*args):
+        return _linear_adaln_residual_differentiable(*args)
+    return _linear_adaln_residual_launch(*args)
+
+
+def _linear_adaln_residual_differentiable(*args):
+    x = args[0]
+    bounds = _row_chunks(x, len(args), 2 * x.shape[-1]).bounds  # y and its LayerNorm, f32
+    chunks = ad.Chunks((1, None, None, 1, None, None, None), 1, bounds)  # x and shortcut
+    return ad.kernel_with_plain_grad(_linear_adaln_residual_launch, _linear_adaln_residual_grad,
+                                     chunks=chunks)(*args)
+
+
+def _linear_adaln_residual_launch(x, w, b, shortcut, shift, scale, scale_bias):
     B, L, D = x.shape
     _lib.require(x, "x", torch.bfloat16)
     _lib.require(shortcut, "shortcut", torch.bfloat16, (B, L, D))

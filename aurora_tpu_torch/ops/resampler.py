@@ -46,6 +46,12 @@ that their scratch stays under :data:`PERCEIVER_SCRATCH_BYTES`.
 
 Bound on the card: operations, the folded f32 logits at 67 TF/s and the bf16 products at
 989 TF/s (with ``lnk``, the three parts of ``ctx @ Wc`` among them). Times in ``PERF.md``.
+
+Gradient (:mod:`aurora_tpu_torch.ops.ad`, as the JAX package's chunked vjp at
+``resampler.py:331-381``): under grad mode a call whose inputs require a gradient launches
+the kernels and saves its inputs; the backward differentiates the plain math (the v and
+out-projection products in bf16, k and the logits in f32, as ``xla_ref_m``) chunk of
+columns by chunk of columns, the weights' gradients summed over the chunks in f32.
 """
 
 from __future__ import annotations
@@ -55,8 +61,8 @@ from typing import Optional
 
 import torch
 
-from aurora_tpu_torch.model.nn import acc_dtype
-from aurora_tpu_torch.ops import _lib
+from aurora_tpu_torch.model.nn import acc_dtype, matmul_acc
+from aurora_tpu_torch.ops import _lib, ad
 
 __all__ = [
     "PERCEIVER_SCRATCH_BYTES",
@@ -95,6 +101,12 @@ def perceiver_core_plain(
     lnk: Optional[tuple] = None,
 ) -> torch.Tensor:
     """Plain version of :func:`perceiver_core`."""
+    return _perceiver(ctx, wk, wv, qh, wout, ln1_w, ln1_b, queries, scale, ln_eps, value_bf16,
+                      *(lnk or (None, None)), fast=False)
+
+
+def _perceiver(ctx, wk, wv, qh, wout, ln1_w, ln1_b, queries, scale, ln_eps, value_bf16,
+               lnk_w, lnk_b, fast: bool) -> torch.Tensor:
     K, M, D = ctx.shape
     Q, h, dh = qh.shape
     inner = h * dh
@@ -103,19 +115,26 @@ def perceiver_core_plain(
     out_dt = torch.bfloat16 if value_bf16 else dt
     vdt = torch.bfloat16 if value_bf16 else dt
     x2 = ctx.reshape(K * M, D)
-    k = x2.to(acc) @ wk.to(dt).to(acc)
-    if lnk is not None:
-        k = _ln_affine(k, lnk[0].to(acc), lnk[1].to(acc), 1e-5)
-    v = (x2.to(vdt).to(acc) @ wv.to(vdt).to(acc)).to(vdt)
+    k = matmul_acc(x2, wk.to(dt), fast)
+    if lnk_w is not None:
+        k = _ln_affine(k, lnk_w.to(acc), lnk_b.to(acc), 1e-5)
+    v = matmul_acc(x2.to(vdt), wv.to(vdt), fast).to(vdt)
     logits = torch.einsum("kmhd,qhd->kmqh", k.reshape(K, M, h, dh), qh.to(acc)) * scale
     w = torch.softmax(logits, dim=0).to(vdt)  # (K, M, Q, h)
     v4 = v.reshape(K, M, 1, h, dh)
     o = w[0][..., None] * v4[0]  # (M, Q, h, dh), rounded like the kernel's bf16 products
     for kk in range(1, K):
         o = o + w[kk][..., None] * v4[kk]
-    attn = (o.reshape(M * Q, inner).to(acc) @ wout.to(out_dt).to(acc)).to(out_dt)
+    attn = matmul_acc(o.reshape(M * Q, inner), wout.to(out_dt), fast).to(out_dt)
     ln = _ln_affine(attn.to(acc), ln1_w.to(acc), ln1_b.to(acc), ln_eps)
     return (ln.reshape(M, Q, -1) + queries.to(acc)[None]).to(out_dt)
+
+
+def _perceiver_core_grad(ctx, wk, wv, qh, wout, ln1_w, ln1_b, queries, scale, ln_eps,
+                         value_bf16, lnk_w, lnk_b, part=None):
+    """What the backward of :func:`perceiver_core` differentiates (one chunk of columns)."""
+    return _perceiver(ctx, wk, wv, qh, wout, ln1_w, ln1_b, queries, scale, ln_eps, value_bf16,
+                      lnk_w, lnk_b, fast=True)
 
 
 def check_perceiver_shape(
@@ -259,8 +278,30 @@ def perceiver_core(
             ctx, wk, wv, qh, wout, ln1_w, ln1_b, queries,
             scale=scale, ln_eps=ln_eps, value_bf16=value_bf16, lnk=lnk,
         )
+    args = (ctx, wk, wv, qh, wout, ln1_w, ln1_b, queries, scale, ln_eps, value_bf16,
+            *(lnk or (None, None)))
+    if ad.needs_grad(*args):
+        return _perceiver_core_differentiable(*args)
+    return _perceiver_core_launch(*args)
+
+
+def _perceiver_core_differentiable(*args):
+    ctx, qh, wout = args[0], args[3], args[4]
+    K, M, D = ctx.shape
+    Q, h, dh = qh.shape
+    # A column's f32 intermediates: context, k, v, logits and weights; o, out-projection and
+    # LayerNorm.
+    per_col = 4 * (K * (D + 2 * h * dh + 2 * Q * h) + Q * (h * dh + 2 * wout.shape[1]))
+    chunks = ad.Chunks((1,) + (None,) * (len(args) - 1), 0,
+                       ad.chunk_bounds(M, ad.GRAD_CHUNK_BYTES // per_col))
+    return ad.kernel_with_plain_grad(_perceiver_core_launch, _perceiver_core_grad,
+                                     chunks=chunks)(*args)
+
+
+def _perceiver_core_launch(ctx, wk, wv, qh, wout, ln1_w, ln1_b, queries, scale, ln_eps,
+                           value_bf16, lnk_w, lnk_b):
     fn = _lib.kernel("resampler", "perceiver_core", _PERCEIVER_CORE_ARGS)
     out = _perceiver_core_call(fn, ctx, wk, wv, qh, wout, ln1_w, ln1_b, queries, scale, ln_eps,
-                               value_bf16, lnk)
+                               value_bf16, None if lnk_w is None else (lnk_w, lnk_b))
     _lib.LAUNCHES["perceiver_core"] += 1
     return out

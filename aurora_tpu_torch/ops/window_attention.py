@@ -47,6 +47,14 @@ K7 is a kernel of its own (``csrc/sdpa.cu`` on ``csrc/sdpa_sm90.cuh``), bound by
 persistent blocks, two to an SM, walk runs of (window, head) units through a two-stage ring
 that TMA loads fill while the core of the unit before computes; fragments by ``ldmatrix``,
 the mask as a template parameter kept as bits in registers.
+
+Gradients (:mod:`aurora_tpu_torch.ops.ad`, as the JAX package's ``kernel_with_xla_grad`` at
+``swin3d.py:671-681``, ``:795-805``, ``:949-961``): under grad mode a call whose inputs require
+a gradient launches the kernels and saves its inputs; the backward differentiates the plain
+math with the qkv, ``w @ v`` and proj products in bf16 (f32 logits), chunk of windows by chunk
+(for K2, of rows of windows of the padded grid) so that a chunk's f32 logits stay under
+``ad.GRAD_CHUNK_BYTES`` (the JAX package's chunks at ``swin3d.py:466-500``), the mask cut to
+the chunk and the weights' gradients summed over the chunks in f32.
 """
 
 from __future__ import annotations
@@ -58,8 +66,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from aurora_tpu_torch.model.nn import acc_dtype
-from aurora_tpu_torch.ops import _lib
+from aurora_tpu_torch.model.nn import acc_dtype, matmul_acc
+from aurora_tpu_torch.ops import _lib, ad
 from aurora_tpu_torch.ops.masks import bias_from_groups, group_ids_tensor
 from aurora_tpu_torch.ops.mlp import film_layernorm_residual
 
@@ -100,23 +108,56 @@ def window_reverse(w: torch.Tensor, ws: tuple[int, int, int], C: int, H: int, W:
 # ------------------------------------------------------------------------ plain versions
 
 
+def _sdpa(qkv: torch.Tensor, ids: Optional[torch.Tensor], num_heads: int, fast: bool):
+    """``_heads_attention_xla`` (``swin3d.py:415-436``) on packed ``(B, nW, N, 3D)`` rows with
+    the ``(nW, N)`` group ids or None: f32 logits, the weights rounded, ``w @ v`` rounded;
+    with ``fast`` the ``w @ v`` product in the tokens' dtype (f32 accumulation on the card)."""
+    dt, acc = qkv.dtype, acc_dtype(qkv.dtype)
+    B, nW, N, D3 = qkv.shape
+    D = D3 // 3
+    h, dh = num_heads, D // num_heads
+    qkv = qkv.reshape(B, nW, N, 3, h, dh)
+    q, k, v = qkv[:, :, :, 0], qkv[:, :, :, 1], qkv[:, :, :, 2]
+    logits = torch.einsum("bwqhd,bwkhd->bwhqk", q.to(acc), k.to(acc)) * (1.0 / math.sqrt(dh))
+    if ids is not None:
+        logits = logits + bias_from_groups(ids, acc)[None, :, None]
+    wgt = torch.softmax(logits, dim=-1).to(dt)
+    if fast:
+        out = torch.einsum("bwhqk,bwkhd->bwqhd", wgt, v)
+    else:
+        out = torch.einsum("bwhqk,bwkhd->bwqhd", wgt.to(acc), v.to(acc)).to(dt)
+    return out.reshape(B, nW, N, D)
+
+
+def _windowed(xw, wqkv, bqkv, ids, num_heads, tail, ln_eps, fast: bool) -> torch.Tensor:
+    """``_attn_tail_xla_ref`` (``swin3d.py:458-521``) over ``(B, nW, N, D)`` windows."""
+    dt = xw.dtype
+    B, nW, N, D = xw.shape
+    qkv = matmul_acc(xw, wqkv.to(dt), fast).to(dt) + bqkv.to(dt)
+    attn = _sdpa(qkv, ids, num_heads, fast)
+    if tail is None:
+        return attn
+    wproj, bproj, shift, scale = tail
+    y = (matmul_acc(attn.reshape(B, nW * N, D), wproj.to(dt), fast)
+         + bproj.to(acc_dtype(dt))).to(dt)
+    out = film_layernorm_residual(y, xw.reshape(B, nW * N, D), shift, scale, 0.0, ln_eps)
+    return out.reshape(B, nW, N, D)
+
+
+def _ids(groups: Optional[np.ndarray], device, part: Optional[slice] = None):
+    """The group ids on ``device`` (None without a mask), cut to the windows ``part``."""
+    if groups is None:
+        return None
+    ids = group_ids_tensor(groups, device)
+    return ids if part is None else ids[part]
+
+
 def sdpa_windows_plain(
     qkv: torch.Tensor, groups: Optional[np.ndarray], num_heads: int
 ) -> torch.Tensor:
     """Plain version of :func:`sdpa_windows` (``_heads_attention_xla``,
     ``swin3d.py:415-436``)."""
-    dt, acc = qkv.dtype, acc_dtype(qkv.dtype)
-    B, nW, N, D3 = qkv.shape
-    D = D3 // 3
-    h, dh = num_heads, D // num_heads
-    qkv = qkv.reshape(B, nW, N, 3, h, dh).to(acc)
-    q, k, v = qkv[:, :, :, 0], qkv[:, :, :, 1], qkv[:, :, :, 2]
-    logits = torch.einsum("bwqhd,bwkhd->bwhqk", q, k) * (1.0 / math.sqrt(dh))
-    if groups is not None:
-        g = group_ids_tensor(groups, qkv.device)
-        logits = logits + bias_from_groups(g, acc)[None, :, None]
-    wgt = torch.softmax(logits, dim=-1).to(dt).to(acc)
-    return torch.einsum("bwhqk,bwkhd->bwqhd", wgt, v).to(dt).reshape(B, nW, N, D)
+    return _sdpa(qkv, _ids(groups, qkv.device), num_heads, fast=False)
 
 
 def window_attention_windowed_plain(
@@ -130,16 +171,8 @@ def window_attention_windowed_plain(
 ) -> torch.Tensor:
     """Plain version of :func:`window_attention_windowed` (``_attn_tail_xla_ref``,
     ``swin3d.py:458-521``)."""
-    dt, acc = xw.dtype, acc_dtype(xw.dtype)
-    B, nW, N, D = xw.shape
-    qkv = (xw.to(acc) @ wqkv.to(dt).to(acc)).to(dt) + bqkv.to(dt)
-    attn = sdpa_windows_plain(qkv, groups, num_heads)
-    if tail is None:
-        return attn
-    wproj, bproj, shift, scale = tail
-    y = (attn.reshape(B, nW * N, D).to(acc) @ wproj.to(dt).to(acc) + bproj.to(acc)).to(dt)
-    out = film_layernorm_residual(y, xw.reshape(B, nW * N, D), shift, scale, 0.0, ln_eps)
-    return out.reshape(B, nW, N, D)
+    return _windowed(xw, wqkv, bqkv, _ids(groups, xw.device), num_heads, tail, ln_eps,
+                     fast=False)
 
 
 def window_attention_tail_plain(
@@ -159,6 +192,45 @@ def window_attention_tail_plain(
         window_partition(xp, ws), wqkv, bqkv, groups, num_heads, tail, ln_eps
     )
     return window_reverse(out, ws, Cp, Hp, Wp)
+
+
+# ------------------------------------------------------------- what the backward differentiates
+# The plain math with bf16 products (``fast``), on one chunk of windows: ``part`` is the
+# chunk's slice of windows (K6, K7) or of the padded grid's rows (K2), the mask cut to it.
+
+
+def _tail(wproj, bproj, shift, scale) -> Optional[Tail]:
+    return None if wproj is None else (wproj, bproj, shift, scale)
+
+
+def _sdpa_windows_grad(qkv, groups, num_heads, part=None):
+    return _sdpa(qkv, _ids(groups, qkv.device, part), num_heads, fast=True)
+
+
+def _windowed_grad(xw, wqkv, bqkv, groups, num_heads, wproj, bproj, shift, scale, ln_eps,
+                   part=None):
+    return _windowed(xw, wqkv, bqkv, _ids(groups, xw.device, part), num_heads,
+                     _tail(wproj, bproj, shift, scale), ln_eps, fast=True)
+
+
+def _tail_grad(xp, wqkv, bqkv, groups, ws, num_heads, wproj, bproj, shift, scale, ln_eps,
+               part=None):
+    _, Cp, Hp, Wp, _ = xp.shape
+    ids = _ids(groups, xp.device)
+    if ids is not None and part is not None:  # windows in (C1, H1, W1) order: cut H1
+        ids = ids.reshape(Cp // ws[0], -1, Wp // ws[2], ids.shape[-1])
+        ids = ids[:, part.start // ws[1]:part.stop // ws[1]].reshape(-1, ids.shape[-1])
+    out = _windowed(window_partition(xp, ws), wqkv, bqkv, ids, num_heads,
+                    _tail(wproj, bproj, shift, scale), ln_eps, fast=True)
+    return window_reverse(out, ws, Cp, Hp, Wp)
+
+
+def _window_chunks(n: int, per_unit: int, unit: int, n_args: int, dim: int) -> ad.Chunks:
+    """The backward's chunks along axis ``dim`` of the first of ``n_args`` arguments (the
+    rest whole), in steps of ``unit`` indices (a window, or a padded-grid row of windows),
+    each step holding ``per_unit`` bytes of f32 logits, under ``ad.GRAD_CHUNK_BYTES``."""
+    steps = max(1, ad.GRAD_CHUNK_BYTES // per_unit)
+    return ad.Chunks((dim,) + (None,) * (n_args - 1), dim, ad.chunk_bounds(n, steps * unit))
 
 
 # ------------------------------------------------------------------------ kernels
@@ -310,11 +382,29 @@ def window_attention_tail(
     """
     if xp.device.type == "cpu":
         return window_attention_tail_plain(xp, wqkv, bqkv, groups, ws, num_heads, tail, ln_eps)
+    args = (xp, wqkv, bqkv, groups, ws, num_heads, *(tail or (None,) * 4), ln_eps)
+    if ad.needs_grad(*args):
+        return _window_attention_tail_differentiable(*args)
+    return _window_attention_tail_launch(*args)
+
+
+def _window_attention_tail_differentiable(*args):
+    xp, ws, num_heads = args[0], args[4], args[5]
+    B, Cp, Hp, Wp, _ = xp.shape
+    N = ws[0] * ws[1] * ws[2]
+    row = B * num_heads * N * N * 4 * (Cp // ws[0]) * (Wp // ws[2])  # a row of windows
+    chunks = _window_chunks(Hp, row, ws[1], len(args), 2)
+    return ad.kernel_with_plain_grad(_window_attention_tail_launch, _tail_grad,
+                                     chunks=chunks)(*args)
+
+
+def _window_attention_tail_launch(xp, wqkv, bqkv, groups, ws, num_heads, wproj, bproj, shift,
+                                  scale, ln_eps):
     _lib.require(xp, "xp", torch.bfloat16)
     _, nW, rows = check_window_attention_shape(tuple(xp.shape), num_heads, ws)
     return _launch_window_attention(
-        xp, wqkv, bqkv, groups, num_heads, tail, ln_eps, nW, rows, tuple(xp.shape[1:4]), ws,
-        what="window_attention",
+        xp, wqkv, bqkv, groups, num_heads, _tail(wproj, bproj, shift, scale), ln_eps, nW, rows,
+        tuple(xp.shape[1:4]), ws, what="window_attention",
     )
 
 
@@ -336,11 +426,27 @@ def window_attention_windowed(
     """
     if xw.device.type == "cpu":
         return window_attention_windowed_plain(xw, wqkv, bqkv, groups, num_heads, tail, ln_eps)
+    args = (xw, wqkv, bqkv, groups, num_heads, *(tail or (None,) * 4), ln_eps)
+    if ad.needs_grad(*args):
+        return _window_attention_windowed_differentiable(*args)
+    return _window_attention_windowed_launch(*args)
+
+
+def _window_attention_windowed_differentiable(*args):
+    xw, num_heads = args[0], args[4]
+    B, nW, N, _ = xw.shape
+    chunks = _window_chunks(nW, B * num_heads * N * N * 4, 1, len(args), 1)
+    return ad.kernel_with_plain_grad(_window_attention_windowed_launch, _windowed_grad,
+                                     chunks=chunks)(*args)
+
+
+def _window_attention_windowed_launch(xw, wqkv, bqkv, groups, num_heads, wproj, bproj, shift,
+                                      scale, ln_eps):
     _lib.require(xw, "xw", torch.bfloat16)
     _, nW, rows = check_window_attention_shape(tuple(xw.shape), num_heads)
     return _launch_window_attention(
-        xw, wqkv, bqkv, groups, num_heads, tail, ln_eps, nW, rows, (0, 0, 0), (0, 0, 0),
-        what="window_attention_windowed",
+        xw, wqkv, bqkv, groups, num_heads, _tail(wproj, bproj, shift, scale), ln_eps, nW, rows,
+        (0, 0, 0), (0, 0, 0), what="window_attention_windowed",
     )
 
 
@@ -356,6 +462,20 @@ def sdpa_windows(
     """
     if qkv.device.type == "cpu":
         return sdpa_windows_plain(qkv, groups, num_heads)
+    args = (qkv, groups, num_heads)
+    if ad.needs_grad(*args):
+        return _sdpa_windows_differentiable(*args)
+    return _sdpa_windows_launch(*args)
+
+
+def _sdpa_windows_differentiable(qkv, groups, num_heads):
+    B, nW, N, _ = qkv.shape
+    chunks = _window_chunks(nW, B * num_heads * N * N * 4, 1, 3, 1)
+    return ad.kernel_with_plain_grad(_sdpa_windows_launch, _sdpa_windows_grad,
+                                     chunks=chunks)(qkv, groups, num_heads)
+
+
+def _sdpa_windows_launch(qkv, groups, num_heads):
     _lib.require(qkv, "qkv", torch.bfloat16)
     B, nW, D = check_sdpa_windows_shape(tuple(qkv.shape), num_heads)
     gid = _group_ids(groups, nW, qkv.device)

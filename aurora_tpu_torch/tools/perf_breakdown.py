@@ -45,7 +45,7 @@ import numpy as np
 import torch
 
 from aurora_tpu_torch.batch import Batch, Metadata
-from aurora_tpu_torch.model.aurora import Aurora, cast_backbone_params
+from aurora_tpu_torch.model.aurora import Aurora, cast_backbone_params, full_f32_products
 from aurora_tpu_torch.model.config import LARGE_CONFIG, AuroraConfig
 from aurora_tpu_torch.ops import _lib
 from aurora_tpu_torch.tools import card_line, report, resolve_device, result, time_ms
@@ -146,7 +146,13 @@ def step_parts(model: Aurora, batch: Batch) -> dict[str, Callable[[], object]]:
 
 
 def time_parts(parts: dict, dev: torch.device, steps: int) -> list[dict]:
-    """One printed row per part: its median time and the kernel launches of one call."""
+    """One printed row per part: its median time and the kernel launches of one call. The
+    parts run with TF32 off, as inside the model's step (``full_f32_products``)."""
+    with full_f32_products():
+        return _time_parts(parts, dev, steps)
+
+
+def _time_parts(parts: dict, dev: torch.device, steps: int) -> list[dict]:
     rows = []
     for label, fn in parts.items():
         before = dict(_lib.LAUNCHES)

@@ -49,8 +49,10 @@ Phases, each printing one JSON line; any failure raises and the script exits non
    (de-)aggregation values) at full width and depth with the same seeded random weights,
    FiLM and LoRA gates opened, ``rollout`` over the 721 x 1440 / 13-level batch; per-step
    time, peak memory, per-step launch counts (counts set to 0 just before the roll-out)
-   checked against the code; outputs finite and of the right shape; then the same weights
-   on a 121 x 240 grid against the port's own CPU run of the same route as the reference.
+   checked against the code; outputs finite and of the right shape; then a 121 x 240 grid
+   against the port's own CPU run of the same route: the main route's model, the other
+   routes' at two blocks per backbone stage (the second shifted), seeded on the card, whose
+   reference run must launch every kernel of its route.
    After the main route's roll-out, the breakdown: ``perf_breakdown``, ``encoder_breakdown``
    and ``decoder_breakdown`` as a user runs them, in process, on the main route's model at
    720 x 1440 (one JSON line per row, with the launches of one call of its part); the level
@@ -61,11 +63,28 @@ Phases, each printing one JSON line; any failure raises and the script exits non
    of two steady steps from ``torch.profiler``); launches per step as the main route's; the
    three the same bits step by step (or within 1e-3 mean relative); the host-offload peak
    within one prediction of a 2-step host-offload roll-out's; the caller's arrays unchanged;
-5. tools: the probe tools as a user runs them, in process, at the full 0.25 degree token
+5. train: K1-K8's gradients through their ``Function`` (the kernel forward, the backward
+   of the plain math with bf16 products) against autograd of the plain versions on the card,
+   every differentiable input, on inputs cut to a few thousand rows, windows or columns
+   (FiLM at unit gain): max ``|Δ|`` over max ``|reference gradient|`` (at least 1e-3 of the
+   call's largest, for a gradient that is zero in exact arithmetic), less one bf16 ulp for a
+   bf16 gradient, within the forward's bounds (roll exact, bf16 6e-3, K4 1e-2), the output's
+   autograd node the kernel's ``Function``; the backward's and plain autograd's times at the
+   main path's shape, where the chunk plans cut into several chunks, and the last timed
+   result of each held to the other by the same measure and bound. Then the production model's LoRA train step at 721 x 1440 as
+   ``tools.train_bench`` runs it (``remat`` at the JAX recipe's scope "full"; a warm-up and 3
+   timed steps) and a K = 2 roll-out train step with ``lora_mode="all"`` (2 updates): every
+   LoRA parameter a finite, non-zero gradient and moved (in the roll-out each step's bank, bank
+   0's gradient not bank 1's), every frozen parameter its bits, the losses finite, each
+   step's launches as ``tools.train_bench.expected_launches`` derives them, peak memory under
+   80 GB. Then the model at two blocks per backbone stage, seeded on the card, one LoRA train
+   step at 121 x 240 against the port's CPU run of it: loss within 1e-2 relative, the
+   concatenated LoRA gradient within 5e-2 relative L2;
+6. tools: the probe tools as a user runs them, in process, at the full 0.25 degree token
    grid: ``backbone_ablate`` with every variant, ``gemm_probe`` and ``smem_probe`` (counts
    set to 0 just before); K9-K13 must each have launched, and the backbones under
    ``attention_impl`` "pallas" and "pallas_windowed" must agree within the bf16 block bound;
-6. variants: the released models AirPollution (451 x 900, patch 3), Wave (721 x 1440),
+7. variants: the released models AirPollution (451 x 900, patch 3), Wave (721 x 1440),
    HighRes (1801 x 3600, patch 10) and 12h (721 x 1440), each at its full width, depth and
    grid with the production knobs. The weights are each released checkpoint's keys and
    shapes (``tests/data/ckpt_manifests.json``) filled with seeded values at the scale of the
@@ -82,9 +101,12 @@ Phases, each printing one JSON line; any failure raises and the script exits non
    relative error <= 1e-2 per output variable where both are finite,
    and the points where the wave NaN masks differ (a density within the card's error of 1/2)
    at most 5%. ``AuroraSmallPretrained`` (D = 256) must raise the kernels' ``ValueError``;
-7. the kernels summary line, one entry per kernel (K1-K8: times per forward step, each
-   shape's time times its launches per step on the route that runs it, ``launches`` the
-   count over that route's roll-out; K9-K13: the sum over one sweep of the tool's cases,
+8. the seconds of each phase, then the kernels summary line, one entry per kernel (K1-K8:
+   times per forward step, each shape's time times its launches per step on the route that
+   runs it, ``launches`` the count over that route's roll-out, and the backward's
+   ``grad_err`` (the worst over the cut shapes and ``bwd_shape``), ``bwd_ms``,
+   ``plain_bwd_ms`` and ``bwd_rel_err`` (each input's error) at ``bwd_shape``, one call at
+   the main path's shape; K9-K13: the sum over one sweep of the tool's cases,
    ``launches`` the count over the tools phase; K2 and K6 carry their no-tail mode under
    ``no_tail``, K4 its ``ln_k`` form under ``ln_k`` and the bound of the TPU kernel's work
    under ``bound_of_tpu_work_ms``), the ``nvidia-smi`` line, and the last
@@ -829,11 +851,21 @@ def run_route(name: str, steps: int, ref_grid: tuple[int, int], then=None) -> di
     if then is not None:
         then(model)
 
-    # Reference on a small input: the same weights on the port's CPU run of the same route.
+    # Reference on a small input, the card against the port's CPU run of the same route: the
+    # main route's full-depth model, the other routes' at two blocks per backbone stage (the
+    # second shifted, so K1 and the masked attention run), seeded on the card.
+    t0 = time.perf_counter()
     H, W = ref_grid
     small = numpy_batch(cfg, H, W, seed=1)
+    if name != "main":
+        del model
+        torch.cuda.empty_cache()
+        cfg = cfg.replace(encoder_depths=(2, 2, 2), decoder_depths=(2, 2, 2))
+        model = build_model(cfg, "cuda")
+    before = dict(_lib.LAUNCHES)
     got = model(small)
     torch.cuda.synchronize()
+    ref_launches = {k: n - before[k] for k, n in _lib.LAUNCHES.items() if n != before[k]}
     cpu = model.to("cpu")
     del model
     torch.cuda.empty_cache()
@@ -845,7 +877,12 @@ def run_route(name: str, steps: int, ref_grid: tuple[int, int], then=None) -> di
         errs[k] = _mean_rel(got.atmos_vars[k], want.atmos_vars[k])
     worst = max(errs.values())
     emit(dict(phase="reference", route=name, grid=f"{H}x{W}",
-              against="port CPU route (plain versions)", mean_rel=errs, worst=worst, tol=1e-2))
+              depths=(cfg.encoder_depths, cfg.decoder_depths), launches=ref_launches,
+              against="port CPU route (plain versions)", mean_rel=errs, worst=worst, tol=1e-2,
+              seconds=time.perf_counter() - t0))
+    missing = [k for k in counts if not ref_launches.get(k)]
+    if missing:
+        raise AssertionError(f"route {name}: the reference run never launched {missing}")
     if not worst <= 1e-2:
         raise AssertionError(f"route {name}: card vs CPU route: mean rel {worst} > 1e-2")
     return launches
@@ -983,6 +1020,433 @@ def run_main_phases(model) -> None:
     three roll-outs."""
     run_breakdown(model)
     run_rollouts(model)
+
+
+# ------------------------------------------------------------------------------ training
+
+# Bounds of the gradient checks: the forward's (roll exact, bf16 6e-3, the perceiver core
+# 1e-2), of max |kernel path's gradient - plain autograd's| over max |plain autograd's|, less
+# one bf16 ulp of the larger where the gradient is bf16 (both sides round it to bf16). A
+# gradient that is zero in exact arithmetic (ln_k's bias: a constant over the levels, which
+# the softmax over the levels removes) holds only rounding noise on both sides, so the
+# denominator is at least GRAD_FLOOR times the largest gradient of the call.
+GRAD_TOL = {"roll3d": 0.0, "perceiver_core": 1e-2}
+GRAD_FLOOR = 1e-3
+BWD_REPS = 3  # timed backward runs per kernel, after one warm-up run
+TRAIN_STEPS = 2  # timed steps of the full-width LoRA train step, after a warm-up step
+ROLLOUT_K, ROLLOUT_UPDATES = 2, 2
+TRAIN_REF_GRID = (121, 240)
+TRAIN_LOSS_TOL, TRAIN_GRAD_TOL = 1e-2, 5e-2  # card vs CPU: loss, LoRA gradient (rel. L2)
+
+
+def grad_cases(rn):
+    """One case per kernel (K2 and K6 also without the tail, K4 also with ln_k) on inputs cut
+    to a few thousand rows, windows or columns (FiLM at unit gain), with the main path's
+    shape of the kernel for timing the backward: ``(name, label, call, plain, make, timed)``
+    where ``make(full)`` gives the arguments (every tensor a leaf that requires a gradient)
+    and ``timed`` marks the case whose backward is timed, one a kernel: the one the main
+    path's train step runs (K2 and K6 with the tail, K4's de-aggregation)."""
+    import torch
+
+    from aurora_tpu_torch.ops import mlp, resampler, roll, window_attention as wa
+    from aurora_tpu_torch.ops.masks import window_group_ids
+
+    f32 = torch.float32
+    ws, ss = (2, 6, 12), (1, 3, 6)
+
+    def leaf(*shape, std=1.0, dtype=torch.bfloat16):
+        return rn(*shape, std=std, dtype=dtype).requires_grad_()
+
+    def grid(full):
+        return (4, 180, 360) if full else (4, 24, 48)
+
+    def tail(D, on):
+        if not on:
+            return (None,) * 4
+        return (leaf(D, D, std=0.02), leaf(D, std=0.02, dtype=f32),
+                leaf(1, D, std=0.1, dtype=f32), leaf(1, D, dtype=f32))
+
+    def k2(masked, with_tail):
+        def make(full):
+            C, H, W = grid(full)
+            g = window_group_ids(C, H, W, ws, ss) if masked else None
+            return (leaf(1, C, H, W, 512), leaf(512, 1536, std=0.02), leaf(1536, std=0.02), g,
+                    ws, 8, *tail(512, with_tail), 1e-5)
+        return make
+
+    def k2_call(fn):
+        def call(xp, wqkv, bqkv, g, ws_, h, wp, bp, sh, sc, eps):
+            return fn(xp, wqkv, bqkv, g, ws_, h, None if wp is None else (wp, bp, sh, sc), eps)
+        return call
+
+    def k6(masked, with_tail):
+        def make(full):
+            C, H, W = grid(full)
+            g = window_group_ids(C, H, W, ws, ss) if masked else None
+            return (leaf(1, C * H * W // 144, 144, 512), leaf(512, 1536, std=0.02),
+                    leaf(1536, std=0.02), g, 8, *tail(512, with_tail), 1e-5)
+        return make
+
+    def k6_call(fn):
+        def call(xw, wqkv, bqkv, g, h, wp, bp, sh, sc, eps):
+            return fn(xw, wqkv, bqkv, g, h, None if wp is None else (wp, bp, sh, sc), eps)
+        return call
+
+    def rows(full):
+        return 259200 if full else 4096
+
+    def mlp_args(full, D=512, Hd=2048):
+        return (leaf(1, rows(full), D), leaf(D, Hd, std=0.02), leaf(Hd, std=0.02, dtype=f32),
+                leaf(Hd, D, std=0.02), leaf(D, std=0.02, dtype=f32))
+
+    def k4(K, D, h, Q, ln_k):
+        def make(full):
+            M, inner, dh = 64800 if full else 2048, D, D // h
+            lnk = (None, None)
+            if ln_k:
+                lnk = ((1 + rn(inner, std=0.1, dtype=f32)).requires_grad_(),
+                       leaf(inner, std=0.1, dtype=f32))
+            return (leaf(K, M, D, dtype=f32), leaf(D, inner, std=0.05, dtype=f32),
+                    leaf(D, inner, std=0.05, dtype=f32), leaf(Q, h, dh, dtype=f32),
+                    leaf(inner, D, std=0.05, dtype=f32),
+                    (1 + rn(D, std=0.1, dtype=f32)).requires_grad_(),
+                    leaf(D, std=0.1, dtype=f32), leaf(Q, D, dtype=f32), *lnk)
+        return make
+
+    def k4_call(fn):
+        def call(ctx, wk, wv, qh, wout, l1w, l1b, q, lw, lb):
+            return fn(ctx, wk, wv, qh, wout, l1w, l1b, q, scale=qh.shape[-1] ** -0.5,
+                      value_bf16=True, lnk=None if lw is None else (lw, lb))
+        return call
+
+    yield ("roll3d", "(1,4,24,48,512) shifts (-1,-3,-6); timed (1,4,180,360,512)",
+           lambda x: roll.roll3d(x, (-1, -3, -6)), lambda x: roll.roll3d_plain(x, (-1, -3, -6)),
+           lambda full: (leaf(1, *grid(full), 512),), True)
+    for masked, t in ((True, True), (False, False)):
+        label = f"{'masked' if masked else 'unmasked'}, {'tail' if t else 'no tail'}"
+        yield ("window_attention", f"(1,4,24,48,512) heads 8, {label}; timed (1,4,180,360,512)",
+               k2_call(wa.window_attention_tail), k2_call(wa.window_attention_tail_plain),
+               k2(masked, t), t)
+        yield ("window_attention_windowed",
+               f"(1,32,144,512) heads 8, {label}; timed (1,1800,144,512)",
+               k6_call(wa.window_attention_windowed), k6_call(wa.window_attention_windowed_plain),
+               k6(masked, t), t)
+    yield ("sdpa_windows", "(1,32,144,1536) heads 8, masked; timed (1,1800,144,1536)",
+           lambda qkv, g: wa.sdpa_windows(qkv, g, 8), lambda qkv, g: wa.sdpa_windows_plain(qkv, g, 8),
+           lambda full: (leaf(1, 1800 if full else 32, 144, 1536),
+                         window_group_ids(*grid(full), ws, ss)), True)
+    film = lambda: (leaf(1, 512, std=0.1, dtype=f32), leaf(1, 512, dtype=f32))  # noqa: E731
+    yield ("mlp_adaln_residual", "(1,4096,512) hidden 2048; timed (1,259200,512)",
+           mlp.mlp_adaln_residual, mlp.mlp_adaln_residual_plain,
+           lambda full: (*mlp_args(full), *film()), True)
+    yield ("mlp_fused", "(1,4096,512) hidden 2048; timed (1,259200,512)",
+           mlp.mlp_fused, mlp.mlp_fused_plain, mlp_args, True)
+    yield ("linear_adaln_residual", "(1,4096,512); timed (1,259200,512)",
+           mlp.linear_adaln_residual, mlp.linear_adaln_residual_plain,
+           lambda full: (leaf(1, rows(full), 512), leaf(512, 512, std=0.02),
+                         leaf(512, std=0.02, dtype=f32), leaf(1, rows(full), 512), *film()),
+           True)
+    for label, K, D, h, Q, ln_k in (("agg", 13, 512, 16, 3, False), ("agg", 13, 512, 16, 3, True),
+                                    ("de-agg", 3, 1024, 16, 13, False)):
+        yield ("perceiver_core",
+               f"{label} ctx ({K},2048,{D}) Q {Q}{', ln_k' if ln_k else ''}; timed M 64800",
+               k4_call(resampler.perceiver_core), k4_call(resampler.perceiver_core_plain),
+               k4(K, D, h, Q, ln_k), label == "de-agg")
+
+
+def grad_errs(got, want, name) -> list[float]:
+    """The check's error of each input's gradient (see GRAD_TOL and GRAD_FLOOR)."""
+    import torch
+
+    if name == "roll3d":
+        return [0.0 if torch.equal(a, b) else float("inf") for a, b in zip(got, want)]
+    scale = max(b.float().abs().max().item() for b in want)
+    errs = []
+    for a, b in zip(got, want):
+        diff = (a.float() - b.float()).abs()
+        if a.dtype == torch.bfloat16:  # less one bf16 ulp of the larger of the two
+            mant, exp = torch.frexp(torch.maximum(a.float().abs(), b.float().abs()))
+            diff = (diff - torch.where(mant > 0, torch.ldexp(torch.ones_like(diff), exp - 8),
+                                       0.0)).clamp_min(0)
+        errs.append(diff.max().item() / max(b.float().abs().max().item(), GRAD_FLOOR * scale))
+    return errs
+
+
+def run_grad_phases() -> dict:
+    """K1-K8's gradients through their ``Function`` against autograd of their plain versions
+    on the card, every differentiable input; the backward's time (the recompute with bf16
+    products, :mod:`aurora_tpu_torch.ops.ad`) and plain autograd's (f32 products) at the main
+    path's shape. Returns per kernel: the worst error and the first case's times."""
+    import torch
+
+    from aurora_tpu_torch.ops import _lib
+    from aurora_tpu_torch.tools import time_ms
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+
+    def rn(*shape, std=1.0, dtype=torch.bfloat16):
+        return (torch.randn(*shape, generator=gen, device=dev) * std).to(dtype)
+
+    def grads(out, leaves, g):
+        return torch.autograd.grad(out, leaves, g, retain_graph=True)
+
+    t0 = time.perf_counter()
+    out_summary: dict = {}
+    for name, label, call, plain, make, timed in grad_cases(rn):
+        args = make(False)
+        leaves = [a for a in args if isinstance(a, torch.Tensor) and a.requires_grad]
+        before = dict(_lib.LAUNCHES)
+        out = call(*args)
+        node = type(out.grad_fn).__name__
+        if node not in ("_KernelGradBackward", "_RollBackward"):
+            raise AssertionError(f"grad {name} {label}: the output's node is {node}, not the "
+                                 f"kernel's Function")
+        g = rn(*out.shape, dtype=out.dtype)
+        got = grads(out, leaves, g)
+        want = grads(plain(*args), leaves, g)
+        torch.cuda.synchronize()
+        launched = {k: v - before[k] for k, v in _lib.LAUNCHES.items() if v != before[k]}
+        errs = grad_errs(got, want, name)
+        finite = all(bool(torch.isfinite(a.float()).all()) for a in got)
+        tol = GRAD_TOL.get(name, 6e-3)
+        del out, got, want, args, leaves
+        times = {}
+        if timed:  # the backward alone, at the main path's shape: the graph kept, rerun
+            # The last timed run of each backward is kept and the two are held to each other
+            # as above: the main path's shape is where the chunk plans cut into several
+            # chunks, which the cut shapes never do.
+            targs = make(True)
+            tleaves = [a for a in targs if isinstance(a, torch.Tensor) and a.requires_grad]
+            out = call(*targs)
+            g = rn(*out.shape, dtype=out.dtype)
+            kept = {}
+            times["bwd_ms"] = time_ms(lambda: kept.update(got=grads(out, tleaves, g)), dev,
+                                      BWD_REPS, warmup=1)
+            del out
+            torch.cuda.empty_cache()
+            ref = plain(*targs)
+            times["plain_bwd_ms"] = time_ms(lambda: kept.update(want=grads(ref, tleaves, g)),
+                                            dev, BWD_REPS, warmup=1)
+            times["bwd_shape"] = label.split("timed ")[-1]
+            del ref, targs, tleaves, g
+            times["bwd_rel_err"] = grad_errs(kept["got"], kept["want"], name)
+            finite = finite and all(bool(torch.isfinite(a.float()).all()) for a in kept["got"])
+            del kept
+            torch.cuda.empty_cache()
+        worst = max(errs + times.get("bwd_rel_err", []))
+        ok = finite and worst <= tol
+        emit(dict(phase="grad", kernel=name, shape=label, ok=ok, rel_err=errs, tol=tol,
+                  node=node, launches=launched, **times))
+        if not ok:
+            raise AssertionError(f"grad {name} {label}: errors {errs}, at the timed shape "
+                                 f"{times.get('bwd_rel_err')} (bound {tol}), finite {finite}")
+        s = out_summary.setdefault(name, dict(grad_err=0.0))
+        s.update(times)
+        s["grad_err"] = max(s["grad_err"], worst)
+    emit(dict(phase="grad", seconds=time.perf_counter() - t0))
+    return out_summary
+
+
+class _Watched:
+    """The recipe's optimiser (``adamw(3e-4)`` over the LoRA banks) that also notes, at each
+    update, every trainable gradient's norm and whether it is finite; ``update=False`` only
+    notes them and clears the gradients (the weights keep their values). Binding it freezes
+    the base model, as the recipe's optimiser does."""
+
+    def __init__(self, update: bool = True):
+        from aurora_tpu_torch.training import adamw, lora_mask
+
+        self.opt = adamw(3e-4, trainable=lora_mask)
+        self.update = update
+        self.seen: list[dict] = []
+        self.grads: dict = {}
+
+    def init(self, model):
+        self.opt.init(model)
+        self.params = {n: p for n, p in model.named_parameters() if p.requires_grad}
+        return self
+
+    def step(self):
+        import torch
+
+        self.grads = {n: p.grad for n, p in self.params.items()}
+        norms = torch.stack([g.float().norm(dim=tuple(range(1, g.dim()))) for g in
+                             self.grads.values()]).cpu()  # (params, banks)
+        self.seen.append(dict(zip(self.grads, norms)))
+        if self.update:
+            self.opt.step()
+        else:
+            for p in self.params.values():
+                p.grad = None
+
+
+def _frozen_snapshot(model) -> dict:
+    return {n: p.detach().clone() for n, p in model.named_parameters() if not p.requires_grad}
+
+
+def run_train_step_phase() -> dict:
+    """The production model's LoRA train step at full width, as ``tools.train_bench`` runs
+    it (``remat`` at the JAX recipe's scope "full"): a warm-up step, then TRAIN_STEPS timed;
+    every LoRA parameter a finite, non-zero gradient at every step, and moved; every frozen
+    parameter its bits; the losses finite; each step's launches the derived count; peak
+    memory under 80 GB."""
+    import torch
+
+    from aurora_tpu_torch.tools import train_bench
+    from aurora_tpu_torch.training import make_train_step
+
+    t0 = time.perf_counter()
+    cfg = train_bench.train_config()
+    model = train_bench.build(cfg, "cuda", "lora")
+    (surf, static, atmos, batch), (tgt_s, tgt_a) = train_bench.inputs(model, 721, 1440)
+    enc = model.prepare_encodings(batch, torch.float32)
+    levels = tuple(float(x) for x in batch.metadata.atmos_levels)
+    opt = _Watched()
+    step = make_train_step(model, opt, levels)
+    lora0 = {n: p.detach().clone() for n, p in opt.params.items()}
+    frozen = _frozen_snapshot(model)
+    tgt_s = {k: v[0] for k, v in tgt_s.items()}
+    tgt_a = {k: v[0] for k, v in tgt_a.items()}
+    row = train_bench.run_steps(
+        lambda i: step(surf, static, atmos, enc, i % 3, tgt_s, tgt_a), TRAIN_STEPS,
+        torch.device("cuda"))
+    return _check_train(model, opt, lora0, frozen, row,
+                        train_bench.expected_launches(cfg, lora=True),
+                        dict(phase="train", part="LoRA train step", grid="721x1440 (720x1440)",
+                             remat_scope=cfg.remat_scope, seconds=time.perf_counter() - t0))
+
+
+def _check_train(model, opt, lora0, frozen, row, expected, line) -> dict:
+    import numpy as np
+    import torch
+
+    from aurora_tpu_torch.tools import train_bench
+
+    bad_grad = sorted({n for seen in opt.seen for n, v in seen.items()
+                       if not (torch.isfinite(v).all() and (v > 0).any())})
+    still = sorted(n for n, p in opt.params.items() if torch.equal(p, lora0[n]))
+    moved = sorted(n for n, p in model.named_parameters() if n in frozen
+                   and not torch.equal(p, frozen[n]))
+    wrong = train_bench.launch_mismatches(row["launches_per_step"], expected)
+    emit(dict(line, **{k: row[k] for k in ("times", "s_per_step", "peak_mem_gib", "losses",
+                                           "warmup_s")},
+              launches_per_step=row["launches_per_step"][-1], expected_launches=expected,
+              lora_params=len(opt.params), frozen_params=len(frozen)))
+    if bad_grad or still or moved or wrong or not np.all(np.isfinite(row["losses"])) or \
+            not row["peak_mem_gib"] < 80e9 / 2**30:
+        raise AssertionError(f"{line['part']}: gradients zero or not finite {bad_grad[:4]}, "
+                             f"LoRA not moved {still[:4]}, frozen moved {moved[:4]}, launches "
+                             f"wrong at steps {wrong}, losses {row['losses']}, peak "
+                             f"{row['peak_mem_gib']} GiB")
+    return row
+
+
+def run_rollout_train_phase() -> dict:
+    """A K = ROLLOUT_K roll-out train step with ``lora_mode="all"`` at full width,
+    ROLLOUT_UPDATES updates: each step's bank a non-zero gradient, bank 0's gradient not bank
+    1's, the checks of the single step."""
+    import torch
+
+    from aurora_tpu_torch.tools import rollout_train_bench, train_bench
+    from aurora_tpu_torch.training import make_rollout_train_step
+
+    t0 = time.perf_counter()
+    K = ROLLOUT_K
+    cfg = train_bench.train_config(lora_mode="all")
+    model = train_bench.build(cfg, "cuda", "lora")
+    (surf, static, atmos, batch), (tgt_s, tgt_a) = train_bench.inputs(model, 721, 1440, K)
+    enc = model.prepare_encodings(batch, torch.float32)
+    abs_t, dyn = rollout_train_bench.step_encodings(model, batch, K)
+    levels = tuple(float(x) for x in batch.metadata.atmos_levels)
+    opt = _Watched()
+    step = make_rollout_train_step(model, opt, levels, K)
+    lora0 = {n: p.detach().clone() for n, p in opt.params.items()}
+    frozen = _frozen_snapshot(model)
+    banks_differ = []
+
+    def update(i):
+        loss = step(surf, static, atmos, enc, abs_t, 0, tgt_s, tgt_a, dyn)
+        banks_differ.append(all(not torch.equal(g[0], g[1]) for g in opt.grads.values()))
+        return loss
+
+    row = train_bench.run_steps(update, ROLLOUT_UPDATES - 1, torch.device("cuda"))
+    banks = {n: v[:K].tolist() for n, v in opt.seen[-1].items()}
+    dead = sorted(n for n, v in banks.items() if not min(v) > 0)
+    row = _check_train(model, opt, lora0, frozen, row,
+                       train_bench.expected_launches(cfg, lora=True, K=K),
+                       dict(phase="train", part=f"roll-out train step, K = {K}",
+                            grid="721x1440 (720x1440)", lora_mode="all",
+                            remat_scope=cfg.remat_scope, banks_differ=banks_differ,
+                            seconds=time.perf_counter() - t0))
+    if dead or not all(banks_differ):
+        raise AssertionError(f"roll-out train step: banks without a gradient {dead[:4]}, bank 0 "
+                             f"and 1 gradients differ {banks_differ}")
+    return row
+
+
+def run_train_reference() -> dict:
+    """The card against the port's CPU run: the recipe's model at two blocks per backbone
+    stage (the second shifted), seeded on the card, one LoRA train step at 121 x 240 without
+    remat (the rematerialisation is the same arithmetic, held in float64 on the CPU by the
+    tests); the loss within TRAIN_LOSS_TOL relative and the concatenated LoRA gradient within
+    TRAIN_GRAD_TOL relative L2 error."""
+    import torch
+
+    from aurora_tpu_torch.ops import _lib
+    from aurora_tpu_torch.tools import train_bench
+    from aurora_tpu_torch.training import make_train_step
+
+    t0 = time.perf_counter()
+    cfg = train_bench.train_config(remat=False).replace(encoder_depths=(2, 2, 2),
+                                                        decoder_depths=(2, 2, 2))
+    model = train_bench.build(cfg, "cuda", "lora")
+    H, W = TRAIN_REF_GRID
+    results = {}
+    for dev in ("cuda", "cpu"):
+        model = model.to(dev)
+        (surf, static, atmos, batch), (tgt_s, tgt_a) = train_bench.inputs(model, H, W)
+        enc = model.prepare_encodings(batch, torch.float32)
+        opt = _Watched(update=False)
+        step = make_train_step(model, opt, tuple(float(x) for x in batch.metadata.atmos_levels))
+        before = dict(_lib.LAUNCHES)
+        loss = step(surf, static, atmos, enc, 0, {k: v[0] for k, v in tgt_s.items()},
+                    {k: v[0] for k, v in tgt_a.items()})
+        launched = {k: v - before[k] for k, v in _lib.LAUNCHES.items() if v != before[k]}
+        flat = torch.cat([g.float().flatten().cpu() for g in opt.grads.values()])
+        results[dev] = (float(loss), flat, launched)
+        torch.cuda.empty_cache()
+    (lc, gc, launched), (lp, gp, _) = results["cuda"], results["cpu"]
+    loss_err = abs(lc - lp) / abs(lp)
+    grad_err = ((gc - gp).norm() / gp.norm()).item()
+    emit(dict(phase="train", part="card vs CPU", grid=f"{H}x{W}",
+              depths=(cfg.encoder_depths, cfg.decoder_depths), loss_card=lc, loss_cpu=lp,
+              loss_rel_err=loss_err, lora_grad_rel_l2=grad_err,
+              tol=(TRAIN_LOSS_TOL, TRAIN_GRAD_TOL), launches=launched,
+              seconds=time.perf_counter() - t0))
+    missing = [k for k in ("roll3d", "roll3d_bwd", "window_attention", "mlp_adaln_residual",
+                           "perceiver_core") if not launched.get(k)]
+    if missing or not (loss_err <= TRAIN_LOSS_TOL and grad_err <= TRAIN_GRAD_TOL):
+        raise AssertionError(f"train card vs CPU: loss {loss_err}, LoRA gradient {grad_err}, "
+                             f"kernels never launched {missing}")
+    return dict(loss_rel_err=loss_err, lora_grad_rel_l2=grad_err)
+
+
+def run_train_phases() -> dict:
+    """The phase ``train``: the kernels' gradients, the full-width LoRA and roll-out train
+    steps, the card against the CPU. Returns the gradient phases' summary, which the kernels
+    line reads."""
+    import torch
+
+    t0 = time.perf_counter()
+    grads = run_grad_phases()
+    run_train_step_phase()
+    torch.cuda.empty_cache()
+    run_rollout_train_phase()
+    torch.cuda.empty_cache()
+    run_train_reference()
+    emit(dict(phase="train", seconds=time.perf_counter() - t0))
+    return dict(grads=grads)
 
 
 # ------------------------------------------------------------------------------ tools
@@ -1293,7 +1757,17 @@ def main() -> int:
         ptxas[n] = [ln.strip() for ln in lines if "registers" in ln or "spill" in ln]
     emit(dict(phase="build", seconds=secs, ptxas=ptxas))
 
+    seconds = {"build": secs}
+    mark = time.perf_counter()
+
+    def lap(phase: str) -> None:
+        nonlocal mark
+        now = time.perf_counter()
+        seconds[phase] = now - mark
+        mark = now
+
     summary = run_kernel_phases()
+    lap("kernels")
     launches = {}
     for route in ROUTES:
         launches[route] = run_route(route, STEPS, (121, 240),
@@ -1301,8 +1775,14 @@ def main() -> int:
         missing = [k for k, n in ROUTES[route][1].items() if launches[route][k] == 0]
         if missing:
             raise AssertionError(f"route {route}: kernels never launched: {missing}")
+        lap(f"route {route}")
+    train = run_train_phases()
+    lap("train")
     launches["tools"] = run_tools()
+    lap("tools")
     run_variants(STEPS)
+    lap("variants")
+    emit(dict(phase="seconds", **seconds, total=sum(seconds.values())))
 
     def entry(s: dict, n_launches: int) -> dict:
         more = {k: s[k] for k in ("bound_of_tpu_work_ms", "empty_kernel_ms", "byte_bound_ms")
@@ -1316,9 +1796,13 @@ def main() -> int:
         src, replaces = SOURCES[name]
         home = HOME[name]
         main_mode = "tail" if (name, "tail") in summary else None
+        # The backward (K1-K8): the worst gradient error of the train phase, the backward's
+        # and plain autograd's ms at the main path's shape; none for the probe kernels.
+        bwd = train["grads"].get(name, dict(grad_err=None, bwd_ms=None, plain_bwd_ms=None,
+                                            bwd_shape=None, bwd_rel_err=None))
         e = dict(name=name, ok=True, route="cuda", source=src, replaces=replaces,
                  home_route=home, **entry(summary[name, main_mode],
-                                          launches[home][name] if home else 0))
+                                          launches[home][name] if home else 0), **bwd)
         if (name, "no tail") in summary:
             # K2 without the tail runs on route P; K6 without it on no route driven here.
             n = launches["P"][name] if name == "window_attention" else 0

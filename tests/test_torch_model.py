@@ -232,7 +232,9 @@ def test_no_jax_or_jax_package_is_loaded():
         "       or n.startswith(('jax.', 'aurora_tpu.', 'jaxlib'))]\n"
         "new = ['ops.probes', 'tools', 'tools.backbone_ablate', 'tools.gemm_probe',\n"
         "       'tools.smem_probe', 'tools.kernel_ablate', 'checkpoint',\n"
-        "       'tools.variant_bench', 'tools.highres_bench', 'rollout', 'tools.bench']\n"
+        "       'tools.variant_bench', 'tools.highres_bench', 'rollout', 'tools.bench',\n"
+        "       'ops.ad', 'training', 'training.train', 'tools.train_bench',\n"
+        "       'tools.rollout_train_bench']\n"
         "assert all('aurora_tpu_torch.' + n in sys.modules for n in new), new\n"
         "print(len([n for n in sys.modules if n.startswith('aurora_tpu_torch')]), bad)\n"
     )

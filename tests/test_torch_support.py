@@ -69,6 +69,41 @@ def matched_models(cfg_kwargs: dict, seed: int = 0):
     return jmodel, params, tmodel
 
 
+def tree_name(path) -> str:
+    """A JAX tree path as the port's parameter name (``a.b.0.c``)."""
+    return ".".join(str(getattr(k, "key", getattr(k, "idx", k))) for k in path)
+
+
+def seeded_matched_models(cfg_kwargs: dict, seed: int = 0):
+    """As :func:`matched_models`, without the JAX init's run (ten seconds and more at the
+    small config's widths, as long again for the port's own seeded init): the tree's
+    structure comes from ``jax.eval_shape`` of the JAX init, its leaves from a numpy seed
+    (LayerNorms at weight 1 and bias 0, everything else N(0, 0.02)), then the gates are
+    opened as by :func:`open_gates`; the port model holds the same values."""
+    from aurora_tpu.model.aurora import Aurora as JaxAurora
+    from aurora_tpu.model.config import AuroraConfig as JaxConfig
+    from aurora_tpu_torch.convert import load_numpy_params
+    from aurora_tpu_torch.model.aurora import Aurora
+    from aurora_tpu_torch.model.config import AuroraConfig
+    from aurora_tpu_torch.model.nn import LayerNorm
+
+    jmodel = JaxAurora(JaxConfig(**cfg_kwargs))
+    shapes = jax.eval_shape(lambda: jmodel.init(jax.random.PRNGKey(seed), dtype=jnp.float64))
+    tmodel = Aurora(AuroraConfig(**cfg_kwargs), device="cpu", dtype=torch.float64, seed=None)
+    layernorms = {f"{m_name}.{k}" for m_name, m in tmodel.named_modules()
+                  if isinstance(m, LayerNorm) for k in ("weight", "bias")}
+    rng = np.random.default_rng(seed)
+
+    def leaf(path, s):
+        name = tree_name(path)
+        if name in layernorms:
+            return jnp.full(s.shape, 1.0 if name.endswith("weight") else 0.0, s.dtype)
+        return jnp.asarray(0.02 * rng.standard_normal(s.shape), s.dtype)
+
+    params = open_gates(jax.tree_util.tree_map_with_path(leaf, shapes), seed=seed)
+    return jmodel, params, load_numpy_params(tmodel, numpy_tree(params))
+
+
 def torch_batch(jbatch):
     """The port's Batch holding the same arrays as a JAX-package Batch."""
     from aurora_tpu_torch.batch import Batch, Metadata
