@@ -35,7 +35,7 @@ from aurora_tpu_torch.model.config import (
 )
 from aurora_tpu_torch.model.decoder import Decoder
 from aurora_tpu_torch.model.encoder import Encoder, EncoderEncodings
-from aurora_tpu_torch.model.nn import Linear, checkpointed, full_f32_products
+from aurora_tpu_torch.model.nn import DrawKey, Linear, checkpointed, draw_key, full_f32_products
 from aurora_tpu_torch.model.swin3d import Backbone
 from aurora_tpu_torch.normalisation import (
     normalise_atmos_var,
@@ -84,13 +84,6 @@ def resolve_device(device=None) -> torch.device:
             "of the kernels on the CPU."
         )
     return torch.device("cuda")
-
-
-def _check_supported(cfg: AuroraConfig) -> None:
-    """The stochastic training knobs wait for a port of their own; every other knob is
-    ported."""
-    if cfg.drop_path > 0 or cfg.drop_rate > 0:
-        raise NotImplementedError("not ported yet: drop_path/drop_rate")
 
 
 # ------------------------------------------------------------------- variant hooks
@@ -226,7 +219,6 @@ class Aurora(nn.Module):
         cfg = cfg or self.default_config()
         if overrides:
             cfg = cfg.replace(**overrides)
-        _check_supported(cfg)
         self.cfg = cfg
         dev = resolve_device(device)
         kw = dict(device=dev, dtype=dtype)
@@ -248,6 +240,24 @@ class Aurora(nn.Module):
                 for name, p in self.named_parameters():
                     if "feature_combiner" in name:  # The mean of the two channels.
                         p.fill_(0.5 if name.endswith("weight") else 0.0)
+
+    # The knobs that change how the model computes, not its parameters.
+    RUNTIME_KNOBS = ("remat", "remat_scope", "drop_path", "drop_rate")
+
+    def set_knobs(self, **knobs) -> "Aurora":
+        """Set knobs of :data:`RUNTIME_KNOBS` on the built model (every submodule's copy of
+        the config): the same weights under another ``remat_scope``, say. Returns the
+        model."""
+        bad = sorted(set(knobs) - set(self.RUNTIME_KNOBS))
+        if bad:
+            raise ValueError(f"not a runtime knob: {bad}; these are {self.RUNTIME_KNOBS}")
+        cfg = self.cfg.replace(**knobs)
+        for m in self.modules():
+            if isinstance(getattr(m, "cfg", None), AuroraConfig):
+                m.cfg = cfg
+            elif hasattr(m, "cfg"):
+                m.cfg = cfg.backbone
+        return self
 
     # Released-checkpoint identity (``aurora_tpu/model/aurora.py:434-437``); pinned revisions.
     default_checkpoint_repo = "microsoft/aurora"
@@ -354,18 +364,29 @@ class Aurora(nn.Module):
                                 dynamic_scalars=dynamic)
 
     def forward_core(self, surf, static, atmos, enc: EncoderEncodings, rollout_step: int,
-                     atmos_levels):
+                     atmos_levels, generator: Optional[torch.Generator] = None,
+                     key: Optional[DrawKey] = None):
         """Unnormalised ``surf (B, T, H, W)``, ``static (H, W)``, ``atmos (B, T, C, H, W)``
         -> unnormalised predictions ``(B, H, W)`` / ``(B, C, H, W)``.
 
         Keeps gradients (the train steps call it, as the JAX train step calls
         ``forward_core``). With ``cfg.remat`` under ``remat_scope="full"`` the encoder, the
         backbone and the decoder are each rematerialised as a whole
-        (``aurora_tpu/model/aurora.py:311-368``), the backbone's stages and blocks inside."""
-        with full_f32_products():
-            return self._forward_core(surf, static, atmos, enc, rollout_step, atmos_levels)
+        (``aurora_tpu/model/aurora.py:311-368``), the backbone's stages and blocks inside.
 
-    def _forward_core(self, surf, static, atmos, enc, rollout_step, atmos_levels):
+        ``generator`` (the JAX function's ``rng``) turns the training-only stochastic knobs
+        ``cfg.drop_path`` / ``cfg.drop_rate`` on: one seed is drawn from it here, outside
+        every rematerialised region, and every mask of the backbone derives from it
+        (:mod:`aurora_tpu_torch.model.nn`). ``key`` passes a seed already drawn instead (the
+        roll-out train step folds its step index into one). Neither: deterministic."""
+        if generator is not None:
+            if key is not None:
+                raise ValueError("pass a generator or a key, not both")
+            key = draw_key(generator)
+        with full_f32_products():
+            return self._forward_core(surf, static, atmos, enc, rollout_step, atmos_levels, key)
+
+    def _forward_core(self, surf, static, atmos, enc, rollout_step, atmos_levels, key):
         cfg = self.cfg
         outer = cfg.remat and cfg.remat_scope == "full"
         stats = dict(cfg.surf_stats)
@@ -391,10 +412,11 @@ class Aurora(nn.Module):
         x = checkpointed(outer, self.encoder, surf_t, static_exp, atmos_t, enc, atmos_levels)
         if cfg.autocast:
             x = checkpointed(outer, self.backbone, x.to(torch.bfloat16), enc.lead_time,
-                             rollout_step, patch_res)
+                             rollout_step, patch_res, key)
             x = x.to(torch.float32)
         else:
-            x = checkpointed(outer, self.backbone, x, enc.lead_time, rollout_step, patch_res)
+            x = checkpointed(outer, self.backbone, x, enc.lead_time, rollout_step, patch_res,
+                             key)
         # The decoder's variables are the hook-supplemented ones.
         surf_pred, atmos_pred = checkpointed(
             outer, self.decoder, x, tuple(surf_t), tuple(atmos_t), enc.levels_dec, patch_res,

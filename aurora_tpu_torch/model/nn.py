@@ -9,11 +9,20 @@ Conventions kept from the JAX package so the two compare like with like:
 * GELU is the exact erf form.
 * ``AdaptiveLayerNorm`` is FiLM: ``LN(x) * (scale_bias + scale(c)) + shift(c)`` with a
   zero-initialised modulation linear.
+
+The training-only stochastic knobs (:func:`dropout`, :func:`drop_path`) draw every Bernoulli
+mask through one function, :func:`keep_mask`, from an integer seed folded along the draw's
+place in the model (:class:`DrawKey`), the counterpart of the JAX package's PRNG key tree.
+A mask is a function of ``(seed, path, shape, keep)`` alone, so a rematerialised region that
+runs again in the backward draws the masks it drew in the forward:
+``torch.utils.checkpoint`` restores the global RNG states on a replay, but not a
+``torch.Generator`` that a region would draw from.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import math
 from typing import Optional
 
@@ -23,8 +32,14 @@ import torch.utils.checkpoint
 from torch import nn
 
 __all__ = [
+    "DrawKey",
     "acc_dtype",
     "checkpointed",
+    "draw_key",
+    "drop_path",
+    "dropout",
+    "fold_seed",
+    "keep_mask",
     "full_f32_products",
     "matmul_acc",
     "linear",
@@ -88,6 +103,84 @@ def checkpointed(on: bool, fn, *args):
     if not on:
         return fn(*args)
     return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+
+
+_U64 = (1 << 64) - 1
+
+
+def _splitmix64(z: int) -> int:
+    """One step of splitmix64 on a 64-bit integer."""
+    z = (z + 0x9E3779B97F4A7C15) & _U64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _U64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _U64
+    return z ^ (z >> 31)
+
+
+def fold_seed(seed: int, path: tuple[int, ...]) -> int:
+    """The 64-bit seed of a draw: ``seed`` folded with each index of ``path`` in turn by
+    splitmix64 (``jax.random.fold_in``'s counterpart)."""
+    z = seed & _U64
+    for i in path:
+        z = _splitmix64(z ^ _splitmix64(int(i) & _U64))
+    return z
+
+
+@dataclasses.dataclass(frozen=True)
+class DrawKey:
+    """A place in the tree of draws: the step's ``seed`` and the ``path`` of indices that
+    leads from the step to one draw. The path mirrors the JAX package's keys: the roll-out
+    step (``aurora_tpu/training/train.py:190``), the backbone stage (encoder ``i``, decoder
+    ``100 + i``, ``aurora_tpu/model/swin3d.py:1743,1756``), the block (``:1596``), then one
+    of a block's five draws (``:1126``)."""
+
+    seed: int
+    path: tuple[int, ...] = ()
+
+    def fold(self, i: int) -> "DrawKey":
+        return DrawKey(self.seed, self.path + (int(i),))
+
+
+def draw_key(generator: torch.Generator) -> DrawKey:
+    """One 64-bit seed drawn from ``generator``: the root of a step's draws. Called outside
+    every rematerialised region, once a step."""
+    seed = torch.randint(0, 2**63 - 1, (), generator=generator, device=generator.device)
+    return DrawKey(int(seed.item()))
+
+
+def keep_mask(shape: tuple[int, ...], keep: float, seed: int, path: tuple[int, ...],
+              device) -> torch.Tensor:
+    """The boolean mask of one Bernoulli(``keep``) draw of ``shape`` on ``device``: uniform
+    numbers from a generator seeded with :func:`fold_seed` of ``(seed, path)``, below
+    ``keep``. Every stochastic draw of the port goes through this function."""
+    gen = torch.Generator(device=device).manual_seed(fold_seed(seed, path))
+    return torch.rand(shape, generator=gen, device=device) < keep
+
+
+def _keep_scalar(keep: float, x: torch.Tensor) -> torch.Tensor:
+    return torch.tensor(keep, dtype=x.dtype, device=x.device)
+
+
+def dropout(x: torch.Tensor, rate: float, key: Optional[DrawKey]) -> torch.Tensor:
+    """Inverted dropout (``aurora_tpu/model/nn.py:142-149``): each element kept with
+    probability ``1 - rate`` and divided by it, in ``x.dtype``. The identity without a key or
+    at rate 0."""
+    if key is None or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = keep_mask(tuple(x.shape), keep, key.seed, key.path, x.device)
+    return torch.where(mask, x / _keep_scalar(keep, x), torch.zeros((), dtype=x.dtype,
+                                                                       device=x.device))
+
+
+def drop_path(x: torch.Tensor, rate: float, key: Optional[DrawKey]) -> torch.Tensor:
+    """Stochastic depth (``aurora_tpu/model/nn.py:152-167``): the whole branch of a batch
+    element dropped with probability ``rate`` (one flag per element), the survivors divided
+    by ``1 - rate`` in ``x.dtype``. The identity without a key or at rate 0."""
+    if key is None or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = keep_mask((x.shape[0],) + (1,) * (x.ndim - 1), keep, key.seed, key.path, x.device)
+    return x * mask.to(x.dtype) / _keep_scalar(keep, x)
 
 
 def trunc_normal_(t: torch.Tensor, gen: torch.Generator, std: float = 0.02) -> torch.Tensor:

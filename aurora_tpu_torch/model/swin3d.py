@@ -4,7 +4,7 @@ Tokens stay 5D ``(B, C, H, W, D)`` through the backbone. One block is LN-after w
 on both branches (reference: aurora/model/swin3d.py:440-509). Shifted blocks roll the grid
 by ``-window/2`` before attention and back after it (K1), and the grid is centre-padded to
 window multiples. The rest of a block is routed by ``BackboneConfig.attention_impl`` and
-``mlp_impl`` as ``swin_block_apply`` routes it on one device without a PRNG key
+``mlp_impl`` as ``swin_block_apply`` routes it on one device
 (``aurora_tpu/model/swin3d.py:1193-1377``):
 
 * attention: ``"pallas"`` runs on the padded 5D tokens (K2); ``"pallas_windowed"`` on
@@ -14,6 +14,16 @@ window multiples. The rest of a block is routed by ``BackboneConfig.attention_im
   ``x + LN(mlp(x)) * scale + shift`` is one call (K3);
 * ``mlp_impl`` ``"pallas"``/``"xla"``: proj is a plain GEMM with the LoRA side path, the
   FiLM LayerNorm and residual are plain, and the MLP runs as K8 (``"pallas"``) or plain.
+
+Training with the stochastic knobs (a :class:`~aurora_tpu_torch.model.nn.DrawKey` given, and
+the block's stochastic-depth rate or ``drop_rate`` above 0) routes a block as the JAX package
+does (``swin3d.py:1122-1124``, ``:1204-1208``): K1 for its rolls, then plain attention and a
+plain MLP (the ``"xla"`` route), with dropout after proj and on the MLP's hidden layer and
+output, and ``drop_path`` on both branches. The fused tails would add a branch to the
+residual inside a kernel before it could be dropped. The rate rises linearly from 0 to
+``drop_path`` over the encoder's blocks; the decoder's stages take the same ramp's slices by
+their depths (``swin3d.py:1724-1733``). Blocks at rate 0 with ``drop_rate`` 0 keep their
+kernels.
 
 LoRA is folded into the weights a kernel reads (the qkv of K2/K6, the proj of an in-kernel
 or K5 tail), as the JAX package folds it; every plain projection adds the side path. The
@@ -42,10 +52,14 @@ from aurora_tpu_torch.model.config import BackboneConfig
 from aurora_tpu_torch.model.lora import LoRA, lora_apply, lora_weight_delta
 from aurora_tpu_torch.model.nn import (
     AdaptiveLayerNorm,
+    DrawKey,
     LayerNorm,
     Linear,
     MLP,
     checkpointed,
+    drop_path,
+    dropout,
+    gelu,
     linear,
     merge_heads,
     sdpa,
@@ -73,6 +87,7 @@ __all__ = [
     "maybe_adjust_windows",
     "pad_3d",
     "crop_3d",
+    "drop_path_rates",
     "get_encoder_specs",
 ]
 
@@ -195,11 +210,20 @@ class SwinBlock(nn.Module):
         shift_size: tuple[int, int, int],
         num_heads: int,
         rollout_step: int,
+        dp_rate: float = 0.0,
+        key: Optional[DrawKey] = None,
     ) -> torch.Tensor:
+        """``dp_rate``: the block's stochastic-depth rate; ``key``: its place in the step's
+        draws (None: deterministic)."""
         C, H, W = res
         B, D = x.shape[0], x.shape[-1]
         assert tuple(x.shape[1:4]) == (C, H, W), f"Wrong grid: {x.shape} vs {res}"
-        aimpl, mimpl = self.cfg.routes()
+        stochastic = key is not None and (dp_rate > 0.0 or self.cfg.drop_rate > 0.0)
+        if stochastic:
+            k_dp1, k_dp2, k_proj, k_hid, k_out = (key.fold(j) for j in range(5))
+            aimpl, mimpl = "xla", "xla"
+        else:
+            aimpl, mimpl = self.cfg.routes()
         fuse_attn_tail = mimpl == "fused"
         tail_in_kernel = fuse_attn_tail and aimpl in ("pallas", "pallas_windowed")
         att = self.attn
@@ -243,6 +267,11 @@ class SwinBlock(nn.Module):
                 x, att.folded_weight("proj", rollout_step), att.proj.bias, shortcut,
                 shift1, scale1,
             )
+        elif stochastic:
+            # Dropout after proj, on the un-windowed tokens: crop and roll commute with an
+            # element-wise draw (``swin3d.py:1326-1330``).
+            x = dropout(x, self.cfg.drop_rate, k_proj)
+            x = shortcut + drop_path(self.norm1(x, c), dp_rate, k_dp1)
         else:
             x = shortcut + self.norm1(x, c)
 
@@ -252,6 +281,11 @@ class SwinBlock(nn.Module):
             x = mlp_adaln_residual(
                 x, m.fc1.weight, m.fc1.bias, m.fc2.weight, m.fc2.bias, shift2, scale2
             )
+        elif stochastic:
+            rate = self.cfg.drop_rate
+            hidden = dropout(gelu(m.fc1(x)), rate, k_hid)
+            y = dropout(m.fc2(hidden), rate, k_out)
+            x = x + drop_path(self.norm2(y, c), dp_rate, k_dp2)
         else:
             if mimpl == "pallas":
                 y = mlp_fused(x, m.fc1.weight, m.fc1.bias, m.fc2.weight, m.fc2.bias)
@@ -309,6 +343,20 @@ class BasicLayer(nn.Module):
         self.upsample = PatchSplit(dim, **kw) if up else None
 
 
+def drop_path_rates(cfg: BackboneConfig) -> tuple[list[tuple], list[tuple]]:
+    """The stochastic-depth rate of every block, ``(encoder stages, decoder stages)``: a ramp
+    from 0 to ``cfg.drop_path`` over the encoder's blocks, which the decoder's stages slice
+    by their own depths (``aurora_tpu/model/swin3d.py:1724-1733``)."""
+    assert sum(cfg.encoder_depths) == sum(cfg.decoder_depths)
+    dpr = np.linspace(0.0, cfg.drop_path, sum(cfg.encoder_depths))
+
+    def stages(depths):
+        ends = np.cumsum((0,) + tuple(depths))
+        return [tuple(float(r) for r in dpr[a:b]) for a, b in zip(ends[:-1], ends[1:])]
+
+    return stages(cfg.encoder_depths), stages(cfg.decoder_depths)
+
+
 def get_encoder_specs(cfg: BackboneConfig, patch_res: tuple[int, int, int]):
     """Input resolution and output padding of every encoder stage."""
     all_res = [patch_res]
@@ -364,21 +412,28 @@ class Backbone(nn.Module):
                 if isinstance(m, AdaptiveLayerNorm):
                     m.modulation.weight.zero_()
 
-    def _run_blocks(self, layer, x, c, res, num_heads, rollout_step):
+    def _run_blocks(self, layer, x, c, res, num_heads, rollout_step, rates, key):
         half = tuple(w // 2 for w in self.cfg.window_size)
         for i, block in enumerate(layer.blocks):
             shift = (0, 0, 0) if i % 2 == 0 else half
-            x = checkpointed(self.cfg.remat, block, x, c, res, shift, num_heads, rollout_step)
+            k = key.fold(i) if key is not None else None
+            x = checkpointed(self.cfg.remat, block, x, c, res, shift, num_heads, rollout_step,
+                             rates[i], k)
         return x
 
-    def _run_layer(self, layer, x, c, res, num_heads, rollout_step):
+    def _run_layer(self, layer, x, c, res, num_heads, rollout_step, rates, key):
         """One stage, rematerialised as a whole under ``remat_scope`` "full" / "no_outer"."""
         cfg = self.cfg
         on = cfg.remat and cfg.remat_scope in ("full", "no_outer")
-        return checkpointed(on, self._run_blocks, layer, x, c, res, num_heads, rollout_step)
+        return checkpointed(on, self._run_blocks, layer, x, c, res, num_heads, rollout_step,
+                            rates, key)
 
-    def forward(self, x, lead_time_encode, rollout_step: int, patch_res):
+    def forward(self, x, lead_time_encode, rollout_step: int, patch_res,
+                key: Optional[DrawKey] = None):
+        """``key``: the root of the step's draws for the stochastic knobs (None:
+        deterministic), folded with the stage (encoder ``i``, decoder ``100 + i``)."""
         cfg = self.cfg
+        enc_rates, dec_rates = drop_path_rates(cfg)
         B, L, D = x.shape
         assert L == patch_res[0] * patch_res[1] * patch_res[2], "Input shape mismatch."
         assert patch_res[0] % cfg.window_size[0] == 0
@@ -390,14 +445,15 @@ class Backbone(nn.Module):
         skips = []
         for i, layer in enumerate(self.encoder_layers):
             x = self._run_layer(layer, x, c, all_enc_res[i], cfg.encoder_num_heads[i],
-                                rollout_step)
+                                rollout_step, enc_rates[i], None if key is None else key.fold(i))
             skips.append(x)
             if layer.downsample is not None:
                 x = layer.downsample(x, all_enc_res[i])
         for i, layer in enumerate(self.decoder_layers):
             index = n_dec - i - 1
             x = self._run_layer(layer, x, c, all_enc_res[index], cfg.decoder_num_heads[i],
-                                rollout_step)
+                                rollout_step, dec_rates[i],
+                                None if key is None else key.fold(100 + i))
             if layer.upsample is not None:
                 x = layer.upsample(x, all_enc_res[index], padded_outs[index - 1])
             if 0 < i < n_dec - 1:

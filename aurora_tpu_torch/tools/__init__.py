@@ -13,13 +13,18 @@
   wave and 0.1 degree models at their own grids;
 * :mod:`~aurora_tpu_torch.tools.bench` (``bench.py``, ``tools/rollout_scan_bench.py``): the
   benchmark entry, one configuration's ``rollout`` or ``rollout_scan`` step by step, with
-  peak memory and the device's idle share.
+  peak memory and the device's idle share;
+* :mod:`~aurora_tpu_torch.tools.train_bench`, :mod:`~aurora_tpu_torch.tools.rollout_train_bench`
+  and :mod:`~aurora_tpu_torch.tools.train_speed_probe` (``tools/train_bench.py``,
+  ``tools/rollout_train_bench.py``, ``tools/train_speed_probe.py``): the train steps;
+* :mod:`~aurora_tpu_torch.tools.rollout_bench` (``tools/rollout_bench.py``): a roll-out with
+  the cyclone tracker on every prediction.
 
 Each has a ``main(argv=None)`` that prints one line per result and returns the results (a
-list of dicts; ``bench``: one dict, its last line). They run on the card unless ``--device
-cpu`` is given; on the CPU every kernel wrapper takes its plain version and the times are
-host times of those, good for rehearsing the control flow and nothing else. Every result
-names its device.
+list of dicts; ``bench`` and the train and roll-out tools: one dict, their last line). They
+run on the card unless ``--device cpu`` is given; on the CPU every kernel wrapper takes its
+plain version and the times are host times of those, good for rehearsing the control flow
+and nothing else. Every result names its device.
 
 This module holds what they share: the card's published peaks, timing, the error
 measures and the result line.

@@ -12,13 +12,17 @@ the last input frame), ``adamw(3e-4)``.
   does), AdamW over the adapter banks only.
 * ``--mode full``: every parameter trained, stored in f32, AdamW over all of them.
 
+With ``--drop-path`` / ``--drop-rate`` above 0 every step draws its masks from a generator
+seeded with 0 (stochastic depth and dropout, the JAX step's ``rng``).
+
 A warm-up step (which builds the kernels) comes first, then ``--steps`` steps, each ended
 by a synchronise; the host clock times each. Peak memory is ``max_memory_allocated`` over
 the timed steps. On the card every step's launches are held to :func:`expected_launches`:
 the tool raises, after printing its results, where a step's differ.
 
 Usage: ``python -m aurora_tpu_torch.tools.train_bench [--mode lora|full] [--steps 3]
-[--H 721 --W 1440] [--no-remat] [--remat-scope full|no_outer|blocks] [--device cpu]``.
+[--H 721 --W 1440] [--no-remat] [--remat-scope full|no_outer|blocks] [--drop-path 0.2]
+[--drop-rate 0.1] [--device cpu]``.
 ``main(argv, cfg=...)`` takes another :class:`~aurora_tpu_torch.model.config.AuroraConfig`
 (the recipe's knobs are set on it), ``main(argv, model=...)`` a model already built. The
 last line printed is one JSON object.
@@ -36,13 +40,14 @@ import torch
 
 from aurora_tpu_torch.model.aurora import Aurora, cast_backbone_params
 from aurora_tpu_torch.model.config import AuroraConfig
+from aurora_tpu_torch.model.swin3d import drop_path_rates
 from aurora_tpu_torch.ops import _lib
 from aurora_tpu_torch.tools import card_line, resolve_device
 from aurora_tpu_torch.tools.perf_breakdown import numpy_batch, open_gates, production_config
 from aurora_tpu_torch.training import adamw, lora_mask, make_train_step
 
 __all__ = ["build", "check_launches", "expected_launches", "inputs", "launch_mismatches",
-           "main", "run_steps", "train_config"]
+           "main", "run_steps", "step_generator", "train_config"]
 
 
 def train_config(cfg: Optional[AuroraConfig] = None, remat: bool = True,
@@ -73,12 +78,24 @@ def inputs(model: Aurora, H: int, W: int, K: int = 1):
     return (b.surf_vars, b.static_vars, b.atmos_vars, batch), (tgt_surf, tgt_atmos)
 
 
-def expected_launches(cfg: AuroraConfig, lora: bool, K: int = 0) -> dict[str, int]:
+def step_generator(cfg: AuroraConfig, device) -> Optional[torch.Generator]:
+    """The generator of the steps' draws (seeded with 0) when ``cfg`` has a stochastic knob
+    above 0, else None (a deterministic step)."""
+    if cfg.drop_path > 0 or cfg.drop_rate > 0:
+        return torch.Generator(device=device).manual_seed(0)
+    return None
+
+
+def expected_launches(cfg: AuroraConfig, lora: bool, K: int = 0,
+                      stochastic: bool = False) -> dict[str, int]:
     """The kernel launches of one update on the card, from the code: a single-step train
-    step (``K = 0``) or a roll-out train step of ``K`` steps, on the main route.
+    step (``K = 0``) or a roll-out train step of ``K`` steps, on the main route;
+    ``stochastic``: the steps draw masks (a generator is passed).
 
     Each forward pass of a Swin block launches K2 and K3 once and, in a shifted block (odd
-    index), K1 twice; the level aggregation and de-aggregation launch K4 and K3 once each.
+    index), K1 twice; a stochastic block (a generator, and its stochastic-depth rate or
+    ``drop_rate`` above 0) runs plain attention and a plain MLP and launches K1 only; the
+    level aggregation and de-aggregation launch K4 and K3 once each.
     The backward of every roll launches K1 once more (``roll3d_bwd``: the first block of a
     stage is unshifted, so every roll's input needs a gradient). A rematerialised region runs
     its forward again in the backward, inside the replays of the regions around it, and each
@@ -96,21 +113,24 @@ def expected_launches(cfg: AuroraConfig, lora: bool, K: int = 0) -> dict[str, in
       the history, holds a prediction and needs a gradient.
     """
     remat, scope = cfg.remat, cfg.remat_scope
-    stages = list(cfg.encoder_depths) + list(cfg.decoder_depths)
+    enc_rates, dec_rates = drop_path_rates(cfg.backbone)
+    stages = enc_rates + dec_rates
     steps = max(K, 1)
     n = dict.fromkeys(("roll3d", "window_attention", "mlp_adaln_residual", "perceiver_core",
                        "roll3d_bwd"), 0)
     for step in range(steps):
         body = int(K > 0)
-        for s, depth in enumerate(stages):
+        for s, rates in enumerate(stages):
+            depth = len(rates)
             for i in range(depth):
                 runs = 1 + body
                 if remat:
                     runs += 1
                     runs += scope in ("full", "no_outer") and i < depth - 1
                     runs += scope == "full" and s < len(stages) - 1
-                n["window_attention"] += runs
-                n["mlp_adaln_residual"] += runs
+                if not (stochastic and (rates[i] > 0 or cfg.drop_rate > 0)):
+                    n["window_attention"] += runs
+                    n["mlp_adaln_residual"] += runs
                 if i % 2:
                     n["roll3d"] += 2 * runs
                     n["roll3d_bwd"] += 2
@@ -176,6 +196,8 @@ def main(argv=None, *, cfg: Optional[AuroraConfig] = None,
     ap.add_argument("--W", type=int, default=1440)
     ap.add_argument("--no-remat", action="store_true")
     ap.add_argument("--remat-scope", choices=("full", "no_outer", "blocks"), default="full")
+    ap.add_argument("--drop-path", type=float, default=0.0, help="stochastic-depth rate")
+    ap.add_argument("--drop-rate", type=float, default=0.0, help="dropout rate")
     ap.add_argument("--device", default=None, help="the card unless 'cpu' is given")
     args = ap.parse_args(argv)
     if args.steps < 1:
@@ -183,9 +205,11 @@ def main(argv=None, *, cfg: Optional[AuroraConfig] = None,
     dev = resolve_device(args.device)
     build_s = _lib.build() if dev.type == "cuda" else None
     if model is None:
-        cfg = train_config(cfg, remat=not args.no_remat, remat_scope=args.remat_scope)
+        cfg = train_config(cfg, remat=not args.no_remat, remat_scope=args.remat_scope,
+                           drop_path=args.drop_path, drop_rate=args.drop_rate)
         model = build(cfg, dev, args.mode)
     cfg = model.cfg
+    gen = step_generator(cfg, dev)
     (surf, static, atmos, batch), (tgt_surf, tgt_atmos) = inputs(model, args.H, args.W)
     enc = model.prepare_encodings(batch, torch.float32)
     levels = tuple(float(x) for x in batch.metadata.atmos_levels)
@@ -193,13 +217,15 @@ def main(argv=None, *, cfg: Optional[AuroraConfig] = None,
     step = make_train_step(model, adamw(3e-4, trainable=trainable), levels)
     tgt_surf = {k: v[0] for k, v in tgt_surf.items()}
     tgt_atmos = {k: v[0] for k, v in tgt_atmos.items()}
-    row = run_steps(lambda i: step(surf, static, atmos, enc, i % 3, tgt_surf, tgt_atmos),
-                    args.steps, dev)
+    row = run_steps(lambda i: step(surf, static, atmos, enc, i % 3, tgt_surf, tgt_atmos,
+                                   generator=gen), args.steps, dev)
     out = dict(metric=f"train_step_{args.mode}", device=dev.type, card=card_line(dev),
                grid=[args.H, args.W], remat=cfg.remat, remat_scope=cfg.remat_scope,
+               drop_path=cfg.drop_path, drop_rate=cfg.drop_rate,
                trainable_params=sum(p.numel() for p in model.parameters() if p.requires_grad),
                build_s=build_s, **row,
-               expected_launches=expected_launches(cfg, lora=args.mode == "lora"))
+               expected_launches=expected_launches(cfg, lora=args.mode == "lora",
+                                                   stochastic=gen is not None))
     for i, (s, n) in enumerate(zip(out["times"], out["launches_per_step"]), 1):
         print(f"step {i}: {s:.4f} s (host clock, {dev.type}), launches {n}", flush=True)
     print(json.dumps(out), flush=True)

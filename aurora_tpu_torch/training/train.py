@@ -9,8 +9,12 @@ rematerialisation of ``cfg.remat`` / ``cfg.remat_scope`` happens inside ``forwar
 roll-out train step rematerialises each roll-out step as well, as the JAX step's ``lax.scan``
 body is. Both run with TF32 off (:func:`full_f32_products`), their backward included.
 
-The stochastic knobs (``drop_path``, ``drop_rate``) and the JAX step's ``rng`` argument are
-not ported: a model with them is refused when it is built.
+The JAX steps' ``rng`` is the steps' ``generator``: with ``cfg.drop_path`` / ``cfg.drop_rate``
+above 0 it turns stochastic depth and dropout on. One seed is drawn from it a step, outside
+every rematerialised region, and each mask derives from that seed and its place in the model
+(:func:`aurora_tpu_torch.model.nn.keep_mask`), so a replay in the backward draws the forward's
+masks. The roll-out step folds each step's index into the seed, as the JAX step folds it
+into its key. Without a generator a step is deterministic.
 """
 
 from __future__ import annotations
@@ -21,7 +25,7 @@ from typing import Callable, Optional
 import torch
 
 from aurora_tpu_torch.model.aurora import full_f32_products
-from aurora_tpu_torch.model.nn import checkpointed
+from aurora_tpu_torch.model.nn import checkpointed, draw_key
 
 __all__ = [
     "AdamW",
@@ -137,9 +141,10 @@ def mae_loss(pred_surf, pred_atmos, tgt_surf, tgt_atmos, lat_weights=None) -> to
 
 
 def make_train_step(model, optimizer: AdamW, atmos_levels, loss_fn=mae_loss):
-    """A train step ``(surf, static, atmos, enc, rollout_step, tgt_surf, tgt_atmos) ->
-    loss`` of ``model`` (an :class:`Aurora`): the unnormalised inputs and targets as
-    ``forward_core`` takes and returns them, ``enc`` from ``model.prepare_encodings``. It
+    """A train step ``(surf, static, atmos, enc, rollout_step, tgt_surf, tgt_atmos,
+    generator=None) -> loss`` of ``model`` (an :class:`Aurora`): the unnormalised inputs and
+    targets as ``forward_core`` takes and returns them, ``enc`` from
+    ``model.prepare_encodings``, ``generator`` the stochastic knobs' draws. It
     updates the model and ``optimizer`` in place and returns the loss, detached.
     ``optimizer.init(model)`` binds the optimiser here and freezes the parameters its
     ``trainable`` mask leaves out, so that their gradients are never computed (the JAX
@@ -147,10 +152,12 @@ def make_train_step(model, optimizer: AdamW, atmos_levels, loss_fn=mae_loss):
     optimizer.init(model)
     levels = tuple(atmos_levels)
 
-    def train_step(surf, static, atmos, enc, rollout_step, tgt_surf, tgt_atmos):
+    def train_step(surf, static, atmos, enc, rollout_step, tgt_surf, tgt_atmos,
+                   generator: Optional[torch.Generator] = None):
         with full_f32_products():
             pred_surf, pred_atmos = model.forward_core(surf, static, atmos, enc,
-                                                       int(rollout_step), levels)
+                                                       int(rollout_step), levels,
+                                                       generator=generator)
             loss = loss_fn(pred_surf, pred_atmos, tgt_surf, tgt_atmos)
             loss.backward()
         optimizer.step()
@@ -164,7 +171,7 @@ def make_rollout_train_step(model, optimizer: AdamW, atmos_levels, steps: int,
     """A train step that backpropagates through a ``steps``-step autoregressive roll-out,
     the regime that trains the per-roll-out-step LoRA banks (``lora_mode`` "all" /
     "from_second"): ``(surf, static, atmos, enc, abs_t_steps, rollout_step0,
-    tgt_surf_steps, tgt_atmos_steps, dyn_steps=None) -> loss``.
+    tgt_surf_steps, tgt_atmos_steps, dyn_steps=None, generator=None) -> loss``.
 
     The targets have a leading ``steps`` axis; ``abs_t_steps`` is ``(steps, B, D)``, each
     step's absolute-time encoding, and ``dyn_steps`` ``(steps, B, 6)`` the dynamic time
@@ -177,8 +184,9 @@ def make_rollout_train_step(model, optimizer: AdamW, atmos_levels, steps: int,
     optimizer.init(model)
     levels = tuple(atmos_levels)
 
-    def body(surf_c, atmos_c, static, enc_i, step, tgt_s, tgt_a):
-        pred_s, pred_a = model.forward_core(surf_c, static, atmos_c, enc_i, step, levels)
+    def body(surf_c, atmos_c, static, enc_i, step, tgt_s, tgt_a, key):
+        pred_s, pred_a = model.forward_core(surf_c, static, atmos_c, enc_i, step, levels,
+                                            key=key)
         loss_i = loss_fn(pred_s, pred_a, tgt_s, tgt_a)
         surf_n = {k: torch.cat([v[:, 1:], pred_s[k][:, None]], dim=1) for k, v in surf_c.items()}
         atmos_n = {k: torch.cat([v[:, 1:], pred_a[k][:, None]], dim=1)
@@ -186,21 +194,23 @@ def make_rollout_train_step(model, optimizer: AdamW, atmos_levels, steps: int,
         return loss_i, surf_n, atmos_n
 
     def train_step(surf, static, atmos, enc, abs_t_steps, rollout_step0, tgt_surf_steps,
-                   tgt_atmos_steps, dyn_steps=None):
+                   tgt_atmos_steps, dyn_steps=None, generator: Optional[torch.Generator] = None):
         if model.cfg.dynamic_vars and dyn_steps is None:
             raise ValueError(
                 "cfg.dynamic_vars models need the per-step dynamic time features: "
                 "pass dyn_steps of shape (steps, B, 6)."
             )
+        root = None if generator is None else draw_key(generator)
         with full_f32_products():
             losses = []
             for i in range(steps):
+                key = None if root is None else root.fold(i)
                 dyn = {} if dyn_steps is None else {"dynamic_scalars": dyn_steps[i]}
                 enc_i = dataclasses.replace(enc, absolute_time=abs_t_steps[i], **dyn)
                 tgt_s = {k: v[i] for k, v in tgt_surf_steps.items()}
                 tgt_a = {k: v[i] for k, v in tgt_atmos_steps.items()}
                 loss_i, surf, atmos = checkpointed(True, body, surf, atmos, static, enc_i,
-                                                   int(rollout_step0) + i, tgt_s, tgt_a)
+                                                   int(rollout_step0) + i, tgt_s, tgt_a, key)
                 losses.append(loss_i)
             loss = torch.stack(losses).mean()
             loss.backward()

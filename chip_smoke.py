@@ -50,19 +50,29 @@ Phases, each printing one JSON line; any failure raises and the script exits non
    FiLM and LoRA gates opened, ``rollout`` over the 721 x 1440 / 13-level batch; per-step
    time, peak memory, per-step launch counts (counts set to 0 just before the roll-out)
    checked against the code; outputs finite and of the right shape; then a 121 x 240 grid
-   against the port's own CPU run of the same route: the main route's model, the other
-   routes' at two blocks per backbone stage (the second shifted), seeded on the card, whose
-   reference run must launch every kernel of its route.
+   against the port's own CPU run of the same route: the route's model at two blocks per
+   backbone stage (the second shifted), seeded on the card, whose reference run must launch
+   every kernel of its route.
    After the main route's roll-out, the breakdown: ``perf_breakdown``, ``encoder_breakdown``
    and ``decoder_breakdown`` as a user runs them, in process, on the main route's model at
    720 x 1440 (one JSON line per row, with the launches of one call of its part); the level
    aggregation and de-aggregation must have launched K4 and K3, the backbone K1-K3. Then the
    roll-outs, on the same model, as ``tools.bench`` measures them: ``rollout``,
-   ``rollout_scan`` and ``rollout_scan(host_offload=True)``, 5 steps each from one
+   ``rollout_scan`` and ``rollout_scan(host_offload=True)``, 4 steps each from one
    721 x 1440 batch of host arrays (step times, peak memory, steps per second, the idle share
    of two steady steps from ``torch.profiler``); launches per step as the main route's; the
    three the same bits step by step (or within 1e-3 mean relative); the host-offload peak
-   within one prediction of a 2-step host-offload roll-out's; the caller's arrays unchanged;
+   within one prediction of a 2-step host-offload roll-out's; the caller's arrays unchanged.
+   Then the drivers, on the same model: a 721 x 1440 initial condition written with
+   ``Batch.to_netcdf`` (the land-sea mask 0 around the tracker's first fix), the
+   command-line ``forecast`` (``aurora_tpu_torch.cli.main``, 2 steps, ``--track``) with its
+   seconds split (reading, each step, each file's writing and bytes, the tracker), its files
+   the same bits as ``rollout``'s predictions of the same model (or within 1e-3 mean
+   relative) and its track the tracker's on the card's predictions and on their host copies;
+   ``evaluate`` of step 2 against step 1 on the card (finite scores); ``Batch.regrid(1.0)``
+   of a prediction with the native library built (one field through the scipy form beside
+   it, within 1e-12); ``tools.rollout_bench`` at 3 steps; ``tools.train_speed_probe`` at
+   121 x 240 over two arms;
 5. train: K1-K8's gradients through their ``Function`` (the kernel forward, the backward
    of the plain math with bf16 products) against autograd of the plain versions on the card,
    every differentiable input, on inputs cut to a few thousand rows, windows or columns
@@ -71,15 +81,24 @@ Phases, each printing one JSON line; any failure raises and the script exits non
    bf16 gradient, within the forward's bounds (roll exact, bf16 6e-3, K4 1e-2), the output's
    autograd node the kernel's ``Function``; the backward's and plain autograd's times at the
    main path's shape, where the chunk plans cut into several chunks, and the last timed
-   result of each held to the other by the same measure and bound. Then the production model's LoRA train step at 721 x 1440 as
-   ``tools.train_bench`` runs it (``remat`` at the JAX recipe's scope "full"; a warm-up and 3
-   timed steps) and a K = 2 roll-out train step with ``lora_mode="all"`` (2 updates): every
+   result of each held to the other by the same measure and bound. Then the production
+   model's LoRA train step at 721 x 1440 as ``tools.train_bench`` runs it (``remat`` at the
+   JAX recipe's scope "full"; a warm-up and 1 timed step) and a K = 2 roll-out train step
+   with ``lora_mode="all"`` (2 updates): every
    LoRA parameter a finite, non-zero gradient and moved (in the roll-out each step's bank, bank
    0's gradient not bank 1's), every frozen parameter its bits, the losses finite, each
    step's launches as ``tools.train_bench.expected_launches`` derives them, peak memory under
-   80 GB. Then the model at two blocks per backbone stage, seeded on the card, one LoRA train
-   step at 121 x 240 against the port's CPU run of it: loss within 1e-2 relative, the
-   concatenated LoRA gradient within 5e-2 relative L2;
+   80 GB; the K = 2 roll-out at two blocks per backbone stage (its full-depth time is
+   ``tools.rollout_train_bench``'s). Then the LoRA step's model with ``drop_path=0.2``, one
+   step with a generator: its launches as ``expected_launches(stochastic=True)`` derives them
+   (K1 in every shifted block, K2 and K3 only in the two blocks at rate 0), every LoRA
+   parameter a finite gradient, non-zero and moved unless its block's attention branch was
+   dropped (then exactly zero), peak under 80 GB. Then the model at two blocks per backbone
+   stage, seeded on the card, one LoRA train step at 121 x 240 against the port's CPU run of
+   it: loss within 1e-2 relative, the concatenated LoRA gradient within 5e-2 relative L2;
+   again with ``drop_path=0.2, drop_rate=0.1`` and the masks drawn on the CPU for both runs
+   (every block stochastic: K1, plain attention and MLP); then 10^4 Bernoulli draws on the
+   card, the kept fraction within 5 binomial standard deviations;
 6. tools: the probe tools as a user runs them, in process, at the full 0.25 degree token
    grid: ``backbone_ablate`` with every variant, ``gemm_probe`` and ``smem_probe`` (counts
    set to 0 just before); K9-K13 must each have launched, and the backbones under
@@ -119,6 +138,7 @@ non-zero without one.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -128,7 +148,7 @@ import time
 STEPS = 3
 # Roll-out steps of the rollout_scan phase, and of its short host-offload roll-out whose peak
 # memory the full one's is held to.
-SCAN_STEPS, SHORT_STEPS = 5, 2
+SCAN_STEPS, SHORT_STEPS = 4, 2
 # Bound on the mean relative difference between the three roll-outs if a kernel turns out
 # not to give the same bits from run to run (they are expected to be equal).
 SCAN_AGREE_TOL = 1e-3
@@ -852,16 +872,15 @@ def run_route(name: str, steps: int, ref_grid: tuple[int, int], then=None) -> di
         then(model)
 
     # Reference on a small input, the card against the port's CPU run of the same route: the
-    # main route's full-depth model, the other routes' at two blocks per backbone stage (the
-    # second shifted, so K1 and the masked attention run), seeded on the card.
+    # route's model at two blocks per backbone stage (the second shifted, so K1 and the
+    # masked attention run), seeded on the card.
     t0 = time.perf_counter()
     H, W = ref_grid
     small = numpy_batch(cfg, H, W, seed=1)
-    if name != "main":
-        del model
-        torch.cuda.empty_cache()
-        cfg = cfg.replace(encoder_depths=(2, 2, 2), decoder_depths=(2, 2, 2))
-        model = build_model(cfg, "cuda")
+    del model
+    torch.cuda.empty_cache()
+    cfg = cfg.replace(encoder_depths=(2, 2, 2), decoder_depths=(2, 2, 2))
+    model = build_model(cfg, "cuda")
     before = dict(_lib.LAUNCHES)
     got = model(small)
     torch.cuda.synchronize()
@@ -1015,11 +1034,161 @@ def agreement(want: list, got: list) -> dict:
     return dict(bit_equal=same, worst_mean_rel=worst)
 
 
+# ------------------------------------------------------------------------------ drivers
+
+DRIVER_STEPS = 2  # forecast steps of the command-line driver
+TRACK_FIX = (25.3, 129.2)  # the tracker's first fix (lat, lon); the land-sea mask is 0 around it
+DRIVERS_DIR = "build/drivers"  # the phase's files, under the checkout, removed at its end
+
+
+def run_drivers(model) -> None:
+    """The operational drivers on the main route's model. An initial condition of the
+    721 x 1440 grid written with ``Batch.to_netcdf`` (the land-sea mask 0 within 6 degrees of
+    TRACK_FIX, so the tracker takes its MSL path); ``python -m aurora_tpu_torch forecast``'s
+    ``main`` (DRIVER_STEPS steps, ``--track``) with its seconds split as it reports them; its
+    files held to ``rollout`` of the same model and batch (the same bits, or within
+    SCAN_AGREE_TOL mean relative) and its track to the tracker's on the card's predictions and
+    on their host copies (the same track); ``evaluate`` of step 2 against step 1 on the card;
+    ``Batch.regrid(1.0)`` of a prediction with the native library built, and one field through
+    the scipy form beside the native one; ``tools.rollout_bench`` at 3 steps;
+    ``tools.train_speed_probe`` at 121 x 240 over two arms."""
+    import contextlib
+    import io
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from aurora_tpu_torch import Batch, cli, native, rollout
+    from aurora_tpu_torch.batch import interpolate_scipy
+    from aurora_tpu_torch.tools import rollout_bench, train_speed_probe
+    from aurora_tpu_torch.tools.perf_breakdown import numpy_batch
+    from aurora_tpu_torch.tracker import Tracker
+
+    t_phase = time.perf_counter()
+    work = os.path.abspath(DRIVERS_DIR)
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    try:
+        batch = numpy_batch(model.cfg, 721, 1440, seed=2)
+        lat, lon = batch.metadata.lat, batch.metadata.lon
+        near = (np.abs(lat - TRACK_FIX[0]) <= 6)[:, None] & (np.abs(lon - TRACK_FIX[1]) <= 6)
+        batch.static_vars["lsm"][near] = 0.0
+        ic, out = os.path.join(work, "ic.nc"), os.path.join(work, "preds")
+        t0 = time.perf_counter()
+        batch.to_netcdf(ic)
+        ic_write_s = time.perf_counter() - t0
+
+        err = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stderr(err):
+            rc = cli.main(["forecast", "--input", ic, "--steps", str(DRIVER_STEPS),
+                           "--output-dir", out, "--track", "--init-lat", str(TRACK_FIX[0]),
+                           "--init-lon", str(TRACK_FIX[1])], model=model)
+        forecast_s = time.perf_counter() - t0
+        if rc != 0:
+            raise AssertionError(f"forecast exited {rc}: {err.getvalue()[-2000:]}")
+        timings = json.loads(err.getvalue().strip().splitlines()[-1])["forecast_timings"]
+
+        # The files against rollout's predictions; the tracker on the card's predictions and
+        # on their host copies.
+        card_track = Tracker(*TRACK_FIX, batch.metadata.time[0])
+        host_track = Tracker(*TRACK_FIX, batch.metadata.time[0])
+        files, preds, tracker_card_s = [], [], []
+        for i, pred in enumerate(rollout(model, batch, DRIVER_STEPS)):
+            t0 = time.perf_counter()
+            card_track.step(pred)
+            tracker_card_s.append(time.perf_counter() - t0)
+            host = pred.to_numpy()
+            host_track.step(host)
+            preds.append(host)
+            files.append(Batch.from_netcdf(os.path.join(out, f"prediction-{i:03d}.nc")))
+            del pred
+        files_vs_rollout = agreement(preds, files)
+        same_track = card_track.results() == host_track.results()
+        csv_path = os.path.join(work, "card_track.csv")
+        card_track.write_csv(csv_path)
+        with open(csv_path) as a, open(os.path.join(out, "track.csv")) as b:
+            cli_track_same = a.read() == b.read()
+        track = card_track.results()
+
+        # evaluate, on the card.
+        sout = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(sout):
+            rc = cli.main(["evaluate", "--pred", os.path.join(out, "prediction-001.nc"),
+                           "--target", os.path.join(out, "prediction-000.nc")])
+        evaluate_s = time.perf_counter() - t0
+        scores = json.loads(sout.getvalue())["scores"]
+        score_values = [v for group in scores.values() for ms in group.values()
+                        for m in ms.values() for v in (m if isinstance(m, list) else [m])]
+
+        # Regrid: the whole prediction through the native library, one field through both.
+        built = native.available()
+        pred = files[-1]
+        t0 = time.perf_counter()
+        coarse = pred.regrid(1.0)
+        regrid_native_s = time.perf_counter() - t0
+        field = pred.surf_vars["2t"].astype(np.float64)
+        grid = (np.asarray(pred.metadata.lat, np.float64),
+                np.asarray(pred.metadata.lon, np.float64),
+                np.linspace(90, -90, 181), np.linspace(0, 360, 360, endpoint=False))
+        t0 = time.perf_counter()
+        one_native = native.regrid_bilinear(field, *grid)
+        one_native_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        one_scipy = interpolate_scipy(field, *grid)
+        one_scipy_s = time.perf_counter() - t0
+        regrid_rel = float(np.abs(one_native - one_scipy).max() / np.abs(one_scipy).max())
+        coarse_ok = all(tuple(v.shape[-2:]) == (181, 360) and bool(torch.isfinite(v).all())
+                        for g in (coarse.surf_vars, coarse.atmos_vars) for v in g.values())
+        regrid_fields = sum(int(np.prod(v.shape[:-2])) for g in
+                            (pred.surf_vars, pred.static_vars, pred.atmos_vars) for v in g.values())
+        del coarse, files, preds, pred
+
+        with contextlib.redirect_stdout(io.StringIO()):
+            bench = rollout_bench.main(["--steps", "3"], model=model)
+            probe = train_speed_probe.main(["--H", "121", "--W", "240", "--steps", "1",
+                                            "--arms", "base,blocks"], model=model)
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    row = dict(phase="drivers", grid="721x1440", steps=DRIVER_STEPS, ic_write_s=ic_write_s,
+               ic_bytes=timings["input_bytes"], forecast_s=forecast_s, forecast=timings,
+               tracker_card_s=tracker_card_s, files_vs_rollout=files_vs_rollout,
+               track=dict(lat=track["lat"], lon=track["lon"], fails=card_track.fails),
+               track_card_equals_host=same_track, cli_track_csv_equal=cli_track_same,
+               evaluate_s=evaluate_s, evaluate_rmse_2t=scores["surf_vars"]["2t"]["rmse"],
+               native_regrid_built=built, regrid_native_s=regrid_native_s,
+               regrid_fields=regrid_fields, regrid_one_field_native_s=one_native_s,
+               regrid_one_field_scipy_s=one_scipy_s, regrid_native_vs_scipy=regrid_rel,
+               rollout_bench=dict((k, bench[k]) for k in ("step_s", "tracker_s", "steps_per_s",
+                                                          "track_len", "fails")),
+               train_speed_probe=probe["arms"], seconds=time.perf_counter() - t_phase)
+    emit(row)
+    bad = []
+    if not built:
+        bad.append("the native regrid library did not build")
+    if not files_vs_rollout["worst_mean_rel"] <= SCAN_AGREE_TOL:
+        bad.append(f"forecast files against rollout: {files_vs_rollout}")
+    if not (same_track and cli_track_same and len(track["lat"]) == DRIVER_STEPS + 1):
+        bad.append(f"tracks differ: card vs host {same_track}, CLI csv {cli_track_same}")
+    if not (rc == 0 and score_values and np.all(np.isfinite(score_values))):
+        bad.append(f"evaluate: exit {rc}, non-finite scores")
+    if not (coarse_ok and regrid_rel <= 1e-12):
+        bad.append(f"regrid: shapes/finite {coarse_ok}, native vs scipy {regrid_rel}")
+    if not (bench["track_len"] == 4 and all(r.get("s_per_step") for r in probe["arms"])):
+        bad.append(f"rollout_bench track {bench['track_len']}, probe arms {probe['arms']}")
+    if bad:
+        raise AssertionError(f"drivers: {bad}")
+
+
 def run_main_phases(model) -> None:
-    """What runs on the main route's model after its roll-out: the breakdown tools, then the
-    three roll-outs."""
+    """What runs on the main route's model after its roll-out: the breakdown tools, the
+    three roll-outs, then the drivers."""
     run_breakdown(model)
     run_rollouts(model)
+    run_drivers(model)
 
 
 # ------------------------------------------------------------------------------ training
@@ -1033,10 +1202,14 @@ def run_main_phases(model) -> None:
 GRAD_TOL = {"roll3d": 0.0, "perceiver_core": 1e-2}
 GRAD_FLOOR = 1e-3
 BWD_REPS = 3  # timed backward runs per kernel, after one warm-up run
-TRAIN_STEPS = 2  # timed steps of the full-width LoRA train step, after a warm-up step
+TRAIN_STEPS = 1  # timed steps of the full-width LoRA train step, after a warm-up step
 ROLLOUT_K, ROLLOUT_UPDATES = 2, 2
 TRAIN_REF_GRID = (121, 240)
 TRAIN_LOSS_TOL, TRAIN_GRAD_TOL = 1e-2, 5e-2  # card vs CPU: loss, LoRA gradient (rel. L2)
+TWO_BLOCKS = dict(encoder_depths=(2, 2, 2), decoder_depths=(2, 2, 2))
+STO_DROP_PATH = 0.2  # the full-width stochastic LoRA step's stochastic-depth rate
+STO_REF = dict(drop_path=0.2, drop_rate=0.1)  # the two-block stochastic step's knobs
+KEEP_DRAWS, KEEP_RATE = 10_000, 0.8
 
 
 def grad_cases(rn):
@@ -1311,26 +1484,93 @@ def run_train_step_phase() -> dict:
     row = train_bench.run_steps(
         lambda i: step(surf, static, atmos, enc, i % 3, tgt_s, tgt_a), TRAIN_STEPS,
         torch.device("cuda"))
+    _check_train(model, opt, lora0, frozen, row, train_bench.expected_launches(cfg, lora=True),
+                 dict(phase="train", part="LoRA train step", grid="721x1440 (720x1440)",
+                      remat_scope=cfg.remat_scope, seconds=time.perf_counter() - t0))
+    return model, (surf, static, atmos, enc, levels, tgt_s, tgt_a)
+
+
+def run_stochastic_step_phase(model, inputs) -> dict:
+    """The LoRA train step of the production model at full width and depth with stochastic
+    depth (``drop_path`` STO_DROP_PATH, ``drop_rate`` 0: the LoRA train step's model with the
+    knob set) on its inputs, one step at 721 x 1440 with a generator: its launches as
+    ``expected_launches(stochastic=True)`` derives them (K1 in every shifted block, K2 and K3
+    only in the two blocks at rate 0), every LoRA parameter a finite, non-zero gradient and
+    moved, the frozen ones their bits, peak memory under 80 GB. A block whose attention
+    branch the draw dropped (the batch holds one element) gives its LoRA adapters a zero
+    gradient: the draws are recorded, and those adapters must have exactly zero."""
+    import torch
+
+    from aurora_tpu_torch.model import nn as tnn
+    from aurora_tpu_torch.ops import _lib
+    from aurora_tpu_torch.tools import train_bench
+    from aurora_tpu_torch.training import make_train_step
+
+    t0 = time.perf_counter()
+    draw, drops = tnn.keep_mask, {}
+
+    def recorded(shape, keep, seed, path, device):
+        mask = draw(shape, keep, seed, path, device)
+        if path[-1] == 0:  # dp1: the attention branch's stochastic depth
+            drops[path[:-1]] = not bool(mask.any())
+        return mask
+
+    model.set_knobs(drop_path=STO_DROP_PATH)
+    cfg = model.cfg
+    surf, static, atmos, enc, levels, tgt_s, tgt_a = inputs
+    opt = _Watched()
+    step = make_train_step(model, opt, levels)
+    lora0 = {n: p.detach().clone() for n, p in opt.params.items()}
+    frozen = _frozen_snapshot(model)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = dict(_lib.LAUNCHES)
+    tnn.keep_mask = recorded
+    try:
+        t1 = time.perf_counter()
+        loss = float(step(surf, static, atmos, enc, 0, tgt_s, tgt_a, generator=gen))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t1
+    finally:
+        tnn.keep_mask = draw
+    dropped = set()
+    for (stage, block), gone in drops.items():
+        layers = f"encoder_layers.{stage}" if stage < 100 else f"decoder_layers.{stage - 100}"
+        if gone:
+            dropped |= {n for n in opt.params if n.startswith(f"backbone.{layers}.blocks.{block}.")}
+    launched = {k: v - before[k] for k, v in _lib.LAUNCHES.items() if v != before[k]}
+    row = dict(times=[secs], s_per_step=secs, peak_mem_gib=torch.cuda.max_memory_allocated()
+               / 2**30, losses=[loss], warmup_s=None, launches_per_step=[launched])
     return _check_train(model, opt, lora0, frozen, row,
-                        train_bench.expected_launches(cfg, lora=True),
-                        dict(phase="train", part="LoRA train step", grid="721x1440 (720x1440)",
-                             remat_scope=cfg.remat_scope, seconds=time.perf_counter() - t0))
+                        train_bench.expected_launches(cfg, lora=True, stochastic=True),
+                        dict(phase="train", part="stochastic LoRA train step",
+                             grid="721x1440 (720x1440)", drop_path=cfg.drop_path,
+                             drop_rate=cfg.drop_rate, remat_scope=cfg.remat_scope,
+                             note="one step, the first at these knobs",
+                             stochastic_blocks=len(drops),
+                             attention_branches_dropped=sum(drops.values()),
+                             seconds=time.perf_counter() - t0), dropped)
 
 
-def _check_train(model, opt, lora0, frozen, row, expected, line) -> dict:
+def _check_train(model, opt, lora0, frozen, row, expected, line, dropped=frozenset()) -> dict:
+    """``dropped``: the LoRA parameters of blocks whose attention branch stochastic depth
+    dropped, whose gradient must be zero (and which then do not move)."""
     import numpy as np
     import torch
 
     from aurora_tpu_torch.tools import train_bench
 
     bad_grad = sorted({n for seen in opt.seen for n, v in seen.items()
-                       if not (torch.isfinite(v).all() and (v > 0).any())})
-    still = sorted(n for n, p in opt.params.items() if torch.equal(p, lora0[n]))
+                       if not (torch.isfinite(v).all() and ((v == 0).all() if n in dropped
+                                                            else (v > 0).any()))})
+    still = sorted(n for n, p in opt.params.items()
+                   if torch.equal(p, lora0[n]) and n not in dropped)
     moved = sorted(n for n, p in model.named_parameters() if n in frozen
                    and not torch.equal(p, frozen[n]))
     wrong = train_bench.launch_mismatches(row["launches_per_step"], expected)
     emit(dict(line, **{k: row[k] for k in ("times", "s_per_step", "peak_mem_gib", "losses",
-                                           "warmup_s")},
+                                           "warmup_s")}, dropped_lora_params=len(dropped),
               launches_per_step=row["launches_per_step"][-1], expected_launches=expected,
               lora_params=len(opt.params), frozen_params=len(frozen)))
     if bad_grad or still or moved or wrong or not np.all(np.isfinite(row["losses"])) or \
@@ -1353,7 +1593,7 @@ def run_rollout_train_phase() -> dict:
 
     t0 = time.perf_counter()
     K = ROLLOUT_K
-    cfg = train_bench.train_config(lora_mode="all")
+    cfg = train_bench.train_config(lora_mode="all").replace(**TWO_BLOCKS)
     model = train_bench.build(cfg, "cuda", "lora")
     (surf, static, atmos, batch), (tgt_s, tgt_a) = train_bench.inputs(model, 721, 1440, K)
     enc = model.prepare_encodings(batch, torch.float32)
@@ -1377,6 +1617,7 @@ def run_rollout_train_phase() -> dict:
                        train_bench.expected_launches(cfg, lora=True, K=K),
                        dict(phase="train", part=f"roll-out train step, K = {K}",
                             grid="721x1440 (720x1440)", lora_mode="all",
+                            depths=(cfg.encoder_depths, cfg.decoder_depths),
                             remat_scope=cfg.remat_scope, banks_differ=banks_differ,
                             seconds=time.perf_counter() - t0))
     if dead or not all(banks_differ):
@@ -1385,51 +1626,100 @@ def run_rollout_train_phase() -> dict:
     return row
 
 
-def run_train_reference() -> dict:
+def run_train_references() -> dict:
     """The card against the port's CPU run: the recipe's model at two blocks per backbone
     stage (the second shifted), seeded on the card, one LoRA train step at 121 x 240 without
     remat (the rematerialisation is the same arithmetic, held in float64 on the CPU by the
-    tests); the loss within TRAIN_LOSS_TOL relative and the concatenated LoRA gradient within
-    TRAIN_GRAD_TOL relative L2 error."""
+    tests), on each device deterministic and then with STO_REF's stochastic knobs; the loss
+    within TRAIN_LOSS_TOL relative and the concatenated LoRA gradient within TRAIN_GRAD_TOL
+    relative L2 error. The stochastic steps take a generator of the same seed on both
+    devices and draw every mask on the CPU (``nn.keep_mask`` wrapped to draw there and move
+    the mask to the step's device), so that the two runs drop the same branches and
+    elements; every block then runs the stochastic route (K1, plain attention and MLP), the
+    perceivers K4 and K3."""
     import torch
 
+    from aurora_tpu_torch.model import nn as tnn
     from aurora_tpu_torch.ops import _lib
     from aurora_tpu_torch.tools import train_bench
     from aurora_tpu_torch.training import make_train_step
 
     t0 = time.perf_counter()
-    cfg = train_bench.train_config(remat=False).replace(encoder_depths=(2, 2, 2),
-                                                        decoder_depths=(2, 2, 2))
+    cfg = train_bench.train_config(remat=False).replace(**TWO_BLOCKS)
     model = train_bench.build(cfg, "cuda", "lora")
     H, W = TRAIN_REF_GRID
-    results = {}
-    for dev in ("cuda", "cpu"):
-        model = model.to(dev)
-        (surf, static, atmos, batch), (tgt_s, tgt_a) = train_bench.inputs(model, H, W)
-        enc = model.prepare_encodings(batch, torch.float32)
-        opt = _Watched(update=False)
-        step = make_train_step(model, opt, tuple(float(x) for x in batch.metadata.atmos_levels))
-        before = dict(_lib.LAUNCHES)
-        loss = step(surf, static, atmos, enc, 0, {k: v[0] for k, v in tgt_s.items()},
-                    {k: v[0] for k, v in tgt_a.items()})
-        launched = {k: v - before[k] for k, v in _lib.LAUNCHES.items() if v != before[k]}
-        flat = torch.cat([g.float().flatten().cpu() for g in opt.grads.values()])
-        results[dev] = (float(loss), flat, launched)
-        torch.cuda.empty_cache()
-    (lc, gc, launched), (lp, gp, _) = results["cuda"], results["cpu"]
-    loss_err = abs(lc - lp) / abs(lp)
-    grad_err = ((gc - gp).norm() / gp.norm()).item()
-    emit(dict(phase="train", part="card vs CPU", grid=f"{H}x{W}",
-              depths=(cfg.encoder_depths, cfg.decoder_depths), loss_card=lc, loss_cpu=lp,
-              loss_rel_err=loss_err, lora_grad_rel_l2=grad_err,
-              tol=(TRAIN_LOSS_TOL, TRAIN_GRAD_TOL), launches=launched,
+    results, seconds = {}, {}
+    draw = tnn.keep_mask
+    tnn.keep_mask = lambda shape, keep, seed, path, device: draw(
+        shape, keep, seed, path, "cpu").to(device)
+    try:
+        for dev in ("cuda", "cpu"):
+            model = model.to(dev)
+            (surf, static, atmos, batch), (tgt_s, tgt_a) = train_bench.inputs(model, H, W)
+            enc = model.prepare_encodings(batch, torch.float32)
+            levels = tuple(float(x) for x in batch.metadata.atmos_levels)
+            for stochastic in (False, True):
+                t1 = time.perf_counter()
+                model.set_knobs(**(STO_REF if stochastic else dict.fromkeys(STO_REF, 0.0)))
+                opt = _Watched(update=False)
+                step = make_train_step(model, opt, levels)
+                gen = torch.Generator().manual_seed(0) if stochastic else None
+                before = dict(_lib.LAUNCHES)
+                loss = step(surf, static, atmos, enc, 0, {k: v[0] for k, v in tgt_s.items()},
+                            {k: v[0] for k, v in tgt_a.items()}, generator=gen)
+                launched = {k: v - before[k] for k, v in _lib.LAUNCHES.items()
+                            if v != before[k]}
+                flat = torch.cat([g.float().flatten().cpu() for g in opt.grads.values()])
+                results[dev, stochastic] = (float(loss), flat, launched)
+                seconds[dev, stochastic] = time.perf_counter() - t1
+            torch.cuda.empty_cache()
+    finally:
+        tnn.keep_mask = draw
+    out, bad = {}, []
+    for stochastic in (False, True):
+        (lc, gc, launched), (lp, gp, _) = results["cuda", stochastic], results["cpu", stochastic]
+        loss_err = abs(lc - lp) / abs(lp)
+        grad_err = ((gc - gp).norm() / gp.norm()).item()
+        knobs = STO_REF if stochastic else {}
+        emit(dict(phase="train", part="stochastic card vs CPU" if stochastic else "card vs CPU",
+                  grid=f"{H}x{W}", depths=(cfg.encoder_depths, cfg.decoder_depths), **knobs,
+                  loss_card=lc, loss_cpu=lp, loss_rel_err=loss_err, lora_grad_rel_l2=grad_err,
+                  tol=(TRAIN_LOSS_TOL, TRAIN_GRAD_TOL), launches=launched,
+                  step_s=dict(card=seconds["cuda", stochastic], cpu=seconds["cpu", stochastic]),
+                  seconds=time.perf_counter() - t0))
+        need = ("roll3d", "roll3d_bwd", "mlp_adaln_residual", "perceiver_core")
+        if not stochastic:
+            need += ("window_attention",)
+        missing = [k for k in need if not launched.get(k)]
+        fused = stochastic and launched.get("window_attention")
+        if missing or fused or not (loss_err <= TRAIN_LOSS_TOL and grad_err <= TRAIN_GRAD_TOL):
+            bad.append(f"{knobs}: loss {loss_err}, LoRA gradient {grad_err}, kernels never "
+                       f"launched {missing}, K2 in stochastic blocks {fused}")
+        out[stochastic] = dict(loss_rel_err=loss_err, lora_grad_rel_l2=grad_err)
+    if bad:
+        raise AssertionError(f"train card vs CPU: {bad}")
+    return out
+
+
+def run_card_draws() -> dict:
+    """KEEP_DRAWS Bernoulli(KEEP_RATE) draws on the card through ``nn.keep_mask``: the kept
+    fraction within 5 binomial standard deviations; the same seed and path the same mask,
+    another path another."""
+    from aurora_tpu_torch.model import nn as tnn
+
+    t0 = time.perf_counter()
+    mask = tnn.keep_mask((KEEP_DRAWS,), KEEP_RATE, 7, (0, 1, 2), "cuda")
+    kept = mask.float().mean().item()
+    sd = (KEEP_RATE * (1 - KEEP_RATE) / KEEP_DRAWS) ** 0.5
+    again = bool((mask == tnn.keep_mask((KEEP_DRAWS,), KEEP_RATE, 7, (0, 1, 2), "cuda")).all())
+    other = bool((mask != tnn.keep_mask((KEEP_DRAWS,), KEEP_RATE, 7, (0, 1, 3), "cuda")).any())
+    emit(dict(phase="train", part="card draws", draws=KEEP_DRAWS, keep=KEEP_RATE, kept=kept,
+              binomial_sd=sd, same_seed_same_mask=again, other_path_other_mask=other,
               seconds=time.perf_counter() - t0))
-    missing = [k for k in ("roll3d", "roll3d_bwd", "window_attention", "mlp_adaln_residual",
-                           "perceiver_core") if not launched.get(k)]
-    if missing or not (loss_err <= TRAIN_LOSS_TOL and grad_err <= TRAIN_GRAD_TOL):
-        raise AssertionError(f"train card vs CPU: loss {loss_err}, LoRA gradient {grad_err}, "
-                             f"kernels never launched {missing}")
-    return dict(loss_rel_err=loss_err, lora_grad_rel_l2=grad_err)
+    if not (abs(kept - KEEP_RATE) <= 5 * sd and again and other):
+        raise AssertionError(f"card draws: kept {kept} of {KEEP_RATE} (sd {sd}), repeat "
+                             f"{again}, other path differs {other}")
+    return dict(kept=kept)
 
 
 def run_train_phases() -> dict:
@@ -1440,11 +1730,15 @@ def run_train_phases() -> dict:
 
     t0 = time.perf_counter()
     grads = run_grad_phases()
-    run_train_step_phase()
+    model, inputs = run_train_step_phase()
+    torch.cuda.empty_cache()
+    run_stochastic_step_phase(model, inputs)
+    del model, inputs
     torch.cuda.empty_cache()
     run_rollout_train_phase()
     torch.cuda.empty_cache()
-    run_train_reference()
+    run_train_references()
+    run_card_draws()
     emit(dict(phase="train", seconds=time.perf_counter() - t0))
     return dict(grads=grads)
 
@@ -1748,7 +2042,8 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     emit(dict(phase="device", nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda,
-              name=torch.cuda.get_device_name(0), count=torch.cuda.device_count()))
+              name=torch.cuda.get_device_name(0), count=torch.cuda.device_count(),
+              cpu_threads=torch.get_num_threads(), cpus=os.cpu_count()))
 
     secs = _lib.build(force=True)
     ptxas = {}

@@ -222,19 +222,23 @@ def _run(code: str, env=None) -> str:
 def test_no_jax_or_jax_package_is_loaded():
     """Importing every module of the port and ``chip_smoke`` loads no ``jax``/``jax.*`` and
     no ``aurora_tpu``/``aurora_tpu.*`` module (``aurora_tpu_torch`` itself shares the
-    prefix, so names are matched exactly or by the ``aurora_tpu.`` prefix)."""
+    prefix, so names are matched exactly or by the ``aurora_tpu.`` prefix), and none of
+    pandas, xarray and matplotlib, which the card's machine does not have."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import aurora_tpu_torch, chip_smoke\n"
         "for m in pkgutil.walk_packages(aurora_tpu_torch.__path__, 'aurora_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = [n for n in sys.modules if n in ('jax', 'aurora_tpu')\n"
-        "       or n.startswith(('jax.', 'aurora_tpu.', 'jaxlib'))]\n"
+        "       or n.startswith(('jax.', 'aurora_tpu.', 'jaxlib'))\n"
+        "       or n.split('.')[0] in ('pandas', 'xarray', 'matplotlib')]\n"
         "new = ['ops.probes', 'tools', 'tools.backbone_ablate', 'tools.gemm_probe',\n"
         "       'tools.smem_probe', 'tools.kernel_ablate', 'checkpoint',\n"
         "       'tools.variant_bench', 'tools.highres_bench', 'rollout', 'tools.bench',\n"
         "       'ops.ad', 'training', 'training.train', 'tools.train_bench',\n"
-        "       'tools.rollout_train_bench']\n"
+        "       'tools.rollout_train_bench', 'native', 'metrics', 'tracker', 'foundry',\n"
+        "       'foundry.channel', 'cli', '__main__', 'plot', 'utils', 'utils.profiling',\n"
+        "       'tools.rollout_bench', 'tools.train_speed_probe']\n"
         "assert all('aurora_tpu_torch.' + n in sys.modules for n in new), new\n"
         "print(len([n for n in sys.modules if n.startswith('aurora_tpu_torch')]), bad)\n"
     )
