@@ -47,7 +47,9 @@
 // 3 stages); during the first 8 K steps of the next tile, around the wait that follows each
 // stage's wgmma commit, it takes an eighth of the parked values (16 a thread), applies the
 // GELU and stores whole 128-byte lines. The last tile's values are finished after the loop.
-// fc1 therefore needs K = D >= 512. Measured (PERF.md): arithmetic and wgmma of one SM
+// At D = 256 (the small model's first stage and its aggregation's MLP) a tile has only 4 K
+// steps: the kernel is a template on the steps the parked tile is spread over, 8 (2
+// sixteenths a step) or 4 (4 a step), and mlp_rows picks by D. Measured (PERF.md): arithmetic and wgmma of one SM
 // hardly overlap. The GELU's time is its instruction count at one instruction a clock and
 // scheduler, added to the products' time; parking saves ~0.15 ms of the ~0.7 ms that the
 // epilogue adds to the products' ~0.7 ms at stage 1. Three other forms were built, measured
@@ -87,7 +89,6 @@ namespace {
 
 using Ring1 = sm90::GemmRing<3>;  // fc1: a stage's room goes to the parked pre-activations
 constexpr int PARK_WARP_BYTES = 16 * 512;    // a warp's 16 rows x 256 columns of bf16
-constexpr int FC1_GELU_STEPS = 8;             // the K steps a tile's GELU is spread over
 constexpr int BIAS_WARP_BYTES = 256 * 4;     // a warp's copy of the tile's 256 values of b1
 constexpr size_t FC1_SMEM = 1024 + Ring1::STAGES * Ring1::STAGE_BYTES +
                             Ring1::CONSUMER_WARPS * (PARK_WARP_BYTES + BIAS_WARP_BYTES) +
@@ -122,9 +123,14 @@ __device__ __forceinline__ void gelu_sixteenth(const unsigned char* parked, int 
   if (r < rows_left) *reinterpret_cast<uint4*>(dst + (long long)r * ld + 8 * q) = v;
 }
 
+// GELU_STEPS: the K steps of a tile that the parked tile's GELU is spread over, 16 /
+// GELU_STEPS sixteenths a step: 8 where K = D >= 512, 4 where D = 256 (4 K steps a tile).
+template <int GELU_STEPS>
 __global__ void __launch_bounds__(ROWS_THREADS, 1) mlp_fc1_kernel(
     const __grid_constant__ CUtensorMap map_x, const __grid_constant__ CUtensorMap map_w1,
     const float* __restrict__ b1, bf16* __restrict__ hid, int Hd, const Sched s) {
+  static_assert(GELU_STEPS == 4 || GELU_STEPS == 8, "16 sixteenths in whole halves a step");
+  constexpr int PER_HALF = 8 / GELU_STEPS;  // sixteenths before, and after, a step's wait
   using Ring = Ring1;
   extern __shared__ unsigned char raw[];
   const uint32_t raw_addr = sm90::smem_u32(raw);
@@ -158,7 +164,7 @@ __global__ void __launch_bounds__(ROWS_THREADS, 1) mlp_fc1_kernel(
       const float4 bias_lo = b1v[0], bias_hi = b1v[1];
       int prev = -1;
 #pragma unroll
-      for (int ks = 0; ks < FC1_GELU_STEPS; ++ks) {
+      for (int ks = 0; ks < GELU_STEPS; ++ks) {
         Ring::consume_step(acc, tiles, bars, pos, wg, ks);
         if (ks == 0) {
           reinterpret_cast<float4*>(my_b1)[2 * lane] = bias_lo;
@@ -166,16 +172,24 @@ __global__ void __launch_bounds__(ROWS_THREADS, 1) mlp_fc1_kernel(
         }
         // Half of this step's share of the parked tile with two wgmma groups in flight, then
         // the stage before goes back to the producer, then the other half.
-        if (pend) gelu_sixteenth(parked, 2 * ks, pend, Hd, pend_rows, lane);
+        if (pend) {
+#pragma unroll
+          for (int i = 0; i < PER_HALF; ++i)
+            gelu_sixteenth(parked, 2 * PER_HALF * ks + i, pend, Hd, pend_rows, lane);
+        }
         if (prev >= 0) {
           sm90::wgmma_wait<1>();
           if (lane == 0) sm90::mbar_arrive(Ring::empty(bars, prev));
         }
-        if (pend) gelu_sixteenth(parked, 2 * ks + 1, pend, Hd, pend_rows, lane);
+        if (pend) {
+#pragma unroll
+          for (int i = 0; i < PER_HALF; ++i)
+            gelu_sixteenth(parked, 2 * PER_HALF * ks + PER_HALF + i, pend, Hd, pend_rows, lane);
+        }
         prev = pos.stage;
         pos.advance();
       }
-      for (int ks = FC1_GELU_STEPS; ks < s.k_steps; ++ks) {
+      for (int ks = GELU_STEPS; ks < s.k_steps; ++ks) {
         Ring::consume_step(acc, tiles, bars, pos, wg, ks);
         sm90::wgmma_wait<1>();
         if (lane == 0) sm90::mbar_arrive(Ring::empty(bars, prev));
@@ -219,7 +233,7 @@ __global__ void __launch_bounds__(ROWS_THREADS, 1) mlp_fc1_kernel(
 // K3 (ln != 0) and K8 (ln == 0) on one chunk of rows. x, out: (rows, D) bf16; w1: (D, Hd) and
 // w2: (Hd, D) bf16 as stored; b1: (Hd,), b2: (D,) f32; hid: scratch of rows x Hd bf16. K3
 // only: stats, scratch of rows x D / 256 float2; shift, scale: (batch, D) f32, the row
-// (row_base + row) / rows_per_batch of each. Takes D in {512, 1024, 2048}, Hd % 256 == 0,
+// (row_base + row) / rows_per_batch of each. Takes D in {256, 512, 1024, 2048}, Hd % 256 == 0,
 // Hd >= 512. Returns cudaGetLastError(), cudaErrorInvalidValue for a shape it does not take,
 // or cudaErrorUnknown where no tensor map could be encoded.
 extern "C" int mlp_rows(const void* x, const void* w1, const float* b1, const void* w2,
@@ -227,8 +241,8 @@ extern "C" int mlp_rows(const void* x, const void* w1, const float* b1, const vo
                         const float* scale, float scale_bias, int rows, long long row_base,
                         long long rows_per_batch, int D, int Hd, float eps, int ln,
                         cudaStream_t stream) {
-  if (rows <= 0 || rows > (1 << 24) || (D != 512 && D != 1024 && D != 2048) || Hd < 512 ||
-      Hd % 256 || (ln && rows_per_batch <= 0))
+  if (rows <= 0 || rows > (1 << 24) || (D != 256 && D != 512 && D != 1024 && D != 2048) ||
+      Hd < 512 || Hd % 256 || (ln && rows_per_batch <= 0))
     return (int)cudaErrorInvalidValue;
 #ifdef ABLATE_NO_LN
   ln = 0;
@@ -245,10 +259,18 @@ extern "C" int mlp_rows(const void* x, const void* w1, const float* b1, const vo
   bf16* ob = static_cast<bf16*>(out);
 
 #ifndef ABLATE_ONLY_FC2
-  cudaFuncSetAttribute(mlp_fc1_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)FC1_SMEM);
-  mlp_fc1_kernel<<<s1.units < sms ? s1.units : sms, ROWS_THREADS, FC1_SMEM, stream>>>(
-      map_x, map_w1, b1, static_cast<bf16*>(hid), Hd, s1);
+  const unsigned grid = s1.units < sms ? s1.units : sms;
+  if (D == 256) {  // 4 K steps a tile: the parked GELU over 4 of them
+    cudaFuncSetAttribute(mlp_fc1_kernel<4>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)FC1_SMEM);
+    mlp_fc1_kernel<4><<<grid, ROWS_THREADS, FC1_SMEM, stream>>>(
+        map_x, map_w1, b1, static_cast<bf16*>(hid), Hd, s1);
+  } else {
+    cudaFuncSetAttribute(mlp_fc1_kernel<8>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)FC1_SMEM);
+    mlp_fc1_kernel<8><<<grid, ROWS_THREADS, FC1_SMEM, stream>>>(
+        map_x, map_w1, b1, static_cast<bf16*>(hid), Hd, s1);
+  }
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
 #endif
 #ifdef ABLATE_ONLY_FC1

@@ -418,7 +418,7 @@ int launch_mix(const bf16* v, const float* logits, const float* sq, const float*
 // (Mc Q, D_out / 256) float2.
 // out: (M, Q, D_out) bf16. The columns go in chunks of Mc. Takes (K, dh) in {(13, 32),
 // (3, 64)}, D % 64 == 0, inner % 256 == 0 up to 2048 (so Q heads is a multiple of 4, as the
-// logits' 16-byte stores need), D_out in {512, 1024, 2048}. Returns
+// logits' 16-byte stores need), D_out in {256, 512, 1024, 2048}. Returns
 // cudaGetLastError() of the last launch, cudaErrorInvalidValue for a shape it does not take,
 // or cudaErrorUnknown where no tensor map could be encoded.
 extern "C" int perceiver_core(const float* ctx, const float* wk, const void* wv,
@@ -432,7 +432,8 @@ extern "C" int perceiver_core(const float* ctx, const float* wk, const void* wv,
   const int inner = heads * dh, QH = Q * heads, NLP = (QH + 63) / 64 * 64, n_sq = inner / 256;
   const bool kd13 = K == 13 && dh == 32, kd3 = K == 3 && dh == 64;
   if ((!kd13 && !kd3) || M <= 0 || Mc <= 0 || D <= 0 || D % 64 || inner % 256 || inner > 2048 ||
-      (D_out != 512 && D_out != 1024 && D_out != 2048) || (long long)K * Mc > 65535ll * LG_BM ||
+      (D_out != 256 && D_out != 512 && D_out != 1024 && D_out != 2048) ||
+      (long long)K * Mc > 65535ll * LG_BM ||
       (long long)Mc * Q > (1 << 24) ||
       (lnk_w == nullptr) != (lnk_b == nullptr))
     return (int)cudaErrorInvalidValue;

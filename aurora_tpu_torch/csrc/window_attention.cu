@@ -23,7 +23,7 @@
 //      ring of gemm_sm90.cuh with (2 x 64) x 256 tiles and 4 stages. A is the token rows in
 //      their stored order (K2: the padded 5D grid as (B Cp Hp Wp, D) rows; K6: (B nW 144, D)),
 //      a ragged last 64-row piece zero-filled by the 3D map; W is Wqkv (D, 3D) as stored, an
-//      MN-major operand (3D = 1536 / 3072 / 6144 is a multiple of 256). The epilogue rounds,
+//      MN-major operand (3D = 768 / 1536 / 3072 / 6144 is a multiple of 256). The epilogue rounds,
 //      adds the bf16 bias, rounds again and stores through each warp's swizzled staging into
 //      the qkv scratch (rows, 3D) bf16 that the wrapper allocates.
 //   2. core: the ring kernel of sdpa_sm90.cuh (K7's: two blocks of 9 warps an SM, a 2-stage
@@ -86,7 +86,7 @@ int launch_core(const void* qkv, const int* groups, bf16* attn, int B, int nW, i
 // groups: (nW, 144) int32 or null; qkv: scratch (rows, 3D) bf16. With wproj set, the tail:
 // wproj (D, D) bf16 as stored, bproj (D,) f32, shift/scale (B, D) f32, attn and stats
 // (rows, D / 256) float2 scratch, the result in out; without it (wproj null) the result is
-// attn and stats, out are unused. D in {512, 1024, 2048}, D = 64 heads. Returns
+// attn and stats, out are unused. D in {256, 512, 1024, 2048}, D = 64 heads. Returns
 // cudaGetLastError() of the last launch, cudaErrorInvalidValue for a shape it does not take,
 // or cudaErrorUnknown where no tensor map could be encoded.
 extern "C" int window_attention(const void* x, const void* wqkv, const void* bqkv,
@@ -96,8 +96,8 @@ extern "C" int window_attention(const void* x, const void* wqkv, const void* bqk
                                 int D, int ws0, int ws1, int ws2, int heads, float eps,
                                 cudaStream_t stream) {
   const long long rows = (long long)B * nW * CORE_N;
-  if (B <= 0 || nW <= 0 || (D != 512 && D != 1024 && D != 2048) || D != 64 * heads ||
-      rows > (1 << 24))
+  if (B <= 0 || nW <= 0 || (D != 256 && D != 512 && D != 1024 && D != 2048) ||
+      D != 64 * heads || rows > (1 << 24))
     return (int)cudaErrorInvalidValue;
   if (Cp > 0 && (ws0 * ws1 * ws2 != CORE_N || Cp % ws0 || Hp % ws1 || Wp % ws2 ||
                  (Cp / ws0) * (Hp / ws1) * (Wp / ws2) != nW))

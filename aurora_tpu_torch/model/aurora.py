@@ -487,8 +487,8 @@ class AuroraPretrained(Aurora):
 
 
 class AuroraSmallPretrained(Aurora):
-    """The small model (D = 256). The card's kernels take D in 512/1024/2048 and refuse its
-    shapes with a ``ValueError``; it runs on the CPU."""
+    """The small model (D = 256). On the card it runs with the production knobs (the kernels
+    take bf16): K2, K3 and K4 take its D = 256 shapes."""
 
     default_checkpoint_name = "aurora-0.25-small-pretrained.ckpt"
     default_checkpoint_revision = "0be7e57c685dac86b78c4a19a3ab149d13c6a3dd"

@@ -15,6 +15,7 @@ import logging
 import os
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
 
 import numpy as np
@@ -26,6 +27,7 @@ logger = logging.getLogger(__name__)
 _SRC = Path(__file__).resolve().parent / "regrid.cpp"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "native"
 _LIB: list = []  # [None]: the build failed; [lib]: built and loaded
+_LOCK = threading.Lock()  # the first use may come from any thread (a served task's worker)
 
 
 def _build() -> "ctypes.CDLL | None":
@@ -54,8 +56,9 @@ def _build() -> "ctypes.CDLL | None":
 
 
 def _lib():
-    if not _LIB:
-        _LIB.append(_build())
+    with _LOCK:
+        if not _LIB:
+            _LIB.append(_build())
     return _LIB[0]
 
 

@@ -53,7 +53,8 @@ LAUNCHES: dict[str, int] = {
 }
 
 _libs: dict[str, ctypes.CDLL] = {}
-_lock = threading.Lock()
+_lock = threading.Lock()  # loading a library
+_build_lock = threading.Lock()  # building the libraries
 
 
 def reset_launches() -> None:
@@ -80,8 +81,14 @@ def build(force: bool = False) -> float:
     """Compile every stale source in parallel (one ``nvcc`` each). Returns the seconds taken.
 
     The ``-Xptxas -v`` report (registers, shared memory, spills) of each source is kept
-    beside its library as ``lib<name>.ptxas.txt``.
+    beside its library as ``lib<name>.ptxas.txt``. Safe to call from any thread: one build
+    runs at a time (a served task's first launch comes from the server's worker thread).
     """
+    with _build_lock:
+        return _build(force)
+
+
+def _build(force: bool) -> float:
     todo = [n for n in SOURCES if force or _stale(n)]
     if not todo:
         return 0.0

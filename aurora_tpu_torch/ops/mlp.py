@@ -33,8 +33,8 @@ copy) and the product and row kernels of ``csrc/gemm_rows_sm90.cuh``:
   from the bound, which stays the operations' (``4 * rows * D * Hd`` bf16 flops; 1.1 ms per
   backbone call at 989 TF/s). The GELU of a tile is as long as its products at D = 512, so
   each warp parks the rounded pre-activations in shared memory (64 KB a block, which leaves
-  a ring of 3 stages) and applies the GELU during the next tile's first 8 K steps, while its
-  own asynchronous products run (that hides only part of it: arithmetic and ``wgmma`` of one
+  a ring of 3 stages) and applies the GELU during the next tile's first 8 K steps (the 4 a
+  tile has at the small model's D = 256), while its own asynchronous products run (that hides only part of it: arithmetic and ``wgmma`` of one
   SM hardly overlap, PERF.md). ptxas: 168 registers at launch (consumers 232, producer 40),
   no spills; 222,256 and 214,080 bytes of dynamic shared memory (fc1, fc2); the row kernel
   32 registers.
@@ -186,11 +186,13 @@ def _same_device(x: torch.Tensor, **tensors: torch.Tensor) -> None:
 
 
 def check_mlp_shape(M: int, D: int, Hd: int) -> None:
-    """The shapes K3 and K8 take on the card: M rows of D in (512, 1024, 2048) features (a
-    tile is 256 columns and fc1 spreads a tile's GELU over 8 K steps of 64) and a hidden
-    width that is a multiple of 256, at least 512. Raises ``ValueError`` otherwise."""
-    if D not in (512, 1024, 2048):
-        raise ValueError(f"mlp kernel: D={D} is not one of 512, 1024, 2048 (M={M}, hidden={Hd})")
+    """The shapes K3 and K8 take on the card: M rows of D in (256, 512, 1024, 2048) features
+    (a tile is 256 columns; fc1 spreads a tile's GELU over 8 K steps of 64, or over 4 at D =
+    256) and a hidden width that is a multiple of 256, at least 512. Raises ``ValueError``
+    otherwise."""
+    if D not in (256, 512, 1024, 2048):
+        raise ValueError(
+            f"mlp kernel: D={D} is not one of 256, 512, 1024, 2048 (M={M}, hidden={Hd})")
     if Hd < 512 or Hd % 256:
         raise ValueError(f"mlp kernel: hidden={Hd} is not a multiple of 256 >= 512 (M={M}, D={D})")
     if not 0 < M < 2**31:
@@ -273,7 +275,7 @@ def mlp_adaln_residual(
     weights ``(in, out)``, FiLM ``shift``/``scale`` ``(B, D)``.
 
     CPU tensors take :func:`mlp_adaln_residual_plain`; CUDA tensors launch the kernels, which
-    take bf16 tokens of the shapes of :func:`check_mlp_shape` (D in (512, 1024, 2048), a
+    take bf16 tokens of the shapes of :func:`check_mlp_shape` (D in (256, 512, 1024, 2048), a
     hidden width that is a multiple of 256).
     """
     if x.device.type == "cpu":

@@ -74,6 +74,7 @@ ATTN_PROBE_MODES = (
     "baseline", "no_softmax", "no_core", "fulld", "bf16_core", "batched_heads", "bf16_batched",
 )
 ATTN5D_MODES = ("vec", "loop")
+ATTN5D_D = (512, 1024, 2048)  # the widths K11 takes: the 1.3 B model's stages (the tool's sweep)
 
 
 # ------------------------------------------------------------------------------ K12
@@ -542,7 +543,7 @@ def _attn5d_direct_call(fn, x5, wqkv, bqkv, ws, num_heads, mode) -> torch.Tensor
     the qkv scratch allocated here."""
     bf = torch.bfloat16
     _lib.require(x5, "x5", bf)
-    _, _, rows = check_window_attention_shape(tuple(x5.shape), num_heads, ws)
+    _, _, rows = check_window_attention_shape(tuple(x5.shape), num_heads, ws, ATTN5D_D)
     B, Cp, Hp, Wp, D = x5.shape
     ops = {"wqkv": (wqkv.to(bf).contiguous(), (D, 3 * D)),
            "bqkv": (bqkv.to(bf).reshape(-1).contiguous(), (3 * D,))}

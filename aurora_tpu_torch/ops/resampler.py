@@ -143,8 +143,8 @@ def check_perceiver_shape(
     """The shapes K4 takes on the card: ``value_bf16``; ``(K, dh)`` in ``((13, 32), (3, 64))``
     (the aggregation and the de-aggregation); ``D`` a multiple of 64 (a K step of the ring);
     ``inner = heads * dh`` a multiple of 256 up to 2048 (a column tile of the ring; the mix
-    gives a column at most a block); ``D_out`` in ``(512, 1024, 2048)`` (the row kernel's
-    tiles). Raises ``ValueError`` otherwise."""
+    gives a column at most a block); ``D_out`` in ``(256, 512, 1024, 2048)`` (the row
+    kernel's tiles; 256 is the small model's aggregation). Raises ``ValueError`` otherwise."""
     if not value_bf16 or (K, dh) not in ((13, 32), (3, 64)):
         raise ValueError(
             f"perceiver_core kernel: needs value_bf16 and (K, dh) in ((13, 32), (3, 64)); "
@@ -156,8 +156,9 @@ def check_perceiver_shape(
             f"perceiver_core kernel: needs D % 64 == 0 and inner % 256 == 0 up to 2048; got "
             f"D={D}, inner={inner}"
         )
-    if D_out not in (512, 1024, 2048):
-        raise ValueError(f"perceiver_core kernel: D_out={D_out} is not one of 512, 1024, 2048")
+    if D_out not in (256, 512, 1024, 2048):
+        raise ValueError(
+            f"perceiver_core kernel: D_out={D_out} is not one of 256, 512, 1024, 2048")
     if M <= 0:
         raise ValueError(f"perceiver_core kernel: M={M} columns")
 

@@ -257,24 +257,27 @@ def check_sdpa_windows_shape(shape: tuple, num_heads: int) -> tuple[int, int, in
     return B, nW, D3 // 3
 
 
-WINDOW_ATTENTION_D = (512, 1024, 2048)
+# The widths K2 and K6 take: the small model's 256 (one 256-column tile of proj and of the
+# row kernel) and the 1.3 B model's stage widths.
+WINDOW_ATTENTION_D = (256, 512, 1024, 2048)
 
 
 def check_window_attention_shape(
-    shape: tuple, num_heads: int, ws: Optional[tuple[int, int, int]] = None
+    shape: tuple, num_heads: int, ws: Optional[tuple[int, int, int]] = None,
+    widths: tuple[int, ...] = WINDOW_ATTENTION_D,
 ) -> tuple[int, int, int]:
     """``(B, nW, rows)`` of the tokens K2 and K6 take on the card, or ``ValueError`` naming
     the shape. K2: ``shape = (B, Cp, Hp, Wp, D)`` with windows ``ws`` in place; K6:
-    ``shape = (B, nW, N, D)`` and ``ws`` None. ``D`` in (512, 1024, 2048) (``3D`` is whole
-    256-column tiles of the qkv product, and the LayerNorm statistics come in 256-column
-    tiles), a head dim of 64, windows of 144 tokens, a grid of whole windows, at most
-    ``2**24`` rows."""
+    ``shape = (B, nW, N, D)`` and ``ws`` None. ``D`` in ``widths`` (K2 and K6:
+    :data:`WINDOW_ATTENTION_D`; ``3D`` is whole 256-column tiles of the qkv product, and the
+    LayerNorm statistics come in 256-column tiles), a head dim of 64, windows of 144 tokens,
+    a grid of whole windows, at most ``2**24`` rows."""
     what = f"window_attention kernel {tuple(shape)}, heads {num_heads}"
     if len(shape) != (5 if ws is not None else 4):
         raise ValueError(f"{what}: needs (B, Cp, Hp, Wp, D) with ws, or (B, nW, 144, D)")
     B, D = shape[0], shape[-1]
-    if D not in WINDOW_ATTENTION_D:
-        raise ValueError(f"{what}: D={D} is not one of 512, 1024, 2048")
+    if D not in widths:
+        raise ValueError(f"{what}: D={D} is not one of {', '.join(map(str, widths))}")
     if D != 64 * num_heads:
         raise ValueError(f"{what}: head dim D / heads = {D / num_heads:g}, needs 64")
     if ws is None:

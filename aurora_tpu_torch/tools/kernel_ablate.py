@@ -108,23 +108,25 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
 def build_variants(source: str, variants: dict[str, tuple[str, ...]]) -> dict[str, ctypes.CDLL]:
-    """One ``nvcc`` per variant of ``csrc/<source>.cu``, all started together."""
+    """One ``nvcc`` per variant of ``csrc/<source>.cu``, all started together; a variant
+    whose library is newer than every source is not built again (a caller may build ahead,
+    on another thread)."""
     out_dir = _lib.BUILD_DIR / "ablate"
     out_dir.mkdir(parents=True, exist_ok=True)
-    nvcc = _lib._nvcc()
-    procs = {}
+    newest = max(p.stat().st_mtime for p in _lib.CSRC.iterdir() if p.suffix in (".cu", ".cuh"))
+    procs, sos = {}, {}
     for tag, defines in variants.items():
-        so = out_dir / f"lib{source}_{tag}.so"
-        cmd = [nvcc, *_lib.NVCC_FLAGS, *(f"-D{d}" for d in defines), "-I", str(_lib.CSRC),
-               "-o", str(so), str(_lib.CSRC / f"{source}.cu")]
-        procs[tag] = (so, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
-    libs = {}
-    for tag, (so, p) in procs.items():
+        so = sos[tag] = out_dir / f"lib{source}_{tag}.so"
+        if so.exists() and so.stat().st_mtime >= newest:
+            continue
+        cmd = [_lib._nvcc(), *_lib.NVCC_FLAGS, *(f"-D{d}" for d in defines), "-I",
+               str(_lib.CSRC), "-o", str(so), str(_lib.CSRC / f"{source}.cu")]
+        procs[tag] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+    for tag, p in procs.items():
         log, _ = p.communicate()
         if p.returncode != 0:
             raise RuntimeError(f"nvcc failed for {source} [{tag}]\n{log.decode(errors='replace')[-4000:]}")
-        libs[tag] = ctypes.CDLL(str(so))
-    return libs
+    return {tag: ctypes.CDLL(str(so)) for tag, so in sos.items()}
 
 
 def main(argv=None) -> list[dict]:

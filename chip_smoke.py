@@ -11,7 +11,8 @@ Phases, each printing one JSON line; any failure raises and the script exits non
    against its plain PyTorch version on the same inputs, with CUDA-event times of the
    kernel, the plain version and the library call where one computes the same function
    (``torch.roll`` for K1, ``F.scaled_dot_product_attention`` with the -100/0 mask for
-   K7, ``torch.matmul`` for K12), median of 10 runs after warm-up, and the bound
+   K7, ``torch.matmul`` for K12), median of 10 runs after 2 warm-up runs (the plain
+   version: of 3 after 1), and the bound
    max(flops / peak, bytes / 3.35 TB/s) (K4: of the folded work its kernels do, with the
    bound of the TPU kernel's work beside it). Roll (both signs of the shift) and the
    shared-memory probe must be exact. K2-K6 with their tail and K9 add a
@@ -71,8 +72,18 @@ Phases, each printing one JSON line; any failure raises and the script exits non
    relative) and its track the tracker's on the card's predictions and on their host copies;
    ``evaluate`` of step 2 against step 1 on the card (finite scores); ``Batch.regrid(1.0)``
    of a prediction with the native library built (one field through the scipy form beside
-   it, within 1e-12); ``tools.rollout_bench`` at 3 steps; ``tools.train_speed_probe`` at
-   121 x 240 over two arms;
+   it, within 1e-12); the serving stack (the ``serving`` line): the model's weights written
+   once with ``checkpoint.save_params`` as the artifact of the registry's
+   ``aurora-0.25-finetuned``, ``foundry.http_server.serve`` on a loopback port with a token
+   (a bad token must get 401), the port's ``FoundryClient`` + ``submit`` over a
+   ``LocalFileChannel`` asking for 2 steps of the initial condition read back from its file:
+   the served task loads the artifact into the registry's model on the card, on the server's
+   worker thread; the client's predictions must be ``rollout``'s bits, the served roll-out's
+   launches the main route's a step (counts set to 0 just before ``submit``); the forecast's
+   parts (the artifact's bytes and write time, the upload, the task's weight load and input
+   read, each step and each prediction file's write and bytes, the polling wait, the
+   client's read-back, submit to last prediction); ``tools.rollout_bench`` at 3 steps;
+   ``tools.train_speed_probe`` at 121 x 240 over two arms;
 5. train: K1-K8's gradients through their ``Function`` (the kernel forward, the backward
    of the plain math with bf16 products) against autograd of the plain versions on the card,
    every differentiable input, on inputs cut to a few thousand rows, windows or columns
@@ -119,8 +130,15 @@ Phases, each printing one JSON line; any failure raises and the script exits non
    grid (121 x 240; HighRes 241 x 480) against the port's CPU run of the same weights: mean
    relative error <= 1e-2 per output variable where both are finite,
    and the points where the wave NaN masks differ (a density within the card's error of 1/2)
-   at most 5%. ``AuroraSmallPretrained`` (D = 256) must raise the kernels' ``ValueError``;
-8. the seconds of each phase, then the kernels summary line, one entry per kernel (K1-K8:
+   at most 5%;
+8. small: ``AuroraSmallPretrained`` (D = 256) with the production knobs, seeded weights,
+   a 3-step roll-out at 721 x 1440 (counts set to 0 just before): step times, peak memory,
+   launches per step against ``SMALL_RUN`` and those at D = 256 (K2 4, K3 5, K4 1:
+   ``SMALL_D256``) counted by width; then the same model, full depth, on the 121 x 240 grid
+   against the port's CPU run, mean relative error <= 1e-2. Its D = 256 kernel cases run
+   in phase 3 (K2 with the tail masked and unmasked and without it masked, K6, K3 in the
+   backbone and the aggregation, K8, K4 with and without ``ln_k``; K2 must give K6's bits);
+9. the seconds of each phase, then the kernels summary line, one entry per kernel (K1-K8:
    times per forward step, each shape's time times its launches per step on the route that
    runs it, ``launches`` the count over that route's roll-out, and the backward's
    ``grad_err`` (the worst over the cut shapes and ``bwd_shape``), ``bwd_ms``,
@@ -128,7 +146,8 @@ Phases, each printing one JSON line; any failure raises and the script exits non
    the main path's shape; K9-K13: the sum over one sweep of the tool's cases,
    ``launches`` the count over the tools phase; K2 and K6 carry their no-tail mode under
    ``no_tail``, K4 its ``ln_k`` form under ``ln_k`` and the bound of the TPU kernel's work
-   under ``bound_of_tpu_work_ms``), the ``nvidia-smi`` line, and the last
+   under ``bound_of_tpu_work_ms``; K2, K6, K3, K8 and K4 the small model's D = 256 shapes
+   under ``d256`` by mode, times per small-model step), the ``nvidia-smi`` line, and the last
    line ``{"ok": true, "device": {...}}``.
 
 Run from the repository root: ``python3 chip_smoke.py``. It needs one card, and exits
@@ -153,6 +172,9 @@ SCAN_STEPS, SHORT_STEPS = 4, 2
 # not to give the same bits from run to run (they are expected to be equal).
 SCAN_AGREE_TOL = 1e-3
 REPS = 10  # timed runs per kernel and shape, after 2 warm-up runs
+# Timed runs of each plain version (10-100x a kernel's time; their spread matters little
+# beside that), after the check's own call and one warm-up run.
+PLAIN_REPS = 3
 LEVELS = (50, 100, 150, 200, 250, 300, 400, 500, 600, 700, 850, 925, 1000)
 SURF, ATMOS = ("2t", "10u", "10v", "msl"), ("z", "u", "v", "t", "q")
 TOL = {
@@ -216,24 +238,25 @@ def log(*a) -> None:
     print(*a, file=sys.stderr, flush=True)
 
 
-def cuda_ms(fn) -> float:
-    """Median device time of ``fn`` over REPS runs (``tools.time_ms``: CUDA events, each run
-    behind a memset that keeps the queue ahead of the host and leaves the L2 cold)."""
+def cuda_ms(fn, reps: int = REPS, warmup: int = 2) -> float:
+    """Median device time of ``fn`` over ``reps`` runs after ``warmup`` (``tools.time_ms``:
+    CUDA events, each run behind a memset that keeps the queue ahead of the host and leaves
+    the L2 cold)."""
     import torch
 
     from aurora_tpu_torch.tools import time_ms
 
-    return time_ms(fn, torch.device("cuda", torch.cuda.current_device()), REPS)
+    return time_ms(fn, torch.device("cuda", torch.cuda.current_device()), reps, warmup)
 
 
 # ------------------------------------------------------------------------------ kernels
 
 
 def case(name, label, per_step, kernel, plain, bound, check, residual=None, library=None,
-         mode=None, same_bits=None, extra=None, recheck=False) -> dict:
+         mode=None, same_bits=None, extra=None, recheck=False, small=False) -> dict:
     return dict(name=name, label=label, per_step=per_step, kernel=kernel, plain=plain,
                 bound=bound, check=check, residual=residual, library=library, mode=mode,
-                same_bits=same_bits, extra=extra, recheck=recheck)
+                same_bits=same_bits, extra=extra, recheck=recheck, small=small)
 
 
 def kernel_cases():
@@ -415,7 +438,86 @@ def kernel_cases():
     for M, per_step in ((64800, 1), (1800, 0)):
         for label, K, D, h, Q in (("agg", 13, 512, 16, 3), ("de-agg", 3, 1024, 16, 13)):
             yield from perceiver_cases(rn, label, K, M, D, h, Q, per_step)
+    yield from small_cases(rn)
     yield from probe_cases(rn)
+
+
+# The small model's (AuroraSmallPretrained, D = 256) launches per step at D = 256, from the
+# code: K2 in the 2 + 2 blocks of the backbone's first encoder and last decoder stage (one of
+# each pair shifted, so masked), K3 in those 4 blocks and in the aggregation's MLP half, K4 in
+# the aggregation (D_out = 256; the de-aggregation's is the decoder's 512).
+SMALL_D256 = {"window_attention": 4, "mlp_adaln_residual": 5, "perceiver_core": 1}
+
+
+def small_cases(rn):
+    """K2 (and K6, which takes the same widths) with and without the tail, K3 (and K8, which
+    shares its shape rule) and K4 (with and without ``ln_k``) at the small model's D = 256
+    shapes on the 720 x 1440 grid: the (4, 180, 360) x 256 token grid, heads 4, and the
+    level aggregation (13 levels of 64800 columns, 8 heads of 32, D_out 256). ``per_step``:
+    the small model's launches a step (``SMALL_D256``); kernels or modes the small model does
+    not run count 0. K2 must give K6's bits on the partitioned windows."""
+    import torch
+
+    from aurora_tpu_torch.ops import mlp, window_attention
+    from aurora_tpu_torch.ops.masks import window_group_ids
+    from aurora_tpu_torch.tools import bound_ms
+
+    ws, ss = (2, 6, 12), (1, 3, 6)
+    C, H, W, D, heads = 4, 180, 360, 256, 4
+    xp = rn(1, C, H, W, D)
+    M = C * H * W
+    nW, N = M // 144, 144
+    xw = window_attention.window_partition(xp, ws).contiguous()
+    wqkv, bqkv = rn(D, 3 * D, std=0.02), rn(3 * D, std=0.02)
+    tail = (rn(D, D, std=0.02), rn(D, std=0.02, dtype=torch.float32),
+            rn(1, D, std=0.1, dtype=torch.float32), rn(1, D, dtype=torch.float32))
+    fl_attn = 2 * M * D * 3 * D + 4 * nW * heads * N * N * (D // heads)
+    # K2 with the tail masked and unmasked (the small model's shifted and unshifted blocks),
+    # without it masked; K6 with the tail, masked.
+    for groups in (window_group_ids(C, H, W, ws, ss), None):
+        kind = "masked" if groups is not None else "unmasked"
+        for t in (tail, None) if groups is not None else (tail,):
+            mode = "tail" if t is not None else "no tail"
+            kw = dict(mode=mode, check="branch" if t is not None else "rel", small=True,
+                      recheck=True, bound=bound_ms(
+                          flops_bf16=fl_attn + (2 * M * D * D if t is not None else 0),
+                          nbytes=2 * M * D * 2 + (4 if t is not None else 3) * D * D * 2))
+            yield case(
+                "window_attention", f"D 256: (1,{C},{H},{W},{D}) heads {heads}, {kind}, {mode}",
+                2 if t is not None else 0, residual=xp,
+                kernel=lambda gr=groups, t=t:
+                    window_attention.window_attention_tail(xp, wqkv, bqkv, gr, ws, heads, t),
+                plain=lambda gr=groups, t=t:
+                    window_attention.window_attention_tail_plain(xp, wqkv, bqkv, gr, ws, heads, t),
+                extra=lambda gr=groups, t=t: k6_equals_k2(xp, wqkv, bqkv, gr, ws, heads, t), **kw)
+    groups = window_group_ids(C, H, W, ws, ss)
+    yield case(
+        "window_attention_windowed", f"D 256: (1,{nW},{N},{D}) heads {heads}, masked, tail", 0,
+        residual=xw,
+        kernel=lambda: window_attention.window_attention_windowed(xw, wqkv, bqkv, groups, heads,
+                                                                  tail),
+        plain=lambda: window_attention.window_attention_windowed_plain(xw, wqkv, bqkv, groups,
+                                                                       heads, tail),
+        mode="tail", check="branch", small=True, recheck=True,
+        bound=bound_ms(flops_bf16=fl_attn + 2 * M * D * D, nbytes=2 * M * D * 2 + 4 * D * D * 2))
+    del xp, xw
+    film = (rn(1, D, std=0.1, dtype=torch.float32), rn(1, D, dtype=torch.float32))
+    ln2 = (rn(1, D, std=0.1, dtype=torch.float32), 1 + rn(1, D, std=0.1, dtype=torch.float32))
+    for c in (mlp_case(rn, f"D 256: backbone ({M},{D})", M, D, 4 * D, 4, film),
+              mlp_case(rn, f"D 256: perceiver agg ({64800 * 3},{D})", 64800 * 3, D, 4 * D, 1, ln2)):
+        yield dict(c, small=True)
+    xr = rn(1, M, D)
+    w8 = (rn(D, 4 * D, std=0.02), rn(4 * D, std=0.02, dtype=torch.float32),
+          rn(4 * D, D, std=0.02), rn(D, std=0.02, dtype=torch.float32))
+    yield case(
+        "mlp_fused", f"D 256: backbone ({M},{D}), hidden {4 * D}", 0,
+        kernel=lambda: mlp.mlp_fused(xr, *w8), plain=lambda: mlp.mlp_fused_plain(xr, *w8),
+        check="rel", recheck=True, small=True,
+        bound=bound_ms(flops_bf16=16 * M * D * D, nbytes=2 * M * D * 2 + 16 * D * D))
+    for c in perceiver_cases(rn, "agg", 13, 64800, D, 8, 3, 1):
+        # The small model's aggregation has no ln_k: that mode counts nothing.
+        yield dict(c, small=True, label="D 256: " + c["label"],
+                   per_step=c["per_step"] if c["mode"] is None else 0)
 
 
 def perceiver_cases(rn, label, K, M, D, h, Q, per_step):
@@ -722,7 +824,8 @@ def _totals() -> dict:
 
 
 def run_kernel_phases() -> dict:
-    """Check and time every case; returns per-step totals keyed by (name, mode)."""
+    """Check and time every case; returns per-step totals keyed by (name, mode), the small
+    model's D = 256 cases by ("d256", name, mode)."""
     import torch
 
     from aurora_tpu_torch.tools import branch_err, rel_err
@@ -778,20 +881,30 @@ def run_kernel_phases() -> dict:
         else:
             ms = cuda_ms(case["kernel"])
         del want
-        plain_ms = cuda_ms(case["plain"])
+        plain_ms = cuda_ms(case["plain"], PLAIN_REPS, warmup=1)
         lib_ms = cuda_ms(case["library"]) if case["library"] else None
         b, by = case["bound"]
         more["of_bound"] = b / ms
         if lib_ms is not None:
             more["vs_library"] = ms / lib_ms
-        emit(dict(phase="kernel", kernel=name, mode=case["mode"], shape=case["label"],
-                  ok=bool(ok), max_abs_err=err, rel_err=rel, check=case["check"],
-                  tol=TOL[name], ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b,
-                  bound_by=by, per_step=case["per_step"], **more))
+        row = dict(phase="kernel", kernel=name, mode=case["mode"], shape=case["label"],
+                   ok=bool(ok), max_abs_err=err, rel_err=rel, check=case["check"],
+                   tol=TOL[name], ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b,
+                   bound_by=by, per_step=case["per_step"], **more)
+        if case["small"]:
+            row["model"] = "AuroraSmallPretrained (D = 256)"
+        emit(row)
         if not ok:
             raise AssertionError(f"{name} {case['label']}: max abs err {err}, relative error "
                                  f"{rel} (bound {TOL[name]}) {more}")
-        s = summary.setdefault((name, case["mode"]), _totals())
+        # The small model's D = 256 shapes are summed apart, per step of the small model, and
+        # kept shape by shape.
+        key = ("d256", name, case["mode"]) if case["small"] else (name, case["mode"])
+        s = summary.setdefault(key, _totals())
+        if case["small"]:
+            s.setdefault("shapes", []).append(dict(
+                shape=case["label"][len("D 256: "):], ms=ms, plain_ms=plain_ms, bound_ms=b,
+                bound_by=by, err=rel, max_abs_err=err, per_small_step=case["per_step"]))
         n = case["per_step"]
         s["max_abs_err"] = max(s["max_abs_err"], err)
         s["err"] = max(s["err"], rel or 0.0)
@@ -1144,7 +1257,9 @@ def run_drivers(model) -> None:
                         for g in (coarse.surf_vars, coarse.atmos_vars) for v in g.values())
         regrid_fields = sum(int(np.prod(v.shape[:-2])) for g in
                             (pred.surf_vars, pred.static_vars, pred.atmos_vars) for v in g.values())
-        del coarse, files, preds, pred
+        del coarse, files, pred
+        run_serving(model, batch, preds, ic, work)
+        del preds
 
         with contextlib.redirect_stdout(io.StringIO()):
             bench = rollout_bench.main(["--steps", "3"], model=model)
@@ -1181,6 +1296,129 @@ def run_drivers(model) -> None:
         bad.append(f"rollout_bench track {bench['track_len']}, probe arms {probe['arms']}")
     if bad:
         raise AssertionError(f"drivers: {bad}")
+
+
+# ------------------------------------------------------------------------------ serving
+
+SERVED = "aurora-0.25-finetuned"  # the registry's entry served by the serving phase
+SERVE_STEPS = 2
+TOKEN = "chip-smoke-token"
+
+
+def _timed_channel(folder):
+    """A ``LocalFileChannel`` that keeps the host-clock span and bytes of every batch it
+    sends or receives (the client's side; the server builds its own from the spec)."""
+    from aurora_tpu_torch.foundry import LocalFileChannel
+
+    class Timed(LocalFileChannel):
+        def __init__(self, folder):
+            super().__init__(folder)
+            self.log = []
+
+        def _send(self, batch, name):
+            t0 = time.perf_counter()
+            super()._send(batch, name)
+            self.log.append(dict(op="send", name=name, t0=t0, t1=time.perf_counter(),
+                                 bytes=os.path.getsize(self._path(name))))
+
+        def _receive(self, name):
+            t0 = time.perf_counter()
+            out = super()._receive(name)
+            self.log.append(dict(op="receive", name=name, t0=t0, t1=time.perf_counter(),
+                                 bytes=os.path.getsize(self._path(name))))
+            return out
+
+    return Timed(folder)
+
+
+def run_serving(model, batch, preds, ic, work) -> None:
+    """The serving stack on the card, inside the drivers phase: the main route's model's
+    weights written once with ``checkpoint.save_params`` as the artifact of the registry's
+    ``SERVED`` entry; ``foundry.http_server.serve`` on a loopback port with a token; the
+    port's ``FoundryClient`` + ``submit`` over a ``LocalFileChannel`` under the drivers
+    phase's folder ask for SERVE_STEPS steps of the drivers phase's initial condition (its
+    file, read back; its arrays must be ``batch``'s bits). The served task loads the artifact
+    into the registry's model (full width and depth, production knobs) on the card, on the
+    server's worker thread. The client's predictions must be ``preds``' bits (``rollout`` of
+    the same weights on ``batch``), with ``rollout_step`` 1..N; the launches over the served
+    roll-out (counts set to 0 just before ``submit``) are the main route's a step; a bad
+    token gets 401. Prints the served forecast's parts."""
+    import urllib.error
+
+    import numpy as np
+    import torch
+
+    from aurora_tpu_torch import Batch
+    from aurora_tpu_torch.checkpoint import save_params
+    from aurora_tpu_torch.foundry import FoundryClient, submit
+    from aurora_tpu_torch.foundry import models as registry
+    from aurora_tpu_torch.foundry.http_server import serve
+    from aurora_tpu_torch.ops import _lib
+
+    t_phase = time.perf_counter()
+    art = os.path.join(work, f"{SERVED}.pt")
+    t0 = time.perf_counter()
+    save_params(model, art)
+    art_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ic_batch = Batch.from_netcdf(ic)
+    ic_read_s = time.perf_counter() - t0
+    same_input = agreement([batch], [ic_batch])["bit_equal"]
+    registry.ARTIFACTS[SERVED] = art
+    try:
+        with serve(token=TOKEN) as handle:
+            try:
+                FoundryClient(handle.url, "not-the-token").submit_task({})
+                bad_token = None
+            except urllib.error.HTTPError as e:
+                bad_token = e.code
+            client = FoundryClient(handle.url, TOKEN)
+            channel = _timed_channel(os.path.join(work, "serving"))
+            _lib.reset_launches()
+            got, got_at = [], []
+            t_submit = time.perf_counter()
+            for pred in submit(ic_batch, SERVED, SERVE_STEPS, channel, client):
+                got.append(pred)
+                got_at.append(time.perf_counter())
+            launches = dict(_lib.LAUNCHES)
+            (task,) = handle.inference.tasks.values()
+    finally:
+        del registry.ARTIFACTS[SERVED]
+    torch.cuda.empty_cache()
+    sent = [r for r in channel.log if r["op"] == "send"]
+    received = [r for r in channel.log if r["op"] == "receive"]
+    tm = task.timings
+    steps = [dict(s, bytes=r["bytes"]) for s, r in zip(tm["steps"], received)]
+    vs_rollout = agreement(preds, got)
+    expected = {k: SERVE_STEPS * n for k, n in ROUTES["main"][1].items()}
+    served_launches = {k: n for k, n in launches.items() if n}
+    row = dict(phase="serving", model=SERVED, grid="721x1440", steps=SERVE_STEPS,
+               artifact_bytes=os.path.getsize(art), artifact_write_s=art_s,
+               ic_read_s=ic_read_s, ic_is_the_batch=same_input,
+               upload_s=sent[0]["t1"] - sent[0]["t0"], upload_bytes=sent[0]["bytes"],
+               task_load_s=tm.get("load_s"), task_input_read_s=tm.get("read_s"),
+               task_steps=steps, poll_wait_s=received[0]["t0"] - tm["done_at"],
+               read_back_s=[r["t1"] - r["t0"] for r in received],
+               submit_to_last_prediction_s=got_at[-1] - t_submit,
+               status=task.task_info.status, bad_token_status=bad_token,
+               files_vs_rollout=vs_rollout, launches=served_launches,
+               expected_launches=expected, seconds=time.perf_counter() - t_phase)
+    emit(row)
+    os.remove(art)
+    bad = []
+    if not (same_input and vs_rollout["bit_equal"]):
+        bad.append(f"the served predictions are not rollout's bits: {vs_rollout}, input "
+                   f"the batch's bits {same_input}")
+    if [p.metadata.rollout_step for p in got] != list(range(1, SERVE_STEPS + 1)):
+        bad.append(f"roll-out steps {[p.metadata.rollout_step for p in got]}")
+    if served_launches != expected:
+        bad.append(f"launches {served_launches} != {expected}")
+    if bad_token != 401:
+        bad.append(f"a bad token got {bad_token}, not 401")
+    if not all(np.isfinite(v).all() for p in got for v in p.surf_vars.values()):
+        bad.append("non-finite predictions")
+    if bad:
+        raise AssertionError(f"serving: {bad}")
 
 
 def run_main_phases(model) -> None:
@@ -1994,36 +2232,131 @@ def run_variant(name: str, manifest: dict, steps: int) -> None:
         raise AssertionError(f"variant {name}: NaN masks differ at {flips}")
 
 
-def small_refused_on_card() -> None:
-    """``AuroraSmallPretrained`` (D = 256) on the card with the production knobs: its forward
-    raises the kernels' ``ValueError`` for the width before any kernel launches; nothing
-    falls back to a plain version."""
-    from aurora_tpu_torch import AuroraSmallPretrained
-    from aurora_tpu_torch.ops import _lib
-    from aurora_tpu_torch.tools import variant_bench
-    from aurora_tpu_torch.tools.perf_breakdown import production_config
-
-    model = AuroraSmallPretrained(production_config(AuroraSmallPretrained.default_config()),
-                                  device="cuda")
-    _lib.reset_launches()
-    try:
-        model(variant_bench.raw_batch(model.cfg, 121, 240, seed=1))
-    except ValueError as e:
-        launched = sum(_lib.LAUNCHES.values())
-        emit(dict(phase="variant", variant="small", refused=str(e), launches=launched))
-        if "256" not in str(e) or launched:
-            raise AssertionError(f"AuroraSmallPretrained: refused for another reason: {e}")
-        return
-    raise AssertionError("AuroraSmallPretrained ran on the card")
-
-
 def run_variants(steps: int) -> None:
     manifests = json.loads(open(MANIFESTS).read())
     t0 = time.perf_counter()
     for name, (facade, *_rest) in VARIANT_RUNS.items():
         run_variant(name, manifests[facade], steps)
-    small_refused_on_card()
     emit(dict(phase="variants", seconds=time.perf_counter() - t0))
+
+
+# ------------------------------------------------------------------------------ small model
+
+# Launches per forward step of AuroraSmallPretrained, from the code: stage depths (2, 6, 2) +
+# (2, 6, 2), 20 blocks, the odd-index half shifted (K1 twice each); K2 and K3 once a block;
+# K3 in the two perceiver MLP halves; K4 in the aggregation and the de-aggregation.
+SMALL_RUN = {"roll3d": 20, "window_attention": 20, "mlp_adaln_residual": 22, "perceiver_core": 2}
+SMALL_GRID, SMALL_REF_GRID = (721, 1440), (121, 240)
+
+
+class _WidthCounts:
+    """Counts the calls of the kernel wrappers the model makes (in ``swin3d`` and
+    ``perceiver``) whose output rows are 256 wide, while it is entered."""
+
+    NAMES = (("swin3d", "window_attention_tail", "window_attention"),
+             ("swin3d", "mlp_adaln_residual", "mlp_adaln_residual"),
+             ("perceiver", "mlp_adaln_residual", "mlp_adaln_residual"),
+             ("perceiver", "perceiver_core", "perceiver_core"))
+
+    def __init__(self):
+        self.counts = dict.fromkeys(SMALL_D256, 0)
+        self._saved = []
+
+    def __enter__(self):
+        import importlib
+
+        for mod, fn, key in self.NAMES:
+            m = importlib.import_module(f"aurora_tpu_torch.model.{mod}")
+            f = getattr(m, fn)
+
+            def counted(*a, _f=f, _k=key, **kw):
+                out = _f(*a, **kw)
+                self.counts[_k] += out.shape[-1] == 256
+                return out
+
+            self._saved.append((m, fn, f))
+            setattr(m, fn, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for m, fn, f in self._saved:
+            setattr(m, fn, f)
+
+
+def run_small(steps: int) -> dict:
+    """``AuroraSmallPretrained`` (D = 256) with the production knobs on the card: seeded
+    weights (gates opened), a roll-out of ``steps`` steps at 721 x 1440 through
+    ``tools.variant_bench`` (counts set to 0 just before): step times, peak memory, launches
+    per step against ``SMALL_RUN`` and those at D = 256 against ``SMALL_D256``; outputs finite
+    at their shapes. Then the same model (full depth) on the 121 x 240 grid against the port's
+    CPU run of it: mean relative error <= 1e-2 per output variable. Returns the launches."""
+    import torch
+
+    from aurora_tpu_torch import AuroraSmallPretrained
+    from aurora_tpu_torch.ops import _lib
+    from aurora_tpu_torch.tools import variant_bench
+
+    t0 = time.perf_counter()
+    model = variant_bench.build_variant(AuroraSmallPretrained, "cuda")
+    cfg = model.cfg
+    H, W = SMALL_GRID
+    batch = variant_bench.raw_batch(cfg, H, W, device="cuda")
+    _lib.reset_launches()
+    with _WidthCounts() as wide:
+        r = variant_bench.run_rollout(model, batch, steps)
+    launches = dict(_lib.LAUNCHES)
+    d256 = {k: n // steps for k, n in wide.counts.items()}
+    bad = [i for i, got in enumerate(r["launches_per_step"]) if got != SMALL_RUN]
+    if bad or d256 != SMALL_D256 or any(wide.counts[k] % steps for k in wide.counts):
+        raise AssertionError(f"small model: launches {r['launches_per_step']} (want "
+                             f"{SMALL_RUN}); at D = 256 {wide.counts} over {steps} steps (want "
+                             f"{SMALL_D256} a step)")
+    Hc = H - H % cfg.patch_size
+    want_shapes = {**{k: [1, 1, Hc, W] for k in cfg.surf_vars},
+                   **{k: [1, 1, len(LEVELS), Hc, W] for k in cfg.atmos_vars}}
+    if (r["outputs"] != want_shapes or any(r["nan_points"].values())
+            or any(r["inf_points"].values()) or r["rollout_step"] != steps):
+        raise AssertionError(f"small model: outputs {r['outputs']}, NaN {r['nan_points']}, "
+                             f"inf {r['inf_points']}")
+    row = dict(phase="small", model="AuroraSmallPretrained", grid=f"{H}x{W}",
+               embed_dim=cfg.embed_dim, depths=(cfg.encoder_depths, cfg.decoder_depths),
+               heads=(cfg.encoder_num_heads, cfg.decoder_num_heads),
+               params=sum(p.numel() for p in model.parameters()), steps=steps,
+               step_s=r["step_s"], peak_mem_gib=r["peak_mem_gib"],
+               launches_per_step=r["launches_per_step"][-1], expected_per_step=SMALL_RUN,
+               d256_per_step=d256, expected_d256_per_step=SMALL_D256, launches=launches)
+    del batch
+
+    # The reference: the same model, full depth, on the 121 x 240 grid against the port's CPU
+    # run of the same weights.
+    t1 = time.perf_counter()
+    h, w = SMALL_REF_GRID
+    small = variant_bench.raw_batch(cfg, h, w, seed=1)
+    before = dict(_lib.LAUNCHES)
+    got = model(small)
+    torch.cuda.synchronize()
+    ref_launches = {k: n - before[k] for k, n in _lib.LAUNCHES.items() if n != before[k]}
+    cpu = model.to("cpu")
+    del model
+    torch.cuda.empty_cache()
+    want = cpu(small)
+    del cpu
+    errs = {}
+    for k in cfg.surf_vars:
+        errs[k] = _mean_rel(got.surf_vars[k], want.surf_vars[k])
+    for k in cfg.atmos_vars:
+        errs[k] = _mean_rel(got.atmos_vars[k], want.atmos_vars[k])
+    worst = max(errs.values())
+    emit(dict(row, reference=dict(grid=f"{h}x{w}", launches=ref_launches,
+                                  against="port CPU run (plain versions)", mean_rel=errs,
+                                  worst=worst, tol=1e-2, seconds=time.perf_counter() - t1),
+              seconds=time.perf_counter() - t0))
+    missing = [k for k in SMALL_RUN if ref_launches.get(k) != SMALL_RUN[k]]
+    if missing:
+        raise AssertionError(f"small model: the reference run launched {ref_launches}")
+    if not worst <= 1e-2:
+        raise AssertionError(f"small model: card vs CPU: mean rel {worst} > 1e-2")
+    return launches
 
 
 # ------------------------------------------------------------------------------ main
@@ -2044,8 +2377,30 @@ def main() -> int:
     emit(dict(phase="device", nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda,
               name=torch.cuda.get_device_name(0), count=torch.cuda.device_count(),
               cpu_threads=torch.get_num_threads(), cpus=os.cpu_count()))
+    t_build = time.perf_counter()
 
-    secs = _lib.build(force=True)
+    # The decoder breakdown's ablated builds of K4 compile beside the kernels (the
+    # breakdown then finds them built).
+    import threading
+
+    from aurora_tpu_torch.tools.decoder_breakdown import K4_PARTS
+    from aurora_tpu_torch.tools.kernel_ablate import build_variants
+
+    failed = []
+
+    def ahead():
+        try:
+            build_variants("resampler", K4_PARTS)
+        except Exception as e:  # raised again below, on the main thread
+            failed.append(e)
+
+    ablated = threading.Thread(target=ahead)
+    ablated.start()
+    _lib.build(force=True)
+    ablated.join()
+    if failed:
+        raise failed[0]
+    secs = time.perf_counter() - t_build
     ptxas = {}
     for n in _lib.SOURCES:
         lines = (_lib.BUILD_DIR / f"lib{n}.ptxas.txt").read_text().splitlines()
@@ -2077,6 +2432,8 @@ def main() -> int:
     lap("tools")
     run_variants(STEPS)
     lap("variants")
+    launches["small"] = run_small(STEPS)
+    lap("small")
     emit(dict(phase="seconds", **seconds, total=sum(seconds.values())))
 
     def entry(s: dict, n_launches: int) -> dict:
@@ -2105,6 +2462,16 @@ def main() -> int:
         if (name, "ln_k") in summary:
             # K4 with ln_k is route S's aggregation: one of its two K4 launches a step.
             e["ln_k"] = entry(summary[name, "ln_k"], launches["S"][name] // 2)
+        # The small model's D = 256 shapes: times per step of the small model (its launches
+        # at D = 256, SMALL_D256), launches the count over its roll-out (all widths).
+        for mode in (None, "tail", "no tail", "ln_k"):
+            if ("d256", name, mode) in summary:
+                s = summary["d256", name, mode]
+                d = e.setdefault("d256", {})
+                d[mode or "-"] = dict(entry(s, launches["small"].get(name, 0)),
+                                      shapes=s["shapes"],
+                                      d256_launches_per_small_step=SMALL_D256.get(name, 0)
+                                      if mode in (None, "tail") else 0)
         kernels.append(e)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

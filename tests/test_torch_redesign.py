@@ -242,7 +242,8 @@ def test_cuda_branch_reaches_no_library_product(fn):
 # rows, D, hidden of the calls the 1.3 B model makes: three backbone stages, the perceiver's
 # aggregation and de-aggregation MLP halves.
 MLP_CARD_SHAPES = [(259200, 512, 2048), (64800, 1024, 4096), (16200, 2048, 8192),
-                   (194400, 512, 2048), (842400, 1024, 2048)]
+                   (194400, 512, 2048), (842400, 1024, 2048),
+                   (259200, 256, 1024), (194400, 256, 1024)]  # the small model's D = 256
 
 
 def _tiled_film_layernorm_residual(y, residual, shift, scale, scale_bias, eps, tile=256):
@@ -318,7 +319,7 @@ def test_mlp_shape_rule_takes_the_card_shapes(M, D, Hd):
 
 
 @pytest.mark.parametrize("M,D,Hd,word", [
-    (1000, 256, 1024, "D=256"), (1000, 768, 3072, "D=768"), (1000, 4096, 16384, "D=4096"),
+    (1000, 384, 1536, "D=384"), (1000, 768, 3072, "D=768"), (1000, 4096, 16384, "D=4096"),
     (1000, 512, 2000, "hidden=2000"), (1000, 512, 256, "hidden=256"),
     (1000, 1024, 4160, "hidden=4160"),
     (0, 512, 2048, "M=0"), (2**31, 512, 2048, f"M={2**31}"),

@@ -241,7 +241,7 @@ def test_column_chunks_refuse_a_cap_below_128_columns():
 @pytest.mark.parametrize("K,M,D,h,dh,Q,D_out", [
     (13, 64800, 512, 16, 32, 3, 512), (3, 64800, 1024, 16, 64, 13, 1024),
     (13, 1800, 512, 16, 32, 3, 512), (3, 1, 1024, 16, 64, 13, 1024),
-    (13, 100, 256, 8, 32, 3, 2048),
+    (13, 100, 256, 8, 32, 3, 2048), (13, 64800, 256, 8, 32, 3, 256),  # the small model's agg
 ])
 def test_perceiver_shape_rule_takes_the_models_shapes(K, M, D, h, dh, Q, D_out):
     resampler.check_perceiver_shape(K, M, D, h, dh, Q, D_out, True)
@@ -256,6 +256,7 @@ def test_perceiver_shape_rule_takes_the_models_shapes(K, M, D, h, dh, Q, D_out):
     (13, 64800, 512, 12, 32, 3, 512, True, "inner=384"),
     (3, 64800, 1024, 64, 64, 13, 1024, True, "inner=4096"),
     (13, 64800, 512, 16, 32, 3, 768, True, "D_out=768"),
+    (13, 64800, 256, 8, 32, 3, 384, True, "D_out=384"),
     (13, 0, 512, 16, 32, 3, 512, True, "M=0"),
 ])
 def test_perceiver_shape_rule_refuses_other_shapes(K, M, D, h, dh, Q, D_out, value_bf16, word):

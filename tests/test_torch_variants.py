@@ -8,9 +8,11 @@ and checkpoint identities, and the air-pollution model.
   against the JAX model holding the same weights: forward and a 2-step ``rollout`` at mean
   relative error <= 1e-8 per output variable, without LoRA and with it (the SO2 clamp at
   850 hPa, which this batch reaches). Its dynamic time encodings are equal.
-* The kernels refuse the small model's D = 256 with a ``ValueError``: on the card
-  ``AuroraSmallPretrained`` raises; on the CPU it runs the plain versions
-  (``tests/test_torch_variants_wave.py``).
+* The kernels on the small model's path (K2, K3, K4) take its D = 256 shapes; the kernels
+  off its path whose shape rule was not widened (K5, K11) refuse D = 256, and every kernel
+  refuses a width between those taken (``ValueError``). On the CPU the small model runs the
+  plain versions (``tests/test_torch_variants_wave.py``); its launches per step are in
+  ``tests/test_torch_small.py``.
 
 The wave, 12 h and HighRes models are in ``tests/test_torch_variants_wave.py``.
 """
@@ -123,20 +125,30 @@ def test_dynamic_encodings_match_jax(pollution):
 
 
 def test_kernels_refuse_the_small_models_width():
-    """D = 256 reaches the perceiver core's output and the MLP kernels: each refuses it, so
-    ``AuroraSmallPretrained`` on the card raises instead of running a plain version."""
-    from aurora_tpu_torch.ops import mlp, resampler, window_attention
+    """D = 256 reaches the perceiver core's output, the MLP kernels and the window attention.
+    K2, K3 and K4 (and K6 and K8, which share their shape rules) take the small model's
+    shapes; K5 and K11, off its path, still refuse D = 256; a width between those taken
+    (384) is refused by every rule, so nothing falls back to a plain version on the card."""
+    from aurora_tpu_torch.ops import mlp, probes, resampler, window_attention
 
     D = aurora_tpu_torch.SMALL_CONFIG.embed_dim
     assert D == 256
-    with pytest.raises(ValueError, match="D_out=256"):
-        resampler.check_perceiver_shape(13, 64800, D, 8, 32, 3, D)
-    with pytest.raises(ValueError, match="D=256"):
-        mlp.check_mlp_shape(64800, D, 4 * D)
+    ws = (2, 6, 12)
+    resampler.check_perceiver_shape(13, 64800, D, 8, 32, 3, D)
+    mlp.check_mlp_shape(259200, D, 4 * D)
+    assert window_attention.check_window_attention_shape((1, 4, 180, 360, D), 4, ws) == (
+        1, 1800, 259200)
     with pytest.raises(ValueError, match="D=256"):
         mlp.check_linear_shape(64800, D)
     with pytest.raises(ValueError, match="D=256"):
-        window_attention.check_window_attention_shape((1, 4, 180, 360, D), 4, (2, 6, 12))
+        window_attention.check_window_attention_shape((1, 4, 180, 360, D), 4, ws,
+                                                      probes.ATTN5D_D)
+    with pytest.raises(ValueError, match="D_out=384"):
+        resampler.check_perceiver_shape(13, 64800, D, 8, 32, 3, 384)
+    with pytest.raises(ValueError, match="D=384"):
+        mlp.check_mlp_shape(259200, 384, 1536)
+    with pytest.raises(ValueError, match="D=384"):
+        window_attention.check_window_attention_shape((1, 4, 180, 360, 384), 6, ws)
 
 
 def test_variant_tools_run_on_the_cpu():

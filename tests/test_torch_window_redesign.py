@@ -199,7 +199,8 @@ def test_four_launches_match_the_pallas_kernel(masked):
 # (B, Cp, Hp, Wp, D, heads): the 0.25 deg model's three stages (stage 3 padded from 45 x 90)
 # and the 121 x 240 reference grid's (30 x 60, 15 x 30 -> 18 x 36, 8 x 15 -> 12 x 24).
 CARD_GRIDS = [(1, 4, 180, 360, 512, 8), (1, 4, 90, 180, 1024, 16), (1, 4, 48, 96, 2048, 32),
-              (1, 4, 30, 60, 512, 8), (1, 4, 18, 36, 1024, 16), (1, 4, 12, 24, 2048, 32)]
+              (1, 4, 30, 60, 512, 8), (1, 4, 18, 36, 1024, 16), (1, 4, 12, 24, 2048, 32),
+              (1, 4, 180, 360, 256, 4), (1, 4, 30, 60, 256, 4)]  # the small model's D = 256
 
 
 @pytest.mark.parametrize("grid", CARD_GRIDS, ids=lambda g: "x".join(map(str, g[1:5])))
@@ -212,7 +213,7 @@ def test_window_attention_shape_rule_takes_the_card_shapes(grid):
 
 
 @pytest.mark.parametrize("shape,heads,ws,word", [
-    ((1, 4, 12, 24, 256), 4, WS, "D=256"),          # the small config's width
+    ((1, 4, 12, 24, 384), 6, WS, "D=384"),          # between the widths taken
     ((1, 4, 12, 24, 768), 12, WS, "D=768"),
     ((1, 4, 12, 24, 4096), 64, WS, "D=4096"),
     ((1, 4, 12, 24, 512), 16, WS, "head dim"),     # dh 32
