@@ -18,10 +18,11 @@ step (the card synchronised), the file's writing and bytes, and the tracker. ``e
 one JSON line of latitude-weighted scores per variable (:mod:`aurora_tpu_torch.metrics`).
 
 Both run on the card unless ``--device cpu`` is given; without a card and without it they
-exit with code 2 and a message. The model runs with the production knobs (the backbone in
-bf16 under ``autocast``, bf16 values in the level aggregation and de-aggregation): the card's
-kernels take bf16. Exit codes as the JAX package's: 0 done, 2 a user error (a bad path, an
-unknown model, a bad flag combination).
+exit with code 2 and a message. The model is the facade with its default config, as the JAX
+package's CLI builds it (``aurora_tpu/cli.py:47-68``): float32 all through for every
+released facade, on the card's float32 kernels. ``--no-bf16-backbone`` matters only for a
+config under ``autocast``, whose backbone is otherwise stored in bf16. Exit codes as the JAX
+package's: 0 done, 2 a user error (a bad path, an unknown model, a bad flag combination).
 """
 
 from __future__ import annotations
@@ -35,7 +36,6 @@ from typing import Optional
 
 __all__ = ["CLIError", "build_parser", "main"]
 
-PRODUCTION = dict(autocast=True, agg_bf16=True, deagg_bf16=True)
 MODELS = ("Aurora", "AuroraPretrained", "AuroraSmallPretrained", "AuroraSmall",
           "Aurora12hPretrained", "AuroraHighRes", "AuroraAirPollution", "AuroraWave")
 
@@ -54,9 +54,9 @@ def _device(args):
 
 
 def _load_model(args, device):
-    """The model of ``--model`` on ``device`` with the weights of ``--random-init``,
-    ``--checkpoint`` or the hub (the default), the backbone stored in bf16 unless
-    ``--no-bf16-backbone``."""
+    """The model of ``--model`` with its default config on ``device`` with the weights of
+    ``--random-init``, ``--checkpoint`` or the hub (the default); under ``autocast`` the
+    backbone stored in bf16 unless ``--no-bf16-backbone``."""
     import torch
 
     import aurora_tpu_torch as port
@@ -65,9 +65,9 @@ def _load_model(args, device):
 
     cls = getattr(port, args.model)
     if args.random_init:
-        model = cls(device=device, seed=args.seed, **PRODUCTION)
+        model = cls(device=device, seed=args.seed)
     else:
-        model = cls(device=device, seed=None, **PRODUCTION)
+        model = cls(device=device, seed=None)
         if args.checkpoint:
             if not os.path.exists(args.checkpoint):
                 raise CLIError(f"checkpoint not found: {args.checkpoint}")

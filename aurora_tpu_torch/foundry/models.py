@@ -5,9 +5,9 @@ Each entry pairs one of the port's model facades with a checkpoint artifact regi
 :data:`ARTIFACTS`; :meth:`ServedModel.run` is the port's :func:`aurora_tpu_torch.rollout`,
 each prediction moved to the host as it is made. A served model runs on the card unless it
 is built with ``device="cpu"``; without a card and without that it raises. It runs its
-facade's default config with the production knobs (the backbone in bf16 under ``autocast``,
-bf16 values in the level aggregation and de-aggregation), as the port's command-line driver
-does: the card's kernels take bf16.
+facade's default config, as the JAX package's registry builds it
+(``aurora_tpu/foundry/models.py:34-35``): float32 all through for every released facade, on
+the card's float32 kernels.
 """
 
 from __future__ import annotations
@@ -16,7 +16,6 @@ import logging
 from typing import Generator
 
 from aurora_tpu_torch.batch import Batch
-from aurora_tpu_torch.cli import PRODUCTION
 from aurora_tpu_torch.model import aurora as aurora_models
 from aurora_tpu_torch.rollout import rollout
 
@@ -36,7 +35,7 @@ class ServedModel:
     model_cls: type
 
     def __init__(self, device=None):
-        self.model = self.model_cls(device=device, seed=None, **PRODUCTION)
+        self.model = self.model_cls(device=device, seed=None)
         self._load_params()
 
     def _load_params(self):

@@ -487,8 +487,9 @@ class AuroraPretrained(Aurora):
 
 
 class AuroraSmallPretrained(Aurora):
-    """The small model (D = 256). On the card it runs with the production knobs (the kernels
-    take bf16): K2, K3 and K4 take its D = 256 shapes."""
+    """The small model (D = 256). On the card it runs in its default config (float32 all
+    through) or with the production knobs (bf16): K2, K3 and K4 take its D = 256 shapes in
+    both."""
 
     default_checkpoint_name = "aurora-0.25-small-pretrained.ckpt"
     default_checkpoint_revision = "0be7e57c685dac86b78c4a19a3ab149d13c6a3dd"

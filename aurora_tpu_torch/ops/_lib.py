@@ -6,10 +6,13 @@ loaded with ``ctypes``. All sources compile in parallel, once, at the first laun
 kernel (or at :func:`build`). Nothing here runs when a module is imported: the CPU tests
 import every kernel module on machines without ``nvcc`` or a card.
 
-Every wrapper adds one to its entry in :data:`LAUNCHES` where it launches its kernel and
-nowhere else, so a run can show that its main path went through the kernels. A forward call
-counts once under its wrapper's key whether or not it records a gradient; K1's launch in a
-backward counts under ``roll3d_bwd``.
+Every wrapper adds one to its entry in :data:`LAUNCHES` (through :func:`count_launch`) where
+it launches its kernel and nowhere else, so a run can show that its main path went through
+the kernels. A forward call counts once under its wrapper's key whether or not it records a
+gradient; K1's launch in a backward counts under ``roll3d_bwd``. :data:`LAUNCHES_BY` tallies
+the same launches by key, output dtype and output row width, which tell a float32 model's
+launches from a bf16 one's; :func:`reset_launches` leaves it, so it is read as the
+difference over a run.
 """
 
 from __future__ import annotations
@@ -24,12 +27,13 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["LAUNCHES", "reset_launches", "build", "kernel", "check", "stream", "require"]
+__all__ = ["LAUNCHES", "LAUNCHES_BY", "count_launch", "reset_launches", "build", "kernel",
+           "check", "stream", "require"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("roll", "window_attention", "mlp", "resampler", "probes", "gemm", "sdpa", "mlp_t",
-           "attn_probe", "attn5d_direct")
+           "attn_probe", "attn5d_direct", "window_attention_f32", "mlp_f32", "resampler_f32")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
@@ -52,6 +56,9 @@ LAUNCHES: dict[str, int] = {
     "smem_probe": 0,
 }
 
+# {(key, dtype name, width of the output's rows): launches since import}
+LAUNCHES_BY: dict[tuple[str, str, int], int] = {}
+
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()  # loading a library
 _build_lock = threading.Lock()  # building the libraries
@@ -60,6 +67,14 @@ _build_lock = threading.Lock()  # building the libraries
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def count_launch(key: str, out: torch.Tensor) -> torch.Tensor:
+    """Count one launch of ``key`` that wrote ``out``; returns ``out``."""
+    LAUNCHES[key] += 1
+    at = (key, str(out.dtype).removeprefix("torch."), out.shape[-1])
+    LAUNCHES_BY[at] = LAUNCHES_BY.get(at, 0) + 1
+    return out
 
 
 def _nvcc() -> str:

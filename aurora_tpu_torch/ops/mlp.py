@@ -38,6 +38,14 @@ copy) and the product and row kernels of ``csrc/gemm_rows_sm90.cuh``:
   SM hardly overlap, PERF.md). ptxas: 168 registers at launch (consumers 232, producer 40),
   no spills; 222,256 and 214,080 bytes of dynamic shared memory (fc1, fc2); the row kernel
   32 registers.
+* K3 in float32 (the facades' default config; the TPU kernel computes in ``x.dtype`` with
+  the accurate erf GELU, ``mlp.py:244,375``): ``csrc/mlp_f32.cu``'s ``mlp_rows_f32`` on the
+  FFMA products of ``csrc/gemm_f32.cuh``, chunk of rows by chunk of rows as the bf16 form:
+  fc1 with the bias and the exact erf GELU into an f32 hidden scratch of at most 256 MB (half
+  the rows a chunk), fc2 with the bias into ``out``, then an f32 row kernel (a warp a row, the
+  LayerNorm two-pass over the row in registers), FiLM and the residual. Weights as stored, no
+  cast. Bound: operations, ``4 * rows * D * Hd`` f32 flops at 67 TF/s. K8 and K5 take bf16
+  only: float32 tokens raise ``ValueError`` there.
 * K5 is K2's tail on rows, two launches: proj with the f32 bias and the LayerNorm statistics
   (``gemm_bias_kernel<EPI_BIAS_STATS>``, ``w`` as stored), then ``ln_rows_kernel`` with the
   shortcut as the residual, ``scale_bias + scale`` as the gain and FiLM row ``row / L``. It
@@ -210,51 +218,63 @@ def check_linear_shape(M: int, D: int) -> None:
         raise ValueError(f"linear_adaln_residual kernel: M={M} rows (D={D})")
 
 
-def mlp_row_chunks(M: int, Hd: int, cap: int = MLP_SCRATCH_BYTES) -> list[tuple[int, int]]:
-    """``(first row, rows)`` of the chunks K3 / K8 run one after the other, so that the bf16
-    hidden activations of a chunk (``rows * Hd * 2`` bytes) fit ``cap``: every chunk but the
-    last has the most rows that do, a multiple of 128 (a tile's rows)."""
-    rows = cap // (2 * Hd) // 128 * 128
+def mlp_row_chunks(M: int, Hd: int, cap: int = MLP_SCRATCH_BYTES,
+                   elem: int = 2) -> list[tuple[int, int]]:
+    """``(first row, rows)`` of the chunks K3 / K8 run one after the other, so that the
+    hidden activations of a chunk (``rows * Hd * elem`` bytes: 2 in bf16, 4 in float32) fit
+    ``cap``: every chunk but the last has the most rows that do, a multiple of 128 (a tile's
+    rows)."""
+    rows = cap // (elem * Hd) // 128 * 128
     if rows <= 0:
         raise ValueError(f"mlp kernel: {cap} bytes of scratch hold no 128 rows of hidden={Hd}")
     return [(r0, min(rows, M - r0)) for r0 in range(0, M, rows)]
 
 
 def _mlp_operands(x, w1, b1, w2, b2):
-    """K3's and K8's operands: the weights as stored, ``(in, out)`` bf16 (no copy where they
-    are stored so), the biases f32; all checked."""
-    bf, f32 = torch.bfloat16, torch.float32
+    """K3's and K8's operands: the weights as stored, ``(in, out)`` in the tokens' dtype (no
+    copy where they are stored so), the biases f32; all checked. The tokens are bf16 or f32
+    (K8 checks for bf16 itself)."""
+    f32 = torch.float32
     D, Hd = x.shape[-1], w1.shape[1]
-    _lib.require(x, "x", bf)
+    _lib.require(x, "x", f32 if x.dtype == f32 else torch.bfloat16)
     check_mlp_shape(x.numel() // D, D, Hd)
-    ops = (w1.to(bf).contiguous(), b1.to(f32).contiguous(),
-           w2.to(bf).contiguous(), b2.to(f32).contiguous())
+    if x.data_ptr() % 16:
+        raise ValueError("mlp kernel: the tokens must be 16-byte aligned")
+    dt = x.dtype
+    ops = (w1.to(dt).contiguous(), b1.to(f32).contiguous(),
+           w2.to(dt).contiguous(), b2.to(f32).contiguous())
     for t, name, shape in zip(ops, ("w1", "b1", "w2", "b2"), ((D, Hd), (Hd,), (Hd, D), (D,))):
         _lib.require(t, name, t.dtype, shape)
     return ops
 
 
 def _mlp_rows(fn, x, ops, out, film=None) -> None:
-    """Run ``fn`` (``mlp_rows`` of ``csrc/mlp.cu``) chunk by chunk on ``x``, ``out``:
-    ``(M, D)`` bf16. ``film``: K3's ``(shift, scale, scale_bias, rows_per_batch, ln_eps)``
-    with ``shift``/``scale`` ``(B, D)`` f32, or None for K8. Allocates the scratch."""
+    """Run ``fn`` (``mlp_rows`` of ``csrc/mlp.cu`` on bf16, ``mlp_rows_f32`` of
+    ``csrc/mlp_f32.cu`` on f32, or an ablated copy) chunk by chunk on ``x``, ``out``:
+    ``(M, D)``. ``film``: K3's ``(shift, scale, scale_bias, rows_per_batch, ln_eps)`` with
+    ``shift``/``scale`` ``(B, D)`` f32, or None for K8. Allocates the scratch: the hidden in
+    the tokens' dtype, and for bf16 the row statistics (the f32 row kernel takes its own)."""
     M, D = x.shape
     w1, b1, w2, b2 = ops
     Hd = w1.shape[1]
-    chunks = mlp_row_chunks(M, Hd)
+    elem = x.element_size()
+    chunks = mlp_row_chunks(M, Hd, elem=elem)
     most = chunks[0][1]
-    hid = torch.empty(most * Hd, dtype=torch.bfloat16, device=x.device)
+    hid = torch.empty(most * Hd, dtype=x.dtype, device=x.device)
     if film is None:
         film_args = (None, None, None, 0.0)
         per_batch, eps = 1, 0.0
     else:
         shift, scale, scale_bias, per_batch, eps = film
-        stats = torch.empty(most * (D // 256) * 2, dtype=torch.float32, device=x.device)
-        film_args = (stats.data_ptr(), shift.data_ptr(), scale.data_ptr(), float(scale_bias))
+        stats = None
+        if x.dtype == torch.bfloat16:
+            stats = torch.empty(most * (D // 256) * 2, dtype=torch.float32, device=x.device)
+        film_args = (None if stats is None else stats.data_ptr(), shift.data_ptr(),
+                     scale.data_ptr(), float(scale_bias))
     for r0, rows in chunks:
         err = fn(
-            x.data_ptr() + 2 * r0 * D, w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-            hid.data_ptr(), out.data_ptr() + 2 * r0 * D, *film_args,
+            x.data_ptr() + elem * r0 * D, w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+            b2.data_ptr(), hid.data_ptr(), out.data_ptr() + elem * r0 * D, *film_args,
             rows, r0, per_batch, D, Hd, float(eps), int(film is not None), _lib.stream(x),
         )
         _lib.check(err, "mlp_rows")
@@ -275,8 +295,9 @@ def mlp_adaln_residual(
     weights ``(in, out)``, FiLM ``shift``/``scale`` ``(B, D)``.
 
     CPU tensors take :func:`mlp_adaln_residual_plain`; CUDA tensors launch the kernels, which
-    take bf16 tokens of the shapes of :func:`check_mlp_shape` (D in (256, 512, 1024, 2048), a
-    hidden width that is a multiple of 256).
+    take bf16 or float32 tokens (each its own kernels, the weights in the tokens' dtype) of the
+    shapes of :func:`check_mlp_shape` (D in (256, 512, 1024, 2048), a hidden width that is a
+    multiple of 256).
     """
     if x.device.type == "cpu":
         return mlp_adaln_residual_plain(x, w1, b1, w2, b2, shift, scale, scale_bias, ln_eps)
@@ -299,10 +320,12 @@ def _mlp_adaln_residual_launch(x, w1, b1, w2, b2, shift, scale, scale_bias, ln_e
     scf = scale.to(torch.float32).reshape(B, D).contiguous()
     _same_device(x, w1=ops[0], b1=ops[1], w2=ops[2], b2=ops[3], shift=shf, scale=scf)
     out = torch.empty_like(x)
-    fn = _lib.kernel("mlp", "mlp_rows", _MLP_ROWS_ARGS)
+    if x.dtype == torch.float32:
+        fn = _lib.kernel("mlp_f32", "mlp_rows_f32", _MLP_ROWS_ARGS)
+    else:
+        fn = _lib.kernel("mlp", "mlp_rows", _MLP_ROWS_ARGS)
     _mlp_rows(fn, x.view(B * L, D), ops, out.view(B * L, D), (shf, scf, scale_bias, L, ln_eps))
-    _lib.LAUNCHES["mlp_adaln_residual"] += 1
-    return out
+    return _lib.count_launch("mlp_adaln_residual", out)
 
 
 def mlp_fused(
@@ -330,13 +353,13 @@ def _mlp_fused_differentiable(*args):
 
 def _mlp_fused_launch(x, w1, b1, w2, b2):
     D = x.shape[-1]
+    _lib.require(x, "x", torch.bfloat16)
     ops = _mlp_operands(x, w1, b1, w2, b2)
     _same_device(x, w1=ops[0], b1=ops[1], w2=ops[2], b2=ops[3])
     out = torch.empty_like(x)
     fn = _lib.kernel("mlp", "mlp_rows", _MLP_ROWS_ARGS)
     _mlp_rows(fn, x.view(-1, D), ops, out.view(-1, D))
-    _lib.LAUNCHES["mlp_fused"] += 1
-    return out
+    return _lib.count_launch("mlp_fused", out)
 
 
 def linear_adaln_residual(
@@ -396,5 +419,4 @@ def _linear_adaln_residual_launch(x, w, b, shortcut, shift, scale, scale_bias):
         out.data_ptr(), B * L, L, D, 1e-5, _lib.stream(x),
     )
     _lib.check(err, "linear_adaln_residual")
-    _lib.LAUNCHES["linear_adaln_residual"] += 1
-    return out
+    return _lib.count_launch("linear_adaln_residual", out)

@@ -159,8 +159,7 @@ def gemm_blocked(a: torch.Tensor, w: torch.Tensor, MB: int) -> torch.Tensor:
     err = fn(a.data_ptr(), w.data_ptr(), out.data_ptr(), M, K, N, MB, pieces_per_block, units,
              _lib.stream(a))
     _lib.check(err, "gemm_blocked")
-    _lib.LAUNCHES["gemm_blocked"] += 1
-    return out
+    return _lib.count_launch("gemm_blocked", out)
 
 
 # ------------------------------------------------------------------------------ K13
@@ -200,8 +199,7 @@ def smem_probe(x: torch.Tensor, nbytes: int) -> torch.Tensor:
     err = fn(x.data_ptr(), out.data_ptr(), int(nbytes), _lib.stream(x))
     if err != 0:
         raise SharedMemoryRefused(int(nbytes), err)
-    _lib.LAUNCHES["smem_probe"] += 1
-    return out
+    return _lib.count_launch("smem_probe", out)
 
 
 def empty_launch(device: torch.device) -> None:
@@ -302,8 +300,7 @@ def mlp_t(x, w1, b1, w2, b2, sh, sc, R: int, ln_eps: float = 1e-5) -> torch.Tens
         return mlp_t_plain(x, w1, b1, w2, b2, sh, sc, ln_eps)
     out = _mlp_t_call(_lib.kernel("mlp_t", "mlp_t", _MLP_T_ARGS), x, w1, b1, w2, b2, sh, sc, R,
                       ln_eps)
-    _lib.LAUNCHES["mlp_t"] += 1
-    return out
+    return _lib.count_launch("mlp_t", out)
 
 
 _MLP_T_ARGS = [_P] * 10 + [_I] * 5 + [_F, _P]
@@ -411,8 +408,7 @@ def attn_probe(xw, wqkv, bqkv, num_heads: int, mode: str) -> torch.Tensor:
         return attn_probe_plain(xw, wqkv, bqkv, num_heads, mode)
     out = _attn_probe_call(_lib.kernel("attn_probe", "attn_probe", _ATTN_PROBE_ARGS), xw, wqkv,
                            bqkv, num_heads, mode)
-    _lib.LAUNCHES["attn_probe"] += 1
-    return out
+    return _lib.count_launch("attn_probe", out)
 
 
 _ATTN_PROBE_ARGS = [_P] * 5 + [_I] * 4 + [_P]
@@ -530,8 +526,7 @@ def attn5d_direct(x5, wqkv, bqkv, ws, num_heads: int, mode: str) -> torch.Tensor
         return attn5d_direct_plain(x5, wqkv, bqkv, ws, num_heads, mode)
     out = _attn5d_direct_call(_lib.kernel("attn5d_direct", "attn5d_direct", _ATTN5D_ARGS), x5,
                               wqkv, bqkv, ws, num_heads, mode)
-    _lib.LAUNCHES["attn5d_direct"] += 1
-    return out
+    return _lib.count_launch("attn5d_direct", out)
 
 
 _ATTN5D_ARGS = [_P] * 5 + [_I] * 10 + [_P]

@@ -47,6 +47,14 @@ that their scratch stays under :data:`PERCEIVER_SCRATCH_BYTES`.
 Bound on the card: operations, the folded f32 logits at 67 TF/s and the bf16 products at
 989 TF/s (with ``lnk``, the three parts of ``ctx @ Wc`` among them). Times in ``PERF.md``.
 
+Without ``value_bf16`` (the facades' default config, float32 all through; the TPU kernel's
+form at ``resampler.py:119-131``) ``csrc/resampler_f32.cu``'s ``perceiver_core_f32`` runs the
+same fold and every other step in f32 on the FFMA products of ``csrc/gemm_f32.cuh``: the
+logits on the context rows read in place, with ``lnk`` the sums of squares of ``ctx @ Wc`` as
+an f32 product, v, the mix (the level-order sum, each product and partial sum rounded once),
+the out-projection and an f32 row kernel with the period-Q query residual; the output is f32.
+Bound: operations at 67 TF/s.
+
 Gradient (:mod:`aurora_tpu_torch.ops.ad`, as the JAX package's chunked vjp at
 ``resampler.py:331-381``): under grad mode a call whose inputs require a gradient launches
 the kernels and saves its inputs; the backward differentiates the plain math (the v and
@@ -77,6 +85,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 PERCEIVER_SCRATCH_BYTES = 512 << 20  # the most a call allocates for one chunk's scratch
 # csrc/resampler.cu::perceiver_core
 _PERCEIVER_CORE_ARGS = [_P] * 21 + [_I] * 8 + [_F, _F, _P]
+# csrc/resampler_f32.cu::perceiver_core_f32
+_PERCEIVER_CORE_F32_ARGS = [_P] * 18 + [_I] * 8 + [_F, _F, _P]
 
 
 def _ln_affine(y: torch.Tensor, w: torch.Tensor, b: torch.Tensor, eps: float):
@@ -140,15 +150,16 @@ def _perceiver_core_grad(ctx, wk, wv, qh, wout, ln1_w, ln1_b, queries, scale, ln
 def check_perceiver_shape(
     K: int, M: int, D: int, heads: int, dh: int, Q: int, D_out: int, value_bf16: bool = True
 ) -> None:
-    """The shapes K4 takes on the card: ``value_bf16``; ``(K, dh)`` in ``((13, 32), (3, 64))``
-    (the aggregation and the de-aggregation); ``D`` a multiple of 64 (a K step of the ring);
-    ``inner = heads * dh`` a multiple of 256 up to 2048 (a column tile of the ring; the mix
-    gives a column at most a block); ``D_out`` in ``(256, 512, 1024, 2048)`` (the row
-    kernel's tiles; 256 is the small model's aggregation). Raises ``ValueError`` otherwise."""
-    if not value_bf16 or (K, dh) not in ((13, 32), (3, 64)):
+    """The shapes K4 takes on the card, with ``value_bf16`` or without it (the float32
+    form): ``(K, dh)`` in ``((13, 32), (3, 64))`` (the aggregation and the de-aggregation);
+    ``D`` a multiple of 64 (a K step of the ring); ``inner = heads * dh`` a multiple of 256 up
+    to 2048 (a column tile of the ring; the mix gives a column at most a block); ``D_out`` in
+    ``(256, 512, 1024, 2048)`` (the row kernel's tiles; 256 is the small model's aggregation).
+    Raises ``ValueError`` otherwise."""
+    if (K, dh) not in ((13, 32), (3, 64)):
         raise ValueError(
-            f"perceiver_core kernel: needs value_bf16 and (K, dh) in ((13, 32), (3, 64)); "
-            f"got value_bf16={value_bf16}, K={K}, dh={dh}"
+            f"perceiver_core kernel: needs (K, dh) in ((13, 32), (3, 64)); got K={K}, dh={dh} "
+            f"(value_bf16={value_bf16})"
         )
     inner = heads * dh
     if D <= 0 or D % 64 or inner % 256 or inner > 2048:
@@ -164,22 +175,26 @@ def check_perceiver_shape(
 
 
 def perceiver_column_bytes(K: int, D: int, inner: int, Q: int, heads: int, D_out: int,
-                           lnk: bool) -> int:
+                           lnk: bool, f32: bool = False) -> int:
     """The scratch K4's launches 1-5 take for one token column: the bf16 context (with
     ``lnk`` also its remainder and the sums of squares), bf16 v, the f32 logits, bf16 ``o``
-    and the row statistics."""
+    and the row statistics. With ``f32`` (the float32 form): f32 v, the f32 logits over their
+    padded ``Q heads`` columns, with ``lnk`` the sums of squares, f32 ``o``."""
+    if f32:
+        return (K * inner * 4 + K * -(-Q * heads // 64) * 64 * 4
+                + (K * (inner // 128) * 4 if lnk else 0) + Q * inner * 4)
     return (K * D * 2 + (K * D * 2 + K * -(-inner // 256) * 4 if lnk else 0) + K * inner * 2
             + K * Q * heads * 4 + Q * inner * 2 + Q * -(-D_out // 256) * 8)
 
 
 def perceiver_column_chunks(
     M: int, K: int, D: int, inner: int, Q: int, heads: int, D_out: int, lnk: bool,
-    cap: int = PERCEIVER_SCRATCH_BYTES,
+    cap: int = PERCEIVER_SCRATCH_BYTES, f32: bool = False,
 ) -> list[tuple[int, int]]:
     """``(first column, columns)`` of the chunks K4's launches 1-5 run one after the other, so
     that a chunk's scratch (:func:`perceiver_column_bytes` a column) fits ``cap``: as few
     chunks as fit, every one but the last of the same multiple of 128 columns."""
-    per_col = perceiver_column_bytes(K, D, inner, Q, heads, D_out, lnk)
+    per_col = perceiver_column_bytes(K, D, inner, Q, heads, D_out, lnk, f32)
     most = min(cap // per_col, 65535 * 128 // K) // 128 * 128
     if most <= 0:
         raise ValueError(f"perceiver_core kernel: {cap} bytes of scratch hold no 128 columns "
@@ -248,6 +263,60 @@ def _perceiver_core_call(fn, ctx, wk, wv, qh, wout, ln1_w, ln1_b, queries, scale
     return out
 
 
+def _perceiver_core_f32_call(fn, ctx, wk, wv, qh, wout, ln1_w, ln1_b, queries, scale, ln_eps,
+                             lnk) -> torch.Tensor:
+    """Run ``fn`` (``perceiver_core_f32`` of ``csrc/resampler_f32.cu``): the fold, then
+    launches 1-6 chunk by chunk of columns, all in f32. Allocates the scratch; the weights go
+    as stored (a cast only to f32 where they are stored otherwise)."""
+    K, M, D = ctx.shape
+    Q, h, dh = qh.shape
+    inner, D_out = h * dh, wout.shape[1]
+    f32 = torch.float32
+    _lib.require(ctx, "ctx", f32)
+    check_perceiver_shape(K, M, D, h, dh, Q, D_out, value_bf16=False)
+    ops = {
+        "wk": (wk.to(f32).contiguous(), (D, inner)),
+        "wv": (wv.to(f32).contiguous(), (D, inner)),
+        "qh": (qh.to(f32).reshape(Q, inner).contiguous(), (Q, inner)),
+        "wout": (wout.to(f32).contiguous(), (inner, D_out)),
+        "ln1_w": (ln1_w.to(f32).contiguous(), (D_out,)),
+        "ln1_b": (ln1_b.to(f32).contiguous(), (D_out,)),
+        "queries": (queries.to(f32).contiguous(), (Q, D_out)),
+    }
+    if lnk is not None:
+        ops.update(lnk_w=(lnk[0].to(f32).contiguous(), (inner,)),
+                   lnk_b=(lnk[1].to(f32).contiguous(), (inner,)))
+    # The kernels' 16-byte loads and stores need 16-byte alignment.
+    if ctx.data_ptr() % 16:
+        raise ValueError("perceiver_core: the context must be 16-byte aligned")
+    for name, (t, shape) in ops.items():
+        _lib.require(t, name, t.dtype, shape)
+        if t.device != ctx.device or t.data_ptr() % 16:
+            raise ValueError(f"perceiver_core: {name} must be on {ctx.device}, 16-byte aligned")
+    QH, ln_k = Q * h, lnk is not None
+    NLP = -(-QH // 64) * 64
+    mc = perceiver_column_chunks(M, K, D, inner, Q, h, D_out, ln_k, f32=True)[0][1]
+
+    def new(*shape, when=True):
+        return torch.empty(*shape, dtype=f32, device=ctx.device) if when else None
+
+    scratch = dict(
+        wb=new(D, NLP), cst=new(QH, when=ln_k), wc=new(D, inner, when=ln_k),
+        v=new(K * mc, inner), logits=new(K * mc, NLP), sq=new(K * mc, inner // 128, when=ln_k),
+        o=new(mc, Q, inner),
+    )
+    out = new(M, Q, D_out)
+    ptr = {k: t.data_ptr() for k, (t, _) in ops.items()}
+    err = fn(
+        ctx.data_ptr(), *(ptr[k] for k in ("wk", "wv", "qh", "wout", "ln1_w", "ln1_b", "queries")),
+        ptr.get("lnk_w"), ptr.get("lnk_b"),
+        *(None if t is None else t.data_ptr() for t in scratch.values()), out.data_ptr(),
+        K, M, mc, D, h, dh, Q, D_out, float(scale), float(ln_eps), _lib.stream(ctx),
+    )
+    _lib.check(err, "perceiver_core_f32")
+    return out
+
+
 def perceiver_core(
     ctx: torch.Tensor,
     wk: torch.Tensor,
@@ -272,7 +341,8 @@ def perceiver_core(
     ``(M, Q, D_out)``, bf16 under ``value_bf16``, else in the context dtype.
 
     CPU tensors take :func:`perceiver_core_plain`; CUDA tensors launch the kernels, which
-    take an f32 context with ``value_bf16`` and the shapes of :func:`check_perceiver_shape`.
+    take an f32 context and the shapes of :func:`check_perceiver_shape`: with ``value_bf16``
+    ``csrc/resampler.cu``, without it the float32 form ``csrc/resampler_f32.cu``.
     """
     if ctx.device.type == "cpu":
         return perceiver_core_plain(
@@ -301,8 +371,13 @@ def _perceiver_core_differentiable(*args):
 
 def _perceiver_core_launch(ctx, wk, wv, qh, wout, ln1_w, ln1_b, queries, scale, ln_eps,
                            value_bf16, lnk_w, lnk_b):
-    fn = _lib.kernel("resampler", "perceiver_core", _PERCEIVER_CORE_ARGS)
-    out = _perceiver_core_call(fn, ctx, wk, wv, qh, wout, ln1_w, ln1_b, queries, scale, ln_eps,
-                               value_bf16, None if lnk_w is None else (lnk_w, lnk_b))
-    _lib.LAUNCHES["perceiver_core"] += 1
-    return out
+    lnk = None if lnk_w is None else (lnk_w, lnk_b)
+    if value_bf16:
+        fn = _lib.kernel("resampler", "perceiver_core", _PERCEIVER_CORE_ARGS)
+        out = _perceiver_core_call(fn, ctx, wk, wv, qh, wout, ln1_w, ln1_b, queries, scale,
+                                   ln_eps, value_bf16, lnk)
+    else:
+        fn = _lib.kernel("resampler_f32", "perceiver_core_f32", _PERCEIVER_CORE_F32_ARGS)
+        out = _perceiver_core_f32_call(fn, ctx, wk, wv, qh, wout, ln1_w, ln1_b, queries, scale,
+                                       ln_eps, lnk)
+    return _lib.count_launch("perceiver_core", out)

@@ -76,5 +76,4 @@ def _roll3d_launch(x: torch.Tensor, shifts, key: str) -> torch.Tensor:
     fn = _lib.kernel("roll", "roll3d", [_P, _P] + [_I] * 8 + [_P])
     err = fn(x.data_ptr(), out.data_ptr(), B, C, H, W, row_bytes, s0, s1, s2, _lib.stream(x))
     _lib.check(err, "roll3d")
-    _lib.LAUNCHES[key] += 1
-    return out
+    return _lib.count_launch(key, out)

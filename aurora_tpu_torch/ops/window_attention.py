@@ -43,6 +43,15 @@ passed as stored, with no transposed copy; a cast happens only where one is not 
 bf16 (``Wqkv``, ``bqkv``, ``Wproj``) or f32 (``bproj``, FiLM). Bound on the card: operations (qkv, logits, w@v and proj in bf16 at
 989 TF/s).
 
+K2 in float32 (the facades' default config; the TPU kernel computes in the tokens' dtype):
+``csrc/window_attention_f32.cu``'s ``window_attention_f32``, the same four launches in f32
+(two without the tail): qkv on the FFMA products of ``csrc/gemm_f32.cuh`` into a ``(rows,
+3D)`` f32 scratch (1.6 GB at stage 1), a core of one block a (window, head) with the window's
+q, k and v in shared memory (f32 logits, mask, softmax and ``w @ v``), proj, and an f32 row
+kernel (the LayerNorm two-pass over the row), FiLM and the residual. Weights as stored, no
+cast. Bound: operations at 67 TF/s. K6 and K7 take bf16 only: float32 tokens raise
+``ValueError`` there.
+
 K7 is a kernel of its own (``csrc/sdpa.cu`` on ``csrc/sdpa_sm90.cuh``), bound by bytes:
 persistent blocks, two to an SM, walk runs of (window, head) units through a two-stage ring
 that TMA loads fill while the core of the unit before computes; fragments by ``ldmatrix``,
@@ -312,26 +321,28 @@ _WINDOW_ATTENTION_ARGS = [_P] * 12 + [_I] * 10 + [_F, _P]
 def _window_attention_call(
     fn, x, wqkv, bqkv, groups, num_heads, tail, ln_eps, nW, rows, geom5d, ws, what
 ) -> torch.Tensor:
-    """Run ``fn`` (``window_attention`` of ``csrc/window_attention.cu``, or an ablated copy)
+    """Run ``fn`` (``window_attention`` of ``csrc/window_attention.cu`` on bf16,
+    ``window_attention_f32`` of ``csrc/window_attention_f32.cu`` on f32, or an ablated copy)
     as K2 (``geom5d = (Cp, Hp, Wp)``) or K6 (``geom5d = (0, 0, 0)``): 2 CUDA launches
     without the tail, 4 with it. Allocates the scratch; the weights go as stored (a cast
-    only to bf16 / f32 where they are stored otherwise)."""
+    only to the tokens' dtype / f32 where they are stored otherwise)."""
     B, D = x.shape[0], x.shape[-1]
-    bf, f32 = torch.bfloat16, torch.float32
-    ops = {"wqkv": (wqkv.to(bf).contiguous(), (D, 3 * D)),
-           "bqkv": (bqkv.to(bf).contiguous(), (3 * D,))}
+    dt, f32 = x.dtype, torch.float32
+    ops = {"wqkv": (wqkv.to(dt).contiguous(), (D, 3 * D)),
+           "bqkv": (bqkv.to(dt).contiguous(), (3 * D,))}
     qkv = x.new_empty(rows, 3 * D)
     attn = torch.empty_like(x)
     out = stats = None
     if tail is not None:
         wproj, bproj, shift, scale = tail
         ops.update(
-            wproj=(wproj.to(bf).contiguous(), (D, D)),
+            wproj=(wproj.to(dt).contiguous(), (D, D)),
             bproj=(bproj.to(f32).contiguous(), (D,)),
             shift=(shift.to(f32).reshape(B, D).contiguous(), (B, D)),
             scale=(scale.to(f32).reshape(B, D).contiguous(), (B, D)),
         )
-        stats = torch.empty(rows, D // 256, 2, dtype=f32, device=x.device)
+        if dt == torch.bfloat16:  # the f32 row kernel takes its own statistics
+            stats = torch.empty(rows, D // 256, 2, dtype=f32, device=x.device)
         out = torch.empty_like(x)
     # The tensor maps' bases and the kernels' 16-byte loads and stores need 16-byte
     # alignment; fresh allocations and parameters have it, a view may not.
@@ -355,11 +366,14 @@ def _window_attention_call(
 
 
 def _launch_window_attention(x, *args, what: str) -> torch.Tensor:
-    """K2 or K6 (arguments as :func:`_window_attention_call`), counted in ``LAUNCHES``."""
-    fn = _lib.kernel("window_attention", "window_attention", _WINDOW_ATTENTION_ARGS)
+    """K2 or K6 (arguments as :func:`_window_attention_call`), counted in ``LAUNCHES``: bf16
+    tokens, or f32 ones (K2 only: its callers check)."""
+    if x.dtype == torch.float32:
+        fn = _lib.kernel("window_attention_f32", "window_attention_f32", _WINDOW_ATTENTION_ARGS)
+    else:
+        fn = _lib.kernel("window_attention", "window_attention", _WINDOW_ATTENTION_ARGS)
     out = _window_attention_call(fn, x, *args, what)
-    _lib.LAUNCHES[what] += 1
-    return out
+    return _lib.count_launch(what, out)
 
 
 def window_attention_tail(
@@ -380,7 +394,8 @@ def window_attention_tail(
     tokens with the tail, else the attention output before proj; same shape as ``xp``.
 
     CPU tensors take :func:`window_attention_tail_plain`; CUDA tensors launch the kernels
-    (2 CUDA launches, 4 with the tail), which take bf16 tokens of the shapes
+    (2 CUDA launches, 4 with the tail), which take bf16 or float32 tokens (each its own
+    kernels, the weights in the tokens' dtype) of the shapes
     :func:`check_window_attention_shape` passes.
     """
     if xp.device.type == "cpu":
@@ -403,7 +418,7 @@ def _window_attention_tail_differentiable(*args):
 
 def _window_attention_tail_launch(xp, wqkv, bqkv, groups, ws, num_heads, wproj, bproj, shift,
                                   scale, ln_eps):
-    _lib.require(xp, "xp", torch.bfloat16)
+    _lib.require(xp, "xp", torch.float32 if xp.dtype == torch.float32 else torch.bfloat16)
     _, nW, rows = check_window_attention_shape(tuple(xp.shape), num_heads, ws)
     return _launch_window_attention(
         xp, wqkv, bqkv, groups, num_heads, _tail(wproj, bproj, shift, scale), ln_eps, nW, rows,
@@ -489,5 +504,4 @@ def _sdpa_windows_launch(qkv, groups, num_heads):
         B, nW, D, num_heads, _lib.stream(qkv),
     )
     _lib.check(err, "sdpa_windows")
-    _lib.LAUNCHES["sdpa_windows"] += 1
-    return out
+    return _lib.count_launch("sdpa_windows", out)

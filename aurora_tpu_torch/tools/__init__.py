@@ -108,16 +108,18 @@ def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
 
 
 def branch_err(got, want, residual) -> tuple[float, float]:
-    """``(max |got - want|, branch error)`` of bf16 outputs ``residual + branch``.
+    """``(max |got - want|, branch error)`` of outputs ``residual + branch``.
 
-    The branch error is the largest ``|got - want|`` less one bf16 ulp of the larger of
-    the two (both round an f32 sum, and two sums an f32 hair apart can round one ulp
-    apart), over the largest ``|want - residual|``.
+    The branch error is the largest ``|got - want|`` less one ulp of the larger of the two
+    in the outputs' dtype (both round a sum, and two sums a hair apart can round one ulp
+    apart): a bf16 ulp (8 significant bits) for bf16 outputs, a float32 one (24) for float32
+    outputs; over the largest ``|want - residual|``.
     """
+    bits = 24 if got.dtype == torch.float32 else 8
     g, w = got.float(), want.float()
     diff = (g - w).abs()
     mant, exp = torch.frexp(torch.maximum(g.abs(), w.abs()))
-    ulp = torch.where(mant > 0, torch.ldexp(torch.ones_like(g), exp - 8), 0.0)
+    ulp = torch.where(mant > 0, torch.ldexp(torch.ones_like(g), exp - bits), 0.0)
     del g, mant, exp
     excess = (diff - ulp).clamp_min(0).max().item()
     size = (w - residual.float()).abs().max().item()

@@ -42,18 +42,27 @@ Phases, each printing one JSON line; any failure raises and the script exits non
    weight shape adds an odd number of pieces, whose last tile has one). K7 at stage 3, whose
    grid is padded to 48 x 96, must give the real tokens the same bits with garbage in the
    pad tokens' q, k and v. K4 also runs at the 121 x 240 grid's M = 1800 columns (a ragged
-   last tile of rows; no count towards the sums);
+   last tile of rows; no count towards the sums). The float32 forms of K1-K4 (the facades'
+   default config, ``f32_cases``) at the 1.3 B model's and the small model's shapes, each
+   against its plain version with full-f32 products (TF32 off): K1 the same bits, K2 and K3
+   within 9e-5 by the branch measure less one float32 ulp, K4 within 1e-4, and the plain
+   version with TF32 products must fail the same bound by the same measure
+   (``tf32_control_err``); timed over 5 runs, the plain versions over 2; in float32 garbage
+   in stage 3's pad tokens may move a real token by a rounding (the plain version's too),
+   within 1e-6 of the branch;
 4. end to end, once per route: the main route (``attention_impl``, ``mlp_impl`` auto, auto),
    then W (pallas_windowed, fused), P (pallas, pallas), X (xla, fused) and S (the main
    route with ``stabilise_level_agg=True``: K4 with ``ln_k``).
    Each runs the 1.3 B production config (LoRA, bf16 backbone stored in bf16, bf16
-   (de-)aggregation values) at full width and depth with the same seeded random weights,
-   FiLM and LoRA gates opened, ``rollout`` over the 721 x 1440 / 13-level batch; per-step
-   time, peak memory, per-step launch counts (counts set to 0 just before the roll-out)
-   checked against the code; outputs finite and of the right shape; then a 121 x 240 grid
-   against the port's own CPU run of the same route: the route's model at two blocks per
-   backbone stage (the second shifted), seeded on the card, whose reference run must launch
-   every kernel of its route.
+   (de-)aggregation values) at full width with the same seeded random weights, FiLM and LoRA
+   gates opened, the main route at full depth and W, P, X, S at two blocks per backbone stage
+   (the second shifted; every kernel still runs on every stage's token grid), ``rollout``
+   over the 721 x 1440 / 13-level batch (made once); per-step time, peak memory, per-step
+   launch counts (counts set to 0 just before the roll-out) checked against the code (scaled
+   to the depth); outputs finite and of the right shape; then a 121 x 240 grid against the
+   port's own CPU run of the same route: the route's model at two blocks per backbone stage
+   (the second shifted), seeded on the card, whose reference run must launch every kernel of
+   its route.
    After the main route's roll-out, the breakdown: ``perf_breakdown``, ``encoder_breakdown``
    and ``decoder_breakdown`` as a user runs them, in process, on the main route's model at
    720 x 1440 (one JSON line per row, with the launches of one call of its part); the level
@@ -72,18 +81,37 @@ Phases, each printing one JSON line; any failure raises and the script exits non
    relative) and its track the tracker's on the card's predictions and on their host copies;
    ``evaluate`` of step 2 against step 1 on the card (finite scores); ``Batch.regrid(1.0)``
    of a prediction with the native library built (one field through the scipy form beside
-   it, within 1e-12); the serving stack (the ``serving`` line): the model's weights written
-   once with ``checkpoint.save_params`` as the artifact of the registry's
-   ``aurora-0.25-finetuned``, ``foundry.http_server.serve`` on a loopback port with a token
-   (a bad token must get 401), the port's ``FoundryClient`` + ``submit`` over a
-   ``LocalFileChannel`` asking for 2 steps of the initial condition read back from its file:
-   the served task loads the artifact into the registry's model on the card, on the server's
-   worker thread; the client's predictions must be ``rollout``'s bits, the served roll-out's
-   launches the main route's a step (counts set to 0 just before ``submit``); the forecast's
-   parts (the artifact's bytes and write time, the upload, the task's weight load and input
-   read, each step and each prediction file's write and bytes, the polling wait, the
-   client's read-back, submit to last prediction); ``tools.rollout_bench`` at 3 steps;
-   ``tools.train_speed_probe`` at 121 x 240 over two arms;
+   it, within 1e-12); ``tools.rollout_bench`` at 3 steps; ``tools.train_speed_probe`` at
+   121 x 240 over two arms. Every reference's CPU half (the CPU forward and the comparison)
+   runs on one host thread while the card goes on (``_Deferred``); the run waits for them
+   before its summary;
+4b. float32: ``Aurora()`` in its default config (float32 all through, as the JAX package's
+   CLI and registry build it), seeded, gates opened, ``rollout`` 2 steps over the same
+   721 x 1440 batch: step times, peak memory, launches per step the main route's, every
+   K1-K4 launch writing float32. Then the serving stack (the ``serving`` line): the
+   model's weights written once with ``checkpoint.save_params`` as the artifact of the
+   registry's ``aurora-0.25-finetuned``, ``foundry.http_server.serve`` on a loopback port with
+   a token (a bad token must get 401), the port's ``FoundryClient`` + ``submit`` over a
+   ``LocalFileChannel`` asking for 2 steps of the batch written to netCDF and read back: the
+   served task loads the artifact into the registry's model (the facade's default config)
+   on the card, on the server's worker thread; the client's predictions must be the
+   roll-out's bits, the served roll-out's launches the main route's a step (counts set to 0
+   just before ``submit``), all on float32 tokens; the forecast's parts (the artifact's
+   bytes and write time, the upload, the task's weight load and input read, each step and
+   each prediction file's write and bytes, the polling wait, the client's read-back, submit
+   to last prediction). Then the config at two blocks a stage on 121 x 240 against the
+   port's CPU run: mean relative error <= 1e-4 per variable;
+4c. small (before the train phase, so that its references run beside it):
+   ``AuroraSmallPretrained`` (D = 256) twice, in its default config
+   (``AuroraSmallPretrained()``, float32) and with the production knobs (bf16), seeded
+   weights, each a 2-step roll-out at 721 x 1440 (counts set to 0 just before): step times,
+   peak memory, launches per step against ``SMALL_RUN`` and those at D = 256 (K2 4, K3 5,
+   K4 1: ``SMALL_D256``) counted by width and dtype (every launch float32, or every launch
+   bf16); then the same model, full depth, on the 121 x 240 grid against the port's CPU run,
+   mean relative error <= 1e-4 in float32, <= 1e-2 in bf16. Its D = 256 kernel cases run in
+   phase 3, in bf16 (K2 with the tail masked and unmasked and without it masked, K6, K3 in
+   the backbone and the aggregation, K8, K4 with and without ``ln_k``; K2 must give K6's
+   bits) and in float32 (K2, K3, K4);
 5. train: K1-K8's gradients through their ``Function`` (the kernel forward, the backward
    of the plain math with bf16 products) against autograd of the plain versions on the card,
    every differentiable input, on inputs cut to a few thousand rows, windows or columns
@@ -118,26 +146,20 @@ Phases, each printing one JSON line; any failure raises and the script exits non
    HighRes (1801 x 3600, patch 10) and 12h (721 x 1440), each at its full width, depth and
    grid with the production knobs. The weights are each released checkpoint's keys and
    shapes (``tests/data/ckpt_manifests.json``) filled with seeded values at the scale of the
-   port's init (FiLM and LoRA ``B`` opened), loaded through the port's checkpoint code:
-   AirPollution from a ``.ckpt`` file written with ``torch.save`` (``load_checkpoint_local``),
-   the others in memory (``convert_reference_checkpoint``). Each rolls out 3 steps through
+   port's init (FiLM and LoRA ``B`` opened), loaded in memory through the port's checkpoint
+   code (``convert_reference_checkpoint``). Each rolls out 2 steps through
    ``tools.variant_bench`` / ``tools.highres_bench`` (12h through the same roll-out), counts
    set to 0 just before: step times, peak memory, launches per step checked against the code;
    the outputs are the user's variables after the hooks (no ``_mod``, sin/cos or density
    channel) at the right shapes, finite but for the wave model's NaN where it predicts no
    waves. Then the variant's own config, widths, hooks and grid at two blocks per backbone
-   stage (the second shifted: it must launch K1 and K2), seeded on the card, on a reference
+   stage (the second shifted: it must launch K1 and K2), seeded on the card (AirPollution's
+   weights: the released checkpoint's keys of those blocks through a ``.ckpt`` file written
+   with ``torch.save``, ``load_checkpoint_local``), on a reference
    grid (121 x 240; HighRes 241 x 480) against the port's CPU run of the same weights: mean
    relative error <= 1e-2 per output variable where both are finite,
    and the points where the wave NaN masks differ (a density within the card's error of 1/2)
    at most 5%;
-8. small: ``AuroraSmallPretrained`` (D = 256) with the production knobs, seeded weights,
-   a 3-step roll-out at 721 x 1440 (counts set to 0 just before): step times, peak memory,
-   launches per step against ``SMALL_RUN`` and those at D = 256 (K2 4, K3 5, K4 1:
-   ``SMALL_D256``) counted by width; then the same model, full depth, on the 121 x 240 grid
-   against the port's CPU run, mean relative error <= 1e-2. Its D = 256 kernel cases run
-   in phase 3 (K2 with the tail masked and unmasked and without it masked, K6, K3 in the
-   backbone and the aggregation, K8, K4 with and without ``ln_k``; K2 must give K6's bits);
 9. the seconds of each phase, then the kernels summary line, one entry per kernel (K1-K8:
    times per forward step, each shape's time times its launches per step on the route that
    runs it, ``launches`` the count over that route's roll-out, and the backward's
@@ -147,8 +169,10 @@ Phases, each printing one JSON line; any failure raises and the script exits non
    ``launches`` the count over the tools phase; K2 and K6 carry their no-tail mode under
    ``no_tail``, K4 its ``ln_k`` form under ``ln_k`` and the bound of the TPU kernel's work
    under ``bound_of_tpu_work_ms``; K2, K6, K3, K8 and K4 the small model's D = 256 shapes
-   under ``d256`` by mode, times per small-model step), the ``nvidia-smi`` line, and the last
-   line ``{"ok": true, "device": {...}}``.
+   under ``d256`` by mode, times per small-model step; K1-K4 their float32 forms under
+   ``f32`` by mode, times per step of the float32 model and launches over its roll-out, with
+   the small model's float32 D = 256 shapes under ``f32`` ``d256``), the ``nvidia-smi``
+   line, and the last line ``{"ok": true, "device": {...}}``.
 
 Run from the repository root: ``python3 chip_smoke.py``. It needs one card, and exits
 non-zero without one.
@@ -156,13 +180,15 @@ non-zero without one.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
 import sys
+import threading
 import time
 
-# Roll-out steps of the end-to-end and variants phases. ``rollout`` uploads the caller's
+# Roll-out steps of the routes' phases. ``rollout`` uploads the caller's
 # history once, before the first step, so the second step is the first steady one.
 STEPS = 3
 # Roll-out steps of the rollout_scan phase, and of its short host-offload roll-out whose peak
@@ -172,17 +198,29 @@ SCAN_STEPS, SHORT_STEPS = 4, 2
 # not to give the same bits from run to run (they are expected to be equal).
 SCAN_AGREE_TOL = 1e-3
 REPS = 10  # timed runs per kernel and shape, after 2 warm-up runs
+# The 1.3 B model's backbone stages on the 720 x 1440 grid: (C, H, W, D, heads, blocks a step).
+F32_STAGES = ((4, 180, 360, 512, 8, 12), (4, 90, 180, 1024, 16, 20), (4, 45, 90, 2048, 32, 16))
 # Timed runs of each plain version (10-100x a kernel's time; their spread matters little
 # beside that), after the check's own call and one warm-up run.
 PLAIN_REPS = 3
 LEVELS = (50, 100, 150, 200, 250, 300, 400, 500, 600, 700, 850, 925, 1000)
-SURF, ATMOS = ("2t", "10u", "10v", "msl"), ("z", "u", "v", "t", "q")
 TOL = {
     "roll3d": 0.0, "window_attention": 6e-3, "mlp_adaln_residual": 6e-3, "perceiver_core": 1e-2,
     "linear_adaln_residual": 6e-3, "window_attention_windowed": 6e-3, "sdpa_windows": 6e-3,
     "mlp_fused": 6e-3, "mlp_t": 6e-3, "attn_probe": 6e-3, "attn5d_direct": 6e-3,
     "gemm_blocked": 6e-3, "smem_probe": 0.0,
 }
+# The float32 forms (the facades' default config): K2 and K3 within the TPU's own float32 Swin
+# block on the chip (9.2e-5, KERNEL_ONCHIP.json) by the branch measure less one float32 ulp,
+# K4 within 1e-4 (tighter than the TPU's float32 perceiver core's 3.0e-3, which a K4 that
+# rounded through TF32 would pass), K1 the same bits. Each case also checks the plain
+# version with TF32 products by the same measure (``tf32_control_err``): the bound must fail
+# that control.
+TOL_F32 = {"roll3d": 0.0, "window_attention": 9e-5, "mlp_adaln_residual": 9e-5,
+           "perceiver_core": 1e-4}
+# Timed runs of the float32 kernels (up to ~0.2 s each at the de-aggregation's MLP) and of
+# their plain versions, after 2 and 1 warm-up runs.
+REPS_F32, PLAIN_REPS_F32 = 5, 2
 ATTN_SRC = "aurora_tpu_torch/csrc/window_attention.cu"
 PROBES_SRC = "aurora_tpu_torch/csrc/probes.cu"
 ATTN5D_SRC = "aurora_tpu_torch/csrc/attn5d_direct.cu"
@@ -253,10 +291,10 @@ def cuda_ms(fn, reps: int = REPS, warmup: int = 2) -> float:
 
 
 def case(name, label, per_step, kernel, plain, bound, check, residual=None, library=None,
-         mode=None, same_bits=None, extra=None, recheck=False, small=False) -> dict:
+         mode=None, same_bits=None, extra=None, recheck=False, small=False, f32=False) -> dict:
     return dict(name=name, label=label, per_step=per_step, kernel=kernel, plain=plain,
                 bound=bound, check=check, residual=residual, library=library, mode=mode,
-                same_bits=same_bits, extra=extra, recheck=recheck, small=small)
+                same_bits=same_bits, extra=extra, recheck=recheck, small=small, f32=f32)
 
 
 def kernel_cases():
@@ -439,6 +477,7 @@ def kernel_cases():
         for label, K, D, h, Q in (("agg", 13, 512, 16, 3), ("de-agg", 3, 1024, 16, 13)):
             yield from perceiver_cases(rn, label, K, M, D, h, Q, per_step)
     yield from small_cases(rn)
+    yield from f32_cases(rn)
     yield from probe_cases(rn)
 
 
@@ -520,45 +559,167 @@ def small_cases(rn):
                    per_step=c["per_step"] if c["mode"] is None else 0)
 
 
-def perceiver_cases(rn, label, K, M, D, h, Q, per_step):
-    """K4 on the (de-)aggregation's shapes; with ln_k for the aggregation (route S). The
-    bound is that of the folded work the kernels do (f32 logits from (D, Q h) weights; the v
-    product and the out-projection in bf16, with ln_k also the product with the centred
-    weights in three bf16 parts); the bound of the TPU kernel's work (the f32 k projection,
-    logits from k) beside it."""
+def f32_cases(rn):
+    """The float32 forms of K1-K4 (the facades' default config) at the 1.3 B model's shapes
+    on the 720 x 1440 grid and at the small model's D = 256 ones: K1 on each stage's token
+    grid, both shifts; K2 with the tail (masked and unmasked: the model's shifted and
+    unshifted blocks) and without it (no float32 route runs that form: it counts 0) at each
+    stage and at D = 256, stage 3's masked case with garbage in its pad tokens, a ragged
+    121 x 240 case; K3 at each stage, the perceiver MLP halves' shapes, D = 256 and two FiLM
+    rows in one tile of rows, stage 3's ragged rows with the rows behind them untouched; K4's
+    aggregation (with and without ln_k) and de-aggregation at both models' shapes and at the
+    121 x 240 grid's 1800 columns. ``per_step``: launches per step of the float32 model
+    (K2 48 with the tail, K3 50, K4 2), or of the small one at D = 256 (``SMALL_D256``)."""
+    import torch
+
+    from aurora_tpu_torch.ops import roll
+    from aurora_tpu_torch.tools import bound_ms
+
+    f32 = torch.float32
+    for C, H, W, D, heads, nblk in F32_STAGES:
+        x = rn(1, C, H, W, D, dtype=f32)
+        for shifts in ((-1, -3, -6), (1, 3, 6)):
+            yield case(
+                "roll3d", f"f32 (1,{C},{H},{W},{D}) shifts {shifts}", nblk // 2, f32=True,
+                kernel=lambda x=x, s=shifts: roll.roll3d(x, s),
+                plain=lambda x=x, s=shifts: roll.roll3d_plain(x, s),
+                library=lambda x=x, s=shifts: torch.roll(x, s, dims=(1, 2, 3)),
+                check="exact", bound=bound_ms(nbytes=2 * x.numel() * 4),
+            )
+        del x
+        yield from k2_f32_cases(rn, C, H, W, D, heads, nblk // 2)
+        film = (rn(1, D, std=0.1, dtype=f32), rn(1, D, dtype=f32))
+        rows = C * H * W
+        yield mlp_case(rn, f"f32 backbone ({rows},{D})", rows, D, 4 * D, nblk, film,
+                       ragged=rows % 64 != 0, f32=True)
+    # The 121 x 240 grid's stage 1: 7200 rows, a ragged last tile of rows. Counts nothing.
+    yield from k2_f32_cases(rn, 4, 30, 60, 512, 8, 0, "121 x 240, ragged: ", tails=(True,),
+                            groups=("masked",))
+    for label, rows, D in (("agg", 64800 * 3, 512), ("de-agg", 64800 * 13, 1024)):
+        ln2 = (rn(1, D, std=0.1, dtype=f32), 1 + rn(1, D, std=0.1, dtype=f32))
+        yield mlp_case(rn, f"f32 perceiver {label} ({rows},{D})", rows, D, 2048, 1, ln2,
+                       f32=True)
+    film2 = (rn(2, 512, std=0.1, dtype=f32), rn(2, 512, dtype=f32))
+    yield mlp_case(rn, "f32 B = 2, (2,200,512): a tile straddles the FiLM rows", 200, 512,
+                   2048, 0, film2, B=2, f32=True)
+    for M, per_step in ((64800, 1), (1800, 0)):
+        for label, K, D, h, Q in (("agg", 13, 512, 16, 3), ("de-agg", 3, 1024, 16, 13)):
+            for c in perceiver_cases(rn, label, K, M, D, h, Q, per_step, f32=True):
+                # No float32 path here runs ln_k (the wave model's default config would).
+                yield dict(c, per_step=per_step if c["mode"] is None else 0)
+    # The small model (D = 256) in float32.
+    C, H, W, D, heads = 4, 180, 360, 256, 4
+    for c in k2_f32_cases(rn, C, H, W, D, heads, 2, "D 256: ", tails=(True, False)):
+        yield dict(c, small=True)
+    film = (rn(1, D, std=0.1, dtype=f32), rn(1, D, dtype=f32))
+    ln2 = (rn(1, D, std=0.1, dtype=f32), 1 + rn(1, D, std=0.1, dtype=f32))
+    for c in (mlp_case(rn, f"f32 D 256: backbone ({C * H * W},{D})", C * H * W, D, 4 * D, 4,
+                       film, f32=True),
+              mlp_case(rn, f"f32 D 256: perceiver agg ({64800 * 3},{D})", 64800 * 3, D, 4 * D,
+                       1, ln2, f32=True)):
+        yield dict(c, small=True)
+    for c in perceiver_cases(rn, "agg", 13, 64800, D, 8, 3, 1, f32=True):
+        yield dict(c, small=True, label=c["label"].replace("f32 ", "f32 D 256: ", 1),
+                   per_step=1 if c["mode"] is None else 0)
+
+
+def k2_f32_cases(rn, C, H, W, D, heads, per_step, prefix="", tails=(True, False),
+                 groups=("masked", "unmasked")):
+    """K2 in float32 on the (1, C, H, W, D) grid padded to whole windows: with the tail
+    (``per_step`` launches each, masked and unmasked) and without it (0), each against the
+    plain version with full-f32 products; a padded grid's masked case with the tail also
+    with garbage in its pad tokens (the real tokens within PAD_F32_TOL)."""
+    import torch
+
+    from aurora_tpu_torch.ops import window_attention
+    from aurora_tpu_torch.ops.masks import window_group_ids
+    from aurora_tpu_torch.tools import bound_ms
+
+    f32 = torch.float32
+    ws, ss = (2, 6, 12), (1, 3, 6)
+    Hp, Wp = H + (-H) % ws[1], W + (-W) % ws[2]
+    xp = rn(1, C, Hp, Wp, D, dtype=f32)
+    M = C * Hp * Wp
+    nW, dh = M // 144, D // heads
+    wqkv, bqkv = rn(D, 3 * D, std=0.02, dtype=f32), rn(3 * D, std=0.02, dtype=f32)
+    tail = (rn(D, D, std=0.02, dtype=f32), rn(D, std=0.02, dtype=f32),
+            rn(1, D, std=0.1, dtype=f32), rn(1, D, dtype=f32))
+    fl_attn = 2 * M * D * 3 * D + 4 * nW * heads * 144 * 144 * dh
+    for kind in groups:
+        gr = window_group_ids(C, H, W, ws, ss) if kind == "masked" else None
+        for with_tail in tails:
+            t = tail if with_tail else None
+            mode = "tail" if with_tail else "no tail"
+            nb = 2 * M * D * 4 + (4 if with_tail else 3) * D * D * 4
+            pad = with_tail and gr is not None and (Hp, Wp) != (H, W)
+            yield case(
+                "window_attention",
+                f"f32 {prefix}(1,{C},{Hp},{Wp},{D}) heads {heads}, {kind}, {mode}",
+                per_step if with_tail else 0, residual=xp if with_tail else None, f32=True,
+                mode=mode, check="branch" if with_tail else "rel", recheck=True,
+                kernel=lambda gr=gr, t=t:
+                    window_attention.window_attention_tail(xp, wqkv, bqkv, gr, ws, heads, t),
+                plain=full_f32(lambda gr=gr, t=t: window_attention.window_attention_tail_plain(
+                    xp, wqkv, bqkv, gr, ws, heads, t)),
+                bound=bound_ms(flops_f32=fl_attn + (2 * M * D * D if with_tail else 0),
+                               nbytes=nb),
+                extra=(lambda gr=gr, t=t: k2_pad_tokens_isolated(xp, wqkv, bqkv, gr, ws, heads,
+                                                                 t)) if pad else None,
+            )
+
+
+def perceiver_cases(rn, label, K, M, D, h, Q, per_step, f32=False):
+    """K4 on the (de-)aggregation's shapes; with ln_k for the aggregation (route S; in
+    float32 the wave model's default config). The bound is that of the folded work the
+    kernels do (f32 logits from (D, Q h) weights; the v product and the out-projection in
+    bf16, with ln_k also the product with the centred weights in three bf16 parts; with
+    ``f32``, the float32 form, all of it in f32 and ln_k's product once); the bound of the
+    TPU kernel's work (the f32 k projection, logits from k) beside it."""
     import torch
 
     from aurora_tpu_torch.ops import resampler
     from aurora_tpu_torch.tools import bound_ms
 
-    f32 = torch.float32
+    fp = torch.float32
     inner, dh = D, D // h
     a = dict(
-        ctx=rn(K, M, D, dtype=f32), wk=rn(D, inner, std=0.05, dtype=f32),
-        wv=rn(D, inner, std=0.05, dtype=f32), qh=rn(Q, h, dh, dtype=f32),
-        wout=rn(inner, D, std=0.05, dtype=f32), ln1_w=1 + rn(D, std=0.1, dtype=f32),
-        ln1_b=rn(D, std=0.1, dtype=f32), queries=rn(Q, D, dtype=f32),
+        ctx=rn(K, M, D, dtype=fp), wk=rn(D, inner, std=0.05, dtype=fp),
+        wv=rn(D, inner, std=0.05, dtype=fp), qh=rn(Q, h, dh, dtype=fp),
+        wout=rn(inner, D, std=0.05, dtype=fp), ln1_w=1 + rn(D, std=0.1, dtype=fp),
+        ln1_b=rn(D, std=0.1, dtype=fp), queries=rn(Q, D, dtype=fp),
     )
-    kw = dict(scale=dh**-0.5, value_bf16=True)
-    b16 = 2 * K * M * D * inner + 2 * M * Q * inner * D
-    nb = K * M * D * 4 + M * Q * D * 2 + D * inner * 6 + inner * D * 2
+    kw = dict(scale=dh**-0.5, value_bf16=not f32)
+    vo = 2 * K * M * D * inner + 2 * M * Q * inner * D  # v and the out-projection
+    if f32:
+        nb = K * M * D * 4 + M * Q * D * 4 + D * inner * 8 + inner * D * 4
+    else:
+        nb = K * M * D * 4 + M * Q * D * 2 + D * inner * 6 + inner * D * 2
     lnks = [None]
     if label == "agg":
-        lnks.append((1 + rn(inner, std=0.1, dtype=f32), rn(inner, std=0.1, dtype=f32)))
+        lnks.append((1 + rn(inner, std=0.1, dtype=fp), rn(inner, std=0.1, dtype=fp)))
     for lnk in lnks:
-        # With ln_k, ctx Wc in three bf16 products (the kernels' split form).
-        split = 3 * 2 * K * M * D * inner if lnk is not None else 0
         # The TPU kernel's work: the f32 k projection and logits from k; ln_k adds ~8 f32
         # operations per value of k.
         tpu = 2 * K * M * D * inner + 2 * K * M * Q * inner + (8 * K * M * inner if lnk else 0)
-        tpu_bound = bound_ms(flops_bf16=b16, flops_f32=tpu, nbytes=nb)[0]
+        logits = 2 * K * M * D * Q * h
+        if f32:
+            # With ln_k, ctx Wc once in f32 (the sums of squares).
+            wc = 2 * K * M * D * inner if lnk is not None else 0
+            bound = bound_ms(flops_f32=logits + vo + wc, nbytes=nb)
+            tpu_bound = bound_ms(flops_f32=tpu + vo, nbytes=nb)[0]
+        else:
+            # With ln_k, ctx Wc in three bf16 products (the kernels' split form).
+            split = 3 * 2 * K * M * D * inner if lnk is not None else 0
+            bound = bound_ms(flops_bf16=vo + split, flops_f32=logits, nbytes=nb)
+            tpu_bound = bound_ms(flops_bf16=vo, flops_f32=tpu, nbytes=nb)[0]
         yield case(
-            "perceiver_core", f"{label} ctx ({K},{M},{D}) Q {Q}" + (", ln_k" if lnk else ""),
-            per_step, mode="ln_k" if lnk is not None else None,
+            "perceiver_core",
+            ("f32 " if f32 else "") + f"{label} ctx ({K},{M},{D}) Q {Q}"
+            + (", ln_k" if lnk else ""),
+            per_step, mode="ln_k" if lnk is not None else None, f32=f32,
             kernel=lambda lnk=lnk: resampler.perceiver_core(**a, **kw, lnk=lnk),
-            plain=lambda lnk=lnk: resampler.perceiver_core_plain(**a, **kw, lnk=lnk),
-            check="branch", residual=a["queries"][None],
-            bound=bound_ms(flops_bf16=b16 + split, flops_f32=2 * K * M * D * Q * h, nbytes=nb),
+            plain=full_f32(lambda lnk=lnk: resampler.perceiver_core_plain(**a, **kw, lnk=lnk)),
+            check="branch", residual=a["queries"][None], bound=bound,
             extra=lambda b=tpu_bound: dict(bound_of_tpu_work_ms=b),
         )
 
@@ -603,14 +764,22 @@ def k6_equals_k2(xp, wqkv, bqkv, groups, ws, heads, tail) -> dict:
     return dict(k6_on_partition_equals_k2=True)
 
 
+# In float32 a masked key keeps a weight of exp(-100 + its logit) (a tiny normal or a
+# denormal; bf16 rounds it to 0), so garbage in the pad tokens may flip a rounding of a real
+# token's output, in the plain version as in the kernel (both measured on the card): the real
+# tokens must stay within this branch error of the clean run, ~90x under the 9e-5 block bound.
+PAD_F32_TOL = 1e-6
+
+
 def k2_pad_tokens_isolated(xp, wqkv, bqkv, groups, ws, heads, tail) -> dict:
     """K2 on a padded grid, masked: garbage in the pad tokens of ``xp`` must leave every real
-    token's output the same bits (pad tokens have a group id of their own, the largest; in
-    a shifted block they lie where the roll put them; proj and the LayerNorm work row by
-    row)."""
+    token's output the same bits in bf16, within PAD_F32_TOL in float32 (pad tokens have a
+    group id of their own, the largest; in a shifted block they lie where the roll put them;
+    proj and the LayerNorm work row by row), and must change the pad tokens' outputs."""
     import torch
 
     from aurora_tpu_torch.ops import window_attention as wa
+    from aurora_tpu_torch.tools import branch_err
 
     _, Cp, Hp, Wp, _ = xp.shape
     pad_w = torch.as_tensor(groups == groups.max(), device=xp.device)  # (nW, N)
@@ -622,10 +791,18 @@ def k2_pad_tokens_isolated(xp, wqkv, bqkv, groups, ws, heads, tail) -> dict:
     torch.cuda.synchronize()
     real_equal = torch.equal(clean[:, ~pad], dirty[:, ~pad])
     pad_moved = not torch.equal(clean[:, pad], dirty[:, pad])
-    if not (real_equal and pad_moved):
-        raise AssertionError(f"K2 pad-token check: real tokens bit-equal {real_equal}, pad "
-                             f"tokens changed {pad_moved}")
-    return dict(pad_tokens=int(pad.sum()), real_tokens_bit_equal=True, pad_tokens_changed=True)
+    out = dict(pad_tokens=int(pad.sum()), real_tokens_bit_equal=real_equal,
+               pad_tokens_changed=pad_moved)
+    if xp.dtype == torch.float32:
+        res = xp[:, ~pad] if tail is not None else torch.zeros((), device=xp.device)
+        out["real_tokens_changed"] = int((clean[:, ~pad] != dirty[:, ~pad]).sum())
+        out["real_tokens_branch_err"] = branch_err(dirty[:, ~pad], clean[:, ~pad], res)[1]
+        isolated = out["real_tokens_branch_err"] <= PAD_F32_TOL
+    else:
+        isolated = real_equal
+    if not (isolated and pad_moved):
+        raise AssertionError(f"K2 pad-token check: {out}")
+    return out
 
 
 def probe_cases(rn):
@@ -766,33 +943,63 @@ def same_bits_as(kernel, what, other) -> dict:
     return {f"same_bits_as_{what.replace(' ', '_')}": True}
 
 
-def mlp_case(rn, label, rows, D, Hd, per_step, shift_scale, B=1, ragged=False):
-    """Both callers pass scale_bias = 0: the blocks' FiLM and the perceiver's LN affine."""
+def mlp_case(rn, label, rows, D, Hd, per_step, shift_scale, B=1, ragged=False, f32=False):
+    """Both callers pass scale_bias = 0: the blocks' FiLM and the perceiver's LN affine.
+    ``f32``: the float32 form (tokens and weights f32, the plain version's products in full
+    f32), else bf16."""
     import torch
 
     from aurora_tpu_torch.ops import mlp
     from aurora_tpu_torch.tools import bound_ms
 
-    x = rn(B, rows, D)
+    dt = torch.float32 if f32 else torch.bfloat16
+    x = rn(B, rows, D, dtype=dt)
     a = (
-        rn(D, Hd, std=0.02), rn(Hd, std=0.02, dtype=torch.float32), rn(Hd, D, std=0.02),
-        rn(D, std=0.02, dtype=torch.float32), *shift_scale,
+        rn(D, Hd, std=0.02, dtype=dt), rn(Hd, std=0.02, dtype=torch.float32),
+        rn(Hd, D, std=0.02, dtype=dt), rn(D, std=0.02, dtype=torch.float32), *shift_scale,
     )
     fl = 4 * B * rows * D * Hd
-    nb = 2 * B * rows * D * 2 + 2 * D * Hd * 2
+    e = x.element_size()
+    nb = 2 * B * rows * D * e + 2 * D * Hd * e
     return case(
         "mlp_adaln_residual", label, per_step,
         kernel=lambda: mlp.mlp_adaln_residual(x, *a),
-        plain=lambda: mlp.mlp_adaln_residual_plain(x, *a),
-        check="branch", residual=x, bound=bound_ms(flops_bf16=fl, nbytes=nb), recheck=True,
+        plain=full_f32(lambda: mlp.mlp_adaln_residual_plain(x, *a)),
+        check="branch", residual=x, recheck=True, f32=f32,
+        bound=bound_ms(**{"flops_f32" if f32 else "flops_bf16": fl}, nbytes=nb),
         extra=(lambda: rows_past_end_untouched(x, a)) if ragged else None,
     )
+
+
+def full_f32(fn):
+    """``fn`` run with full-f32 products (TF32 off), the caller's settings restored: how the
+    plain versions run, so that a float32 comparison is not against TF32's three digits.
+    ``.tf32`` runs ``fn`` with TF32 products instead: the control a float32 bound must
+    fail."""
+    def run():
+        from aurora_tpu_torch.model.nn import full_f32_products
+
+        with full_f32_products():
+            return fn()
+
+    def tf32():
+        import torch
+
+        saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+        try:
+            return fn()
+        finally:
+            torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+    run.tf32 = tf32
+    return run
 
 
 def rows_past_end_untouched(x, a) -> dict:
     """K3 and K8 on rows that are no multiple of a tile's 64, written into the first rows of
     a larger buffer filled with a sentinel: those rows must be the wrappers' bits, and the
-    rows behind them must keep the sentinel."""
+    rows behind them must keep the sentinel. On float32 tokens K3 alone (K8 takes bf16)."""
     import torch
 
     from aurora_tpu_torch.ops import _lib, mlp
@@ -801,12 +1008,16 @@ def rows_past_end_untouched(x, a) -> dict:
     M, spare, sentinel = B * L, 256, -32768.0
     if M % 64 == 0:
         raise AssertionError(f"ragged check: {M} rows are a multiple of 64")
+    f32 = x.dtype == torch.float32
     ops = mlp._mlp_operands(x, *a[:4])
-    fn = _lib.kernel("mlp", "mlp_rows", mlp._MLP_ROWS_ARGS)
+    fn = (_lib.kernel("mlp_f32", "mlp_rows_f32", mlp._MLP_ROWS_ARGS) if f32
+          else _lib.kernel("mlp", "mlp_rows", mlp._MLP_ROWS_ARGS))
     film = (a[4].float().reshape(B, D).contiguous(), a[5].float().reshape(B, D).contiguous(),
             0.0, L, 1e-5)
-    for what, f, ref in (("mlp_adaln_residual", film, mlp.mlp_adaln_residual(x, *a)),
-                         ("mlp_fused", None, mlp.mlp_fused(x, *a[:4]))):
+    runs = [("mlp_adaln_residual", film, mlp.mlp_adaln_residual(x, *a))]
+    if not f32:
+        runs.append(("mlp_fused", None, mlp.mlp_fused(x, *a[:4])))
+    for what, f, ref in runs:
         buf = torch.full((M + spare, D), sentinel, dtype=x.dtype, device=x.device)
         mlp._mlp_rows(fn, x.view(M, D), ops, buf[:M], f)
         torch.cuda.synchronize()
@@ -820,12 +1031,13 @@ def rows_past_end_untouched(x, a) -> dict:
 
 def _totals() -> dict:
     return dict(max_abs_err=0.0, err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=None,
-                by={"bytes": 0.0, "operations": 0.0})
+                by={"bytes": 0.0, "operations": 0.0}, per_step=0)
 
 
 def run_kernel_phases() -> dict:
     """Check and time every case; returns per-step totals keyed by (name, mode), the small
-    model's D = 256 cases by ("d256", name, mode)."""
+    model's D = 256 cases by ("d256", name, mode), the float32 forms' by ("f32", name, mode)
+    and ("f32d256", name, mode)."""
     import torch
 
     from aurora_tpu_torch.tools import branch_err, rel_err
@@ -834,6 +1046,8 @@ def run_kernel_phases() -> dict:
     bits_key, bits_ref = None, None  # the output the next cases of one key must equal
     for case in kernel_cases():
         name = case["name"]
+        tol = (TOL_F32 if case["f32"] else TOL)[name]
+        reps, plain_reps = (REPS_F32, PLAIN_REPS_F32) if case["f32"] else (REPS, PLAIN_REPS)
         got = case["kernel"]()
         want = case["plain"]()
         torch.cuda.synchronize()
@@ -842,19 +1056,26 @@ def run_kernel_phases() -> dict:
                                  f"{want.shape}/{want.dtype}")
         if not torch.isfinite(got.float()).all():
             raise AssertionError(f"{name} {case['label']}: non-finite output")
+        def measure(out):
+            """``(max |out - want|, the case's relative measure)``."""
+            if case["check"] == "branch":
+                return branch_err(out, want, case["residual"])
+            if case["check"] == "rel_ulp":
+                return branch_err(out, want, torch.zeros((), device=out.device))
+            return (out.float() - want.float()).abs().max().item(), rel_err(out, want)
+
+        more = {}
         if case["check"] == "exact":
             err, rel = (got.float() - want.float()).abs().max().item(), None
             ok = torch.equal(got, want)
         else:
-            if case["check"] == "branch":
-                err, rel = branch_err(got, want, case["residual"])
-            elif case["check"] == "rel_ulp":
-                err, rel = branch_err(got, want, torch.zeros((), device=got.device))
-            else:
-                err = (got.float() - want.float()).abs().max().item()
-                rel = rel_err(got, want)
-            ok = rel <= TOL[name]
-        more = {}
+            err, rel = measure(got)
+            ok = rel <= tol
+            if case["f32"]:
+                # The plain version with TF32 products, by the same measure: what a kernel
+                # that rounded its products through TF32 would show. The bound must fail it.
+                more["tf32_control_err"] = measure(case["plain"].tf32())[1]
+                ok = ok and more["tf32_control_err"] > tol
         if case["same_bits"] != bits_key:
             bits_key, bits_ref = case["same_bits"], (got if case["same_bits"] else None)
         elif bits_key is not None:
@@ -871,41 +1092,42 @@ def run_kernel_phases() -> dict:
             def timed(last=last):
                 last[:] = [case["kernel"]()]
 
-            ms = cuda_ms(timed)
-            if case["check"] == "branch":
-                more["last_run_rel_err"] = branch_err(last[0], want, case["residual"])[1]
-            else:
-                more["last_run_rel_err"] = rel_err(last[0], want)
-            ok = ok and more["last_run_rel_err"] <= TOL[name]
+            ms = cuda_ms(timed, reps)
+            more["last_run_rel_err"] = measure(last[0])[1]
+            ok = ok and more["last_run_rel_err"] <= tol
             del last[:]
         else:
-            ms = cuda_ms(case["kernel"])
+            ms = cuda_ms(case["kernel"], reps)
         del want
-        plain_ms = cuda_ms(case["plain"], PLAIN_REPS, warmup=1)
+        plain_ms = cuda_ms(case["plain"], plain_reps, warmup=1)
         lib_ms = cuda_ms(case["library"]) if case["library"] else None
         b, by = case["bound"]
         more["of_bound"] = b / ms
         if lib_ms is not None:
             more["vs_library"] = ms / lib_ms
         row = dict(phase="kernel", kernel=name, mode=case["mode"], shape=case["label"],
-                   ok=bool(ok), max_abs_err=err, rel_err=rel, check=case["check"],
-                   tol=TOL[name], ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b,
-                   bound_by=by, per_step=case["per_step"], **more)
+                   dtype="float32" if case["f32"] else "bfloat16", ok=bool(ok),
+                   max_abs_err=err, rel_err=rel, check=case["check"], tol=tol, ms=ms,
+                   plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b, bound_by=by,
+                   per_step=case["per_step"], **more)
         if case["small"]:
             row["model"] = "AuroraSmallPretrained (D = 256)"
         emit(row)
         if not ok:
             raise AssertionError(f"{name} {case['label']}: max abs err {err}, relative error "
-                                 f"{rel} (bound {TOL[name]}) {more}")
-        # The small model's D = 256 shapes are summed apart, per step of the small model, and
-        # kept shape by shape.
-        key = ("d256", name, case["mode"]) if case["small"] else (name, case["mode"])
+                                 f"{rel} (bound {tol}) {more}")
+        # The small model's D = 256 shapes and the float32 forms are summed apart (per step
+        # of their own model), the small model's kept shape by shape.
+        group = ("f32" if case["f32"] else "") + ("d256" if case["small"] else "")
+        key = (group, name, case["mode"]) if group else (name, case["mode"])
         s = summary.setdefault(key, _totals())
-        if case["small"]:
+        if case["small"] or case["f32"]:
             s.setdefault("shapes", []).append(dict(
-                shape=case["label"][len("D 256: "):], ms=ms, plain_ms=plain_ms, bound_ms=b,
-                bound_by=by, err=rel, max_abs_err=err, per_small_step=case["per_step"]))
+                shape=case["label"].removeprefix("f32 ").split("D 256: ", 1)[-1], ms=ms,
+                plain_ms=plain_ms, bound_ms=b, bound_by=by, err=rel, max_abs_err=err,
+                **{"per_small_step" if case["small"] else "per_step": case["per_step"]}))
         n = case["per_step"]
+        s["per_step"] += n
         s["max_abs_err"] = max(s["max_abs_err"], err)
         s["err"] = max(s["err"], rel or 0.0)
         s["ms"] += n * ms
@@ -927,9 +1149,115 @@ def run_kernel_phases() -> dict:
 # ------------------------------------------------------------------------------ end to end
 
 
-def run_route(name: str, steps: int, ref_grid: tuple[int, int], then=None) -> dict:
-    """The roll-out of one backbone route; returns the launches over it. ``then(model)``
-    runs after the roll-out's checks, before the reference."""
+class _Deferred:
+    """The CPU halves of the card-against-CPU references (the routes', the float32 model's,
+    the variants' and the small model's), run one after the other on one host thread while
+    the card goes on with the next phases. A job runs a model's CPU forward, compares it with
+    the card's output already on the host, emits its line and raises on a failed check;
+    ``drain`` re-raises the first failure. The thread's products take all but two of the
+    host's cores, so that the main thread keeps launching. ``main`` switches TF32 off for the
+    whole run: ``full_f32_products`` restores the switches it found, and a region entered on
+    one thread and left on the other could otherwise switch them on for the card. The phases
+    beside the thread count launches through the wrappers' own counts and patch a module
+    function only through ``_patched`` (the patching thread's calls alone); ``run_tools``,
+    whose tool patches for every thread, drains the queue first."""
+
+    def __init__(self):
+        self._pool = None
+        self._jobs: list = []
+
+    def submit(self, what: str, fn) -> None:
+        if self._pool is None:
+            from concurrent.futures import ThreadPoolExecutor
+
+            def init():
+                import torch
+
+                torch.set_num_threads(max(1, (os.cpu_count() or 4) - 2))
+
+            self._pool = ThreadPoolExecutor(1, thread_name_prefix="cpu-reference",
+                                            initializer=init)
+        self._jobs.append((what, self._pool.submit(fn)))
+
+    def drain(self) -> float:
+        """Wait for every job queued so far; raise the first failure. Returns the seconds
+        waited."""
+        t0 = time.perf_counter()
+        jobs, self._jobs = self._jobs, []
+        for what, job in jobs:
+            try:
+                job.result()
+            except Exception as e:
+                raise AssertionError(f"{what}: {e}") from e
+        return time.perf_counter() - t0
+
+    def close(self) -> float:
+        """:meth:`drain`, then stop the thread."""
+        try:
+            return self.drain()
+        finally:
+            if self._pool is not None:
+                self._pool.shutdown(wait=True)
+
+
+@contextlib.contextmanager
+def _patched(obj, name: str, fn):
+    """``obj.name`` replaced by ``fn`` for the calls this thread makes while entered; calls
+    from any other thread (a CPU reference on ``_Deferred``'s) reach the original."""
+    orig = getattr(obj, name)
+    me = threading.get_ident()
+    setattr(obj, name, lambda *a, **kw: (fn if threading.get_ident() == me else orig)(*a, **kw))
+    try:
+        yield
+    finally:
+        setattr(obj, name, orig)
+
+
+def defer_reference(refs: _Deferred, what: str, model, batch, cfg, t0: float, row: dict,
+                    tol: float) -> None:
+    """Move ``model`` (its card run done) to the host and queue its CPU run on ``batch`` on
+    ``refs``: the mean relative error per output variable against ``row["got"]`` (the card's
+    output, moved to the host here) must be <= ``tol``; the job emits ``row`` with the
+    errors."""
+    import torch
+
+    got = row.pop("got").to("cpu")
+    cpu = model.to("cpu")
+    torch.cuda.empty_cache()
+
+    def compare():
+        want = cpu(batch)
+        errs = _reference_errs(got, want, cfg)
+        worst = max(errs.values())
+        emit(dict(row, against=row.get("against", "port CPU run (plain versions)"),
+                  mean_rel=errs, worst=worst, tol=tol, seconds=time.perf_counter() - t0))
+        if not worst <= tol:
+            raise AssertionError(f"card vs CPU: mean rel {worst} > {tol}")
+
+    refs.submit(what, compare)
+
+
+# The launches a step that do not follow the backbone's depth: K4 and K3 in the level
+# aggregation and de-aggregation.
+_PERCEIVER = {"perceiver_core": 2, "mlp_adaln_residual": 2}
+
+
+def route_launches(counts: dict, blocks: int) -> dict:
+    """A route's launches a step (``ROUTES``, at the 1.3 B model's 48 blocks) at ``blocks``
+    Swin blocks (half of them shifted at every depth)."""
+    return {k: (n - _PERCEIVER.get(k, 0)) * blocks // 48 + _PERCEIVER.get(k, 0)
+            for k, n in counts.items()}
+
+
+def run_route(name: str, steps: int, ref_grid: tuple[int, int], batch, refs: _Deferred,
+              then=None) -> dict:
+    """The roll-out of one backbone route over ``batch`` (the 1.3 B model's 721 x 1440 host
+    batch, made once for every route and the float32 phase); returns the launches over it.
+    ``then(model)`` runs after the roll-out's checks, before the reference, whose CPU half
+    is queued on ``refs``. The main route's model has the 1.3 B model's full depth; routes
+    W, P, X and S roll out at two blocks per backbone stage (the second shifted) on the same
+    721 x 1440 grid, so that each of their kernels still runs on every stage's token grid,
+    and that model is then their reference's."""
     import torch
 
     from aurora_tpu_torch import rollout
@@ -937,17 +1265,18 @@ def run_route(name: str, steps: int, ref_grid: tuple[int, int], then=None) -> di
     from aurora_tpu_torch.tools.perf_breakdown import build_model, numpy_batch, production_config
 
     knobs, counts = ROUTES[name]
-    expected = {k: counts.get(k, 0) for k in _lib.LAUNCHES}
     # The production model (LoRA, bf16 backbone stored in bf16, bf16 (de-)aggregation values),
     # FiLM and LoRA gates opened.
     cfg = production_config().replace(**knobs)
+    if name != "main":
+        cfg = cfg.replace(**TWO_BLOCKS)
+    blocks = sum(cfg.encoder_depths) + sum(cfg.decoder_depths)
+    expected = {k: route_launches(counts, blocks).get(k, 0) for k in _lib.LAUNCHES}
     t0 = time.perf_counter()
     model = build_model(cfg, "cuda")
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
     init_s = time.perf_counter() - t0
-    batch = numpy_batch(cfg, 721, 1440)
-
     torch.cuda.reset_peak_memory_stats()
     _lib.reset_launches()
     step_s, per_step = [], []
@@ -978,6 +1307,7 @@ def run_route(name: str, steps: int, ref_grid: tuple[int, int], then=None) -> di
             raise AssertionError("roll-out step not advanced")
     del preds
     emit(dict(phase="end_to_end", route=name, **knobs,
+              depths=(cfg.encoder_depths, cfg.decoder_depths),
               grid="721x1440 (720x1440 after crop)", levels=13, params=n_params, init_s=init_s,
               steps=steps, step_s=step_s, peak_mem_gib=peak / 2**30,
               launches_per_step=per_step[-1], launches=launches))
@@ -986,38 +1316,34 @@ def run_route(name: str, steps: int, ref_grid: tuple[int, int], then=None) -> di
 
     # Reference on a small input, the card against the port's CPU run of the same route: the
     # route's model at two blocks per backbone stage (the second shifted, so K1 and the
-    # masked attention run), seeded on the card.
+    # masked attention run), seeded on the card. The CPU half runs on the host thread.
     t0 = time.perf_counter()
     H, W = ref_grid
     small = numpy_batch(cfg, H, W, seed=1)
-    del model
-    torch.cuda.empty_cache()
-    cfg = cfg.replace(encoder_depths=(2, 2, 2), decoder_depths=(2, 2, 2))
-    model = build_model(cfg, "cuda")
+    if cfg.encoder_depths != TWO_BLOCKS["encoder_depths"]:
+        del model
+        torch.cuda.empty_cache()
+        cfg = cfg.replace(**TWO_BLOCKS)
+        model = build_model(cfg, "cuda")
     before = dict(_lib.LAUNCHES)
     got = model(small)
     torch.cuda.synchronize()
     ref_launches = {k: n - before[k] for k, n in _lib.LAUNCHES.items() if n != before[k]}
-    cpu = model.to("cpu")
-    del model
-    torch.cuda.empty_cache()
-    want = cpu(small)
-    errs = {}
-    for k in SURF:
-        errs[k] = _mean_rel(got.surf_vars[k], want.surf_vars[k])
-    for k in ATMOS:
-        errs[k] = _mean_rel(got.atmos_vars[k], want.atmos_vars[k])
-    worst = max(errs.values())
-    emit(dict(phase="reference", route=name, grid=f"{H}x{W}",
-              depths=(cfg.encoder_depths, cfg.decoder_depths), launches=ref_launches,
-              against="port CPU route (plain versions)", mean_rel=errs, worst=worst, tol=1e-2,
-              seconds=time.perf_counter() - t0))
     missing = [k for k in counts if not ref_launches.get(k)]
     if missing:
         raise AssertionError(f"route {name}: the reference run never launched {missing}")
-    if not worst <= 1e-2:
-        raise AssertionError(f"route {name}: card vs CPU route: mean rel {worst} > 1e-2")
+    row = dict(phase="reference", route=name, grid=f"{H}x{W}",
+               depths=(cfg.encoder_depths, cfg.decoder_depths), launches=ref_launches,
+               against="port CPU route (plain versions)", got=got)
+    defer_reference(refs, f"route {name} reference", model, small, cfg, t0, row, 1e-2)
     return launches
+
+
+def _reference_errs(got, want, cfg) -> dict:
+    """Mean relative error per output variable of two predictions."""
+    errs = {k: _mean_rel(got.surf_vars[k], want.surf_vars[k]) for k in cfg.surf_vars}
+    errs.update({k: _mean_rel(got.atmos_vars[k], want.atmos_vars[k]) for k in cfg.atmos_vars})
+    return errs
 
 
 def _mean_rel(a, b) -> float:
@@ -1257,9 +1583,7 @@ def run_drivers(model) -> None:
                         for g in (coarse.surf_vars, coarse.atmos_vars) for v in g.values())
         regrid_fields = sum(int(np.prod(v.shape[:-2])) for g in
                             (pred.surf_vars, pred.static_vars, pred.atmos_vars) for v in g.values())
-        del coarse, files, pred
-        run_serving(model, batch, preds, ic, work)
-        del preds
+        del coarse, files, pred, preds
 
         with contextlib.redirect_stdout(io.StringIO()):
             bench = rollout_bench.main(["--steps", "3"], model=model)
@@ -1332,17 +1656,18 @@ def _timed_channel(folder):
 
 
 def run_serving(model, batch, preds, ic, work) -> None:
-    """The serving stack on the card, inside the drivers phase: the main route's model's
-    weights written once with ``checkpoint.save_params`` as the artifact of the registry's
-    ``SERVED`` entry; ``foundry.http_server.serve`` on a loopback port with a token; the
-    port's ``FoundryClient`` + ``submit`` over a ``LocalFileChannel`` under the drivers
-    phase's folder ask for SERVE_STEPS steps of the drivers phase's initial condition (its
-    file, read back; its arrays must be ``batch``'s bits). The served task loads the artifact
-    into the registry's model (full width and depth, production knobs) on the card, on the
-    server's worker thread. The client's predictions must be ``preds``' bits (``rollout`` of
-    the same weights on ``batch``), with ``rollout_step`` 1..N; the launches over the served
-    roll-out (counts set to 0 just before ``submit``) are the main route's a step; a bad
-    token gets 401. Prints the served forecast's parts."""
+    """The serving stack on the card, inside the float32 phase: ``model``'s weights (the
+    ``Aurora`` facade in its default config) written once with ``checkpoint.save_params`` as
+    the artifact of the registry's ``SERVED`` entry; ``foundry.http_server.serve`` on a
+    loopback port with a token; the port's ``FoundryClient`` + ``submit`` over a
+    ``LocalFileChannel`` under ``work`` ask for SERVE_STEPS steps of the initial condition
+    ``ic`` (its file, read back; its arrays must be ``batch``'s bits). The served task loads
+    the artifact into the registry's model (full width and depth, the facade's default
+    config, as the JAX registry builds it) on the card, on the server's worker thread. The
+    client's predictions must be ``preds``' bits (``rollout`` of the same weights on
+    ``batch``), with ``rollout_step`` 1..N; the launches over the served roll-out (counts set
+    to 0 just before ``submit``) are the main route's a step; a bad token gets 401. Prints
+    the served forecast's parts."""
     import urllib.error
 
     import numpy as np
@@ -1764,14 +2089,11 @@ def run_stochastic_step_phase(model, inputs) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     before = dict(_lib.LAUNCHES)
-    tnn.keep_mask = recorded
-    try:
+    with _patched(tnn, "keep_mask", recorded):
         t1 = time.perf_counter()
         loss = float(step(surf, static, atmos, enc, 0, tgt_s, tgt_a, generator=gen))
         torch.cuda.synchronize()
         secs = time.perf_counter() - t1
-    finally:
-        tnn.keep_mask = draw
     dropped = set()
     for (stage, block), gone in drops.items():
         layers = f"encoder_layers.{stage}" if stage < 100 else f"decoder_layers.{stage - 100}"
@@ -1864,17 +2186,18 @@ def run_rollout_train_phase() -> dict:
     return row
 
 
-def run_train_references() -> dict:
+def run_train_references() -> None:
     """The card against the port's CPU run: the recipe's model at two blocks per backbone
     stage (the second shifted), seeded on the card, one LoRA train step at 121 x 240 without
     remat (the rematerialisation is the same arithmetic, held in float64 on the CPU by the
     tests), on each device deterministic and then with STO_REF's stochastic knobs; the loss
     within TRAIN_LOSS_TOL relative and the concatenated LoRA gradient within TRAIN_GRAD_TOL
     relative L2 error. The stochastic steps take a generator of the same seed on both
-    devices and draw every mask on the CPU (``nn.keep_mask`` wrapped to draw there and move
-    the mask to the step's device), so that the two runs drop the same branches and
-    elements; every block then runs the stochastic route (K1, plain attention and MLP), the
-    perceivers K4 and K3."""
+    devices and draw every mask on the CPU (on the card ``nn.keep_mask`` wrapped to draw
+    there and move the mask to the step's device), so that the two runs drop the same
+    branches and elements; every block then runs the stochastic route (K1, plain attention
+    and MLP), the perceivers K4 and K3. The card's steps first (masks drawn on the CPU through
+    the wrapped ``nn.keep_mask``), then the CPU's (which draws its own there)."""
     import torch
 
     from aurora_tpu_torch.model import nn as tnn
@@ -1886,57 +2209,65 @@ def run_train_references() -> dict:
     cfg = train_bench.train_config(remat=False).replace(**TWO_BLOCKS)
     model = train_bench.build(cfg, "cuda", "lora")
     H, W = TRAIN_REF_GRID
-    results, seconds = {}, {}
+
+    def steps(model) -> dict:
+        """Both steps on ``model``'s device: ``{stochastic: (loss, LoRA gradient, launches,
+        seconds)}``; launches on the card only (the count is the process's)."""
+        on_card = model.device.type == "cuda"
+        (surf, static, atmos, batch), (tgt_s, tgt_a) = train_bench.inputs(model, H, W)
+        enc = model.prepare_encodings(batch, torch.float32)
+        levels = tuple(float(x) for x in batch.metadata.atmos_levels)
+        out = {}
+        for stochastic in (False, True):
+            t1 = time.perf_counter()
+            model.set_knobs(**(STO_REF if stochastic else dict.fromkeys(STO_REF, 0.0)))
+            opt = _Watched(update=False)
+            step = make_train_step(model, opt, levels)
+            gen = torch.Generator().manual_seed(0) if stochastic else None
+            before = dict(_lib.LAUNCHES)
+            loss = step(surf, static, atmos, enc, 0, {k: v[0] for k, v in tgt_s.items()},
+                        {k: v[0] for k, v in tgt_a.items()}, generator=gen)
+            launched = {k: v - before[k] for k, v in _lib.LAUNCHES.items()
+                        if v != before[k]} if on_card else None
+            flat = torch.cat([g.float().flatten().cpu() for g in opt.grads.values()])
+            out[stochastic] = (float(loss), flat, launched, time.perf_counter() - t1)
+        return out
+
     draw = tnn.keep_mask
-    tnn.keep_mask = lambda shape, keep, seed, path, device: draw(
-        shape, keep, seed, path, "cpu").to(device)
-    try:
-        for dev in ("cuda", "cpu"):
-            model = model.to(dev)
-            (surf, static, atmos, batch), (tgt_s, tgt_a) = train_bench.inputs(model, H, W)
-            enc = model.prepare_encodings(batch, torch.float32)
-            levels = tuple(float(x) for x in batch.metadata.atmos_levels)
-            for stochastic in (False, True):
-                t1 = time.perf_counter()
-                model.set_knobs(**(STO_REF if stochastic else dict.fromkeys(STO_REF, 0.0)))
-                opt = _Watched(update=False)
-                step = make_train_step(model, opt, levels)
-                gen = torch.Generator().manual_seed(0) if stochastic else None
-                before = dict(_lib.LAUNCHES)
-                loss = step(surf, static, atmos, enc, 0, {k: v[0] for k, v in tgt_s.items()},
-                            {k: v[0] for k, v in tgt_a.items()}, generator=gen)
-                launched = {k: v - before[k] for k, v in _lib.LAUNCHES.items()
-                            if v != before[k]}
-                flat = torch.cat([g.float().flatten().cpu() for g in opt.grads.values()])
-                results[dev, stochastic] = (float(loss), flat, launched)
-                seconds[dev, stochastic] = time.perf_counter() - t1
-            torch.cuda.empty_cache()
-    finally:
-        tnn.keep_mask = draw
-    out, bad = {}, []
-    for stochastic in (False, True):
-        (lc, gc, launched), (lp, gp, _) = results["cuda", stochastic], results["cpu", stochastic]
-        loss_err = abs(lc - lp) / abs(lp)
-        grad_err = ((gc - gp).norm() / gp.norm()).item()
-        knobs = STO_REF if stochastic else {}
-        emit(dict(phase="train", part="stochastic card vs CPU" if stochastic else "card vs CPU",
-                  grid=f"{H}x{W}", depths=(cfg.encoder_depths, cfg.decoder_depths), **knobs,
-                  loss_card=lc, loss_cpu=lp, loss_rel_err=loss_err, lora_grad_rel_l2=grad_err,
-                  tol=(TRAIN_LOSS_TOL, TRAIN_GRAD_TOL), launches=launched,
-                  step_s=dict(card=seconds["cuda", stochastic], cpu=seconds["cpu", stochastic]),
-                  seconds=time.perf_counter() - t0))
-        need = ("roll3d", "roll3d_bwd", "mlp_adaln_residual", "perceiver_core")
-        if not stochastic:
-            need += ("window_attention",)
-        missing = [k for k in need if not launched.get(k)]
-        fused = stochastic and launched.get("window_attention")
-        if missing or fused or not (loss_err <= TRAIN_LOSS_TOL and grad_err <= TRAIN_GRAD_TOL):
-            bad.append(f"{knobs}: loss {loss_err}, LoRA gradient {grad_err}, kernels never "
-                       f"launched {missing}, K2 in stochastic blocks {fused}")
-        out[stochastic] = dict(loss_rel_err=loss_err, lora_grad_rel_l2=grad_err)
-    if bad:
-        raise AssertionError(f"train card vs CPU: {bad}")
-    return out
+    with _patched(tnn, "keep_mask", lambda shape, keep, seed, path, device: draw(
+            shape, keep, seed, path, "cpu").to(device)):
+        card = steps(model)
+    model = model.to("cpu")
+    torch.cuda.empty_cache()
+
+    def compare():
+        cpu = steps(model)
+        bad = []
+        for stochastic in (False, True):
+            (lc, gc, launched, sc), (lp, gp, _, sp) = card[stochastic], cpu[stochastic]
+            loss_err = abs(lc - lp) / abs(lp)
+            grad_err = ((gc - gp).norm() / gp.norm()).item()
+            knobs = STO_REF if stochastic else {}
+            emit(dict(phase="train",
+                      part="stochastic card vs CPU" if stochastic else "card vs CPU",
+                      grid=f"{H}x{W}", depths=(cfg.encoder_depths, cfg.decoder_depths), **knobs,
+                      loss_card=lc, loss_cpu=lp, loss_rel_err=loss_err,
+                      lora_grad_rel_l2=grad_err, tol=(TRAIN_LOSS_TOL, TRAIN_GRAD_TOL),
+                      launches=launched, step_s=dict(card=sc, cpu=sp),
+                      seconds=time.perf_counter() - t0))
+            need = ("roll3d", "roll3d_bwd", "mlp_adaln_residual", "perceiver_core")
+            if not stochastic:
+                need += ("window_attention",)
+            missing = [k for k in need if not launched.get(k)]
+            fused = stochastic and launched.get("window_attention")
+            if missing or fused or not (loss_err <= TRAIN_LOSS_TOL
+                                        and grad_err <= TRAIN_GRAD_TOL):
+                bad.append(f"{knobs}: loss {loss_err}, LoRA gradient {grad_err}, kernels "
+                           f"never launched {missing}, K2 in stochastic blocks {fused}")
+        if bad:
+            raise AssertionError(f"train card vs CPU: {bad}")
+
+    compare()
 
 
 def run_card_draws() -> dict:
@@ -1984,11 +2315,14 @@ def run_train_phases() -> dict:
 # ------------------------------------------------------------------------------ tools
 
 
-def run_tools() -> dict:
-    """The probe tools as a user runs them, in process; returns the launches over them."""
+def run_tools(refs: _Deferred) -> dict:
+    """The probe tools as a user runs them, in process; returns the launches over them.
+    ``backbone_ablate`` patches ``swin3d``'s functions while it times, for every thread: the
+    CPU references queued on ``refs`` are waited for first."""
     from aurora_tpu_torch.ops import _lib
     from aurora_tpu_torch.tools import backbone_ablate, gemm_probe, smem_probe
 
+    emit(dict(phase="references", waited_before_tools_s=refs.drain()))
     _lib.reset_launches()
     t0 = time.perf_counter()
     ablate = backbone_ablate.main(["--variants", ",".join(backbone_ablate.VARIANTS)])
@@ -2039,9 +2373,11 @@ VARIANT_RUNS = {  # name: (facade, full grid, reference grid, launches per step)
     "12h": ("Aurora12hPretrained", (721, 1440), (121, 240),
             {**_B48, "mlp_adaln_residual": 50, "perceiver_core": 2}),
 }
-# The variant loaded from a reference-format ``.ckpt`` file (the most schema migrations);
-# the others pass their state dict in memory through the same converter.
+# The variant whose reference model is loaded from a reference-format ``.ckpt`` file (the most
+# schema migrations); every other load passes its state dict in memory through the same
+# converter.
 VIA_FILE = "pollution"
+VARIANT_STEPS = 2  # roll-out steps of each variant at its full grid
 NAN_FLIP_TOL = 5e-2  # share of points whose wave NaN mask differs between the card and CPU
 
 
@@ -2092,11 +2428,12 @@ def type_of(name: str):
     return getattr(aurora_tpu_torch, VARIANT_RUNS[name][0])
 
 
-def load_variant(name: str, manifest: dict):
-    """The production model of one released variant on the card, with its weights loaded
-    through the port's checkpoint code: from a ``.ckpt`` file for ``VIA_FILE``, else the
-    state dict in memory through ``convert_reference_checkpoint``. Returns the model and a
-    dict of what the load took."""
+def load_variant(name: str, manifest: dict, cfg=None, via_file: bool = False):
+    """The production model of one released variant (``cfg``: its config, by default the
+    facade's with the production knobs) on the card, with its weights loaded through the
+    port's checkpoint code: from a ``.ckpt`` file with ``via_file``, else the state dict in
+    memory through ``convert_reference_checkpoint``. ``manifest``: the checkpoint's keys and
+    shapes for that config. Returns the model and a dict of what the load took."""
     import tempfile
     from pathlib import Path
 
@@ -2108,14 +2445,14 @@ def load_variant(name: str, manifest: dict):
     from aurora_tpu_torch.tools.perf_breakdown import production_config
 
     cls = type_of(name)
-    cfg = production_config(cls.default_config())
+    cfg = cfg or production_config(cls.default_config())
     t0 = time.perf_counter()
     sd = reference_weights(manifest, cfg, seed=0)
     info = dict(weights_s=time.perf_counter() - t0,
                 values=sum(v.size for v in sd.values()))
     model = cls(cfg, device="cuda", seed=None)
     t0 = time.perf_counter()
-    if name == VIA_FILE:
+    if via_file:
         with tempfile.TemporaryDirectory() as d:
             path = Path(d) / cls.default_checkpoint_name
             torch.save({k: torch.from_numpy(v) for k, v in sd.items()}, path)
@@ -2143,7 +2480,7 @@ def expected_outputs(cfg) -> tuple[set, set]:
     return set(surf), set(cfg.atmos_vars)
 
 
-def run_variant(name: str, manifest: dict, steps: int) -> None:
+def run_variant(name: str, manifest: dict, steps: int, refs: _Deferred) -> None:
     """One released variant: the weights through the checkpoint path, a roll-out of
     ``steps`` steps at its full grid through the tools (launches per step checked, counts set
     to 0 just before), the outputs' variables, shapes and values, then the same weights on
@@ -2189,54 +2526,69 @@ def run_variant(name: str, manifest: dict, steps: int) -> None:
     # The reference: the variant's own config, widths, hooks and grid at two blocks per
     # backbone stage (one unshifted, one shifted: K1 and K2's masked attention run on the
     # variant's own token grid), seeded on the card, on the reference grid; the card against
-    # the port's CPU run of the same weights.
+    # the port's CPU run of the same weights. VIA_FILE's weights come through a reference
+    # .ckpt file of those blocks (the released checkpoint's keys without blocks 2 and up).
     del model
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     shallow = cfg.replace(encoder_depths=(2,) * len(cfg.encoder_depths),
                           decoder_depths=(2,) * len(cfg.decoder_depths))
-    model = variant_bench.build_variant(type_of(name), "cuda", cfg=shallow)
+    if name == VIA_FILE:
+        import re
+
+        keep = {k: v for k, v in manifest.items()
+                if not (blk := re.search(r"\.blocks\.(\d+)\.", k)) or int(blk[1]) < 2}
+        model, file_info = load_variant(name, keep, shallow, via_file=True)
+        emit(dict(phase="variant", variant=name, part="weights through a .ckpt file",
+                  depths=(shallow.encoder_depths, shallow.decoder_depths), **file_info))
+    else:
+        model = variant_bench.build_variant(type_of(name), "cuda", cfg=shallow)
     small = variant_bench.raw_batch(cfg, h, w, seed=1, absolute=name != "highres")
     before = dict(_lib.LAUNCHES)
     got = model(small)
     torch.cuda.synchronize()
     ref_launches = {k: n - before[k] for k, n in _lib.LAUNCHES.items() if n != before[k]}
-    cpu = model.to("cpu")
-    del model
-    torch.cuda.empty_cache()
-    want = cpu(small)
-    del cpu
-    errs, flips = {}, {}
-    for k in sorted(surf | atmos):
-        g = (got.surf_vars if k in surf else got.atmos_vars)[k].double().cpu()
-        c = (want.surf_vars if k in surf else want.atmos_vars)[k].double()
-        both = torch.isfinite(g) & torch.isfinite(c)
-        errs[k] = _mean_rel(g[both], c[both])
-        flips[k] = int((torch.isnan(g) != torch.isnan(c)).sum())
-    worst = max(errs.values())
-    flip_share = sum(flips.values()) / sum(v.numel() for v in {
-        **want.surf_vars, **want.atmos_vars}.values())
-    emit(dict(phase="reference", variant=name, grid=f"{h}x{w}",
-              depths=(shallow.encoder_depths, shallow.decoder_depths), launches=ref_launches,
-              against="port CPU run (plain versions)", mean_rel=errs, worst=worst, tol=1e-2,
-              nan_mask_differs={k: v for k, v in flips.items() if v}, nan_flip_share=flip_share,
-              seconds=time.perf_counter() - t0))
     missing = [k for k in ("roll3d", "window_attention") if not ref_launches.get(k)]
     if missing:
         raise AssertionError(f"variant {name}: the reference run never launched {missing}")
-    if not worst <= 1e-2:
-        raise AssertionError(f"variant {name}: card vs CPU: mean rel {worst} > 1e-2")
-    # A density point flips where the predicted density is within the card's error of 1/2;
-    # no other variable may be NaN on one side only.
-    if flip_share > NAN_FLIP_TOL or any(v for k, v in flips.items() if k not in may_nan):
-        raise AssertionError(f"variant {name}: NaN masks differ at {flips}")
+    got = got.to("cpu")
+    cpu = model.to("cpu")
+    del model
+    torch.cuda.empty_cache()
+
+    def compare():  # on the host thread (refs)
+        want = cpu(small)
+        errs, flips = {}, {}
+        for k in sorted(surf | atmos):
+            g = (got.surf_vars if k in surf else got.atmos_vars)[k].double()
+            c = (want.surf_vars if k in surf else want.atmos_vars)[k].double()
+            both = torch.isfinite(g) & torch.isfinite(c)
+            errs[k] = _mean_rel(g[both], c[both])
+            flips[k] = int((torch.isnan(g) != torch.isnan(c)).sum())
+        worst = max(errs.values())
+        flip_share = sum(flips.values()) / sum(v.numel() for v in {
+            **want.surf_vars, **want.atmos_vars}.values())
+        emit(dict(phase="reference", variant=name, grid=f"{h}x{w}",
+                  depths=(shallow.encoder_depths, shallow.decoder_depths),
+                  launches=ref_launches, against="port CPU run (plain versions)",
+                  mean_rel=errs, worst=worst, tol=1e-2,
+                  nan_mask_differs={k: v for k, v in flips.items() if v},
+                  nan_flip_share=flip_share, seconds=time.perf_counter() - t0))
+        if not worst <= 1e-2:
+            raise AssertionError(f"variant {name}: card vs CPU: mean rel {worst} > 1e-2")
+        # A density point flips where the predicted density is within the card's error of
+        # 1/2; no other variable may be NaN on one side only.
+        if flip_share > NAN_FLIP_TOL or any(v for k, v in flips.items() if k not in may_nan):
+            raise AssertionError(f"variant {name}: NaN masks differ at {flips}")
+
+    refs.submit(f"variant {name} reference", compare)
 
 
-def run_variants(steps: int) -> None:
+def run_variants(steps: int, refs: _Deferred) -> None:
     manifests = json.loads(open(MANIFESTS).read())
     t0 = time.perf_counter()
     for name, (facade, *_rest) in VARIANT_RUNS.items():
-        run_variant(name, manifests[facade], steps)
+        run_variant(name, manifests[facade], steps, refs)
     emit(dict(phase="variants", seconds=time.perf_counter() - t0))
 
 
@@ -2247,88 +2599,128 @@ def run_variants(steps: int) -> None:
 # K3 in the two perceiver MLP halves; K4 in the aggregation and the de-aggregation.
 SMALL_RUN = {"roll3d": 20, "window_attention": 20, "mlp_adaln_residual": 22, "perceiver_core": 2}
 SMALL_GRID, SMALL_REF_GRID = (721, 1440), (121, 240)
+SMALL_STEPS = 2
 
 
-class _WidthCounts:
-    """Counts the calls of the kernel wrappers the model makes (in ``swin3d`` and
-    ``perceiver``) whose output rows are 256 wide, while it is entered."""
+class _KernelCalls:
+    """The launches of K1-K4 (``ops._lib.LAUNCHES_BY``: by kernel, output dtype and output
+    width) made while it is entered, a served task's from the server's worker thread too.
+    It reads the wrappers' own counts, which a CPU run (a reference on the host thread)
+    never moves, and patches nothing."""
 
-    NAMES = (("swin3d", "window_attention_tail", "window_attention"),
-             ("swin3d", "mlp_adaln_residual", "mlp_adaln_residual"),
-             ("perceiver", "mlp_adaln_residual", "mlp_adaln_residual"),
-             ("perceiver", "perceiver_core", "perceiver_core"))
-
-    def __init__(self):
-        self.counts = dict.fromkeys(SMALL_D256, 0)
-        self._saved = []
+    KERNELS = ("roll3d", "window_attention", "mlp_adaln_residual", "perceiver_core")
 
     def __enter__(self):
-        import importlib
+        from aurora_tpu_torch.ops import _lib
 
-        for mod, fn, key in self.NAMES:
-            m = importlib.import_module(f"aurora_tpu_torch.model.{mod}")
-            f = getattr(m, fn)
-
-            def counted(*a, _f=f, _k=key, **kw):
-                out = _f(*a, **kw)
-                self.counts[_k] += out.shape[-1] == 256
-                return out
-
-            self._saved.append((m, fn, f))
-            setattr(m, fn, counted)
+        self._by, self._before = _lib.LAUNCHES_BY, dict(_lib.LAUNCHES_BY)
         return self
 
     def __exit__(self, *exc):
-        for m, fn, f in self._saved:
-            setattr(m, fn, f)
+        self._by = dict(self._by)
+
+    @property
+    def calls(self) -> dict:
+        """``{(kernel, dtype, width): launches}`` since entered (until left)."""
+        return {at: n - self._before.get(at, 0) for at, n in self._by.items()
+                if at[0] in self.KERNELS and n != self._before.get(at, 0)}
+
+    def by_dtype(self) -> dict:
+        """``{dtype: {kernel: launches}}``."""
+        out: dict = {}
+        for (k, dt, _), n in self.calls.items():
+            out.setdefault(dt, {})
+            out[dt][k] = out[dt].get(k, 0) + n
+        return out
+
+    def at_width(self, width: int) -> dict:
+        """``{kernel: launches}`` of K2-K4 with ``width``-wide output rows."""
+        out: dict = {}
+        for (k, _, w), n in self.calls.items():
+            if w == width and k != "roll3d":
+                out[k] = out.get(k, 0) + n
+        return out
 
 
-def run_small(steps: int) -> dict:
-    """``AuroraSmallPretrained`` (D = 256) with the production knobs on the card: seeded
-    weights (gates opened), a roll-out of ``steps`` steps at 721 x 1440 through
-    ``tools.variant_bench`` (counts set to 0 just before): step times, peak memory, launches
-    per step against ``SMALL_RUN`` and those at D = 256 against ``SMALL_D256``; outputs finite
-    at their shapes. Then the same model (full depth) on the 121 x 240 grid against the port's
-    CPU run of it: mean relative error <= 1e-2 per output variable. Returns the launches."""
+SMALL_FORMS = {  # form: (config, reference bound, dtype of every launch)
+    "f32": ("default (float32 all through)", 1e-4, "float32"),
+    "bf16": ("production knobs (bf16 backbone and (de-)aggregation values)", 1e-2, "bfloat16"),
+}
+
+
+def run_small(steps: int, refs: _Deferred) -> dict:
+    """``AuroraSmallPretrained`` (D = 256) on the card in each of ``SMALL_FORMS``: in its
+    default config (``AuroraSmallPretrained()``, float32 all through) and with the production
+    knobs (``tools.variant_bench.build_variant``: bf16 backbone stored in bf16, bf16 (de-)
+    aggregation values); seeded weights, gates opened. Each: a roll-out of ``steps`` steps at
+    721 x 1440 through ``tools.variant_bench.run_rollout`` (counts set to 0 just before):
+    step times, peak memory, launches per step against ``SMALL_RUN``, every launch in the
+    form's dtype and those at D = 256 against ``SMALL_D256``; outputs finite at their shapes.
+    Then the same model (full depth) on the 121 x 240 grid against the port's CPU run of it:
+    mean relative error per output variable within the form's bound (its CPU half on the
+    host thread). Returns the launches of each form's roll-out."""
+    return {form: _run_small_form(form, steps, refs) for form in SMALL_FORMS}
+
+
+def _run_small_form(form: str, steps: int, refs: _Deferred) -> dict:
     import torch
 
     from aurora_tpu_torch import AuroraSmallPretrained
     from aurora_tpu_torch.ops import _lib
     from aurora_tpu_torch.tools import variant_bench
+    from aurora_tpu_torch.tools.perf_breakdown import open_gates
 
+    config, tol, dtype = SMALL_FORMS[form]
     t0 = time.perf_counter()
-    model = variant_bench.build_variant(AuroraSmallPretrained, "cuda")
+    if form == "f32":
+        model = AuroraSmallPretrained(device="cuda", seed=0)
+        open_gates(model)
+    else:
+        model = variant_bench.build_variant(AuroraSmallPretrained, "cuda")
     cfg = model.cfg
+    bad = []
+    if form == "f32":
+        if cfg.autocast or cfg.agg_bf16 or cfg.deagg_bf16:
+            bad.append(f"default config not float32 all through: {cfg}")
+        if {p.dtype for p in model.parameters()} != {torch.float32}:
+            bad.append("weights not all float32")
     H, W = SMALL_GRID
     batch = variant_bench.raw_batch(cfg, H, W, device="cuda")
     _lib.reset_launches()
-    with _WidthCounts() as wide:
+    with _KernelCalls() as calls:
         r = variant_bench.run_rollout(model, batch, steps)
     launches = dict(_lib.LAUNCHES)
-    d256 = {k: n // steps for k, n in wide.counts.items()}
-    bad = [i for i, got in enumerate(r["launches_per_step"]) if got != SMALL_RUN]
-    if bad or d256 != SMALL_D256 or any(wide.counts[k] % steps for k in wide.counts):
-        raise AssertionError(f"small model: launches {r['launches_per_step']} (want "
-                             f"{SMALL_RUN}); at D = 256 {wide.counts} over {steps} steps (want "
-                             f"{SMALL_D256} a step)")
+    d256 = {k: n // steps for k, n in calls.at_width(256).items()}
+    by_dtype = calls.by_dtype()
+    if any(got != SMALL_RUN for got in r["launches_per_step"]):
+        bad.append(f"launches {r['launches_per_step']} (want {SMALL_RUN} a step)")
+    if d256 != SMALL_D256 or any(n % steps for n in calls.at_width(256).values()):
+        bad.append(f"at D = 256 {calls.at_width(256)} over {steps} steps (want {SMALL_D256} "
+                   "a step)")
+    if by_dtype != {dtype: {k: steps * n for k, n in SMALL_RUN.items()}}:
+        bad.append(f"launches by dtype {by_dtype} (want all {dtype})")
+    if bad:
+        raise AssertionError(f"small model, {form}: {bad}")
     Hc = H - H % cfg.patch_size
     want_shapes = {**{k: [1, 1, Hc, W] for k in cfg.surf_vars},
                    **{k: [1, 1, len(LEVELS), Hc, W] for k in cfg.atmos_vars}}
     if (r["outputs"] != want_shapes or any(r["nan_points"].values())
             or any(r["inf_points"].values()) or r["rollout_step"] != steps):
-        raise AssertionError(f"small model: outputs {r['outputs']}, NaN {r['nan_points']}, "
-                             f"inf {r['inf_points']}")
-    row = dict(phase="small", model="AuroraSmallPretrained", grid=f"{H}x{W}",
-               embed_dim=cfg.embed_dim, depths=(cfg.encoder_depths, cfg.decoder_depths),
-               heads=(cfg.encoder_num_heads, cfg.decoder_num_heads),
-               params=sum(p.numel() for p in model.parameters()), steps=steps,
-               step_s=r["step_s"], peak_mem_gib=r["peak_mem_gib"],
-               launches_per_step=r["launches_per_step"][-1], expected_per_step=SMALL_RUN,
-               d256_per_step=d256, expected_d256_per_step=SMALL_D256, launches=launches)
+        raise AssertionError(f"small model, {form}: outputs {r['outputs']}, NaN "
+                             f"{r['nan_points']}, inf {r['inf_points']}")
+    model_name = "AuroraSmallPretrained()" if form == "f32" else "AuroraSmallPretrained"
+    emit(dict(phase="small", form=form, model=model_name, config=config, grid=f"{H}x{W}",
+              embed_dim=cfg.embed_dim, depths=(cfg.encoder_depths, cfg.decoder_depths),
+              heads=(cfg.encoder_num_heads, cfg.decoder_num_heads),
+              params=sum(p.numel() for p in model.parameters()), steps=steps,
+              step_s=r["step_s"], peak_mem_gib=r["peak_mem_gib"],
+              launches_per_step=r["launches_per_step"][-1], expected_per_step=SMALL_RUN,
+              d256_per_step=d256, expected_d256_per_step=SMALL_D256, launches_by_dtype=by_dtype,
+              launches=launches, seconds=time.perf_counter() - t0))
     del batch
 
     # The reference: the same model, full depth, on the 121 x 240 grid against the port's CPU
-    # run of the same weights.
+    # run of the same weights (its CPU half on the host thread).
     t1 = time.perf_counter()
     h, w = SMALL_REF_GRID
     small = variant_bench.raw_batch(cfg, h, w, seed=1)
@@ -2336,26 +2728,127 @@ def run_small(steps: int) -> dict:
     got = model(small)
     torch.cuda.synchronize()
     ref_launches = {k: n - before[k] for k, n in _lib.LAUNCHES.items() if n != before[k]}
-    cpu = model.to("cpu")
-    del model
+    if any(ref_launches.get(k) != n for k, n in SMALL_RUN.items()):
+        raise AssertionError(f"small model, {form}: the reference run launched {ref_launches}")
+    ref = dict(phase="reference", model=model_name, form=form, config=config, grid=f"{h}x{w}",
+               depths=(cfg.encoder_depths, cfg.decoder_depths), launches=ref_launches, got=got)
+    defer_reference(refs, f"small model reference ({form})", model, small, cfg, t1, ref, tol)
+    return launches
+
+
+# ------------------------------------------------------------------------------ float32 model
+
+F32_STEPS = 2  # roll-out steps of the float32 model at 721 x 1440
+F32_REF_TOL = 1e-4  # card vs CPU, mean relative error per variable, float32 all through
+F32_DIR = "build/f32"  # the float32 phase's files, under the checkout, removed at its end
+
+
+def run_f32(batch, refs: _Deferred) -> dict:
+    """``Aurora`` in its default config (``LARGE_CONFIG`` with LoRA, float32 all through, as
+    the JAX package's CLI and registry build it) on the card: seeded weights, FiLM and LoRA
+    gates opened as the routes' models; ``rollout`` of F32_STEPS steps over the 721 x 1440
+    batch: step times, peak memory, launches per step (counts set to 0 just before) against
+    the main route's, and every K1-K4 launch writing float32 (none bf16); outputs
+    float32, finite, of the right shapes. Then the serving phase on this model
+    (``run_serving``: the registry builds the same default config; the served predictions
+    must be this roll-out's bits, float32 launches only). Then the same config at two blocks
+    a backbone stage (the second shifted) on 121 x 240 against the port's CPU run: mean
+    relative error <= F32_REF_TOL per output variable (its CPU half queued on ``refs``).
+    ``batch``: the routes' 721 x 1440 host batch. Returns the roll-out's launches."""
+    import shutil
+
+    import torch
+
+    from aurora_tpu_torch import Aurora, rollout
+    from aurora_tpu_torch.ops import _lib
+    from aurora_tpu_torch.tools.perf_breakdown import build_model, numpy_batch
+
+    t_phase = time.perf_counter()
+    cfg = Aurora.default_config()
+    if cfg.autocast or cfg.agg_bf16 or cfg.deagg_bf16:
+        raise AssertionError(f"Aurora's default config is not float32 all through: {cfg}")
+    expected = {k: ROUTES["main"][1].get(k, 0) for k in _lib.LAUNCHES}
+    t0 = time.perf_counter()
+    model = build_model(cfg, "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    param_dtypes = sorted({str(p.dtype) for p in model.parameters()})
+    torch.cuda.reset_peak_memory_stats()
+    _lib.reset_launches()
+    step_s, per_step, dtype_per_step, preds = [], [], [], []
+    with _KernelCalls() as calls:
+        t_prev = time.perf_counter()
+        before, seen = dict(_lib.LAUNCHES), {}
+        for pred in rollout(model, batch, steps=F32_STEPS):
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            step_s.append(now - t_prev)
+            per_step.append({k: _lib.LAUNCHES[k] - before[k] for k in _lib.LAUNCHES})
+            now_by = calls.by_dtype()
+            dtype_per_step.append({f"{k}/{dt}": n - seen.get(dt, {}).get(k, 0)
+                                   for dt, ks in now_by.items() for k, n in ks.items()})
+            before, seen = dict(_lib.LAUNCHES), now_by
+            preds.append(pred.to_numpy())
+            last = pred
+            t_prev = time.perf_counter()
+    launches = dict(_lib.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    by_dtype = calls.by_dtype()
+    bad = [f"step {i}: launches {got}" for i, got in enumerate(per_step) if got != expected]
+    if by_dtype != {"float32": {k: F32_STEPS * n for k, n in ROUTES["main"][1].items()}}:
+        bad.append(f"launches by dtype {by_dtype}")
+    if param_dtypes != ["torch.float32"]:
+        bad.append(f"parameters {param_dtypes}")
+    for k, v in {**last.surf_vars, **last.atmos_vars}.items():
+        want = (1, 1, 720, 1440) if k in last.surf_vars else (1, 1, len(LEVELS), 720, 1440)
+        if tuple(v.shape) != want or v.dtype != torch.float32 or not torch.isfinite(v).all():
+            bad.append(f"{k}: {tuple(v.shape)} {v.dtype} finite {bool(torch.isfinite(v).all())}")
+    if last.metadata.rollout_step != F32_STEPS:
+        bad.append("roll-out step not advanced")
+    del last
+    emit(dict(phase="f32", model="Aurora()", config="default (float32 all through)",
+              grid="721x1440 (720x1440 after crop)", levels=13, params=sum(
+                  p.numel() for p in model.parameters()), param_dtypes=param_dtypes,
+              init_s=init_s, steps=F32_STEPS, step_s=step_s, peak_mem_gib=peak / 2**30,
+              launches_per_step=per_step[-1], launches=launches,
+              launches_by_dtype_per_step=dtype_per_step))
+    if bad:
+        raise AssertionError(f"float32 model: {bad}")
+
+    work = os.path.abspath(F32_DIR)
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    try:
+        ic = os.path.join(work, "ic.nc")
+        batch.to_netcdf(ic)
+        with _KernelCalls() as served:
+            run_serving(model, batch, preds, ic, work)
+        want_served = {"float32": {k: SERVE_STEPS * n for k, n in ROUTES["main"][1].items()}}
+        if served.by_dtype() != want_served:
+            raise AssertionError(f"serving: launches by dtype {served.by_dtype()} != "
+                                 f"{want_served}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    del model, preds
     torch.cuda.empty_cache()
-    want = cpu(small)
-    del cpu
-    errs = {}
-    for k in cfg.surf_vars:
-        errs[k] = _mean_rel(got.surf_vars[k], want.surf_vars[k])
-    for k in cfg.atmos_vars:
-        errs[k] = _mean_rel(got.atmos_vars[k], want.atmos_vars[k])
-    worst = max(errs.values())
-    emit(dict(row, reference=dict(grid=f"{h}x{w}", launches=ref_launches,
-                                  against="port CPU run (plain versions)", mean_rel=errs,
-                                  worst=worst, tol=1e-2, seconds=time.perf_counter() - t1),
-              seconds=time.perf_counter() - t0))
-    missing = [k for k in SMALL_RUN if ref_launches.get(k) != SMALL_RUN[k]]
+
+    # The reference: the default config at two blocks per backbone stage (the second shifted,
+    # so K1 and the masked K2 run), seeded on the card, against the port's CPU run.
+    t0 = time.perf_counter()
+    small = numpy_batch(cfg, 121, 240, seed=1)
+    cfg2 = cfg.replace(**TWO_BLOCKS)
+    model = build_model(cfg2, "cuda")
+    before = dict(_lib.LAUNCHES)
+    got = model(small)
+    torch.cuda.synchronize()
+    ref_launches = {k: n - before[k] for k, n in _lib.LAUNCHES.items() if n != before[k]}
+    missing = [k for k in ROUTES["main"][1] if not ref_launches.get(k)]
     if missing:
-        raise AssertionError(f"small model: the reference run launched {ref_launches}")
-    if not worst <= 1e-2:
-        raise AssertionError(f"small model: card vs CPU: mean rel {worst} > 1e-2")
+        raise AssertionError(f"float32 model: the reference run never launched {missing}")
+    row = dict(phase="reference", model="Aurora() float32", grid="121x240",
+               depths=(cfg2.encoder_depths, cfg2.decoder_depths), launches=ref_launches, got=got)
+    defer_reference(refs, "float32 model reference", model, small, cfg, t0, row, F32_REF_TOL)
+    emit(dict(phase="f32", seconds=time.perf_counter() - t_phase))
     return launches
 
 
@@ -2381,8 +2874,6 @@ def main() -> int:
 
     # The decoder breakdown's ablated builds of K4 compile beside the kernels (the
     # breakdown then finds them built).
-    import threading
-
     from aurora_tpu_torch.tools.decoder_breakdown import K4_PARTS
     from aurora_tpu_torch.tools.kernel_ablate import build_variants
 
@@ -2416,24 +2907,42 @@ def main() -> int:
         seconds[phase] = now - mark
         mark = now
 
+    # TF32 off for the whole run (the plain versions' and the model's settings; see _Deferred).
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     summary = run_kernel_phases()
     lap("kernels")
+    # The CPU halves of the references run on one host thread; the routes' and the float32
+    # phase's 721 x 1440 host batch is made once (143 M seeded values, ~1.5 s of host time).
+    from aurora_tpu_torch.tools.perf_breakdown import numpy_batch, production_config
+
+    refs = _Deferred()
+    batch = numpy_batch(production_config(), 721, 1440)
     launches = {}
     for route in ROUTES:
-        launches[route] = run_route(route, STEPS, (121, 240),
+        launches[route] = run_route(route, STEPS, (121, 240), batch, refs,
                                     then=run_main_phases if route == "main" else None)
         missing = [k for k, n in ROUTES[route][1].items() if launches[route][k] == 0]
         if missing:
             raise AssertionError(f"route {route}: kernels never launched: {missing}")
         lap(f"route {route}")
+    launches["f32"] = run_f32(batch, refs)
+    del batch
+    lap("f32")
+    # The small model before the train phase, so that its references' CPU halves run on the
+    # host thread while the card trains.
+    launches["small"] = run_small(SMALL_STEPS, refs)
+    lap("small")
     train = run_train_phases()
     lap("train")
-    launches["tools"] = run_tools()
+    launches["tools"] = run_tools(refs)
     lap("tools")
-    run_variants(STEPS)
+    run_variants(VARIANT_STEPS, refs)
     lap("variants")
-    launches["small"] = run_small(STEPS)
-    lap("small")
+    # The CPU halves of the references, queued on the host thread since the routes.
+    waited = refs.close()
+    lap("references (waiting for the host thread)")
+    emit(dict(phase="references", waited_s=waited))
     emit(dict(phase="seconds", **seconds, total=sum(seconds.values())))
 
     def entry(s: dict, n_launches: int) -> dict:
@@ -2443,6 +2952,8 @@ def main() -> int:
                     ms=s["ms"], plain_ms=s["plain_ms"], bound_ms=s["bound_ms"],
                     bound_by=max(s["by"], key=s["by"].get), library_ms=s["library_ms"], **more)
 
+    cut = sum(TWO_BLOCKS["encoder_depths"]) + sum(TWO_BLOCKS["decoder_depths"])
+    route_blocks = {r: 48 if r == "main" else cut for r in ROUTES}
     kernels = []
     for name in TOL:
         src, replaces = SOURCES[name]
@@ -2455,6 +2966,14 @@ def main() -> int:
         e = dict(name=name, ok=True, route="cuda", source=src, replaces=replaces,
                  home_route=home, **entry(summary[name, main_mode],
                                           launches[home][name] if home else 0), **bwd)
+        if home in ROUTES:
+            # ``ms`` weights each shape by its launches a step at the 1.3 B model's 48 blocks
+            # (``ms_launches_per_step``); ``launches_per_step`` is what the home route's
+            # roll-out launched a step, at its own depth (routes W, P, X and S: 2 blocks a
+            # stage, 12 blocks).
+            e.update(route_blocks=route_blocks[home],
+                     launches_per_step=launches[home][name] // STEPS,
+                     ms_launches_per_step=summary[name, main_mode]["per_step"])
         if (name, "no tail") in summary:
             # K2 without the tail runs on route P; K6 without it on no route driven here.
             n = launches["P"][name] if name == "window_attention" else 0
@@ -2462,16 +2981,33 @@ def main() -> int:
         if (name, "ln_k") in summary:
             # K4 with ln_k is route S's aggregation: one of its two K4 launches a step.
             e["ln_k"] = entry(summary[name, "ln_k"], launches["S"][name] // 2)
-        # The small model's D = 256 shapes: times per step of the small model (its launches
-        # at D = 256, SMALL_D256), launches the count over its roll-out (all widths).
+        # The small model's D = 256 shapes in bf16: times per step of the small model with the
+        # production knobs (its launches at D = 256, SMALL_D256), launches the count over that
+        # model's roll-out (all widths; modes it does not run: 0).
         for mode in (None, "tail", "no tail", "ln_k"):
             if ("d256", name, mode) in summary:
                 s = summary["d256", name, mode]
+                runs = mode in (None, "tail")
                 d = e.setdefault("d256", {})
-                d[mode or "-"] = dict(entry(s, launches["small"].get(name, 0)),
-                                      shapes=s["shapes"],
-                                      d256_launches_per_small_step=SMALL_D256.get(name, 0)
-                                      if mode in (None, "tail") else 0)
+                d[mode or "-"] = dict(
+                    entry(s, launches["small"]["bf16"].get(name, 0) if runs else 0),
+                    shapes=s["shapes"],
+                    d256_launches_per_small_step=SMALL_D256.get(name, 0) if runs else 0)
+        # The float32 forms (K1-K4): times per step of the float32 model, launches the count
+        # over its roll-out (modes no float32 path runs: 0); the small model's D = 256 shapes
+        # in float32 under "d256", per small step, launches over the small model's roll-out.
+        for mode in (None, "tail", "no tail", "ln_k"):
+            runs = mode in (None, "tail")
+            if ("f32", name, mode) in summary:
+                n = launches["f32"][name] if runs else 0
+                s = summary["f32", name, mode]
+                e.setdefault("f32", {})[mode or "-"] = dict(entry(s, n), shapes=s["shapes"])
+            if ("f32d256", name, mode) in summary:
+                s = summary["f32d256", name, mode]
+                e.setdefault("f32", {}).setdefault("d256", {})[mode or "-"] = dict(
+                    entry(s, launches["small"]["f32"].get(name, 0) if runs else 0),
+                    shapes=s["shapes"],
+                    d256_launches_per_small_step=SMALL_D256.get(name, 0) if runs else 0)
         kernels.append(e)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

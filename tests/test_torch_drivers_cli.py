@@ -4,6 +4,9 @@
   random weights, a port ``save_params`` file, a reference ``.ckpt``); the JAX package's
   ``Batch.from_netcdf`` reads them; ``--track`` writes the track of the tracker run on the
   roll-out's predictions.
+* ``forecast`` from one reference-format ``.ckpt`` writes the JAX package's ``forecast``
+  files within float32 rounding: both drivers build the facade's default config (float32
+  all through).
 * ``evaluate`` prints the JSON of the JAX package's ``evaluate`` on the same files.
 * The error paths of ``tests/test_cli.py`` exit with code 2, and so does a run without a card
   and without ``--device cpu``, with a message.
@@ -11,8 +14,8 @@
 * ``tools.rollout_bench`` and ``tools.train_speed_probe`` with ``--device cpu`` at cut sizes.
 
 The model: the small config's ``AuroraSmallPretrained`` facade cut to widths of 64 and two
-blocks a stage (its ``default_config`` replaced for the test), with the production knobs the
-driver sets.
+blocks a stage (its ``default_config`` replaced for the test, in both packages), in its
+default config, as the CLI builds it.
 """
 
 import contextlib
@@ -26,18 +29,19 @@ import numpy as np
 import pytest
 import torch
 
+import aurora_tpu
 import aurora_tpu_torch as port
 from aurora_tpu import Batch as JBatch
 from aurora_tpu.cli import main as j_main
 from aurora_tpu_torch import Batch, rollout
 from aurora_tpu_torch.checkpoint import save_params
-from aurora_tpu_torch.cli import PRODUCTION, main
+from aurora_tpu_torch.cli import main
 from aurora_tpu_torch.model.config import AuroraConfig
 from aurora_tpu_torch.tools import rollout_bench, train_speed_probe
-from aurora_tpu_torch.tools.perf_breakdown import open_gates
+from aurora_tpu_torch.tools.perf_breakdown import PRODUCTION, open_gates
 from aurora_tpu_torch.tracker import Tracker
 from tests.conftest import make_batch
-from tests.test_torch_support import reference_state_dict, seeded_matched_models
+from tests.test_torch_support import batch_errors, reference_state_dict, seeded_matched_models
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -57,16 +61,21 @@ LEVELS = (100, 250, 500, 700, 850)
 
 @pytest.fixture
 def small_facade(monkeypatch):
-    """``AuroraSmallPretrained`` at the test's widths."""
+    """``AuroraSmallPretrained`` at the test's widths, in both packages."""
+    from aurora_tpu.model.config import AuroraConfig as JaxConfig
+
     monkeypatch.setattr(port.AuroraSmallPretrained, "default_config",
                         classmethod(lambda cls: AuroraConfig(**SMALL)))
+    monkeypatch.setattr(aurora_tpu.AuroraSmallPretrained, "default_config",
+                        classmethod(lambda cls: JaxConfig(**SMALL)))
     return port.AuroraSmallPretrained
 
 
 def _built(cls, seed=0):
-    """The model as ``forecast --random-init --seed`` builds it."""
-    model = cls(device="cpu", seed=seed, **PRODUCTION)
-    return port.cast_backbone_params(model)
+    """The model as ``forecast --random-init --seed`` builds it: the default config."""
+    model = cls(device="cpu", seed=seed)
+    assert not (model.cfg.autocast or model.cfg.agg_bf16 or model.cfg.deagg_bf16)
+    return model
 
 
 def _ic(path, H=17, W=32):
@@ -156,16 +165,40 @@ def test_forecast_loads_a_port_file_and_a_reference_checkpoint(small_facade, tmp
     _same_as_rollout(model, ic, tmp_path / "a", 1)
 
     # A reference-format file of a JAX tree of the same config, read through the converter.
-    _, params, ported = seeded_matched_models(dict(SMALL, **PRODUCTION))
+    _, params, ported = seeded_matched_models(dict(SMALL))
     torch.save({k: torch.from_numpy(np.array(v)) for k, v in
                 reference_state_dict(params).items()}, tmp_path / "ref.ckpt")
     rc = main(["forecast", "--model", "AuroraSmallPretrained", "--checkpoint",
                str(tmp_path / "ref.ckpt"), "--input", str(ic), "--steps", "1",
                "--output-dir", str(tmp_path / "b"), "--device", "cpu"])
     assert rc == 0
-    want = small_facade(device="cpu", seed=None, **PRODUCTION)
+    want = small_facade(device="cpu", seed=None)
     want.load_state_dict({k: v.float() for k, v in ported.state_dict().items()})
-    _same_as_rollout(port.cast_backbone_params(want), ic, tmp_path / "b", 1)
+    _same_as_rollout(want, ic, tmp_path / "b", 1)
+
+
+def test_forecast_from_a_reference_checkpoint_is_the_jax_clis(small_facade, tmp_path):
+    """One reference-format ``.ckpt`` (float32), ``forecast`` of both packages, 2 steps: the
+    port's files hold the JAX package's within float32 rounding of two programs' summation
+    orders (mean relative error <= 1e-5 per variable; a bf16 value or product anywhere gives
+    1e-3 and more), the metadata equal."""
+    ic = _ic(tmp_path / "ic.nc")
+    _, params, _ = seeded_matched_models(dict(SMALL))
+    torch.save({k: torch.from_numpy(np.asarray(v, np.float32)) for k, v in
+                reference_state_dict(params).items()}, tmp_path / "ref.ckpt")
+    argv = ["forecast", "--model", "AuroraSmallPretrained", "--checkpoint",
+            str(tmp_path / "ref.ckpt"), "--input", str(ic), "--steps", "2"]
+    assert main([*argv, "--output-dir", str(tmp_path / "port"), "--device", "cpu"]) == 0
+    assert j_main([*argv, "--output-dir", str(tmp_path / "jax")]) == 0
+    for i in range(2):
+        name = f"prediction-{i:03d}.nc"
+        got, want = JBatch.from_netcdf(tmp_path / "port" / name), JBatch.from_netcdf(
+            tmp_path / "jax" / name)
+        assert got.metadata.rollout_step == want.metadata.rollout_step == i + 1
+        assert tuple(got.metadata.time) == tuple(want.metadata.time)
+        assert all(np.asarray(v).dtype == np.float32 for v in got.surf_vars.values())
+        errs = batch_errors(got, want)
+        assert max(errs.values()) <= 1e-5, (i, errs)
 
 
 def test_forecast_tracks_the_predictions(small_facade, tmp_path):

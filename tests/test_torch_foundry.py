@@ -11,6 +11,9 @@
   port's endpoint returns the port's predictions.
 * ``ServedModel._load_params`` from a reference ``.ckpt`` and from a ``save_params`` file: a bf16
   backbone and an f32 encoder under ``autocast``.
+* The registry's entry builds its facade's default config, as the JAX registry does: from one
+  reference-format ``.ckpt`` the port's served predictions hold the JAX registry's within
+  float32 rounding (float32 all through on both sides).
 * The registry's names, the blob channel's URLs and SAS check, ``channel_from_spec`` and
   ``field_data_url`` as the JAX package's.
 
@@ -271,6 +274,41 @@ def test_load_params_casts_the_backbone_under_autocast(pair, kind, tmp_path):
     pred = next(served.run(torch_batch(make_batch(H=16, W=32, levels=(500.0, 850.0),
                                                   dtype=np.float32)), 1))
     assert all(np.isfinite(v).all() for v in pred.surf_vars.values())
+
+
+def test_registry_serves_the_default_config_as_jax(pair, tmp_path, monkeypatch):
+    """``aurora-0.25-small-pretrained`` in both registries, its facade's default config cut to
+    the test's tiny widths, one reference-format ``.ckpt`` (float32) as its artifact: the
+    port's model is float32 all through (no ``autocast``, no bf16 values or weights) and its
+    ``STEPS`` predictions hold the JAX registry's within float32 rounding (mean relative error
+    <= 1e-5 per variable; a bf16 value or product anywhere gives 1e-3 and more)."""
+    from aurora_tpu.model import aurora as j_aurora
+    from aurora_tpu.model.config import AuroraConfig as JaxConfig
+    from aurora_tpu_torch.model import aurora as t_aurora
+
+    name = "aurora-0.25-small-pretrained"
+    monkeypatch.setattr(j_aurora.AuroraSmallPretrained, "default_config",
+                        classmethod(lambda cls: JaxConfig(**TINY)))
+    monkeypatch.setattr(t_aurora.AuroraSmallPretrained, "default_config",
+                        classmethod(lambda cls: AuroraConfig(**TINY)))
+    path = tmp_path / "small.ckpt"
+    torch.save({k: torch.from_numpy(np.asarray(v, np.float32))
+                for k, v in reference_state_dict(pair[1]).items()}, path)
+    monkeypatch.setitem(t_models.ARTIFACTS, name, str(path))
+    monkeypatch.setitem(j_models.ARTIFACTS, name, str(path))
+    served = t_models.models[name](device="cpu")
+    cfg = served.model.cfg
+    assert not (cfg.autocast or cfg.agg_bf16 or cfg.deagg_bf16)
+    assert {p.dtype for p in served.model.parameters()} == {torch.float32}
+    batch = make_batch(H=16, W=32, levels=(500.0, 850.0), dtype=np.float32)
+    got = list(served.run(torch_batch(batch), STEPS))
+    want = list(j_models.models[name]().run(batch, STEPS))
+    assert len(got) == len(want) == STEPS
+    for g, w in zip(got, want):
+        assert g.metadata.rollout_step == w.metadata.rollout_step
+        assert all(v.dtype == np.float32 for v in {**g.surf_vars, **g.atmos_vars}.values())
+        errs = batch_errors(g, w)
+        assert max(errs.values()) <= 1e-5, errs
 
 
 def _rounded(model64):

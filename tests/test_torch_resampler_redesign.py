@@ -247,8 +247,17 @@ def test_perceiver_shape_rule_takes_the_models_shapes(K, M, D, h, dh, Q, D_out):
     resampler.check_perceiver_shape(K, M, D, h, dh, Q, D_out, True)
 
 
+@pytest.mark.parametrize("K,M,D,h,dh,Q,D_out", [
+    (13, 64800, 512, 16, 32, 3, 512), (3, 64800, 1024, 16, 64, 13, 1024),
+    (13, 64800, 256, 8, 32, 3, 256),  # the small model's agg
+])
+def test_perceiver_shape_rule_takes_the_float32_form(K, M, D, h, dh, Q, D_out):
+    """Without ``value_bf16`` (the facades' default config): the float32 kernels' shapes."""
+    resampler.check_perceiver_shape(K, M, D, h, dh, Q, D_out, False)
+
+
 @pytest.mark.parametrize("K,M,D,h,dh,Q,D_out,value_bf16,word", [
-    (13, 64800, 512, 16, 32, 3, 512, False, "value_bf16=False"),
+    (13, 64800, 512, 8, 64, 3, 512, False, "value_bf16=False"),
     (13, 64800, 512, 8, 64, 3, 512, True, "dh=64"),
     (3, 64800, 1024, 32, 32, 13, 1024, True, "K=3"),
     (5, 64800, 512, 16, 32, 3, 512, True, "K=5"),

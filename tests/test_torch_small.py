@@ -16,10 +16,10 @@ import torch
 
 import chip_smoke
 from aurora_tpu_torch import AuroraSmallPretrained, cast_backbone_params
-from aurora_tpu_torch.cli import PRODUCTION
 from aurora_tpu_torch.model import perceiver, swin3d
 from aurora_tpu_torch.ops import mlp, resampler, window_attention
 from aurora_tpu_torch.tools import variant_bench
+from aurora_tpu_torch.tools.perf_breakdown import PRODUCTION
 
 
 @pytest.fixture(autouse=True, scope="module")
