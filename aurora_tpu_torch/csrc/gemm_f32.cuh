@@ -1,5 +1,5 @@
-// The float32 product and row kernels of the float32 forms of K2, K3 and K4
-// (window_attention_f32.cu, mlp_f32.cu, resampler_f32.cu).
+// The float32 product and row kernels of the float32 forms of K2-K8 (window_attention_f32.cu:
+// K2, K6, K7; mlp_f32.cu: K3, K8, K5; resampler_f32.cu: K4).
 //
 // The TPU kernels compute in the tokens' dtype; in float32 every product accumulates in f32
 // from f32 operands (aurora_tpu/ops/mlp.py:244,375; aurora_tpu/model/swin3d.py:1127). On the
@@ -26,7 +26,7 @@
 //     out (holding y) = x + LN(y) * (scale_bias + scale[f]) + shift[f] in place, the
 //     LayerNorm two-pass over the row (mean, then the mean of the centred squares) as the
 //     plain version computes it, f = (row_base + row) / rows_per_batch; x the row's own row
-//     of an f32 matrix (RowsF32: K2, K3) or row (row_base + row) % period of one (PeriodicF32:
+//     of an f32 matrix (RowsF32: K2, K3, K5, K6) or row (row_base + row) % period of one (PeriodicF32:
 //     K4's queries).
 //
 // Bound of a product on the card: operations, 2 M K N at 67 TF/s. This is the simple design
@@ -212,7 +212,7 @@ int launch_gemm_f32(const A& a, const float* w, const float* bias, float* out, l
 }
 
 // The residual x of ln_rows_f32_kernel's row `row`: its own row of a (rows, D) f32 matrix
-// (K2, K3).
+// (K2, K3, K5, K6).
 struct RowsF32 {
   const float* x;
   __device__ __forceinline__ const float* row(int row, long long, int D) const {

@@ -8,7 +8,7 @@
 // mlp.py:604). K5 is K2's tail on rows (linear_adaln_residual below): proj with the f32 bias
 // and the LayerNorm statistics per 256-column tile (gemm_bias_kernel<EPI_BIAS_STATS>, W (D, D)
 // as stored), then ln_rows_kernel with the shortcut as the residual, FiLM row row / L and
-// eps 1e-5 (mlp.py:599). K5's bound: operations at D >= 1024, bytes at D = 512 (x and the
+// eps 1e-5 (mlp.py:599). K5's bound: operations at D >= 1024, bytes at D <= 512 (x and the
 // shortcut read, out written once; 2 rows D^2 bf16 flops).
 //
 // K3 / K8. Bound on the H100: operations, 4 * rows * D * Hd bf16 flops (~1.1 TFLOP, 1.1 ms
@@ -293,7 +293,8 @@ extern "C" int mlp_rows(const void* x, const void* w1, const float* b1, const vo
 
 // K5 on rows of tokens. x, shortcut, out: (rows, D) bf16, rows_per_batch rows per FiLM row;
 // w: (D, D) bf16 as stored; b: (D,) f32; shift, scale: (rows / rows_per_batch, D) f32; stats:
-// scratch of rows x D / 256 float2. Two launches. Takes D in {512, 1024, 2048}. Returns
+// scratch of rows x D / 256 float2. Two launches. Takes D in {256, 512, 1024, 2048} (at 256,
+// the small model's, one 256-column tile of product and statistics, as K2's tail). Returns
 // cudaGetLastError(), cudaErrorInvalidValue for a shape it does not take, or cudaErrorUnknown
 // where no tensor map could be encoded.
 extern "C" int linear_adaln_residual(const void* x, const void* w, const float* b,
@@ -301,7 +302,7 @@ extern "C" int linear_adaln_residual(const void* x, const void* w, const float* 
                                      float scale_bias, float* stats, void* out, int rows,
                                      long long rows_per_batch, int D, float eps,
                                      cudaStream_t stream) {
-  if (rows <= 0 || rows > (1 << 24) || (D != 512 && D != 1024 && D != 2048) ||
+  if (rows <= 0 || rows > (1 << 24) || (D != 256 && D != 512 && D != 1024 && D != 2048) ||
       rows_per_batch <= 0)
     return (int)cudaErrorInvalidValue;
   CUtensorMap map_x, map_w;

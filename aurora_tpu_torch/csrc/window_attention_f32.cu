@@ -1,40 +1,49 @@
-// K2 in float32: window attention over 144-token windows (head dim 64) read in place from the
-// padded (B, Cp, Hp, Wp, D) tokens, with the block's optional tail, for the facades' default
-// config (float32 all through).
+// K2, K6 and K7 in float32: window attention over 144-token windows (head dim 64), for the
+// facades' default config (float32 all through). K2 reads its windows in place from the
+// padded (B, Cp, Hp, Wp, D) tokens, K6 from pre-partitioned (B, nW, 144, D) windows, each with
+// the block's optional tail; K7 is the attention core alone on the caller's packed qkv.
 //
-// Replaces the float32 form of aurora_tpu/model/swin3d.py::_attn_windows_5d_fused_pallas
-// (pallas_call at swin3d.py:924), which swin_block_apply sends float32 tokens to on a TPU
-// (swin3d.py:1127,1193-1201). The function, all in f32:
-//   qkv  = x Wqkv + bqkv
+// Replaces the float32 forms of three kernels of aurora_tpu/model/swin3d.py, which compute in
+// the tokens' dtype (swin3d.py:1127,1193-1201; the shared body _qkv_attn_tail_body, :561-596,
+// and its core _heads_attention, :524-558):
+//   K2 _attn_windows_5d_fused_pallas (pallas_call at :924),
+//   K6 _attn_windows_qkv_fused_pallas (pallas_call at :772),
+//   K7 _sdpa_windows_fused_pallas (pallas_call at :651).
+// The function, all in f32:
+//   qkv  = x Wqkv + bqkv                                      (K2, K6; K7 is given qkv)
 //   attn = per head: logits q.k / 8 (+0 / -100 by group id), softmax, w @ v
 //   tail: y = attn Wproj + bproj; out = x + LN(y) scale[b] + shift[b] (two-pass LayerNorm,
 //         eps given); without the tail attn is the result.
 //
 // Bound on the H100: operations at 67 TF/s (stage 1 of the 0.25 degree model: qkv 0.41 TFLOP,
-// the core 0.08, proj 0.14: 9.2 ms a call with the tail).
+// the core 0.08, proj 0.14: 9.2 ms a K2 / K6 call with the tail); K7 alone 1.13 ms of
+// operations against 0.63 ms of bytes at stage 1.
 //
-// Design: four launches with the tail, two without, on the caller's stream:
+// Design: four launches with the tail, two without, one for K7, on the caller's stream:
 //   1. qkv: gemm_f32_kernel<8, EPI_BIAS> (gemm_f32.cuh) over the token rows in their stored
 //      order, Wqkv (D, 3D) as stored, into a (rows, 3D) f32 scratch (1.6 GB at stage 1);
-//   2. core: window_core_f32, one block a (window, head), head fastest. Its 9 warps load the
-//      window's q, k and v (144 x 64 each, read in place through the 5D grid's row of each
-//      token, rows of 68 floats in shared memory: conflict-free 16-byte reads down a column)
-//      and the window's group ids. Warp w takes queries 16 w .. 16 w + 15: each lane the
-//      keys lane + 32 t (t < 5, the last half a warp), 16 x 5 logits in registers from
-//      16-byte reads of q (broadcast) and k; the mask, a warp's max and sum per row, the
-//      weights to a 16 x 144 buffer of the warp's own; then w @ v with each lane 8 rows x 4
-//      features (16-byte reads of the weights, broadcast, and of v). Each token's result goes
-//      to its own row of the grid. Pad tokens are rows like any other; in masked blocks their
-//      own group id keeps them apart. 203 KB of shared memory, one block an SM.
+//   2. core: window_core_f32<Map>, one block a (window, head), head fastest. The row map
+//      gives the row of token t of window w: Grid5d (K2) the token's row of the padded 5D
+//      grid, Packed (K6, K7) w 144 + t. Its 9 warps load the window's q, k and v (144 x 64
+//      each, read through the map, rows of 68 floats in shared memory: conflict-free 16-byte
+//      reads down a column) and the window's group ids. Warp w takes queries 16 w .. 16 w +
+//      15: each lane the keys lane + 32 t (t < 5, the last half a warp), 16 x 5 logits in
+//      registers from 16-byte reads of q (broadcast) and k; the mask, a warp's max and sum
+//      per row, the weights to a 16 x 144 buffer of the warp's own; then w @ v with each lane
+//      8 rows x 4 features (16-byte reads of the weights, broadcast, and of v). Each token's
+//      result goes to its own row, through the map. Pad tokens are rows like any other; in
+//      masked blocks their own group id keeps them apart. 203 KB of shared memory, one block
+//      an SM.
 //   3. tail, proj: gemm_f32_kernel<8, EPI_BIAS>, Wproj (D, D) as stored, into out;
 //   4. tail, rows: ln_rows_f32_kernel with the block input x as the residual and FiLM row
 //      row / (nW 144), in place in out.
 // qkv and the attention output each make a round trip through device memory, as in the bf16
-// form (window_attention.cu), at twice its bytes.
+// form (window_attention.cu), at twice its bytes. K2 and K6 run one core and one GEMM on the
+// same rows in another order, so K6 on window_partition(x), reversed, gives K2's bits on x.
 //
-// Same C signature as window_attention.cu's window_attention (stats is not used: the row
-// kernel takes the LayerNorm statistics over the row it holds), K2's 5D addressing only
-// (Cp > 0).
+// window_attention_f32 has the C signature of window_attention.cu's window_attention (stats
+// is not used: the row kernel takes the LayerNorm statistics over the row it holds) and, as
+// it, is K2 for Cp > 0 and K6 for Cp == 0; sdpa_windows_f32 has sdpa.cu's sdpa_windows'.
 #include "gemm_f32.cuh"
 
 namespace {
@@ -45,8 +54,8 @@ constexpr size_t CORE_SMEM =
     (size_t)(3 * CN * LDQ + CORE_WARPS * 16 * LDP) * sizeof(float) + CN * sizeof(int) +
     CN * sizeof(long long);
 
-// The padded grid's windows: window w of batch element b = w / nW (windows in (C1, H1, W1)
-// order), token t in (wc, wh, ww) order.
+// K2's row map, the padded grid's windows: window w of batch element b = w / nW (windows in
+// (C1, H1, W1) order), token t in (wc, wh, ww) order.
 struct Grid5d {
   int nW, nH1, nW1, Cp, Hp, Wp, ws0, ws1, ws2;
   __device__ __forceinline__ long long row(long long window, int t) const {
@@ -58,10 +67,20 @@ struct Grid5d {
   }
 };
 
-// qkv: (rows, 3 D) f32; groups: (nW, 144) int32 or null; attn: (rows, D) f32.
+// K6's and K7's row map, packed windows: token t of window w at row w 144 + t.
+struct Packed {
+  int nW;
+  __device__ __forceinline__ long long row(long long window, int t) const {
+    return window * CN + t;
+  }
+};
+
+// qkv: (rows, 3 D) f32; groups: (nW, 144) int32 or null; attn: (rows, D) f32; both read and
+// written through the map g (Grid5d or Packed).
+template <class Map>
 __global__ void __launch_bounds__(CORE_THREADS, 1) window_core_f32(
     const float* __restrict__ qkv, const int* __restrict__ groups, float* __restrict__ attn,
-    const Grid5d g, int D, int heads) {
+    const Map g, int D, int heads) {
   extern __shared__ __align__(16) float sm[];
   float* qs = sm;                       // [CN][LDQ]
   float* ks = qs + CN * LDQ;            // [CN][LDQ]
@@ -178,15 +197,28 @@ __global__ void __launch_bounds__(CORE_THREADS, 1) window_core_f32(
   }
 }
 
+// The core over `windows` windows of the map g, one block a (window, head).
+template <class Map>
+int launch_core(const float* qkv, const int* groups, float* attn, const Map& g, long long windows,
+                int D, int heads, cudaStream_t stream) {
+  if (windows * heads > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  cudaFuncSetAttribute(window_core_f32<Map>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)CORE_SMEM);
+  window_core_f32<Map><<<(unsigned)(windows * heads), CORE_THREADS, CORE_SMEM, stream>>>(
+      qkv, groups, attn, g, D, heads);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// K2 in float32. x, attn, out: (B, Cp, Hp, Wp, D) f32 with windows (ws0, ws1, ws2) in place;
-// wqkv: (D, 3D) f32 as stored; bqkv: (3D,) f32; groups: (nW, 144) int32 or null (nW windows a
-// batch element); qkv: scratch (rows, 3D) f32. With wproj set, the tail: wproj (D, D) f32 as
-// stored, bproj (D,) f32, shift/scale (B, D) f32, the result in out; without it (wproj null)
-// the result is attn and out is unused. stats is not used. D in {256, 512, 1024, 2048},
-// D = 64 heads. Returns cudaGetLastError() of the last launch, or cudaErrorInvalidValue for a
-// shape it does not take.
+// K2 (Cp > 0) and K6 (Cp == 0) in float32. K2: x, attn, out (B, Cp, Hp, Wp, D) f32 with
+// windows (ws0, ws1, ws2) in place; K6: x, attn, out (B, nW, 144, D) f32 (Hp, Wp and ws are
+// not read). wqkv: (D, 3D) f32 as stored; bqkv: (3D,) f32; groups: (nW, 144) int32 or null
+// (nW windows a batch element); qkv: scratch (rows, 3D) f32. With wproj set, the tail: wproj
+// (D, D) f32 as stored, bproj (D,) f32, shift/scale (B, D) f32, the result in out; without it
+// (wproj null) the result is attn and out is unused. stats is not used. D in {256, 512, 1024,
+// 2048}, D = 64 heads. Returns cudaGetLastError() of the last launch, or cudaErrorInvalidValue
+// for a shape it does not take.
 extern "C" int window_attention_f32(const float* x, const float* wqkv, const float* bqkv,
                                     const int* groups, const float* wproj, const float* bproj,
                                     const float* shift, const float* scale, float* qkv,
@@ -196,22 +228,35 @@ extern "C" int window_attention_f32(const float* x, const float* wqkv, const flo
   (void)stats;
   const long long rows = (long long)B * nW * CN;
   if (B <= 0 || nW <= 0 || (D != 256 && D != 512 && D != 1024 && D != 2048) ||
-      D != DH * heads || rows > (1 << 24) || Cp <= 0 || ws0 * ws1 * ws2 != CN || Cp % ws0 ||
-      Hp % ws1 || Wp % ws2 || (Cp / ws0) * (Hp / ws1) * (Wp / ws2) != nW)
+      D != DH * heads || rows > (1 << 24))
+    return (int)cudaErrorInvalidValue;
+  if (Cp > 0 && (ws0 * ws1 * ws2 != CN || Cp % ws0 || Hp % ws1 || Wp % ws2 ||
+                 (Cp / ws0) * (Hp / ws1) * (Wp / ws2) != nW))
     return (int)cudaErrorInvalidValue;
   int err = f32k::launch_gemm_f32<8, f32k::EPI_BIAS>(f32k::Rows{x, D}, wqkv, bqkv, qkv, rows, D,
                                                      3 * D, stream);
   if (err) return err;
-  const Grid5d g{nW, Hp / ws1, Wp / ws2, Cp, Hp, Wp, ws0, ws1, ws2};
-  cudaFuncSetAttribute(window_core_f32, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)CORE_SMEM);
-  window_core_f32<<<(unsigned)(B * (long long)nW * heads), CORE_THREADS, CORE_SMEM, stream>>>(
-      qkv, groups, attn, g, D, heads);
-  if ((err = (int)cudaGetLastError())) return err;
-  if (!wproj) return 0;
+  const long long windows = (long long)B * nW;
+  if (Cp > 0)
+    err = launch_core(qkv, groups, attn, Grid5d{nW, Hp / ws1, Wp / ws2, Cp, Hp, Wp, ws0, ws1, ws2},
+                      windows, D, heads, stream);
+  else
+    err = launch_core(qkv, groups, attn, Packed{nW}, windows, D, heads, stream);
+  if (err || !wproj) return err;
   err = f32k::launch_gemm_f32<8, f32k::EPI_BIAS>(f32k::Rows{attn, D}, wproj, bproj, out, rows, D,
                                                  D, stream);
   if (err) return err;
   return f32k::launch_ln_rows_f32(f32k::RowsF32{x}, out, shift, scale, 0.f, (int)rows, 0,
                                   (long long)nW * CN, D, eps, stream);
+}
+
+// K7 in float32: qkv (B, nW, 144, 3D) f32 packed (q|k|v) x head x 64 -> out (B, nW, 144, D) f32;
+// groups: (nW, 144) int32 or null. One launch: the core on the caller's rows. Returns
+// cudaGetLastError(), or cudaErrorInvalidValue for a shape it does not take.
+extern "C" int sdpa_windows_f32(const float* qkv, const int* groups, float* out, int B, int nW,
+                                int D, int heads, cudaStream_t stream) {
+  const long long windows = (long long)B * nW;
+  if (B <= 0 || nW <= 0 || D != heads * DH || D % 128 || windows * CN > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  return launch_core(qkv, groups, out, Packed{nW}, windows, D, heads, stream);
 }

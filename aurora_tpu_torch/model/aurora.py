@@ -242,12 +242,13 @@ class Aurora(nn.Module):
                         p.fill_(0.5 if name.endswith("weight") else 0.0)
 
     # The knobs that change how the model computes, not its parameters.
-    RUNTIME_KNOBS = ("remat", "remat_scope", "drop_path", "drop_rate")
+    RUNTIME_KNOBS = ("remat", "remat_scope", "drop_path", "drop_rate", "attention_impl",
+                     "mlp_impl")
 
     def set_knobs(self, **knobs) -> "Aurora":
         """Set knobs of :data:`RUNTIME_KNOBS` on the built model (every submodule's copy of
-        the config): the same weights under another ``remat_scope``, say. Returns the
-        model."""
+        the config): the same weights under another ``remat_scope`` or on another backbone
+        route, say. Returns the model."""
         bad = sorted(set(knobs) - set(self.RUNTIME_KNOBS))
         if bad:
             raise ValueError(f"not a runtime knob: {bad}; these are {self.RUNTIME_KNOBS}")

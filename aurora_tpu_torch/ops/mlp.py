@@ -38,19 +38,22 @@ copy) and the product and row kernels of ``csrc/gemm_rows_sm90.cuh``:
   SM hardly overlap, PERF.md). ptxas: 168 registers at launch (consumers 232, producer 40),
   no spills; 222,256 and 214,080 bytes of dynamic shared memory (fc1, fc2); the row kernel
   32 registers.
-* K3 in float32 (the facades' default config; the TPU kernel computes in ``x.dtype`` with
-  the accurate erf GELU, ``mlp.py:244,375``): ``csrc/mlp_f32.cu``'s ``mlp_rows_f32`` on the
-  FFMA products of ``csrc/gemm_f32.cuh``, chunk of rows by chunk of rows as the bf16 form:
-  fc1 with the bias and the exact erf GELU into an f32 hidden scratch of at most 256 MB (half
-  the rows a chunk), fc2 with the bias into ``out``, then an f32 row kernel (a warp a row, the
-  LayerNorm two-pass over the row in registers), FiLM and the residual. Weights as stored, no
-  cast. Bound: operations, ``4 * rows * D * Hd`` f32 flops at 67 TF/s. K8 and K5 take bf16
-  only: float32 tokens raise ``ValueError`` there.
 * K5 is K2's tail on rows, two launches: proj with the f32 bias and the LayerNorm statistics
   (``gemm_bias_kernel<EPI_BIAS_STATS>``, ``w`` as stored), then ``ln_rows_kernel`` with the
   shortcut as the residual, ``scale_bias + scale`` as the gain and FiLM row ``row / L``. It
-  takes D in (512, 1024, 2048) (:func:`check_linear_shape`). Its bound is bytes at D = 512,
+  takes D in (256, 512, 1024, 2048) (:func:`check_linear_shape`; at the small model's 256 one
+  256-column tile of product and statistics, as K2's tail). Its bound is bytes at D <= 512,
   operations above.
+* K3, K8 and K5 in float32 (the facades' default config; the TPU kernels compute in
+  ``x.dtype``, the MLPs with the accurate erf GELU, ``mlp.py:244,375``): ``csrc/mlp_f32.cu``
+  on the FFMA products of ``csrc/gemm_f32.cuh``. K3 and K8 are ``mlp_rows_f32`` (``ln`` 1 or
+  0), chunk of rows by chunk of rows as the bf16 form: fc1 with the bias and the exact erf
+  GELU into an f32 hidden scratch of at most 256 MB (half the rows a chunk), fc2 with the bias
+  into ``out``, then for K3 an f32 row kernel (a warp a row, the LayerNorm two-pass over the
+  row in registers), FiLM and the residual. K5 is ``linear_adaln_residual_f32``: the product
+  with the bias, then the same row kernel with the shortcut as the residual. Weights as
+  stored (a bf16-stored weight is widened; the tokens are never narrowed). Bounds:
+  operations at 67 TF/s, ``4 * rows * D * Hd`` (K3, K8) and ``2 * rows * D * D`` (K5).
 
 Gradients (:mod:`aurora_tpu_torch.ops.ad`, the counterpart of the JAX package's
 ``kernel_with_xla_grad`` at ``mlp.py:302-314``, ``:445-536``, ``:629-645``): under grad mode a
@@ -89,7 +92,7 @@ _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlon
 MLP_SCRATCH_BYTES = 256 << 20  # the most a call allocates for the hidden activations
 # csrc/mlp.cu::mlp_rows
 _MLP_ROWS_ARGS = [_P] * 10 + [_F, _I, _L, _L, _I, _I, _F, _I, _P]
-# csrc/mlp.cu::linear_adaln_residual
+# csrc/mlp.cu::linear_adaln_residual, csrc/mlp_f32.cu::linear_adaln_residual_f32
 _LINEAR_ARGS = [_P] * 6 + [_F, _P, _P, _I, _L, _I, _F, _P]
 
 
@@ -208,12 +211,12 @@ def check_mlp_shape(M: int, D: int, Hd: int) -> None:
 
 
 def check_linear_shape(M: int, D: int) -> None:
-    """The shapes K5 takes on the card: M rows of D in (512, 1024, 2048) features (its
-    product's column tiles and the row kernel's 256-column statistics), at most 2^24 rows.
-    Raises ``ValueError`` otherwise."""
-    if D not in (512, 1024, 2048):
+    """The shapes K5 takes on the card: M rows of D in (256, 512, 1024, 2048) features (its
+    product's 256-column tiles and the row kernel's 256-column statistics), at most 2^24
+    rows. Raises ``ValueError`` otherwise."""
+    if D not in (256, 512, 1024, 2048):
         raise ValueError(
-            f"linear_adaln_residual kernel: D={D} is not one of 512, 1024, 2048 (M={M})")
+            f"linear_adaln_residual kernel: D={D} is not one of 256, 512, 1024, 2048 (M={M})")
     if not 0 < M <= 2**24:
         raise ValueError(f"linear_adaln_residual kernel: M={M} rows (D={D})")
 
@@ -232,8 +235,8 @@ def mlp_row_chunks(M: int, Hd: int, cap: int = MLP_SCRATCH_BYTES,
 
 def _mlp_operands(x, w1, b1, w2, b2):
     """K3's and K8's operands: the weights as stored, ``(in, out)`` in the tokens' dtype (no
-    copy where they are stored so), the biases f32; all checked. The tokens are bf16 or f32
-    (K8 checks for bf16 itself)."""
+    copy where they are stored so), the biases f32; all checked. The tokens are bf16 or f32;
+    any other dtype raises ``ValueError``."""
     f32 = torch.float32
     D, Hd = x.shape[-1], w1.shape[1]
     _lib.require(x, "x", f32 if x.dtype == f32 else torch.bfloat16)
@@ -320,12 +323,17 @@ def _mlp_adaln_residual_launch(x, w1, b1, w2, b2, shift, scale, scale_bias, ln_e
     scf = scale.to(torch.float32).reshape(B, D).contiguous()
     _same_device(x, w1=ops[0], b1=ops[1], w2=ops[2], b2=ops[3], shift=shf, scale=scf)
     out = torch.empty_like(x)
-    if x.dtype == torch.float32:
-        fn = _lib.kernel("mlp_f32", "mlp_rows_f32", _MLP_ROWS_ARGS)
-    else:
-        fn = _lib.kernel("mlp", "mlp_rows", _MLP_ROWS_ARGS)
-    _mlp_rows(fn, x.view(B * L, D), ops, out.view(B * L, D), (shf, scf, scale_bias, L, ln_eps))
+    _mlp_rows(_mlp_rows_entry(x), x.view(B * L, D), ops, out.view(B * L, D),
+              (shf, scf, scale_bias, L, ln_eps))
     return _lib.count_launch("mlp_adaln_residual", out)
+
+
+def _mlp_rows_entry(x: torch.Tensor):
+    """The C entry K3 and K8 run on the tokens ``x``: ``mlp_rows_f32`` on float32 tokens,
+    ``mlp_rows`` on bf16 ones."""
+    if x.dtype == torch.float32:
+        return _lib.kernel("mlp_f32", "mlp_rows_f32", _MLP_ROWS_ARGS)
+    return _lib.kernel("mlp", "mlp_rows", _MLP_ROWS_ARGS)
 
 
 def mlp_fused(
@@ -334,8 +342,9 @@ def mlp_fused(
     """``fc2(GELU(fc1 x))`` for ``x: (..., D)``, weights ``(in, out)``.
 
     CPU tensors take :func:`mlp_fused_plain`; CUDA tensors launch the kernels (K3's two
-    products; fc2's epilogue adds the bias and rounds), which take bf16 tokens of the shapes
-    of :func:`check_mlp_shape`.
+    products; fc2's epilogue adds the bias and rounds), which take bf16 or float32 tokens
+    (each its own kernels, the weights in the tokens' dtype) of the shapes of
+    :func:`check_mlp_shape`.
     """
     if x.device.type == "cpu":
         return mlp_fused_plain(x, w1, b1, w2, b2)
@@ -353,12 +362,10 @@ def _mlp_fused_differentiable(*args):
 
 def _mlp_fused_launch(x, w1, b1, w2, b2):
     D = x.shape[-1]
-    _lib.require(x, "x", torch.bfloat16)
     ops = _mlp_operands(x, w1, b1, w2, b2)
     _same_device(x, w1=ops[0], b1=ops[1], w2=ops[2], b2=ops[3])
     out = torch.empty_like(x)
-    fn = _lib.kernel("mlp", "mlp_rows", _MLP_ROWS_ARGS)
-    _mlp_rows(fn, x.view(-1, D), ops, out.view(-1, D))
+    _mlp_rows(_mlp_rows_entry(x), x.view(-1, D), ops, out.view(-1, D))
     return _lib.count_launch("mlp_fused", out)
 
 
@@ -375,7 +382,8 @@ def linear_adaln_residual(
     ``(B, L, D)``, ``w: (D, D)``, FiLM ``(B, D)``.
 
     CPU tensors take :func:`linear_adaln_residual_plain`; CUDA tensors launch the kernels,
-    which take bf16 tokens of the shapes of :func:`check_linear_shape`.
+    which take bf16 or float32 tokens (each its own kernels, the weight in the tokens' dtype)
+    of the shapes of :func:`check_linear_shape`.
     """
     if x.device.type == "cpu":
         return linear_adaln_residual_plain(x, w, b, shortcut, shift, scale, scale_bias)
@@ -395,11 +403,13 @@ def _linear_adaln_residual_differentiable(*args):
 
 def _linear_adaln_residual_launch(x, w, b, shortcut, shift, scale, scale_bias):
     B, L, D = x.shape
-    _lib.require(x, "x", torch.bfloat16)
-    _lib.require(shortcut, "shortcut", torch.bfloat16, (B, L, D))
+    f32 = x.dtype == torch.float32
+    dt = torch.float32 if f32 else torch.bfloat16
+    _lib.require(x, "x", dt)
+    _lib.require(shortcut, "shortcut", dt, (B, L, D))
     check_linear_shape(B * L, D)
     ops = {
-        "w": w.to(torch.bfloat16).contiguous(), "b": b.to(torch.float32).contiguous(),
+        "w": w.to(dt).contiguous(), "b": b.to(torch.float32).contiguous(),
         "shift": shift.to(torch.float32).reshape(B, D).contiguous(),
         "scale": scale.to(torch.float32).reshape(B, D).contiguous(),
     }
@@ -410,12 +420,17 @@ def _linear_adaln_residual_launch(x, w, b, shortcut, shift, scale, scale_bias):
         if tensor.data_ptr() % 16:
             raise ValueError(f"linear_adaln_residual: {name} must be 16-byte aligned")
     _same_device(x, shortcut=shortcut, **ops)
-    stats = torch.empty(B * L, D // 256, 2, dtype=torch.float32, device=x.device)
     out = torch.empty_like(x)
-    fn = _lib.kernel("mlp", "linear_adaln_residual", _LINEAR_ARGS)
+    if f32:  # the f32 row kernel takes its own statistics
+        stats = None
+        fn = _lib.kernel("mlp_f32", "linear_adaln_residual_f32", _LINEAR_ARGS)
+    else:
+        stats = torch.empty(B * L, D // 256, 2, dtype=torch.float32, device=x.device)
+        fn = _lib.kernel("mlp", "linear_adaln_residual", _LINEAR_ARGS)
     err = fn(
         x.data_ptr(), ops["w"].data_ptr(), ops["b"].data_ptr(), shortcut.data_ptr(),
-        ops["shift"].data_ptr(), ops["scale"].data_ptr(), float(scale_bias), stats.data_ptr(),
+        ops["shift"].data_ptr(), ops["scale"].data_ptr(), float(scale_bias),
+        None if stats is None else stats.data_ptr(),
         out.data_ptr(), B * L, L, D, 1e-5, _lib.stream(x),
     )
     _lib.check(err, "linear_adaln_residual")

@@ -43,14 +43,16 @@ passed as stored, with no transposed copy; a cast happens only where one is not 
 bf16 (``Wqkv``, ``bqkv``, ``Wproj``) or f32 (``bproj``, FiLM). Bound on the card: operations (qkv, logits, w@v and proj in bf16 at
 989 TF/s).
 
-K2 in float32 (the facades' default config; the TPU kernel computes in the tokens' dtype):
-``csrc/window_attention_f32.cu``'s ``window_attention_f32``, the same four launches in f32
-(two without the tail): qkv on the FFMA products of ``csrc/gemm_f32.cuh`` into a ``(rows,
-3D)`` f32 scratch (1.6 GB at stage 1), a core of one block a (window, head) with the window's
-q, k and v in shared memory (f32 logits, mask, softmax and ``w @ v``), proj, and an f32 row
-kernel (the LayerNorm two-pass over the row), FiLM and the residual. Weights as stored, no
-cast. Bound: operations at 67 TF/s. K6 and K7 take bf16 only: float32 tokens raise
-``ValueError`` there.
+K2, K6 and K7 in float32 (the facades' default config; the TPU kernels compute in the
+tokens' dtype): ``csrc/window_attention_f32.cu``. K2 and K6 are ``window_attention_f32``
+(the bf16 entry's signature; K6 with ``Cp = 0``), the same four launches in f32 (two without
+the tail): qkv on the FFMA products of ``csrc/gemm_f32.cuh`` into a ``(rows, 3D)`` f32
+scratch (1.6 GB at stage 1), a core of one block a (window, head) with the window's q, k and
+v in shared memory (f32 logits, mask, softmax and ``w @ v``) that reads and writes each
+token's row through a row map (K2: the padded 5D grid's row; K6: ``w * 144 + t``), proj, and
+an f32 row kernel (the LayerNorm two-pass over the row), FiLM and the residual. K7 is
+``sdpa_windows_f32``: that core alone on the caller's packed qkv. Weights as stored (a
+bf16-stored weight is widened; the tokens are never narrowed). Bound: operations at 67 TF/s.
 
 K7 is a kernel of its own (``csrc/sdpa.cu`` on ``csrc/sdpa_sm90.cuh``), bound by bytes:
 persistent blocks, two to an SM, walk runs of (window, head) units through a two-stage ring
@@ -314,8 +316,10 @@ def _group_ids(groups: Optional[np.ndarray], nW: int, device) -> Optional[torch.
     return gid
 
 
-# csrc/window_attention.cu::window_attention
+# csrc/window_attention.cu::window_attention, csrc/window_attention_f32.cu::window_attention_f32
 _WINDOW_ATTENTION_ARGS = [_P] * 12 + [_I] * 10 + [_F, _P]
+# csrc/sdpa.cu::sdpa_windows, csrc/window_attention_f32.cu::sdpa_windows_f32
+_SDPA_ARGS = [_P] * 3 + [_I] * 4 + [_P]
 
 
 def _window_attention_call(
@@ -367,7 +371,7 @@ def _window_attention_call(
 
 def _launch_window_attention(x, *args, what: str) -> torch.Tensor:
     """K2 or K6 (arguments as :func:`_window_attention_call`), counted in ``LAUNCHES``: bf16
-    tokens, or f32 ones (K2 only: its callers check)."""
+    or f32 tokens (its callers check)."""
     if x.dtype == torch.float32:
         fn = _lib.kernel("window_attention_f32", "window_attention_f32", _WINDOW_ATTENTION_ARGS)
     else:
@@ -416,9 +420,15 @@ def _window_attention_tail_differentiable(*args):
                                      chunks=chunks)(*args)
 
 
+def _token_dtype(x: torch.Tensor) -> torch.dtype:
+    """The dtype a window-attention wrapper requires of ``x``: its own where it is float32,
+    else bf16 (so any other dtype fails :func:`_lib.require`)."""
+    return torch.float32 if x.dtype == torch.float32 else torch.bfloat16
+
+
 def _window_attention_tail_launch(xp, wqkv, bqkv, groups, ws, num_heads, wproj, bproj, shift,
                                   scale, ln_eps):
-    _lib.require(xp, "xp", torch.float32 if xp.dtype == torch.float32 else torch.bfloat16)
+    _lib.require(xp, "xp", _token_dtype(xp))
     _, nW, rows = check_window_attention_shape(tuple(xp.shape), num_heads, ws)
     return _launch_window_attention(
         xp, wqkv, bqkv, groups, num_heads, _tail(wproj, bproj, shift, scale), ln_eps, nW, rows,
@@ -439,7 +449,8 @@ def window_attention_windowed(
     result as :func:`window_attention_tail`, in the windows' layout.
 
     CPU tensors take :func:`window_attention_windowed_plain`; CUDA tensors launch the
-    kernels (2 CUDA launches, 4 with the tail), which take bf16 tokens of the shapes
+    kernels (2 CUDA launches, 4 with the tail), which take bf16 or float32 tokens (each its
+    own kernels, the weights in the tokens' dtype) of the shapes
     :func:`check_window_attention_shape` passes.
     """
     if xw.device.type == "cpu":
@@ -460,7 +471,7 @@ def _window_attention_windowed_differentiable(*args):
 
 def _window_attention_windowed_launch(xw, wqkv, bqkv, groups, num_heads, wproj, bproj, shift,
                                       scale, ln_eps):
-    _lib.require(xw, "xw", torch.bfloat16)
+    _lib.require(xw, "xw", _token_dtype(xw))
     _, nW, rows = check_window_attention_shape(tuple(xw.shape), num_heads)
     return _launch_window_attention(
         xw, wqkv, bqkv, groups, num_heads, _tail(wproj, bproj, shift, scale), ln_eps, nW, rows,
@@ -476,7 +487,8 @@ def sdpa_windows(
     :func:`window_attention_tail`.
 
     CPU tensors take :func:`sdpa_windows_plain`; CUDA tensors launch the kernel, which takes
-    bf16 rows of the shapes :func:`check_sdpa_windows_shape` passes.
+    bf16 or float32 rows (each its own kernel) of the shapes :func:`check_sdpa_windows_shape`
+    passes.
     """
     if qkv.device.type == "cpu":
         return sdpa_windows_plain(qkv, groups, num_heads)
@@ -494,11 +506,16 @@ def _sdpa_windows_differentiable(qkv, groups, num_heads):
 
 
 def _sdpa_windows_launch(qkv, groups, num_heads):
-    _lib.require(qkv, "qkv", torch.bfloat16)
+    _lib.require(qkv, "qkv", _token_dtype(qkv))
     B, nW, D = check_sdpa_windows_shape(tuple(qkv.shape), num_heads)
+    if qkv.data_ptr() % 16:
+        raise ValueError("sdpa_windows kernel: qkv must be 16-byte aligned")
     gid = _group_ids(groups, nW, qkv.device)
     out = qkv.new_empty(B, nW, 144, D)
-    fn = _lib.kernel("sdpa", "sdpa_windows", [_P] * 3 + [_I] * 4 + [_P])
+    if qkv.dtype == torch.float32:
+        fn = _lib.kernel("window_attention_f32", "sdpa_windows_f32", _SDPA_ARGS)
+    else:
+        fn = _lib.kernel("sdpa", "sdpa_windows", _SDPA_ARGS)
     err = fn(
         qkv.data_ptr(), None if gid is None else gid.data_ptr(), out.data_ptr(),
         B, nW, D, num_heads, _lib.stream(qkv),

@@ -42,79 +42,22 @@ Phases, each printing one JSON line; any failure raises and the script exits non
    weight shape adds an odd number of pieces, whose last tile has one). K7 at stage 3, whose
    grid is padded to 48 x 96, must give the real tokens the same bits with garbage in the
    pad tokens' q, k and v. K4 also runs at the 121 x 240 grid's M = 1800 columns (a ragged
-   last tile of rows; no count towards the sums). The float32 forms of K1-K4 (the facades'
-   default config, ``f32_cases``) at the 1.3 B model's and the small model's shapes, each
-   against its plain version with full-f32 products (TF32 off): K1 the same bits, K2 and K3
-   within 9e-5 by the branch measure less one float32 ulp, K4 within 1e-4, and the plain
-   version with TF32 products must fail the same bound by the same measure
-   (``tf32_control_err``); timed over 5 runs, the plain versions over 2; in float32 garbage
-   in stage 3's pad tokens may move a real token by a rounding (the plain version's too),
-   within 1e-6 of the branch;
-4. end to end, once per route: the main route (``attention_impl``, ``mlp_impl`` auto, auto),
-   then W (pallas_windowed, fused), P (pallas, pallas), X (xla, fused) and S (the main
-   route with ``stabilise_level_agg=True``: K4 with ``ln_k``).
-   Each runs the 1.3 B production config (LoRA, bf16 backbone stored in bf16, bf16
-   (de-)aggregation values) at full width with the same seeded random weights, FiLM and LoRA
-   gates opened, the main route at full depth and W, P, X, S at two blocks per backbone stage
-   (the second shifted; every kernel still runs on every stage's token grid), ``rollout``
-   over the 721 x 1440 / 13-level batch (made once); per-step time, peak memory, per-step
-   launch counts (counts set to 0 just before the roll-out) checked against the code (scaled
-   to the depth); outputs finite and of the right shape; then a 121 x 240 grid against the
-   port's own CPU run of the same route: the route's model at two blocks per backbone stage
-   (the second shifted), seeded on the card, whose reference run must launch every kernel of
-   its route.
-   After the main route's roll-out, the breakdown: ``perf_breakdown``, ``encoder_breakdown``
-   and ``decoder_breakdown`` as a user runs them, in process, on the main route's model at
-   720 x 1440 (one JSON line per row, with the launches of one call of its part); the level
-   aggregation and de-aggregation must have launched K4 and K3, the backbone K1-K3. Then the
-   roll-outs, on the same model, as ``tools.bench`` measures them: ``rollout``,
-   ``rollout_scan`` and ``rollout_scan(host_offload=True)``, 4 steps each from one
-   721 x 1440 batch of host arrays (step times, peak memory, steps per second, the idle share
-   of two steady steps from ``torch.profiler``); launches per step as the main route's; the
-   three the same bits step by step (or within 1e-3 mean relative); the host-offload peak
-   within one prediction of a 2-step host-offload roll-out's; the caller's arrays unchanged.
-   Then the drivers, on the same model: a 721 x 1440 initial condition written with
-   ``Batch.to_netcdf`` (the land-sea mask 0 around the tracker's first fix), the
-   command-line ``forecast`` (``aurora_tpu_torch.cli.main``, 2 steps, ``--track``) with its
-   seconds split (reading, each step, each file's writing and bytes, the tracker), its files
-   the same bits as ``rollout``'s predictions of the same model (or within 1e-3 mean
-   relative) and its track the tracker's on the card's predictions and on their host copies;
-   ``evaluate`` of step 2 against step 1 on the card (finite scores); ``Batch.regrid(1.0)``
-   of a prediction with the native library built (one field through the scipy form beside
-   it, within 1e-12); ``tools.rollout_bench`` at 3 steps; ``tools.train_speed_probe`` at
-   121 x 240 over two arms. Every reference's CPU half (the CPU forward and the comparison)
-   runs on one host thread while the card goes on (``_Deferred``); the run waits for them
-   before its summary;
-4b. float32: ``Aurora()`` in its default config (float32 all through, as the JAX package's
-   CLI and registry build it), seeded, gates opened, ``rollout`` 2 steps over the same
-   721 x 1440 batch: step times, peak memory, launches per step the main route's, every
-   K1-K4 launch writing float32. Then the serving stack (the ``serving`` line): the
-   model's weights written once with ``checkpoint.save_params`` as the artifact of the
-   registry's ``aurora-0.25-finetuned``, ``foundry.http_server.serve`` on a loopback port with
-   a token (a bad token must get 401), the port's ``FoundryClient`` + ``submit`` over a
-   ``LocalFileChannel`` asking for 2 steps of the batch written to netCDF and read back: the
-   served task loads the artifact into the registry's model (the facade's default config)
-   on the card, on the server's worker thread; the client's predictions must be the
-   roll-out's bits, the served roll-out's launches the main route's a step (counts set to 0
-   just before ``submit``), all on float32 tokens; the forecast's parts (the artifact's
-   bytes and write time, the upload, the task's weight load and input read, each step and
-   each prediction file's write and bytes, the polling wait, the client's read-back, submit
-   to last prediction). Then the config at two blocks a stage on 121 x 240 against the
-   port's CPU run: mean relative error <= 1e-4 per variable;
-4c. small (before the train phase, so that its references run beside it):
-   ``AuroraSmallPretrained`` (D = 256) twice, in its default config
-   (``AuroraSmallPretrained()``, float32) and with the production knobs (bf16), seeded
-   weights, each a 2-step roll-out at 721 x 1440 (counts set to 0 just before): step times,
-   peak memory, launches per step against ``SMALL_RUN`` and those at D = 256 (K2 4, K3 5,
-   K4 1: ``SMALL_D256``) counted by width and dtype (every launch float32, or every launch
-   bf16); then the same model, full depth, on the 121 x 240 grid against the port's CPU run,
-   mean relative error <= 1e-4 in float32, <= 1e-2 in bf16. Its D = 256 kernel cases run in
-   phase 3, in bf16 (K2 with the tail masked and unmasked and without it masked, K6, K3 in
-   the backbone and the aggregation, K8, K4 with and without ``ln_k``; K2 must give K6's
-   bits) and in float32 (K2, K3, K4);
-5. train: K1-K8's gradients through their ``Function`` (the kernel forward, the backward
-   of the plain math with bf16 products) against autograd of the plain versions on the card,
-   every differentiable input, on inputs cut to a few thousand rows, windows or columns
+   last tile of rows; no count towards the sums). K5 also at the small model's D = 256 in
+   bf16. The float32 forms of K1-K8 (the facades' default config, ``f32_cases``) at the
+   1.3 B model's and the small model's shapes, each against its plain version with full-f32
+   products (TF32 off): K1 the same bits, K2, K3, K5, K6, K7 and K8 within 9e-5 by the
+   branch measure less one float32 ulp (no residual: over the largest output), K4 within
+   1e-4, and the plain version with TF32 products must fail the same bound by the same
+   measure (``tf32_control_err``); timed over 5 runs, the plain versions over 2 (K7 also
+   ``F.scaled_dot_product_attention`` in float32 on the same masked windows); K6 on
+   ``window_partition(xp)``, reversed, must give float32 K2's bits; in float32 garbage in
+   stage 3's pad tokens may move a real token by a rounding (the plain version's too),
+   within 1e-6 of the branch (K2, K6) or of the output (K7);
+4. train (the card-against-CPU steps described last run first, so that their CPU half, on
+   the host thread, overlaps the rest): K1-K8's gradients through their ``Function`` (the
+   kernel forward, the backward of the plain math with bf16 products) against autograd of
+   the plain versions on the card, every differentiable input, on inputs cut to a few
+   thousand rows, windows or columns
    (FiLM at unit gain): max ``|Δ|`` over max ``|reference gradient|`` (at least 1e-3 of the
    call's largest, for a gradient that is zero in exact arithmetic), less one bf16 ulp for a
    bf16 gradient, within the forward's bounds (roll exact, bf16 6e-3, K4 1e-2), the output's
@@ -138,11 +81,76 @@ Phases, each printing one JSON line; any failure raises and the script exits non
    again with ``drop_path=0.2, drop_rate=0.1`` and the masks drawn on the CPU for both runs
    (every block stochastic: K1, plain attention and MLP); then 10^4 Bernoulli draws on the
    card, the kept fraction within 5 binomial standard deviations;
-6. tools: the probe tools as a user runs them, in process, at the full 0.25 degree token
-   grid: ``backbone_ablate`` with every variant, ``gemm_probe`` and ``smem_probe`` (counts
-   set to 0 just before); K9-K13 must each have launched, and the backbones under
-   ``attention_impl`` "pallas" and "pallas_windowed" must agree within the bf16 block bound;
-7. variants: the released models AirPollution (451 x 900, patch 3), Wave (721 x 1440),
+5. end to end, once per route: the main route (``attention_impl``, ``mlp_impl`` auto, auto),
+   then W (pallas_windowed, fused), P (pallas, pallas), X (xla, fused) and S (the main
+   route with ``stabilise_level_agg=True``: K4 with ``ln_k``).
+   Each runs the 1.3 B production config (LoRA, bf16 backbone stored in bf16, bf16
+   (de-)aggregation values) at full width with the same seeded random weights, FiLM and LoRA
+   gates opened, the main route at full depth and W, P, X, S at two blocks per backbone stage
+   (the second shifted; every kernel still runs on every stage's token grid), ``rollout``
+   over the 721 x 1440 / 13-level batch (made once); per-step time, peak memory, per-step
+   launch counts (counts set to 0 just before the roll-out) checked against the code (scaled
+   to the depth); outputs finite and of the right shape; then a 121 x 240 grid against the
+   port's own CPU run of the same route: the route's model at two blocks per backbone stage
+   (the second shifted), seeded on the card, whose reference run must launch every kernel of
+   its route.
+   After the main route's roll-out, the breakdown: ``perf_breakdown``, ``encoder_breakdown``
+   and ``decoder_breakdown`` as a user runs them, in process, on the main route's model at
+   720 x 1440 (2 timed repetitions of each part; one JSON line per row, with the launches
+   of one call of its part); the level
+   aggregation and de-aggregation must have launched K4 and K3, the backbone K1-K3. Then the
+   roll-outs, on the same model, as ``tools.bench`` measures them: ``rollout``,
+   ``rollout_scan`` and ``rollout_scan(host_offload=True)``, 3 steps each from one
+   721 x 1440 batch of host arrays (step times, peak memory, steps per second, the idle share
+   of two steady steps from ``torch.profiler``); launches per step as the main route's; the
+   three the same bits step by step (or within 1e-3 mean relative); the host-offload peak
+   within one prediction of a 2-step host-offload roll-out's; the caller's arrays unchanged.
+   Then the drivers, on the same model: a 721 x 1440 initial condition written with
+   ``Batch.to_netcdf`` (the land-sea mask 0 around the tracker's first fix), the
+   command-line ``forecast`` (``aurora_tpu_torch.cli.main``, 2 steps, ``--track``) with its
+   seconds split (reading, each step, each file's writing and bytes, the tracker), its files
+   the same bits as ``rollout``'s predictions of the same model (or within 1e-3 mean
+   relative) and its track the tracker's on the card's predictions and on their host copies;
+   ``evaluate`` of step 2 against step 1 on the card (finite scores); ``Batch.regrid(1.0)``
+   of a prediction with the native library built (one field through the scipy form beside
+   it, within 1e-12); ``tools.rollout_bench`` at 3 steps; ``tools.train_speed_probe`` at
+   121 x 240 over two arms. Every reference's CPU half (the CPU forward and the comparison)
+   runs on one host thread while the card goes on (``_Deferred``); the run waits for them
+   before its summary;
+5b. float32: ``Aurora()`` in its default config (float32 all through, as the JAX package's
+   CLI and registry build it), seeded, gates opened, ``rollout`` 2 steps over the same
+   721 x 1440 batch: step times, peak memory, launches per step the main route's, every
+   K1-K4 launch writing float32. Then the serving stack (the ``serving`` line): the
+   model's weights written once with ``checkpoint.save_params`` as the artifact of the
+   registry's ``aurora-0.25-finetuned``, ``foundry.http_server.serve`` on a loopback port with
+   a token (a bad token must get 401), the port's ``FoundryClient`` + ``submit`` over a
+   ``LocalFileChannel`` asking for 1 step of the batch written to netCDF and read back: the
+   served task loads the artifact into the registry's model (the facade's default config)
+   on the card, on the server's worker thread; the client's predictions must be the
+   roll-out's bits, the served roll-out's launches the main route's a step (counts set to 0
+   just before ``submit``), all on float32 tokens; the forecast's parts (the artifact's
+   bytes and write time, the upload, the task's weight load and input read, each step and
+   each prediction file's write and bytes, the polling wait, the client's read-back, submit
+   to last prediction). Then the config at two blocks a stage (the second shifted), one
+   model moved between routes by ``Aurora.set_knobs``: routes W, P and X (``run_f32_route``)
+   each roll out one step over the 721 x 1440 batch with launches per step as
+   ``route_launches`` derives them, every one on float32 tokens; then the main route and
+   those three on 121 x 240 against the port's CPU run: mean relative error <= 1e-4 per
+   variable;
+5c. small:
+   ``AuroraSmallPretrained`` (D = 256) twice, in its default config
+   (``AuroraSmallPretrained()``, float32) and with the production knobs (bf16), seeded
+   weights, each on the main route (a 2-step roll-out at 721 x 1440) and on route X (one
+   step; ``set_knobs``), counts set to 0 just before each: step times, peak memory, launches
+   per step against ``SMALL_RUN`` / ``SMALL_X_RUN`` and those at D = 256 (main: K2 4, K3 5,
+   K4 1, ``SMALL_D256``; X: K5 4, K3 5, K4 1, ``SMALL_X_D256``) counted by width and dtype
+   (every launch float32, or every launch bf16); then the same model, full depth, on both
+   routes on the 121 x 240 grid against the port's CPU run, mean relative error <= 1e-4 in
+   float32, <= 1e-2 in bf16. Its D = 256 kernel cases run in phase 3, in bf16 (K2 with the
+   tail masked and unmasked and without it masked, K6, K3 in the backbone and the
+   aggregation, K8, K5, K4 with and without ``ln_k``; K2 must give K6's bits) and in
+   float32 (K2, K6, K7, K3, K8, K5, K4);
+6. variants: the released models AirPollution (451 x 900, patch 3), Wave (721 x 1440),
    HighRes (1801 x 3600, patch 10) and 12h (721 x 1440), each at its full width, depth and
    grid with the production knobs. The weights are each released checkpoint's keys and
    shapes (``tests/data/ckpt_manifests.json``) filled with seeded values at the scale of the
@@ -160,7 +168,12 @@ Phases, each printing one JSON line; any failure raises and the script exits non
    relative error <= 1e-2 per output variable where both are finite,
    and the points where the wave NaN masks differ (a density within the card's error of 1/2)
    at most 5%;
-9. the seconds of each phase, then the kernels summary line, one entry per kernel (K1-K8:
+7. tools, once the host thread's queue is drained: the probe tools as a user runs them, in
+   process, at the full 0.25 degree token grid: ``backbone_ablate`` with every variant,
+   ``gemm_probe`` and ``smem_probe`` (counts set to 0 just before); K9-K13 must each have
+   launched, and the backbones under ``attention_impl`` "pallas" and "pallas_windowed" must
+   agree within the bf16 block bound;
+8. the seconds of each phase, then the kernels summary line, one entry per kernel (K1-K8:
    times per forward step, each shape's time times its launches per step on the route that
    runs it, ``launches`` the count over that route's roll-out, and the backward's
    ``grad_err`` (the worst over the cut shapes and ``bwd_shape``), ``bwd_ms``,
@@ -169,9 +182,10 @@ Phases, each printing one JSON line; any failure raises and the script exits non
    ``launches`` the count over the tools phase; K2 and K6 carry their no-tail mode under
    ``no_tail``, K4 its ``ln_k`` form under ``ln_k`` and the bound of the TPU kernel's work
    under ``bound_of_tpu_work_ms``; K2, K6, K3, K8 and K4 the small model's D = 256 shapes
-   under ``d256`` by mode, times per small-model step; K1-K4 their float32 forms under
-   ``f32`` by mode, times per step of the float32 model and launches over its roll-out, with
-   the small model's float32 D = 256 shapes under ``f32`` ``d256``), the ``nvidia-smi``
+   under ``d256`` by mode, times per small-model step (K5 on route X); K1-K8 their float32
+   forms under ``f32`` by mode, times per step of the float32 model at 48 blocks on the
+   route that runs the form (``HOME_F32``) and launches over that route's float32 roll-out,
+   with the small model's float32 D = 256 shapes under ``f32`` ``d256``), the ``nvidia-smi``
    line, and the last line ``{"ok": true, "device": {...}}``.
 
 Run from the repository root: ``python3 chip_smoke.py``. It needs one card, and exits
@@ -193,7 +207,7 @@ import time
 STEPS = 3
 # Roll-out steps of the rollout_scan phase, and of its short host-offload roll-out whose peak
 # memory the full one's is held to.
-SCAN_STEPS, SHORT_STEPS = 4, 2
+SCAN_STEPS, SHORT_STEPS = 3, 2
 # Bound on the mean relative difference between the three roll-outs if a kernel turns out
 # not to give the same bits from run to run (they are expected to be equal).
 SCAN_AGREE_TOL = 1e-3
@@ -217,7 +231,8 @@ TOL = {
 # version with TF32 products by the same measure (``tf32_control_err``): the bound must fail
 # that control.
 TOL_F32 = {"roll3d": 0.0, "window_attention": 9e-5, "mlp_adaln_residual": 9e-5,
-           "perceiver_core": 1e-4}
+           "perceiver_core": 1e-4, "linear_adaln_residual": 9e-5,
+           "window_attention_windowed": 9e-5, "sdpa_windows": 9e-5, "mlp_fused": 9e-5}
 # Timed runs of the float32 kernels (up to ~0.2 s each at the de-aggregation's MLP) and of
 # their plain versions, after 2 and 1 warm-up runs.
 REPS_F32, PLAIN_REPS_F32 = 5, 2
@@ -266,6 +281,14 @@ TOOL_KERNELS = ("mlp_t", "attn_probe", "attn5d_direct", "gemm_blocked", "smem_pr
 HOME = {"roll3d": "main", "window_attention": "main", "mlp_adaln_residual": "main",
         "perceiver_core": "main", "linear_adaln_residual": "X", "window_attention_windowed": "W",
         "sdpa_windows": None, "mlp_fused": "P", **dict.fromkeys(TOOL_KERNELS, "tools")}
+# The float32 roll-out that gives each float32 form's launches in the summary, by (kernel,
+# mode): "f32" the full-depth ``Aurora()`` on the main route, "f32W", "f32P", "f32X" its
+# config at two blocks a stage on routes W, P and X. K7, K6 without the tail and K4 with ln_k
+# run on no float32 route driven here.
+HOME_F32 = {("roll3d", None): "f32", ("window_attention", "tail"): "f32",
+            ("mlp_adaln_residual", None): "f32", ("perceiver_core", None): "f32",
+            ("window_attention", "no tail"): "f32P", ("mlp_fused", None): "f32P",
+            ("window_attention_windowed", "tail"): "f32W", ("linear_adaln_residual", None): "f32X"}
 
 
 def emit(obj) -> None:
@@ -310,7 +333,7 @@ def kernel_cases():
     import torch
     import torch.nn.functional as F
 
-    from aurora_tpu_torch.ops import mlp, probes, resampler, roll, window_attention
+    from aurora_tpu_torch.ops import probes, resampler, roll, window_attention
     from aurora_tpu_torch.ops.masks import bias_from_groups, group_ids_tensor, window_group_ids
     from aurora_tpu_torch.tools import bound_ms
 
@@ -415,26 +438,8 @@ def kernel_cases():
         yield mlp_case(rn, f"backbone ({rows},{D})", rows, D, 4 * D, nblk, film,
                        ragged=rows % 64 != 0)
         # K8 (route P) and K5 (route X) at the same rows.
-        xr = rn(1, rows, D)
-        w8 = (rn(D, 4 * D, std=0.02), rn(4 * D, std=0.02, dtype=torch.float32),
-              rn(4 * D, D, std=0.02), rn(D, std=0.02, dtype=torch.float32))
-        yield case(
-            "mlp_fused", f"backbone ({rows},{D}), hidden {4 * D}", nblk,
-            kernel=lambda xr=xr, w=w8: mlp.mlp_fused(xr, *w),
-            plain=lambda xr=xr, w=w8: mlp.mlp_fused_plain(xr, *w), check="rel", recheck=True,
-            bound=bound_ms(flops_bf16=16 * rows * D * D, nbytes=2 * rows * D * 2 + 16 * D * D),
-        )
-        sc = rn(1, rows, D)
-        w5 = (rn(D, D, std=0.02), rn(D, std=0.02, dtype=torch.float32))
-        yield case(
-            "linear_adaln_residual", f"({rows},{D})", nblk, residual=sc,
-            kernel=lambda xr=xr, sc=sc, w=w5, f=film: mlp.linear_adaln_residual(xr, *w, sc, *f),
-            plain=lambda xr=xr, sc=sc, w=w5, f=film:
-                mlp.linear_adaln_residual_plain(xr, *w, sc, *f),
-            check="branch",
-            bound=bound_ms(flops_bf16=2 * rows * D * D, nbytes=3 * rows * D * 2 + D * D * 2),
-        )
-        del xr, sc
+        yield mlp_fused_case(rn, f"backbone ({rows},{D}), hidden {4 * D}", rows, D, nblk)
+        yield linear_case(rn, f"({rows},{D})", rows, D, nblk)
     # K2 and K6 at the 121 x 240 grid's stage 1 (the routes' reference runs): 7200 rows, whose
     # last 64-row piece is ragged. Masked, with the tail. Count nothing towards the sums.
     C, H, W, D, heads = 4, 30, 60, 512, 8
@@ -486,6 +491,8 @@ def kernel_cases():
 # each pair shifted, so masked), K3 in those 4 blocks and in the aggregation's MLP half, K4 in
 # the aggregation (D_out = 256; the de-aggregation's is the decoder's 512).
 SMALL_D256 = {"window_attention": 4, "mlp_adaln_residual": 5, "perceiver_core": 1}
+# On route X (attention_impl "xla", mlp_impl "fused") K5 takes the place of K2 with the tail.
+SMALL_X_D256 = {"linear_adaln_residual": 4, "mlp_adaln_residual": 5, "perceiver_core": 1}
 
 
 def small_cases(rn):
@@ -497,7 +504,7 @@ def small_cases(rn):
     not run count 0. K2 must give K6's bits on the partitioned windows."""
     import torch
 
-    from aurora_tpu_torch.ops import mlp, window_attention
+    from aurora_tpu_torch.ops import window_attention
     from aurora_tpu_torch.ops.masks import window_group_ids
     from aurora_tpu_torch.tools import bound_ms
 
@@ -545,14 +552,10 @@ def small_cases(rn):
     for c in (mlp_case(rn, f"D 256: backbone ({M},{D})", M, D, 4 * D, 4, film),
               mlp_case(rn, f"D 256: perceiver agg ({64800 * 3},{D})", 64800 * 3, D, 4 * D, 1, ln2)):
         yield dict(c, small=True)
-    xr = rn(1, M, D)
-    w8 = (rn(D, 4 * D, std=0.02), rn(4 * D, std=0.02, dtype=torch.float32),
-          rn(4 * D, D, std=0.02), rn(D, std=0.02, dtype=torch.float32))
-    yield case(
-        "mlp_fused", f"D 256: backbone ({M},{D}), hidden {4 * D}", 0,
-        kernel=lambda: mlp.mlp_fused(xr, *w8), plain=lambda: mlp.mlp_fused_plain(xr, *w8),
-        check="rel", recheck=True, small=True,
-        bound=bound_ms(flops_bf16=16 * M * D * D, nbytes=2 * M * D * 2 + 16 * D * D))
+    yield mlp_fused_case(rn, f"D 256: backbone ({M},{D}), hidden {4 * D}", M, D, 0, small=True)
+    # K5 at D = 256: route X's tail in the small model's 4 blocks of that width.
+    yield linear_case(rn, f"D 256: ({M},{D})", M, D, SMALL_X_D256["linear_adaln_residual"],
+                      small=True)
     for c in perceiver_cases(rn, "agg", 13, 64800, D, 8, 3, 1):
         # The small model's aggregation has no ln_k: that mode counts nothing.
         yield dict(c, small=True, label="D 256: " + c["label"],
@@ -560,16 +563,20 @@ def small_cases(rn):
 
 
 def f32_cases(rn):
-    """The float32 forms of K1-K4 (the facades' default config) at the 1.3 B model's shapes
+    """The float32 forms of K1-K8 (the facades' default config) at the 1.3 B model's shapes
     on the 720 x 1440 grid and at the small model's D = 256 ones: K1 on each stage's token
-    grid, both shifts; K2 with the tail (masked and unmasked: the model's shifted and
-    unshifted blocks) and without it (no float32 route runs that form: it counts 0) at each
-    stage and at D = 256, stage 3's masked case with garbage in its pad tokens, a ragged
-    121 x 240 case; K3 at each stage, the perceiver MLP halves' shapes, D = 256 and two FiLM
-    rows in one tile of rows, stage 3's ragged rows with the rows behind them untouched; K4's
-    aggregation (with and without ln_k) and de-aggregation at both models' shapes and at the
-    121 x 240 grid's 1800 columns. ``per_step``: launches per step of the float32 model
-    (K2 48 with the tail, K3 50, K4 2), or of the small one at D = 256 (``SMALL_D256``)."""
+    grid, both shifts; K2 and K6 with the tail (masked and unmasked: the model's shifted and
+    unshifted blocks) and without it, and K7, at each stage and at D = 256 (K2 giving K6's
+    bits; stage 3's masked cases with garbage in their pad tokens), a ragged 121 x 240 case of
+    K2 and K6; K3 at each stage, the perceiver MLP halves' shapes, D = 256 and two FiLM rows
+    in one tile of rows, stage 3's ragged rows with the rows behind them untouched (K3 and
+    K8); K8 and K5 at each stage and at D = 256; K4's aggregation (with and without ln_k) and
+    de-aggregation at both models' shapes and at the 121 x 240 grid's 1800 columns.
+    ``per_step``: launches per step of the float32 model on the route that runs the kernel at
+    48 blocks (main: K2 48 with the tail, K3 50, K4 2; P: K2 48 without the tail, K8 48; W: K6
+    48 with the tail; X: K5 48; K7, on no route, as if once a block), or of the small one at
+    D = 256 (``SMALL_D256``; route X: K5 4, ``SMALL_X_D256``); forms no float32 route runs
+    count 0."""
     import torch
 
     from aurora_tpu_torch.ops import roll
@@ -587,14 +594,20 @@ def f32_cases(rn):
                 check="exact", bound=bound_ms(nbytes=2 * x.numel() * 4),
             )
         del x
-        yield from k2_f32_cases(rn, C, H, W, D, heads, nblk // 2)
+        half = nblk // 2  # a stage's shifted (masked) blocks, and its unshifted ones
+        yield from attention_f32_cases(rn, C, H, W, D, heads, {
+            ("window_attention", "tail"): half, ("window_attention", "no tail"): half,
+            ("window_attention_windowed", "tail"): half, ("sdpa_windows", None): half})
         film = (rn(1, D, std=0.1, dtype=f32), rn(1, D, dtype=f32))
         rows = C * H * W
         yield mlp_case(rn, f"f32 backbone ({rows},{D})", rows, D, 4 * D, nblk, film,
                        ragged=rows % 64 != 0, f32=True)
+        yield mlp_fused_case(rn, f"f32 backbone ({rows},{D}), hidden {4 * D}", rows, D, nblk,
+                             f32=True)
+        yield linear_case(rn, f"f32 ({rows},{D})", rows, D, nblk, f32=True)
     # The 121 x 240 grid's stage 1: 7200 rows, a ragged last tile of rows. Counts nothing.
-    yield from k2_f32_cases(rn, 4, 30, 60, 512, 8, 0, "121 x 240, ragged: ", tails=(True,),
-                            groups=("masked",))
+    yield from attention_f32_cases(rn, 4, 30, 60, 512, 8, {}, "121 x 240, ragged: ",
+                                   tails=(True,), groups=("masked",), sdpa=False)
     for label, rows, D in (("agg", 64800 * 3, 512), ("de-agg", 64800 * 13, 1024)):
         ln2 = (rn(1, D, std=0.1, dtype=f32), 1 + rn(1, D, std=0.1, dtype=f32))
         yield mlp_case(rn, f"f32 perceiver {label} ({rows},{D})", rows, D, 2048, 1, ln2,
@@ -607,65 +620,165 @@ def f32_cases(rn):
             for c in perceiver_cases(rn, label, K, M, D, h, Q, per_step, f32=True):
                 # No float32 path here runs ln_k (the wave model's default config would).
                 yield dict(c, per_step=per_step if c["mode"] is None else 0)
-    # The small model (D = 256) in float32.
+    # The small model (D = 256) in float32: K2 2 + 2 a step with the tail (main route), K5 4
+    # (route X); its routes W and P are not driven.
     C, H, W, D, heads = 4, 180, 360, 256, 4
-    for c in k2_f32_cases(rn, C, H, W, D, heads, 2, "D 256: ", tails=(True, False)):
-        yield dict(c, small=True)
+    M = C * H * W
+    yield from attention_f32_cases(rn, C, H, W, D, heads, {("window_attention", "tail"): 2},
+                                   "D 256: ", small=True)
     film = (rn(1, D, std=0.1, dtype=f32), rn(1, D, dtype=f32))
     ln2 = (rn(1, D, std=0.1, dtype=f32), 1 + rn(1, D, std=0.1, dtype=f32))
-    for c in (mlp_case(rn, f"f32 D 256: backbone ({C * H * W},{D})", C * H * W, D, 4 * D, 4,
-                       film, f32=True),
+    for c in (mlp_case(rn, f"f32 D 256: backbone ({M},{D})", M, D, 4 * D, 4, film, f32=True),
               mlp_case(rn, f"f32 D 256: perceiver agg ({64800 * 3},{D})", 64800 * 3, D, 4 * D,
                        1, ln2, f32=True)):
         yield dict(c, small=True)
+    yield mlp_fused_case(rn, f"f32 D 256: backbone ({M},{D}), hidden {4 * D}", M, D, 0,
+                         f32=True, small=True)
+    yield linear_case(rn, f"f32 D 256: ({M},{D})", M, D, SMALL_X_D256["linear_adaln_residual"],
+                      f32=True, small=True)
     for c in perceiver_cases(rn, "agg", 13, 64800, D, 8, 3, 1, f32=True):
         yield dict(c, small=True, label=c["label"].replace("f32 ", "f32 D 256: ", 1),
                    per_step=1 if c["mode"] is None else 0)
 
 
-def k2_f32_cases(rn, C, H, W, D, heads, per_step, prefix="", tails=(True, False),
-                 groups=("masked", "unmasked")):
-    """K2 in float32 on the (1, C, H, W, D) grid padded to whole windows: with the tail
-    (``per_step`` launches each, masked and unmasked) and without it (0), each against the
-    plain version with full-f32 products; a padded grid's masked case with the tail also
-    with garbage in its pad tokens (the real tokens within PAD_F32_TOL)."""
+def attention_f32_cases(rn, C, H, W, D, heads, per_step, prefix="", tails=(True, False),
+                        groups=("masked", "unmasked"), sdpa=True, small=False):
+    """K2 and K6 in float32 on the (1, C, H, W, D) grid padded to whole windows (K6 on its
+    partitioned windows), with and without the tail, masked and unmasked; with ``sdpa`` K7 on
+    packed qkv of the same windows, masked and unmasked (``F.scaled_dot_product_attention`` in
+    float32 with the -100/0 mask beside it). Each against its plain version with full-f32
+    products. Every K2 case also checks that K6 on ``window_partition(xp)``, reversed, gives
+    its bits; on a padded grid, masked, garbage in the pad tokens must leave the real tokens
+    within PAD_F32_TOL (K2 and K6 with the tail, K7). ``per_step``: launches a step of each
+    (kernel, mode) on the route that runs it (absent: 0)."""
     import torch
+    import torch.nn.functional as F
 
     from aurora_tpu_torch.ops import window_attention
-    from aurora_tpu_torch.ops.masks import window_group_ids
+    from aurora_tpu_torch.ops.masks import bias_from_groups, group_ids_tensor, window_group_ids
     from aurora_tpu_torch.tools import bound_ms
 
     f32 = torch.float32
     ws, ss = (2, 6, 12), (1, 3, 6)
     Hp, Wp = H + (-H) % ws[1], W + (-W) % ws[2]
     xp = rn(1, C, Hp, Wp, D, dtype=f32)
+    xw = window_attention.window_partition(xp, ws).contiguous()
     M = C * Hp * Wp
-    nW, dh = M // 144, D // heads
+    nW, N, dh = M // 144, 144, D // heads
     wqkv, bqkv = rn(D, 3 * D, std=0.02, dtype=f32), rn(3 * D, std=0.02, dtype=f32)
     tail = (rn(D, D, std=0.02, dtype=f32), rn(D, std=0.02, dtype=f32),
             rn(1, D, std=0.1, dtype=f32), rn(1, D, dtype=f32))
-    fl_attn = 2 * M * D * 3 * D + 4 * nW * heads * 144 * 144 * dh
+    fl_core = 4 * nW * heads * N * N * dh
+    fl_attn = 2 * M * D * 3 * D + fl_core
+    padded = (Hp, Wp) != (H, W)
     for kind in groups:
         gr = window_group_ids(C, H, W, ws, ss) if kind == "masked" else None
         for with_tail in tails:
             t = tail if with_tail else None
             mode = "tail" if with_tail else "no tail"
-            nb = 2 * M * D * 4 + (4 if with_tail else 3) * D * D * 4
-            pad = with_tail and gr is not None and (Hp, Wp) != (H, W)
+            kw = dict(f32=True, small=small, mode=mode, check="branch" if with_tail else "rel",
+                      recheck=True, bound=bound_ms(
+                          flops_f32=fl_attn + (2 * M * D * D if with_tail else 0),
+                          nbytes=2 * M * D * 4 + (4 if with_tail else 3) * D * D * 4))
+            pad = with_tail and gr is not None and padded
+
+            def k2_extra(gr=gr, t=t, pad=pad):
+                more = k6_equals_k2(xp, wqkv, bqkv, gr, ws, heads, t)
+                if pad:
+                    more.update(k2_pad_tokens_isolated(xp, wqkv, bqkv, gr, ws, heads, t))
+                return more
+
             yield case(
                 "window_attention",
                 f"f32 {prefix}(1,{C},{Hp},{Wp},{D}) heads {heads}, {kind}, {mode}",
-                per_step if with_tail else 0, residual=xp if with_tail else None, f32=True,
-                mode=mode, check="branch" if with_tail else "rel", recheck=True,
+                per_step.get(("window_attention", mode), 0),
+                residual=xp if with_tail else None, extra=k2_extra,
                 kernel=lambda gr=gr, t=t:
                     window_attention.window_attention_tail(xp, wqkv, bqkv, gr, ws, heads, t),
                 plain=full_f32(lambda gr=gr, t=t: window_attention.window_attention_tail_plain(
-                    xp, wqkv, bqkv, gr, ws, heads, t)),
-                bound=bound_ms(flops_f32=fl_attn + (2 * M * D * D if with_tail else 0),
-                               nbytes=nb),
-                extra=(lambda gr=gr, t=t: k2_pad_tokens_isolated(xp, wqkv, bqkv, gr, ws, heads,
-                                                                 t)) if pad else None,
+                    xp, wqkv, bqkv, gr, ws, heads, t)), **kw,
             )
+            yield case(
+                "window_attention_windowed",
+                f"f32 {prefix}(1,{nW},{N},{D}) heads {heads}, {kind}, {mode}",
+                per_step.get(("window_attention_windowed", mode), 0),
+                residual=xw if with_tail else None,
+                extra=(lambda gr=gr, t=t: k2_pad_tokens_isolated(
+                    xp, wqkv, bqkv, gr, ws, heads, t, windowed=True)) if pad else None,
+                kernel=lambda gr=gr, t=t:
+                    window_attention.window_attention_windowed(xw, wqkv, bqkv, gr, heads, t),
+                plain=full_f32(lambda gr=gr, t=t:
+                               window_attention.window_attention_windowed_plain(
+                                   xw, wqkv, bqkv, gr, heads, t)), **kw,
+            )
+    if not sdpa:
+        return
+    # K7 on packed qkv; the library yardstick is SDPA in float32 on the same q, k, v (views
+    # (nW, heads, N, dh) of the packed rows) with the same -100/0 mask.
+    qkv = rn(1, nW, N, 3 * D, dtype=f32)
+    q, k, v = (t.contiguous() for t in
+               qkv.view(nW, N, 3, heads, dh).permute(2, 0, 3, 1, 4).unbind(0))
+    for kind in groups:
+        gr = window_group_ids(C, H, W, ws, ss) if kind == "masked" else None
+        mask = None if gr is None else bias_from_groups(group_ids_tensor(gr, qkv.device),
+                                                        f32)[:, None]
+        yield case(
+            "sdpa_windows", f"f32 {prefix}(1,{nW},{N},{3 * D}) heads {heads}, {kind}",
+            per_step.get(("sdpa_windows", None), 0), f32=True, small=small,
+            kernel=lambda gr=gr: window_attention.sdpa_windows(qkv, gr, heads),
+            plain=full_f32(lambda gr=gr: window_attention.sdpa_windows_plain(qkv, gr, heads)),
+            library=lambda m=mask: F.scaled_dot_product_attention(q, k, v, attn_mask=m),
+            check="rel", bound=bound_ms(flops_f32=fl_core, nbytes=4 * M * D * 4),
+            extra=(lambda gr=gr: pad_tokens_isolated(qkv, gr, heads))
+            if gr is not None and padded else None,
+        )
+
+
+def linear_case(rn, label, rows, D, per_step, f32=False, small=False):
+    """K5 on (1, rows, D) tokens and shortcut with FiLM at unit gain (shift N(0, 0.1), scale
+    N(0, 1), scale_bias 0), against its plain version (with full-f32 products in float32)."""
+    import torch
+
+    from aurora_tpu_torch.ops import mlp
+    from aurora_tpu_torch.tools import bound_ms
+
+    dt = torch.float32 if f32 else torch.bfloat16
+    e = 4 if f32 else 2
+    x, sc = rn(1, rows, D, dtype=dt), rn(1, rows, D, dtype=dt)
+    w = (rn(D, D, std=0.02, dtype=dt), rn(D, std=0.02, dtype=torch.float32))
+    film = (rn(1, D, std=0.1, dtype=torch.float32), rn(1, D, dtype=torch.float32))
+    fl = 2 * rows * D * D
+    return case(
+        "linear_adaln_residual", label, per_step, residual=sc, f32=f32, small=small,
+        kernel=lambda: mlp.linear_adaln_residual(x, *w, sc, *film),
+        plain=full_f32(lambda: mlp.linear_adaln_residual_plain(x, *w, sc, *film)),
+        check="branch", recheck=True,
+        bound=bound_ms(**{"flops_f32" if f32 else "flops_bf16": fl},
+                       nbytes=3 * rows * D * e + D * D * e),
+    )
+
+
+def mlp_fused_case(rn, label, rows, D, per_step, f32=False, small=False):
+    """K8 on (1, rows, D) tokens, hidden 4 D, against its plain version (with full-f32
+    products in float32)."""
+    import torch
+
+    from aurora_tpu_torch.ops import mlp
+    from aurora_tpu_torch.tools import bound_ms
+
+    dt = torch.float32 if f32 else torch.bfloat16
+    e = 4 if f32 else 2
+    x = rn(1, rows, D, dtype=dt)
+    w = (rn(D, 4 * D, std=0.02, dtype=dt), rn(4 * D, std=0.02, dtype=torch.float32),
+         rn(4 * D, D, std=0.02, dtype=dt), rn(D, std=0.02, dtype=torch.float32))
+    fl = 16 * rows * D * D
+    return case(
+        "mlp_fused", label, per_step, f32=f32, small=small,
+        kernel=lambda: mlp.mlp_fused(x, *w), plain=full_f32(lambda: mlp.mlp_fused_plain(x, *w)),
+        check="rel", recheck=True,
+        bound=bound_ms(**{"flops_f32" if f32 else "flops_bf16": fl},
+                       nbytes=2 * rows * D * e + 8 * D * D * e),
+    )
 
 
 def perceiver_cases(rn, label, K, M, D, h, Q, per_step, f32=False):
@@ -726,10 +839,13 @@ def perceiver_cases(rn, label, K, M, D, h, Q, per_step, f32=False):
 
 def pad_tokens_isolated(qkv, groups, heads) -> dict:
     """K7 on a padded grid: garbage in the pad tokens' q, k and v must leave every real
-    token's output the same bits (pad tokens have a group id of their own, the largest)."""
+    token's output the same bits in bf16, within PAD_F32_TOL of the clean output's largest in
+    float32 (pad tokens have a group id of their own, the largest; see PAD_F32_TOL), and must
+    change the pad tokens' outputs."""
     import torch
 
     from aurora_tpu_torch.ops import window_attention
+    from aurora_tpu_torch.tools import branch_err
 
     pad = torch.as_tensor(groups == groups.max(), device=qkv.device)  # (nW, N)
     if not pad.any() or pad.all():
@@ -740,10 +856,17 @@ def pad_tokens_isolated(qkv, groups, heads) -> dict:
     torch.cuda.synchronize()
     real_equal = torch.equal(clean[:, ~pad], dirty[:, ~pad])
     pad_moved = not torch.equal(clean[:, pad], dirty[:, pad])
-    if not (real_equal and pad_moved):
-        raise AssertionError(f"pad-token check: real tokens bit-equal {real_equal}, pad tokens "
-                             f"changed {pad_moved}")
-    return dict(pad_tokens=int(pad.sum()), real_tokens_bit_equal=True, pad_tokens_changed=True)
+    out = dict(pad_tokens=int(pad.sum()), real_tokens_bit_equal=real_equal,
+               pad_tokens_changed=pad_moved)
+    isolated = real_equal
+    if qkv.dtype == torch.float32:
+        out["real_tokens_changed"] = int((clean[:, ~pad] != dirty[:, ~pad]).sum())
+        out["real_tokens_rel_err"] = branch_err(dirty[:, ~pad], clean[:, ~pad],
+                                                torch.zeros((), device=qkv.device))[1]
+        isolated = out["real_tokens_rel_err"] <= PAD_F32_TOL
+    if not (isolated and pad_moved):
+        raise AssertionError(f"K7 pad-token check: {out}")
+    return out
 
 
 def k6_equals_k2(xp, wqkv, bqkv, groups, ws, heads, tail) -> dict:
@@ -771,11 +894,12 @@ def k6_equals_k2(xp, wqkv, bqkv, groups, ws, heads, tail) -> dict:
 PAD_F32_TOL = 1e-6
 
 
-def k2_pad_tokens_isolated(xp, wqkv, bqkv, groups, ws, heads, tail) -> dict:
-    """K2 on a padded grid, masked: garbage in the pad tokens of ``xp`` must leave every real
-    token's output the same bits in bf16, within PAD_F32_TOL in float32 (pad tokens have a
-    group id of their own, the largest; in a shifted block they lie where the roll put them;
-    proj and the LayerNorm work row by row), and must change the pad tokens' outputs."""
+def k2_pad_tokens_isolated(xp, wqkv, bqkv, groups, ws, heads, tail, windowed=False) -> dict:
+    """K2 on a padded grid, masked (with ``windowed``, K6 on its partitioned windows, the
+    output reversed): garbage in the pad tokens of ``xp`` must leave every real token's
+    output the same bits in bf16, within PAD_F32_TOL in float32 (pad tokens have a group id of
+    their own, the largest; in a shifted block they lie where the roll put them; proj and the
+    LayerNorm work row by row), and must change the pad tokens' outputs."""
     import torch
 
     from aurora_tpu_torch.ops import window_attention as wa
@@ -784,10 +908,16 @@ def k2_pad_tokens_isolated(xp, wqkv, bqkv, groups, ws, heads, tail) -> dict:
     _, Cp, Hp, Wp, _ = xp.shape
     pad_w = torch.as_tensor(groups == groups.max(), device=xp.device)  # (nW, N)
     pad = wa.window_reverse(pad_w[None, :, :, None], ws, Cp, Hp, Wp)[0, ..., 0]
-    clean = wa.window_attention_tail(xp, wqkv, bqkv, groups, ws, heads, tail)
-    dirty = wa.window_attention_tail(
-        torch.where(pad[None, ..., None], torch.full_like(xp, 7.0), xp), wqkv, bqkv, groups, ws,
-        heads, tail)
+
+    def run(x):
+        if not windowed:
+            return wa.window_attention_tail(x, wqkv, bqkv, groups, ws, heads, tail)
+        xw = wa.window_partition(x, ws).contiguous()
+        out = wa.window_attention_windowed(xw, wqkv, bqkv, groups, heads, tail)
+        return wa.window_reverse(out, ws, Cp, Hp, Wp)
+
+    clean = run(xp)
+    dirty = run(torch.where(pad[None, ..., None], torch.full_like(xp, 7.0), xp))
     torch.cuda.synchronize()
     real_equal = torch.equal(clean[:, ~pad], dirty[:, ~pad])
     pad_moved = not torch.equal(clean[:, pad], dirty[:, pad])
@@ -801,7 +931,7 @@ def k2_pad_tokens_isolated(xp, wqkv, bqkv, groups, ws, heads, tail) -> dict:
     else:
         isolated = real_equal
     if not (isolated and pad_moved):
-        raise AssertionError(f"K2 pad-token check: {out}")
+        raise AssertionError(f"{'K6' if windowed else 'K2'} pad-token check: {out}")
     return out
 
 
@@ -999,24 +1129,21 @@ def full_f32(fn):
 def rows_past_end_untouched(x, a) -> dict:
     """K3 and K8 on rows that are no multiple of a tile's 64, written into the first rows of
     a larger buffer filled with a sentinel: those rows must be the wrappers' bits, and the
-    rows behind them must keep the sentinel. On float32 tokens K3 alone (K8 takes bf16)."""
+    rows behind them must keep the sentinel; in bf16 or float32 (each its own entry)."""
     import torch
 
-    from aurora_tpu_torch.ops import _lib, mlp
+    from aurora_tpu_torch.ops import mlp
 
     B, L, D = x.shape
     M, spare, sentinel = B * L, 256, -32768.0
     if M % 64 == 0:
         raise AssertionError(f"ragged check: {M} rows are a multiple of 64")
-    f32 = x.dtype == torch.float32
     ops = mlp._mlp_operands(x, *a[:4])
-    fn = (_lib.kernel("mlp_f32", "mlp_rows_f32", mlp._MLP_ROWS_ARGS) if f32
-          else _lib.kernel("mlp", "mlp_rows", mlp._MLP_ROWS_ARGS))
+    fn = mlp._mlp_rows_entry(x)
     film = (a[4].float().reshape(B, D).contiguous(), a[5].float().reshape(B, D).contiguous(),
             0.0, L, 1e-5)
-    runs = [("mlp_adaln_residual", film, mlp.mlp_adaln_residual(x, *a))]
-    if not f32:
-        runs.append(("mlp_fused", None, mlp.mlp_fused(x, *a[:4])))
+    runs = [("mlp_adaln_residual", film, mlp.mlp_adaln_residual(x, *a)),
+            ("mlp_fused", None, mlp.mlp_fused(x, *a[:4]))]
     for what, f, ref in runs:
         buf = torch.full((M + spare, D), sentinel, dtype=x.dtype, device=x.device)
         mlp._mlp_rows(fn, x.view(M, D), ops, buf[:M], f)
@@ -1150,10 +1277,11 @@ def run_kernel_phases() -> dict:
 
 
 class _Deferred:
-    """The CPU halves of the card-against-CPU references (the routes', the float32 model's,
-    the variants' and the small model's), run one after the other on one host thread while
-    the card goes on with the next phases. A job runs a model's CPU forward, compares it with
-    the card's output already on the host, emits its line and raises on a failed check;
+    """The CPU halves of the card-against-CPU references (the train steps', the routes', the
+    float32 model's, the small model's and the variants'), run one after the other on one
+    host thread while the card goes on with the next phases. A job runs a model's CPU
+    forward (or train step), compares it with the card's output already on the host, emits
+    its line and raises on a failed check;
     ``drain`` re-raises the first failure. The thread's products take all but two of the
     host's cores, so that the main thread keeps launching. ``main`` switches TF32 off for the
     whole run: ``full_f32_products`` restores the switches it found, and a region entered on
@@ -1214,25 +1342,31 @@ def _patched(obj, name: str, fn):
 
 
 def defer_reference(refs: _Deferred, what: str, model, batch, cfg, t0: float, row: dict,
-                    tol: float) -> None:
+                    tol: float, more: tuple = ()) -> None:
     """Move ``model`` (its card run done) to the host and queue its CPU run on ``batch`` on
     ``refs``: the mean relative error per output variable against ``row["got"]`` (the card's
     output, moved to the host here) must be <= ``tol``; the job emits ``row`` with the
-    errors."""
+    errors. ``more``: ``(knobs, row)`` pairs, each compared the same way after
+    ``model.set_knobs(**knobs)`` (the same weights on another route), in order."""
     import torch
 
-    got = row.pop("got").to("cpu")
+    runs = [({}, row), *more]
+    gots = [r.pop("got").to("cpu") for _, r in runs]
     cpu = model.to("cpu")
     torch.cuda.empty_cache()
 
     def compare():
-        want = cpu(batch)
-        errs = _reference_errs(got, want, cfg)
-        worst = max(errs.values())
-        emit(dict(row, against=row.get("against", "port CPU run (plain versions)"),
-                  mean_rel=errs, worst=worst, tol=tol, seconds=time.perf_counter() - t0))
-        if not worst <= tol:
-            raise AssertionError(f"card vs CPU: mean rel {worst} > {tol}")
+        bad = []
+        for (knobs, r), got in zip(runs, gots):
+            want = cpu.set_knobs(**knobs)(batch)
+            errs = _reference_errs(got, want, cfg)
+            worst = max(errs.values())
+            emit(dict(r, against=r.get("against", "port CPU run (plain versions)"),
+                      mean_rel=errs, worst=worst, tol=tol, seconds=time.perf_counter() - t0))
+            if not worst <= tol:
+                bad.append(f"{r.get('route', '')} mean rel {worst} > {tol}")
+        if bad:
+            raise AssertionError(f"card vs CPU: {bad}")
 
     refs.submit(what, compare)
 
@@ -1367,6 +1501,9 @@ BREAKDOWN_KERNELS = {
 }
 
 
+BREAKDOWN_STEPS = 2  # the timed repetitions of each part of the breakdown tools
+
+
 def run_breakdown(model) -> None:
     """The three breakdown tools as a user runs them, in process, on the main route's model
     at 720 x 1440 (``perf_breakdown`` on the 721 x 1440 batch it crops). Each row must have
@@ -1379,7 +1516,7 @@ def run_breakdown(model) -> None:
     seen = set()
     for tool in (perf_breakdown, encoder_breakdown, decoder_breakdown):
         name = tool.__name__.rsplit(".", 1)[1]
-        for r in tool.main(["--steps", "3"], model=model):
+        for r in tool.main(["--steps", str(BREAKDOWN_STEPS)], model=model):
             emit(dict(phase="breakdown", tool=name, **r))
             need = BREAKDOWN_KERNELS.get((name, r["label"]), ())
             missing = [k for k in need if not r["launches"].get(k)]
@@ -1625,7 +1762,7 @@ def run_drivers(model) -> None:
 # ------------------------------------------------------------------------------ serving
 
 SERVED = "aurora-0.25-finetuned"  # the registry's entry served by the serving phase
-SERVE_STEPS = 2
+SERVE_STEPS = 1  # steps of the served float32 forecast (the first, with the upload)
 TOKEN = "chip-smoke-token"
 
 
@@ -1714,7 +1851,7 @@ def run_serving(model, batch, preds, ic, work) -> None:
     received = [r for r in channel.log if r["op"] == "receive"]
     tm = task.timings
     steps = [dict(s, bytes=r["bytes"]) for s, r in zip(tm["steps"], received)]
-    vs_rollout = agreement(preds, got)
+    vs_rollout = agreement(preds[:SERVE_STEPS], got)
     expected = {k: SERVE_STEPS * n for k, n in ROUTES["main"][1].items()}
     served_launches = {k: n for k, n in launches.items() if n}
     row = dict(phase="serving", model=SERVED, grid="721x1440", steps=SERVE_STEPS,
@@ -2186,7 +2323,7 @@ def run_rollout_train_phase() -> dict:
     return row
 
 
-def run_train_references() -> None:
+def run_train_references(refs: _Deferred) -> None:
     """The card against the port's CPU run: the recipe's model at two blocks per backbone
     stage (the second shifted), seeded on the card, one LoRA train step at 121 x 240 without
     remat (the rematerialisation is the same arithmetic, held in float64 on the CPU by the
@@ -2197,7 +2334,8 @@ def run_train_references() -> None:
     there and move the mask to the step's device), so that the two runs drop the same
     branches and elements; every block then runs the stochastic route (K1, plain attention
     and MLP), the perceivers K4 and K3. The card's steps first (masks drawn on the CPU through
-    the wrapped ``nn.keep_mask``), then the CPU's (which draws its own there)."""
+    the wrapped ``nn.keep_mask``), then the CPU's (which draws its own there, unwrapped: the
+    wrapper acts on this thread's calls only), queued on ``refs``."""
     import torch
 
     from aurora_tpu_torch.model import nn as tnn
@@ -2267,7 +2405,7 @@ def run_train_references() -> None:
         if bad:
             raise AssertionError(f"train card vs CPU: {bad}")
 
-    compare()
+    refs.submit("train references", compare)
 
 
 def run_card_draws() -> dict:
@@ -2291,13 +2429,16 @@ def run_card_draws() -> dict:
     return dict(kept=kept)
 
 
-def run_train_phases() -> dict:
-    """The phase ``train``: the kernels' gradients, the full-width LoRA and roll-out train
-    steps, the card against the CPU. Returns the gradient phases' summary, which the kernels
-    line reads."""
+def run_train_phases(refs: _Deferred) -> dict:
+    """The phase ``train``: the card against the CPU first (its CPU half queued on ``refs``,
+    so that it runs beside the rest), the kernels' gradients, the full-width LoRA and
+    roll-out train steps. Returns the gradient phases' summary, which the kernels line
+    reads."""
     import torch
 
     t0 = time.perf_counter()
+    run_train_references(refs)
+    torch.cuda.empty_cache()
     grads = run_grad_phases()
     model, inputs = run_train_step_phase()
     torch.cuda.empty_cache()
@@ -2306,7 +2447,6 @@ def run_train_phases() -> dict:
     torch.cuda.empty_cache()
     run_rollout_train_phase()
     torch.cuda.empty_cache()
-    run_train_references()
     run_card_draws()
     emit(dict(phase="train", seconds=time.perf_counter() - t0))
     return dict(grads=grads)
@@ -2596,19 +2736,23 @@ def run_variants(steps: int, refs: _Deferred) -> None:
 
 # Launches per forward step of AuroraSmallPretrained, from the code: stage depths (2, 6, 2) +
 # (2, 6, 2), 20 blocks, the odd-index half shifted (K1 twice each); K2 and K3 once a block;
-# K3 in the two perceiver MLP halves; K4 in the aggregation and the de-aggregation.
+# K3 in the two perceiver MLP halves; K4 in the aggregation and the de-aggregation. On route
+# X K5 takes K2's place.
 SMALL_RUN = {"roll3d": 20, "window_attention": 20, "mlp_adaln_residual": 22, "perceiver_core": 2}
+SMALL_X_RUN = {"roll3d": 20, "linear_adaln_residual": 20, "mlp_adaln_residual": 22,
+               "perceiver_core": 2}
 SMALL_GRID, SMALL_REF_GRID = (721, 1440), (121, 240)
-SMALL_STEPS = 2
+SMALL_STEPS = 2  # roll-out steps on the main route; route X takes one
+ROUTE_KERNELS = ("roll3d", "window_attention", "mlp_adaln_residual", "perceiver_core",
+                 "linear_adaln_residual", "window_attention_windowed", "sdpa_windows",
+                 "mlp_fused")
 
 
 class _KernelCalls:
-    """The launches of K1-K4 (``ops._lib.LAUNCHES_BY``: by kernel, output dtype and output
+    """The launches of K1-K8 (``ops._lib.LAUNCHES_BY``: by kernel, output dtype and output
     width) made while it is entered, a served task's from the server's worker thread too.
     It reads the wrappers' own counts, which a CPU run (a reference on the host thread)
     never moves, and patches nothing."""
-
-    KERNELS = ("roll3d", "window_attention", "mlp_adaln_residual", "perceiver_core")
 
     def __enter__(self):
         from aurora_tpu_torch.ops import _lib
@@ -2623,7 +2767,7 @@ class _KernelCalls:
     def calls(self) -> dict:
         """``{(kernel, dtype, width): launches}`` since entered (until left)."""
         return {at: n - self._before.get(at, 0) for at, n in self._by.items()
-                if at[0] in self.KERNELS and n != self._before.get(at, 0)}
+                if at[0] in ROUTE_KERNELS and n != self._before.get(at, 0)}
 
     def by_dtype(self) -> dict:
         """``{dtype: {kernel: launches}}``."""
@@ -2634,7 +2778,7 @@ class _KernelCalls:
         return out
 
     def at_width(self, width: int) -> dict:
-        """``{kernel: launches}`` of K2-K4 with ``width``-wide output rows."""
+        """``{kernel: launches}`` of K2-K8 with ``width``-wide output rows."""
         out: dict = {}
         for (k, _, w), n in self.calls.items():
             if w == width and k != "roll3d":
@@ -2646,23 +2790,29 @@ SMALL_FORMS = {  # form: (config, reference bound, dtype of every launch)
     "f32": ("default (float32 all through)", 1e-4, "float32"),
     "bf16": ("production knobs (bf16 backbone and (de-)aggregation values)", 1e-2, "bfloat16"),
 }
+# The small model's routes: (knobs, roll-out steps, launches a step, those at D = 256).
+SMALL_ROUTES = {
+    "main": (ROUTES["main"][0], SMALL_STEPS, SMALL_RUN, SMALL_D256),
+    "X": (ROUTES["X"][0], 1, SMALL_X_RUN, SMALL_X_D256),
+}
 
 
-def run_small(steps: int, refs: _Deferred) -> dict:
+def run_small(refs: _Deferred) -> dict:
     """``AuroraSmallPretrained`` (D = 256) on the card in each of ``SMALL_FORMS``: in its
     default config (``AuroraSmallPretrained()``, float32 all through) and with the production
     knobs (``tools.variant_bench.build_variant``: bf16 backbone stored in bf16, bf16 (de-)
-    aggregation values); seeded weights, gates opened. Each: a roll-out of ``steps`` steps at
+    aggregation values); seeded weights, gates opened. Each form on each of ``SMALL_ROUTES``
+    (the main route, then route X on the same weights by ``set_knobs``): a roll-out at
     721 x 1440 through ``tools.variant_bench.run_rollout`` (counts set to 0 just before):
-    step times, peak memory, launches per step against ``SMALL_RUN``, every launch in the
-    form's dtype and those at D = 256 against ``SMALL_D256``; outputs finite at their shapes.
-    Then the same model (full depth) on the 121 x 240 grid against the port's CPU run of it:
-    mean relative error per output variable within the form's bound (its CPU half on the
-    host thread). Returns the launches of each form's roll-out."""
-    return {form: _run_small_form(form, steps, refs) for form in SMALL_FORMS}
+    step times, peak memory, launches per step against the route's counts, every launch in
+    the form's dtype and those at D = 256 against the route's; outputs finite at their
+    shapes. Then the same model (full depth) on the 121 x 240 grid on each route, against the
+    port's CPU run of it: mean relative error per output variable within the form's bound
+    (its CPU half on the host thread). Returns ``{form: {route: launches of its roll-out}}``."""
+    return {form: _run_small_form(form, refs) for form in SMALL_FORMS}
 
 
-def _run_small_form(form: str, steps: int, refs: _Deferred) -> dict:
+def _run_small_form(form: str, refs: _Deferred) -> dict:
     import torch
 
     from aurora_tpu_torch import AuroraSmallPretrained
@@ -2678,69 +2828,83 @@ def _run_small_form(form: str, steps: int, refs: _Deferred) -> dict:
     else:
         model = variant_bench.build_variant(AuroraSmallPretrained, "cuda")
     cfg = model.cfg
-    bad = []
     if form == "f32":
         if cfg.autocast or cfg.agg_bf16 or cfg.deagg_bf16:
-            bad.append(f"default config not float32 all through: {cfg}")
+            raise AssertionError(f"small model: default config not float32 all through: {cfg}")
         if {p.dtype for p in model.parameters()} != {torch.float32}:
-            bad.append("weights not all float32")
+            raise AssertionError("small model: weights not all float32")
+    model_name = "AuroraSmallPretrained()" if form == "f32" else "AuroraSmallPretrained"
     H, W = SMALL_GRID
     batch = variant_bench.raw_batch(cfg, H, W, device="cuda")
-    _lib.reset_launches()
-    with _KernelCalls() as calls:
-        r = variant_bench.run_rollout(model, batch, steps)
-    launches = dict(_lib.LAUNCHES)
-    d256 = {k: n // steps for k, n in calls.at_width(256).items()}
-    by_dtype = calls.by_dtype()
-    if any(got != SMALL_RUN for got in r["launches_per_step"]):
-        bad.append(f"launches {r['launches_per_step']} (want {SMALL_RUN} a step)")
-    if d256 != SMALL_D256 or any(n % steps for n in calls.at_width(256).values()):
-        bad.append(f"at D = 256 {calls.at_width(256)} over {steps} steps (want {SMALL_D256} "
-                   "a step)")
-    if by_dtype != {dtype: {k: steps * n for k, n in SMALL_RUN.items()}}:
-        bad.append(f"launches by dtype {by_dtype} (want all {dtype})")
-    if bad:
-        raise AssertionError(f"small model, {form}: {bad}")
-    Hc = H - H % cfg.patch_size
-    want_shapes = {**{k: [1, 1, Hc, W] for k in cfg.surf_vars},
-                   **{k: [1, 1, len(LEVELS), Hc, W] for k in cfg.atmos_vars}}
-    if (r["outputs"] != want_shapes or any(r["nan_points"].values())
-            or any(r["inf_points"].values()) or r["rollout_step"] != steps):
-        raise AssertionError(f"small model, {form}: outputs {r['outputs']}, NaN "
-                             f"{r['nan_points']}, inf {r['inf_points']}")
-    model_name = "AuroraSmallPretrained()" if form == "f32" else "AuroraSmallPretrained"
-    emit(dict(phase="small", form=form, model=model_name, config=config, grid=f"{H}x{W}",
-              embed_dim=cfg.embed_dim, depths=(cfg.encoder_depths, cfg.decoder_depths),
-              heads=(cfg.encoder_num_heads, cfg.decoder_num_heads),
-              params=sum(p.numel() for p in model.parameters()), steps=steps,
-              step_s=r["step_s"], peak_mem_gib=r["peak_mem_gib"],
-              launches_per_step=r["launches_per_step"][-1], expected_per_step=SMALL_RUN,
-              d256_per_step=d256, expected_d256_per_step=SMALL_D256, launches_by_dtype=by_dtype,
-              launches=launches, seconds=time.perf_counter() - t0))
+    launches = {}
+    for route, (knobs, steps, run, d256_run) in SMALL_ROUTES.items():
+        t1 = time.perf_counter()
+        model.set_knobs(**knobs)
+        _lib.reset_launches()
+        with _KernelCalls() as calls:
+            r = variant_bench.run_rollout(model, batch, steps)
+        launches[route] = dict(_lib.LAUNCHES)
+        d256 = {k: n // steps for k, n in calls.at_width(256).items()}
+        by_dtype = calls.by_dtype()
+        bad = []
+        if any(got != run for got in r["launches_per_step"]):
+            bad.append(f"launches {r['launches_per_step']} (want {run} a step)")
+        if d256 != d256_run or any(n % steps for n in calls.at_width(256).values()):
+            bad.append(f"at D = 256 {calls.at_width(256)} over {steps} steps (want {d256_run} "
+                       "a step)")
+        if by_dtype != {dtype: {k: steps * n for k, n in run.items()}}:
+            bad.append(f"launches by dtype {by_dtype} (want all {dtype})")
+        Hc = H - H % cfg.patch_size
+        want_shapes = {**{k: [1, 1, Hc, W] for k in cfg.surf_vars},
+                       **{k: [1, 1, len(LEVELS), Hc, W] for k in cfg.atmos_vars}}
+        if (r["outputs"] != want_shapes or any(r["nan_points"].values())
+                or any(r["inf_points"].values()) or r["rollout_step"] != steps):
+            bad.append(f"outputs {r['outputs']}, NaN {r['nan_points']}, inf {r['inf_points']}")
+        emit(dict(phase="small", form=form, route=route, **knobs, model=model_name,
+                  config=config, grid=f"{H}x{W}", embed_dim=cfg.embed_dim,
+                  depths=(cfg.encoder_depths, cfg.decoder_depths),
+                  heads=(cfg.encoder_num_heads, cfg.decoder_num_heads),
+                  params=sum(p.numel() for p in model.parameters()), steps=steps,
+                  step_s=r["step_s"], peak_mem_gib=r["peak_mem_gib"],
+                  launches_per_step=r["launches_per_step"][-1], expected_per_step=run,
+                  d256_per_step=d256, expected_d256_per_step=d256_run, launches_by_dtype=by_dtype,
+                  launches=launches[route], seconds=time.perf_counter() - t1))
+        if bad:
+            raise AssertionError(f"small model, {form}, route {route}: {bad}")
     del batch
 
-    # The reference: the same model, full depth, on the 121 x 240 grid against the port's CPU
-    # run of the same weights (its CPU half on the host thread).
+    # The reference: the same model, full depth, on the 121 x 240 grid on each route against
+    # the port's CPU run of the same weights (its CPU half on the host thread).
     t1 = time.perf_counter()
     h, w = SMALL_REF_GRID
     small = variant_bench.raw_batch(cfg, h, w, seed=1)
-    before = dict(_lib.LAUNCHES)
-    got = model(small)
-    torch.cuda.synchronize()
-    ref_launches = {k: n - before[k] for k, n in _lib.LAUNCHES.items() if n != before[k]}
-    if any(ref_launches.get(k) != n for k, n in SMALL_RUN.items()):
-        raise AssertionError(f"small model, {form}: the reference run launched {ref_launches}")
-    ref = dict(phase="reference", model=model_name, form=form, config=config, grid=f"{h}x{w}",
-               depths=(cfg.encoder_depths, cfg.decoder_depths), launches=ref_launches, got=got)
-    defer_reference(refs, f"small model reference ({form})", model, small, cfg, t1, ref, tol)
+    rows = []
+    for route, (knobs, _, run, _) in SMALL_ROUTES.items():
+        before = dict(_lib.LAUNCHES)
+        got = model.set_knobs(**knobs)(small)
+        torch.cuda.synchronize()
+        ref_launches = {k: n - before[k] for k, n in _lib.LAUNCHES.items() if n != before[k]}
+        if ref_launches != run:
+            raise AssertionError(f"small model, {form}, route {route}: the reference run "
+                                 f"launched {ref_launches}")
+        rows.append((knobs, dict(phase="reference", model=model_name, form=form, route=route,
+                                 config=config, grid=f"{h}x{w}",
+                                 depths=(cfg.encoder_depths, cfg.decoder_depths),
+                                 launches=ref_launches, got=got)))
+    model.set_knobs(**rows[0][0])
+    defer_reference(refs, f"small model reference ({form})", model, small, cfg, t1, rows[0][1],
+                    tol, more=rows[1:])
+    emit(dict(phase="small", form=form, seconds=time.perf_counter() - t0))
     return launches
 
 
 # ------------------------------------------------------------------------------ float32 model
 
 F32_STEPS = 2  # roll-out steps of the float32 model at 721 x 1440
+F32_ROUTE_STEPS = 1  # roll-out steps of the float32 routes W, P and X at two blocks a stage
 F32_REF_TOL = 1e-4  # card vs CPU, mean relative error per variable, float32 all through
 F32_DIR = "build/f32"  # the float32 phase's files, under the checkout, removed at its end
+F32_ROUTES = ("W", "P", "X")  # the float32 routes beside the main one, each on its own kernels
 
 
 def run_f32(batch, refs: _Deferred) -> dict:
@@ -2752,9 +2916,12 @@ def run_f32(batch, refs: _Deferred) -> dict:
     float32, finite, of the right shapes. Then the serving phase on this model
     (``run_serving``: the registry builds the same default config; the served predictions
     must be this roll-out's bits, float32 launches only). Then the same config at two blocks
-    a backbone stage (the second shifted) on 121 x 240 against the port's CPU run: mean
+    a backbone stage (the second shifted), one model on each of the routes W, P and X in turn
+    (``run_f32_route``: a roll-out over the same batch, every launch float32), then on
+    121 x 240 on the main route and on each of those against the port's CPU run: mean
     relative error <= F32_REF_TOL per output variable (its CPU half queued on ``refs``).
-    ``batch``: the routes' 721 x 1440 host batch. Returns the roll-out's launches."""
+    ``batch``: the routes' 721 x 1440 host batch. Returns the launches of each roll-out:
+    ``{"f32": the full-depth model's, "f32W": route W's, "f32P": ..., "f32X": ...}``."""
     import shutil
 
     import torch
@@ -2832,23 +2999,87 @@ def run_f32(batch, refs: _Deferred) -> dict:
     del model, preds
     torch.cuda.empty_cache()
 
-    # The reference: the default config at two blocks per backbone stage (the second shifted,
-    # so K1 and the masked K2 run), seeded on the card, against the port's CPU run.
+    # The routes: the default config at two blocks per backbone stage (the second shifted, so
+    # K1 and the masked attention run), seeded on the card, one model whose route knobs are
+    # switched (``set_knobs``: the weights are one tree). W, P and X roll out over the
+    # 721 x 1440 batch; then each route, main first, on 121 x 240 against the port's CPU run.
+    cfg2 = cfg.replace(**TWO_BLOCKS)
+    blocks = sum(cfg2.encoder_depths) + sum(cfg2.decoder_depths)
+    model = build_model(cfg2, "cuda")
+    out = {"f32": launches}
+    for route in F32_ROUTES:
+        out[f"f32{route}"] = run_f32_route(model, route, batch, blocks)
     t0 = time.perf_counter()
     small = numpy_batch(cfg, 121, 240, seed=1)
-    cfg2 = cfg.replace(**TWO_BLOCKS)
-    model = build_model(cfg2, "cuda")
-    before = dict(_lib.LAUNCHES)
-    got = model(small)
-    torch.cuda.synchronize()
-    ref_launches = {k: n - before[k] for k, n in _lib.LAUNCHES.items() if n != before[k]}
-    missing = [k for k in ROUTES["main"][1] if not ref_launches.get(k)]
-    if missing:
-        raise AssertionError(f"float32 model: the reference run never launched {missing}")
-    row = dict(phase="reference", model="Aurora() float32", grid="121x240",
-               depths=(cfg2.encoder_depths, cfg2.decoder_depths), launches=ref_launches, got=got)
-    defer_reference(refs, "float32 model reference", model, small, cfg, t0, row, F32_REF_TOL)
+    rows = []
+    for route in ("main", *F32_ROUTES):
+        knobs, counts = ROUTES[route]
+        before = dict(_lib.LAUNCHES)
+        with _KernelCalls() as calls:
+            got = model.set_knobs(**knobs)(small)
+            torch.cuda.synchronize()
+        ref_launches = {k: n - before[k] for k, n in _lib.LAUNCHES.items() if n != before[k]}
+        missing = [k for k in counts if not ref_launches.get(k)]
+        if missing or set(calls.by_dtype()) != {"float32"}:
+            raise AssertionError(f"float32 route {route}: the reference run launched "
+                                 f"{calls.by_dtype()}, never {missing}")
+        rows.append((knobs, dict(phase="reference", model="Aurora() float32", route=route,
+                                 **knobs, grid="121x240",
+                                 depths=(cfg2.encoder_depths, cfg2.decoder_depths),
+                                 launches=ref_launches, got=got)))
+    model.set_knobs(**rows[0][0])
+    defer_reference(refs, "float32 model reference", model, small, cfg, t0, rows[0][1],
+                    F32_REF_TOL, more=rows[1:])
     emit(dict(phase="f32", seconds=time.perf_counter() - t_phase))
+    return out
+
+
+def run_f32_route(model, route: str, batch, blocks: int) -> dict:
+    """The float32 model ``model`` (the default config at ``blocks`` Swin blocks) on route
+    ``route`` (``set_knobs``): a roll-out of F32_ROUTE_STEPS steps over the 721 x 1440 batch
+    (counts set to 0 just before): step times, peak memory, launches per step against
+    ``route_launches`` of the route's counts, every launch float32; outputs float32, finite,
+    of the right shapes. Returns the roll-out's launches."""
+    import torch
+
+    from aurora_tpu_torch import rollout
+    from aurora_tpu_torch.ops import _lib
+
+    t0 = time.perf_counter()
+    knobs, counts = ROUTES[route]
+    model.set_knobs(**knobs)
+    expected = {k: route_launches(counts, blocks).get(k, 0) for k in _lib.LAUNCHES}
+    torch.cuda.reset_peak_memory_stats()
+    _lib.reset_launches()
+    step_s, per_step = [], []
+    with _KernelCalls() as calls:
+        t_prev, before = time.perf_counter(), dict(_lib.LAUNCHES)
+        for pred in rollout(model, batch, steps=F32_ROUTE_STEPS):
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            step_s.append(now - t_prev)
+            per_step.append({k: _lib.LAUNCHES[k] - before[k] for k in _lib.LAUNCHES})
+            before, t_prev = dict(_lib.LAUNCHES), now
+            last = pred
+    launches = dict(_lib.LAUNCHES)
+    by_dtype = calls.by_dtype()
+    bad = [f"step {i}: launches {got}" for i, got in enumerate(per_step) if got != expected]
+    want_by = {k: F32_ROUTE_STEPS * n for k, n in expected.items() if n}
+    if by_dtype != {"float32": want_by}:
+        bad.append(f"launches by dtype {by_dtype} (want float32 {want_by})")
+    for k, v in {**last.surf_vars, **last.atmos_vars}.items():
+        want = (1, 1, 720, 1440) if k in last.surf_vars else (1, 1, len(LEVELS), 720, 1440)
+        if tuple(v.shape) != want or v.dtype != torch.float32 or not torch.isfinite(v).all():
+            bad.append(f"{k}: {tuple(v.shape)} {v.dtype} finite {bool(torch.isfinite(v).all())}")
+    del last
+    emit(dict(phase="f32_route", route=route, **knobs, model="Aurora() float32",
+              depths=(model.cfg.encoder_depths, model.cfg.decoder_depths),
+              grid="721x1440 (720x1440 after crop)", steps=F32_ROUTE_STEPS, step_s=step_s,
+              peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+              launches_per_step=per_step[-1], launches_by_dtype=by_dtype,
+              seconds=time.perf_counter() - t0))
+    if bad:
+        raise AssertionError(f"float32 route {route}: {bad}")
     return launches
 
 
@@ -2912,11 +3143,17 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     summary = run_kernel_phases()
     lap("kernels")
-    # The CPU halves of the references run on one host thread; the routes' and the float32
-    # phase's 721 x 1440 host batch is made once (143 M seeded values, ~1.5 s of host time).
+    # The CPU halves of the references run on one host thread, each beside the card's next
+    # phases; the train phase first, so that its references' CPU half (the longest) runs
+    # while the card trains. No reference may run beside the kernel phase, whose TF32
+    # controls switch TF32 on (see _Deferred).
+    refs = _Deferred()
+    train = run_train_phases(refs)
+    lap("train")
+    # The routes' and the float32 phase's 721 x 1440 host batch is made once (143 M seeded
+    # values, ~1.5 s of host time).
     from aurora_tpu_torch.tools.perf_breakdown import numpy_batch, production_config
 
-    refs = _Deferred()
     batch = numpy_batch(production_config(), 721, 1440)
     launches = {}
     for route in ROUTES:
@@ -2926,20 +3163,16 @@ def main() -> int:
         if missing:
             raise AssertionError(f"route {route}: kernels never launched: {missing}")
         lap(f"route {route}")
-    launches["f32"] = run_f32(batch, refs)
+    launches.update(run_f32(batch, refs))
     del batch
     lap("f32")
-    # The small model before the train phase, so that its references' CPU halves run on the
-    # host thread while the card trains.
-    launches["small"] = run_small(SMALL_STEPS, refs)
+    launches["small"] = run_small(refs)
     lap("small")
-    train = run_train_phases()
-    lap("train")
-    launches["tools"] = run_tools(refs)
-    lap("tools")
     run_variants(VARIANT_STEPS, refs)
     lap("variants")
-    # The CPU halves of the references, queued on the host thread since the routes.
+    launches["tools"] = run_tools(refs)
+    lap("tools")
+    # The CPU halves of the references, queued on the host thread since the train phase.
     waited = refs.close()
     lap("references (waiting for the host thread)")
     emit(dict(phase="references", waited_s=waited))
@@ -2981,33 +3214,36 @@ def main() -> int:
         if (name, "ln_k") in summary:
             # K4 with ln_k is route S's aggregation: one of its two K4 launches a step.
             e["ln_k"] = entry(summary[name, "ln_k"], launches["S"][name] // 2)
-        # The small model's D = 256 shapes in bf16: times per step of the small model with the
-        # production knobs (its launches at D = 256, SMALL_D256), launches the count over that
-        # model's roll-out (all widths; modes it does not run: 0).
+        # The small model's D = 256 shapes: times per step of the small model (its launches at
+        # D = 256, SMALL_D256 / SMALL_X_D256), launches the count over that model's roll-out on
+        # the route that runs the kernel (all widths; modes it does not run: 0); in bf16 (the
+        # production knobs) under "d256", in float32 under "f32" "d256".
+        small_route = "X" if name == "linear_adaln_residual" else "main"
+        d256_per_step = SMALL_ROUTES[small_route][3].get(name, 0)
         for mode in (None, "tail", "no tail", "ln_k"):
-            if ("d256", name, mode) in summary:
-                s = summary["d256", name, mode]
-                runs = mode in (None, "tail")
-                d = e.setdefault("d256", {})
-                d[mode or "-"] = dict(
-                    entry(s, launches["small"]["bf16"].get(name, 0) if runs else 0),
-                    shapes=s["shapes"],
-                    d256_launches_per_small_step=SMALL_D256.get(name, 0) if runs else 0)
-        # The float32 forms (K1-K4): times per step of the float32 model, launches the count
-        # over its roll-out (modes no float32 path runs: 0); the small model's D = 256 shapes
-        # in float32 under "d256", per small step, launches over the small model's roll-out.
+            runs = mode in (None, "tail") and d256_per_step > 0
+            for group, form in (("d256", "bf16"), ("f32d256", "f32")):
+                if (group, name, mode) not in summary:
+                    continue
+                s = summary[group, name, mode]
+                n = launches["small"][form][small_route].get(name, 0) if runs else 0
+                at = e.setdefault("f32", {}) if form == "f32" else e
+                at.setdefault("d256", {})[mode or "-"] = dict(
+                    entry(s, n), shapes=s["shapes"],
+                    d256_launches_per_small_step=d256_per_step if runs else 0)
+        # The float32 forms (K1-K8): times per step of the float32 model at 48 blocks on the
+        # route that runs the form (HOME_F32), launches the count over that route's float32
+        # roll-out (the main route's at full depth, W's, P's and X's at two blocks a stage;
+        # forms no float32 route runs: 0).
         for mode in (None, "tail", "no tail", "ln_k"):
-            runs = mode in (None, "tail")
             if ("f32", name, mode) in summary:
-                n = launches["f32"][name] if runs else 0
+                home_f32 = HOME_F32.get((name, mode))
+                n = launches[home_f32][name] if home_f32 else 0
                 s = summary["f32", name, mode]
-                e.setdefault("f32", {})[mode or "-"] = dict(entry(s, n), shapes=s["shapes"])
-            if ("f32d256", name, mode) in summary:
-                s = summary["f32d256", name, mode]
-                e.setdefault("f32", {}).setdefault("d256", {})[mode or "-"] = dict(
-                    entry(s, launches["small"]["f32"].get(name, 0) if runs else 0),
-                    shapes=s["shapes"],
-                    d256_launches_per_small_step=SMALL_D256.get(name, 0) if runs else 0)
+                e.setdefault("f32", {})[mode or "-"] = dict(
+                    entry(s, n), shapes=s["shapes"], home_route=home_f32,
+                    launches_per_step=n // (F32_STEPS if home_f32 == "f32" else F32_ROUTE_STEPS)
+                    if home_f32 else 0)
         kernels.append(e)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

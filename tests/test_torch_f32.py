@@ -5,8 +5,8 @@
   entries (``window_attention_f32``, ``mlp_rows_f32``, ``perceiver_core_f32``) with the
   float32 weights as stored (no cast, no copy), 4-byte row offsets, the rows per chunk of
   ``mlp_row_chunks`` halved and no statistics scratch, each launch tallied by its output's
-  dtype and width; bf16 tokens still reach the bf16 entries as before. K5, K6, K7 and K8
-  have no float32 form and raise ``ValueError``.
+  dtype and width; bf16 tokens still reach the bf16 entries as before. The float32 forms of
+  K5, K6, K7 and K8 are held in ``tests/test_torch_f32_windows.py``.
 * PyTorch mirrors of the float32 kernels' arithmetic against the JAX package's Pallas kernels
   in float32, run in interpret mode (as ``tests/test_torch_kernels.py`` runs them): K4's fold
   (the queries folded into the key weights, with ``ln_k`` the centred weights and the sums of
@@ -210,25 +210,6 @@ def test_k4_f32_chunks_count_its_own_scratch():
     assert chunks[0][0] == 0 and sum(c for _, c in chunks) == 64800
     assert all(a + n == b for (a, n), (b, _) in zip(chunks, chunks[1:]))
     assert chunks[0][1] * lnk <= resampler.PERCEIVER_SCRATCH_BYTES
-
-
-@pytest.mark.parametrize("kernel", ["K5", "K6", "K7", "K8"])
-def test_wrappers_without_a_float32_form_raise(entries, kernel):
-    D = 256
-    if kernel == "K5":
-        call = lambda: mlp._linear_adaln_residual_launch(  # noqa: E731
-            _t(1, 144, D), _t(D, D), _t(D), _t(1, 144, D), _t(1, D), _t(1, D), 0.0)
-    elif kernel == "K6":
-        call = lambda: window_attention._window_attention_windowed_launch(  # noqa: E731
-            _t(1, 1, 144, D), _t(D, 3 * D), _t(3 * D), None, 4, None, None, None, None, 1e-5)
-    elif kernel == "K7":
-        call = lambda: window_attention._sdpa_windows_launch(_t(1, 1, 144, 3 * D), None, 4)  # noqa
-    else:
-        call = lambda: mlp._mlp_fused_launch(  # noqa: E731
-            _t(1, 144, D), _t(D, 1024), _t(1024), _t(1024, D), _t(D))
-    with pytest.raises(ValueError, match="bfloat16"):
-        call()
-    assert entries.calls == [] and not any(_lib.LAUNCHES.values())
 
 
 # ------------------------------------------------------------------------------ mirrors

@@ -8,9 +8,9 @@ and checkpoint identities, and the air-pollution model.
   against the JAX model holding the same weights: forward and a 2-step ``rollout`` at mean
   relative error <= 1e-8 per output variable, without LoRA and with it (the SO2 clamp at
   850 hPa, which this batch reaches). Its dynamic time encodings are equal.
-* The kernels on the small model's path (K2, K3, K4) take its D = 256 shapes; the kernels
-  off its path whose shape rule was not widened (K5, K11) refuse D = 256, and every kernel
-  refuses a width between those taken (``ValueError``). On the CPU the small model runs the
+* The kernels on the small model's paths (K2, K3, K4, and K5 on route X) take its D = 256
+  shapes; the probe kernel whose shape rule was not widened (K11) refuses D = 256, and every
+  kernel refuses a width between those taken (``ValueError``). On the CPU the small model runs the
   plain versions (``tests/test_torch_variants_wave.py``); its launches per step are in
   ``tests/test_torch_small.py``.
 
@@ -126,8 +126,8 @@ def test_dynamic_encodings_match_jax(pollution):
 
 def test_kernels_refuse_the_small_models_width():
     """D = 256 reaches the perceiver core's output, the MLP kernels and the window attention.
-    K2, K3 and K4 (and K6 and K8, which share their shape rules) take the small model's
-    shapes; K5 and K11, off its path, still refuse D = 256; a width between those taken
+    K2, K3 and K4 (and K6 and K8, which share their shape rules) and K5 (route X's tail) take
+    the small model's shapes; K11, a probe, still refuses D = 256; a width between those taken
     (384) is refused by every rule, so nothing falls back to a plain version on the card."""
     from aurora_tpu_torch.ops import mlp, probes, resampler, window_attention
 
@@ -138,8 +138,9 @@ def test_kernels_refuse_the_small_models_width():
     mlp.check_mlp_shape(259200, D, 4 * D)
     assert window_attention.check_window_attention_shape((1, 4, 180, 360, D), 4, ws) == (
         1, 1800, 259200)
-    with pytest.raises(ValueError, match="D=256"):
-        mlp.check_linear_shape(64800, D)
+    mlp.check_linear_shape(259200, D)
+    with pytest.raises(ValueError, match="D=384"):
+        mlp.check_linear_shape(259200, 384)
     with pytest.raises(ValueError, match="D=256"):
         window_attention.check_window_attention_shape((1, 4, 180, 360, D), 4, ws,
                                                       probes.ATTN5D_D)
