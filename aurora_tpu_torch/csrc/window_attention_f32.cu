@@ -22,18 +22,31 @@
 // Design: four launches with the tail, two without, one for K7, on the caller's stream:
 //   1. qkv: gemm_f32_kernel<8, EPI_BIAS> (gemm_f32.cuh) over the token rows in their stored
 //      order, Wqkv (D, 3D) as stored, into a (rows, 3D) f32 scratch (1.6 GB at stage 1);
-//   2. core: window_core_f32<Map>, one block a (window, head), head fastest. The row map
-//      gives the row of token t of window w: Grid5d (K2) the token's row of the padded 5D
-//      grid, Packed (K6, K7) w 144 + t. Its 9 warps load the window's q, k and v (144 x 64
-//      each, read through the map, rows of 68 floats in shared memory: conflict-free 16-byte
-//      reads down a column) and the window's group ids. Warp w takes queries 16 w .. 16 w +
-//      15: each lane the keys lane + 32 t (t < 5, the last half a warp), 16 x 5 logits in
-//      registers from 16-byte reads of q (broadcast) and k; the mask, a warp's max and sum
-//      per row, the weights to a 16 x 144 buffer of the warp's own; then w @ v with each lane
-//      8 rows x 4 features (16-byte reads of the weights, broadcast, and of v). Each token's
-//      result goes to its own row, through the map. Pad tokens are rows like any other; in
-//      masked blocks their own group id keeps them apart. 203 KB of shared memory, one block
-//      an SM.
+//   2. core: window_core_f32<Map>, one block of 8 warps a (window, head), head fastest, two
+//      blocks an SM, so that one block's loads and stores run under the other's products. The
+//      row map gives the row of token t of window w: Grid5d (K2) the token's row of the
+//      padded 5D grid, Packed (K6, K7) w 144 + t.
+//      - Loads: the window's q, k and v (144 x 64 each, 110.6 KB, no padding) come by 16-byte
+//        cp.async copies through the map, q and k as one group, v as a second that lands
+//        under the logits. q's and k's 16-byte chunks are swizzled within their row
+//        (q_chunk, k_chunk below) and v is kept as stored, so that every read below takes
+//        the fewest bank passes.
+//      - Logits: warp w takes queries 18 w .. 18 w + 17; lane = 16 half + kg the 9 queries
+//        18 w + 9 half + i and the 9 keys kg + 16 c, 81 sums in registers (no idle lane),
+//        over d by 16-byte reads of k (16 lanes, 16 keys) and of q (broadcast), in two passes
+//        of the keys (c < 5, then c >= 5) to keep the registers under two blocks' share.
+//      - Softmax as the bf16 core runs it (attention_core.cuh): t = s (log2 e / 8) + (0 or
+//        -100 log2 e) by group id, the row's max and sum by shuffles over the 16 lanes of the
+//        half, p = exp2(t - max), weights p (1 / sum), one reciprocal a row.
+//      - w @ v, a third of the keys (48) at a time: the warp's own 18 rows of q and of k, which
+//        no warp reads any more, take its weights (18 x 48 floats a third: keys 0-47 in q's
+//        rows, 48-95 in k's, then 96-143 in q's again); each lane accumulates 9 rows x 4
+//        features over the keys in order, from broadcast 16-byte reads of the weights and
+//        16-byte reads of v.
+//      - Each token's result goes to its own row, through the map, in 16-byte stores. Pad
+//        tokens are rows like any other; in masked blocks their own group id keeps them apart.
+//      112,320 bytes of shared memory a block (q, k, v, the rows and the group ids), at most
+//      128 registers a thread (__launch_bounds__(256, 2)).
 //   3. tail, proj: gemm_f32_kernel<8, EPI_BIAS>, Wproj (D, D) as stored, into out;
 //   4. tail, rows: ln_rows_f32_kernel with the block input x as the residual and FiLM row
 //      row / (nW 144), in place in out.
@@ -44,15 +57,22 @@
 // window_attention_f32 has the C signature of window_attention.cu's window_attention (stats
 // is not used: the row kernel takes the LayerNorm statistics over the row it holds) and, as
 // it, is K2 for Cp > 0 and K6 for Cp == 0; sdpa_windows_f32 has sdpa.cu's sdpa_windows'.
+//
+// tools/kernel_ablate.py builds copies with -DABLATE_ONLY_QKV (launch 1 alone),
+// -DABLATE_ONLY_CORE (launch 2 alone, on what the qkv scratch holds) and -DABLATE_ONLY_TAIL
+// (launches 3-4 alone, on what attn holds); ONLY_CORE with -DABLATE_NO_LOADS runs the core
+// without its copies of q, k and v (what the loads cost). Everything the entries use of the
+// core lives in the anonymous namespace below, which the tool can take from another version
+// of this file.
 #include "gemm_f32.cuh"
 
 namespace {
 
-constexpr int CN = 144, DH = 64, LDQ = DH + 4, LDP = CN + 4, CORE_WARPS = 9;
+constexpr int CN = 144, DH = 64, CORE_WARPS = 8, ROWS = CN / CORE_WARPS;  // 18 queries a warp
 constexpr int CORE_THREADS = 32 * CORE_WARPS;
+constexpr int TILE4 = CN * DH / 4;  // 16-byte chunks of one of q, k, v
 constexpr size_t CORE_SMEM =
-    (size_t)(3 * CN * LDQ + CORE_WARPS * 16 * LDP) * sizeof(float) + CN * sizeof(int) +
-    CN * sizeof(long long);
+    3 * TILE4 * sizeof(float4) + CN * sizeof(long long) + CN * sizeof(int);
 
 // K2's row map, the padded grid's windows: window w of batch element b = w / nW (windows in
 // (C1, H1, W1) order), token t in (wc, wh, ww) order.
@@ -75,22 +95,97 @@ struct Packed {
   }
 };
 
+// Where chunk c4 (4 floats) of token t sits in its tile, in chunks (tests/test_torch_f32_core.py
+// mirrors the maps). k: t 16 + (c4 ^ (t & 7)), so the 16 keys kg + 16 c of a read take each
+// bank group twice (the least for 256 bytes). q: t 16 + (c4 ^ 4 h), h = (t % 18 >= 9) the half
+// of the warp that reads row t, so the two rows a warp reads at once never share a bank group
+// and a row's address is the same offset from the half's first row for every row. v is not
+// swizzled: 16 lanes read one key's 256 bytes.
+__device__ __forceinline__ int k_chunk(int t, int c4) { return t * 16 + (c4 ^ (t & 7)); }
+__device__ __forceinline__ int q_chunk(int t, int c4) {
+  return t * 16 + (c4 ^ (t % ROWS >= ROWS / 2 ? 4 : 0));
+}
+
+// s[i][C0 + c] = q[r0 + i] . k[kg + 16 (C0 + c)] for i < 9, c < NC, summed over d in order;
+// qrow: row r0 of q, qx = 4 h.
+template <int C0, int NC>
+__device__ __forceinline__ void logits(float (&s)[9][9], const float4* qrow, const float4* ks,
+                                       int qx, int kg) {
+#pragma unroll
+  for (int i = 0; i < 9; ++i)
+#pragma unroll
+    for (int c = 0; c < NC; ++c) s[i][C0 + c] = 0.f;
+  const int kx = kg & 7;
+#pragma unroll 1
+  for (int d4 = 0; d4 < DH / 4; ++d4) {
+    float4 kv[NC];
+#pragma unroll
+    for (int c = 0; c < NC; ++c) kv[c] = ks[(kg + 16 * (C0 + c)) * 16 + (d4 ^ kx)];
+    const int dq = d4 ^ qx;
+#pragma unroll
+    for (int i = 0; i < 9; ++i) {
+      const float4 q = qrow[i * 16 + dq];
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        float a = s[i][C0 + c];
+        a = fmaf(q.x, kv[c].x, a);
+        a = fmaf(q.y, kv[c].y, a);
+        a = fmaf(q.z, kv[c].z, a);
+        a = fmaf(q.w, kv[c].w, a);
+        s[i][C0 + c] = a;
+      }
+    }
+  }
+}
+
+// The lane's weights of keys 48 T .. 48 T + 47 to pw: row i at float i 64, key kg + 16 c.
+template <int T>
+__device__ __forceinline__ void stage(float* pw, const float (&s)[9][9], int kg) {
+#pragma unroll
+  for (int i = 0; i < 9; ++i)
+#pragma unroll
+    for (int c = 0; c < 3; ++c) pw[i * 64 + kg + 16 * c] = s[i][3 * T + c];
+}
+
+// o[i] += sum over keys 48 T + j (j < 48, in order) of pw[i 64 + j] v[key][4 dq .. 4 dq + 3].
+template <int T>
+__device__ __forceinline__ void weights_v(float4 (&o)[9], const float* pw, const float4* vs,
+                                          int dq) {
+#pragma unroll 1
+  for (int j = 0; j < 48; j += 4) {
+    float4 vv[4];
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) vv[jj] = vs[(48 * T + j + jj) * 16 + dq];
+#pragma unroll
+    for (int i = 0; i < 9; ++i) {
+      const float4 p = *reinterpret_cast<const float4*>(pw + i * 64 + j);
+      const float pj[4] = {p.x, p.y, p.z, p.w};
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        o[i].x = fmaf(pj[jj], vv[jj].x, o[i].x);
+        o[i].y = fmaf(pj[jj], vv[jj].y, o[i].y);
+        o[i].z = fmaf(pj[jj], vv[jj].z, o[i].z);
+        o[i].w = fmaf(pj[jj], vv[jj].w, o[i].w);
+      }
+    }
+  }
+}
+
 // qkv: (rows, 3 D) f32; groups: (nW, 144) int32 or null; attn: (rows, D) f32; both read and
 // written through the map g (Grid5d or Packed).
 template <class Map>
-__global__ void __launch_bounds__(CORE_THREADS, 1) window_core_f32(
+__global__ void __launch_bounds__(CORE_THREADS, 2) window_core_f32(
     const float* __restrict__ qkv, const int* __restrict__ groups, float* __restrict__ attn,
     const Map g, int D, int heads) {
-  extern __shared__ __align__(16) float sm[];
-  float* qs = sm;                       // [CN][LDQ]
-  float* ks = qs + CN * LDQ;            // [CN][LDQ]
-  float* vs = ks + CN * LDQ;            // [CN][LDQ]
-  float* ps = vs + CN * LDQ;            // [CORE_WARPS][16][LDP]
-  int* gid = reinterpret_cast<int*>(ps + CORE_WARPS * 16 * LDP);  // [CN]
-  long long* rowof = reinterpret_cast<long long*>(gid + CN);       // [CN]
+  extern __shared__ __align__(16) float4 sm4[];
+  float4* qs = sm4;         // [CN][16] chunks, q_chunk
+  float4* ks = qs + TILE4;  // k_chunk
+  float4* vs = ks + TILE4;  // as stored
+  long long* rowof = reinterpret_cast<long long*>(vs + TILE4);  // [CN]
+  int* gid = reinterpret_cast<int*>(rowof + CN);                 // [CN]
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const long long window = blockIdx.x / heads;
-  const int h = blockIdx.x % heads;
+  const int h = (int)(blockIdx.x - window * heads);
   const long long ld = 3ll * D;
 
   for (int t = tid; t < CN; t += CORE_THREADS) {
@@ -98,103 +193,87 @@ __global__ void __launch_bounds__(CORE_THREADS, 1) window_core_f32(
     gid[t] = groups ? groups[(window % g.nW) * CN + t] : 0;
   }
   __syncthreads();
-  for (int i = tid; i < 3 * CN * 16; i += CORE_THREADS) {
-    const int part = i / (CN * 16), rem = i - part * CN * 16, t = rem >> 4, c4 = rem & 15;
-    const float4 v = *reinterpret_cast<const float4*>(qkv + rowof[t] * ld + part * D + h * DH +
-                                                      4 * c4);
-    *reinterpret_cast<float4*>(sm + (part * CN + t) * LDQ + 4 * c4) = v;
+  // q and k as the first group of copies, v as the second; token t's 16 chunks on 16
+  // neighbouring lanes.
+#pragma unroll
+  for (int part = 0; part < 3; ++part) {
+    for (int i = tid; i < TILE4; i += CORE_THREADS) {
+      const int t = i >> 4, c4 = i & 15;
+      const int at = part * TILE4 + (part == 0 ? q_chunk(t, c4) : part == 1 ? k_chunk(t, c4)
+                                                                              : t * 16 + c4);
+#ifndef ABLATE_NO_LOADS  // kernel_ablate: the core on whatever shared memory holds
+      f32k::cp_async16(reinterpret_cast<float*>(sm4 + at),
+                       qkv + rowof[t] * ld + part * D + h * DH + 4 * c4, true);
+#endif
+    }
+    if (part > 0) f32k::cp_async_commit();
   }
+  f32k::cp_async_wait<1>();
   __syncthreads();
 
-  // Logits of queries i0 + i (i < 16) against keys lane + 32 t (t < 5; t = 4 only lanes < 16).
-  const int i0 = 16 * warp;
-  const bool has4 = lane < 16;
-  float s[16][5];
+  // Logits: lane = 16 half + kg, queries r0 + i (i < 9), keys kg + 16 c (c < 9).
+  const int half = lane >> 4, kg = lane & 15;
+  const int r0 = ROWS * warp + (ROWS / 2) * half;
+  float s[9][9];
+  logits<0, 5>(s, qs + r0 * 16, ks, 4 * half, kg);
+  logits<5, 4>(s, qs + r0 * 16, ks, 4 * half, kg);
+
+  // Softmax in base 2 over each row's 144 keys, held by the 16 lanes of the half.
+  constexpr float SCALE = 0.18033688011112042f;  // log2(e) / 8
+  constexpr float MASKED = -144.26950408889634f;  // -100 log2(e)
+  int gk[9];
 #pragma unroll
-  for (int i = 0; i < 16; ++i)
+  for (int c = 0; c < 9; ++c) gk[c] = gid[kg + 16 * c];
 #pragma unroll
-    for (int t = 0; t < 5; ++t) s[i][t] = 0.f;
-  for (int d = 0; d < DH; d += 4) {
-    float4 kv[5];
-#pragma unroll
-    for (int t = 0; t < 5; ++t) {
-      const int j = t < 4 ? lane + 32 * t : (has4 ? 128 + lane : CN - 1);
-      kv[t] = *reinterpret_cast<const float4*>(ks + j * LDQ + d);
-    }
-#pragma unroll
-    for (int i = 0; i < 16; ++i) {
-      const float4 q = *reinterpret_cast<const float4*>(qs + (i0 + i) * LDQ + d);
-#pragma unroll
-      for (int t = 0; t < 5; ++t) {
-        float a = s[i][t];
-        a = fmaf(q.x, kv[t].x, a);
-        a = fmaf(q.y, kv[t].y, a);
-        a = fmaf(q.z, kv[t].z, a);
-        a = fmaf(q.w, kv[t].w, a);
-        s[i][t] = a;
-      }
-    }
-  }
-  float* pw = ps + warp * 16 * LDP;
-#pragma unroll
-  for (int i = 0; i < 16; ++i) {
-    const int gi = gid[i0 + i];
+  for (int i = 0; i < 9; ++i) {
+    const int gi = gid[r0 + i];
     float mx = -3.0e38f;
 #pragma unroll
-    for (int t = 0; t < 5; ++t) {
-      const int j = lane + 32 * t;
-      if (t < 4 || has4) {
-        float x = s[i][t] * 0.125f;
-        if (groups) x += gid[j] == gi ? 0.f : -100.f;
-        s[i][t] = x;
-        mx = fmaxf(mx, x);
-      }
+    for (int c = 0; c < 9; ++c) {
+      s[i][c] = fmaf(s[i][c], SCALE, gk[c] == gi ? 0.f : MASKED);
+      mx = fmaxf(mx, s[i][c]);
     }
-    for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+#pragma unroll
+    for (int o = 8; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
     float sum = 0.f;
 #pragma unroll
-    for (int t = 0; t < 5; ++t) {
-      if (t < 4 || has4) {
-        s[i][t] = expf(s[i][t] - mx);
-        sum += s[i][t];
-      }
+    for (int c = 0; c < 9; ++c) {
+      s[i][c] = exp2f(s[i][c] - mx);
+      sum += s[i][c];
     }
-    sum = warp_sum(sum);
 #pragma unroll
-    for (int t = 0; t < 5; ++t)
-      if (t < 4 || has4) pw[i * LDP + lane + 32 * t] = s[i][t] / sum;
+    for (int o = 8; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+    const float inv = __frcp_rn(sum);
+#pragma unroll
+    for (int c = 0; c < 9; ++c) s[i][c] *= inv;
   }
-  __syncwarp();
 
-  // w @ v: lane = 16 rh + dq takes rows 8 rh .. 8 rh + 7 and features 4 dq .. 4 dq + 3.
-  const int rh = lane >> 4, dq = lane & 15;
-  float o[8][4];
+  // v has landed, and no warp reads q or k any more.
+  f32k::cp_async_wait<0>();
+  __syncthreads();
+
+  // w @ v, a third of the keys at a time: the warp's own 18 rows of q take the weights of keys
+  // 0-47, then of 96-143; its 18 rows of k those of keys 48-95. Row i of half h at float
+  // h (9 64 + 16) + i 64 of the region, so the two halves never share a bank. Lane = 16 half +
+  // dq accumulates rows r0 + i and features 4 dq .. 4 dq + 3 in key order.
+  float* pq = reinterpret_cast<float*>(qs + ROWS * 16 * warp) + half * ((ROWS / 2) * 64 + 16);
+  float* pk = reinterpret_cast<float*>(ks + ROWS * 16 * warp) + half * ((ROWS / 2) * 64 + 16);
+  const int dq = kg;
+  float4 o[9];
 #pragma unroll
-  for (int i = 0; i < 8; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
-  for (int j = 0; j < CN; j += 4) {
-    float4 vv[4];
+  for (int i = 0; i < 9; ++i) o[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  stage<0>(pq, s, kg);
+  stage<1>(pk, s, kg);
+  __syncwarp();
+  weights_v<0>(o, pq, vs, dq);
+  weights_v<1>(o, pk, vs, dq);
+  __syncwarp();
+  stage<2>(pq, s, kg);
+  __syncwarp();
+  weights_v<2>(o, pq, vs, dq);
 #pragma unroll
-    for (int jj = 0; jj < 4; ++jj)
-      vv[jj] = *reinterpret_cast<const float4*>(vs + (j + jj) * LDQ + 4 * dq);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const float4 p = *reinterpret_cast<const float4*>(pw + (8 * rh + i) * LDP + j);
-      const float pj[4] = {p.x, p.y, p.z, p.w};
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        o[i][0] = fmaf(pj[jj], vv[jj].x, o[i][0]);
-        o[i][1] = fmaf(pj[jj], vv[jj].y, o[i][1]);
-        o[i][2] = fmaf(pj[jj], vv[jj].z, o[i][2]);
-        o[i][3] = fmaf(pj[jj], vv[jj].w, o[i][3]);
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int t = i0 + 8 * rh + i;
-    *reinterpret_cast<float4*>(attn + rowof[t] * D + h * DH + 4 * dq) =
-        make_float4(o[i][0], o[i][1], o[i][2], o[i][3]);
-  }
+  for (int i = 0; i < 9; ++i)
+    *reinterpret_cast<float4*>(attn + rowof[r0 + i] * D + h * DH + 4 * dq) = o[i];
 }
 
 // The core over `windows` windows of the map g, one block a (window, head).
@@ -204,6 +283,9 @@ int launch_core(const float* qkv, const int* groups, float* attn, const Map& g, 
   if (windows * heads > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   cudaFuncSetAttribute(window_core_f32<Map>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        (int)CORE_SMEM);
+  // the largest shared-memory carveout, so that two blocks fit an SM
+  cudaFuncSetAttribute(window_core_f32<Map>, cudaFuncAttributePreferredSharedMemoryCarveout,
+                       (int)cudaSharedmemCarveoutMaxShared);
   window_core_f32<Map><<<(unsigned)(windows * heads), CORE_THREADS, CORE_SMEM, stream>>>(
       qkv, groups, attn, g, D, heads);
   return (int)cudaGetLastError();
@@ -233,15 +315,26 @@ extern "C" int window_attention_f32(const float* x, const float* wqkv, const flo
   if (Cp > 0 && (ws0 * ws1 * ws2 != CN || Cp % ws0 || Hp % ws1 || Wp % ws2 ||
                  (Cp / ws0) * (Hp / ws1) * (Wp / ws2) != nW))
     return (int)cudaErrorInvalidValue;
-  int err = f32k::launch_gemm_f32<8, f32k::EPI_BIAS>(f32k::Rows{x, D}, wqkv, bqkv, qkv, rows, D,
-                                                     3 * D, stream);
+  int err = 0;
+#if !defined(ABLATE_ONLY_CORE) && !defined(ABLATE_ONLY_TAIL)
+  err = f32k::launch_gemm_f32<8, f32k::EPI_BIAS>(f32k::Rows{x, D}, wqkv, bqkv, qkv, rows, D,
+                                                 3 * D, stream);
   if (err) return err;
+#endif
+#ifdef ABLATE_ONLY_QKV
+  return err;
+#endif
+#ifndef ABLATE_ONLY_TAIL
   const long long windows = (long long)B * nW;
   if (Cp > 0)
     err = launch_core(qkv, groups, attn, Grid5d{nW, Hp / ws1, Wp / ws2, Cp, Hp, Wp, ws0, ws1, ws2},
                       windows, D, heads, stream);
   else
     err = launch_core(qkv, groups, attn, Packed{nW}, windows, D, heads, stream);
+#endif
+#ifdef ABLATE_ONLY_CORE
+  return err;
+#endif
   if (err || !wproj) return err;
   err = f32k::launch_gemm_f32<8, f32k::EPI_BIAS>(f32k::Rows{attn, D}, wproj, bproj, out, rows, D,
                                                  D, stream);
@@ -259,4 +352,16 @@ extern "C" int sdpa_windows_f32(const float* qkv, const int* groups, float* out,
   if (B <= 0 || nW <= 0 || D != heads * DH || D % 128 || windows * CN > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   return launch_core(qkv, groups, out, Packed{nW}, windows, D, heads, stream);
+}
+
+// Blocks of the core that one SM holds at once, as the runtime computes it for this build
+// (kernel_ablate prints it beside the times). Uses only names that every version of the
+// namespace above has.
+extern "C" int window_core_f32_blocks_per_sm(int* blocks) {
+  cudaFuncSetAttribute(window_core_f32<Packed>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)CORE_SMEM);
+  cudaFuncSetAttribute(window_core_f32<Packed>, cudaFuncAttributePreferredSharedMemoryCarveout,
+                       (int)cudaSharedmemCarveoutMaxShared);
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, window_core_f32<Packed>,
+                                                           CORE_THREADS, CORE_SMEM);
 }

@@ -47,8 +47,9 @@ K2, K6 and K7 in float32 (the facades' default config; the TPU kernels compute i
 tokens' dtype): ``csrc/window_attention_f32.cu``. K2 and K6 are ``window_attention_f32``
 (the bf16 entry's signature; K6 with ``Cp = 0``), the same four launches in f32 (two without
 the tail): qkv on the FFMA products of ``csrc/gemm_f32.cuh`` into a ``(rows, 3D)`` f32
-scratch (1.6 GB at stage 1), a core of one block a (window, head) with the window's q, k and
-v in shared memory (f32 logits, mask, softmax and ``w @ v``) that reads and writes each
+scratch (1.6 GB at stage 1), a core of one block a (window, head), two to an SM, with the
+window's q, k and v in shared memory (f32 logits, mask, a base-2 softmax and ``w @ v``
+a third of the keys at a time) that reads and writes each
 token's row through a row map (K2: the padded 5D grid's row; K6: ``w * 144 + t``), proj, and
 an f32 row kernel (the LayerNorm two-pass over the row), FiLM and the residual. K7 is
 ``sdpa_windows_f32``: that core alone on the caller's packed qkv. Weights as stored (a

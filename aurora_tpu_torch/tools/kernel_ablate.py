@@ -44,13 +44,23 @@ a wrapper, and all but the ring-depth variants compute wrong results on purpose:
   (on what the qkv scratch holds) in every mode;
 * K11 (``csrc/attn5d_direct.cu``, at the tool's padded grids, stages 1-3): ``only_qkv`` and
   ``only_core`` (on what the qkv scratch holds) in both work orders, ``torch.matmul`` at the
-  qkv shape beside them.
+  qkv shape beside them;
+* K2 / K6 / K7 in float32 (``csrc/window_attention_f32.cu``, at the three backbone stages and
+  the small model's D = 256, masked, with the tail): ``only_qkv`` (the qkv product alone),
+  ``only_core`` (the window core alone, on what the qkv scratch holds) and ``only_tail`` (proj
+  and the row kernel alone, on what the attention scratch holds), ``only_core_no_loads`` (the
+  core without its copies of q, k and v into shared memory), K7 (the core alone on packed
+  qkv) beside them, and the core's resident blocks an SM. ``--core-from FILE`` builds the same
+  variants once more with the core of another version of the file (its anonymous namespace:
+  the constants, row maps, core kernel and ``launch_core``) spliced into this one's entries,
+  so that an older core is split by the same switches in the same call.
 
 Every time is a median of ``--steps`` launches after warm-up (``tools.time_ms``: CUDA
 events, each launch behind a memset that keeps the queue ahead of the host and leaves the
 L2 cold); ``torch.matmul`` is timed the same way beside K12.
 
-Usage: ``python -m aurora_tpu_torch.tools.kernel_ablate [--steps N]`` (needs the card).
+Usage: ``python -m aurora_tpu_torch.tools.kernel_ablate [--steps N] [--parts window_f32,...]
+[--core-from OLD/window_attention_f32.cu]`` (needs the card).
 """
 
 from __future__ import annotations
@@ -58,6 +68,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import subprocess
+from pathlib import Path
 
 import torch
 
@@ -102,25 +113,35 @@ MLP_T_VARIANTS = {
 ATTN_PROBE_VARIANTS = {"full": (), "only_qkv": ("ABLATE_ONLY_QKV",),
                        "only_core": ("ABLATE_ONLY_CORE",)}
 ATTN5D_VARIANTS = ATTN_PROBE_VARIANTS
+WINDOW_F32_VARIANTS = {
+    "full": (), "only_qkv": ("ABLATE_ONLY_QKV",), "only_core": ("ABLATE_ONLY_CORE",),
+    "only_tail": ("ABLATE_ONLY_TAIL",),
+    "only_core_no_loads": ("ABLATE_ONLY_CORE", "ABLATE_NO_LOADS"),
+}
+# C, H, W, D, heads: the 1.3 B model's three stages and the small model's first (D = 256)
+WINDOW_F32_SHAPES = STAGES + ((4, 180, 360, 256, 4),)
 # label, K, D, heads, Q: the level aggregation and de-aggregation over 64800 token columns
 PERCEIVER_SHAPES = (("agg", 13, 512, 16, 3), ("de-agg", 3, 1024, 16, 13))
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
-def build_variants(source: str, variants: dict[str, tuple[str, ...]]) -> dict[str, ctypes.CDLL]:
-    """One ``nvcc`` per variant of ``csrc/<source>.cu``, all started together; a variant
-    whose library is newer than every source is not built again (a caller may build ahead,
-    on another thread)."""
-    out_dir = _lib.BUILD_DIR / "ablate"
+def build_variants(source: str, variants: dict[str, tuple[str, ...]],
+                   path: Path | None = None) -> dict[str, ctypes.CDLL]:
+    """One ``nvcc`` per variant of ``csrc/<source>.cu`` (or of the file ``path``, its
+    includes still from ``csrc/``), all started together; a variant whose library is newer
+    than every source is not built again (a caller may build ahead, on another thread)."""
+    out_dir = _lib.BUILD_DIR / "ablate" / ("" if path is None else path.parent.name)
     out_dir.mkdir(parents=True, exist_ok=True)
-    newest = max(p.stat().st_mtime for p in _lib.CSRC.iterdir() if p.suffix in (".cu", ".cuh"))
+    path = path or _lib.CSRC / f"{source}.cu"
+    newest = max(p.stat().st_mtime for p in (*_lib.CSRC.iterdir(), path)
+                 if p.suffix in (".cu", ".cuh"))
     procs, sos = {}, {}
     for tag, defines in variants.items():
         so = sos[tag] = out_dir / f"lib{source}_{tag}.so"
         if so.exists() and so.stat().st_mtime >= newest:
             continue
         cmd = [_lib._nvcc(), *_lib.NVCC_FLAGS, *(f"-D{d}" for d in defines), "-I",
-               str(_lib.CSRC), "-o", str(so), str(_lib.CSRC / f"{source}.cu")]
+               str(_lib.CSRC), "-o", str(so), str(path)]
         procs[tag] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
     for tag, p in procs.items():
         log, _ = p.communicate()
@@ -129,11 +150,33 @@ def build_variants(source: str, variants: dict[str, tuple[str, ...]]) -> dict[st
     return {tag: ctypes.CDLL(str(so)) for tag, so in sos.items()}
 
 
+def splice_core(into: Path, core_from: Path, out: Path) -> Path:
+    """Write ``out``: the file ``into`` with its anonymous namespace (from ``namespace {`` to
+    ``}  // namespace``) replaced by that of ``core_from``. Returns ``out``."""
+    begin, end = "\nnamespace {\n", "\n}  // namespace\n"
+    base, core = into.read_text(), core_from.read_text()
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(base[:base.index(begin)] + core[core.index(begin):core.index(end)] +
+                   base[base.index(end):])
+    return out
+
+
+PARTS = ("mlp_t", "attn_probe", "attn5d_direct", "mlp", "gemm", "sdpa", "window", "resampler",
+         "window_f32")
+
+
 def main(argv=None) -> list[dict]:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default=None, help="the card; there is nothing to ablate on the CPU")
     ap.add_argument("--steps", type=int, default=10)
+    ap.add_argument("--parts", default=",".join(PARTS),
+                    help=f"comma-separated parts to run, of {', '.join(PARTS)}")
+    ap.add_argument("--core-from", type=Path, default=None,
+                    help="window_f32: also split the core of this window_attention_f32.cu")
     args = ap.parse_args(argv)
+    parts = args.parts.split(",")
+    if not set(parts) <= set(PARTS):
+        raise SystemExit(f"unknown parts {sorted(set(parts) - set(PARTS))}; known: {PARTS}")
     dev = resolve_device(args.device)
     if dev.type != "cuda":
         raise SystemExit("kernel_ablate builds and times CUDA kernels: it needs the card")
@@ -365,14 +408,74 @@ def main(argv=None) -> list[dict]:
                              fn, x5, wqkv, bqkv, ws, heads, m)), **work)
             del x5, a
 
-    ablate_mlp_t()
-    ablate_attn_probe()
-    ablate_attn5d_direct()
-    ablate_mlp()
-    ablate_gemm()
-    ablate_sdpa()
-    ablate_window()
-    ablate_resampler()
+    def ablate_window_f32():
+        builds = {"": build_variants("window_attention_f32", WINDOW_F32_VARIANTS)}
+        if args.core_from is not None:
+            src = splice_core(_lib.CSRC / "window_attention_f32.cu", args.core_from,
+                              _lib.BUILD_DIR / "ablate" / "core_from" / "window_attention_f32.cu")
+            # an older core need not know the NO_LOADS switch
+            builds[f" core from {args.core_from}"] = build_variants(
+                "window_attention_f32",
+                {k: v for k, v in WINDOW_F32_VARIANTS.items() if "ABLATE_NO_LOADS" not in v}, src)
+        for note, libs in builds.items():
+            blocks = ctypes.c_int(0)
+            fn = libs["full"].window_core_f32_blocks_per_sm
+            fn.argtypes, fn.restype = [ctypes.POINTER(ctypes.c_int)], _I
+            _lib.check(fn(ctypes.byref(blocks)), "window_core_f32_blocks_per_sm")
+            print(f"window_core_f32{note}: {blocks.value} blocks an SM", flush=True)
+        for shape in WINDOW_F32_SHAPES:
+            for note, libs in builds.items():
+                ablate_window_f32_stage(libs, note, *shape)
+
+    def ablate_window_f32_stage(libs, note, C, H, W, D, heads):
+        ws, ss = (2, 6, 12), (1, 3, 6)
+        Hp, Wp = H + (-H) % ws[1], W + (-W) % ws[2]
+        rows = C * Hp * Wp
+        nW = rows // 144
+
+        def r(*shape, std=1.0):
+            return torch.randn(*shape, generator=gen, device=dev) * std
+
+        xp = r(1, C, Hp, Wp, D)
+        xw = wa.window_partition(xp, ws).contiguous()
+        wqkv, bqkv = r(D, 3 * D, std=0.02), r(3 * D, std=0.02)
+        tail = (r(D, D, std=0.02), r(D, std=0.02), r(1, D, std=0.1), r(1, D))
+        groups = window_group_ids(C, H, W, ws, ss)
+        gid = group_ids_tensor(groups, dev)
+        core = 4 * nW * heads * 144 * 144 * 64
+        work = dict(flops=8 * rows * D * D + core, nbytes=2 * rows * D * 4 + 4 * D * D * 4,
+                    f32=True)
+        for name, x, geom, wsx in (("window_attention", xp, (C, Hp, Wp), ws),
+                                   ("window_attention_windowed", xw, (0, 0, 0), (0, 0, 0))):
+            for tag, lib in libs.items():
+                fn = lib.window_attention_f32
+                fn.argtypes, fn.restype = wa._WINDOW_ATTENTION_ARGS, _I
+
+                def call(fn=fn, x=x, geom=geom, wsx=wsx, name=name):
+                    wa._window_attention_call(fn, x, wqkv, bqkv, groups, heads, tail, 1e-5, nW,
+                                              rows, geom, wsx, name)
+
+                emit(f"{name} f32 D={D} masked, tail [{tag}]{note}", ms(call), **work)
+        del xp, xw
+        qkv = r(1, nW, 144, 3 * D)
+        o = torch.empty(1, nW, 144, D, device=dev)
+        fn = libs["full"].sdpa_windows_f32
+        fn.argtypes, fn.restype = wa._SDPA_ARGS, _I
+
+        def k7():
+            _lib.check(fn(qkv.data_ptr(), gid.data_ptr(), o.data_ptr(), 1, nW, D, heads, stream),
+                       "sdpa_windows_f32 variant")
+
+        emit(f"sdpa_windows f32 D={D} masked{note}", ms(k7), flops=core,
+             nbytes=4 * rows * D * 4, f32=True)
+
+    runs = dict(mlp_t=ablate_mlp_t, attn_probe=ablate_attn_probe,
+                attn5d_direct=ablate_attn5d_direct, mlp=ablate_mlp, gemm=ablate_gemm,
+                sdpa=ablate_sdpa, window=ablate_window, resampler=ablate_resampler,
+                window_f32=ablate_window_f32)
+    for part in PARTS:
+        if part in parts:
+            runs[part]()
     return out
 
 

@@ -12,7 +12,8 @@
   (the queries folded into the key weights, with ``ln_k`` the centred weights and the sums of
   squares per 128-column tile), chunk by chunk of columns; K3 chunk by chunk of rows; K2 with
   each window's rows read in place through the 5D grid's row of each token (the CUDA core's
-  ``Grid5d::row``, which must be ``window_partition``'s order). Bounds as max |error| / max
+  ``Grid5d::row``, which must be ``window_partition``'s order) and the core's order of work
+  (``tests/test_torch_f32_windows.py::window_core_f32_mirror``). Bounds as max |error| / max
   |reference|: 1e-5 (float32 summation order), K3 5e-5 (the JAX kernel's erf polynomial,
   within 2.7e-7 of erf, scaled up by the LayerNorm; ``tests/test_torch_kernels.py``).
 * The slice: ``AuroraSmallPretrained`` in its default config (float32, its config cut to
@@ -246,24 +247,17 @@ def _ln_film_residual(y, x, shift, scale, rows_per_film):
 
 
 def window_attention_f32_mirror(xp, wqkv, bqkv, groups, ws, heads, tail):
-    """K2's float32 launches in PyTorch: qkv over the rows in their stored order, the core per
-    (window, head) on rows read through :func:`grid5d_rows` (logits times dh^-0.5, the -100
-    mask by group id, softmax, ``w @ v``; the kernel's dh is 64, so its scale is 1/8), each
-    result to its token's own row; with the tail proj and the row kernel."""
+    """K2's float32 launches in PyTorch: qkv over the rows in their stored order, the core
+    (``tests/test_torch_f32_windows.py::window_core_f32_mirror``, the kernel's order of work)
+    per (window, head) on rows read through :func:`grid5d_rows`, each result to its token's
+    own row; with the tail proj and the row kernel."""
+    from tests.test_torch_f32_windows import window_core_f32_mirror
+
     B, Cp, Hp, Wp, D = xp.shape
     x = xp.reshape(-1, D)
-    qkv = x @ wqkv + bqkv
     rows = grid5d_rows(B, Cp, Hp, Wp, ws)
     nW = rows.shape[0] // B
-    dh = D // heads
-    attn = torch.empty_like(x)
-    for h in range(heads):
-        q, k, v = (qkv[rows][..., p * D + h * dh:p * D + (h + 1) * dh] for p in range(3))
-        s = (q @ k.transpose(1, 2)) * dh**-0.5
-        if groups is not None:
-            gid = torch.from_numpy(np.asarray(groups))[torch.arange(rows.shape[0]) % nW]
-            s = s + torch.where(gid[:, :, None] == gid[:, None, :], 0.0, -100.0)
-        attn[rows.reshape(-1), h * dh:(h + 1) * dh] = (torch.softmax(s, -1) @ v).reshape(-1, dh)
+    attn = window_core_f32_mirror(x @ wqkv + bqkv, torch.empty_like(x), rows, groups, nW, heads)
     if tail is None:
         return attn.reshape(xp.shape)
     wproj, bproj, shift, scale = tail

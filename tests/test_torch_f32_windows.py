@@ -30,6 +30,7 @@ model's D = 256, and the package namespace, on the CPU.
   ``metrics`` at first use; ``import aurora_tpu_torch`` alone loads no scipy.
 """
 
+import math
 import subprocess
 import sys
 
@@ -241,18 +242,30 @@ def packed_rows(windows: int, N: int) -> torch.Tensor:
 
 
 def window_core_f32_mirror(qkv, out, rows, groups, nW, heads):
-    """``window_core_f32`` in PyTorch: per (window, head) the rows ``rows`` of ``qkv`` (rows,
-    3D) read through the map, logits times dh^-0.5 (the kernel's dh is 64: 1/8), the -100 mask
-    by group id, softmax, ``w @ v``, each result to its token's own row of ``out``."""
+    """``window_core_f32`` in PyTorch, in the kernel's order of work: per (window, head) the
+    rows ``rows`` of ``qkv`` (rows, 3D) read through the map; logits in base 2 with the scale
+    folded in, ``q.k * dh^-0.5 log2 e`` (the kernel's dh is 64: ``log2 e / 8``), plus ``-100
+    log2 e`` where the group ids differ; ``p = exp2(t - max t)``, one reciprocal a row, the
+    weights ``p * (1 / sum p)``; ``w @ v`` summed a third of the keys at a time, the thirds in
+    key order, as the kernel stages them; each result to its token's own row of ``out``."""
     D = out.shape[-1]
     dh = D // heads
+    N = rows.shape[1]
+    third = N // 3
+    scale, masked = dh**-0.5 * math.log2(math.e), -100.0 * math.log2(math.e)
+    mask = 0.0
+    if groups is not None:
+        gid = torch.from_numpy(np.asarray(groups))[torch.arange(rows.shape[0]) % nW]
+        mask = torch.where(gid[:, :, None] == gid[:, None, :], 0.0, masked)
     for h in range(heads):
         q, k, v = (qkv[rows][..., p * D + h * dh:p * D + (h + 1) * dh] for p in range(3))
-        s = (q @ k.transpose(1, 2)) * dh**-0.5
-        if groups is not None:
-            gid = torch.from_numpy(np.asarray(groups))[torch.arange(rows.shape[0]) % nW]
-            s = s + torch.where(gid[:, :, None] == gid[:, None, :], 0.0, -100.0)
-        out[rows.reshape(-1), h * dh:(h + 1) * dh] = (torch.softmax(s, -1) @ v).reshape(-1, dh)
+        t = (q @ k.transpose(1, 2)) * scale + mask
+        p = torch.exp2(t - t.max(-1, keepdim=True).values)
+        w = p * (1.0 / p.sum(-1, keepdim=True))
+        o = w[..., :third] @ v[:, :third]
+        for j in range(third, N, third):
+            o = o + w[..., j:j + third] @ v[:, j:j + third]
+        out[rows.reshape(-1), h * dh:(h + 1) * dh] = o.reshape(-1, dh)
     return out
 
 
