@@ -1,10 +1,14 @@
-// The float32 product and row kernels of the float32 forms of K2-K8 (window_attention_f32.cu:
-// K2, K6, K7; mlp_f32.cu: K3, K8, K5; resampler_f32.cu: K4).
+// The float32 FFMA product and the float32 row kernel: the products of float32 K2, K6
+// (window_attention_f32.cu), K5 (mlp_f32.cu) and K4 (resampler_f32.cu), and the row kernel of
+// every float32 form with a LayerNorm, K3's included. Float32 K3's and K8's products run on
+// the tensor cores in three TF32 parts (gemm_tf32x3_sm90.cuh); this product
+// still builds them under mlp_f32.cu's -DMLP_F32_FFMA (tools/kernel_ablate.py's `ffma`).
 //
 // The TPU kernels compute in the tokens' dtype; in float32 every product accumulates in f32
-// from f32 operands (aurora_tpu/ops/mlp.py:244,375; aurora_tpu/model/swin3d.py:1127). On the
-// H100 that is the FFMA pipes (67 TF/s): the tensor cores' TF32 keeps 10 bits of the
-// mantissa, about three decimal digits, which the float32 bounds (9e-5 a block) would catch.
+// from f32 operands (aurora_tpu/ops/mlp.py:244,375; aurora_tpu/model/swin3d.py:1127). Here
+// that is the FFMA pipes (67 TF/s): one TF32 product on the tensor cores keeps 10 bits of the
+// mantissa, about three decimal digits, which the float32 bounds (9e-5 a block) would catch;
+// three TF32 products of split operands keep float32's digits (gemm_tf32x3_sm90.cuh).
 //
 //   gemm_f32_kernel<TN, EPI, A>: out = A W (+ epilogue) over M rows. A's rows come from a
 //     row addressing (Rows: a matrix with a leading dimension; GroupedRows: groups of `per`
@@ -30,8 +34,8 @@
 //     K4's queries).
 //
 // Bound of a product on the card: operations, 2 M K N at 67 TF/s. This is the simple design
-// (SIMT, one tile of sums a thread); a design on the tensor cores in three TF32 or bf16 parts
-// is later work.
+// (SIMT, one tile of sums a thread, 42.6 TF/s at K2's qkv, 64% of the FFMA peak); K2's, K6's,
+// K5's and K4's products are queued for gemm_tf32x3_sm90.cuh (ROADMAP.md).
 #pragma once
 
 #include <cuda_runtime.h>

@@ -45,15 +45,20 @@ copy) and the product and row kernels of ``csrc/gemm_rows_sm90.cuh``:
   256-column tile of product and statistics, as K2's tail). Its bound is bytes at D <= 512,
   operations above.
 * K3, K8 and K5 in float32 (the facades' default config; the TPU kernels compute in
-  ``x.dtype``, the MLPs with the accurate erf GELU, ``mlp.py:244,375``): ``csrc/mlp_f32.cu``
-  on the FFMA products of ``csrc/gemm_f32.cuh``. K3 and K8 are ``mlp_rows_f32`` (``ln`` 1 or
-  0), chunk of rows by chunk of rows as the bf16 form: fc1 with the bias and the exact erf
-  GELU into an f32 hidden scratch of at most 256 MB (half the rows a chunk), fc2 with the bias
-  into ``out``, then for K3 an f32 row kernel (a warp a row, the LayerNorm two-pass over the
-  row in registers), FiLM and the residual. K5 is ``linear_adaln_residual_f32``: the product
-  with the bias, then the same row kernel with the shortcut as the residual. Weights as
-  stored (a bf16-stored weight is widened; the tokens are never narrowed). Bounds:
-  operations at 67 TF/s, ``4 * rows * D * Hd`` (K3, K8) and ``2 * rows * D * D`` (K5).
+  ``x.dtype``, the MLPs with the accurate erf GELU, ``mlp.py:244,375``): ``csrc/mlp_f32.cu``.
+  K3 and K8 are ``mlp_rows_f32`` (``ln`` 1 or 0) on the tensor cores, each product in three
+  TF32 parts (``csrc/gemm_tf32x3_sm90.cuh``: ``a_hi w_hi + a_hi w_lo + a_lo w_hi`` in f32
+  accumulators, each part rounded as :func:`tf32_split` rounds it), chunk of rows by chunk of
+  rows as the bf16 form: once a call the weights' split transposes into a scratch of ``4 * D
+  * Hd`` f32 (the tensor cores take TF32 operands only K-major), then fc1 with the bias and
+  the exact erf GELU into an f32 hidden scratch of at most 256 MB (half the rows a chunk), the
+  tokens and the hidden split in registers, fc2 with the bias into ``out``, then for K3 an
+  f32 row kernel (a warp a row, the LayerNorm two-pass over the row in registers), FiLM and
+  the residual. K5 is ``linear_adaln_residual_f32`` on the FFMA product of
+  ``csrc/gemm_f32.cuh``, then the same row kernel with the shortcut as the residual. Weights
+  as stored (a bf16-stored weight is widened; the tokens are never narrowed). Bounds:
+  operations, ``4 * rows * D * Hd`` as three TF32 products at 495 TF/s (K3, K8) and ``2 *
+  rows * D * D`` at the FFMA pipes' 67 TF/s (K5).
 
 Gradients (:mod:`aurora_tpu_torch.ops.ad`, the counterpart of the JAX package's
 ``kernel_with_xla_grad`` at ``mlp.py:302-314``, ``:445-536``, ``:629-645``): under grad mode a
@@ -86,12 +91,15 @@ __all__ = [
     "mlp_fused",
     "mlp_fused_plain",
     "mlp_row_chunks",
+    "tf32_split",
 ]
 
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 MLP_SCRATCH_BYTES = 256 << 20  # the most a call allocates for the hidden activations
-# csrc/mlp.cu::mlp_rows
+# csrc/mlp.cu::mlp_rows; csrc/mlp_f32.cu::mlp_rows_f32 takes the weights' split scratch
+# before the stream
 _MLP_ROWS_ARGS = [_P] * 10 + [_F, _I, _L, _L, _I, _I, _F, _I, _P]
+_MLP_ROWS_F32_ARGS = _MLP_ROWS_ARGS[:-1] + [_P, _P]
 # csrc/mlp.cu::linear_adaln_residual, csrc/mlp_f32.cu::linear_adaln_residual_f32
 _LINEAR_ARGS = [_P] * 6 + [_F, _P, _P, _I, _L, _I, _F, _P]
 
@@ -114,6 +122,28 @@ def film_layernorm_residual(
     ln = (yf - mean) * torch.rsqrt(var + ln_eps)
     mod = ln * (scale_bias + scale.to(acc)[:, None, :]) + shift.to(acc)[:, None, :]
     return (residual.to(acc) + mod).to(dt)
+
+
+def tf32_split(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(hi, lo)`` of float32 ``t``: ``hi`` is ``t`` rounded to TF32 (10 mantissa bits; the
+    low 13 bits zero), to nearest with ties away from zero, and ``lo`` is ``t - hi`` rounded the
+    same way, 0 where ``t`` is not finite (``hi`` keeps an inf or a NaN): ``cvt.rna.tf32.f32``'s
+    rounding, and the bits of the split of float32 K3's and K8's three-part products
+    (``csrc/gemm_tf32x3_sm90.cuh``); ``hi + lo`` is within 2^-22 of ``t`` relative, a rounding
+    of a normal value. Plain integer arithmetic on the bits, on any device."""
+    if t.dtype != torch.float32:
+        raise ValueError(f"tf32_split: float32 only, got {t.dtype}")
+
+    def rna(v):
+        bits = v.contiguous().view(torch.int32)
+        mag = bits & 0x7FFFFFFF
+        rounded = ((mag + 0x1000) & ~0x1FFF) | (bits & ~0x7FFFFFFF)  # magnitude, then sign
+        return torch.where(mag < 0x7F800000, rounded, bits).view(torch.float32)
+
+    hi = rna(t)
+    finite = torch.isfinite(t)
+    lo = rna(torch.where(finite, t - hi, torch.zeros_like(t)))
+    return hi, lo
 
 
 def _mlp(x, w1, b1, w2, b2, fast: bool) -> torch.Tensor:
@@ -251,12 +281,14 @@ def _mlp_operands(x, w1, b1, w2, b2):
     return ops
 
 
-def _mlp_rows(fn, x, ops, out, film=None) -> None:
+def _mlp_rows(fn, x, ops, out, film=None, wsplit=None) -> None:
     """Run ``fn`` (``mlp_rows`` of ``csrc/mlp.cu`` on bf16, ``mlp_rows_f32`` of
     ``csrc/mlp_f32.cu`` on f32, or an ablated copy) chunk by chunk on ``x``, ``out``:
     ``(M, D)``. ``film``: K3's ``(shift, scale, scale_bias, rows_per_batch, ln_eps)`` with
     ``shift``/``scale`` ``(B, D)`` f32, or None for K8. Allocates the scratch: the hidden in
-    the tokens' dtype, and for bf16 the row statistics (the f32 row kernel takes its own)."""
+    the tokens' dtype; for bf16 the row statistics (the f32 row kernel takes its own); for
+    f32 the weights' split transposes, ``4 * D * Hd`` f32 (or ``wsplit``, to read them
+    back), which the first chunk's launch writes and every chunk reads."""
     M, D = x.shape
     w1, b1, w2, b2 = ops
     Hd = w1.shape[1]
@@ -264,6 +296,12 @@ def _mlp_rows(fn, x, ops, out, film=None) -> None:
     chunks = mlp_row_chunks(M, Hd, elem=elem)
     most = chunks[0][1]
     hid = torch.empty(most * Hd, dtype=x.dtype, device=x.device)
+    split = ()
+    if x.dtype == torch.float32:
+        if wsplit is None:
+            wsplit = torch.empty(4 * D * Hd, dtype=torch.float32, device=x.device)
+        _lib.require(wsplit, "wsplit", torch.float32, (4 * D * Hd,))
+        split = (wsplit.data_ptr(),)
     if film is None:
         film_args = (None, None, None, 0.0)
         per_batch, eps = 1, 0.0
@@ -278,7 +316,8 @@ def _mlp_rows(fn, x, ops, out, film=None) -> None:
         err = fn(
             x.data_ptr() + elem * r0 * D, w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
             b2.data_ptr(), hid.data_ptr(), out.data_ptr() + elem * r0 * D, *film_args,
-            rows, r0, per_batch, D, Hd, float(eps), int(film is not None), _lib.stream(x),
+            rows, r0, per_batch, D, Hd, float(eps), int(film is not None), *split,
+            _lib.stream(x),
         )
         _lib.check(err, "mlp_rows")
 
@@ -332,7 +371,7 @@ def _mlp_rows_entry(x: torch.Tensor):
     """The C entry K3 and K8 run on the tokens ``x``: ``mlp_rows_f32`` on float32 tokens,
     ``mlp_rows`` on bf16 ones."""
     if x.dtype == torch.float32:
-        return _lib.kernel("mlp_f32", "mlp_rows_f32", _MLP_ROWS_ARGS)
+        return _lib.kernel("mlp_f32", "mlp_rows_f32", _MLP_ROWS_F32_ARGS)
     return _lib.kernel("mlp", "mlp_rows", _MLP_ROWS_ARGS)
 
 

@@ -42,12 +42,13 @@ import torch
 from aurora_tpu_torch.model.aurora import resolve_device
 
 __all__ = [
-    "HBM", "PEAK_BF16", "PEAK_F32", "bound_ms", "branch_err", "card_line", "rel_err", "report",
-    "resolve_device", "result", "time_ms",
+    "HBM", "PEAK_BF16", "PEAK_F32", "PEAK_TF32", "bound_ms", "branch_err", "card_line",
+    "rel_err", "report", "resolve_device", "result", "time_ms",
 ]
 
 PEAK_BF16 = 989e12  # dense bf16 tensor-core FLOP/s, H100 SXM
 PEAK_F32 = 67e12  # f32 FLOP/s outside the tensor cores
+PEAK_TF32 = 495e12  # dense TF32 tensor-core FLOP/s
 HBM = 3.35e12  # bytes/s
 
 
@@ -94,9 +95,13 @@ def time_ms(fn: Callable[[], object], device: torch.device, steps: int, warmup: 
     return float(np.median(times))
 
 
-def bound_ms(flops_bf16: float = 0.0, flops_f32: float = 0.0, nbytes: float = 0.0):
-    """``(ms, "operations" | "bytes")``: the least time the card could take for the work."""
-    ops = flops_bf16 / PEAK_BF16 + flops_f32 / PEAK_F32
+def bound_ms(flops_bf16: float = 0.0, flops_f32: float = 0.0, nbytes: float = 0.0,
+             flops_tf32x3: float = 0.0):
+    """``(ms, "operations" | "bytes")``: the least time the card could take for the work.
+
+    ``flops_tf32x3``: float32 products taken on the tensor cores as three TF32 products of
+    split operands (float32 K3 and K8), three times their flops at the TF32 peak."""
+    ops = flops_bf16 / PEAK_BF16 + flops_f32 / PEAK_F32 + 3 * flops_tf32x3 / PEAK_TF32
     mem = nbytes / HBM
     return 1e3 * max(ops, mem), "operations" if ops >= mem else "bytes"
 
@@ -127,19 +132,22 @@ def branch_err(got, want, residual) -> tuple[float, float]:
 
 
 def result(label: str, ms: float, device: torch.device, *, flops: float = 0.0,
-           nbytes: float = 0.0, f32: bool = False, err: Optional[float] = None, **extra) -> dict:
+           nbytes: float = 0.0, f32: bool = False, tf32x3: bool = False,
+           err: Optional[float] = None, **extra) -> dict:
     """One result: the time, the rate and its share of the card's peak (bf16 tensor-core
-    peak, or the f32 peak with ``f32``; of the memory rate when only bytes are given), the
-    bound for the work and the error against the plain version where a kernel ran."""
+    peak, the f32 peak with ``f32``, a third of the TF32 peak with ``tf32x3``: float32
+    products in three TF32 parts; of the memory rate when only bytes are given), the bound
+    for the work and the error against the plain version where a kernel ran."""
     r = dict(label=label, ms=ms, device=device.type)
     s = 1e-3 * ms
+    key, peak = (("flops_tf32x3", PEAK_TF32 / 3) if tf32x3 else
+                 ("flops_f32", PEAK_F32) if f32 else ("flops_bf16", PEAK_BF16))
     if flops:
-        peak = PEAK_F32 if f32 else PEAK_BF16
         r.update(tflops=flops / s / 1e12, share_of_peak=flops / s / peak)
     elif nbytes:
         r.update(gbps=nbytes / s / 1e9, share_of_peak=nbytes / s / HBM)
     if flops or nbytes:
-        b, by = bound_ms(**{"flops_f32" if f32 else "flops_bf16": flops}, nbytes=nbytes)
+        b, by = bound_ms(**{key: flops}, nbytes=nbytes)
         r.update(bound_ms=b, bound_by=by)
     if err is not None:
         r["err"] = err

@@ -53,13 +53,27 @@ a wrapper, and all but the ring-depth variants compute wrong results on purpose:
   qkv) beside them, and the core's resident blocks an SM. ``--core-from FILE`` builds the same
   variants once more with the core of another version of the file (its anonymous namespace:
   the constants, row maps, core kernel and ``launch_core``) spliced into this one's entries,
-  so that an older core is split by the same switches in the same call.
+  so that an older core is split by the same switches in the same call;
+* K3 / K8 in float32 (``csrc/mlp_f32.cu`` on ``csrc/gemm_tf32x3_sm90.cuh``, at the three
+  backbone stages, the aggregation's and de-aggregation's shapes and the small model's D =
+  256): ``ffma`` (the
+  earlier FFMA design, ``-DMLP_F32_FFMA``: a right result, the time the tensor cores save),
+  ``one_part`` (the ``lo`` products off: one TF32 product, whose error against the full-f32
+  plain version the float32 bound 9e-5 must catch), ``no_split`` (the tokens' bits taken as
+  both parts unrounded: the cost of splitting them in registers), ``one_chunk`` (the wgmma
+  accumulators over all of K, up to 8192, instead of 128 values of k at a time: the error
+  their rounding towards zero leaves), ``only_fc1``, ``only_fc2``
+  (one product alone, fc2 on what the scratch holds) and ``only_split`` (the weights' split
+  alone); the
+  error against the full-f32 plain version of ``full``, ``ffma``, ``one_part`` and
+  ``one_chunk``;
+  ``torch.matmul`` for fc1 and for fc2 beside them, at full float32 and with TF32.
 
 Every time is a median of ``--steps`` launches after warm-up (``tools.time_ms``: CUDA
 events, each launch behind a memset that keeps the queue ahead of the host and leaves the
 L2 cold); ``torch.matmul`` is timed the same way beside K12.
 
-Usage: ``python -m aurora_tpu_torch.tools.kernel_ablate [--steps N] [--parts window_f32,...]
+Usage: ``python -m aurora_tpu_torch.tools.kernel_ablate [--steps N] [--parts mlp_f32,...]
 [--core-from OLD/window_attention_f32.cu]`` (needs the card).
 """
 
@@ -120,6 +134,14 @@ WINDOW_F32_VARIANTS = {
 }
 # C, H, W, D, heads: the 1.3 B model's three stages and the small model's first (D = 256)
 WINDOW_F32_SHAPES = STAGES + ((4, 180, 360, 256, 4),)
+MLP_F32_VARIANTS = {
+    "full": (), "ffma": ("MLP_F32_FFMA",), "one_part": ("ABLATE_ONE_PART",),
+    "no_split": ("ABLATE_NO_SPLIT",), "one_chunk": ("TF32X3_CHUNK_K=8192",),
+    "only_fc1": ("ABLATE_ONLY_FC1",),
+    "only_fc2": ("ABLATE_ONLY_FC2",), "only_split": ("ABLATE_ONLY_SPLIT",),
+}
+# the bf16 shapes, the level aggregation's MLP and the small model's first stage (D = 256)
+MLP_F32_SHAPES = MLP_SHAPES + ((194400, 512, 2048), (259200, 256, 1024))
 # label, K, D, heads, Q: the level aggregation and de-aggregation over 64800 token columns
 PERCEIVER_SHAPES = (("agg", 13, 512, 16, 3), ("de-agg", 3, 1024, 16, 13))
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -162,7 +184,7 @@ def splice_core(into: Path, core_from: Path, out: Path) -> Path:
 
 
 PARTS = ("mlp_t", "attn_probe", "attn5d_direct", "mlp", "gemm", "sdpa", "window", "resampler",
-         "window_f32")
+         "window_f32", "mlp_f32")
 
 
 def main(argv=None) -> list[dict]:
@@ -469,10 +491,62 @@ def main(argv=None) -> list[dict]:
         emit(f"sdpa_windows f32 D={D} masked{note}", ms(k7), flops=core,
              nbytes=4 * rows * D * 4, f32=True)
 
+    def ablate_mlp_f32():
+        libs = build_variants("mlp_f32", MLP_F32_VARIANTS)
+        for shape in MLP_F32_SHAPES:
+            ablate_mlp_f32_shape(libs, *shape)
+
+    def ablate_mlp_f32_shape(libs, M, D, Hd):
+        from aurora_tpu_torch.model.nn import full_f32_products
+        from aurora_tpu_torch.tools import branch_err, rel_err
+
+        def r(*shape, std=1.0):
+            return torch.randn(*shape, generator=gen, device=dev) * std
+
+        x = r(1, M, D)
+        ops = (r(D, Hd, std=0.02), r(Hd, std=0.02), r(Hd, D, std=0.02), r(D, std=0.02))
+        shift, scale = r(1, D, std=0.1), r(1, D)
+        o = torch.empty(M, D, device=dev)
+        products = dict(flops=4 * M * D * Hd, tf32x3=True)
+        hid = r(M, Hd)
+        for tf32 in (False, True):
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+            # full float32 against the FFMA peak; one TF32 product is timed only
+            work = {} if tf32 else dict(flops=2 * M * D * Hd, f32=True)
+            form = "TF32" if tf32 else "full f32"
+            emit(f"torch.matmul fc1 ({M},{D})x({D},{Hd}) {form}",
+                 ms(lambda: torch.matmul(x[0], ops[0])), **work)
+            emit(f"torch.matmul fc2 ({M},{Hd})x({Hd},{D}) {form}",
+                 ms(lambda: torch.matmul(hid, ops[2])), **work)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        del hid
+        for kernel, film in (("mlp_adaln_residual", (shift, scale, 0.0, M, 1e-5)),
+                             ("mlp_fused", None)):
+            with full_f32_products():
+                if film is None:
+                    want = mlp.mlp_fused_plain(x, *ops)
+                else:
+                    want = mlp.mlp_adaln_residual_plain(x, *ops, shift, scale)
+            for tag, lib in libs.items():
+                fn = lib.mlp_rows_f32
+                fn.argtypes, fn.restype = mlp._MLP_ROWS_F32_ARGS, _I
+
+                def call(fn=fn, film=film):
+                    mlp._mlp_rows(fn, x[0], ops, o, film)
+
+                err = {}
+                if tag in ("full", "ffma", "one_part", "one_chunk"):
+                    call()
+                    got = o.view(1, M, D)
+                    err["err"] = (branch_err(got, want, x)[1] if film is not None
+                                  else rel_err(got, want))
+                emit(f"{kernel} f32 ({M},{D}) hidden {Hd} [{tag}]", ms(call), **products, **err)
+            del want
+
     runs = dict(mlp_t=ablate_mlp_t, attn_probe=ablate_attn_probe,
                 attn5d_direct=ablate_attn5d_direct, mlp=ablate_mlp, gemm=ablate_gemm,
                 sdpa=ablate_sdpa, window=ablate_window, resampler=ablate_resampler,
-                window_f32=ablate_window_f32)
+                window_f32=ablate_window_f32, mlp_f32=ablate_mlp_f32)
     for part in PARTS:
         if part in parts:
             runs[part]()

@@ -49,7 +49,12 @@ Phases, each printing one JSON line; any failure raises and the script exits non
    branch measure less one float32 ulp (no residual: over the largest output), K4 within
    1e-4, and the plain version with TF32 products must fail the same bound by the same
    measure (``tf32_control_err``); timed over 5 runs, the plain versions over 2 (K7 also
-   ``F.scaled_dot_product_attention`` in float32 on the same masked windows); K6 on
+   ``F.scaled_dot_product_attention`` in float32 on the same masked windows). Float32 K3
+   and K8 take each product as three TF32 products of split operands: their bound is that
+   work at the TF32 peak, the FFMA bound beside it (``ffma_bound_ms``); the other float32
+   forms print the bound of their products as three TF32 products beside their FFMA bound
+   (``tf32x3_bound_ms``); at stage 1 and at D = 256 the weights' split that the card writes
+   must be ``mlp.tf32_split``'s bits of the same transposes. K6 on
    ``window_partition(xp)``, reversed, must give float32 K2's bits; in float32 garbage in
    stage 3's pad tokens may move a real token by a rounding (the plain version's too),
    within 1e-6 of the branch (K2, K6) or of the output (K7);
@@ -256,6 +261,17 @@ SOURCES = {
     "gemm_blocked": ("aurora_tpu_torch/csrc/gemm.cu", "tools/gemm_probe.py:92"),
     "smem_probe": (PROBES_SRC, "tools/vmem_probe.py:19"),
 }
+# The float32 forms' sources (the same C entries' files as ``SOURCES`` name for bf16).
+SOURCES_F32 = {
+    "roll3d": "aurora_tpu_torch/csrc/roll.cu",
+    "window_attention": "aurora_tpu_torch/csrc/window_attention_f32.cu",
+    "mlp_adaln_residual": "aurora_tpu_torch/csrc/mlp_f32.cu + gemm_tf32x3_sm90.cuh",
+    "perceiver_core": "aurora_tpu_torch/csrc/resampler_f32.cu",
+    "linear_adaln_residual": "aurora_tpu_torch/csrc/mlp_f32.cu",
+    "window_attention_windowed": "aurora_tpu_torch/csrc/window_attention_f32.cu",
+    "sdpa_windows": "aurora_tpu_torch/csrc/window_attention_f32.cu",
+    "mlp_fused": "aurora_tpu_torch/csrc/mlp_f32.cu + gemm_tf32x3_sm90.cuh",
+}
 # Launches per forward step of each backbone route, from the code: 48 Swin blocks (stage
 # depths 6+6, 10+10, 8+8), the odd-index half shifted (two rolls each) on every route; one
 # attention kernel per block (K2, K6, or K5 after the plain attention of "xla"); one MLP
@@ -314,10 +330,16 @@ def cuda_ms(fn, reps: int = REPS, warmup: int = 2) -> float:
 
 
 def case(name, label, per_step, kernel, plain, bound, check, residual=None, library=None,
-         mode=None, same_bits=None, extra=None, recheck=False, small=False, f32=False) -> dict:
+         mode=None, same_bits=None, extra=None, recheck=False, small=False, f32=False,
+         bounds=None) -> dict:
+    """``bounds``: other bounds of the same work printed beside ``bound`` and summed per step
+    (float32: ``ffma_bound_ms``, the products at the FFMA pipes' rate, beside K3's and K8's
+    three-part bound; ``tf32x3_bound_ms``, the products as three TF32 products, beside the
+    FFMA bound of the other float32 forms)."""
     return dict(name=name, label=label, per_step=per_step, kernel=kernel, plain=plain,
                 bound=bound, check=check, residual=residual, library=library, mode=mode,
-                same_bits=same_bits, extra=extra, recheck=recheck, small=small, f32=f32)
+                same_bits=same_bits, extra=extra, recheck=recheck, small=small, f32=f32,
+                bounds=bounds or {})
 
 
 def kernel_cases():
@@ -570,8 +592,9 @@ def f32_cases(rn):
     bits; stage 3's masked cases with garbage in their pad tokens), a ragged 121 x 240 case of
     K2 and K6; K3 at each stage, the perceiver MLP halves' shapes, D = 256 and two FiLM rows
     in one tile of rows, stage 3's ragged rows with the rows behind them untouched (K3 and
-    K8); K8 and K5 at each stage and at D = 256; K4's aggregation (with and without ln_k) and
-    de-aggregation at both models' shapes and at the 121 x 240 grid's 1800 columns.
+    K8), the weights' split bits at stage 1 and D = 256; K8 and K5 at each stage and at D =
+    256; K4's aggregation (with and without ln_k) and de-aggregation at both models' shapes and
+    at the 121 x 240 grid's 1800 columns.
     ``per_step``: launches per step of the float32 model on the route that runs the kernel at
     48 blocks (main: K2 48 with the tail, K3 50, K4 2; P: K2 48 without the tail, K8 48; W: K6
     48 with the tail; X: K5 48; K7, on no route, as if once a block), or of the small one at
@@ -601,7 +624,7 @@ def f32_cases(rn):
         film = (rn(1, D, std=0.1, dtype=f32), rn(1, D, dtype=f32))
         rows = C * H * W
         yield mlp_case(rn, f"f32 backbone ({rows},{D})", rows, D, 4 * D, nblk, film,
-                       ragged=rows % 64 != 0, f32=True)
+                       ragged=rows % 64 != 0, f32=True, split_check=True)
         yield mlp_fused_case(rn, f"f32 backbone ({rows},{D}), hidden {4 * D}", rows, D, nblk,
                              f32=True)
         yield linear_case(rn, f"f32 ({rows},{D})", rows, D, nblk, f32=True)
@@ -628,7 +651,8 @@ def f32_cases(rn):
                                    "D 256: ", small=True)
     film = (rn(1, D, std=0.1, dtype=f32), rn(1, D, dtype=f32))
     ln2 = (rn(1, D, std=0.1, dtype=f32), 1 + rn(1, D, std=0.1, dtype=f32))
-    for c in (mlp_case(rn, f"f32 D 256: backbone ({M},{D})", M, D, 4 * D, 4, film, f32=True),
+    for c in (mlp_case(rn, f"f32 D 256: backbone ({M},{D})", M, D, 4 * D, 4, film, f32=True,
+                       split_check=True),
               mlp_case(rn, f"f32 D 256: perceiver agg ({64800 * 3},{D})", 64800 * 3, D, 4 * D,
                        1, ln2, f32=True)):
         yield dict(c, small=True)
@@ -669,17 +693,18 @@ def attention_f32_cases(rn, C, H, W, D, heads, per_step, prefix="", tails=(True,
     tail = (rn(D, D, std=0.02, dtype=f32), rn(D, std=0.02, dtype=f32),
             rn(1, D, std=0.1, dtype=f32), rn(1, D, dtype=f32))
     fl_core = 4 * nW * heads * N * N * dh
-    fl_attn = 2 * M * D * 3 * D + fl_core
     padded = (Hp, Wp) != (H, W)
     for kind in groups:
         gr = window_group_ids(C, H, W, ws, ss) if kind == "masked" else None
         for with_tail in tails:
             t = tail if with_tail else None
             mode = "tail" if with_tail else "no tail"
+            products = 2 * M * D * 3 * D + (2 * M * D * D if with_tail else 0)
+            nb = 2 * M * D * 4 + (4 if with_tail else 3) * D * D * 4
             kw = dict(f32=True, small=small, mode=mode, check="branch" if with_tail else "rel",
-                      recheck=True, bound=bound_ms(
-                          flops_f32=fl_attn + (2 * M * D * D if with_tail else 0),
-                          nbytes=2 * M * D * 4 + (4 if with_tail else 3) * D * D * 4))
+                      recheck=True, bound=bound_ms(flops_f32=products + fl_core, nbytes=nb),
+                      bounds=dict(tf32x3_bound_ms=bound_ms(
+                          flops_tf32x3=products, flops_f32=fl_core, nbytes=nb)[0]))
             pad = with_tail and gr is not None and padded
 
             def k2_extra(gr=gr, t=t, pad=pad):
@@ -748,13 +773,14 @@ def linear_case(rn, label, rows, D, per_step, f32=False, small=False):
     w = (rn(D, D, std=0.02, dtype=dt), rn(D, std=0.02, dtype=torch.float32))
     film = (rn(1, D, std=0.1, dtype=torch.float32), rn(1, D, dtype=torch.float32))
     fl = 2 * rows * D * D
+    nb = 3 * rows * D * e + D * D * e
     return case(
         "linear_adaln_residual", label, per_step, residual=sc, f32=f32, small=small,
         kernel=lambda: mlp.linear_adaln_residual(x, *w, sc, *film),
         plain=full_f32(lambda: mlp.linear_adaln_residual_plain(x, *w, sc, *film)),
         check="branch", recheck=True,
-        bound=bound_ms(**{"flops_f32" if f32 else "flops_bf16": fl},
-                       nbytes=3 * rows * D * e + D * D * e),
+        bound=bound_ms(**{"flops_f32" if f32 else "flops_bf16": fl}, nbytes=nb),
+        bounds=dict(tf32x3_bound_ms=bound_ms(flops_tf32x3=fl, nbytes=nb)[0]) if f32 else None,
     )
 
 
@@ -772,12 +798,15 @@ def mlp_fused_case(rn, label, rows, D, per_step, f32=False, small=False):
     w = (rn(D, 4 * D, std=0.02, dtype=dt), rn(4 * D, std=0.02, dtype=torch.float32),
          rn(4 * D, D, std=0.02, dtype=dt), rn(D, std=0.02, dtype=torch.float32))
     fl = 16 * rows * D * D
+    nb = 2 * rows * D * e + 8 * D * D * e
     return case(
         "mlp_fused", label, per_step, f32=f32, small=small,
         kernel=lambda: mlp.mlp_fused(x, *w), plain=full_f32(lambda: mlp.mlp_fused_plain(x, *w)),
         check="rel", recheck=True,
-        bound=bound_ms(**{"flops_f32" if f32 else "flops_bf16": fl},
-                       nbytes=2 * rows * D * e + 8 * D * D * e),
+        # float32: the kernel's work is three TF32 products of each product; the FFMA bound
+        # of the same products beside it
+        bound=bound_ms(**{"flops_tf32x3" if f32 else "flops_bf16": fl}, nbytes=nb),
+        bounds=dict(ffma_bound_ms=bound_ms(flops_f32=fl, nbytes=nb)[0]) if f32 else None,
     )
 
 
@@ -820,11 +849,13 @@ def perceiver_cases(rn, label, K, M, D, h, Q, per_step, f32=False):
             wc = 2 * K * M * D * inner if lnk is not None else 0
             bound = bound_ms(flops_f32=logits + vo + wc, nbytes=nb)
             tpu_bound = bound_ms(flops_f32=tpu + vo, nbytes=nb)[0]
+            bounds = dict(tf32x3_bound_ms=bound_ms(flops_tf32x3=logits + vo + wc, nbytes=nb)[0])
         else:
             # With ln_k, ctx Wc in three bf16 products (the kernels' split form).
             split = 3 * 2 * K * M * D * inner if lnk is not None else 0
             bound = bound_ms(flops_bf16=vo + split, flops_f32=logits, nbytes=nb)
             tpu_bound = bound_ms(flops_bf16=vo, flops_f32=tpu, nbytes=nb)[0]
+            bounds = None
         yield case(
             "perceiver_core",
             ("f32 " if f32 else "") + f"{label} ctx ({K},{M},{D}) Q {Q}"
@@ -832,7 +863,7 @@ def perceiver_cases(rn, label, K, M, D, h, Q, per_step, f32=False):
             per_step, mode="ln_k" if lnk is not None else None, f32=f32,
             kernel=lambda lnk=lnk: resampler.perceiver_core(**a, **kw, lnk=lnk),
             plain=full_f32(lambda lnk=lnk: resampler.perceiver_core_plain(**a, **kw, lnk=lnk)),
-            check="branch", residual=a["queries"][None], bound=bound,
+            check="branch", residual=a["queries"][None], bound=bound, bounds=bounds,
             extra=lambda b=tpu_bound: dict(bound_of_tpu_work_ms=b),
         )
 
@@ -1073,10 +1104,14 @@ def same_bits_as(kernel, what, other) -> dict:
     return {f"same_bits_as_{what.replace(' ', '_')}": True}
 
 
-def mlp_case(rn, label, rows, D, Hd, per_step, shift_scale, B=1, ragged=False, f32=False):
+def mlp_case(rn, label, rows, D, Hd, per_step, shift_scale, B=1, ragged=False, f32=False,
+             split_check=False):
     """Both callers pass scale_bias = 0: the blocks' FiLM and the perceiver's LN affine.
     ``f32``: the float32 form (tokens and weights f32, the plain version's products in full
-    f32), else bf16."""
+    f32; its bound the three TF32 products of each product, the FFMA bound beside it), else
+    bf16. ``ragged``: the rows past the end untouched (:func:`rows_past_end_untouched`);
+    ``split_check``: the card's split of the weights gives ``mlp.tf32_split``'s bits
+    (:func:`split_bits_equal`)."""
     import torch
 
     from aurora_tpu_torch.ops import mlp
@@ -1091,13 +1126,16 @@ def mlp_case(rn, label, rows, D, Hd, per_step, shift_scale, B=1, ragged=False, f
     fl = 4 * B * rows * D * Hd
     e = x.element_size()
     nb = 2 * B * rows * D * e + 2 * D * Hd * e
+    extra = ((lambda: rows_past_end_untouched(x, a)) if ragged else
+             (lambda: split_bits_equal(x, a)) if split_check else None)
     return case(
         "mlp_adaln_residual", label, per_step,
         kernel=lambda: mlp.mlp_adaln_residual(x, *a),
         plain=full_f32(lambda: mlp.mlp_adaln_residual_plain(x, *a)),
         check="branch", residual=x, recheck=True, f32=f32,
-        bound=bound_ms(**{"flops_f32" if f32 else "flops_bf16": fl}, nbytes=nb),
-        extra=(lambda: rows_past_end_untouched(x, a)) if ragged else None,
+        bound=bound_ms(**{"flops_tf32x3" if f32 else "flops_bf16": fl}, nbytes=nb),
+        bounds=dict(ffma_bound_ms=bound_ms(flops_f32=fl, nbytes=nb)[0]) if f32 else None,
+        extra=extra,
     )
 
 
@@ -1154,6 +1192,33 @@ def rows_past_end_untouched(x, a) -> dict:
             raise AssertionError(f"ragged check, {what}: first {M} rows bit-equal {same}, the "
                                  f"{spare} rows behind them untouched {kept}")
     return dict(ragged_rows=M, rows_behind_untouched=spare)
+
+
+def split_bits_equal(x, a) -> dict:
+    """Float32 K3 on ``x`` with the weights' split scratch given (filled with NaN first): the
+    hi and lo parts of W1^T and W2^T that the card's split kernel writes there must be the
+    bits of ``mlp.tf32_split`` of the same transposes (compared as int32)."""
+    import torch
+
+    from aurora_tpu_torch.ops import mlp
+
+    B, L, D = x.shape
+    ops = mlp._mlp_operands(x, *a[:4])
+    Hd = ops[0].shape[1]
+    film = (a[4].float().reshape(B, D).contiguous(), a[5].float().reshape(B, D).contiguous(),
+            0.0, L, 1e-5)
+    ws = torch.full((4 * D * Hd,), float("nan"), device=x.device)
+    out = torch.empty(B * L, D, device=x.device)
+    mlp._mlp_rows(mlp._mlp_rows_entry(x), x.view(B * L, D), ops, out, film, wsplit=ws)
+    torch.cuda.synchronize()
+    parts = [p.reshape(-1) for w in (ops[0], ops[2]) for p in mlp.tf32_split(w.t().contiguous())]
+    want = torch.cat(parts).view(torch.int32)
+    differ = int((ws.view(torch.int32) != want).sum())
+    if differ:
+        raise AssertionError(f"split check: {differ} of {ws.numel()} values differ from "
+                             "tf32_split's bits")
+    return dict(split_values_equal=ws.numel(),
+                split_lo_nonzero=int(sum((p != 0).sum() for p in parts[1::2])))
 
 
 def _totals() -> dict:
@@ -1230,6 +1295,7 @@ def run_kernel_phases() -> dict:
         lib_ms = cuda_ms(case["library"]) if case["library"] else None
         b, by = case["bound"]
         more["of_bound"] = b / ms
+        more.update(case["bounds"])
         if lib_ms is not None:
             more["vs_library"] = ms / lib_ms
         row = dict(phase="kernel", kernel=name, mode=case["mode"], shape=case["label"],
@@ -1252,6 +1318,7 @@ def run_kernel_phases() -> dict:
             s.setdefault("shapes", []).append(dict(
                 shape=case["label"].removeprefix("f32 ").split("D 256: ", 1)[-1], ms=ms,
                 plain_ms=plain_ms, bound_ms=b, bound_by=by, err=rel, max_abs_err=err,
+                **case["bounds"],
                 **{"per_small_step" if case["small"] else "per_step": case["per_step"]}))
         n = case["per_step"]
         s["per_step"] += n
@@ -1266,6 +1333,8 @@ def run_kernel_phases() -> dict:
         for k in ("empty_kernel_ms", "byte_bound_ms"):  # K13: the two sides of its bound
             if k in more:
                 s[k] = more[k]
+        for k, v in case["bounds"].items():
+            s[k] = s.get(k, 0.0) + n * v
         if "bound_of_tpu_work_ms" in more:  # K4: the TPU kernel's work, beside the folded
             s["bound_of_tpu_work_ms"] = s.get("bound_of_tpu_work_ms", 0.0) + n * more[
                 "bound_of_tpu_work_ms"]
@@ -3179,8 +3248,8 @@ def main() -> int:
     emit(dict(phase="seconds", **seconds, total=sum(seconds.values())))
 
     def entry(s: dict, n_launches: int) -> dict:
-        more = {k: s[k] for k in ("bound_of_tpu_work_ms", "empty_kernel_ms", "byte_bound_ms")
-                if k in s}
+        more = {k: s[k] for k in ("bound_of_tpu_work_ms", "empty_kernel_ms", "byte_bound_ms",
+                                  "ffma_bound_ms", "tf32x3_bound_ms") if k in s}
         return dict(launches=n_launches, max_abs_err=s["max_abs_err"], err=s["err"],
                     ms=s["ms"], plain_ms=s["plain_ms"], bound_ms=s["bound_ms"],
                     bound_by=max(s["by"], key=s["by"].get), library_ms=s["library_ms"], **more)
@@ -3242,6 +3311,7 @@ def main() -> int:
                 s = summary["f32", name, mode]
                 e.setdefault("f32", {})[mode or "-"] = dict(
                     entry(s, n), shapes=s["shapes"], home_route=home_f32,
+                    source=SOURCES_F32[name],
                     launches_per_step=n // (F32_STEPS if home_f32 == "f32" else F32_ROUTE_STEPS)
                     if home_f32 else 0)
         kernels.append(e)

@@ -123,6 +123,11 @@ def test_k3_tokens_reach_the_entry_of_their_dtype(entries, dtype):
         assert (a[1], a[3]) == (w1.data_ptr(), w2.data_ptr())  # the weights as stored
         assert (a[11], a[12], a[13]) == (rows, r0, K3_ROWS)  # rows, row_base, rows a FiLM row
         assert (a[7] is None) == (dtype == torch.float32)  # the f32 row kernel: no statistics
+    # float32: the weights' split scratch before the stream, one for all the chunks (the
+    # launch at row_base 0 writes it); bf16: no such argument
+    split = {a[18] for _, _, a in entries.calls} if dtype == torch.float32 else set()
+    assert [len(a) for _, _, a in entries.calls] == [19 + len(split)] * len(want_chunks)
+    assert len(split) == (1 if dtype == torch.float32 else 0) and None not in split
     assert _lib.LAUNCHES["mlp_adaln_residual"] == 1
     assert _lib.LAUNCHES_BY == {("mlp_adaln_residual", str(dtype)[6:], K3_D): 1}
 
