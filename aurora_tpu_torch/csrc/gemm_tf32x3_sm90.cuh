@@ -1,5 +1,6 @@
 // A float32 product on Hopper's tensor cores, each operand taken in two TF32 parts so that
-// the sum keeps float32's digits: the products of float32 K3 and K8 (mlp_f32.cu).
+// the sum keeps float32's digits: the products of float32 K3 and K8 (mlp_f32.cu) and the qkv
+// and proj products of float32 K2 and K6 (window_attention_f32.cu).
 //
 // One TF32 product keeps 11 significant bits of each operand (10 of the mantissa), about
 // three decimal digits; the float32 bound of a block (9e-5) catches it. Each operand v is
@@ -11,7 +12,8 @@
 // at 495 / 3 = 165 TF/s on the H100, 2.46x the 67 TF/s of the FFMA pipes.
 //
 //   gemm_tf32x3_kernel<EPI>: out = A W (+ bias, + the exact erf GELU) over `rows` rows.
-//     A (rows, K) f32, K contiguous: the tokens (fc1) or the hidden (fc2).
+//     A (rows, K) f32, K contiguous: the tokens (fc1, qkv), the hidden (fc2) or the
+//       attention output (proj).
 //     W given as its split transpose: (2 N, K) f32, rows 0..N-1 W^T's hi, rows N..2N-1 its
 //       lo, K contiguous (split_tf32_t_kernel writes it from W (K, N) as stored). wgmma
 //       takes TF32 operands only K-major, so the (in, out) weight cannot be read as stored
@@ -41,7 +43,7 @@
 //     registers of sums is why a warpgroup's tile is 64 x 128, not 64 x 256.
 //     Epilogue, from the sums straight to device memory (8-byte stores; a quad writes 32
 //     contiguous bytes of a row), rows past `rows` never stored:
-//       EPI_BIAS       out = sum + b                          (fc2)
+//       EPI_BIAS       out = sum + b                          (fc2, qkv, proj)
 //       EPI_BIAS_GELU  out = gelu_erf(sum + b)                (fc1, into the hidden scratch)
 //   split_tf32_t_kernel: W (K, N) -> its transpose's hi and lo (N, K), 32 x 32 tiles through
 //     shared memory.
@@ -52,7 +54,7 @@
 // STAGES stages ahead, across tiles, so the next tile's loads overlap this tile's epilogue.
 //
 // Bound on the H100: operations, 3 x 2 M K N at 495 TF/s. The bytes from device memory (A,
-// the split W, out) are far below it at every shape K3 and K8 take; the bytes from L2 into
+// the split W, out) are far below it at every shape K2, K3, K6 and K8 take; the bytes from L2 into
 // shared memory are not (48 KB a stage: 50 GB a K3 call at stage 1), and one TF32 product a
 // step (ABLATE_ONE_PART) runs at 1/3 the tensor work in ~70% of the time (PERF.md). A form
 // in clusters of two blocks that multicast W's hi and lo parts to both (half the W traffic)

@@ -14,14 +14,21 @@
 //   attn = per head: logits q.k / 8 (+0 / -100 by group id), softmax, w @ v
 //   tail: y = attn Wproj + bproj; out = x + LN(y) scale[b] + shift[b] (two-pass LayerNorm,
 //         eps given); without the tail attn is the result.
+// The qkv and proj products each as three TF32 products (gemm_tf32x3_sm90.cuh: about 22 of
+// float32's 24 bits), the core's products in f32 FMAs.
 //
-// Bound on the H100: operations at 67 TF/s (stage 1 of the 0.25 degree model: qkv 0.41 TFLOP,
-// the core 0.08, proj 0.14: 9.2 ms a K2 / K6 call with the tail); K7 alone 1.13 ms of
-// operations against 0.63 ms of bytes at stage 1.
+// Bound on the H100 (stage 1 of the 0.25 degree model, 259,200 rows of D = 512): the qkv
+// (0.41 TFLOP) and proj (0.14) products as three TF32 products at 495 TF/s, 2.47 + 0.82 ms, and
+// the core's 0.08 TFLOP at the FFMA pipes' 67 TF/s, 1.14 ms: 4.44 ms a K2 / K6 call with the
+// tail (all at 67 TF/s: 9.2 ms); K7 alone 1.13 ms of operations against 0.63 ms of bytes.
 //
-// Design: four launches with the tail, two without, one for K7, on the caller's stream:
-//   1. qkv: gemm_f32_kernel<8, EPI_BIAS> (gemm_f32.cuh) over the token rows in their stored
-//      order, Wqkv (D, 3D) as stored, into a (rows, 3D) f32 scratch (1.6 GB at stage 1);
+// Design: six launches with the tail, three without, one for K7, on the caller's stream:
+//   1. qkv: split_tf32_t_kernel writes Wqkv^T's hi and lo (3D, D each) into wsplit, then
+//      gemm_tf32x3_kernel<EPI_BIAS> (gemm_tf32x3_sm90.cuh: a persistent TMA + wgmma ring,
+//      each product a_hi w_hi + a_hi w_lo + a_lo w_hi, the tokens split in registers, the sums
+//      promoted to f32 every 128 values of k) over the token rows in their stored order (K2:
+//      the padded grid's rows; K6: the packed windows), into a (rows, 3D) f32 scratch (1.6 GB
+//      at stage 1). Only the core reads through a row map;
 //   2. core: window_core_f32<Map>, one block of 8 warps a (window, head), head fastest, two
 //      blocks an SM, so that one block's loads and stores run under the other's products. The
 //      row map gives the row of token t of window w: Grid5d (K2) the token's row of the
@@ -47,24 +54,36 @@
 //        tokens are rows like any other; in masked blocks their own group id keeps them apart.
 //      112,320 bytes of shared memory a block (q, k, v, the rows and the group ids), at most
 //      128 registers a thread (__launch_bounds__(256, 2)).
-//   3. tail, proj: gemm_f32_kernel<8, EPI_BIAS>, Wproj (D, D) as stored, into out;
+//      The core keeps its FFMA products (64 and 144 deep per (window, head)): it took 4-15% of
+//      a launch at the three stages before qkv and proj moved to the tensor cores, 15-35%
+//      after (PERF.md §5);
+//   3. tail, proj: split_tf32_t_kernel writes Wproj^T's hi and lo (D, D each) into wsplit
+//      behind Wqkv's, then gemm_tf32x3_kernel<EPI_BIAS> over attn's rows into out;
 //   4. tail, rows: ln_rows_f32_kernel with the block input x as the residual and FiLM row
 //      row / (nW 144), in place in out.
-// qkv and the attention output each make a round trip through device memory, as in the bf16
-// form (window_attention.cu), at twice its bytes. K2 and K6 run one core and one GEMM on the
-// same rows in another order, so K6 on window_partition(x), reversed, gives K2's bits on x.
+// The weights' split is made anew every call (it moves each weight's bytes three times; no
+// cache to go stale under training or a served model's load): TF32 wgmma takes its
+// shared-memory operand only K-major, which the stored (in, out) weight is not. qkv and the
+// attention output each make a round trip through device memory, as in the bf16 form
+// (window_attention.cu), at twice its bytes.
+// K2 and K6 run one core and the same products on the same rows in another order, so K6 on
+// window_partition(x), reversed, gives K2's bits on x.
 //
-// window_attention_f32 has the C signature of window_attention.cu's window_attention (stats
-// is not used: the row kernel takes the LayerNorm statistics over the row it holds) and, as
-// it, is K2 for Cp > 0 and K6 for Cp == 0; sdpa_windows_f32 has sdpa.cu's sdpa_windows'.
+// window_attention_f32 has the C signature of window_attention.cu's window_attention with the
+// split scratch wsplit before the stream (stats is not used: the row kernel takes the
+// LayerNorm statistics over the row it holds) and, as it, is K2 for Cp > 0 and K6 for Cp == 0;
+// sdpa_windows_f32 has sdpa.cu's sdpa_windows'.
 //
-// tools/kernel_ablate.py builds copies with -DABLATE_ONLY_QKV (launch 1 alone),
-// -DABLATE_ONLY_CORE (launch 2 alone, on what the qkv scratch holds) and -DABLATE_ONLY_TAIL
-// (launches 3-4 alone, on what attn holds); ONLY_CORE with -DABLATE_NO_LOADS runs the core
-// without its copies of q, k and v (what the loads cost). Everything the entries use of the
-// core lives in the anonymous namespace below, which the tool can take from another version
-// of this file.
+// tools/kernel_ablate.py builds copies with -DWINDOW_F32_FFMA (the products on gemm_f32.cuh's
+// FFMA kernel, the design before the tensor cores; wsplit unused), -DABLATE_ONE_PART (the
+// header's: a_hi w_hi alone, one TF32 product), -DABLATE_ONLY_QKV (launch 1 alone, with its
+// split), -DABLATE_ONLY_CORE (launch 2 alone, on what the qkv scratch holds) and
+// -DABLATE_ONLY_TAIL (launches 3-4 alone, on what attn holds); ONLY_CORE with
+// -DABLATE_NO_LOADS runs the core without its copies of q, k and v (what the loads cost).
+// Everything the entries use of the core lives in the anonymous namespace below, which the
+// tool can take from another version of this file.
 #include "gemm_f32.cuh"
+#include "gemm_tf32x3_sm90.cuh"
 
 namespace {
 
@@ -293,20 +312,38 @@ int launch_core(const float* qkv, const int* groups, float* attn, const Map& g, 
 
 }  // namespace
 
+// out (rows, N) = a (rows, K) W + bias for W (K, N) f32 as stored: W^T's split written into
+// ws (2 N K f32), then the three-part TF32 product; with -DWINDOW_F32_FFMA the FFMA product
+// (ws unused). Outside the anonymous namespace, which kernel_ablate may take from an older file.
+static int product(const float* a, const float* w, float* ws, const float* bias, float* out,
+                   long long rows, int K, int N, cudaStream_t stream) {
+#ifdef WINDOW_F32_FFMA
+  (void)ws;
+  return f32k::launch_gemm_f32<8, f32k::EPI_BIAS>(f32k::Rows{a, K}, w, bias, out, rows, K, N,
+                                                  stream);
+#else
+  const int err = tf32x3::launch_split(w, ws, K, N, stream);
+  if (err) return err;
+  return tf32x3::launch_gemm<tf32x3::EPI_BIAS>(a, ws, bias, out, (int)rows, K, N, stream);
+#endif
+}
+
 // K2 (Cp > 0) and K6 (Cp == 0) in float32. K2: x, attn, out (B, Cp, Hp, Wp, D) f32 with
 // windows (ws0, ws1, ws2) in place; K6: x, attn, out (B, nW, 144, D) f32 (Hp, Wp and ws are
 // not read). wqkv: (D, 3D) f32 as stored; bqkv: (3D,) f32; groups: (nW, 144) int32 or null
 // (nW windows a batch element); qkv: scratch (rows, 3D) f32. With wproj set, the tail: wproj
 // (D, D) f32 as stored, bproj (D,) f32, shift/scale (B, D) f32, the result in out; without it
-// (wproj null) the result is attn and out is unused. stats is not used. D in {256, 512, 1024,
-// 2048}, D = 64 heads. Returns cudaGetLastError() of the last launch, or cudaErrorInvalidValue
-// for a shape it does not take.
+// (wproj null) the result is attn and out is unused. stats is not used. wsplit: scratch of
+// 8 D^2 f32, Wqkv^T's hi and lo (3D, D each), then Wproj^T's (D, D each), written and read by
+// this call. x, attn, out, wsplit 16-byte aligned. D in {256, 512, 1024, 2048}, D = 64 heads.
+// Returns cudaGetLastError() of the last launch, cudaErrorInvalidValue for a shape it does not
+// take, or cudaErrorUnknown where no tensor map could be encoded.
 extern "C" int window_attention_f32(const float* x, const float* wqkv, const float* bqkv,
                                     const int* groups, const float* wproj, const float* bproj,
                                     const float* shift, const float* scale, float* qkv,
                                     float* attn, float* stats, float* out, int B, int nW, int Cp,
                                     int Hp, int Wp, int D, int ws0, int ws1, int ws2, int heads,
-                                    float eps, cudaStream_t stream) {
+                                    float eps, float* wsplit, cudaStream_t stream) {
   (void)stats;
   const long long rows = (long long)B * nW * CN;
   if (B <= 0 || nW <= 0 || (D != 256 && D != 512 && D != 1024 && D != 2048) ||
@@ -315,10 +352,10 @@ extern "C" int window_attention_f32(const float* x, const float* wqkv, const flo
   if (Cp > 0 && (ws0 * ws1 * ws2 != CN || Cp % ws0 || Hp % ws1 || Wp % ws2 ||
                  (Cp / ws0) * (Hp / ws1) * (Wp / ws2) != nW))
     return (int)cudaErrorInvalidValue;
+  float* const wproj_split = wsplit + 6ll * D * D;  // behind Wqkv^T's hi and lo
   int err = 0;
 #if !defined(ABLATE_ONLY_CORE) && !defined(ABLATE_ONLY_TAIL)
-  err = f32k::launch_gemm_f32<8, f32k::EPI_BIAS>(f32k::Rows{x, D}, wqkv, bqkv, qkv, rows, D,
-                                                 3 * D, stream);
+  err = product(x, wqkv, wsplit, bqkv, qkv, rows, D, 3 * D, stream);
   if (err) return err;
 #endif
 #ifdef ABLATE_ONLY_QKV
@@ -336,8 +373,7 @@ extern "C" int window_attention_f32(const float* x, const float* wqkv, const flo
   return err;
 #endif
   if (err || !wproj) return err;
-  err = f32k::launch_gemm_f32<8, f32k::EPI_BIAS>(f32k::Rows{attn, D}, wproj, bproj, out, rows, D,
-                                                 D, stream);
+  err = product(attn, wproj, wproj_split, bproj, out, rows, D, D, stream);
   if (err) return err;
   return f32k::launch_ln_rows_f32(f32k::RowsF32{x}, out, shift, scale, 0.f, (int)rows, 0,
                                   (long long)nW * CN, D, eps, stream);

@@ -45,15 +45,19 @@ bf16 (``Wqkv``, ``bqkv``, ``Wproj``) or f32 (``bproj``, FiLM). Bound on the card
 
 K2, K6 and K7 in float32 (the facades' default config; the TPU kernels compute in the
 tokens' dtype): ``csrc/window_attention_f32.cu``. K2 and K6 are ``window_attention_f32``
-(the bf16 entry's signature; K6 with ``Cp = 0``), the same four launches in f32 (two without
-the tail): qkv on the FFMA products of ``csrc/gemm_f32.cuh`` into a ``(rows, 3D)`` f32
-scratch (1.6 GB at stage 1), a core of one block a (window, head), two to an SM, with the
-window's q, k and v in shared memory (f32 logits, mask, a base-2 softmax and ``w @ v``
-a third of the keys at a time) that reads and writes each
-token's row through a row map (K2: the padded 5D grid's row; K6: ``w * 144 + t``), proj, and
-an f32 row kernel (the LayerNorm two-pass over the row), FiLM and the residual. K7 is
-``sdpa_windows_f32``: that core alone on the caller's packed qkv. Weights as stored (a
-bf16-stored weight is widened; the tokens are never narrowed). Bound: operations at 67 TF/s.
+(the bf16 entry's signature with the weights' split scratch before the stream; K6 with
+``Cp = 0``), the same launches in f32 plus each weight's split: qkv on the tensor cores of
+``csrc/gemm_tf32x3_sm90.cuh`` (each product three TF32 products of split operands, as float32
+K3's) into a ``(rows, 3D)`` f32 scratch (1.6 GB at stage 1), a core of one block a (window,
+head), two to an SM, with the window's q, k and v in shared memory (f32 logits, mask, a base-2
+softmax and ``w @ v`` a third of the keys at a time) that reads and writes each token's row
+through a row map (K2: the padded 5D grid's row; K6: ``w * 144 + t``), proj on the same tensor
+cores, and an f32 row kernel (the LayerNorm two-pass over the row), FiLM and the residual. The
+wrapper allocates the split scratch, ``8 * D * D`` f32 a call (``Wqkv^T``'s and ``Wproj^T``'s
+hi and lo parts, which the call writes and reads: no cache). K7 is ``sdpa_windows_f32``: that
+core alone on the caller's packed qkv. Weights as stored (a bf16-stored weight is widened; the
+tokens are never narrowed). Bound: the products as three TF32 products at 495 TF/s, the core at
+67 TF/s.
 
 K7 is a kernel of its own (``csrc/sdpa.cu`` on ``csrc/sdpa_sm90.cuh``), bound by bytes:
 persistent blocks, two to an SM, walk runs of (window, head) units through a two-stage ring
@@ -317,20 +321,24 @@ def _group_ids(groups: Optional[np.ndarray], nW: int, device) -> Optional[torch.
     return gid
 
 
-# csrc/window_attention.cu::window_attention, csrc/window_attention_f32.cu::window_attention_f32
+# csrc/window_attention.cu::window_attention; csrc/window_attention_f32.cu::window_attention_f32
+# takes the weights' split scratch before the stream
 _WINDOW_ATTENTION_ARGS = [_P] * 12 + [_I] * 10 + [_F, _P]
+_WINDOW_ATTENTION_F32_ARGS = _WINDOW_ATTENTION_ARGS[:-1] + [_P, _P]
 # csrc/sdpa.cu::sdpa_windows, csrc/window_attention_f32.cu::sdpa_windows_f32
 _SDPA_ARGS = [_P] * 3 + [_I] * 4 + [_P]
 
 
 def _window_attention_call(
-    fn, x, wqkv, bqkv, groups, num_heads, tail, ln_eps, nW, rows, geom5d, ws, what
+    fn, x, wqkv, bqkv, groups, num_heads, tail, ln_eps, nW, rows, geom5d, ws, what, wsplit=None
 ) -> torch.Tensor:
     """Run ``fn`` (``window_attention`` of ``csrc/window_attention.cu`` on bf16,
     ``window_attention_f32`` of ``csrc/window_attention_f32.cu`` on f32, or an ablated copy)
     as K2 (``geom5d = (Cp, Hp, Wp)``) or K6 (``geom5d = (0, 0, 0)``): 2 CUDA launches
-    without the tail, 4 with it. Allocates the scratch; the weights go as stored (a cast
-    only to the tokens' dtype / f32 where they are stored otherwise)."""
+    without the tail, 4 with it (f32: and a split of each weight). Allocates the scratch; for
+    f32 also the weights' split, ``8 * D * D`` f32 (or ``wsplit``, to read it back), which the
+    call writes and reads. The weights go as stored (a cast only to the tokens' dtype / f32
+    where they are stored otherwise)."""
     B, D = x.shape[0], x.shape[-1]
     dt, f32 = x.dtype, torch.float32
     ops = {"wqkv": (wqkv.to(dt).contiguous(), (D, 3 * D)),
@@ -349,6 +357,11 @@ def _window_attention_call(
         if dt == torch.bfloat16:  # the f32 row kernel takes its own statistics
             stats = torch.empty(rows, D // 256, 2, dtype=f32, device=x.device)
         out = torch.empty_like(x)
+    if dt == f32:
+        if wsplit is None:
+            wsplit = torch.empty(8 * D * D, dtype=f32, device=x.device)
+        _lib.require(wsplit, "wsplit", f32)
+        ops["wsplit"] = (wsplit, (8 * D * D,))
     # The tensor maps' bases and the kernels' 16-byte loads and stores need 16-byte
     # alignment; fresh allocations and parameters have it, a view may not.
     if x.data_ptr() % 16:
@@ -359,25 +372,31 @@ def _window_attention_call(
             raise ValueError(f"{what}: {name} must be on {x.device}, 16-byte aligned")
     gid = _group_ids(groups, nW, x.device)
     ptr = {k: t.data_ptr() for k, (t, _) in ops.items()}
+    split = (ptr["wsplit"],) if dt == f32 else ()
     err = fn(
         x.data_ptr(), ptr["wqkv"], ptr["bqkv"], None if gid is None else gid.data_ptr(),
         *(ptr.get(k) for k in ("wproj", "bproj", "shift", "scale")),
         qkv.data_ptr(), attn.data_ptr(), None if stats is None else stats.data_ptr(),
         None if out is None else out.data_ptr(),
-        B, nW, *geom5d, D, *ws, num_heads, float(ln_eps), _lib.stream(x),
+        B, nW, *geom5d, D, *ws, num_heads, float(ln_eps), *split, _lib.stream(x),
     )
     _lib.check(err, what)
     return attn if out is None else out
 
 
+def _window_attention_entry(x: torch.Tensor):
+    """The C entry K2 and K6 run on the tokens ``x``: ``window_attention_f32`` on float32
+    tokens, ``window_attention`` on bf16 ones."""
+    if x.dtype == torch.float32:
+        return _lib.kernel("window_attention_f32", "window_attention_f32",
+                           _WINDOW_ATTENTION_F32_ARGS)
+    return _lib.kernel("window_attention", "window_attention", _WINDOW_ATTENTION_ARGS)
+
+
 def _launch_window_attention(x, *args, what: str) -> torch.Tensor:
     """K2 or K6 (arguments as :func:`_window_attention_call`), counted in ``LAUNCHES``: bf16
     or f32 tokens (its callers check)."""
-    if x.dtype == torch.float32:
-        fn = _lib.kernel("window_attention_f32", "window_attention_f32", _WINDOW_ATTENTION_ARGS)
-    else:
-        fn = _lib.kernel("window_attention", "window_attention", _WINDOW_ATTENTION_ARGS)
-    out = _window_attention_call(fn, x, *args, what)
+    out = _window_attention_call(_window_attention_entry(x), x, *args, what)
     return _lib.count_launch(what, out)
 
 

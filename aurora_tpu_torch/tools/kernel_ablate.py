@@ -45,12 +45,18 @@ a wrapper, and all but the ring-depth variants compute wrong results on purpose:
 * K11 (``csrc/attn5d_direct.cu``, at the tool's padded grids, stages 1-3): ``only_qkv`` and
   ``only_core`` (on what the qkv scratch holds) in both work orders, ``torch.matmul`` at the
   qkv shape beside them;
-* K2 / K6 / K7 in float32 (``csrc/window_attention_f32.cu``, at the three backbone stages and
-  the small model's D = 256, masked, with the tail): ``only_qkv`` (the qkv product alone),
-  ``only_core`` (the window core alone, on what the qkv scratch holds) and ``only_tail`` (proj
-  and the row kernel alone, on what the attention scratch holds), ``only_core_no_loads`` (the
-  core without its copies of q, k and v into shared memory), K7 (the core alone on packed
-  qkv) beside them, and the core's resident blocks an SM. ``--core-from FILE`` builds the same
+* K2 / K6 / K7 in float32 (``csrc/window_attention_f32.cu``, its qkv and proj on
+  ``csrc/gemm_tf32x3_sm90.cuh``, at the three backbone stages and the small model's D = 256,
+  masked, with the tail): ``ffma`` (the products on the FFMA pipes, ``-DWINDOW_F32_FFMA``: the
+  design before the tensor cores, a right result), ``one_part`` (the ``lo`` products off: one
+  TF32 product, whose error the float32 bound 9e-5 must catch), ``only_qkv`` (the qkv product
+  alone, with its weight's split), ``only_core`` (the window core alone, on what the qkv
+  scratch holds) and ``only_tail`` (proj with its weight's split and the row kernel alone, on
+  what the attention scratch holds), ``only_core_no_loads`` (the core without its copies of q,
+  k and v into shared memory), K7 (the core alone on packed qkv) beside them, and the core's
+  resident blocks an SM; the error against the full-f32 plain version of ``full``, ``ffma``
+  and ``one_part``; ``torch.matmul`` for qkv and for proj beside them, at full float32 and with
+  TF32. ``--core-from FILE`` builds the same
   variants once more with the core of another version of the file (its anonymous namespace:
   the constants, row maps, core kernel and ``launch_core``) spliced into this one's entries,
   so that an older core is split by the same switches in the same call;
@@ -128,7 +134,8 @@ ATTN_PROBE_VARIANTS = {"full": (), "only_qkv": ("ABLATE_ONLY_QKV",),
                        "only_core": ("ABLATE_ONLY_CORE",)}
 ATTN5D_VARIANTS = ATTN_PROBE_VARIANTS
 WINDOW_F32_VARIANTS = {
-    "full": (), "only_qkv": ("ABLATE_ONLY_QKV",), "only_core": ("ABLATE_ONLY_CORE",),
+    "full": (), "ffma": ("WINDOW_F32_FFMA",), "one_part": ("ABLATE_ONE_PART",),
+    "only_qkv": ("ABLATE_ONLY_QKV",), "only_core": ("ABLATE_ONLY_CORE",),
     "only_tail": ("ABLATE_ONLY_TAIL",),
     "only_core_no_loads": ("ABLATE_ONLY_CORE", "ABLATE_NO_LOADS"),
 }
@@ -450,6 +457,9 @@ def main(argv=None) -> list[dict]:
                 ablate_window_f32_stage(libs, note, *shape)
 
     def ablate_window_f32_stage(libs, note, C, H, W, D, heads):
+        from aurora_tpu_torch.model.nn import full_f32_products
+        from aurora_tpu_torch.tools import bound_ms, branch_err
+
         ws, ss = (2, 6, 12), (1, 3, 6)
         Hp, Wp = H + (-H) % ws[1], W + (-W) % ws[2]
         rows = C * Hp * Wp
@@ -465,19 +475,44 @@ def main(argv=None) -> list[dict]:
         groups = window_group_ids(C, H, W, ws, ss)
         gid = group_ids_tensor(groups, dev)
         core = 4 * nW * heads * 144 * 144 * 64
-        work = dict(flops=8 * rows * D * D + core, nbytes=2 * rows * D * 4 + 4 * D * D * 4,
-                    f32=True)
+        nbytes = 2 * rows * D * 4 + 4 * D * D * 4
+        # the bound of the whole call (qkv and proj as three TF32 products, the core at the
+        # FFMA rate), the FFMA bound of all of it beside it
+        bound, by = bound_ms(flops_tf32x3=8 * rows * D * D, flops_f32=core, nbytes=nbytes)
+        work = dict(bound_ms=bound, bound_by=by,
+                    ffma_bound_ms=bound_ms(flops_f32=8 * rows * D * D + core, nbytes=nbytes)[0])
+        if not note:  # cuBLAS on the products' shapes, once a shape
+            a = xp.view(rows, D)
+            for tf32 in (False, True):
+                torch.backends.cuda.matmul.allow_tf32 = tf32
+                form = "TF32" if tf32 else "full f32"
+                for what, w, n in (("qkv", wqkv, 3 * D), ("proj", tail[0], D)):
+                    emit(f"torch.matmul {what} ({rows},{D})x({D},{n}) {form}",
+                         ms(lambda w=w: torch.matmul(a, w)),
+                         **({} if tf32 else dict(flops=2 * rows * D * n, f32=True)))
+            torch.backends.cuda.matmul.allow_tf32 = False
         for name, x, geom, wsx in (("window_attention", xp, (C, Hp, Wp), ws),
                                    ("window_attention_windowed", xw, (0, 0, 0), (0, 0, 0))):
+            with full_f32_products():
+                if geom[0]:
+                    want = wa.window_attention_tail_plain(x, wqkv, bqkv, groups, ws, heads, tail)
+                else:
+                    want = wa.window_attention_windowed_plain(x, wqkv, bqkv, groups, heads, tail)
             for tag, lib in libs.items():
                 fn = lib.window_attention_f32
-                fn.argtypes, fn.restype = wa._WINDOW_ATTENTION_ARGS, _I
+                fn.argtypes, fn.restype = wa._WINDOW_ATTENTION_F32_ARGS, _I
 
                 def call(fn=fn, x=x, geom=geom, wsx=wsx, name=name):
-                    wa._window_attention_call(fn, x, wqkv, bqkv, groups, heads, tail, 1e-5, nW,
-                                              rows, geom, wsx, name)
+                    return wa._window_attention_call(fn, x, wqkv, bqkv, groups, heads, tail, 1e-5,
+                                                     nW, rows, geom, wsx, name)
 
-                emit(f"{name} f32 D={D} masked, tail [{tag}]{note}", ms(call), **work)
+                err = {}
+                if tag in ("full", "ffma", "one_part"):
+                    err["err"] = branch_err(call(), want, x)[1]
+                t = ms(call)
+                emit(f"{name} f32 D={D} masked, tail [{tag}]{note}", t, **work,
+                     share_of_bound=bound / t, **err)
+            del want
         del xp, xw
         qkv = r(1, nW, 144, 3 * D)
         o = torch.empty(1, nW, 144, D, device=dev)

@@ -50,11 +50,12 @@ Phases, each printing one JSON line; any failure raises and the script exits non
    1e-4, and the plain version with TF32 products must fail the same bound by the same
    measure (``tf32_control_err``); timed over 5 runs, the plain versions over 2 (K7 also
    ``F.scaled_dot_product_attention`` in float32 on the same masked windows). Float32 K3
-   and K8 take each product as three TF32 products of split operands: their bound is that
-   work at the TF32 peak, the FFMA bound beside it (``ffma_bound_ms``); the other float32
-   forms print the bound of their products as three TF32 products beside their FFMA bound
+   and K8, and K2's and K6's qkv and proj, take each product as three TF32 products of split
+   operands: their bound is that work at the TF32 peak (K2/K6's core at the FFMA pipes'
+   rate), the FFMA bound beside it (``ffma_bound_ms``); the other float32 forms print the
+   bound of their products as three TF32 products beside their FFMA bound
    (``tf32x3_bound_ms``); at stage 1 and at D = 256 the weights' split that the card writes
-   must be ``mlp.tf32_split``'s bits of the same transposes. K6 on
+   for K3, K2 and K6 must be ``mlp.tf32_split``'s bits of the same transposes. K6 on
    ``window_partition(xp)``, reversed, must give float32 K2's bits; in float32 garbage in
    stage 3's pad tokens may move a real token by a rounding (the plain version's too),
    within 1e-6 of the branch (K2, K6) or of the output (K7);
@@ -264,11 +265,12 @@ SOURCES = {
 # The float32 forms' sources (the same C entries' files as ``SOURCES`` name for bf16).
 SOURCES_F32 = {
     "roll3d": "aurora_tpu_torch/csrc/roll.cu",
-    "window_attention": "aurora_tpu_torch/csrc/window_attention_f32.cu",
+    "window_attention": "aurora_tpu_torch/csrc/window_attention_f32.cu + gemm_tf32x3_sm90.cuh",
     "mlp_adaln_residual": "aurora_tpu_torch/csrc/mlp_f32.cu + gemm_tf32x3_sm90.cuh",
     "perceiver_core": "aurora_tpu_torch/csrc/resampler_f32.cu",
     "linear_adaln_residual": "aurora_tpu_torch/csrc/mlp_f32.cu",
-    "window_attention_windowed": "aurora_tpu_torch/csrc/window_attention_f32.cu",
+    "window_attention_windowed":
+        "aurora_tpu_torch/csrc/window_attention_f32.cu + gemm_tf32x3_sm90.cuh",
     "sdpa_windows": "aurora_tpu_torch/csrc/window_attention_f32.cu",
     "mlp_fused": "aurora_tpu_torch/csrc/mlp_f32.cu + gemm_tf32x3_sm90.cuh",
 }
@@ -620,7 +622,8 @@ def f32_cases(rn):
         half = nblk // 2  # a stage's shifted (masked) blocks, and its unshifted ones
         yield from attention_f32_cases(rn, C, H, W, D, heads, {
             ("window_attention", "tail"): half, ("window_attention", "no tail"): half,
-            ("window_attention_windowed", "tail"): half, ("sdpa_windows", None): half})
+            ("window_attention_windowed", "tail"): half, ("sdpa_windows", None): half},
+            split_check=D == 512)
         film = (rn(1, D, std=0.1, dtype=f32), rn(1, D, dtype=f32))
         rows = C * H * W
         yield mlp_case(rn, f"f32 backbone ({rows},{D})", rows, D, 4 * D, nblk, film,
@@ -648,7 +651,7 @@ def f32_cases(rn):
     C, H, W, D, heads = 4, 180, 360, 256, 4
     M = C * H * W
     yield from attention_f32_cases(rn, C, H, W, D, heads, {("window_attention", "tail"): 2},
-                                   "D 256: ", small=True)
+                                   "D 256: ", small=True, split_check=True)
     film = (rn(1, D, std=0.1, dtype=f32), rn(1, D, dtype=f32))
     ln2 = (rn(1, D, std=0.1, dtype=f32), 1 + rn(1, D, std=0.1, dtype=f32))
     for c in (mlp_case(rn, f"f32 D 256: backbone ({M},{D})", M, D, 4 * D, 4, film, f32=True,
@@ -666,15 +669,19 @@ def f32_cases(rn):
 
 
 def attention_f32_cases(rn, C, H, W, D, heads, per_step, prefix="", tails=(True, False),
-                        groups=("masked", "unmasked"), sdpa=True, small=False):
+                        groups=("masked", "unmasked"), sdpa=True, small=False,
+                        split_check=False):
     """K2 and K6 in float32 on the (1, C, H, W, D) grid padded to whole windows (K6 on its
     partitioned windows), with and without the tail, masked and unmasked; with ``sdpa`` K7 on
     packed qkv of the same windows, masked and unmasked (``F.scaled_dot_product_attention`` in
     float32 with the -100/0 mask beside it). Each against its plain version with full-f32
-    products. Every K2 case also checks that K6 on ``window_partition(xp)``, reversed, gives
-    its bits; on a padded grid, masked, garbage in the pad tokens must leave the real tokens
-    within PAD_F32_TOL (K2 and K6 with the tail, K7). ``per_step``: launches a step of each
-    (kernel, mode) on the route that runs it (absent: 0)."""
+    products; K2's and K6's bound their qkv and proj as three TF32 products and the core at
+    the FFMA rate, the FFMA bound of all of it beside it. Every K2 case also checks that K6 on
+    ``window_partition(xp)``, reversed, gives its bits; on a padded grid, masked, garbage in
+    the pad tokens must leave the real tokens within PAD_F32_TOL (K2 and K6 with the tail,
+    K7). ``split_check``: the masked cases with the tail also hold the card's split of Wqkv and
+    Wproj to ``mlp.tf32_split``'s bits (:func:`window_split_bits_equal`). ``per_step``:
+    launches a step of each (kernel, mode) on the route that runs it (absent: 0)."""
     import torch
     import torch.nn.functional as F
 
@@ -702,15 +709,28 @@ def attention_f32_cases(rn, C, H, W, D, heads, per_step, prefix="", tails=(True,
             products = 2 * M * D * 3 * D + (2 * M * D * D if with_tail else 0)
             nb = 2 * M * D * 4 + (4 if with_tail else 3) * D * D * 4
             kw = dict(f32=True, small=small, mode=mode, check="branch" if with_tail else "rel",
-                      recheck=True, bound=bound_ms(flops_f32=products + fl_core, nbytes=nb),
-                      bounds=dict(tf32x3_bound_ms=bound_ms(
-                          flops_tf32x3=products, flops_f32=fl_core, nbytes=nb)[0]))
+                      recheck=True,
+                      bound=bound_ms(flops_tf32x3=products, flops_f32=fl_core, nbytes=nb),
+                      bounds=dict(ffma_bound_ms=bound_ms(flops_f32=products + fl_core,
+                                                         nbytes=nb)[0]))
             pad = with_tail and gr is not None and padded
+            split = split_check and with_tail and gr is not None
 
-            def k2_extra(gr=gr, t=t, pad=pad):
+            def k2_extra(gr=gr, t=t, pad=pad, split=split):
                 more = k6_equals_k2(xp, wqkv, bqkv, gr, ws, heads, t)
                 if pad:
                     more.update(k2_pad_tokens_isolated(xp, wqkv, bqkv, gr, ws, heads, t))
+                if split:
+                    more.update(window_split_bits_equal(xp, wqkv, bqkv, gr, ws, heads, t))
+                return more
+
+            def k6_extra(gr=gr, t=t, pad=pad, split=split):
+                more = {}
+                if pad:
+                    more.update(k2_pad_tokens_isolated(xp, wqkv, bqkv, gr, ws, heads, t,
+                                                       windowed=True))
+                if split:
+                    more.update(window_split_bits_equal(xw, wqkv, bqkv, gr, None, heads, t))
                 return more
 
             yield case(
@@ -727,9 +747,7 @@ def attention_f32_cases(rn, C, H, W, D, heads, per_step, prefix="", tails=(True,
                 "window_attention_windowed",
                 f"f32 {prefix}(1,{nW},{N},{D}) heads {heads}, {kind}, {mode}",
                 per_step.get(("window_attention_windowed", mode), 0),
-                residual=xw if with_tail else None,
-                extra=(lambda gr=gr, t=t: k2_pad_tokens_isolated(
-                    xp, wqkv, bqkv, gr, ws, heads, t, windowed=True)) if pad else None,
+                residual=xw if with_tail else None, extra=k6_extra if pad or split else None,
                 kernel=lambda gr=gr, t=t:
                     window_attention.window_attention_windowed(xw, wqkv, bqkv, gr, heads, t),
                 plain=full_f32(lambda gr=gr, t=t:
@@ -916,6 +934,28 @@ def k6_equals_k2(xp, wqkv, bqkv, groups, ws, heads, tail) -> dict:
     if not torch.equal(wa.window_reverse(k6, ws, C, H, W), k2):
         raise AssertionError("K6 on window_partition(xp), reversed, differs from K2 on xp")
     return dict(k6_on_partition_equals_k2=True)
+
+
+def window_split_bits_equal(x, wqkv, bqkv, groups, ws, heads, tail) -> dict:
+    """Float32 K2 (``ws`` given, ``x`` the padded grid) or K6 (``ws`` None, ``x`` the packed
+    windows) with the tail, the weights' split scratch given (filled with NaN first): the hi
+    and lo parts of Wqkv^T and Wproj^T that the card's split kernel writes there must be the
+    bits of ``mlp.tf32_split`` of the same transposes (compared as int32)."""
+    import torch
+
+    from aurora_tpu_torch.ops import window_attention as wa
+
+    D = x.shape[-1]
+    if ws is None:
+        _, nW, rows = wa.check_window_attention_shape(tuple(x.shape), heads)
+        geom, wsx, what = (0, 0, 0), (0, 0, 0), "window_attention_windowed"
+    else:
+        _, nW, rows = wa.check_window_attention_shape(tuple(x.shape), heads, ws)
+        geom, wsx, what = tuple(x.shape[1:4]), ws, "window_attention"
+    split = torch.full((8 * D * D,), float("nan"), device=x.device)
+    wa._window_attention_call(wa._window_attention_entry(x), x, wqkv, bqkv, groups, heads, tail,
+                              1e-5, nW, rows, geom, wsx, what, wsplit=split)
+    return split_is_tf32_split(split, (wqkv, tail[0]), what)
 
 
 # In float32 a masked key keeps a weight of exp(-100 + its logit) (a tiny normal or a
@@ -1210,12 +1250,22 @@ def split_bits_equal(x, a) -> dict:
     ws = torch.full((4 * D * Hd,), float("nan"), device=x.device)
     out = torch.empty(B * L, D, device=x.device)
     mlp._mlp_rows(mlp._mlp_rows_entry(x), x.view(B * L, D), ops, out, film, wsplit=ws)
+    return split_is_tf32_split(ws, (ops[0], ops[2]), "mlp_adaln_residual")
+
+
+def split_is_tf32_split(ws, weights, what) -> dict:
+    """The split scratch ``ws`` a launch wrote must hold, in order, the hi and lo parts of each
+    of ``weights``' transposes as ``mlp.tf32_split`` gives them (compared as int32)."""
+    import torch
+
+    from aurora_tpu_torch.ops import mlp
+
     torch.cuda.synchronize()
-    parts = [p.reshape(-1) for w in (ops[0], ops[2]) for p in mlp.tf32_split(w.t().contiguous())]
+    parts = [p.reshape(-1) for w in weights for p in mlp.tf32_split(w.t().contiguous())]
     want = torch.cat(parts).view(torch.int32)
     differ = int((ws.view(torch.int32) != want).sum())
     if differ:
-        raise AssertionError(f"split check: {differ} of {ws.numel()} values differ from "
+        raise AssertionError(f"{what} split check: {differ} of {ws.numel()} values differ from "
                              "tf32_split's bits")
     return dict(split_values_equal=ws.numel(),
                 split_lo_nonzero=int(sum((p != 0).sum() for p in parts[1::2])))
