@@ -1,8 +1,8 @@
-// The float32 FFMA product and the float32 row kernel: the products of float32 K2, K6
-// (window_attention_f32.cu), K5 (mlp_f32.cu) and K4 (resampler_f32.cu), and the row kernel of
-// every float32 form with a LayerNorm, K3's included. Float32 K3's and K8's products run on
-// the tensor cores in three TF32 parts (gemm_tf32x3_sm90.cuh); this product
-// still builds them under mlp_f32.cu's -DMLP_F32_FFMA (tools/kernel_ablate.py's `ffma`).
+// The float32 FFMA product and the float32 row kernel. The row kernel is every float32 form's
+// with a LayerNorm (K2, K3, K4, K5, K6). Every float32 product of the path runs on the tensor
+// cores in three TF32 parts (gemm_tf32x3_sm90.cuh: K3, K8, K4, K5 and K2's and K6's qkv and
+// proj); this product builds their earlier forms under -DMLP_F32_FFMA, -DWINDOW_F32_FFMA,
+// -DRESAMPLER_F32_FFMA and -DLINEAR_F32_FFMA (tools/kernel_ablate.py's `ffma`).
 //
 // The TPU kernels compute in the tokens' dtype; in float32 every product accumulates in f32
 // from f32 operands (aurora_tpu/ops/mlp.py:244,375; aurora_tpu/model/swin3d.py:1127). Here
@@ -34,8 +34,7 @@
 //     K4's queries).
 //
 // Bound of a product on the card: operations, 2 M K N at 67 TF/s. This is the simple design
-// (SIMT, one tile of sums a thread, 42.6 TF/s at K2's qkv, 64% of the FFMA peak); K2's, K6's,
-// K5's and K4's products are queued for gemm_tf32x3_sm90.cuh (ROADMAP.md).
+// (SIMT, one tile of sums a thread, 42.6 TF/s at K2's qkv on the H100, 64% of the FFMA peak).
 #pragma once
 
 #include <cuda_runtime.h>

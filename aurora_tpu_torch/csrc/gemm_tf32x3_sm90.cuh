@@ -1,6 +1,7 @@
 // A float32 product on Hopper's tensor cores, each operand taken in two TF32 parts so that
-// the sum keeps float32's digits: the products of float32 K3 and K8 (mlp_f32.cu) and the qkv
-// and proj products of float32 K2 and K6 (window_attention_f32.cu).
+// the sum keeps float32's digits: the products of float32 K3 and K8 (mlp_f32.cu), K5
+// (mlp_f32.cu), K4 (resampler_f32.cu) and the qkv and proj products of float32 K2 and K6
+// (window_attention_f32.cu).
 //
 // One TF32 product keeps 11 significant bits of each operand (10 of the mantissa), about
 // three decimal digits; the float32 bound of a block (9e-5) catches it. Each operand v is
@@ -11,14 +12,19 @@
 // in the f32 accumulators: about 22 of float32's 24 bits ("3xTF32"). Three TF32 products run
 // at 495 / 3 = 165 TF/s on the H100, 2.46x the 67 TF/s of the FFMA pipes.
 //
-//   gemm_tf32x3_kernel<EPI>: out = A W (+ bias, + the exact erf GELU) over `rows` rows.
-//     A (rows, K) f32, K contiguous: the tokens (fc1, qkv), the hidden (fc2) or the
-//       attention output (proj).
+//   gemm_tf32x3_kernel<EPI>: out = A W (+ bias, + the exact erf GELU) over the rows of A.
+//     A, K contiguous: the tokens (fc1, qkv, K5), the hidden (fc2), the attention output
+//       (proj), K4's context and its o. Its rows come in groups: `groups` groups of `per`
+//       rows, group_stride floats apart (a 3D tensor map (group, row, K)); one group for a
+//       plain matrix. K4's context is grouped: a chunk of columns is K levels of Mc rows, M D
+//       floats apart, read in place. A row tile never straddles two groups: a group's last
+//       tile reads on past its rows (real rows of the next chunk, or zeros past the tensor)
+//       and stores none of them. Output row g per + r is row r of group g.
 //     W given as its split transpose: (2 N, K) f32, rows 0..N-1 W^T's hi, rows N..2N-1 its
-//       lo, K contiguous (split_tf32_t_kernel writes it from W (K, N) as stored). wgmma
-//       takes TF32 operands only K-major, so the (in, out) weight cannot be read as stored
-//       the way the bf16 ring reads it (an MN-major operand through the transpose bit,
-//       gemm_rows_sm90.cuh).
+//       lo, K contiguous (split_tf32_t_kernel writes it from W (K, N) as stored; K4's fold
+//       writes its folded columns so itself). wgmma takes TF32 operands only K-major, so the
+//       (in, out) weight cannot be read as stored the way the bf16 ring reads it (an
+//       MN-major operand through the transpose bit, gemm_rows_sm90.cuh).
 //     One persistent block an SM (384 threads: a producer warpgroup, two consumer
 //     warpgroups); tiles of 128 rows x 128 columns, column tile fastest, round-robin over the
 //     blocks; K in steps of BK = 32 floats on a ring of STAGES = 4 stages of 48 KB: A's
@@ -42,9 +48,15 @@
 //     (the other warpgroup's products keep the tensor cores busy meanwhile). Twice 64
 //     registers of sums is why a warpgroup's tile is 64 x 128, not 64 x 256.
 //     Epilogue, from the sums straight to device memory (8-byte stores; a quad writes 32
-//     contiguous bytes of a row), rows past `rows` never stored:
-//       EPI_BIAS       out = sum + b                          (fc2, qkv, proj)
+//     contiguous bytes of a row; out's row stride `ld` may exceed N), rows past a group's
+//     `per` never stored:
+//       EPI_BIAS       out = sum + b                          (fc2, qkv, proj, K5)
 //       EPI_BIAS_GELU  out = gelu_erf(sum + b)                (fc1, into the hidden scratch)
+//       EPI_PLAIN      out = sum                              (K4's context product, its
+//                                                              out-projection)
+//     and for the column tiles from `n_store` on (K4 with ln_k: ctx Wc), no value but each
+//     row's sum of squares over the tile's 128 columns, into sq (a row's 32 values in each
+//     thread, then a quad's four threads by shuffles).
 //   split_tf32_t_kernel: W (K, N) -> its transpose's hi and lo (N, K), 32 x 32 tiles through
 //     shared memory.
 //
@@ -54,7 +66,7 @@
 // STAGES stages ahead, across tiles, so the next tile's loads overlap this tile's epilogue.
 //
 // Bound on the H100: operations, 3 x 2 M K N at 495 TF/s. The bytes from device memory (A,
-// the split W, out) are far below it at every shape K2, K3, K6 and K8 take; the bytes from L2 into
+// the split W, out) are far below it at every shape K2-K6 and K8 take; the bytes from L2 into
 // shared memory are not (48 KB a stage: 50 GB a K3 call at stage 1), and one TF32 product a
 // step (ABLATE_ONE_PART) runs at 1/3 the tensor work in ~70% of the time (PERF.md). A form
 // in clusters of two blocks that multicast W's hi and lo parts to both (half the W traffic)
@@ -89,7 +101,7 @@ constexpr int CONSUMER_WARPS = 8;
 constexpr int THREADS = 384;  // consumers 0-255, producer warpgroup 256-383
 constexpr int BAR_BYTES = 2 * STAGES * 8;
 constexpr size_t SMEM = 1024 + (size_t)STAGES * STAGE_BYTES + BAR_BYTES;
-enum { EPI_BIAS = 0, EPI_BIAS_GELU = 1 };
+enum { EPI_BIAS = 0, EPI_BIAS_GELU = 1, EPI_PLAIN = 2 };
 
 // 16-byte piece c of row r under the 128-byte swizzle, and a shared-memory matrix descriptor
 // of K-major 128-byte rows (8-row atoms; stride offset 1024; leading offset unused; 128-byte
@@ -153,21 +165,40 @@ __device__ __forceinline__ void wgmma_m64n128k8_rs(float (&d)[64], const uint32_
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
 }
 
-// A product's schedule over a chunk of `rows` rows: units are (128-row tile, 128-column
-// tile), column tile fastest, round-robin over the blocks.
+// A product's schedule: units are (128-row tile, 128-column tile), column tile fastest,
+// round-robin over the blocks. A's rows come in `groups` groups of `per` rows (one group for a
+// plain matrix); a row tile never straddles two groups, so a group's last tile may run past
+// its rows (loaded, never stored). Output row g per + r is the group's row r. Column tiles
+// from n_store on are not stored: each row's sum of squares over the tile goes to sq instead.
 struct Sched {
-  int rows, n_tiles, units, k_steps, N;
+  int groups, per, tpg, n_tiles, units, k_steps, n_store, n_sq;
+  long long ld;  // out's row stride in floats
 };
 
-inline Sched make_sched(int rows, int K, int N) {
+inline Sched make_sched(int groups, int per, int K, int N, int n_store, long long ld) {
   Sched s;
-  s.rows = rows;
+  s.groups = groups;
+  s.per = per;
+  s.tpg = (per + BM - 1) / BM;
   s.n_tiles = N / BN;
-  s.units = (rows + BM - 1) / BM * s.n_tiles;
+  s.units = groups * s.tpg * s.n_tiles;
   s.k_steps = K / BK;
-  s.N = N;
+  s.n_store = n_store;
+  s.n_sq = (N - n_store) / BN;
+  s.ld = ld;
   return s;
 }
+
+// The unit's group, first row in the group and first column.
+struct Unit {
+  int g, m0, n0;
+  __device__ __forceinline__ Unit(const Sched& s, int u) {
+    const int ti = u / s.n_tiles;
+    g = ti / s.tpg;
+    m0 = (ti - g * s.tpg) * BM;
+    n0 = (u - ti * s.n_tiles) * BN;
+  }
+};
 
 __device__ __forceinline__ uint32_t full_bar(uint32_t bars, int s) { return bars + 8 * s; }
 __device__ __forceinline__ uint32_t empty_bar(uint32_t bars, int s) {
@@ -226,12 +257,15 @@ __device__ __forceinline__ void mma_step(float (&acc)[64], const uint32_t (&hi)[
   sm90::wgmma_commit();
 }
 
-// out: (rows, N) f32; bias: (N,) f32. map_a: A (rows, K) in boxes of BK x 128 rows; map_w: the
-// split W^T (2 N, K) in boxes of BK x 128 rows.
+// out: (groups per, ld) f32, its first n_store columns written; bias: (N,) f32 (not read under
+// EPI_PLAIN); sq: (groups per, n_sq) f32, the sums of squares of the tiles from n_store on.
+// map_a: A as (groups, rows, K) in boxes of BK x 128 rows x 1 group; map_w: the split W^T
+// (2 N, K) in boxes of BK x 128 rows.
 template <int EPI>
 __global__ void __launch_bounds__(THREADS, 1) gemm_tf32x3_kernel(
     const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_w,
-    const float* __restrict__ bias, float* __restrict__ out, const Sched s) {
+    const float* __restrict__ bias, float* __restrict__ out, float* __restrict__ sq,
+    const Sched s) {
   extern __shared__ unsigned char raw[];
   const uint32_t raw_addr = sm90::smem_u32(raw);
   const uint32_t tiles = (raw_addr + 1023u) & ~1023u;
@@ -252,16 +286,17 @@ __global__ void __launch_bounds__(THREADS, 1) gemm_tf32x3_kernel(
     sm90::reg_dealloc<40>();
     if (tid != 256) return;
     Pos pos;
+    const int N = s.n_tiles * BN;
     for (int u = blockIdx.x; u < s.units; u += gridDim.x) {
-      const int m0 = (u / s.n_tiles) * BM, n0 = (u % s.n_tiles) * BN;
+      const Unit un(s, u);
       for (int ks = 0; ks < s.k_steps; ++ks) {
         sm90::mbar_wait(empty_bar(bars, pos.stage), pos.phase ^ 1);
         const uint32_t bar = full_bar(bars, pos.stage);
         const uint32_t st = tiles + pos.stage * STAGE_BYTES;
         sm90::mbar_arrive_expect_tx(bar, STAGE_BYTES);
-        sm90::tma_load_2d(st, &map_a, bar, ks * BK, m0);
-        sm90::tma_load_2d(st + A_BYTES, &map_w, bar, ks * BK, n0);
-        sm90::tma_load_2d(st + A_BYTES + B_BYTES, &map_w, bar, ks * BK, s.N + n0);
+        sm90::tma_load_3d(st, &map_a, bar, ks * BK, un.m0, un.g);
+        sm90::tma_load_2d(st + A_BYTES, &map_w, bar, ks * BK, un.n0);
+        sm90::tma_load_2d(st + A_BYTES + B_BYTES, &map_w, bar, ks * BK, N + un.n0);
         pos.advance();
       }
     }
@@ -276,7 +311,8 @@ __global__ void __launch_bounds__(THREADS, 1) gemm_tf32x3_kernel(
   float acc[64], sum[64];
   uint32_t hi[SETS][4], lo[SETS][4];
   for (int u = blockIdx.x; u < s.units; u += gridDim.x) {
-    const int m0 = (u / s.n_tiles) * BM, n0 = (u % s.n_tiles) * BN;
+    const Unit un(s, u);
+    const int n0 = un.n0;
 #pragma unroll
     for (int i = 0; i < 64; ++i) sum[i] = 0.f;
     for (int c0 = 0; c0 < s.k_steps; c0 += PROMOTE) {
@@ -311,13 +347,36 @@ __global__ void __launch_bounds__(THREADS, 1) gemm_tf32x3_kernel(
       for (int i = 0; i < 64; ++i) sum[i] += acc[i];
     }
 
-    const int r0 = m0 + row;  // rows r0 and r0 + 8 of the output
-    float* o0 = out + (long long)r0 * s.N + n0 + 2 * t;
-    float* o1 = o0 + 8ll * s.N;
-    const bool w0 = r0 < s.rows, w1 = r0 + 8 < s.rows;
+    const int r0 = un.m0 + row;  // rows r0 and r0 + 8 of the unit's group
+    const bool w0 = r0 < s.per, w1 = r0 + 8 < s.per;
+    const long long o = (long long)un.g * s.per + r0;  // row r0's row of out (and of sq)
+    if (n0 >= s.n_store) {
+      // Each row's sum of squares over the tile: a thread's 32 values of each of its two rows,
+      // then the quad's four threads (t = 0..3) of the row.
+      float q0 = 0.f, q1 = 0.f;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        q0 = fmaf(sum[4 * j], sum[4 * j], q0);
+        q0 = fmaf(sum[4 * j + 1], sum[4 * j + 1], q0);
+        q1 = fmaf(sum[4 * j + 2], sum[4 * j + 2], q1);
+        q1 = fmaf(sum[4 * j + 3], sum[4 * j + 3], q1);
+      }
+      q0 += __shfl_xor_sync(0xffffffffu, q0, 1);
+      q0 += __shfl_xor_sync(0xffffffffu, q0, 2);
+      q1 += __shfl_xor_sync(0xffffffffu, q1, 1);
+      q1 += __shfl_xor_sync(0xffffffffu, q1, 2);
+      float* p = sq + o * s.n_sq + (n0 - s.n_store) / BN;
+      if (t == 0 && w0) p[0] = q0;
+      if (t == 0 && w1) p[8ll * s.n_sq] = q1;
+      continue;
+    }
+    float* o0 = out + o * s.ld + n0 + 2 * t;
+    float* o1 = o0 + 8ll * s.ld;
 #pragma unroll
     for (int j = 0; j < BN / 8; ++j) {
-      const float2 bj = *reinterpret_cast<const float2*>(bias + n0 + 8 * j + 2 * t);
+      float2 bj = make_float2(0.f, 0.f);
+      if constexpr (EPI != EPI_PLAIN)
+        bj = *reinterpret_cast<const float2*>(bias + n0 + 8 * j + 2 * t);
       float v0 = sum[4 * j] + bj.x, v1 = sum[4 * j + 1] + bj.y;
       float v2 = sum[4 * j + 2] + bj.x, v3 = sum[4 * j + 3] + bj.y;
       if constexpr (EPI == EPI_BIAS_GELU) {
@@ -355,49 +414,75 @@ __global__ void __launch_bounds__(256) split_tf32_t_kernel(const float* __restri
 }
 
 // ------------------------------------------------------------------------------ host
-// A 2D f32 tensor map, (outer, inner) with the inner dimension contiguous, boxes of BK x
-// box_outer under the 128-byte swizzle, zeros outside the tensor.
+// An f32 tensor map with the inner dimension contiguous, boxes of BK x box_outer (x 1 group)
+// under the 128-byte swizzle, zeros outside the tensor: (outer, inner), or with `groups`
+// (groups, outer, inner), groups group_stride floats apart.
 inline cudaError_t make_map(CUtensorMap* map, const float* base, uint64_t inner, uint64_t outer,
-                            uint32_t box_outer) {
+                            uint32_t box_outer, uint64_t groups = 0, uint64_t group_stride = 0) {
   sm90::EncodeTiledFn encode = sm90::encode_tiled_fn();
   if (!encode) return cudaErrorUnknown;
-  const cuuint64_t dims[2] = {inner, outer};
-  const cuuint64_t strides[1] = {inner * 4};
-  const cuuint32_t box[2] = {(cuuint32_t)BK, box_outer};
-  const cuuint32_t ones[2] = {1, 1};
+  const cuuint32_t rank = groups ? 3 : 2;
+  const cuuint64_t dims[3] = {inner, outer, groups};
+  const cuuint64_t strides[2] = {inner * 4, group_stride * 4};
+  const cuuint32_t box[3] = {(cuuint32_t)BK, box_outer, 1};
+  const cuuint32_t ones[3] = {1, 1, 1};
   const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(base), dims, strides, box,
+      map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, rank, const_cast<float*>(base), dims, strides, box,
       ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
       CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorUnknown;
 }
 
-// The split of W (K, N) into ws (2 N, K): hi rows 0..N-1, lo rows N..2N-1.
-inline int launch_split(const float* w, float* ws, int K, int N, cudaStream_t stream) {
+// W (K, N) as stored -> the split of its transpose: hi (N, K) at hi, lo (N, K) at lo. K, N
+// multiples of 32.
+inline int launch_split_to(const float* w, float* hi, float* lo, int K, int N,
+                           cudaStream_t stream) {
   if (K % 32 || N % 32) return (int)cudaErrorInvalidValue;
-  split_tf32_t_kernel<<<dim3(N / 32, K / 32), dim3(32, 8), 0, stream>>>(
-      w, ws, ws + (long long)N * K, K, N);
+  split_tf32_t_kernel<<<dim3(N / 32, K / 32), dim3(32, 8), 0, stream>>>(w, hi, lo, K, N);
   return (int)cudaGetLastError();
 }
 
-// out (rows, N) = EPI(a (rows, K) W + bias), W given as its split ws (2 N, K). K % BK == 0,
-// N % 128 == 0, a, ws and out 16-byte aligned. One block an SM for the first min(units, SMs).
+// The split of W (K, N) into ws (2 N, K): hi rows 0..N-1, lo rows N..2N-1.
+inline int launch_split(const float* w, float* ws, int K, int N, cudaStream_t stream) {
+  return launch_split_to(w, ws, ws + (long long)N * K, K, N, stream);
+}
+
+// The grouped product: A's row r of group g at a + g group_stride + r K (K floats a row; rows
+// up to map_rows of a group may be read, rows from `per` on are never stored), W given as its
+// split ws (2 N, K). Output row g per + r: its columns 0..n_store-1 EPI(A W + bias) into out
+// (row stride ld), and for each 128-column tile from n_store on the row's sum of squares of
+// A W over the tile into sq (row stride (N - n_store) / 128). K % BK == 0, N and n_store
+// multiples of 128, a, ws, out 16-byte aligned, ld and group_stride multiples of 4. One block
+// an SM for the first min(units, SMs).
 template <int EPI>
-int launch_gemm(const float* a, const float* ws, const float* bias, float* out, int rows, int K,
-                int N, cudaStream_t stream) {
-  if (rows <= 0 || K % BK || N % BN) return (int)cudaErrorInvalidValue;
+int launch_gemm_grouped(const float* a, int groups, int per, long long map_rows,
+                        long long group_stride, const float* ws, const float* bias, float* out,
+                        long long ld, int n_store, float* sq, int K, int N, cudaStream_t stream) {
+  if (groups <= 0 || per <= 0 || map_rows < per || K % BK || N % BN || n_store % BN ||
+      n_store > N || (n_store < N && sq == nullptr) || ld % 4 || group_stride % 4 ||
+      (long long)groups * ((per + BM - 1) / BM) * (N / BN) >= (1ll << 31))
+    return (int)cudaErrorInvalidValue;
   CUtensorMap map_a, map_w;
   cudaError_t e;
-  if ((e = make_map(&map_a, a, K, rows, BM)) != cudaSuccess) return (int)e;
+  if ((e = make_map(&map_a, a, K, map_rows, BM, groups, group_stride)) != cudaSuccess)
+    return (int)e;
   if ((e = make_map(&map_w, ws, K, 2ull * N, BN)) != cudaSuccess) return (int)e;
   const int sms = sm90::sm_count();
   if (sms <= 0) return (int)cudaErrorUnknown;
-  const Sched s = make_sched(rows, K, N);
+  const Sched s = make_sched(groups, per, K, N, n_store, ld);
   cudaFuncSetAttribute(gemm_tf32x3_kernel<EPI>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        (int)SMEM);
   gemm_tf32x3_kernel<EPI><<<s.units < sms ? s.units : sms, THREADS, SMEM, stream>>>(
-      map_a, map_w, bias, out, s);
+      map_a, map_w, bias, out, sq, s);
   return (int)cudaGetLastError();
+}
+
+// out (rows, N) = EPI(a (rows, K) W + bias), W given as its split ws (2 N, K): one group.
+template <int EPI>
+int launch_gemm(const float* a, const float* ws, const float* bias, float* out, int rows, int K,
+                int N, cudaStream_t stream) {
+  return launch_gemm_grouped<EPI>(a, 1, rows, rows, (long long)rows * K, ws, bias, out, N, N,
+                                  nullptr, K, N, stream);
 }
 
 }  // namespace tf32x3

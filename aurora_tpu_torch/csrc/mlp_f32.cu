@@ -18,10 +18,11 @@
 // Bounds on the H100 (stage 1 of the 0.25 degree model, (259200, 512), hidden 2048): K3 and
 // K8 operations, 4 rows D Hd flops taken as three TF32 products at 495 TF/s (6.59 ms; at the
 // FFMA pipes' 67 TF/s 16.2 ms; the bytes of x, out and the weights take 0.33 ms); K5
-// operations, 2 rows D^2 f32 flops at 67 TF/s (2.03 ms at every stage; its bytes 0.47 ms at
-// stage 1).
+// operations, 2 rows D^2 flops as three TF32 products (0.824 ms at every stage of the 1.3 B
+// model, 0.206 at the small model's D = 256 over 259200 rows; at 67 TF/s 2.03 and 0.507; its
+// bytes 0.47 ms at stage 1, 0.24 at D = 256).
 //
-// Design. K3 / K8 on the tensor cores, each product in three TF32 parts (gemm_tf32x3_sm90.cuh:
+// Design. K3 / K8 / K5 on the tensor cores, each product in three TF32 parts (gemm_tf32x3_sm90.cuh:
 // a persistent TMA + wgmma ring, the tokens split into hi and lo in registers, the weights'
 // split transposes in shared memory): two launches once a call, then three a chunk of rows
 // (two for K8):
@@ -42,19 +43,22 @@
 //   split copy of the activations is written.
 //   -DMLP_F32_FFMA builds the earlier FFMA design instead (gemm_f32_kernel<8,
 //   EPI_BIAS_GELU> and <8, EPI_BIAS>; wsplit unused): tools/kernel_ablate.py's `ffma`.
-//   K5, two launches on gemm_f32.cuh's FFMA product: gemm_f32_kernel<8, EPI_BIAS> (x rows,
-//   W (D, D) as stored) into out, then ln_rows_f32_kernel with the shortcut as the residual
-//   and FiLM row row / L, in place.
+//   K5 on the same ring, three launches a call: split_tf32_t_kernel writes W^T's hi and lo
+//   into `wsplit` (2 D^2 f32, 33.6 MB at D = 2048; made anew every call), then
+//   gemm_tf32x3_kernel<EPI_BIAS> (x rows, W^T split) into out, then ln_rows_f32_kernel with
+//   the shortcut as the residual and FiLM row row / L, in place. -DLINEAR_F32_FFMA builds the
+//   earlier design instead (gemm_f32_kernel<8, EPI_BIAS> on W as stored; wsplit unused).
 //
 // mlp_rows_f32 and linear_adaln_residual_f32 have the C signatures of mlp.cu's mlp_rows and
 // linear_adaln_residual (stats is not used: the row kernel takes the LayerNorm statistics over
-// the row it holds), mlp_rows_f32 with the split scratch before the stream, so the wrappers
-// drive both dtypes alike; K8 is mlp_rows_f32 with ln = 0.
+// the row it holds) with the split scratch before the stream, so the wrappers drive both
+// dtypes alike; K8 is mlp_rows_f32 with ln = 0.
 //
-// tools/kernel_ablate.py builds copies with -DMLP_F32_FFMA, -DABLATE_ONE_PART (the lo
-// products off: one TF32 product), -DABLATE_NO_SPLIT (the tokens unrounded as both parts),
-// -DABLATE_ONLY_FC1, -DABLATE_ONLY_FC2 (one product alone, fc2 on what the scratch holds) and
-// -DABLATE_ONLY_SPLIT (the weights' split alone).
+// tools/kernel_ablate.py builds copies with -DMLP_F32_FFMA and -DLINEAR_F32_FFMA (the FFMA
+// forms of K3 / K8 and of K5), -DABLATE_ONE_PART (the lo products off: one TF32 product),
+// -DABLATE_NO_SPLIT (the tokens unrounded as both parts), -DABLATE_ONLY_FC1,
+// -DABLATE_ONLY_FC2 (one product alone, fc2 on what the scratch holds), -DABLATE_ONLY_SPLIT
+// (the weights' split alone) and -DABLATE_ONLY_PRODUCT (K5 without its row kernel).
 #include "gemm_f32.cuh"
 #include "gemm_tf32x3_sm90.cuh"
 
@@ -114,19 +118,30 @@ extern "C" int mlp_rows_f32(const float* x, const float* w1, const float* b1, co
 
 // K5 in float32 on rows of tokens. x, shortcut, out: (rows, D) f32, rows_per_batch rows per
 // FiLM row; w: (D, D) f32 as stored; b: (D,) f32; shift, scale: (rows / rows_per_batch, D) f32.
-// stats is not used. Two launches. Takes D in {256, 512, 1024, 2048}. Returns
-// cudaGetLastError() of the last launch, or cudaErrorInvalidValue for a shape it does not take.
+// stats is not used. wsplit: scratch of 2 D^2 f32, W^T's hi and lo, written and read by this
+// call. Three launches. Takes D in {256, 512, 1024, 2048}. Returns cudaGetLastError() of the
+// last launch, cudaErrorInvalidValue for a shape it does not take, or cudaErrorUnknown where
+// no tensor map could be encoded.
 extern "C" int linear_adaln_residual_f32(const float* x, const float* w, const float* b,
                                          const float* shortcut, const float* shift,
                                          const float* scale, float scale_bias, float* stats,
                                          float* out, int rows, long long rows_per_batch, int D,
-                                         float eps, cudaStream_t stream) {
+                                         float eps, float* wsplit, cudaStream_t stream) {
   (void)stats;
   if (rows <= 0 || rows > (1 << 24) || (D != 256 && D != 512 && D != 1024 && D != 2048) ||
       rows_per_batch <= 0)
     return (int)cudaErrorInvalidValue;
-  const int err = f32k::launch_gemm_f32<8, f32k::EPI_BIAS>(f32k::Rows{x, D}, w, b, out, rows, D,
-                                                           D, stream);
+  int err;
+#ifdef LINEAR_F32_FFMA
+  (void)wsplit;
+  err = f32k::launch_gemm_f32<8, f32k::EPI_BIAS>(f32k::Rows{x, D}, w, b, out, rows, D, D, stream);
+#else
+  if ((err = tf32x3::launch_split(w, wsplit, D, D, stream))) return err;
+  err = tf32x3::launch_gemm<tf32x3::EPI_BIAS>(x, wsplit, b, out, rows, D, D, stream);
+#endif
+#ifdef ABLATE_ONLY_PRODUCT
+  return err;
+#endif
   if (err) return err;
   return f32k::launch_ln_rows_f32(f32k::RowsF32{shortcut}, out, shift, scale, scale_bias, rows, 0,
                                   rows_per_batch, D, eps, stream);

@@ -54,11 +54,14 @@ copy) and the product and row kernels of ``csrc/gemm_rows_sm90.cuh``:
   the exact erf GELU into an f32 hidden scratch of at most 256 MB (half the rows a chunk), the
   tokens and the hidden split in registers, fc2 with the bias into ``out``, then for K3 an
   f32 row kernel (a warp a row, the LayerNorm two-pass over the row in registers), FiLM and
-  the residual. K5 is ``linear_adaln_residual_f32`` on the FFMA product of
-  ``csrc/gemm_f32.cuh``, then the same row kernel with the shortcut as the residual. Weights
-  as stored (a bf16-stored weight is widened; the tokens are never narrowed). Bounds:
-  operations, ``4 * rows * D * Hd`` as three TF32 products at 495 TF/s (K3, K8) and ``2 *
-  rows * D * D`` at the FFMA pipes' 67 TF/s (K5).
+  the residual. K5 is ``linear_adaln_residual_f32`` on the same ring, three launches: W^T's
+  split into a scratch of ``2 * D * D`` f32 (made every call, as K3's), the product with the
+  bias (the tokens split in registers), then the same row kernel with the shortcut as the
+  residual. Weights as stored (a bf16-stored weight is widened; the tokens are never
+  narrowed). Bounds: operations, ``4 * rows * D * Hd`` (K3, K8) and ``2 * rows * D * D`` (K5:
+  0.824 ms a call at each stage of the 1.3 B model, 0.206 at the small model's D = 256 over
+  259200 rows) as three TF32 products at 495 TF/s on the H100. The FFMA forms stay as ablation
+  builds (``-DMLP_F32_FFMA``, ``-DLINEAR_F32_FFMA``; ``tools/kernel_ablate.py``).
 
 Gradients (:mod:`aurora_tpu_torch.ops.ad`, the counterpart of the JAX package's
 ``kernel_with_xla_grad`` at ``mlp.py:302-314``, ``:445-536``, ``:629-645``): under grad mode a
@@ -100,8 +103,10 @@ MLP_SCRATCH_BYTES = 256 << 20  # the most a call allocates for the hidden activa
 # before the stream
 _MLP_ROWS_ARGS = [_P] * 10 + [_F, _I, _L, _L, _I, _I, _F, _I, _P]
 _MLP_ROWS_F32_ARGS = _MLP_ROWS_ARGS[:-1] + [_P, _P]
-# csrc/mlp.cu::linear_adaln_residual, csrc/mlp_f32.cu::linear_adaln_residual_f32
+# csrc/mlp.cu::linear_adaln_residual; csrc/mlp_f32.cu::linear_adaln_residual_f32 takes the
+# weight's split scratch before the stream
 _LINEAR_ARGS = [_P] * 6 + [_F, _P, _P, _I, _L, _I, _F, _P]
+_LINEAR_F32_ARGS = _LINEAR_ARGS[:-1] + [_P, _P]
 
 
 def film_layernorm_residual(
@@ -460,17 +465,39 @@ def _linear_adaln_residual_launch(x, w, b, shortcut, shift, scale, scale_bias):
             raise ValueError(f"linear_adaln_residual: {name} must be 16-byte aligned")
     _same_device(x, shortcut=shortcut, **ops)
     out = torch.empty_like(x)
-    if f32:  # the f32 row kernel takes its own statistics
+    _linear_adaln_residual_call(_linear_entry(x), x, ops, shortcut, scale_bias, out)
+    return _lib.count_launch("linear_adaln_residual", out)
+
+
+def _linear_entry(x: torch.Tensor):
+    """The C entry K5 runs on the tokens ``x``: ``linear_adaln_residual_f32`` on float32
+    tokens, ``linear_adaln_residual`` on bf16 ones."""
+    if x.dtype == torch.float32:
+        return _lib.kernel("mlp_f32", "linear_adaln_residual_f32", _LINEAR_F32_ARGS)
+    return _lib.kernel("mlp", "linear_adaln_residual", _LINEAR_ARGS)
+
+
+def _linear_adaln_residual_call(fn, x, ops, shortcut, scale_bias, out, wsplit=None) -> None:
+    """Run ``fn`` (``linear_adaln_residual`` of ``csrc/mlp.cu`` on bf16, the ``_f32`` entry of
+    ``csrc/mlp_f32.cu`` on f32, or an ablated copy) on ``x``, ``shortcut``, ``out``: ``(B, L,
+    D)``; ``ops``: the checked ``w``, ``b``, ``shift``, ``scale``. Allocates the scratch: for
+    bf16 the row statistics (the f32 row kernel takes its own); for f32 the weight's split
+    transpose, ``2 * D * D`` f32 (or ``wsplit``, to read it back), which the call writes and
+    reads."""
+    B, L, D = x.shape
+    split = ()
+    if x.dtype == torch.float32:
         stats = None
-        fn = _lib.kernel("mlp_f32", "linear_adaln_residual_f32", _LINEAR_ARGS)
+        if wsplit is None:
+            wsplit = torch.empty(2 * D * D, dtype=torch.float32, device=x.device)
+        _lib.require(wsplit, "wsplit", torch.float32, (2 * D * D,))
+        split = (wsplit.data_ptr(),)
     else:
         stats = torch.empty(B * L, D // 256, 2, dtype=torch.float32, device=x.device)
-        fn = _lib.kernel("mlp", "linear_adaln_residual", _LINEAR_ARGS)
     err = fn(
         x.data_ptr(), ops["w"].data_ptr(), ops["b"].data_ptr(), shortcut.data_ptr(),
         ops["shift"].data_ptr(), ops["scale"].data_ptr(), float(scale_bias),
         None if stats is None else stats.data_ptr(),
-        out.data_ptr(), B * L, L, D, 1e-5, _lib.stream(x),
+        out.data_ptr(), B * L, L, D, 1e-5, *split, _lib.stream(x),
     )
     _lib.check(err, "linear_adaln_residual")
-    return _lib.count_launch("linear_adaln_residual", out)

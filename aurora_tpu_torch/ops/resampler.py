@@ -49,11 +49,21 @@ Bound on the card: operations, the folded f32 logits at 67 TF/s and the bf16 pro
 
 Without ``value_bf16`` (the facades' default config, float32 all through; the TPU kernel's
 form at ``resampler.py:119-131``) ``csrc/resampler_f32.cu``'s ``perceiver_core_f32`` runs the
-same fold and every other step in f32 on the FFMA products of ``csrc/gemm_f32.cuh``: the
-logits on the context rows read in place, with ``lnk`` the sums of squares of ``ctx @ Wc`` as
-an f32 product, v, the mix (the level-order sum, each product and partial sum rounded once),
-the out-projection and an f32 row kernel with the period-Q query residual; the output is f32.
-Bound: operations at 67 TF/s.
+same fold and every other step in f32, its products on the tensor cores in three TF32 parts
+(``csrc/gemm_tf32x3_sm90.cuh``: ``a_hi w_hi + a_hi w_lo + a_lo w_hi``, the parts as
+:func:`aurora_tpu_torch.ops.mlp.tf32_split` rounds them). Once a call: the fold writes the
+split transposes of ``Wkq`` (its ``Q heads`` columns padded with zeros to
+:func:`perceiver_logit_columns`, 128 a tile) and with ``lnk`` of ``Wc`` straight into the
+split scratch (:func:`perceiver_split_bytes`, made every call, as K3's), beside the splits of
+``wv`` and ``wout``. Then chunk by chunk of columns: one product of the context rows, read in
+place as K groups (levels) of the chunk's columns, against ``[Wv | Wkq | Wc]``, v and the
+logits side by side into one scratch and, for ``Wc``'s tiles, each row's sum of squares
+only; the mix (the level-order sum, each product and partial sum rounded once); the
+out-projection; an f32 row kernel with the period-Q query residual; the output is f32. Bound:
+operations as three TF32 products at 495 TF/s on the H100 (3.55 ms at the aggregation's
+(13, 64800, 512), 6.22 with ``lnk``, 13.68 at the de-aggregation's (3, 64800, 1024), 0.89 at
+the small model's (13, 64800, 256)). The FFMA form stays as an ablation build
+(``-DRESAMPLER_F32_FFMA``; ``tools/kernel_ablate.py``).
 
 Gradient (:mod:`aurora_tpu_torch.ops.ad`, as the JAX package's chunked vjp at
 ``resampler.py:331-381``): under grad mode a call whose inputs require a gradient launches
@@ -79,14 +89,17 @@ __all__ = [
     "perceiver_column_chunks",
     "perceiver_core",
     "perceiver_core_plain",
+    "perceiver_logit_columns",
+    "perceiver_split_bytes",
 ]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 PERCEIVER_SCRATCH_BYTES = 512 << 20  # the most a call allocates for one chunk's scratch
 # csrc/resampler.cu::perceiver_core
 _PERCEIVER_CORE_ARGS = [_P] * 21 + [_I] * 8 + [_F, _F, _P]
-# csrc/resampler_f32.cu::perceiver_core_f32
-_PERCEIVER_CORE_F32_ARGS = [_P] * 18 + [_I] * 8 + [_F, _F, _P]
+# csrc/resampler_f32.cu::perceiver_core_f32: the inputs, the scratch and out (15 pointers),
+# then the bf16 entry's sizes and scalars, with the weights' split scratch before the stream
+_PERCEIVER_CORE_F32_ARGS = [_P] * 15 + _PERCEIVER_CORE_ARGS[-11:-1] + [_P, _P]
 
 
 def _ln_affine(y: torch.Tensor, w: torch.Tensor, b: torch.Tensor, eps: float):
@@ -174,14 +187,28 @@ def check_perceiver_shape(
         raise ValueError(f"perceiver_core kernel: M={M} columns")
 
 
+def perceiver_logit_columns(QH: int) -> int:
+    """The float32 form's logit columns for ``QH = Q * heads`` logits: padded with zeros to a
+    multiple of 128, the column tile of the tensor cores' ring."""
+    return -(-QH // 128) * 128
+
+
+def perceiver_split_bytes(D: int, inner: int, QH: int, D_out: int, lnk: bool) -> int:
+    """The float32 form's split scratch, once a call: the hi and lo TF32 parts of ``[Wv | Wkq
+    | Wc]^T`` (``Wc`` only with ``lnk``; the logit columns padded as
+    :func:`perceiver_logit_columns`) and of ``Wout^T``, each part the weight's f32 size."""
+    NT = inner + perceiver_logit_columns(QH) + (inner if lnk else 0)
+    return 4 * (2 * NT * D + 2 * D_out * inner)
+
+
 def perceiver_column_bytes(K: int, D: int, inner: int, Q: int, heads: int, D_out: int,
                            lnk: bool, f32: bool = False) -> int:
     """The scratch K4's launches 1-5 take for one token column: the bf16 context (with
     ``lnk`` also its remainder and the sums of squares), bf16 v, the f32 logits, bf16 ``o``
-    and the row statistics. With ``f32`` (the float32 form): f32 v, the f32 logits over their
-    padded ``Q heads`` columns, with ``lnk`` the sums of squares, f32 ``o``."""
+    and the row statistics. With ``f32`` (the float32 form): f32 v and the logits over their
+    padded columns side by side, with ``lnk`` the sums of squares, f32 ``o``."""
     if f32:
-        return (K * inner * 4 + K * -(-Q * heads // 64) * 64 * 4
+        return (K * (inner + perceiver_logit_columns(Q * heads)) * 4
                 + (K * (inner // 128) * 4 if lnk else 0) + Q * inner * 4)
     return (K * D * 2 + (K * D * 2 + K * -(-inner // 256) * 4 if lnk else 0) + K * inner * 2
             + K * Q * heads * 4 + Q * inner * 2 + Q * -(-D_out // 256) * 8)
@@ -192,10 +219,12 @@ def perceiver_column_chunks(
     cap: int = PERCEIVER_SCRATCH_BYTES, f32: bool = False,
 ) -> list[tuple[int, int]]:
     """``(first column, columns)`` of the chunks K4's launches 1-5 run one after the other, so
-    that a chunk's scratch (:func:`perceiver_column_bytes` a column) fits ``cap``: as few
-    chunks as fit, every one but the last of the same multiple of 128 columns."""
+    that a chunk's scratch (:func:`perceiver_column_bytes` a column; with ``f32`` beside the
+    weights' split, :func:`perceiver_split_bytes`) fits ``cap``: as few chunks as fit, every
+    one but the last of the same multiple of 128 columns."""
     per_col = perceiver_column_bytes(K, D, inner, Q, heads, D_out, lnk, f32)
-    most = min(cap // per_col, 65535 * 128 // K) // 128 * 128
+    room = cap - (perceiver_split_bytes(D, inner, Q * heads, D_out, lnk) if f32 else 0)
+    most = min(max(room, 0) // per_col, 65535 * 128 // K) // 128 * 128
     if most <= 0:
         raise ValueError(f"perceiver_core kernel: {cap} bytes of scratch hold no 128 columns "
                          f"({per_col} bytes a column)")
@@ -264,10 +293,13 @@ def _perceiver_core_call(fn, ctx, wk, wv, qh, wout, ln1_w, ln1_b, queries, scale
 
 
 def _perceiver_core_f32_call(fn, ctx, wk, wv, qh, wout, ln1_w, ln1_b, queries, scale, ln_eps,
-                             lnk) -> torch.Tensor:
-    """Run ``fn`` (``perceiver_core_f32`` of ``csrc/resampler_f32.cu``): the fold, then
-    launches 1-6 chunk by chunk of columns, all in f32. Allocates the scratch; the weights go
-    as stored (a cast only to f32 where they are stored otherwise)."""
+                             lnk, wsplit=None, vl=None) -> torch.Tensor:
+    """Run ``fn`` (``perceiver_core_f32`` of ``csrc/resampler_f32.cu``, or an ablated copy):
+    the fold and the weights' split, then launches 3-6 chunk by chunk of columns, all in f32.
+    Allocates the scratch: the weights' split, :func:`perceiver_split_bytes` (or ``wsplit``,
+    to read it back), and the chunk's (``vl``, v and the logits side by side, may be given
+    too: it holds the last chunk's after the call); the weights go as stored (a cast only to
+    f32 where they are stored otherwise)."""
     K, M, D = ctx.shape
     Q, h, dh = qh.shape
     inner, D_out = h * dh, wout.shape[1]
@@ -286,7 +318,7 @@ def _perceiver_core_f32_call(fn, ctx, wk, wv, qh, wout, ln1_w, ln1_b, queries, s
     if lnk is not None:
         ops.update(lnk_w=(lnk[0].to(f32).contiguous(), (inner,)),
                    lnk_b=(lnk[1].to(f32).contiguous(), (inner,)))
-    # The kernels' 16-byte loads and stores need 16-byte alignment.
+    # The tensor maps' bases and the kernels' 16-byte loads and stores need 16-byte alignment.
     if ctx.data_ptr() % 16:
         raise ValueError("perceiver_core: the context must be 16-byte aligned")
     for name, (t, shape) in ops.items():
@@ -294,24 +326,29 @@ def _perceiver_core_f32_call(fn, ctx, wk, wv, qh, wout, ln1_w, ln1_b, queries, s
         if t.device != ctx.device or t.data_ptr() % 16:
             raise ValueError(f"perceiver_core: {name} must be on {ctx.device}, 16-byte aligned")
     QH, ln_k = Q * h, lnk is not None
-    NLP = -(-QH // 64) * 64
+    NS = inner + perceiver_logit_columns(QH)
     mc = perceiver_column_chunks(M, K, D, inner, Q, h, D_out, ln_k, f32=True)[0][1]
 
     def new(*shape, when=True):
         return torch.empty(*shape, dtype=f32, device=ctx.device) if when else None
 
-    scratch = dict(
-        wb=new(D, NLP), cst=new(QH, when=ln_k), wc=new(D, inner, when=ln_k),
-        v=new(K * mc, inner), logits=new(K * mc, NLP), sq=new(K * mc, inner // 128, when=ln_k),
-        o=new(mc, Q, inner),
-    )
+    split = perceiver_split_bytes(D, inner, QH, D_out, ln_k) // 4
+    if wsplit is None:
+        wsplit = new(split)
+    _lib.require(wsplit, "wsplit", f32, (split,))
+    if vl is None:
+        vl = new(K * mc, NS)
+    _lib.require(vl, "vl", f32, (K * mc, NS))
+    scratch = dict(cst=new(QH, when=ln_k), vl=vl, sq=new(K * mc, inner // 128, when=ln_k),
+                   o=new(mc, Q, inner))
     out = new(M, Q, D_out)
     ptr = {k: t.data_ptr() for k, (t, _) in ops.items()}
     err = fn(
         ctx.data_ptr(), *(ptr[k] for k in ("wk", "wv", "qh", "wout", "ln1_w", "ln1_b", "queries")),
         ptr.get("lnk_w"), ptr.get("lnk_b"),
         *(None if t is None else t.data_ptr() for t in scratch.values()), out.data_ptr(),
-        K, M, mc, D, h, dh, Q, D_out, float(scale), float(ln_eps), _lib.stream(ctx),
+        K, M, mc, D, h, dh, Q, D_out, float(scale), float(ln_eps), wsplit.data_ptr(),
+        _lib.stream(ctx),
     )
     _lib.check(err, "perceiver_core_f32")
     return out

@@ -1,8 +1,8 @@
 """What holds K3 ``mlp_adaln_residual`` / K8 ``mlp_fused``, K12 ``gemm_blocked``, K7
-``sdpa_windows``, K2 / K6 ``window_attention(_windowed)``, K4 ``perceiver_core``, K9 ``mlp_t``,
-K10 ``attn_probe`` and K11 ``attn5d_direct`` back: each kernel against copies of itself with
-one part switched off, at the shapes the probe tools, the backbone and the perceiver give
-them.
+``sdpa_windows``, K2 / K6 ``window_attention(_windowed)``, K4 ``perceiver_core``, K5
+``linear_adaln_residual``, K9 ``mlp_t``, K10 ``attn_probe`` and K11 ``attn5d_direct`` back:
+each kernel against copies of itself with one part switched off, at the shapes the probe
+tools, the backbone and the perceiver give them.
 
 The copies are built from the same sources with a preprocessor switch (``nvcc -D...``) into
 ``build/kernels/ablate/`` and called through their C entries; none of them is reachable from
@@ -73,7 +73,22 @@ a wrapper, and all but the ring-depth variants compute wrong results on purpose:
   alone); the
   error against the full-f32 plain version of ``full``, ``ffma``, ``one_part`` and
   ``one_chunk``;
-  ``torch.matmul`` for fc1 and for fc2 beside them, at full float32 and with TF32.
+  ``torch.matmul`` for fc1 and for fc2 beside them, at full float32 and with TF32;
+* K4 in float32 (``csrc/resampler_f32.cu`` on ``csrc/gemm_tf32x3_sm90.cuh``, at the
+  aggregation's shape with and without ``ln_k``, the de-aggregation's and the small model's
+  aggregation at D = 256, 64800 columns): ``ffma`` (the earlier FFMA design,
+  ``-DRESAMPLER_F32_FFMA``: a right result), ``one_part`` (the ``lo`` products off), and each
+  launch alone on what the scratch holds: ``only_ctx`` (the fold, Wv's split and the context
+  product: v, the logits and with ``ln_k`` the sums of squares), ``only_mix``, ``only_out``
+  (Wout's split and the out-projection) and ``only_rows`` (the row kernel); the error against
+  the full-f32 plain version of ``full``, ``ffma`` and ``one_part``; ``torch.matmul`` for v,
+  the logits (the folded weights' Q h columns), the out-projection and with ``ln_k`` the
+  context times the centred weights beside them, at full float32 and with TF32 (its error
+  against the full-float32 product);
+* K5 in float32 (``csrc/mlp_f32.cu``'s ``linear_adaln_residual_f32``, at the three backbone
+  stages and D = 256): ``ffma`` (``-DLINEAR_F32_FFMA``), ``one_part`` and ``only_product``
+  (the split and the product without the row kernel), errors as K4's; ``torch.matmul`` for the
+  product at full float32 and with TF32 beside them.
 
 Every time is a median of ``--steps`` launches after warm-up (``tools.time_ms``: CUDA
 events, each launch behind a memset that keeps the queue ahead of the host and leaves the
@@ -151,15 +166,30 @@ MLP_F32_VARIANTS = {
 MLP_F32_SHAPES = MLP_SHAPES + ((194400, 512, 2048), (259200, 256, 1024))
 # label, K, D, heads, Q: the level aggregation and de-aggregation over 64800 token columns
 PERCEIVER_SHAPES = (("agg", 13, 512, 16, 3), ("de-agg", 3, 1024, 16, 13))
+RESAMPLER_F32_VARIANTS = {
+    "full": (), "ffma": ("RESAMPLER_F32_FFMA",), "one_part": ("ABLATE_ONE_PART",),
+    "only_ctx": ("ABLATE_ONLY_CTX",), "only_mix": ("ABLATE_ONLY_MIX",),
+    "only_out": ("ABLATE_ONLY_OUT",), "only_rows": ("ABLATE_ONLY_ROWS",),
+}
+# the 1.3 B model's shapes and the small model's aggregation (D = 256)
+RESAMPLER_F32_SHAPES = PERCEIVER_SHAPES + (("agg D 256", 13, 256, 8, 3),)
+LINEAR_F32_VARIANTS = {
+    "full": (), "ffma": ("LINEAR_F32_FFMA",), "one_part": ("ABLATE_ONE_PART",),
+    "only_product": ("ABLATE_ONLY_PRODUCT",),
+}
+# rows, D: the backbone's three stages and the small model's first
+LINEAR_F32_SHAPES = ((259200, 512), (64800, 1024), (16200, 2048), (259200, 256))
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
 def build_variants(source: str, variants: dict[str, tuple[str, ...]],
-                   path: Path | None = None) -> dict[str, ctypes.CDLL]:
+                   path: Path | None = None, subdir: str = "") -> dict[str, ctypes.CDLL]:
     """One ``nvcc`` per variant of ``csrc/<source>.cu`` (or of the file ``path``, its
-    includes still from ``csrc/``), all started together; a variant whose library is newer
-    than every source is not built again (a caller may build ahead, on another thread)."""
-    out_dir = _lib.BUILD_DIR / "ablate" / ("" if path is None else path.parent.name)
+    includes still from ``csrc/``), all started together, into ``build/kernels/ablate/``
+    (``subdir`` under it keeps one source's variants of two parts apart); a variant whose
+    library is newer than every source is not built again (a caller may build ahead, on
+    another thread)."""
+    out_dir = _lib.BUILD_DIR / "ablate" / subdir / ("" if path is None else path.parent.name)
     out_dir.mkdir(parents=True, exist_ok=True)
     path = path or _lib.CSRC / f"{source}.cu"
     newest = max(p.stat().st_mtime for p in (*_lib.CSRC.iterdir(), path)
@@ -191,7 +221,7 @@ def splice_core(into: Path, core_from: Path, out: Path) -> Path:
 
 
 PARTS = ("mlp_t", "attn_probe", "attn5d_direct", "mlp", "gemm", "sdpa", "window", "resampler",
-         "window_f32", "mlp_f32")
+         "window_f32", "mlp_f32", "resampler_f32", "linear_f32")
 
 
 def main(argv=None) -> list[dict]:
@@ -224,6 +254,26 @@ def main(argv=None) -> list[dict]:
 
     def emit(label, t, **kw):
         out.append(report(result(label, t, dev, **kw)))
+
+    def r32(*shape, std=1.0):
+        return torch.randn(*shape, generator=gen, device=dev) * std
+
+    def cublas(what, a, w, flops):
+        """``torch.matmul`` of ``a`` and ``w`` at full float32 and with TF32 (its error against
+        the full-float32 product beside it)."""
+        from aurora_tpu_torch.tools import rel_err
+
+        full = None
+        for tf32 in (False, True):
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+            form = "TF32" if tf32 else "full f32"
+            got = torch.matmul(a, w)
+            err = {} if full is None else dict(err=rel_err(got, full))
+            full = got if full is None else full
+            emit(f"torch.matmul {what} ({a.shape[0]},{a.shape[1]})x({w.shape[0]},{w.shape[1]}) "
+                 f"{form}", ms(lambda: torch.matmul(a, w)),
+                 **({} if tf32 else dict(flops=flops, f32=True)), **err)
+        torch.backends.cuda.matmul.allow_tf32 = False
 
     def ablate_mlp():
         mlps = build_variants("mlp", MLP_VARIANTS)
@@ -465,13 +515,10 @@ def main(argv=None) -> list[dict]:
         rows = C * Hp * Wp
         nW = rows // 144
 
-        def r(*shape, std=1.0):
-            return torch.randn(*shape, generator=gen, device=dev) * std
-
-        xp = r(1, C, Hp, Wp, D)
+        xp = r32(1, C, Hp, Wp, D)
         xw = wa.window_partition(xp, ws).contiguous()
-        wqkv, bqkv = r(D, 3 * D, std=0.02), r(3 * D, std=0.02)
-        tail = (r(D, D, std=0.02), r(D, std=0.02), r(1, D, std=0.1), r(1, D))
+        wqkv, bqkv = r32(D, 3 * D, std=0.02), r32(3 * D, std=0.02)
+        tail = (r32(D, D, std=0.02), r32(D, std=0.02), r32(1, D, std=0.1), r32(1, D))
         groups = window_group_ids(C, H, W, ws, ss)
         gid = group_ids_tensor(groups, dev)
         core = 4 * nW * heads * 144 * 144 * 64
@@ -482,15 +529,8 @@ def main(argv=None) -> list[dict]:
         work = dict(bound_ms=bound, bound_by=by,
                     ffma_bound_ms=bound_ms(flops_f32=8 * rows * D * D + core, nbytes=nbytes)[0])
         if not note:  # cuBLAS on the products' shapes, once a shape
-            a = xp.view(rows, D)
-            for tf32 in (False, True):
-                torch.backends.cuda.matmul.allow_tf32 = tf32
-                form = "TF32" if tf32 else "full f32"
-                for what, w, n in (("qkv", wqkv, 3 * D), ("proj", tail[0], D)):
-                    emit(f"torch.matmul {what} ({rows},{D})x({D},{n}) {form}",
-                         ms(lambda w=w: torch.matmul(a, w)),
-                         **({} if tf32 else dict(flops=2 * rows * D * n, f32=True)))
-            torch.backends.cuda.matmul.allow_tf32 = False
+            cublas("qkv", xp.view(rows, D), wqkv, 2 * rows * D * 3 * D)
+            cublas("proj", xp.view(rows, D), tail[0], 2 * rows * D * D)
         for name, x, geom, wsx in (("window_attention", xp, (C, Hp, Wp), ws),
                                    ("window_attention_windowed", xw, (0, 0, 0), (0, 0, 0))):
             with full_f32_products():
@@ -514,7 +554,7 @@ def main(argv=None) -> list[dict]:
                      share_of_bound=bound / t, **err)
             del want
         del xp, xw
-        qkv = r(1, nW, 144, 3 * D)
+        qkv = r32(1, nW, 144, 3 * D)
         o = torch.empty(1, nW, 144, D, device=dev)
         fn = libs["full"].sdpa_windows_f32
         fn.argtypes, fn.restype = wa._SDPA_ARGS, _I
@@ -535,26 +575,13 @@ def main(argv=None) -> list[dict]:
         from aurora_tpu_torch.model.nn import full_f32_products
         from aurora_tpu_torch.tools import branch_err, rel_err
 
-        def r(*shape, std=1.0):
-            return torch.randn(*shape, generator=gen, device=dev) * std
-
-        x = r(1, M, D)
-        ops = (r(D, Hd, std=0.02), r(Hd, std=0.02), r(Hd, D, std=0.02), r(D, std=0.02))
-        shift, scale = r(1, D, std=0.1), r(1, D)
+        x = r32(1, M, D)
+        ops = (r32(D, Hd, std=0.02), r32(Hd, std=0.02), r32(Hd, D, std=0.02), r32(D, std=0.02))
+        shift, scale = r32(1, D, std=0.1), r32(1, D)
         o = torch.empty(M, D, device=dev)
         products = dict(flops=4 * M * D * Hd, tf32x3=True)
-        hid = r(M, Hd)
-        for tf32 in (False, True):
-            torch.backends.cuda.matmul.allow_tf32 = tf32
-            # full float32 against the FFMA peak; one TF32 product is timed only
-            work = {} if tf32 else dict(flops=2 * M * D * Hd, f32=True)
-            form = "TF32" if tf32 else "full f32"
-            emit(f"torch.matmul fc1 ({M},{D})x({D},{Hd}) {form}",
-                 ms(lambda: torch.matmul(x[0], ops[0])), **work)
-            emit(f"torch.matmul fc2 ({M},{Hd})x({Hd},{D}) {form}",
-                 ms(lambda: torch.matmul(hid, ops[2])), **work)
-        torch.backends.cuda.matmul.allow_tf32 = False
-        del hid
+        cublas("fc1", x[0], ops[0], 2 * M * D * Hd)
+        cublas("fc2", r32(M, Hd), ops[2], 2 * M * D * Hd)
         for kernel, film in (("mlp_adaln_residual", (shift, scale, 0.0, M, 1e-5)),
                              ("mlp_fused", None)):
             with full_f32_products():
@@ -578,10 +605,97 @@ def main(argv=None) -> list[dict]:
                 emit(f"{kernel} f32 ({M},{D}) hidden {Hd} [{tag}]", ms(call), **products, **err)
             del want
 
+    def ablate_resampler_f32():
+        libs = build_variants("resampler_f32", RESAMPLER_F32_VARIANTS)
+        for shape in RESAMPLER_F32_SHAPES:
+            ablate_resampler_f32_shape(libs, *shape)
+
+    def ablate_resampler_f32_shape(libs, label, K, D, h, Q, M=64800):
+        from aurora_tpu_torch.model.nn import full_f32_products
+        from aurora_tpu_torch.tools import bound_ms, branch_err
+
+        inner, dh = D, D // h
+        a = dict(ctx=r32(K, M, D), wk=r32(D, inner, std=0.05), wv=r32(D, inner, std=0.05),
+                 qh=r32(Q, h, dh), wout=r32(inner, D, std=0.05), ln1_w=1 + r32(D, std=0.1),
+                 ln1_b=r32(D, std=0.1), queries=r32(Q, D))
+        x = a["ctx"].view(K * M, D)
+        wkq = torch.einsum("chd,qhd->cqh", a["wk"].view(D, h, dh), a["qh"]).reshape(D, Q * h)
+        o = r32(M * Q, inner)
+        cublas("v", x, a["wv"], 2 * K * M * D * inner)
+        cublas("logits", x, wkq, 2 * K * M * D * Q * h)
+        cublas("out-projection", o, a["wout"], 2 * M * Q * inner * D)
+        del o, wkq
+        lnks = [None]
+        if label == "agg":
+            lnks.append((1 + r32(inner, std=0.1), r32(inner, std=0.1)))
+            cublas("ctx Wc (ln_k)", x, a["wk"], 2 * K * M * D * inner)
+        vo = 2 * K * M * D * inner + 2 * M * Q * inner * D
+        for lnk in lnks:
+            fl = vo + 2 * K * M * D * Q * h + (2 * K * M * D * inner if lnk is not None else 0)
+            nbytes = K * M * D * 4 + M * Q * D * 4 + D * inner * 8 + inner * D * 4
+            bound, by = bound_ms(flops_tf32x3=fl, nbytes=nbytes)
+            work = dict(bound_ms=bound, bound_by=by,
+                        ffma_bound_ms=bound_ms(flops_f32=fl, nbytes=nbytes)[0])
+            with full_f32_products():
+                want = resampler.perceiver_core_plain(**a, scale=dh**-0.5, lnk=lnk)
+            for tag, lib in libs.items():
+                fn = lib.perceiver_core_f32
+                fn.argtypes, fn.restype = resampler._PERCEIVER_CORE_F32_ARGS, _I
+
+                def call(fn=fn, lnk=lnk):
+                    return resampler._perceiver_core_f32_call(fn, *a.values(), dh**-0.5, 1e-5,
+                                                              lnk)
+
+                err = {}
+                if tag in ("full", "ffma", "one_part"):
+                    err["err"] = branch_err(call(), want, a["queries"][None])[1]
+                t = ms(call)
+                emit(f"perceiver_core f32 {label} ({K},{M},{D}) Q {Q}"
+                     f"{', ln_k' if lnk else ''} [{tag}]", t, **work, share_of_bound=bound / t,
+                     **err)
+            del want
+
+    def ablate_linear_f32():
+        libs = build_variants("mlp_f32", LINEAR_F32_VARIANTS, subdir="linear_f32")
+        for shape in LINEAR_F32_SHAPES:
+            ablate_linear_f32_shape(libs, *shape)
+
+    def ablate_linear_f32_shape(libs, M, D):
+        from aurora_tpu_torch.model.nn import full_f32_products
+        from aurora_tpu_torch.tools import bound_ms, branch_err
+
+        x, sc = r32(1, M, D), r32(1, M, D)
+        ops = {"w": r32(D, D, std=0.02), "b": r32(D, std=0.02), "shift": r32(1, D, std=0.1),
+               "scale": r32(1, D)}
+        cublas("K5's product", x[0], ops["w"], 2 * M * D * D)
+        nbytes = 3 * M * D * 4 + D * D * 4
+        bound, by = bound_ms(flops_tf32x3=2 * M * D * D, nbytes=nbytes)
+        work = dict(bound_ms=bound, bound_by=by,
+                    ffma_bound_ms=bound_ms(flops_f32=2 * M * D * D, nbytes=nbytes)[0])
+        with full_f32_products():
+            want = mlp.linear_adaln_residual_plain(x, ops["w"], ops["b"], sc, ops["shift"],
+                                                   ops["scale"])
+        o = torch.empty_like(x)
+        for tag, lib in libs.items():
+            fn = lib.linear_adaln_residual_f32
+            fn.argtypes, fn.restype = mlp._LINEAR_F32_ARGS, _I
+
+            def call(fn=fn):
+                mlp._linear_adaln_residual_call(fn, x, ops, sc, 0.0, o)
+
+            err = {}
+            if tag in ("full", "ffma", "one_part"):
+                call()
+                err["err"] = branch_err(o, want, sc)[1]
+            t = ms(call)
+            emit(f"linear_adaln_residual f32 ({M},{D}) [{tag}]", t, **work,
+                 share_of_bound=bound / t, **err)
+
     runs = dict(mlp_t=ablate_mlp_t, attn_probe=ablate_attn_probe,
                 attn5d_direct=ablate_attn5d_direct, mlp=ablate_mlp, gemm=ablate_gemm,
                 sdpa=ablate_sdpa, window=ablate_window, resampler=ablate_resampler,
-                window_f32=ablate_window_f32, mlp_f32=ablate_mlp_f32)
+                window_f32=ablate_window_f32, mlp_f32=ablate_mlp_f32,
+                resampler_f32=ablate_resampler_f32, linear_f32=ablate_linear_f32)
     for part in PARTS:
         if part in parts:
             runs[part]()

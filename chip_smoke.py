@@ -49,13 +49,15 @@ Phases, each printing one JSON line; any failure raises and the script exits non
    branch measure less one float32 ulp (no residual: over the largest output), K4 within
    1e-4, and the plain version with TF32 products must fail the same bound by the same
    measure (``tf32_control_err``); timed over 5 runs, the plain versions over 2 (K7 also
-   ``F.scaled_dot_product_attention`` in float32 on the same masked windows). Float32 K3
-   and K8, and K2's and K6's qkv and proj, take each product as three TF32 products of split
-   operands: their bound is that work at the TF32 peak (K2/K6's core at the FFMA pipes'
-   rate), the FFMA bound beside it (``ffma_bound_ms``); the other float32 forms print the
-   bound of their products as three TF32 products beside their FFMA bound
-   (``tf32x3_bound_ms``); at stage 1 and at D = 256 the weights' split that the card writes
-   for K3, K2 and K6 must be ``mlp.tf32_split``'s bits of the same transposes. K6 on
+   ``F.scaled_dot_product_attention`` in float32 on the same masked windows). Float32 K3,
+   K8, K4 and K5, and K2's and K6's qkv and proj, take each product as three TF32 products of
+   split operands: their bound is that work at the TF32 peak (K2/K6's core at the FFMA pipes'
+   rate), the FFMA bound beside it (``ffma_bound_ms``); K7, the core alone, prints the bound
+   of its products as three TF32 products beside its FFMA bound (``tf32x3_bound_ms``); at
+   stage 1 and at D = 256 the weights' split that the card writes for K3, K2 and K6 must be
+   ``mlp.tf32_split``'s bits of the same transposes, and so in every float32 case for K5's W
+   and K4's Wv and Wout (K4 also prints the error of its last chunk's logits against a
+   float64 product, ``logits_rel_err``). K6 on
    ``window_partition(xp)``, reversed, must give float32 K2's bits; in float32 garbage in
    stage 3's pad tokens may move a real token by a rounding (the plain version's too),
    within 1e-6 of the branch (K2, K6) or of the output (K7);
@@ -267,8 +269,8 @@ SOURCES_F32 = {
     "roll3d": "aurora_tpu_torch/csrc/roll.cu",
     "window_attention": "aurora_tpu_torch/csrc/window_attention_f32.cu + gemm_tf32x3_sm90.cuh",
     "mlp_adaln_residual": "aurora_tpu_torch/csrc/mlp_f32.cu + gemm_tf32x3_sm90.cuh",
-    "perceiver_core": "aurora_tpu_torch/csrc/resampler_f32.cu",
-    "linear_adaln_residual": "aurora_tpu_torch/csrc/mlp_f32.cu",
+    "perceiver_core": "aurora_tpu_torch/csrc/resampler_f32.cu + gemm_tf32x3_sm90.cuh",
+    "linear_adaln_residual": "aurora_tpu_torch/csrc/mlp_f32.cu + gemm_tf32x3_sm90.cuh",
     "window_attention_windowed":
         "aurora_tpu_torch/csrc/window_attention_f32.cu + gemm_tf32x3_sm90.cuh",
     "sdpa_windows": "aurora_tpu_torch/csrc/window_attention_f32.cu",
@@ -797,9 +799,29 @@ def linear_case(rn, label, rows, D, per_step, f32=False, small=False):
         kernel=lambda: mlp.linear_adaln_residual(x, *w, sc, *film),
         plain=full_f32(lambda: mlp.linear_adaln_residual_plain(x, *w, sc, *film)),
         check="branch", recheck=True,
-        bound=bound_ms(**{"flops_f32" if f32 else "flops_bf16": fl}, nbytes=nb),
-        bounds=dict(tf32x3_bound_ms=bound_ms(flops_tf32x3=fl, nbytes=nb)[0]) if f32 else None,
+        # float32: three TF32 products of the product, the FFMA bound beside it
+        bound=bound_ms(**{"flops_tf32x3" if f32 else "flops_bf16": fl}, nbytes=nb),
+        bounds=dict(ffma_bound_ms=bound_ms(flops_f32=fl, nbytes=nb)[0]) if f32 else None,
+        extra=(lambda: linear_split_bits_equal(x, w, sc, film)) if f32 else None,
     )
+
+
+def linear_split_bits_equal(x, w, sc, film) -> dict:
+    """Float32 K5 with the weight's split scratch given (filled with NaN first): the hi and lo
+    parts of W^T that the card's split kernel writes there must be ``mlp.tf32_split``'s bits,
+    and the output the wrapper's bits."""
+    import torch
+
+    from aurora_tpu_torch.ops import mlp
+
+    D = x.shape[-1]
+    ops = {"w": w[0], "b": w[1], "shift": film[0].reshape(1, D), "scale": film[1].reshape(1, D)}
+    ws = torch.full((2 * D * D,), float("nan"), device=x.device)
+    out = torch.empty_like(x)
+    mlp._linear_adaln_residual_call(mlp._linear_entry(x), x, ops, sc, 0.0, out, wsplit=ws)
+    if not torch.equal(out, mlp.linear_adaln_residual(x, *w, sc, *film)):
+        raise AssertionError("linear_adaln_residual: a given split scratch changed the output")
+    return split_is_tf32_split(ws, (w[0],), "linear_adaln_residual")
 
 
 def mlp_fused_case(rn, label, rows, D, per_step, f32=False, small=False):
@@ -863,11 +885,12 @@ def perceiver_cases(rn, label, K, M, D, h, Q, per_step, f32=False):
         tpu = 2 * K * M * D * inner + 2 * K * M * Q * inner + (8 * K * M * inner if lnk else 0)
         logits = 2 * K * M * D * Q * h
         if f32:
-            # With ln_k, ctx Wc once in f32 (the sums of squares).
+            # Every product as three TF32 products (with ln_k also ctx Wc, for the sums of
+            # squares); the FFMA bound of the same work beside it.
             wc = 2 * K * M * D * inner if lnk is not None else 0
-            bound = bound_ms(flops_f32=logits + vo + wc, nbytes=nb)
+            bound = bound_ms(flops_tf32x3=logits + vo + wc, nbytes=nb)
             tpu_bound = bound_ms(flops_f32=tpu + vo, nbytes=nb)[0]
-            bounds = dict(tf32x3_bound_ms=bound_ms(flops_tf32x3=logits + vo + wc, nbytes=nb)[0])
+            bounds = dict(ffma_bound_ms=bound_ms(flops_f32=logits + vo + wc, nbytes=nb)[0])
         else:
             # With ln_k, ctx Wc in three bf16 products (the kernels' split form).
             split = 3 * 2 * K * M * D * inner if lnk is not None else 0
@@ -882,8 +905,68 @@ def perceiver_cases(rn, label, K, M, D, h, Q, per_step, f32=False):
             kernel=lambda lnk=lnk: resampler.perceiver_core(**a, **kw, lnk=lnk),
             plain=full_f32(lambda lnk=lnk: resampler.perceiver_core_plain(**a, **kw, lnk=lnk)),
             check="branch", residual=a["queries"][None], bound=bound, bounds=bounds,
-            extra=lambda b=tpu_bound: dict(bound_of_tpu_work_ms=b),
+            extra=lambda b=tpu_bound, lnk=lnk: dict(
+                bound_of_tpu_work_ms=b,
+                **(perceiver_split_bits_equal(a, dh**-0.5, lnk) if f32 else {})),
         )
+
+
+def perceiver_split_bits_equal(a, scale, lnk) -> dict:
+    """Float32 K4 with the weights' split scratch and the chunk's v-and-logits scratch given
+    (filled with NaN first): the hi and lo parts of Wv^T and Wout^T that the card's split
+    kernels write there must be ``mlp.tf32_split``'s bits, and the output the wrapper's bits.
+    The fold's own parts of Wkq^T must be TF32 values whose sum is the float64 fold within
+    2^-21 of its largest (zeros in the padded logit columns). Prints the error of the last
+    chunk's logits (left in the scratch) against the float64 product of its context rows and
+    the folded weights, over their largest."""
+    import torch
+
+    from aurora_tpu_torch.ops import _lib, resampler
+
+    K, M, D = a["ctx"].shape
+    Q, h, dh = a["qh"].shape
+    inner, D_out, QH = h * dh, a["wout"].shape[1], Q * h
+    ln_k = lnk is not None
+    NS = inner + resampler.perceiver_logit_columns(QH)
+    NT = NS + (inner if ln_k else 0)
+    chunks = resampler.perceiver_column_chunks(M, K, D, inner, Q, h, D_out, ln_k, f32=True)
+    nan = float("nan")
+    ws = torch.full((resampler.perceiver_split_bytes(D, inner, QH, D_out, ln_k) // 4,), nan,
+                    device=a["ctx"].device)
+    vl = torch.full((K * chunks[0][1], NS), nan, device=a["ctx"].device)
+    fn = _lib.kernel("resampler_f32", "perceiver_core_f32", resampler._PERCEIVER_CORE_F32_ARGS)
+    out = resampler._perceiver_core_f32_call(fn, *a.values(), scale, 1e-5, lnk, wsplit=ws, vl=vl)
+    if not torch.equal(out, resampler.perceiver_core(**a, scale=scale, value_bf16=False,
+                                                     lnk=lnk)):
+        raise AssertionError("perceiver_core: given scratch changed the output")
+    torch.cuda.synchronize()
+    ctx_t = ws[:2 * NT * D].view(2 * NT, D)  # [Wv | Wkq | Wc]^T's hi rows, then its lo rows
+    wv_parts = torch.cat([ctx_t[:inner].reshape(-1), ctx_t[NT:NT + inner].reshape(-1)])
+    more = split_is_tf32_split(torch.cat([wv_parts, ws[2 * NT * D:]]), (a["wv"], a["wout"]),
+                               "perceiver_core")
+    # the last chunk's logits; with ln_k the raw logits of the folded Wkq' (as the fold makes)
+    m0, mc = chunks[-1]
+    f64 = torch.float64
+    w = a["wk"].to(f64)
+    if ln_k:
+        w = (w - w.mean(-1, keepdim=True)) * lnk[0].to(f64)
+    wkq = scale * torch.einsum("chd,qhd->cqh", w.view(D, h, dh), a["qh"].to(f64))
+    want = a["ctx"][:, m0:m0 + mc].to(f64).reshape(K * mc, D) @ wkq.reshape(D, QH)
+    got = vl[:K * mc, inner:inner + QH].to(f64)
+    more["logits_rel_err"] = ((got - want).abs().max() / want.abs().max()).item()
+    # the fold's own split: TF32 parts (low 13 bits zero), hi + lo the folded Wkq^T within
+    # 2^-21 of its largest (the f32 rounding of the fold and lo's own), zeros in the padding
+    hi, lo = ctx_t[inner:NS], ctx_t[NT + inner:NT + NS]
+    if ((hi.view(torch.int32) | lo.view(torch.int32)) & 0x1FFF).any():
+        raise AssertionError("perceiver_core: the fold's split parts are not TF32 values")
+    ref = torch.zeros(NS - inner, D, dtype=f64, device=hi.device)
+    ref[:QH] = wkq.reshape(D, QH).t()
+    more["fold_split_rel_err"] = ((hi.to(f64) + lo.to(f64) - ref).abs().max()
+                                  / ref.abs().max()).item()
+    if more["fold_split_rel_err"] > 2.0**-21:
+        raise AssertionError(f"perceiver_core: the fold's split is {more['fold_split_rel_err']} "
+                             "from the float64 fold")
+    return more
 
 
 def pad_tokens_isolated(qkv, groups, heads) -> dict:

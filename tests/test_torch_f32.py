@@ -197,25 +197,32 @@ def test_k4_reaches_the_entry_of_its_form(entries, value_bf16, with_lnk):
     assert args[0] == a["ctx"].data_ptr()
     assert (args[1], args[2], args[4]) == (a["wk"].data_ptr(), a["wv"].data_ptr(),
                                            a["wout"].data_ptr())  # the weights as stored
-    assert (args[8] is None) == (not with_lnk) and (args[12] is None) == (not with_lnk)
-    assert args[17] == out.data_ptr()
-    assert args[18:26] == (13, 200, 200, 512, 16, 32, 3, 512)
+    # lnk_w, cst and sq only with ln_k; the split scratch before the stream
+    assert (args[8] is None) == (not with_lnk) and (args[10] is None) == (not with_lnk)
+    assert (args[12] is None) == (not with_lnk)
+    assert args[14] == out.data_ptr()
+    assert args[15:23] == (13, 200, 200, 512, 16, 32, 3, 512)
+    assert args[25] is not None and args[26] == 0
     assert _lib.LAUNCHES["perceiver_core"] == 1
     assert _lib.LAUNCHES_BY == {("perceiver_core", "float32", 512): 1}
 
 
 def test_k4_f32_chunks_count_its_own_scratch():
-    """The float32 form's scratch a column: f32 v, the logits over their padded Q h columns,
-    with ln_k the sums of squares, f32 o; the chunks cover every column once under the cap."""
+    """The float32 form's scratch a column: f32 v and the logits over their Q h columns padded
+    to 128, with ln_k the sums of squares, f32 o; beside it once a call the weights' split (hi
+    and lo of [Wv | Wkq | Wc]^T and of Wout^T); the chunks cover every column once under the
+    cap, the split included."""
     K, D, inner, Q, h, D_out = 13, 512, 512, 3, 16, 512
     per = resampler.perceiver_column_bytes(K, D, inner, Q, h, D_out, False, f32=True)
-    assert per == K * inner * 4 + K * 64 * 4 + Q * inner * 4
+    assert per == K * inner * 4 + K * 128 * 4 + Q * inner * 4
     lnk = resampler.perceiver_column_bytes(K, D, inner, Q, h, D_out, True, f32=True)
     assert lnk - per == K * (inner // 128) * 4
+    split = resampler.perceiver_split_bytes(D, inner, Q * h, D_out, True)
+    assert split == 4 * (2 * (inner + 128 + inner) * D + 2 * D_out * inner)
     chunks = resampler.perceiver_column_chunks(64800, K, D, inner, Q, h, D_out, True, f32=True)
     assert chunks[0][0] == 0 and sum(c for _, c in chunks) == 64800
     assert all(a + n == b for (a, n), (b, _) in zip(chunks, chunks[1:]))
-    assert chunks[0][1] * lnk <= resampler.PERCEIVER_SCRATCH_BYTES
+    assert chunks[0][1] * lnk + split <= resampler.PERCEIVER_SCRATCH_BYTES
 
 
 # ------------------------------------------------------------------------------ mirrors
@@ -382,7 +389,7 @@ def test_k4_f32_mirror_matches_pallas(K, dh, Q, with_lnk):
     t = {k: torch.from_numpy(v).float() for k, v in a.items()}
     tl = tuple(torch.from_numpy(v).float() for v in lnk) if with_lnk else None
     per = resampler.perceiver_column_bytes(K, D, inner, Q, h, D, with_lnk, f32=True)
-    cap = 128 * per  # 128 columns a chunk
+    cap = 128 * per + resampler.perceiver_split_bytes(D, inner, Q * h, D, with_lnk)  # 128 a chunk
     assert len(resampler.perceiver_column_chunks(M, K, D, inner, Q, h, D, with_lnk, cap,
                                                  f32=True)) == 3
     got = perceiver_core_f32_mirror(**t, scale=dh**-0.5, lnk=tl, cap=cap)
