@@ -37,6 +37,7 @@ import argparse
 import contextlib
 import dataclasses
 import math
+import threading
 import time
 from typing import Optional
 
@@ -66,9 +67,11 @@ VARIANTS = (
 
 @contextlib.contextmanager
 def patched(obj, name: str, value):
-    """Set ``obj.name`` for the length of the block and put the old value back."""
+    """Set ``obj.name`` for the length of the block, for the calls of the thread that entered
+    it (any other thread's calls reach the old value), and put the old value back."""
     old = getattr(obj, name)
-    setattr(obj, name, value)
+    me = threading.get_ident()
+    setattr(obj, name, lambda *a, **kw: (value if threading.get_ident() == me else old)(*a, **kw))
     try:
         yield
     finally:

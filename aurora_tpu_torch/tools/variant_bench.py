@@ -9,18 +9,20 @@ over the raw (pre-hook) batch a user passes, as the JAX tool builds it
 (``tools/variant_bench.py:35-60``: |N(0, 1)| fields, the wave model's raw set with
 ``dwi``), with the production knobs of ``tools/variant_bench.py:34``: the backbone in bf16
 under ``autocast`` with bf16-stored weights, bf16 values in the level aggregation and
-de-aggregation. Weights: seeded, the FiLM modulations and LoRA ``B`` opened
-(``perf_breakdown.build_model``), unless ``main(argv, models=...)`` is given models (e.g.
-with a checkpoint loaded).
+de-aggregation. ``--default-config`` builds each facade's default config instead (float32
+all through, as the serving registry and the command-line interface build it). Weights: seeded,
+the FiLM modulations and LoRA ``B`` opened (``perf_breakdown.build_model``), unless
+``main(argv, models=...)`` is given models (e.g. with a checkpoint loaded, in either form).
 
-Each variant's row: the roll-out's step times (host clock around ``torch.cuda.synchronize``;
-the 3rd step is the first steady one), grid points per second of the last step, peak device
-memory, the kernel launches of each step (``ops._lib.LAUNCHES``), and the last prediction's
-variables with their shapes and NaN / inf counts (the wave model writes NaN where no waves
-are predicted).
+Each variant's row: the model's form (``config``: "production" or "default"), the roll-out's
+step times (host clock around ``torch.cuda.synchronize``; the 3rd step is the first steady
+one), grid points per second of the last step, peak device memory, the kernel launches of
+each step (``ops._lib.LAUNCHES``), and the last prediction's variables with their shapes,
+dtypes and NaN / inf counts (the wave model writes NaN where no waves are predicted).
 
 Usage: ``python -m aurora_tpu_torch.tools.variant_bench [--variants pollution,wave]
-[--steps 3] [--device cpu] [--H H --W W]`` (``--H``/``--W`` replace every variant's grid).
+[--steps 3] [--default-config] [--device cpu] [--H H --W W]`` (``--H``/``--W`` replace every
+variant's grid).
 """
 
 from __future__ import annotations
@@ -56,12 +58,21 @@ WAVE_RAW = ("swh", "mwd", "mwp", "pp1d", "shww", "mdww", "mpww", "shts", "mdts",
             "swh1", "mwd1", "mwp1", "swh2", "mwd2", "mwp2", "wind", "dwi")
 
 
-def build_variant(cls: type[Aurora], device, seed: int = 0, cfg=None) -> Aurora:
-    """``cls`` with its default config (or ``cfg``) and the production knobs, seeded
-    weights, gates opened, the backbone stored in bf16."""
-    model = cls(production_config(cfg or cls.default_config()), device=device, seed=seed)
+def build_variant(cls: type[Aurora], device, seed: int = 0, cfg=None,
+                  production: bool = True) -> Aurora:
+    """``cls`` with its default config (or ``cfg``), seeded weights, gates opened; with
+    ``production`` the production knobs set and the backbone stored in bf16, else as given
+    (the default config: float32 all through)."""
+    cfg = cfg or cls.default_config()
+    model = cls(production_config(cfg) if production else cfg, device=device, seed=seed)
     open_gates(model)
-    return cast_backbone_params(model)
+    return cast_backbone_params(model) if production else model
+
+
+def form_of(model: Aurora) -> str:
+    """"production" (bf16 under ``autocast``) or "default" (float32 all through)."""
+    cfg = model.cfg
+    return "production" if cfg.autocast or cfg.agg_bf16 or cfg.deagg_bf16 else "default"
 
 
 def raw_batch(cfg, H: int, W: int, seed: int = 0, device=None, absolute: bool = True,
@@ -112,6 +123,7 @@ def run_rollout(model: Aurora, batch: Batch, steps: int) -> dict:
         peak_mem_gib=torch.cuda.max_memory_allocated(dev) / 2**30 if dev.type == "cuda"
         else None,
         outputs={k: list(v.shape) for k, v in fields.items()},
+        dtypes=sorted({str(v.dtype).removeprefix("torch.") for v in fields.values()}),
         nan_points={k: int(torch.isnan(v).sum()) for k, v in fields.items()},
         inf_points={k: int(torch.isinf(v).sum()) for k, v in fields.items()},
     )
@@ -121,6 +133,9 @@ def main(argv=None, *, models: Optional[dict[str, Aurora]] = None) -> list[dict]
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--variants", default="pollution,wave")
     ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--default-config", action="store_true",
+                    help="each facade's default config (float32) in place of the production "
+                         "knobs")
     ap.add_argument("--device", default=None, help="the card unless 'cpu' is given")
     ap.add_argument("--H", type=int, default=None)
     ap.add_argument("--W", type=int, default=None)
@@ -129,12 +144,14 @@ def main(argv=None, *, models: Optional[dict[str, Aurora]] = None) -> list[dict]
     rows = []
     for name in args.variants.split(","):
         label, cls, H, W = VARIANTS[name]
-        model = models[name] if models and name in models else build_variant(cls, dev)
+        model = (models[name] if models and name in models
+                 else build_variant(cls, dev, production=not args.default_config))
         if model.device.type != dev.type:
             raise ValueError(f"the {name} model is on {model.device}, the tool runs on {dev}")
         batch = raw_batch(model.cfg, args.H or H, args.W or W, device=dev)
         r = run_rollout(model, batch, args.steps)
         rows.append(report(result(label, 1e3 * r["step_s"][-1], dev, card=card_line(dev),
+                                  config=form_of(model),
                                   params=sum(p.numel() for p in model.parameters()), **r)))
     return rows
 

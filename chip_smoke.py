@@ -57,7 +57,9 @@ Phases, each printing one JSON line; any failure raises and the script exits non
    stage 1 and at D = 256 the weights' split that the card writes for K3, K2 and K6 must be
    ``mlp.tf32_split``'s bits of the same transposes, and so in every float32 case for K5's W
    and K4's Wv and Wout (K4 also prints the error of its last chunk's logits against a
-   float64 product, ``logits_rel_err``). K6 on
+   float64 product, ``logits_rel_err``; float32 K4 also at the air-pollution model's
+   de-aggregation, (3, 45000, 1024) Q 13, and with ``ln_k`` at the aggregation, the wave
+   model's one launch a step). K6 on
    ``window_partition(xp)``, reversed, must give float32 K2's bits; in float32 garbage in
    stage 3's pad tokens may move a real token by a rounding (the plain version's too),
    within 1e-6 of the branch (K2, K6) or of the output (K7);
@@ -140,11 +142,15 @@ Phases, each printing one JSON line; any failure raises and the script exits non
    bytes and write time, the upload, the task's weight load and input read, each step and
    each prediction file's write and bytes, the polling wait, the client's read-back, submit
    to last prediction). Then the config at two blocks a stage (the second shifted), one
-   model moved between routes by ``Aurora.set_knobs``: routes W, P and X (``run_f32_route``)
-   each roll out one step over the 721 x 1440 batch with launches per step as
-   ``route_launches`` derives them, every one on float32 tokens; then the main route and
-   those three on 121 x 240 against the port's CPU run: mean relative error <= 1e-4 per
-   variable;
+   model moved between routes by ``Aurora.set_knobs`` for routes W, P and X and a model of
+   its own for route S (``stabilise_level_agg``: K4 with ``ln_k`` in the aggregation, which
+   adds parameters): each route (``run_f32_route``) rolls out one step over the 721 x 1440
+   batch with launches per step as ``route_launches`` derives them, every one on float32
+   tokens; then the main route and those four on 121 x 240 against the port's CPU run:
+   mean relative error <= 1e-4 per variable. Then ``AuroraPretrained()`` in its default
+   config (float32, no LoRA), seeded, gates opened: one step at full depth over the same
+   batch (launches the main route's, all float32), and its config at two blocks a stage on
+   121 x 240 against the port's CPU run within 1e-4;
 5c. small:
    ``AuroraSmallPretrained`` (D = 256) twice, in its default config
    (``AuroraSmallPretrained()``, float32) and with the production knobs (bf16), seeded
@@ -158,25 +164,30 @@ Phases, each printing one JSON line; any failure raises and the script exits non
    tail masked and unmasked and without it masked, K6, K3 in the backbone and the
    aggregation, K8, K5, K4 with and without ``ln_k``; K2 must give K6's bits) and in
    float32 (K2, K6, K7, K3, K8, K5, K4);
-6. variants: the released models AirPollution (451 x 900, patch 3), Wave (721 x 1440),
-   HighRes (1801 x 3600, patch 10) and 12h (721 x 1440), each at its full width, depth and
-   grid with the production knobs. The weights are each released checkpoint's keys and
-   shapes (``tests/data/ckpt_manifests.json``) filled with seeded values at the scale of the
-   port's init (FiLM and LoRA ``B`` opened), loaded in memory through the port's checkpoint
-   code (``convert_reference_checkpoint``). Each rolls out 2 steps through
-   ``tools.variant_bench`` / ``tools.highres_bench`` (12h through the same roll-out), counts
-   set to 0 just before: step times, peak memory, launches per step checked against the code;
-   the outputs are the user's variables after the hooks (no ``_mod``, sin/cos or density
-   channel) at the right shapes, finite but for the wave model's NaN where it predicts no
-   waves. Then the variant's own config, widths, hooks and grid at two blocks per backbone
-   stage (the second shifted: it must launch K1 and K2), seeded on the card (AirPollution's
-   weights: the released checkpoint's keys of those blocks through a ``.ckpt`` file written
-   with ``torch.save``, ``load_checkpoint_local``), on a reference
-   grid (121 x 240; HighRes 241 x 480) against the port's CPU run of the same weights: mean
-   relative error <= 1e-2 per output variable where both are finite,
-   and the points where the wave NaN masks differ (a density within the card's error of 1/2)
-   at most 5%;
-7. tools, once the host thread's queue is drained: the probe tools as a user runs them, in
+6. variants: the released models AirPollution (451 x 900,
+   patch 3), Wave (721 x 1440), HighRes (1801 x 3600, patch 10) and 12h (721 x 1440), each
+   at its full width, depth and grid in two forms of one set of weights: the facade's
+   default config (float32 all through, ``default_config()`` asserted: the serving
+   registry's and the command-line interface's model) and the production knobs (the model's
+   parameters copied on the card, the backbone cast to bf16). The weights are each released
+   checkpoint's keys and shapes (``tests/data/ckpt_manifests.json``) filled with seeded
+   values at the scale of the port's init (FiLM and LoRA ``B`` opened), loaded in memory
+   through the port's checkpoint code (``convert_reference_checkpoint``) into the float32
+   model. Each form rolls out 2 steps through ``tools.variant_bench`` /
+   ``tools.highres_bench`` (12h through the same roll-out), counts set to 0 just before: step
+   times, peak memory, launches per step checked against the code, every launch writing the
+   form's dtype; the outputs are the user's variables after the hooks (no ``_mod``, sin/cos
+   or density channel) at the right shapes, float32, finite but for the wave model's NaN
+   where it predicts no waves. Then the variant's own config, widths, hooks and grid at two
+   blocks per backbone stage (the second shifted: it must launch K1 and K2), seeded on the
+   card (AirPollution's weights: the released checkpoint's keys of those blocks through a
+   ``.ckpt`` file written with ``torch.save``, ``load_checkpoint_local``), in both forms, on
+   a reference grid (121 x 240; HighRes 241 x 480) against the port's CPU run of the same
+   weights: mean relative error per output variable where both are finite <= 1e-4 in
+   float32, <= 1e-2 in bf16, and the points where the wave NaN masks differ (a density
+   within the card's error of 1/2) at most 5%;
+7. tools, beside the host thread's queue (their patches reach their own thread's calls
+   only): the probe tools as a user runs them, in
    process, at the full 0.25 degree token grid: ``backbone_ablate`` with every variant,
    ``gemm_probe`` and ``smem_probe`` (counts set to 0 just before); K9-K13 must each have
    launched, and the backbones under ``attention_impl`` "pallas" and "pallas_windowed" must
@@ -188,13 +199,19 @@ Phases, each printing one JSON line; any failure raises and the script exits non
    ``plain_bwd_ms`` and ``bwd_rel_err`` (each input's error) at ``bwd_shape``, one call at
    the main path's shape; K9-K13: the sum over one sweep of the tool's cases,
    ``launches`` the count over the tools phase; K2 and K6 carry their no-tail mode under
-   ``no_tail``, K4 its ``ln_k`` form under ``ln_k`` and the bound of the TPU kernel's work
-   under ``bound_of_tpu_work_ms``; K2, K6, K3, K8 and K4 the small model's D = 256 shapes
+   ``no_tail``, K4 its ``ln_k`` form under ``ln_k`` (launches: route S's aggregation; in
+   float32 the wave model's) and the bound of the TPU kernel's work under
+   ``bound_of_tpu_work_ms``; K2, K6, K3, K8 and K4 the small model's D = 256 shapes
    under ``d256`` by mode, times per small-model step (K5 on route X); K1-K8 their float32
    forms under ``f32`` by mode, times per step of the float32 model at 48 blocks on the
    route that runs the form (``HOME_F32``) and launches over that route's float32 roll-out,
    with the small model's float32 D = 256 shapes under ``f32`` ``d256``), the ``nvidia-smi``
    line, and the last line ``{"ok": true, "device": {...}}``.
+
+The phases run in the order 1, 2, 3, 4, 6, 5b, 5c, routes W, P, X and S, the main route
+with its breakdown, roll-outs and drivers, 7, 8: those that queue most of the references'
+CPU halves first, so that the host thread's queue drains beside the main route's long phases
+and the tools.
 
 Run from the repository root: ``python3 chip_smoke.py``. It needs one card, and exits
 non-zero without one.
@@ -202,13 +219,14 @@ non-zero without one.
 
 from __future__ import annotations
 
-import contextlib
 import json
 import os
 import subprocess
 import sys
 import threading
 import time
+
+T_START = time.perf_counter()  # the process's first statement after the standard imports
 
 # Roll-out steps of the routes' phases. ``rollout`` uploads the caller's
 # history once, before the first step, so the second step is the first steady one.
@@ -241,6 +259,9 @@ TOL = {
 TOL_F32 = {"roll3d": 0.0, "window_attention": 9e-5, "mlp_adaln_residual": 9e-5,
            "perceiver_core": 1e-4, "linear_adaln_residual": 9e-5,
            "window_attention_windowed": 9e-5, "sdpa_windows": 9e-5, "mlp_fused": 9e-5}
+# Card vs the port's CPU run of a float32 model (the facades' default config), mean relative
+# error per output variable.
+F32_REF_TOL = 1e-4
 # Timed runs of the float32 kernels (up to ~0.2 s each at the de-aggregation's MLP) and of
 # their plain versions, after 2 and 1 warm-up runs.
 REPS_F32, PLAIN_REPS_F32 = 5, 2
@@ -303,16 +324,26 @@ HOME = {"roll3d": "main", "window_attention": "main", "mlp_adaln_residual": "mai
         "sdpa_windows": None, "mlp_fused": "P", **dict.fromkeys(TOOL_KERNELS, "tools")}
 # The float32 roll-out that gives each float32 form's launches in the summary, by (kernel,
 # mode): "f32" the full-depth ``Aurora()`` on the main route, "f32W", "f32P", "f32X" its
-# config at two blocks a stage on routes W, P and X. K7, K6 without the tail and K4 with ln_k
-# run on no float32 route driven here.
+# config at two blocks a stage on routes W, P and X, "f32wave" the wave model in its default
+# config at full depth (K4 with ln_k: its aggregation, one of its two K4 launches a step).
+# K7 and K6 without the tail run on no float32 route driven here.
 HOME_F32 = {("roll3d", None): "f32", ("window_attention", "tail"): "f32",
             ("mlp_adaln_residual", None): "f32", ("perceiver_core", None): "f32",
             ("window_attention", "no tail"): "f32P", ("mlp_fused", None): "f32P",
-            ("window_attention_windowed", "tail"): "f32W", ("linear_adaln_residual", None): "f32X"}
+            ("window_attention_windowed", "tail"): "f32W", ("linear_adaln_residual", None): "f32X",
+            ("perceiver_core", "ln_k"): "f32wave"}
+
+
+# The lines go to the standard output the script started with, whole and under one lock: the
+# host thread emits references' lines while a phase on the main thread may have redirected
+# ``sys.stdout`` to capture a tool's output (``run_drivers``).
+_OUT, _OUT_LOCK = sys.stdout, threading.Lock()
 
 
 def emit(obj) -> None:
-    print(json.dumps(obj), flush=True)
+    with _OUT_LOCK:
+        _OUT.write(json.dumps(obj) + "\n")
+        _OUT.flush()
 
 
 def log(*a) -> None:
@@ -646,8 +677,13 @@ def f32_cases(rn):
     for M, per_step in ((64800, 1), (1800, 0)):
         for label, K, D, h, Q in (("agg", 13, 512, 16, 3), ("de-agg", 3, 1024, 16, 13)):
             for c in perceiver_cases(rn, label, K, M, D, h, Q, per_step, f32=True):
-                # No float32 path here runs ln_k (the wave model's default config would).
-                yield dict(c, per_step=per_step if c["mode"] is None else 0)
+                # ln_k: the wave model's aggregation in its default config, one a step.
+                yield dict(c, per_step=per_step if c["mode"] is None or label == "agg" else 0)
+    # The air-pollution model's second de-aggregation (its chemistry variables) at its
+    # 451 x 900 grid, patch 3: 45000 columns (its first runs the same shape). Counts nothing
+    # towards the 1.3 B model's step.
+    for c in perceiver_cases(rn, "de-agg", 3, 45000, 1024, 16, 13, 0, f32=True):
+        yield dict(c, label=c["label"].replace("f32 ", "f32 AirPollution: ", 1))
     # The small model (D = 256) in float32: K2 2 + 2 a step with the tail (main route), K5 4
     # (route X); its routes W and P are not driven.
     C, H, W, D, heads = 4, 180, 360, 256, 4
@@ -1489,8 +1525,7 @@ class _Deferred:
     whole run: ``full_f32_products`` restores the switches it found, and a region entered on
     one thread and left on the other could otherwise switch them on for the card. The phases
     beside the thread count launches through the wrappers' own counts and patch a module
-    function only through ``_patched`` (the patching thread's calls alone); ``run_tools``,
-    whose tool patches for every thread, drains the queue first."""
+    function only for their own thread's calls (``backbone_ablate.patched``)."""
 
     def __init__(self):
         self._pool = None
@@ -1528,19 +1563,6 @@ class _Deferred:
         finally:
             if self._pool is not None:
                 self._pool.shutdown(wait=True)
-
-
-@contextlib.contextmanager
-def _patched(obj, name: str, fn):
-    """``obj.name`` replaced by ``fn`` for the calls this thread makes while entered; calls
-    from any other thread (a CPU reference on ``_Deferred``'s) reach the original."""
-    orig = getattr(obj, name)
-    me = threading.get_ident()
-    setattr(obj, name, lambda *a, **kw: (fn if threading.get_ident() == me else orig)(*a, **kw))
-    try:
-        yield
-    finally:
-        setattr(obj, name, orig)
 
 
 def defer_reference(refs: _Deferred, what: str, model, batch, cfg, t0: float, row: dict,
@@ -1589,8 +1611,8 @@ def run_route(name: str, steps: int, ref_grid: tuple[int, int], batch, refs: _De
               then=None) -> dict:
     """The roll-out of one backbone route over ``batch`` (the 1.3 B model's 721 x 1440 host
     batch, made once for every route and the float32 phase); returns the launches over it.
-    ``then(model)`` runs after the roll-out's checks, before the reference, whose CPU half
-    is queued on ``refs``. The main route's model has the 1.3 B model's full depth; routes
+    ``then(model)`` runs after the roll-out's checks and the reference's card half, while its
+    CPU half, queued on ``refs``, runs on the host thread. The main route's model has the 1.3 B model's full depth; routes
     W, P, X and S roll out at two blocks per backbone stage (the second shifted) on the same
     721 x 1440 grid, so that each of their kernels still runs on every stage's token grid,
     and that model is then their reference's."""
@@ -1647,31 +1669,30 @@ def run_route(name: str, steps: int, ref_grid: tuple[int, int], batch, refs: _De
               grid="721x1440 (720x1440 after crop)", levels=13, params=n_params, init_s=init_s,
               steps=steps, step_s=step_s, peak_mem_gib=peak / 2**30,
               launches_per_step=per_step[-1], launches=launches))
-    if then is not None:
-        then(model)
 
     # Reference on a small input, the card against the port's CPU run of the same route: the
     # route's model at two blocks per backbone stage (the second shifted, so K1 and the
-    # masked attention run), seeded on the card. The CPU half runs on the host thread.
+    # masked attention run), seeded on the card. The CPU half runs on the host thread, beside
+    # ``then``.
     t0 = time.perf_counter()
     H, W = ref_grid
     small = numpy_batch(cfg, H, W, seed=1)
-    if cfg.encoder_depths != TWO_BLOCKS["encoder_depths"]:
-        del model
-        torch.cuda.empty_cache()
-        cfg = cfg.replace(**TWO_BLOCKS)
-        model = build_model(cfg, "cuda")
+    ref_cfg = cfg.replace(**TWO_BLOCKS)
+    ref_model = model if ref_cfg == cfg else build_model(ref_cfg, "cuda")
     before = dict(_lib.LAUNCHES)
-    got = model(small)
+    got = ref_model(small)
     torch.cuda.synchronize()
     ref_launches = {k: n - before[k] for k, n in _lib.LAUNCHES.items() if n != before[k]}
     missing = [k for k in counts if not ref_launches.get(k)]
     if missing:
         raise AssertionError(f"route {name}: the reference run never launched {missing}")
     row = dict(phase="reference", route=name, grid=f"{H}x{W}",
-               depths=(cfg.encoder_depths, cfg.decoder_depths), launches=ref_launches,
+               depths=(ref_cfg.encoder_depths, ref_cfg.decoder_depths), launches=ref_launches,
                against="port CPU route (plain versions)", got=got)
-    defer_reference(refs, f"route {name} reference", model, small, cfg, t0, row, 1e-2)
+    defer_reference(refs, f"route {name} reference", ref_model, small, ref_cfg, t0, row, 1e-2)
+    del ref_model
+    if then is not None:
+        then(model)
     return launches
 
 
@@ -2406,6 +2427,7 @@ def run_stochastic_step_phase(model, inputs) -> dict:
     from aurora_tpu_torch.model import nn as tnn
     from aurora_tpu_torch.ops import _lib
     from aurora_tpu_torch.tools import train_bench
+    from aurora_tpu_torch.tools.backbone_ablate import patched
     from aurora_tpu_torch.training import make_train_step
 
     t0 = time.perf_counter()
@@ -2428,7 +2450,7 @@ def run_stochastic_step_phase(model, inputs) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     before = dict(_lib.LAUNCHES)
-    with _patched(tnn, "keep_mask", recorded):
+    with patched(tnn, "keep_mask", recorded):
         t1 = time.perf_counter()
         loss = float(step(surf, static, atmos, enc, 0, tgt_s, tgt_a, generator=gen))
         torch.cuda.synchronize()
@@ -2543,6 +2565,7 @@ def run_train_references(refs: _Deferred) -> None:
     from aurora_tpu_torch.model import nn as tnn
     from aurora_tpu_torch.ops import _lib
     from aurora_tpu_torch.tools import train_bench
+    from aurora_tpu_torch.tools.backbone_ablate import patched
     from aurora_tpu_torch.training import make_train_step
 
     t0 = time.perf_counter()
@@ -2574,7 +2597,7 @@ def run_train_references(refs: _Deferred) -> None:
         return out
 
     draw = tnn.keep_mask
-    with _patched(tnn, "keep_mask", lambda shape, keep, seed, path, device: draw(
+    with patched(tnn, "keep_mask", lambda shape, keep, seed, path, device: draw(
             shape, keep, seed, path, "cpu").to(device)):
         card = steps(model)
     model = model.to("cpu")
@@ -2657,14 +2680,13 @@ def run_train_phases(refs: _Deferred) -> dict:
 # ------------------------------------------------------------------------------ tools
 
 
-def run_tools(refs: _Deferred) -> dict:
+def run_tools() -> dict:
     """The probe tools as a user runs them, in process; returns the launches over them.
-    ``backbone_ablate`` patches ``swin3d``'s functions while it times, for every thread: the
-    CPU references queued on ``refs`` are waited for first."""
+    ``backbone_ablate`` patches ``swin3d``'s functions while it times for its own thread's
+    calls only, so the CPU references on the host thread go on beside it."""
     from aurora_tpu_torch.ops import _lib
     from aurora_tpu_torch.tools import backbone_ablate, gemm_probe, smem_probe
 
-    emit(dict(phase="references", waited_before_tools_s=refs.drain()))
     _lib.reset_launches()
     t0 = time.perf_counter()
     ablate = backbone_ablate.main(["--variants", ",".join(backbone_ablate.VARIANTS)])
@@ -2771,23 +2793,22 @@ def type_of(name: str):
 
 
 def load_variant(name: str, manifest: dict, cfg=None, via_file: bool = False):
-    """The production model of one released variant (``cfg``: its config, by default the
-    facade's with the production knobs) on the card, with its weights loaded through the
-    port's checkpoint code: from a ``.ckpt`` file with ``via_file``, else the state dict in
-    memory through ``convert_reference_checkpoint``. ``manifest``: the checkpoint's keys and
-    shapes for that config. Returns the model and a dict of what the load took."""
+    """One released variant in its facade's default config (``cfg``: another config of it,
+    by default ``default_config()``: float32 all through) on the card, with its weights
+    loaded through the port's checkpoint code: from a ``.ckpt`` file with ``via_file``, else
+    the state dict in memory through ``convert_reference_checkpoint``. ``manifest``: the
+    checkpoint's keys and shapes for that config. Returns the model and a dict of what the
+    load took. :func:`production_copy` makes the production model of the same weights."""
     import tempfile
     from pathlib import Path
 
     import torch
 
-    from aurora_tpu_torch import cast_backbone_params
     from aurora_tpu_torch.checkpoint import convert_reference_checkpoint
     from aurora_tpu_torch.convert import load_numpy_params
-    from aurora_tpu_torch.tools.perf_breakdown import production_config
 
     cls = type_of(name)
-    cfg = cfg or production_config(cls.default_config())
+    cfg = cfg or cls.default_config()
     t0 = time.perf_counter()
     sd = reference_weights(manifest, cfg, seed=0)
     info = dict(weights_s=time.perf_counter() - t0,
@@ -2810,7 +2831,19 @@ def load_variant(name: str, manifest: dict, cfg=None, via_file: bool = False):
         torch.cuda.synchronize()
         info.update(via="memory", load_s=time.perf_counter() - t0)
         del sd
-    return cast_backbone_params(model), info
+    return model, info
+
+
+def production_copy(model):
+    """The production model of ``model``'s weights (a float32 model of a facade): the same
+    facade with the production knobs, the parameters copied on the card, the backbone
+    stored in bf16 (``cast_backbone_params``), as ``tools.variant_bench`` builds it."""
+    from aurora_tpu_torch import cast_backbone_params
+    from aurora_tpu_torch.tools.perf_breakdown import production_config
+
+    prod = type(model)(production_config(model.cfg), device=model.device, seed=None)
+    prod.load_state_dict(model.state_dict())
+    return cast_backbone_params(prod)
 
 
 def expected_outputs(cfg) -> tuple[set, set]:
@@ -2822,54 +2855,86 @@ def expected_outputs(cfg) -> tuple[set, set]:
     return set(surf), set(cfg.atmos_vars)
 
 
-def run_variant(name: str, manifest: dict, steps: int, refs: _Deferred) -> None:
-    """One released variant: the weights through the checkpoint path, a roll-out of
-    ``steps`` steps at its full grid through the tools (launches per step checked, counts set
-    to 0 just before), the outputs' variables, shapes and values, then the same weights on
-    the reference grid against the port's own CPU run."""
+# The two forms of each variant: (form, the config's name, the reference's bound, the dtype of
+# every launch). The float32 form is the facade's default config (the serving registry's and
+# the command-line interface's), the bf16 one the production knobs (the benchmark entry's).
+VARIANT_FORMS = (("f32", "default (float32 all through)", F32_REF_TOL, "float32"),
+                 ("bf16", "production knobs (bf16 backbone and (de-)aggregation values)", 1e-2,
+                  "bfloat16"))
+
+
+def run_variant(name: str, manifest: dict, steps: int, refs: _Deferred) -> dict:
+    """One released variant in both of ``VARIANT_FORMS``, from one load of its weights: the
+    float32 model (the facade's default config, ``default_config()`` asserted) through the
+    checkpoint path, its production model copied from it on the card. Each form rolls out
+    ``steps`` steps at the variant's full grid through the tools (counts set to 0 just
+    before): launches per step checked against the code and every launch in the form's
+    dtype (``_KernelCalls.by_dtype``); the outputs' variables, shapes, dtype and values. Then
+    the same two forms at two blocks per backbone stage on the reference grid against the
+    port's own CPU runs. Returns ``{form: launches over its roll-out}``."""
     import torch
 
     from aurora_tpu_torch.ops import _lib
     from aurora_tpu_torch.tools import highres_bench, variant_bench
 
     facade, (H, W), (h, w), expected = VARIANT_RUNS[name]
+    default = type_of(name).default_config()
     model, info = load_variant(name, manifest)
     cfg = model.cfg
-    _lib.reset_launches()
-    if name in variant_bench.VARIANTS:
-        r = variant_bench.main(["--variants", name, "--steps", str(steps)],
-                               models={name: model})[0]
-    elif name == "highres":
-        r = highres_bench.main(["--steps", str(steps)], model=model)[0]
-    else:  # The 12 h model: the base variables, through the same roll-out.
-        r = variant_bench.run_rollout(model, variant_bench.raw_batch(cfg, H, W, device="cuda"),
-                                      steps)
-    launches = dict(_lib.LAUNCHES)
-    for i, got in enumerate(r["launches_per_step"]):
-        if got != expected:
-            raise AssertionError(f"variant {name} step {i}: launches {got} != {expected}")
+    if cfg != default or cfg.autocast or cfg.agg_bf16 or cfg.deagg_bf16:
+        raise AssertionError(f"variant {name}: not the default config (float32): {cfg}")
     surf, atmos = expected_outputs(cfg)
     Hc, Wc = H - H % cfg.patch_size, W
     want_shapes = {**{k: [1, 1, Hc, Wc] for k in surf},
                    **{k: [1, 1, len(LEVELS), Hc, Wc] for k in atmos}}
-    if r["outputs"] != want_shapes:
-        raise AssertionError(f"variant {name}: outputs {r['outputs']} != {want_shapes}")
     may_nan = set(cfg.density_channel_surf_vars)
-    bad = {k: (r["nan_points"][k], r["inf_points"][k]) for k in want_shapes
-           if r["inf_points"][k] or (r["nan_points"][k] and k not in may_nan)}
-    if bad or r["rollout_step"] != steps:
-        raise AssertionError(f"variant {name}: non-finite outputs {bad}")
-    emit(dict(phase="variant", variant=name, facade=facade, grid=f"{H}x{W}",
-              patch_size=cfg.patch_size, params=sum(p.numel() for p in model.parameters()),
-              **info, steps=steps, step_s=r["step_s"], peak_mem_gib=r["peak_mem_gib"],
-              launches_per_step=r["launches_per_step"][-1], expected_per_step=expected,
-              launches=launches, nan_points={k: v for k, v in r["nan_points"].items() if v}))
+    launches = {}
+    for form, config, _, dtype in VARIANT_FORMS:
+        if form == "bf16":
+            t0 = time.perf_counter()
+            model = production_copy(model)
+            torch.cuda.synchronize()
+            info = dict(via="the float32 model's parameters copied on the card",
+                        copy_s=time.perf_counter() - t0)
+        _lib.reset_launches()
+        with _KernelCalls() as calls:
+            if name in variant_bench.VARIANTS:
+                r = variant_bench.main(["--variants", name, "--steps", str(steps)],
+                                       models={name: model})[0]
+            elif name == "highres":
+                r = highres_bench.main(["--steps", str(steps)], model=model)[0]
+            else:  # The 12 h model: the base variables, through the same roll-out.
+                r = variant_bench.run_rollout(
+                    model, variant_bench.raw_batch(cfg, H, W, device="cuda"), steps)
+        launches[form] = dict(_lib.LAUNCHES)
+        by_dtype = calls.by_dtype()
+        bad = [f"step {i}: launches {got} != {expected}"
+               for i, got in enumerate(r["launches_per_step"]) if got != expected]
+        if by_dtype != {dtype: {k: steps * n for k, n in expected.items()}}:
+            bad.append(f"launches by dtype {by_dtype} (want all {dtype})")
+        if r["outputs"] != want_shapes or r["dtypes"] != ["float32"]:
+            bad.append(f"outputs {r['outputs']} {r['dtypes']} != {want_shapes}")
+        nonfinite = {k: (r["nan_points"][k], r["inf_points"][k]) for k in want_shapes
+                     if r["inf_points"][k] or (r["nan_points"][k] and k not in may_nan)}
+        if nonfinite or r["rollout_step"] != steps:
+            bad.append(f"non-finite outputs {nonfinite}")
+        emit(dict(phase="variant", variant=name, facade=facade, form=form, config=config,
+                  grid=f"{H}x{W}", patch_size=cfg.patch_size,
+                  params=sum(p.numel() for p in model.parameters()),
+                  param_dtypes=sorted({str(p.dtype) for p in model.parameters()}),
+                  **info, steps=steps, step_s=r["step_s"], peak_mem_gib=r["peak_mem_gib"],
+                  launches_per_step=r["launches_per_step"][-1], expected_per_step=expected,
+                  launches_by_dtype=by_dtype, launches=launches[form],
+                  nan_points={k: v for k, v in r["nan_points"].items() if v}))
+        if bad:
+            raise AssertionError(f"variant {name}, {form}: {bad}")
 
-    # The reference: the variant's own config, widths, hooks and grid at two blocks per
+    # The references: the variant's own config, widths, hooks and grid at two blocks per
     # backbone stage (one unshifted, one shifted: K1 and K2's masked attention run on the
-    # variant's own token grid), seeded on the card, on the reference grid; the card against
-    # the port's CPU run of the same weights. VIA_FILE's weights come through a reference
-    # .ckpt file of those blocks (the released checkpoint's keys without blocks 2 and up).
+    # variant's own token grid), seeded on the card, on the reference grid, in both forms
+    # of the same weights; the card against the port's CPU run of each. VIA_FILE's weights
+    # come through a reference .ckpt file of those blocks (the released checkpoint's keys
+    # without blocks 2 and up).
     del model
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -2884,54 +2949,69 @@ def run_variant(name: str, manifest: dict, steps: int, refs: _Deferred) -> None:
         emit(dict(phase="variant", variant=name, part="weights through a .ckpt file",
                   depths=(shallow.encoder_depths, shallow.decoder_depths), **file_info))
     else:
-        model = variant_bench.build_variant(type_of(name), "cuda", cfg=shallow)
+        model = variant_bench.build_variant(type_of(name), "cuda", cfg=shallow,
+                                            production=False)
     small = variant_bench.raw_batch(cfg, h, w, seed=1, absolute=name != "highres")
-    before = dict(_lib.LAUNCHES)
-    got = model(small)
-    torch.cuda.synchronize()
-    ref_launches = {k: n - before[k] for k, n in _lib.LAUNCHES.items() if n != before[k]}
-    missing = [k for k in ("roll3d", "window_attention") if not ref_launches.get(k)]
-    if missing:
-        raise AssertionError(f"variant {name}: the reference run never launched {missing}")
-    got = got.to("cpu")
-    cpu = model.to("cpu")
+    models = {"f32": model, "bf16": production_copy(model)}
     del model
-    torch.cuda.empty_cache()
+    runs = []
+    for form, _, tol, dtype in VARIANT_FORMS:
+        model = models.pop(form)
+        before = dict(_lib.LAUNCHES)
+        with _KernelCalls() as calls:
+            got = model(small)
+            torch.cuda.synchronize()
+        ref_launches = {k: n - before[k] for k, n in _lib.LAUNCHES.items() if n != before[k]}
+        missing = [k for k in ("roll3d", "window_attention") if not ref_launches.get(k)]
+        if missing or set(calls.by_dtype()) != {dtype}:
+            raise AssertionError(f"variant {name}, {form}: the reference run launched "
+                                 f"{calls.by_dtype()}, never {missing}")
+        runs.append((form, tol, ref_launches, got.to("cpu"), model.to("cpu")))
+        torch.cuda.empty_cache()
+    del model
 
     def compare():  # on the host thread (refs)
-        want = cpu(small)
-        errs, flips = {}, {}
-        for k in sorted(surf | atmos):
-            g = (got.surf_vars if k in surf else got.atmos_vars)[k].double()
-            c = (want.surf_vars if k in surf else want.atmos_vars)[k].double()
-            both = torch.isfinite(g) & torch.isfinite(c)
-            errs[k] = _mean_rel(g[both], c[both])
-            flips[k] = int((torch.isnan(g) != torch.isnan(c)).sum())
-        worst = max(errs.values())
-        flip_share = sum(flips.values()) / sum(v.numel() for v in {
-            **want.surf_vars, **want.atmos_vars}.values())
-        emit(dict(phase="reference", variant=name, grid=f"{h}x{w}",
-                  depths=(shallow.encoder_depths, shallow.decoder_depths),
-                  launches=ref_launches, against="port CPU run (plain versions)",
-                  mean_rel=errs, worst=worst, tol=1e-2,
-                  nan_mask_differs={k: v for k, v in flips.items() if v},
-                  nan_flip_share=flip_share, seconds=time.perf_counter() - t0))
-        if not worst <= 1e-2:
-            raise AssertionError(f"variant {name}: card vs CPU: mean rel {worst} > 1e-2")
-        # A density point flips where the predicted density is within the card's error of
-        # 1/2; no other variable may be NaN on one side only.
-        if flip_share > NAN_FLIP_TOL or any(v for k, v in flips.items() if k not in may_nan):
-            raise AssertionError(f"variant {name}: NaN masks differ at {flips}")
+        bad = []
+        for form, tol, ref_launches, got, cpu in runs:
+            want = cpu(small)
+            errs, flips = {}, {}
+            for k in sorted(surf | atmos):
+                g = (got.surf_vars if k in surf else got.atmos_vars)[k].double()
+                c = (want.surf_vars if k in surf else want.atmos_vars)[k].double()
+                both = torch.isfinite(g) & torch.isfinite(c)
+                errs[k] = _mean_rel(g[both], c[both])
+                flips[k] = int((torch.isnan(g) != torch.isnan(c)).sum())
+            worst = max(errs.values())
+            flip_share = sum(flips.values()) / sum(v.numel() for v in {
+                **want.surf_vars, **want.atmos_vars}.values())
+            emit(dict(phase="reference", variant=name, form=form, grid=f"{h}x{w}",
+                      depths=(shallow.encoder_depths, shallow.decoder_depths),
+                      launches=ref_launches, against="port CPU run (plain versions)",
+                      mean_rel=errs, worst=worst, tol=tol,
+                      nan_mask_differs={k: v for k, v in flips.items() if v},
+                      nan_flip_share=flip_share, seconds=time.perf_counter() - t0))
+            if not worst <= tol:
+                bad.append(f"{form}: card vs CPU: mean rel {worst} > {tol}")
+            # A density point flips where the predicted density is within the card's error
+            # of 1/2; no other variable may be NaN on one side only.
+            if flip_share > NAN_FLIP_TOL or any(v for k, v in flips.items() if k not in may_nan):
+                bad.append(f"{form}: NaN masks differ at {flips}")
+        if bad:
+            raise AssertionError(f"variant {name}: {bad}")
 
     refs.submit(f"variant {name} reference", compare)
+    return launches
 
 
-def run_variants(steps: int, refs: _Deferred) -> None:
+def run_variants(steps: int, refs: _Deferred) -> dict:
+    """Every variant of ``VARIANT_RUNS`` (``run_variant``); returns ``{name: {form:
+    launches}}``."""
     manifests = json.loads(open(MANIFESTS).read())
     t0 = time.perf_counter()
-    for name, (facade, *_rest) in VARIANT_RUNS.items():
-        run_variant(name, manifests[facade], steps, refs)
+    out = {name: run_variant(name, manifests[facade], steps, refs)
+           for name, (facade, *_rest) in VARIANT_RUNS.items()}
     emit(dict(phase="variants", seconds=time.perf_counter() - t0))
+    return out
 
 
 # ------------------------------------------------------------------------------ small model
@@ -3103,32 +3183,94 @@ def _run_small_form(form: str, refs: _Deferred) -> dict:
 # ------------------------------------------------------------------------------ float32 model
 
 F32_STEPS = 2  # roll-out steps of the float32 model at 721 x 1440
-F32_ROUTE_STEPS = 1  # roll-out steps of the float32 routes W, P and X at two blocks a stage
-F32_REF_TOL = 1e-4  # card vs CPU, mean relative error per variable, float32 all through
+F32_ROUTE_STEPS = 1  # roll-out steps of the float32 routes W, P, X and S at two blocks a stage
+F32_PRETRAINED_STEPS = 1  # roll-out steps of AuroraPretrained() at 721 x 1440
 F32_DIR = "build/f32"  # the float32 phase's files, under the checkout, removed at its end
-F32_ROUTES = ("W", "P", "X")  # the float32 routes beside the main one, each on its own kernels
+# The float32 routes beside the main one, each on its own kernels. W, P and X are one model
+# whose route knobs are switched; S changes the parameters (ln_k in the level aggregation)
+# and is its own model.
+F32_ROUTES = ("W", "P", "X", "S")
+# The roll-out steps of each float32 home roll-out (``HOME_F32``).
+F32_HOME_STEPS = {"f32": F32_STEPS, **{f"f32{r}": F32_ROUTE_STEPS for r in F32_ROUTES},
+                  "f32wave": VARIANT_STEPS}
+
+
+def f32_rollout(model, batch, steps: int, expected: dict, what: str, keep: bool = False):
+    """``rollout`` of the float32 model ``model`` over ``batch`` for ``steps`` steps (counts
+    set to 0 just before): step times, peak memory, launches per step against ``expected``
+    and every launch writing float32 (``_KernelCalls.by_dtype``), the parameters float32, the
+    outputs float32, finite and of the 720 x 1440 shapes. Returns the line's fields (with
+    ``preds``, the predictions' host copies, when ``keep``); raises after emitting nothing
+    if a check fails."""
+    import torch
+
+    from aurora_tpu_torch import rollout
+    from aurora_tpu_torch.ops import _lib
+
+    param_dtypes = sorted({str(p.dtype) for p in model.parameters()})
+    torch.cuda.reset_peak_memory_stats()
+    _lib.reset_launches()
+    step_s, per_step, dtype_per_step, preds = [], [], [], []
+    with _KernelCalls() as calls:
+        t_prev = time.perf_counter()
+        before, seen = dict(_lib.LAUNCHES), {}
+        for pred in rollout(model, batch, steps=steps):
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            step_s.append(now - t_prev)
+            per_step.append({k: _lib.LAUNCHES[k] - before[k] for k in _lib.LAUNCHES})
+            now_by = calls.by_dtype()
+            dtype_per_step.append({f"{k}/{dt}": n - seen.get(dt, {}).get(k, 0)
+                                   for dt, ks in now_by.items() for k, n in ks.items()})
+            before, seen = dict(_lib.LAUNCHES), now_by
+            if keep:
+                preds.append(pred.to_numpy())
+            last = pred
+            t_prev = time.perf_counter()
+    launches = dict(_lib.LAUNCHES)
+    by_dtype = calls.by_dtype()
+    want = {k: n for k, n in expected.items() if n}
+    bad = [f"step {i}: launches {got}" for i, got in enumerate(per_step)
+           if {k: n for k, n in got.items() if n} != want]
+    if by_dtype != {"float32": {k: steps * n for k, n in want.items()}}:
+        bad.append(f"launches by dtype {by_dtype} (want float32 {want} a step)")
+    if param_dtypes != ["torch.float32"]:
+        bad.append(f"parameters {param_dtypes}")
+    for k, v in {**last.surf_vars, **last.atmos_vars}.items():
+        shape = (1, 1, 720, 1440) if k in last.surf_vars else (1, 1, len(LEVELS), 720, 1440)
+        if tuple(v.shape) != shape or v.dtype != torch.float32 or not torch.isfinite(v).all():
+            bad.append(f"{k}: {tuple(v.shape)} {v.dtype} finite {bool(torch.isfinite(v).all())}")
+    if last.metadata.rollout_step != steps:
+        bad.append("roll-out step not advanced")
+    if bad:
+        raise AssertionError(f"{what}: {bad}")
+    return dict(grid="721x1440 (720x1440 after crop)", levels=13,
+                params=sum(p.numel() for p in model.parameters()), param_dtypes=param_dtypes,
+                steps=steps, step_s=step_s, peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+                launches_per_step=per_step[-1], launches=launches, launches_by_dtype=by_dtype,
+                launches_by_dtype_per_step=dtype_per_step, **({"preds": preds} if keep else {}))
 
 
 def run_f32(batch, refs: _Deferred) -> dict:
     """``Aurora`` in its default config (``LARGE_CONFIG`` with LoRA, float32 all through, as
     the JAX package's CLI and registry build it) on the card: seeded weights, FiLM and LoRA
-    gates opened as the routes' models; ``rollout`` of F32_STEPS steps over the 721 x 1440
-    batch: step times, peak memory, launches per step (counts set to 0 just before) against
-    the main route's, and every K1-K4 launch writing float32 (none bf16); outputs
-    float32, finite, of the right shapes. Then the serving phase on this model
-    (``run_serving``: the registry builds the same default config; the served predictions
-    must be this roll-out's bits, float32 launches only). Then the same config at two blocks
-    a backbone stage (the second shifted), one model on each of the routes W, P and X in turn
-    (``run_f32_route``: a roll-out over the same batch, every launch float32), then on
-    121 x 240 on the main route and on each of those against the port's CPU run: mean
-    relative error <= F32_REF_TOL per output variable (its CPU half queued on ``refs``).
-    ``batch``: the routes' 721 x 1440 host batch. Returns the launches of each roll-out:
-    ``{"f32": the full-depth model's, "f32W": route W's, "f32P": ..., "f32X": ...}``."""
+    gates opened as the routes' models; ``f32_rollout`` of F32_STEPS steps over the
+    721 x 1440 batch, launches per step the main route's. Then the serving phase on this
+    model (``run_serving``: the registry builds the same default config; the served
+    predictions must be this roll-out's bits, float32 launches only). Then the same config at
+    two blocks a backbone stage (the second shifted), one model on each of the routes W, P
+    and X in turn and a model of its own on route S (``run_f32_route``: a roll-out over the
+    same batch, every launch float32), then on 121 x 240 on the main route, on each of W, P
+    and X and on S against the port's CPU run: mean relative error <= F32_REF_TOL per output
+    variable (its CPU half queued on ``refs``). Then ``AuroraPretrained()`` in its default
+    config (``run_f32_pretrained``). ``batch``: the routes' 721 x 1440 host batch. Returns
+    the launches of each roll-out: ``{"f32": the full-depth model's, "f32W": route W's, ...,
+    "f32S": route S's, "f32pretrained": AuroraPretrained()'s}``."""
     import shutil
 
     import torch
 
-    from aurora_tpu_torch import Aurora, rollout
+    from aurora_tpu_torch import Aurora
     from aurora_tpu_torch.ops import _lib
     from aurora_tpu_torch.tools.perf_breakdown import build_model, numpy_batch
 
@@ -3141,48 +3283,11 @@ def run_f32(batch, refs: _Deferred) -> dict:
     model = build_model(cfg, "cuda")
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    param_dtypes = sorted({str(p.dtype) for p in model.parameters()})
-    torch.cuda.reset_peak_memory_stats()
-    _lib.reset_launches()
-    step_s, per_step, dtype_per_step, preds = [], [], [], []
-    with _KernelCalls() as calls:
-        t_prev = time.perf_counter()
-        before, seen = dict(_lib.LAUNCHES), {}
-        for pred in rollout(model, batch, steps=F32_STEPS):
-            torch.cuda.synchronize()
-            now = time.perf_counter()
-            step_s.append(now - t_prev)
-            per_step.append({k: _lib.LAUNCHES[k] - before[k] for k in _lib.LAUNCHES})
-            now_by = calls.by_dtype()
-            dtype_per_step.append({f"{k}/{dt}": n - seen.get(dt, {}).get(k, 0)
-                                   for dt, ks in now_by.items() for k, n in ks.items()})
-            before, seen = dict(_lib.LAUNCHES), now_by
-            preds.append(pred.to_numpy())
-            last = pred
-            t_prev = time.perf_counter()
-    launches = dict(_lib.LAUNCHES)
-    peak = torch.cuda.max_memory_allocated()
-    by_dtype = calls.by_dtype()
-    bad = [f"step {i}: launches {got}" for i, got in enumerate(per_step) if got != expected]
-    if by_dtype != {"float32": {k: F32_STEPS * n for k, n in ROUTES["main"][1].items()}}:
-        bad.append(f"launches by dtype {by_dtype}")
-    if param_dtypes != ["torch.float32"]:
-        bad.append(f"parameters {param_dtypes}")
-    for k, v in {**last.surf_vars, **last.atmos_vars}.items():
-        want = (1, 1, 720, 1440) if k in last.surf_vars else (1, 1, len(LEVELS), 720, 1440)
-        if tuple(v.shape) != want or v.dtype != torch.float32 or not torch.isfinite(v).all():
-            bad.append(f"{k}: {tuple(v.shape)} {v.dtype} finite {bool(torch.isfinite(v).all())}")
-    if last.metadata.rollout_step != F32_STEPS:
-        bad.append("roll-out step not advanced")
-    del last
+    line = f32_rollout(model, batch, F32_STEPS, expected, "float32 model", keep=True)
+    preds = line.pop("preds")
+    launches = line["launches"]
     emit(dict(phase="f32", model="Aurora()", config="default (float32 all through)",
-              grid="721x1440 (720x1440 after crop)", levels=13, params=sum(
-                  p.numel() for p in model.parameters()), param_dtypes=param_dtypes,
-              init_s=init_s, steps=F32_STEPS, step_s=step_s, peak_mem_gib=peak / 2**30,
-              launches_per_step=per_step[-1], launches=launches,
-              launches_by_dtype_per_step=dtype_per_step))
-    if bad:
-        raise AssertionError(f"float32 model: {bad}")
+              init_s=init_s, **line))
 
     work = os.path.abspath(F32_DIR)
     shutil.rmtree(work, ignore_errors=True)
@@ -3202,87 +3307,120 @@ def run_f32(batch, refs: _Deferred) -> dict:
     torch.cuda.empty_cache()
 
     # The routes: the default config at two blocks per backbone stage (the second shifted, so
-    # K1 and the masked attention run), seeded on the card, one model whose route knobs are
-    # switched (``set_knobs``: the weights are one tree). W, P and X roll out over the
-    # 721 x 1440 batch; then each route, main first, on 121 x 240 against the port's CPU run.
+    # K1 and the masked attention run), seeded on the card: one model whose route knobs are
+    # switched (``set_knobs``: the weights are one tree) for W, P and X, and route S's own
+    # (``stabilise_level_agg`` adds ln_k's parameters). Each rolls out over the 721 x 1440
+    # batch; then each route, main first, on 121 x 240 against the port's CPU run.
     cfg2 = cfg.replace(**TWO_BLOCKS)
     blocks = sum(cfg2.encoder_depths) + sum(cfg2.decoder_depths)
-    model = build_model(cfg2, "cuda")
+    models = {"main": build_model(cfg2, "cuda")}
+    models["S"] = build_model(cfg2.replace(**ROUTES["S"][0]), "cuda")
     out = {"f32": launches}
     for route in F32_ROUTES:
-        out[f"f32{route}"] = run_f32_route(model, route, batch, blocks)
+        out[f"f32{route}"] = run_f32_route(models.get(route, models["main"]), route, batch,
+                                           blocks)
     t0 = time.perf_counter()
     small = numpy_batch(cfg, 121, 240, seed=1)
-    rows = []
+    rows = {"main": [], "S": []}
     for route in ("main", *F32_ROUTES):
         knobs, counts = ROUTES[route]
+        own = "S" if route == "S" else "main"
+        runtime = {k: v for k, v in knobs.items() if k in Aurora.RUNTIME_KNOBS}
         before = dict(_lib.LAUNCHES)
         with _KernelCalls() as calls:
-            got = model.set_knobs(**knobs)(small)
+            got = models[own].set_knobs(**runtime)(small)
             torch.cuda.synchronize()
         ref_launches = {k: n - before[k] for k, n in _lib.LAUNCHES.items() if n != before[k]}
         missing = [k for k in counts if not ref_launches.get(k)]
         if missing or set(calls.by_dtype()) != {"float32"}:
             raise AssertionError(f"float32 route {route}: the reference run launched "
                                  f"{calls.by_dtype()}, never {missing}")
-        rows.append((knobs, dict(phase="reference", model="Aurora() float32", route=route,
-                                 **knobs, grid="121x240",
-                                 depths=(cfg2.encoder_depths, cfg2.decoder_depths),
-                                 launches=ref_launches, got=got)))
-    model.set_knobs(**rows[0][0])
-    defer_reference(refs, "float32 model reference", model, small, cfg, t0, rows[0][1],
-                    F32_REF_TOL, more=rows[1:])
+        rows[own].append((runtime, dict(phase="reference", model="Aurora() float32",
+                                        route=route, **knobs, grid="121x240",
+                                        depths=(cfg2.encoder_depths, cfg2.decoder_depths),
+                                        launches=ref_launches, got=got)))
+    for own, what in (("main", "float32 model reference"), ("S", "float32 route S reference")):
+        first, *more = rows[own]
+        models[own].set_knobs(**first[0])
+        defer_reference(refs, what, models.pop(own), small, cfg2, t0, first[1], F32_REF_TOL,
+                        more=more)
+    out["f32pretrained"] = run_f32_pretrained(batch, refs)
     emit(dict(phase="f32", seconds=time.perf_counter() - t_phase))
     return out
 
 
-def run_f32_route(model, route: str, batch, blocks: int) -> dict:
-    """The float32 model ``model`` (the default config at ``blocks`` Swin blocks) on route
-    ``route`` (``set_knobs``): a roll-out of F32_ROUTE_STEPS steps over the 721 x 1440 batch
-    (counts set to 0 just before): step times, peak memory, launches per step against
-    ``route_launches`` of the route's counts, every launch float32; outputs float32, finite,
-    of the right shapes. Returns the roll-out's launches."""
+def run_f32_pretrained(batch, refs: _Deferred) -> dict:
+    """``AuroraPretrained()`` (``LARGE_CONFIG``: float32 all through, no LoRA; its
+    ``default_config()`` asserted) on the card, seeded, FiLM gates opened: ``f32_rollout`` of
+    F32_PRETRAINED_STEPS steps at full depth over the 721 x 1440 batch, launches per step the
+    main route's; then its config at two blocks a backbone stage on 121 x 240 against the
+    port's CPU run, mean relative error <= F32_REF_TOL per variable (CPU half on ``refs``).
+    Returns the roll-out's launches."""
     import torch
 
-    from aurora_tpu_torch import rollout
+    from aurora_tpu_torch import AuroraPretrained
+    from aurora_tpu_torch.ops import _lib
+    from aurora_tpu_torch.tools.perf_breakdown import numpy_batch, open_gates
+
+    cfg = AuroraPretrained.default_config()
+    if cfg.autocast or cfg.agg_bf16 or cfg.deagg_bf16 or cfg.use_lora:
+        raise AssertionError(f"AuroraPretrained's default config: {cfg}")
+    expected = {k: ROUTES["main"][1].get(k, 0) for k in _lib.LAUNCHES}
+    t0 = time.perf_counter()
+    model = AuroraPretrained(device="cuda", seed=0)
+    open_gates(model)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    if model.cfg != cfg:
+        raise AssertionError(f"AuroraPretrained(): {model.cfg} != {cfg}")
+    line = f32_rollout(model, batch, F32_PRETRAINED_STEPS, expected, "AuroraPretrained()")
+    emit(dict(phase="f32", model="AuroraPretrained()", config="default (float32 all through)",
+              init_s=init_s, **line))
+    del model
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cfg2 = cfg.replace(**TWO_BLOCKS)
+    model = AuroraPretrained(cfg2, device="cuda", seed=0)
+    open_gates(model)
+    small = numpy_batch(cfg, 121, 240, seed=1)
+    before = dict(_lib.LAUNCHES)
+    with _KernelCalls() as calls:
+        got = model(small)
+        torch.cuda.synchronize()
+    ref_launches = {k: n - before[k] for k, n in _lib.LAUNCHES.items() if n != before[k]}
+    missing = [k for k in ROUTES["main"][1] if not ref_launches.get(k)]
+    if missing or set(calls.by_dtype()) != {"float32"}:
+        raise AssertionError(f"AuroraPretrained(): the reference run launched "
+                             f"{calls.by_dtype()}, never {missing}")
+    row = dict(phase="reference", model="AuroraPretrained() float32", route="main",
+               grid="121x240", depths=(cfg2.encoder_depths, cfg2.decoder_depths),
+               launches=ref_launches, got=got)
+    defer_reference(refs, "AuroraPretrained() reference", model, small, cfg2, t0, row,
+                    F32_REF_TOL)
+    return line["launches"]
+
+
+def run_f32_route(model, route: str, batch, blocks: int) -> dict:
+    """The float32 model ``model`` (the default config at ``blocks`` Swin blocks, with the
+    route's parameter knobs: route S's ``stabilise_level_agg``) on route ``route`` (its
+    runtime knobs by ``set_knobs``): ``f32_rollout`` of F32_ROUTE_STEPS steps over the
+    721 x 1440 batch, launches per step against ``route_launches`` of the route's counts.
+    Returns the roll-out's launches."""
+    from aurora_tpu_torch import Aurora
     from aurora_tpu_torch.ops import _lib
 
     t0 = time.perf_counter()
     knobs, counts = ROUTES[route]
-    model.set_knobs(**knobs)
+    model.set_knobs(**{k: v for k, v in knobs.items() if k in Aurora.RUNTIME_KNOBS})
+    fixed = {k: v for k, v in knobs.items() if k not in Aurora.RUNTIME_KNOBS}
+    if model.cfg.replace(**fixed) != model.cfg:
+        raise AssertionError(f"float32 route {route}: the model is not built with {fixed}")
     expected = {k: route_launches(counts, blocks).get(k, 0) for k in _lib.LAUNCHES}
-    torch.cuda.reset_peak_memory_stats()
-    _lib.reset_launches()
-    step_s, per_step = [], []
-    with _KernelCalls() as calls:
-        t_prev, before = time.perf_counter(), dict(_lib.LAUNCHES)
-        for pred in rollout(model, batch, steps=F32_ROUTE_STEPS):
-            torch.cuda.synchronize()
-            now = time.perf_counter()
-            step_s.append(now - t_prev)
-            per_step.append({k: _lib.LAUNCHES[k] - before[k] for k in _lib.LAUNCHES})
-            before, t_prev = dict(_lib.LAUNCHES), now
-            last = pred
-    launches = dict(_lib.LAUNCHES)
-    by_dtype = calls.by_dtype()
-    bad = [f"step {i}: launches {got}" for i, got in enumerate(per_step) if got != expected]
-    want_by = {k: F32_ROUTE_STEPS * n for k, n in expected.items() if n}
-    if by_dtype != {"float32": want_by}:
-        bad.append(f"launches by dtype {by_dtype} (want float32 {want_by})")
-    for k, v in {**last.surf_vars, **last.atmos_vars}.items():
-        want = (1, 1, 720, 1440) if k in last.surf_vars else (1, 1, len(LEVELS), 720, 1440)
-        if tuple(v.shape) != want or v.dtype != torch.float32 or not torch.isfinite(v).all():
-            bad.append(f"{k}: {tuple(v.shape)} {v.dtype} finite {bool(torch.isfinite(v).all())}")
-    del last
+    line = f32_rollout(model, batch, F32_ROUTE_STEPS, expected, f"float32 route {route}")
     emit(dict(phase="f32_route", route=route, **knobs, model="Aurora() float32",
-              depths=(model.cfg.encoder_depths, model.cfg.decoder_depths),
-              grid="721x1440 (720x1440 after crop)", steps=F32_ROUTE_STEPS, step_s=step_s,
-              peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
-              launches_per_step=per_step[-1], launches_by_dtype=by_dtype,
+              depths=(model.cfg.encoder_depths, model.cfg.decoder_depths), **line,
               seconds=time.perf_counter() - t0))
-    if bad:
-        raise AssertionError(f"float32 route {route}: {bad}")
-    return launches
+    return line["launches"]
 
 
 # ------------------------------------------------------------------------------ main
@@ -3352,33 +3490,38 @@ def main() -> int:
     refs = _Deferred()
     train = run_train_phases(refs)
     lap("train")
+    # The phases that queue most of the references' CPU halves come first (the variants in
+    # both forms, the float32 models, the small model, routes W, P, X and S); the main
+    # route's long phases and the tools, which queue one reference, come last, so that the
+    # host thread's queue drains beside them.
+    launches = {"variants": run_variants(VARIANT_STEPS, refs)}
+    launches["f32wave"] = launches["variants"]["wave"]["f32"]
+    lap("variants")
     # The routes' and the float32 phase's 721 x 1440 host batch is made once (143 M seeded
     # values, ~1.5 s of host time).
     from aurora_tpu_torch.tools.perf_breakdown import numpy_batch, production_config
 
     batch = numpy_batch(production_config(), 721, 1440)
-    launches = {}
-    for route in ROUTES:
+    launches.update(run_f32(batch, refs))
+    lap("f32")
+    launches["small"] = run_small(refs)
+    lap("small")
+    for route in (*(r for r in ROUTES if r != "main"), "main"):
         launches[route] = run_route(route, STEPS, (121, 240), batch, refs,
                                     then=run_main_phases if route == "main" else None)
         missing = [k for k, n in ROUTES[route][1].items() if launches[route][k] == 0]
         if missing:
             raise AssertionError(f"route {route}: kernels never launched: {missing}")
         lap(f"route {route}")
-    launches.update(run_f32(batch, refs))
     del batch
-    lap("f32")
-    launches["small"] = run_small(refs)
-    lap("small")
-    run_variants(VARIANT_STEPS, refs)
-    lap("variants")
-    launches["tools"] = run_tools(refs)
+    launches["tools"] = run_tools()
     lap("tools")
     # The CPU halves of the references, queued on the host thread since the train phase.
     waited = refs.close()
     lap("references (waiting for the host thread)")
     emit(dict(phase="references", waited_s=waited))
-    emit(dict(phase="seconds", **seconds, total=sum(seconds.values())))
+    emit(dict(phase="seconds", **seconds, total=sum(seconds.values()),
+              since_start=time.perf_counter() - T_START))
 
     def entry(s: dict, n_launches: int) -> dict:
         more = {k: s[k] for k in ("bound_of_tpu_work_ms", "empty_kernel_ms", "byte_bound_ms",
@@ -3441,12 +3584,13 @@ def main() -> int:
             if ("f32", name, mode) in summary:
                 home_f32 = HOME_F32.get((name, mode))
                 n = launches[home_f32][name] if home_f32 else 0
+                if mode == "ln_k":  # the wave model's aggregation: one of its two K4 a step
+                    n //= 2
                 s = summary["f32", name, mode]
                 e.setdefault("f32", {})[mode or "-"] = dict(
                     entry(s, n), shapes=s["shapes"], home_route=home_f32,
                     source=SOURCES_F32[name],
-                    launches_per_step=n // (F32_STEPS if home_f32 == "f32" else F32_ROUTE_STEPS)
-                    if home_f32 else 0)
+                    launches_per_step=n // F32_HOME_STEPS[home_f32] if home_f32 else 0)
         kernels.append(e)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
@@ -3457,4 +3601,10 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    rc = main()
+    # Every thread is joined and every line flushed: leave without the interpreter's teardown,
+    # which took ~8 s on the card's machine (the command's time less ``since_start``) freeing
+    # what the run cached on the card and the host; the process's exit frees it all at once.
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(rc)

@@ -82,14 +82,30 @@ def seeded_matched_models(cfg_kwargs: dict, seed: int = 0):
     opened as by :func:`open_gates`; the port model holds the same values."""
     from aurora_tpu.model.aurora import Aurora as JaxAurora
     from aurora_tpu.model.config import AuroraConfig as JaxConfig
-    from aurora_tpu_torch.convert import load_numpy_params
     from aurora_tpu_torch.model.aurora import Aurora
     from aurora_tpu_torch.model.config import AuroraConfig
-    from aurora_tpu_torch.model.nn import LayerNorm
 
     jmodel = JaxAurora(JaxConfig(**cfg_kwargs))
-    shapes = jax.eval_shape(lambda: jmodel.init(jax.random.PRNGKey(seed), dtype=jnp.float64))
     tmodel = Aurora(AuroraConfig(**cfg_kwargs), device="cpu", dtype=torch.float64, seed=None)
+    return (jmodel, *_seeded_tree(jmodel, tmodel, seed, jnp.float64))
+
+
+def seeded_matched_variant(jax_cls, port_cls, seed: int = 0, dtype=jnp.float64, **overrides):
+    """:func:`seeded_matched_models` for a facade of both packages (its hooks and default
+    config, with ``overrides``) in ``dtype``: ``(jmodel, params, tmodel)``."""
+    jmodel = jax_cls(**overrides)
+    tdtype = {jnp.float64: torch.float64, jnp.float32: torch.float32}[dtype]
+    tmodel = port_cls(port_config(jmodel.cfg), device="cpu", dtype=tdtype, seed=None)
+    return (jmodel, *_seeded_tree(jmodel, tmodel, seed, dtype))
+
+
+def _seeded_tree(jmodel, tmodel, seed: int, dtype):
+    """The numpy-seeded, gates-open tree of ``jmodel``'s structure in ``dtype``, and
+    ``tmodel`` holding it."""
+    from aurora_tpu_torch.convert import load_numpy_params
+    from aurora_tpu_torch.model.nn import LayerNorm
+
+    shapes = jax.eval_shape(lambda: jmodel.init(jax.random.PRNGKey(seed), dtype=dtype))
     layernorms = {f"{m_name}.{k}" for m_name, m in tmodel.named_modules()
                   if isinstance(m, LayerNorm) for k in ("weight", "bias")}
     rng = np.random.default_rng(seed)
@@ -101,7 +117,7 @@ def seeded_matched_models(cfg_kwargs: dict, seed: int = 0):
         return jnp.asarray(0.02 * rng.standard_normal(s.shape), s.dtype)
 
     params = open_gates(jax.tree_util.tree_map_with_path(leaf, shapes), seed=seed)
-    return jmodel, params, load_numpy_params(tmodel, numpy_tree(params))
+    return params, load_numpy_params(tmodel, numpy_tree(params))
 
 
 def torch_batch(jbatch):
