@@ -43,6 +43,7 @@ from aurora_tpu_torch.normalisation import (
     unnormalise_atmos_var,
     unnormalise_surf_var,
 )
+from aurora_tpu_torch.parallel.sharding import data_mesh, gathered_params, shard_leading
 from aurora_tpu_torch.posencoding import pos_scale_enc_cached
 
 __all__ = [
@@ -379,12 +380,25 @@ class Aurora(nn.Module):
         ``cfg.drop_path`` / ``cfg.drop_rate`` on: one seed is drawn from it here, outside
         every rematerialised region, and every mask of the backbone derives from it
         (:mod:`aurora_tpu_torch.model.nn`). ``key`` passes a seed already drawn instead (the
-        roll-out train step folds its step index into one). Neither: deterministic."""
+        roll-out train step folds its step index into one). Neither: deterministic.
+
+        Under a data mesh (an entered :class:`~aurora_tpu_torch.parallel.Mesh` with ``data``
+        above 1, or parameters placed by :func:`~aurora_tpu_torch.parallel.shard_params`)
+        ``surf`` and ``atmos`` are this rank's slice of the batch and so are the outputs
+        (:func:`~aurora_tpu_torch.parallel.gather_batch` joins them); ``enc`` may hold the
+        whole batch's time encodings, of which the rank's part is taken; ZeRO-split
+        parameters are gathered for the call."""
         if generator is not None:
             if key is not None:
                 raise ValueError("pass a generator or a key, not both")
             key = draw_key(generator)
-        with full_f32_products():
+        mesh = data_mesh(self)
+        if mesh is not None:
+            local = next(iter(surf.values())).shape[0]
+            enc = dataclasses.replace(
+                enc, absolute_time=shard_leading(enc.absolute_time, mesh, local),
+                dynamic_scalars=shard_leading(enc.dynamic_scalars, mesh, local))
+        with full_f32_products(), gathered_params(self):
             return self._forward_core(surf, static, atmos, enc, rollout_step, atmos_levels, key)
 
     def _forward_core(self, surf, static, atmos, enc, rollout_step, atmos_levels, key):

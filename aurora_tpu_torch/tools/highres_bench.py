@@ -29,7 +29,8 @@ from typing import Optional
 
 from aurora_tpu_torch.model.aurora import Aurora, AuroraHighRes
 from aurora_tpu_torch.tools import card_line, report, resolve_device, result
-from aurora_tpu_torch.tools.variant_bench import build_variant, form_of, raw_batch, run_rollout
+from aurora_tpu_torch.tools.perf_breakdown import config_form
+from aurora_tpu_torch.tools.variant_bench import build_variant, raw_batch, run_rollout
 
 
 def main(argv=None, *, model: Optional[Aurora] = None) -> list[dict]:
@@ -51,7 +52,7 @@ def main(argv=None, *, model: Optional[Aurora] = None) -> list[dict]:
                       when=datetime(2020, 6, 1, 12))
     r = run_rollout(model, batch, args.steps)
     return [report(result("highres_0.1deg", 1e3 * r["step_s"][-1], dev, card=card_line(dev),
-                          config=form_of(model), patch_size=model.cfg.patch_size,
+                          config=config_form(model.cfg), patch_size=model.cfg.patch_size,
                           params=sum(p.numel() for p in model.parameters()), **r))]
 
 

@@ -59,6 +59,11 @@ def production_config(cfg: Optional[AuroraConfig] = None) -> AuroraConfig:
     return (cfg or LARGE_CONFIG.replace(use_lora=True)).replace(**PRODUCTION)
 
 
+def config_form(cfg: AuroraConfig) -> str:
+    """"production" (bf16 under ``autocast``) or "default" (float32 all through)."""
+    return "production" if cfg.autocast or cfg.agg_bf16 or cfg.deagg_bf16 else "default"
+
+
 def open_gates(model: Aurora, seed: int = 1, std: float = 0.05) -> None:
     """Seeded noise in every FiLM modulation weight and LoRA ``B``: at fresh init both are
     zero and every Swin block is an identity."""

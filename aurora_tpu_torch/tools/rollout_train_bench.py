@@ -11,9 +11,9 @@ steps; every step's target is the last input frame.
 
 Usage: ``python -m aurora_tpu_torch.tools.rollout_train_bench [--K 2] [--steps 3]
 [--H 721 --W 1440] [--remat-scope full|no_outer|blocks] [--lora-mode all|from_second]
-[--device cpu]``; ``main(argv, cfg=..., model=...)`` as ``train_bench``. The last line
-printed is one JSON object; on the card the tool then raises where an update's launches
-differ from ``train_bench.expected_launches``.
+[--default-config] [--device cpu]``; ``--default-config`` and ``main(argv, cfg=...,
+model=...)`` as ``train_bench``'s. The last line printed is one JSON object; on the card the
+tool then raises where an update's launches differ from ``train_bench.expected_launches``.
 """
 
 from __future__ import annotations
@@ -28,6 +28,7 @@ from aurora_tpu_torch.model.aurora import Aurora
 from aurora_tpu_torch.model.config import AuroraConfig
 from aurora_tpu_torch.ops import _lib
 from aurora_tpu_torch.tools import card_line, resolve_device
+from aurora_tpu_torch.tools.perf_breakdown import config_form
 from aurora_tpu_torch.tools.train_bench import (
     build,
     check_launches,
@@ -62,6 +63,8 @@ def main(argv=None, *, cfg: Optional[AuroraConfig] = None,
     ap.add_argument("--W", type=int, default=1440)
     ap.add_argument("--remat-scope", choices=("full", "no_outer", "blocks"), default="full")
     ap.add_argument("--lora-mode", choices=("all", "from_second"), default="all")
+    ap.add_argument("--default-config", action="store_true",
+                    help="Aurora()'s default config (float32) in place of the production knobs")
     ap.add_argument("--device", default=None, help="the card unless 'cpu' is given")
     args = ap.parse_args(argv)
     if args.steps < 1 or args.K < 1:
@@ -69,7 +72,8 @@ def main(argv=None, *, cfg: Optional[AuroraConfig] = None,
     dev = resolve_device(args.device)
     build_s = _lib.build() if dev.type == "cuda" else None
     if model is None:
-        cfg = train_config(cfg, remat_scope=args.remat_scope, lora_mode=args.lora_mode)
+        cfg = train_config(cfg, remat_scope=args.remat_scope, default=args.default_config,
+                           lora_mode=args.lora_mode)
         model = build(cfg, dev, "lora")
     cfg = model.cfg
     (surf, static, atmos, batch), (tgt_surf, tgt_atmos) = inputs(model, args.H, args.W, args.K)
@@ -80,8 +84,8 @@ def main(argv=None, *, cfg: Optional[AuroraConfig] = None,
     row = run_steps(lambda i: step(surf, static, atmos, enc, abs_t, 0, tgt_surf, tgt_atmos,
                                    dyn), args.steps, dev)
     out = dict(metric="rollout_train_step_lora", device=dev.type, card=card_line(dev),
-               grid=[args.H, args.W], K=args.K, lora_mode=cfg.lora_mode,
-               remat_scope=cfg.remat_scope, build_s=build_s, **row,
+               config=config_form(cfg), grid=[args.H, args.W], K=args.K,
+               lora_mode=cfg.lora_mode, remat_scope=cfg.remat_scope, build_s=build_s, **row,
                s_per_rollout_step=row["s_per_step"] / args.K,
                expected_launches=expected_launches(cfg, lora=True, K=args.K))
     for i, (s, n) in enumerate(zip(out["times"], out["launches_per_step"]), 1):

@@ -11,6 +11,9 @@ the last input frame), ``adamw(3e-4)``.
   (``cast_backbone_params``, which casts the LoRA adapters too, as the JAX tool's code
   does), AdamW over the adapter banks only.
 * ``--mode full``: every parameter trained, stored in f32, AdamW over all of them.
+* ``--default-config``: ``Aurora()``'s default config in place of the production knobs:
+  float32 all through (no ``autocast``, float32 aggregation values, nothing cast), the
+  backward's products full float32 (TF32 off).
 
 With ``--drop-path`` / ``--drop-rate`` above 0 every step draws its masks from a generator
 seeded with 0 (stochastic depth and dropout, the JAX step's ``rng``).
@@ -22,7 +25,7 @@ the tool raises, after printing its results, where a step's differ.
 
 Usage: ``python -m aurora_tpu_torch.tools.train_bench [--mode lora|full] [--steps 3]
 [--H 721 --W 1440] [--no-remat] [--remat-scope full|no_outer|blocks] [--drop-path 0.2]
-[--drop-rate 0.1] [--device cpu]``.
+[--drop-rate 0.1] [--default-config] [--device cpu]``.
 ``main(argv, cfg=...)`` takes another :class:`~aurora_tpu_torch.model.config.AuroraConfig`
 (the recipe's knobs are set on it), ``main(argv, model=...)`` a model already built. The
 last line printed is one JSON object.
@@ -43,7 +46,12 @@ from aurora_tpu_torch.model.config import AuroraConfig
 from aurora_tpu_torch.model.swin3d import drop_path_rates
 from aurora_tpu_torch.ops import _lib
 from aurora_tpu_torch.tools import card_line, resolve_device
-from aurora_tpu_torch.tools.perf_breakdown import numpy_batch, open_gates, production_config
+from aurora_tpu_torch.tools.perf_breakdown import (
+    config_form,
+    numpy_batch,
+    open_gates,
+    production_config,
+)
 from aurora_tpu_torch.training import adamw, lora_mask, make_train_step
 
 __all__ = ["build", "check_launches", "expected_launches", "inputs", "launch_mismatches",
@@ -51,18 +59,20 @@ __all__ = ["build", "check_launches", "expected_launches", "inputs", "launch_mis
 
 
 def train_config(cfg: Optional[AuroraConfig] = None, remat: bool = True,
-                 remat_scope: str = "full", **knobs) -> AuroraConfig:
-    """``cfg`` (the 1.3 B model with LoRA by default) with the production knobs and
-    ``remat`` at ``remat_scope``."""
-    return production_config(cfg).replace(remat=remat, remat_scope=remat_scope, **knobs)
+                 remat_scope: str = "full", default: bool = False, **knobs) -> AuroraConfig:
+    """``cfg`` (the 1.3 B model with LoRA by default) with the production knobs, or with
+    ``default`` as it is (``Aurora()``'s default config: float32 all through), and ``remat``
+    at ``remat_scope``."""
+    cfg = (cfg or Aurora.default_config()) if default else production_config(cfg)
+    return cfg.replace(remat=remat, remat_scope=remat_scope, **knobs)
 
 
 def build(cfg: AuroraConfig, device, mode: str, seed: int = 0) -> Aurora:
     """The model of the recipe: seeded weights, gates opened, the backbone stored in bf16 in
-    LoRA mode."""
+    LoRA mode under ``autocast`` (the default config keeps float32)."""
     model = Aurora(cfg, device=device, seed=seed)
     open_gates(model)
-    if mode == "lora":
+    if mode == "lora" and cfg.autocast:
         cast_backbone_params(model)
     return model
 
@@ -198,6 +208,8 @@ def main(argv=None, *, cfg: Optional[AuroraConfig] = None,
     ap.add_argument("--remat-scope", choices=("full", "no_outer", "blocks"), default="full")
     ap.add_argument("--drop-path", type=float, default=0.0, help="stochastic-depth rate")
     ap.add_argument("--drop-rate", type=float, default=0.0, help="dropout rate")
+    ap.add_argument("--default-config", action="store_true",
+                    help="Aurora()'s default config (float32) in place of the production knobs")
     ap.add_argument("--device", default=None, help="the card unless 'cpu' is given")
     args = ap.parse_args(argv)
     if args.steps < 1:
@@ -206,7 +218,8 @@ def main(argv=None, *, cfg: Optional[AuroraConfig] = None,
     build_s = _lib.build() if dev.type == "cuda" else None
     if model is None:
         cfg = train_config(cfg, remat=not args.no_remat, remat_scope=args.remat_scope,
-                           drop_path=args.drop_path, drop_rate=args.drop_rate)
+                           default=args.default_config, drop_path=args.drop_path,
+                           drop_rate=args.drop_rate)
         model = build(cfg, dev, args.mode)
     cfg = model.cfg
     gen = step_generator(cfg, dev)
@@ -220,7 +233,8 @@ def main(argv=None, *, cfg: Optional[AuroraConfig] = None,
     row = run_steps(lambda i: step(surf, static, atmos, enc, i % 3, tgt_surf, tgt_atmos,
                                    generator=gen), args.steps, dev)
     out = dict(metric=f"train_step_{args.mode}", device=dev.type, card=card_line(dev),
-               grid=[args.H, args.W], remat=cfg.remat, remat_scope=cfg.remat_scope,
+               config=config_form(cfg), grid=[args.H, args.W], remat=cfg.remat,
+               remat_scope=cfg.remat_scope,
                drop_path=cfg.drop_path, drop_rate=cfg.drop_rate,
                trainable_params=sum(p.numel() for p in model.parameters() if p.requires_grad),
                build_s=build_s, **row,

@@ -45,7 +45,12 @@ from aurora_tpu_torch.model.aurora import (
 from aurora_tpu_torch.ops import _lib
 from aurora_tpu_torch.rollout import rollout
 from aurora_tpu_torch.tools import card_line, report, resolve_device, result
-from aurora_tpu_torch.tools.perf_breakdown import LEVELS, open_gates, production_config
+from aurora_tpu_torch.tools.perf_breakdown import (
+    LEVELS,
+    config_form,
+    open_gates,
+    production_config,
+)
 
 # name: (label, facade, H, W)
 VARIANTS = {
@@ -67,12 +72,6 @@ def build_variant(cls: type[Aurora], device, seed: int = 0, cfg=None,
     model = cls(production_config(cfg) if production else cfg, device=device, seed=seed)
     open_gates(model)
     return cast_backbone_params(model) if production else model
-
-
-def form_of(model: Aurora) -> str:
-    """"production" (bf16 under ``autocast``) or "default" (float32 all through)."""
-    cfg = model.cfg
-    return "production" if cfg.autocast or cfg.agg_bf16 or cfg.deagg_bf16 else "default"
 
 
 def raw_batch(cfg, H: int, W: int, seed: int = 0, device=None, absolute: bool = True,
@@ -151,7 +150,7 @@ def main(argv=None, *, models: Optional[dict[str, Aurora]] = None) -> list[dict]
         batch = raw_batch(model.cfg, args.H or H, args.W or W, device=dev)
         r = run_rollout(model, batch, args.steps)
         rows.append(report(result(label, 1e3 * r["step_s"][-1], dev, card=card_line(dev),
-                                  config=form_of(model),
+                                  config=config_form(model.cfg),
                                   params=sum(p.numel() for p in model.parameters()), **r)))
     return rows
 

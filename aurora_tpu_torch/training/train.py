@@ -15,6 +15,15 @@ every rematerialised region, and each mask derives from that seed and its place 
 (:func:`aurora_tpu_torch.model.nn.keep_mask`), so a replay in the backward draws the forward's
 masks. The roll-out step folds each step's index into the seed, as the JAX step folds it
 into its key. Without a generator a step is deterministic.
+
+Under a data mesh (an entered :class:`~aurora_tpu_torch.parallel.Mesh` with ``data`` above
+1, or a model placed by :func:`~aurora_tpu_torch.parallel.shard_params`), the counterpart of
+the JAX steps' SPMD run: each rank gathers its ZeRO-split parameters once, takes the loss on
+its slice of the batch (the inputs its slice, the targets and time encodings its slice or
+the whole batch's), runs the backward, averages the trainable gradients over ``data`` in
+float32 (one flat collective a bucket, the split ones reduce-scattered to its slice), runs
+AdamW on what it holds and returns the mean loss over ``data``. Without one nothing of this
+runs.
 """
 
 from __future__ import annotations
@@ -26,6 +35,13 @@ import torch
 
 from aurora_tpu_torch.model.aurora import full_f32_products
 from aurora_tpu_torch.model.nn import checkpointed, draw_key
+from aurora_tpu_torch.parallel.sharding import (
+    average_gradients,
+    data_mesh,
+    gathered_params,
+    global_mean,
+    shard_leading,
+)
 
 __all__ = [
     "AdamW",
@@ -140,6 +156,20 @@ def mae_loss(pred_surf, pred_atmos, tgt_surf, tgt_atmos, lat_weights=None) -> to
     return total / count
 
 
+def _local_targets(mesh, surf, tgt_surf, tgt_atmos, axis: int):
+    """The targets cut to this rank's slice of the batch (their ``axis``) where they hold
+    the whole batch; as they are without a data mesh."""
+    if mesh is None:
+        return tgt_surf, tgt_atmos
+    local = next(iter(surf.values())).shape[0]
+
+    def cut(v):
+        return shard_leading(v.movedim(axis, 0), mesh, local).movedim(0, axis)
+
+    return ({k: cut(v) for k, v in tgt_surf.items()},
+            {k: cut(v) for k, v in tgt_atmos.items()})
+
+
 def make_train_step(model, optimizer: AdamW, atmos_levels, loss_fn=mae_loss):
     """A train step ``(surf, static, atmos, enc, rollout_step, tgt_surf, tgt_atmos,
     generator=None) -> loss`` of ``model`` (an :class:`Aurora`): the unnormalised inputs and
@@ -154,14 +184,17 @@ def make_train_step(model, optimizer: AdamW, atmos_levels, loss_fn=mae_loss):
 
     def train_step(surf, static, atmos, enc, rollout_step, tgt_surf, tgt_atmos,
                    generator: Optional[torch.Generator] = None):
-        with full_f32_products():
+        mesh = data_mesh(model)
+        tgt_surf, tgt_atmos = _local_targets(mesh, surf, tgt_surf, tgt_atmos, 0)
+        with gathered_params(model), full_f32_products():
             pred_surf, pred_atmos = model.forward_core(surf, static, atmos, enc,
                                                        int(rollout_step), levels,
                                                        generator=generator)
             loss = loss_fn(pred_surf, pred_atmos, tgt_surf, tgt_atmos)
             loss.backward()
+            average_gradients(model, mesh)
         optimizer.step()
-        return loss.detach()
+        return global_mean(loss.detach(), mesh)
 
     return train_step
 
@@ -201,7 +234,10 @@ def make_rollout_train_step(model, optimizer: AdamW, atmos_levels, steps: int,
                 "pass dyn_steps of shape (steps, B, 6)."
             )
         root = None if generator is None else draw_key(generator)
-        with full_f32_products():
+        mesh = data_mesh(model)
+        tgt_surf_steps, tgt_atmos_steps = _local_targets(mesh, surf, tgt_surf_steps,
+                                                         tgt_atmos_steps, 1)
+        with gathered_params(model), full_f32_products():
             losses = []
             for i in range(steps):
                 key = None if root is None else root.fold(i)
@@ -214,7 +250,8 @@ def make_rollout_train_step(model, optimizer: AdamW, atmos_levels, steps: int,
                 losses.append(loss_i)
             loss = torch.stack(losses).mean()
             loss.backward()
+            average_gradients(model, mesh)
         optimizer.step()
-        return loss.detach()
+        return global_mean(loss.detach(), mesh)
 
     return train_step

@@ -48,7 +48,7 @@ Phases, each printing one JSON line; any failure raises and the script exits non
    products (TF32 off): K1 the same bits, K2, K3, K5, K6, K7 and K8 within 9e-5 by the
    branch measure less one float32 ulp (no residual: over the largest output), K4 within
    1e-4, and the plain version with TF32 products must fail the same bound by the same
-   measure (``tf32_control_err``); timed over 5 runs, the plain versions over 2 (K7 also
+   measure (``tf32_control_err``); timed over 3 runs, the plain versions over 1 (K7 also
    ``F.scaled_dot_product_attention`` in float32 on the same masked windows). Float32 K3,
    K8, K4 and K5, and K2's and K6's qkv and proj, take each product as three TF32 products of
    split operands: their bound is that work at the TF32 peak (K2/K6's core at the FFMA pipes'
@@ -90,7 +90,18 @@ Phases, each printing one JSON line; any failure raises and the script exits non
    it: loss within 1e-2 relative, the concatenated LoRA gradient within 5e-2 relative L2;
    again with ``drop_path=0.2, drop_rate=0.1`` and the masks drawn on the CPU for both runs
    (every block stochastic: K1, plain attention and MLP); then 10^4 Bernoulli draws on the
-   card, the kept fraction within 5 binomial standard deviations;
+   card, the kept fraction within 5 binomial standard deviations. Float32 (the default
+   config, ``Aurora()``: no ``autocast``, nothing cast to bf16, the backward's products full
+   float32): K1-K8's gradients at the same cut shapes in float32 through their ``Function``
+   against the plain math's in float64 on the same inputs, within 1e-4 relative L2 per input
+   (for an input whose float64 gradient is below 1e-6 of the call's largest, such as ln_k's
+   bias gradient, zero in exact arithmetic, against 1e-2 of the call's largest RMS gradient
+   instead), every launch float32, and at the main path's shape
+   one backward timed after a warm-up beside plain autograd's in float32; the default
+   config's LoRA step (``remat`` "full") at two blocks a stage on 721 x 1440 (a warm-up and 1
+   timed step, the bf16 step's checks, every launch and parameter float32); then the same
+   model without remat, one step on 121 x 240 against the port's CPU run of it (queued on
+   the host thread): loss within 1e-4 relative, LoRA gradient within 1e-3 relative L2;
 5. end to end, once per route: the main route (``attention_impl``, ``mlp_impl`` auto, auto),
    then W (pallas_windowed, fused), P (pallas, pallas), X (xla, fused) and S (the main
    route with ``stabilise_level_agg=True``: K4 with ``ln_k``).
@@ -173,7 +184,8 @@ Phases, each printing one JSON line; any failure raises and the script exits non
    checkpoint's keys and shapes (``tests/data/ckpt_manifests.json``) filled with seeded
    values at the scale of the port's init (FiLM and LoRA ``B`` opened), loaded in memory
    through the port's checkpoint code (``convert_reference_checkpoint``) into the float32
-   model. Each form rolls out 2 steps through ``tools.variant_bench`` /
+   model for AirPollution; the other three are seeded on the card (the converter is held bit
+   for bit on the CPU). Each form rolls out 2 steps through ``tools.variant_bench`` /
    ``tools.highres_bench`` (12h through the same roll-out), counts set to 0 just before: step
    times, peak memory, launches per step checked against the code, every launch writing the
    form's dtype; the outputs are the user's variables after the hooks (no ``_mod``, sin/cos
@@ -192,12 +204,26 @@ Phases, each printing one JSON line; any failure raises and the script exits non
    ``gemm_probe`` and ``smem_probe`` (counts set to 0 just before); K9-K13 must each have
    launched, and the backbones under ``attention_impl`` "pallas" and "pallas_windowed" must
    agree within the bf16 block bound;
+7b. parallel: ``tools.multihost_sim``'s two ranks, started beside the build and held there
+   once their host side is ready (imports, the optimiser's first-step imports), released after
+   every timed phase, so that nothing timed shares the card with them (one gloo group over a
+   ``FileStore``, both on the one card, every collective on CUDA tensors), each on its half of the JAX tool's batch of 2
+   on the tool's card layout, 13 levels on 121 x 240
+   (``AuroraSmallPretrained(use_lora=True)`` in float32, ``make_mesh(data=2)``; K4 takes 13
+   levels, not the JAX tool's 4, and the window kernels 144-token windows, which 33 x 64's
+   smallest stage cannot hold), against the same work in this process on the whole batch: the
+   forward and a one-step ``rollout``, the LoRA step's averaged gradients and its parameters
+   where the gradient is resolved within 1e-5 max-rel, a K = 2 roll-out step's averaged
+   gradients within the tool's ``ROLLOUT_GRAD_TOL``, the losses within 1e-6 relative, the
+   full fine-tune step under ``shard_params`` (its probe within 1e-5, each rank's AdamW
+   moments of a split parameter half of it), every rank launching K1-K4; then a one-rank NCCL group and one all-reduce;
 8. the seconds of each phase, then the kernels summary line, one entry per kernel (K1-K8:
    times per forward step, each shape's time times its launches per step on the route that
    runs it, ``launches`` the count over that route's roll-out, and the backward's
    ``grad_err`` (the worst over the cut shapes and ``bwd_shape``), ``bwd_ms``,
    ``plain_bwd_ms`` and ``bwd_rel_err`` (each input's error) at ``bwd_shape``, one call at
-   the main path's shape; K9-K13: the sum over one sweep of the tool's cases,
+   the main path's shape, and the same keys for the float32 backward in the ``f32`` entry
+   of the mode the train step runs; K9-K13: the sum over one sweep of the tool's cases,
    ``launches`` the count over the tools phase; K2 and K6 carry their no-tail mode under
    ``no_tail``, K4 its ``ln_k`` form under ``ln_k`` (launches: route S's aggregation; in
    float32 the wave model's) and the bound of the TPU kernel's work under
@@ -208,10 +234,10 @@ Phases, each printing one JSON line; any failure raises and the script exits non
    with the small model's float32 D = 256 shapes under ``f32`` ``d256``), the ``nvidia-smi``
    line, and the last line ``{"ok": true, "device": {...}}``.
 
-The phases run in the order 1, 2, 3, 4, 6, 5b, 5c, routes W, P, X and S, the main route
-with its breakdown, roll-outs and drivers, 7, 8: those that queue most of the references'
-CPU halves first, so that the host thread's queue drains beside the main route's long phases
-and the tools.
+The phases run in the order 1, 2, 3, 4, 6, 5b, 5c, routes W, P, X and
+S, the main route with its breakdown, roll-outs and drivers, 7, 7b, 8: those that queue
+most of the references' CPU halves first, so that the host thread's queue drains beside the
+main route's long phases and the tools.
 
 Run from the repository root: ``python3 chip_smoke.py``. It needs one card, and exits
 non-zero without one.
@@ -264,7 +290,7 @@ TOL_F32 = {"roll3d": 0.0, "window_attention": 9e-5, "mlp_adaln_residual": 9e-5,
 F32_REF_TOL = 1e-4
 # Timed runs of the float32 kernels (up to ~0.2 s each at the de-aggregation's MLP) and of
 # their plain versions, after 2 and 1 warm-up runs.
-REPS_F32, PLAIN_REPS_F32 = 5, 2
+REPS_F32, PLAIN_REPS_F32 = 3, 1
 ATTN_SRC = "aurora_tpu_torch/csrc/window_attention.cu"
 PROBES_SRC = "aurora_tpu_torch/csrc/probes.cu"
 ATTN5D_SRC = "aurora_tpu_torch/csrc/attn5d_direct.cu"
@@ -2133,24 +2159,40 @@ TWO_BLOCKS = dict(encoder_depths=(2, 2, 2), decoder_depths=(2, 2, 2))
 STO_DROP_PATH = 0.2  # the full-width stochastic LoRA step's stochastic-depth rate
 STO_REF = dict(drop_path=0.2, drop_rate=0.1)  # the two-block stochastic step's knobs
 KEEP_DRAWS, KEEP_RATE = 10_000, 0.8
+# Float32 (the default config): each input's gradient through the kernel's Function (the
+# kernel forward, the backward of the plain math with full float32 products) against the
+# plain math's gradient in float64 on the same inputs, by relative L2 error. Only an input
+# whose float64 gradient is negligible (its norm below F32_GRAD_NEGLIGIBLE x the largest of
+# the call's) takes as denominator F32_GRAD_FLOOR x the largest RMS gradient of the call,
+# scaled to its size: ln_k's bias gradient, zero in exact arithmetic, holds float32 rounding
+# noise of ~1e-7 of the call's gradients.
+F32_GRAD_TOL, F32_GRAD_FLOOR, F32_GRAD_NEGLIGIBLE = 1e-4, 1e-2, 1e-6
+BWD_REPS_F32 = 1  # timed float32 backward runs per kernel, after one warm-up run
+# The float32 LoRA step at two blocks a stage, 121 x 240, card against the port's CPU run:
+# the loss (relative) and the concatenated LoRA gradient (relative L2).
+F32_TRAIN_LOSS_TOL, F32_TRAIN_GRAD_TOL = 1e-4, 1e-3
+PARALLEL_DATA = 2  # ranks of the parallel phase, all on the one card over gloo
 
 
-def grad_cases(rn):
+def grad_cases(rn, dtype=None):
     """One case per kernel (K2 and K6 also without the tail, K4 also with ln_k) on inputs cut
     to a few thousand rows, windows or columns (FiLM at unit gain), with the main path's
     shape of the kernel for timing the backward: ``(name, label, call, plain, make, timed)``
     where ``make(full)`` gives the arguments (every tensor a leaf that requires a gradient)
     and ``timed`` marks the case whose backward is timed, one a kernel: the one the main
-    path's train step runs (K2 and K6 with the tail, K4's de-aggregation)."""
+    path's train step runs (K2 and K6 with the tail, K4's de-aggregation). ``dtype``: the
+    tokens' and weights' dtype, bf16 (the production knobs; K4 with bf16 values) or float32
+    (the default config; K4 in float32)."""
     import torch
 
     from aurora_tpu_torch.ops import mlp, resampler, roll, window_attention as wa
     from aurora_tpu_torch.ops.masks import window_group_ids
 
     f32 = torch.float32
+    dtype = dtype or torch.bfloat16
     ws, ss = (2, 6, 12), (1, 3, 6)
 
-    def leaf(*shape, std=1.0, dtype=torch.bfloat16):
+    def leaf(*shape, std=1.0, dtype=dtype):
         return rn(*shape, std=std, dtype=dtype).requires_grad_()
 
     def grid(full):
@@ -2212,7 +2254,7 @@ def grad_cases(rn):
     def k4_call(fn):
         def call(ctx, wk, wv, qh, wout, l1w, l1b, q, lw, lb):
             return fn(ctx, wk, wv, qh, wout, l1w, l1b, q, scale=qh.shape[-1] ** -0.5,
-                      value_bf16=True, lnk=None if lw is None else (lw, lb))
+                      value_bf16=dtype == torch.bfloat16, lnk=None if lw is None else (lw, lb))
         return call
 
     yield ("roll3d", "(1,4,24,48,512) shifts (-1,-3,-6); timed (1,4,180,360,512)",
@@ -2341,6 +2383,107 @@ def run_grad_phases() -> dict:
         s.update(times)
         s["grad_err"] = max(s["grad_err"], worst)
     emit(dict(phase="grad", seconds=time.perf_counter() - t0))
+    return out_summary
+
+
+def grad_rel_l2(got, want) -> list[float]:
+    """The relative L2 error of each input's gradient; a negligible one's against the floor
+    (see F32_GRAD_TOL)."""
+    norms = [b.double().norm().item() for b in want]
+    rms = max(n / b.numel() ** 0.5 for n, b in zip(norms, want))
+    return [(a.double() - b.double()).norm().item()
+            / (n if n >= F32_GRAD_NEGLIGIBLE * max(norms)
+               else F32_GRAD_FLOOR * rms * b.numel() ** 0.5)
+            for a, b, n in zip(got, want, norms)]
+
+
+def run_f32_grad_phases() -> dict:
+    """Float32 K1-K8 (the default config's forms; K2 and K6 also without the tail, K4 also
+    with ``ln_k``) at ``grad_cases``' cut shapes: each input's gradient through the kernel's
+    ``Function`` (the backward: the plain math with full float32 products, TF32 off) against
+    the plain version's gradient in float64 on the same inputs, within F32_GRAD_TOL (relative
+    L2). The backward of the case the train step runs, timed once after a warm-up at the
+    main path's shape, beside plain autograd's in float32, the two held to each other by the
+    same measure. Returns per kernel the worst error and the times."""
+    import torch
+
+    from aurora_tpu_torch.model.nn import full_f32_products
+    from aurora_tpu_torch.ops import _lib
+    from aurora_tpu_torch.tools import time_ms
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(6)
+
+    def rn(*shape, std=1.0, dtype=torch.float32):
+        return (torch.randn(*shape, generator=gen, device=dev) * std).to(dtype)
+
+    def grads(out, leaves, g):
+        return torch.autograd.grad(out, leaves, g, retain_graph=True)
+
+    def f64(a):
+        if isinstance(a, torch.Tensor) and a.is_floating_point():
+            return a.detach().double().requires_grad_(a.requires_grad)
+        return a
+
+    t0 = time.perf_counter()
+    out_summary: dict = {}
+    for name, label, call, plain, make, timed in grad_cases(rn, torch.float32):
+        args = make(False)
+        leaves = [a for a in args if isinstance(a, torch.Tensor) and a.requires_grad]
+        before = dict(_lib.LAUNCHES)
+        by_before = dict(_lib.LAUNCHES_BY)
+        with full_f32_products():
+            out = call(*args)
+            node = type(out.grad_fn).__name__
+            g = rn(*out.shape)
+            got = grads(out, leaves, g)
+            args64 = [f64(a) for a in args]
+            want = grads(plain(*args64), [a for a in args64 if isinstance(a, torch.Tensor)
+                                          and a.requires_grad], g.double())
+        torch.cuda.synchronize()
+        if node not in ("_KernelGradBackward", "_RollBackward") or out.dtype != torch.float32:
+            raise AssertionError(f"grad f32 {name} {label}: the output's node is {node}, its "
+                                 f"dtype {out.dtype}")
+        launched = {k: v - before[k] for k, v in _lib.LAUNCHES.items() if v != before[k]}
+        dtypes = sorted({k[1] for k, v in _lib.LAUNCHES_BY.items() if v != by_before.get(k, 0)})
+        errs = grad_rel_l2(got, want)
+        finite = all(bool(torch.isfinite(a).all()) for a in got)
+        del out, got, want, args, args64, leaves
+        times = {}
+        if timed:
+            targs = make(True)
+            tleaves = [a for a in targs if isinstance(a, torch.Tensor) and a.requires_grad]
+            kept = {}
+            with full_f32_products():
+                out = call(*targs)
+                g = rn(*out.shape)
+                times["bwd_ms"] = time_ms(lambda: kept.update(got=grads(out, tleaves, g)),
+                                          dev, BWD_REPS_F32, warmup=1)
+                del out
+                torch.cuda.empty_cache()
+                ref = plain(*targs)
+                times["plain_bwd_ms"] = time_ms(
+                    lambda: kept.update(want=grads(ref, tleaves, g)), dev, BWD_REPS_F32,
+                    warmup=1)
+            times["bwd_shape"] = label.split("timed ")[-1]
+            del ref, targs, tleaves, g
+            times["bwd_rel_err"] = grad_rel_l2(kept["got"], kept["want"])
+            finite = finite and all(bool(torch.isfinite(a).all()) for a in kept["got"])
+            del kept
+            torch.cuda.empty_cache()
+        worst = max(errs + times.get("bwd_rel_err", []))
+        ok = finite and worst <= F32_GRAD_TOL and dtypes in (["float32"], [])
+        emit(dict(phase="grad", dtype="float32", kernel=name, shape=label, ok=ok,
+                  rel_l2=errs, tol=F32_GRAD_TOL, against="plain math in float64", node=node,
+                  launches=launched, launch_dtypes=dtypes, **times))
+        if not ok:
+            raise AssertionError(f"grad f32 {name} {label}: errors {errs}, at the timed shape "
+                                 f"{times.get('bwd_rel_err')} (bound {F32_GRAD_TOL}), finite "
+                                 f"{finite}, launches by dtype {dtypes}")
+        s_ = out_summary.setdefault(name, dict(grad_err=0.0))
+        s_.update(times)
+        s_["grad_err"] = max(s_["grad_err"], worst)
+    emit(dict(phase="grad", dtype="float32", seconds=time.perf_counter() - t0))
     return out_summary
 
 
@@ -2633,6 +2776,105 @@ def run_train_references(refs: _Deferred) -> None:
     refs.submit("train references", compare)
 
 
+def run_f32_train_phases(refs: _Deferred) -> dict:
+    """Float32 training (``Aurora()``'s default config: no ``autocast``, nothing cast to
+    bf16), one model at full width and two blocks per backbone stage (the second shifted),
+    seeded on the card:
+
+    * its LoRA train step with ``remat`` at "full" on 721 x 1440, as ``tools.train_bench
+      --default-config`` runs it: a warm-up step, then TRAIN_STEPS timed; the checks of the
+      bf16 step (``_check_train``), every launch of the timed step on float32 tokens and every
+      parameter float32;
+    * then, without remat (the same arithmetic, held in float64 on the CPU by the tests), one
+      LoRA step at 121 x 240 on the card and, queued on ``refs``, on the CPU from the same
+      weights and inputs: the loss within F32_TRAIN_LOSS_TOL relative and the concatenated
+      LoRA gradient within F32_TRAIN_GRAD_TOL relative L2; the card's step launched every
+      kernel of the main route, each on float32 tokens."""
+    import torch
+
+    from aurora_tpu_torch.ops import _lib
+    from aurora_tpu_torch.tools import train_bench
+    from aurora_tpu_torch.tools.perf_breakdown import config_form
+    from aurora_tpu_torch.training import make_train_step
+
+    t0 = time.perf_counter()
+    cfg = train_bench.train_config(default=True).replace(**TWO_BLOCKS)
+    model = train_bench.build(cfg, "cuda", "lora")
+
+    def inputs(H, W):
+        (surf, static, atmos, batch), (tgt_s, tgt_a) = train_bench.inputs(model, H, W)
+        return (surf, static, atmos, model.prepare_encodings(batch, torch.float32),
+                tuple(float(x) for x in batch.metadata.atmos_levels),
+                {k: v[0] for k, v in tgt_s.items()}, {k: v[0] for k, v in tgt_a.items()})
+
+    surf, static, atmos, enc, levels, tgt_s, tgt_a = inputs(721, 1440)
+    opt = _Watched()
+    step = make_train_step(model, opt, levels)
+    lora0 = {n: p.detach().clone() for n, p in opt.params.items()}
+    frozen = _frozen_snapshot(model)
+    by = {}
+
+    def timed(i):
+        by.clear()
+        by.update(_lib.LAUNCHES_BY)
+        return step(surf, static, atmos, enc, i % 3, tgt_s, tgt_a)
+
+    row = train_bench.run_steps(timed, TRAIN_STEPS, torch.device("cuda"))
+    dtypes = sorted({k[1] for k, v in _lib.LAUNCHES_BY.items() if v != by.get(k, 0)})
+    param_dtypes = sorted({str(p.dtype) for p in model.parameters()})
+    _check_train(model, opt, lora0, frozen, row, train_bench.expected_launches(cfg, lora=True),
+                 dict(phase="train", part="float32 LoRA train step", config=config_form(cfg),
+                      grid="721x1440 (720x1440)", depths=(cfg.encoder_depths, cfg.decoder_depths),
+                      remat_scope=cfg.remat_scope, launch_dtypes=dtypes,
+                      param_dtypes=param_dtypes, seconds=time.perf_counter() - t0))
+    if dtypes != ["float32"] or param_dtypes != ["torch.float32"]:
+        raise AssertionError(f"float32 LoRA train step: launches in {dtypes}, parameters in "
+                             f"{param_dtypes}")
+    del surf, static, atmos, enc, tgt_s, tgt_a, step, opt, lora0, frozen
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    model.set_knobs(remat=False)
+    H, W = TRAIN_REF_GRID
+
+    def one_step(model):
+        surf, static, atmos, enc, levels, tgt_s, tgt_a = inputs(H, W)
+        opt = _Watched(update=False)
+        step = make_train_step(model, opt, levels)
+        t1 = time.perf_counter()
+        loss = step(surf, static, atmos, enc, 0, tgt_s, tgt_a)
+        flat = torch.cat([g.flatten().cpu() for g in opt.grads.values()])
+        return float(loss), flat, time.perf_counter() - t1
+
+    before, by = dict(_lib.LAUNCHES), dict(_lib.LAUNCHES_BY)
+    lc, gc, sc = one_step(model)
+    launched = {k: v - before[k] for k, v in _lib.LAUNCHES.items() if v != before[k]}
+    dtypes = sorted({k[1] for k, v in _lib.LAUNCHES_BY.items() if v != by.get(k, 0)})
+    model = model.to("cpu")
+    torch.cuda.empty_cache()
+
+    def compare():
+        lp, gp, sp = one_step(model)
+        loss_err = abs(lc - lp) / abs(lp)
+        grad_err = ((gc.double() - gp.double()).norm() / gp.double().norm()).item()
+        emit(dict(phase="train", part="float32 card vs CPU", config=config_form(cfg),
+                  grid=f"{H}x{W}", depths=(cfg.encoder_depths, cfg.decoder_depths),
+                  remat=model.cfg.remat, loss_card=lc, loss_cpu=lp, loss_rel_err=loss_err,
+                  lora_grad_rel_l2=grad_err, tol=(F32_TRAIN_LOSS_TOL, F32_TRAIN_GRAD_TOL),
+                  launches=launched, launch_dtypes=dtypes, step_s=dict(card=sc, cpu=sp),
+                  seconds=time.perf_counter() - t0))
+        missing = [k for k in ("roll3d", "roll3d_bwd", "window_attention",
+                               "mlp_adaln_residual", "perceiver_core") if not launched.get(k)]
+        if missing or dtypes != ["float32"] or not (loss_err <= F32_TRAIN_LOSS_TOL
+                                                    and grad_err <= F32_TRAIN_GRAD_TOL):
+            raise AssertionError(f"float32 train card vs CPU: loss {loss_err}, LoRA gradient "
+                                 f"{grad_err}, kernels never launched {missing}, launches in "
+                                 f"{dtypes}")
+
+    refs.submit("float32 train reference", compare)
+    return row
+
+
 def run_card_draws() -> dict:
     """KEEP_DRAWS Bernoulli(KEEP_RATE) draws on the card through ``nn.keep_mask``: the kept
     fraction within 5 binomial standard deviations; the same seed and path the same mask,
@@ -2656,25 +2898,109 @@ def run_card_draws() -> dict:
 
 def run_train_phases(refs: _Deferred) -> dict:
     """The phase ``train``: the card against the CPU first (its CPU half queued on ``refs``,
-    so that it runs beside the rest), the kernels' gradients, the full-width LoRA and
-    roll-out train steps. Returns the gradient phases' summary, which the kernels line
-    reads."""
+    so that it runs beside the rest), the kernels' gradients in both dtypes, then the
+    full-width LoRA, stochastic, float32 and roll-out train steps. Returns the gradient
+    phases' summaries, which the kernels line reads."""
     import torch
 
     t0 = time.perf_counter()
     run_train_references(refs)
     torch.cuda.empty_cache()
     grads = run_grad_phases()
+    grads_f32 = run_f32_grad_phases()
     model, inputs = run_train_step_phase()
     torch.cuda.empty_cache()
     run_stochastic_step_phase(model, inputs)
     del model, inputs
     torch.cuda.empty_cache()
+    run_f32_train_phases(refs)
+    torch.cuda.empty_cache()
     run_rollout_train_phase()
     torch.cuda.empty_cache()
     run_card_draws()
     emit(dict(phase="train", seconds=time.perf_counter() - t0))
-    return dict(grads=grads)
+    return dict(grads=grads, grads_f32=grads_f32)
+
+
+# ------------------------------------------------------------------------------ parallel
+
+
+_CHILDREN: list = []  # the worker processes started, stopped on the way out if still running
+
+
+def nccl_one_rank(folder: str) -> dict:
+    """A one-rank NCCL group and one all-reduce on the card: the backend a multi-card user
+    gets comes up."""
+    import torch
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", init_method=f"file://{folder}/nccl_store", rank=0,
+                            world_size=1)
+    try:
+        x = torch.arange(4, dtype=torch.float32, device="cuda")
+        dist.all_reduce(x)
+        torch.cuda.synchronize()
+        out = dict(ok=x.tolist() == [0.0, 1.0, 2.0, 3.0], backend=dist.get_backend(),
+                   nccl_version=".".join(map(str, torch.cuda.nccl.version())))
+    finally:
+        dist.destroy_process_group()
+    return dict(out, seconds=time.perf_counter() - t0)
+
+
+def start_parallel():
+    """Start the parallel phase's PARALLEL_DATA worker processes of ``tools.multihost_sim``
+    held: each imports, makes its host side ready and waits, touching the card only once
+    :func:`run_parallel` releases it. Returns what :func:`run_parallel` takes."""
+    import tempfile
+
+    from aurora_tpu_torch.tools import multihost_sim
+
+    folder = tempfile.mkdtemp(prefix="chip_smoke_parallel_")
+    procs = multihost_sim.spawn_workers(PARALLEL_DATA, folder, "cuda", hold=True)
+    _CHILDREN.extend(procs)
+    return procs, folder
+
+
+def run_parallel(started) -> dict:
+    """The data axis on the card: ``tools.multihost_sim``'s PARALLEL_DATA ranks (a gloo group
+    meeting in a ``FileStore``, every rank on the one card: NCCL refuses two ranks on one
+    device), each running the kernels on its half of the JAX tool's batch of 2 (on the card's
+    layout: 13 levels, 121 x 240), against the same work in this process on the whole batch
+    (``AuroraSmallPretrained(use_lora=True)`` in float32): the forward and a one-step
+    ``rollout``, the LoRA step's gradients and its parameters where the gradient is resolved
+    within 1e-5 max-rel, the K = 2 roll-out step's gradients within the tool's
+    ``ROLLOUT_GRAD_TOL``, the losses within 1e-6, the full fine-tune step under
+    ``shard_params`` (its probe parameter within 1e-5, each rank's AdamW moments of a split
+    parameter half of it); every rank launched K1-K4. Then a one-rank NCCL group
+    (:func:`nccl_one_rank`). The ranks, started held by :func:`start_parallel` beside the
+    build, are released here, after every timed phase: nothing timed shares the card with
+    them."""
+    import shutil
+
+    import torch
+
+    from aurora_tpu_torch.tools import multihost_sim
+
+    procs, folder = started
+    t0 = time.perf_counter()
+    multihost_sim.release(folder)
+    try:
+        try:
+            ref = multihost_sim.run(torch.device("cuda"))
+        finally:
+            ranks = multihost_sim.collect(procs, folder)
+        nccl = nccl_one_rank(folder)
+    finally:
+        shutil.rmtree(folder, ignore_errors=True)
+    res = multihost_sim.result(ref, ranks, "cuda", time.perf_counter() - t0)
+    need = ("roll3d", "window_attention", "mlp_adaln_residual", "perceiver_core")
+    idle = [i for i, n in enumerate(res["launches_per_rank"]) if not all(n.get(k) for k in need)]
+    emit(dict(phase="parallel", **res, nccl=nccl))
+    if not res["ok"] or idle or res["backend"] != "gloo" or not nccl["ok"]:
+        raise AssertionError(f"parallel: checks {res['ok']}, ranks that launched no kernel "
+                             f"{idle}, backend {res['backend']}, NCCL {nccl}")
+    return res
 
 
 # ------------------------------------------------------------------------------ tools
@@ -2737,9 +3063,10 @@ VARIANT_RUNS = {  # name: (facade, full grid, reference grid, launches per step)
     "12h": ("Aurora12hPretrained", (721, 1440), (121, 240),
             {**_B48, "mlp_adaln_residual": 50, "perceiver_core": 2}),
 }
-# The variant whose reference model is loaded from a reference-format ``.ckpt`` file (the most
-# schema migrations); every other load passes its state dict in memory through the same
-# converter.
+# The variant whose weights go through the port's checkpoint code (the most schema
+# migrations): the full model's state dict in memory through ``convert_reference_checkpoint``,
+# its reference model's from a reference-format ``.ckpt`` file. The other variants are seeded
+# on the card (the converter is held bit for bit on the CPU by tests/test_torch_checkpoint.py).
 VIA_FILE = "pollution"
 VARIANT_STEPS = 2  # roll-out steps of each variant at its full grid
 NAN_FLIP_TOL = 5e-2  # share of points whose wave NaN mask differs between the card and CPU
@@ -2879,7 +3206,13 @@ def run_variant(name: str, manifest: dict, steps: int, refs: _Deferred) -> dict:
 
     facade, (H, W), (h, w), expected = VARIANT_RUNS[name]
     default = type_of(name).default_config()
-    model, info = load_variant(name, manifest)
+    if name == VIA_FILE:
+        model, info = load_variant(name, manifest)
+    else:  # The converter is held bit for bit on the CPU; one variant's load drives it here.
+        t0 = time.perf_counter()
+        model = variant_bench.build_variant(type_of(name), "cuda", production=False)
+        torch.cuda.synchronize()
+        info = dict(via="seeded on the card", build_s=time.perf_counter() - t0)
     cfg = model.cfg
     if cfg != default or cfg.autocast or cfg.agg_bf16 or cfg.deagg_bf16:
         raise AssertionError(f"variant {name}: not the default config (float32): {cfg}")
@@ -3456,10 +3789,19 @@ def main() -> int:
         except Exception as e:  # raised again below, on the main thread
             failed.append(e)
 
+    # Beside the build: the parallel phase's ranks start, held until that phase (nothing of
+    # theirs touches the card before), and this process's optimiser makes its host side ready
+    # (its first step imports torch's compiler stack, ~10 s of host time).
+    from aurora_tpu_torch.tools import multihost_sim
+
+    parallel = start_parallel()
     ablated = threading.Thread(target=ahead)
     ablated.start()
+    ready = threading.Thread(target=multihost_sim.ready_host)
+    ready.start()
     _lib.build(force=True)
     ablated.join()
+    ready.join()
     if failed:
         raise failed[0]
     secs = time.perf_counter() - t_build
@@ -3516,6 +3858,8 @@ def main() -> int:
     del batch
     launches["tools"] = run_tools()
     lap("tools")
+    run_parallel(parallel)
+    lap("parallel")
     # The CPU halves of the references, queued on the host thread since the train phase.
     waited = refs.close()
     lap("references (waiting for the host thread)")
@@ -3591,6 +3935,12 @@ def main() -> int:
                     entry(s, n), shapes=s["shapes"], home_route=home_f32,
                     source=SOURCES_F32[name],
                     launches_per_step=n // F32_HOME_STEPS[home_f32] if home_f32 else 0)
+        # The float32 backward (K1-K8): the worst gradient error against the plain math in
+        # float64, and the backward's and plain autograd's ms at the main path's shape, on
+        # the mode the train step runs.
+        if name in train["grads_f32"]:
+            f32 = e["f32"]
+            f32["tail" if "tail" in f32 else "-"].update(train["grads_f32"][name])
         kernels.append(e)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
@@ -3601,7 +3951,12 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    rc = main()
+    try:
+        rc = main()
+    finally:  # a failed phase leaves no worker running
+        for proc in _CHILDREN:
+            if proc.poll() is None:
+                proc.kill()
     # Every thread is joined and every line flushed: leave without the interpreter's teardown,
     # which took ~8 s on the card's machine (the command's time less ``since_start``) freeing
     # what the run cached on the card and the host; the process's exit frees it all at once.

@@ -240,7 +240,9 @@ def test_no_jax_or_jax_package_is_loaded():
         "       'foundry.channel', 'cli', '__main__', 'plot', 'utils', 'utils.profiling',\n"
         "       'tools.rollout_bench', 'tools.train_speed_probe', 'foundry.models',\n"
         "       'foundry.server', 'foundry.http_server', 'foundry.client', 'foundry.demo',\n"
-        "       'foundry.demo.interactive', 'foundry.demo.hres_t0_data']\n"
+        "       'foundry.demo.interactive', 'foundry.demo.hres_t0_data', 'parallel',\n"
+        "       'parallel.distributed', 'parallel.mesh', 'parallel.sharding',\n"
+        "       'tools.multihost_sim']\n"
         "assert all('aurora_tpu_torch.' + n in sys.modules for n in new), new\n"
         "print(len([n for n in sys.modules if n.startswith('aurora_tpu_torch')]), bad)\n"
     )
