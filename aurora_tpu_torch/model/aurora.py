@@ -43,7 +43,20 @@ from aurora_tpu_torch.normalisation import (
     unnormalise_atmos_var,
     unnormalise_surf_var,
 )
-from aurora_tpu_torch.parallel.sharding import data_mesh, gathered_params, shard_leading
+from aurora_tpu_torch.model.spmd import (
+    decoder_apply_sharded,
+    decoder_apply_whole,
+    encoder_apply_sharded,
+    encoder_apply_whole,
+    spmd_local_aligned,
+)
+from aurora_tpu_torch.parallel.sharding import (
+    data_mesh,
+    gathered_params,
+    global_grid,
+    shard_leading,
+    spatial_mesh,
+)
 from aurora_tpu_torch.posencoding import pos_scale_enc_cached
 
 __all__ = [
@@ -387,11 +400,25 @@ class Aurora(nn.Module):
         ``surf`` and ``atmos`` are this rank's slice of the batch and so are the outputs
         (:func:`~aurora_tpu_torch.parallel.gather_batch` joins them); ``enc`` may hold the
         whole batch's time encodings, of which the rank's part is taken; ZeRO-split
-        parameters are gathered for the call."""
+        parameters are gathered for the call.
+
+        Under a ``(lat, lon)`` mesh (``aurora_tpu/model/aurora.py:299-360``) the fields are
+        this rank's block of the grid (:func:`~aurora_tpu_torch.parallel.shard_batch_arrays`)
+        and so are the outputs (:func:`~aurora_tpu_torch.parallel.gather_batch` joins them);
+        ``enc`` holds the whole grid's encodings. The encoder and decoder run on the rank's
+        block where the pixel grid splits into whole patches (:mod:`~aurora_tpu_torch.model.
+        spmd`), else whole on every rank; the backbone on the rank's block of the token grid.
+        It serves only: with a key or with gradients it raises (the train steps under such a
+        mesh are not ported yet)."""
         if generator is not None:
             if key is not None:
                 raise ValueError("pass a generator or a key, not both")
             key = draw_key(generator)
+        if spatial_mesh() is not None and (key is not None or (
+                torch.is_grad_enabled() and any(p.requires_grad for p in self.parameters()))):
+            raise NotImplementedError(
+                "training under a (lat, lon) mesh is not ported yet (A4c): run the forward "
+                "under torch.no_grad(), without a generator or key")
         mesh = data_mesh(self)
         if mesh is not None:
             local = next(iter(surf.values())).shape[0]
@@ -406,7 +433,11 @@ class Aurora(nn.Module):
         outer = cfg.remat and cfg.remat_scope == "full"
         stats = dict(cfg.surf_stats)
         B, T, H, W = next(iter(surf.values())).shape
-        patch_res = (cfg.latent_levels, H // cfg.patch_size, W // cfg.patch_size)
+        mesh = spatial_mesh()
+        grid = (H, W) if mesh is None else global_grid(H, W, mesh)
+        patch_res = (cfg.latent_levels, grid[0] // cfg.patch_size, grid[1] // cfg.patch_size)
+        local = mesh is not None and spmd_local_aligned(cfg, B * mesh.shape["data"], *grid,
+                                                         mesh)
 
         surf_n = {k: normalise_surf_var(v, k, stats) for k, v in surf.items()}
         static_n = {k: normalise_surf_var(v, k, stats) for k, v in static.items()}
@@ -424,7 +455,12 @@ class Aurora(nn.Module):
         elif cfg.variant == "wave":
             surf_t = _wave_pre_encoder(surf_t, cfg)
 
-        x = checkpointed(outer, self.encoder, surf_t, static_exp, atmos_t, enc, atmos_levels)
+        if mesh is None:
+            x = checkpointed(outer, self.encoder, surf_t, static_exp, atmos_t, enc,
+                             atmos_levels)
+        else:
+            encode = encoder_apply_sharded if local else encoder_apply_whole
+            x = encode(self.encoder, surf_t, static_exp, atmos_t, enc, atmos_levels, grid, mesh)
         if cfg.autocast:
             x = checkpointed(outer, self.backbone, x.to(torch.bfloat16), enc.lead_time,
                              rollout_step, patch_res, key)
@@ -433,10 +469,18 @@ class Aurora(nn.Module):
             x = checkpointed(outer, self.backbone, x, enc.lead_time, rollout_step, patch_res,
                              key)
         # The decoder's variables are the hook-supplemented ones.
-        surf_pred, atmos_pred = checkpointed(
-            outer, self.decoder, x, tuple(surf_t), tuple(atmos_t), enc.levels_dec, patch_res,
-            H, W, atmos_levels,
-        )
+        if mesh is None:
+            surf_pred, atmos_pred = checkpointed(
+                outer, self.decoder, x, tuple(surf_t), tuple(atmos_t), enc.levels_dec,
+                patch_res, H, W, atmos_levels,
+            )
+        elif local:
+            surf_pred, atmos_pred = decoder_apply_sharded(
+                self.decoder, x, tuple(surf_t), tuple(atmos_t), enc.levels_dec, atmos_levels)
+        else:
+            surf_pred, atmos_pred = decoder_apply_whole(
+                self.decoder, x, tuple(surf_t), tuple(atmos_t), enc.levels_dec, atmos_levels,
+                grid, mesh)
 
         if cfg.variant == "air_pollution":
             surf_pred, atmos_pred = _pollution_post_decoder(
@@ -462,14 +506,28 @@ class Aurora(nn.Module):
         atmos_out = {k: unnormalise_atmos_var(v, k, atmos_levels) for k, v in atmos_pred.items()}
         return surf_out, atmos_out
 
+    def crop(self, batch: Batch) -> Batch:
+        """``batch.crop(patch_size)``; under a ``(lat, lon)`` mesh, where the batch holds the
+        rank's block, the batch itself, which the caller cropped before splitting it (its
+        metadata's whole grid must be a multiple of the patch size)."""
+        if spatial_mesh() is None:
+            return batch.crop(patch_size=self.cfg.patch_size)
+        n = np.shape(batch.metadata.lat)[0]
+        if n % self.cfg.patch_size:
+            raise ValueError(f"under a (lat, lon) mesh crop the batch before splitting it: "
+                             f"{n} latitudes, patch {self.cfg.patch_size}")
+        return batch
+
     @torch.no_grad()
     def forward(self, batch: Batch) -> Batch:
         """One prediction step: returns a :class:`Batch` one timestep ahead. Its static
         variables are the (cropped) ones the caller passed, as the JAX package returns them,
-        not the device copies the model computed with."""
+        not the device copies the model computed with. Under a ``(lat, lon)`` mesh the batch
+        holds the rank's block (:func:`~aurora_tpu_torch.parallel.shard_batch`) and so does
+        the prediction."""
         cfg = self.cfg
         batch = self.batch_transform_hook(batch)
-        batch = batch.crop(patch_size=cfg.patch_size)
+        batch = self.crop(batch)
         dtype = self.compute_dtype
         enc = self.prepare_encodings(batch, torch.float32 if dtype == torch.bfloat16 else dtype)
         b = batch.to(self.device, dtype)

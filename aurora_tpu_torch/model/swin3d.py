@@ -34,6 +34,15 @@ the TPU's VMEM budget (``swin3d.py:1253-1260``) has no counterpart on the card: 
 Encoder stages double the feature dim by patch merging, decoder stages halve it by patch
 splitting; intermediate skips are additive and the last one a concatenation.
 
+Under a ``(lat, lon)`` mesh (``aurora_tpu/model/swin3d.py:1082-1468``) each rank holds its
+block of the token grid (:mod:`~aurora_tpu_torch.parallel.sharding`'s rule) and runs the
+same kernels on it: a block over-pads the grid by whole pad-only windows to window x mesh
+multiples (``extra``), so that every rank's block of the padded grid is whole windows, and
+takes the roll, pad and crop as :mod:`~aurora_tpu_torch.parallel.halo` moves (thin halo
+strips over the lines of the mesh); K2 runs on the rank's windows with its slice of the
+global group ids, K3 on its tokens; the patch merge brings a 2 x 2 cell that an odd block's
+edge cuts to one rank first. The backbone then takes and returns 5D tokens.
+
 With ``remat`` each block is rematerialised in the backward, and under ``remat_scope``
 "full" and "no_outer" each stage too (``aurora_tpu/model/swin3d.py:1585-1586``,
 ``:1632-1634``, ``:1673-1675``); the whole backbone is wrapped by the model under "full".
@@ -79,12 +88,15 @@ from aurora_tpu_torch.ops.window_attention import (
     window_partition,
     window_reverse,
 )
+from aurora_tpu_torch.parallel import halo
+from aurora_tpu_torch.parallel.sharding import spatial_mesh
 
 __all__ = [
     "Backbone",
     "SwinBlock",
     "WindowAttention",
     "maybe_adjust_windows",
+    "mesh_kernel_alignment",
     "pad_3d",
     "crop_3d",
     "drop_path_rates",
@@ -103,17 +115,32 @@ def maybe_adjust_windows(window_size, shift_size, res):
     return tuple(ws), tuple(ss)
 
 
-def pad_3d(x: torch.Tensor, pad: tuple[int, int, int]) -> torch.Tensor:
-    """Centre-pad ``(B, C, H, W, D)`` with zeros along (C, H, W)."""
+def pad_3d(x: torch.Tensor, pad: tuple[int, int, int],
+           extra: tuple[int, int, int] = (0, 0, 0)) -> torch.Tensor:
+    """Centre-pad ``(B, C, H, W, D)`` with zeros along (C, H, W); ``extra`` appends that many
+    more zero planes, rows and columns after the centre pad (whole pad-only windows where
+    each is a multiple of the window: :func:`~aurora_tpu_torch.ops.masks.window_group_ids`)."""
     left, right, top, bottom, front, back = three_sided_padding(*pad)
-    return F.pad(x, (0, 0, left, right, top, bottom, front, back))
+    return F.pad(x, (0, 0, left, right + extra[2], top, bottom + extra[1], front,
+                     back + extra[0]))
 
 
-def crop_3d(x: torch.Tensor, pad: tuple[int, int, int]) -> torch.Tensor:
+def crop_3d(x: torch.Tensor, pad: tuple[int, int, int],
+            extra: tuple[int, int, int] = (0, 0, 0)) -> torch.Tensor:
     """Inverse of :func:`pad_3d`."""
     _, C, H, W, _ = x.shape
     left, right, top, bottom, front, back = three_sided_padding(*pad)
-    return x[:, front : C - back, top : H - bottom, left : W - right, :]
+    return x[:, front : C - back - extra[0], top : H - bottom - extra[1],
+             left : W - right - extra[2], :]
+
+
+def mesh_kernel_alignment(mesh_shape: dict, Cp: int, Hp: int, Wp: int, ws) -> bool:
+    """True when the window kernels run on each rank's block of the padded grid ``(Cp, Hp,
+    Wp)``: every (lat, lon) block holds whole windows (``aurora_tpu/model/swin3d.py:969-993``,
+    without the TPU's VMEM fit). The over-padding makes it hold for every grid; a block
+    checks it."""
+    la, lo = mesh_shape.get("lat", 1), mesh_shape.get("lon", 1)
+    return not (Cp % ws[0] or Hp % (ws[1] * la) or Wp % (ws[2] * lo))
 
 
 class WindowAttention(nn.Module):
@@ -214,15 +241,30 @@ class SwinBlock(nn.Module):
         key: Optional[DrawKey] = None,
     ) -> torch.Tensor:
         """``dp_rate``: the block's stochastic-depth rate; ``key``: its place in the step's
-        draws (None: deterministic)."""
+        draws (None: deterministic). Under a ``(lat, lon)`` mesh ``x`` is the rank's block of
+        the ``res`` grid."""
         C, H, W = res
         B, D = x.shape[0], x.shape[-1]
-        assert tuple(x.shape[1:4]) == (C, H, W), f"Wrong grid: {x.shape} vs {res}"
+        shape = x.shape
+        mesh = spatial_mesh()
+        rows = (C, H, W)
+        if mesh is not None:
+            (a, b), (c0, c1) = halo.local_extents((H, W), mesh)
+            rows = (C, b - a, c1 - c0)
+        assert tuple(x.shape[1:4]) == rows, f"Wrong grid: {x.shape} vs {res}"
         stochastic = key is not None and (dp_rate > 0.0 or self.cfg.drop_rate > 0.0)
+        if stochastic and mesh is not None:
+            raise NotImplementedError("stochastic blocks under a (lat, lon) mesh: the train "
+                                      "steps under such a mesh are not ported yet (A4c)")
         if stochastic:
             k_dp1, k_dp2, k_proj, k_hid, k_out = (key.fold(j) for j in range(5))
             aimpl, mimpl = "xla", "xla"
         else:
+            # Under a mesh the JAX package routes a block whose windows or rows do not
+            # split evenly to XLA (``swin3d.py:1178-1230``: the MLP at stage 3's uneven
+            # rows, say). The port keeps the route: on the card a per-token kernel runs on
+            # any row split and the window kernel on every block of whole windows; on the
+            # CPU every route is plain.
             aimpl, mimpl = self.cfg.routes()
         fuse_attn_tail = mimpl == "fused"
         tail_in_kernel = fuse_attn_tail and aimpl in ("pallas", "pallas_windowed")
@@ -231,11 +273,20 @@ class SwinBlock(nn.Module):
         ws, ss = maybe_adjust_windows(self.cfg.window_size, shift_size, res)
         shortcut = x
         shifted = any(ss)
-        if shifted:
-            x = roll3d(x, (-ss[0], -ss[1], -ss[2]))
-        pad = ((-C) % ws[0], (-H) % ws[1], (-W) % ws[2])
-        groups = window_group_ids(C, H, W, ws, ss) if shifted else None
-        xp = pad_3d(x, pad)
+        if mesh is None:
+            if shifted:
+                x = roll3d(x, (-ss[0], -ss[1], -ss[2]))
+            pad = ((-C) % ws[0], (-H) % ws[1], (-W) % ws[2])
+            groups = window_group_ids(C, H, W, ws, ss) if shifted else None
+            xp = pad_3d(x, pad)
+        else:
+            geo = halo.window_geometry(res, ws, ss, mesh)
+            if not mesh_kernel_alignment(mesh.shape, *geo.padded, ws):
+                raise AssertionError(f"the over-padded grid {geo.padded} is not whole windows "
+                                     f"{ws} on every block of {mesh.shape}")
+            sent = halo.STATS["bytes_sent"]
+            xp = halo.enter_windows(x, geo, mesh)
+            groups = halo.local_group_ids(geo) if shifted else None
         _, Cp, Hp, Wp, _ = xp.shape
 
         tail = None
@@ -254,12 +305,17 @@ class SwinBlock(nn.Module):
             out = att(window_partition(xp, ws), num_heads, groups, rollout_step, aimpl,
                       project=not fuse_attn_tail, tail=tail)
             xp = window_reverse(out, ws, Cp, Hp, Wp)
-        x = crop_3d(xp, pad).contiguous()
-        if shifted:
-            x = roll3d(x, ss)
+        if mesh is None:
+            x = crop_3d(xp, pad).contiguous()
+            if shifted:
+                x = roll3d(x, ss)
+        else:
+            x = halo.leave_windows(xp, geo, mesh)
+            halo.note("block", res=res, shift=ss, extra=geo.extra, rows=rows[1:],
+                      padded_block=geo.block, bytes=halo.STATS["bytes_sent"] - sent)
 
-        x = x.reshape(B, C * H * W, D)
-        shortcut = shortcut.reshape(B, C * H * W, D)
+        x = x.reshape(B, -1, D)
+        shortcut = shortcut.reshape(B, -1, D)
         if tail_in_kernel:
             pass  # x is already post-residual: the tail ran in the attention kernel
         elif fuse_attn_tail:
@@ -292,12 +348,15 @@ class SwinBlock(nn.Module):
             else:
                 y = m(x)
             x = x + self.norm2(y, c)
-        return x.reshape(B, C, H, W, D)
+        return x.reshape(shape)
 
 
 class PatchMerge(nn.Module):
     """2x2 spatial merge ``(B, C, H, W, D) -> (B, C, H/2, W/2, 2D)`` (odd H/W are
-    centre-padded first)."""
+    centre-padded first). Under a ``(lat, lon)`` mesh ``x`` is the rank's block: the cells
+    of its block of the merged grid are brought whole to it first
+    (:func:`~aurora_tpu_torch.parallel.halo.merge_rows`; ``aurora_tpu/model/swin3d.py:
+    1411-1421``), in the same feature order."""
 
     def __init__(self, dim: int, *, device=None, dtype=None):
         super().__init__()
@@ -307,7 +366,13 @@ class PatchMerge(nn.Module):
     def forward(self, x: torch.Tensor, res: tuple[int, int, int]) -> torch.Tensor:
         C, H, W = res
         B, D = x.shape[0], x.shape[-1]
-        x = pad_3d(x, (0, H % 2, W % 2))
+        mesh = spatial_mesh()
+        if mesh is None:
+            x = pad_3d(x, (0, H % 2, W % 2))
+        else:
+            rows = tuple(x.shape[2:4])
+            x = halo.merge_rows(x, res, mesh)
+            halo.note("merge", res=res, rows=rows, odd=int(rows[0] % 2 or rows[1] % 2))
         H2, W2 = x.shape[2] // 2, x.shape[3] // 2
         # Feature order (i, j, D) with i the row and j the column offset in the 2x2 cell.
         x = x.reshape(B, C, H2, 2, W2, 2 * D).permute(0, 1, 2, 4, 3, 5)
@@ -317,7 +382,8 @@ class PatchMerge(nn.Module):
 
 class PatchSplit(nn.Module):
     """Inverse of :class:`PatchMerge`: ``(B, C, H, W, D) -> (B, C, 2H', 2W', D/2)`` with
-    the merge padding cropped away."""
+    the merge padding cropped away (under a ``(lat, lon)`` mesh on the rank's block, the
+    crop a :func:`~aurora_tpu_torch.parallel.halo.split_crop` move)."""
 
     def __init__(self, dim: int, *, device=None, dtype=None):
         super().__init__()
@@ -327,10 +393,11 @@ class PatchSplit(nn.Module):
         self.norm = LayerNorm(dim // 2, **kw)
 
     def forward(self, x, res, crop) -> torch.Tensor:
-        C, H, W = res
-        B, D = x.shape[0], x.shape[-1]
-        x = self.lin1(x).reshape(B, C, H, W, 2, D).permute(0, 1, 2, 4, 3, 5)
-        x = crop_3d(x.reshape(B, C, 2 * H, 2 * W, D // 2), crop)
+        B, C, h, w, D = x.shape
+        x = self.lin1(x).reshape(B, C, h, w, 2, D).permute(0, 1, 2, 4, 3, 5)
+        x = x.reshape(B, C, 2 * h, 2 * w, D // 2)
+        mesh = spatial_mesh()
+        x = crop_3d(x, crop) if mesh is None else halo.split_crop(x, res, crop, mesh)
         return self.lin2(self.norm(x))
 
 
@@ -430,18 +497,23 @@ class Backbone(nn.Module):
 
     def forward(self, x, lead_time_encode, rollout_step: int, patch_res,
                 key: Optional[DrawKey] = None):
-        """``key``: the root of the step's draws for the stochastic knobs (None:
-        deterministic), folded with the stage (encoder ``i``, decoder ``100 + i``)."""
+        """``x``: tokens ``(B, L, D)``, or 5D ``(B, C, H, W, D)`` (under a ``(lat, lon)`` mesh
+        the rank's block of the ``patch_res`` grid), returned in the same form. ``key``: the
+        root of the step's draws for the stochastic knobs (None: deterministic), folded with
+        the stage (encoder ``i``, decoder ``100 + i``)."""
         cfg = self.cfg
         enc_rates, dec_rates = drop_path_rates(cfg)
-        B, L, D = x.shape
-        assert L == patch_res[0] * patch_res[1] * patch_res[2], "Input shape mismatch."
+        flat_io = x.dim() == 3
+        B, D = x.shape[0], x.shape[-1]
+        if flat_io:
+            L = x.shape[1]
+            assert L == patch_res[0] * patch_res[1] * patch_res[2], "Input shape mismatch."
+            x = x.reshape(B, *patch_res, D)
         assert patch_res[0] % cfg.window_size[0] == 0
         all_enc_res, padded_outs = get_encoder_specs(cfg, patch_res)
         n_dec = len(cfg.decoder_depths)
         lt = lead_time_encode.to(x.dtype).expand(B, lead_time_encode.shape[-1])
         c = self.time_mlp(lt)
-        x = x.reshape(B, *patch_res, D)
         skips = []
         for i, layer in enumerate(self.encoder_layers):
             x = self._run_layer(layer, x, c, all_enc_res[i], cfg.encoder_num_heads[i],
@@ -460,4 +532,4 @@ class Backbone(nn.Module):
                 x = x + skips[index - 1]
             elif i == n_dec - 1:
                 x = torch.cat([x, skips[0]], dim=-1)
-        return x.reshape(B, L, x.shape[-1])
+        return x.reshape(B, L, x.shape[-1]) if flat_io else x

@@ -55,12 +55,19 @@ def window_group_ids(
     ws: tuple[int, int, int],
     ss: tuple[int, int, int],
     warped: bool = True,
+    extra: tuple[int, int, int] = (0, 0, 0),
 ) -> np.ndarray:
     """Group id of every token in every window, ``(nW, N)`` int32.
 
     The ``(C, H, W)`` grid is assumed rolled by ``-ss`` and then centre-padded to window
     multiples; pad tokens get a fresh id of their own. Windows are numbered in
     (C-blocks, H-blocks, W-blocks) order and tokens in (wc, wh, ww) order.
+
+    ``extra`` appends that many pad planes, rows and columns after the centre pad, each a
+    multiple of the window's extent along its axis: whole pad-only windows, with the pad's
+    id. They change no real token's window, so a real token's attention is the same as
+    without them. A mesh over-pads so, to window x mesh multiples
+    (``aurora_tpu/ops/masks.py:54-110``).
     """
     img = np.zeros((C, H, W), dtype=np.int32)
     c_slices = (slice(0, -ws[0]), slice(-ws[0], -ss[0]), slice(-ss[0], None))
@@ -76,6 +83,10 @@ def window_group_ids(
     pad = ((-C) % ws[0], (-H) % ws[1], (-W) % ws[2])
     left, right, top, bottom, front, back = three_sided_padding(*pad)
     img = np.pad(img, ((front, back), (top, bottom), (left, right)), constant_values=cnt)
+    if any(extra):
+        if any(e % w for e, w in zip(extra, ws)):
+            raise ValueError(f"extra {tuple(extra)} is not whole windows of {tuple(ws)}")
+        img = np.pad(img, ((0, extra[0]), (0, extra[1]), (0, extra[2])), constant_values=cnt)
     Cp, Hp, Wp = img.shape
     img = img.reshape(Cp // ws[0], ws[0], Hp // ws[1], ws[1], Wp // ws[2], ws[2])
     img = img.transpose(0, 2, 4, 1, 3, 5)  # (C1, H1, W1, wc, wh, ww)

@@ -1,12 +1,23 @@
 """Multi-device execution of the port (counterpart of ``aurora_tpu/parallel``): the process
 runtime (:mod:`~aurora_tpu_torch.parallel.distributed`), the ``('data', 'lat', 'lon')`` mesh
-of ranks (:mod:`~aurora_tpu_torch.parallel.mesh`) and the placement of batches and
-parameters over it (:mod:`~aurora_tpu_torch.parallel.sharding`).
+of ranks (:mod:`~aurora_tpu_torch.parallel.mesh`), the placement of batches and parameters
+over it (:mod:`~aurora_tpu_torch.parallel.sharding`) and the halo moves between the ranks'
+blocks of the token grid (:mod:`~aurora_tpu_torch.parallel.halo`).
 
-The data axis runs: each rank holds its slice of the batch, the ZeRO-split parameters are
+The data axis: each rank holds its slice of the batch, the ZeRO-split parameters are
 gathered once before a forward, and the train steps average their gradients over ``data``.
-The ``(lat, lon)`` split of the token grid is not ported yet: entering a mesh with ``lat``
-or ``lon`` above 1 raises.
+The ``(lat, lon)`` split: each rank holds its block of the grid, the forward and the
+roll-outs run on it, thin halos move between blocks (the train steps under such a mesh are
+not ported yet).
+
+Serving under a ``(lat, lon)`` mesh, one process a rank::
+
+    initialize(coordinator_address, num_processes, process_id)
+    mesh = make_mesh(data=1, lat=2, lon=2)
+    part = shard_batch(batch.crop(model.cfg.patch_size), mesh)
+    with mesh:
+        for pred in rollout(model, part, steps):
+            whole = gather_batch(pred)
 """
 
 from aurora_tpu_torch.parallel.distributed import (
@@ -23,16 +34,22 @@ from aurora_tpu_torch.parallel.sharding import (
     TOKENS_5D_SPEC,
     constrain,
     gather_batch,
+    gather_tensor,
     gathered_params,
     replicate,
+    shard_batch,
     shard_batch_arrays,
     shard_params,
+    shard_tensor,
+    split_bounds,
     zero_partition_spec,
 )
+from aurora_tpu_torch.parallel import halo  # noqa: E402  (after sharding, which it uses)
 
 __all__ = [
     "ATMOS_SPEC", "MESH_AXES", "Mesh", "STATIC_SPEC", "SURF_SPEC", "TOKENS_5D_SPEC",
-    "auto_mesh", "constrain", "current_mesh", "gather_batch", "gathered_params", "initialize",
-    "is_multi_host", "local_device_count", "make_mesh", "process_summary", "replicate",
-    "shard_batch_arrays", "shard_params", "zero_partition_spec",
+    "auto_mesh", "constrain", "current_mesh", "gather_batch", "gather_tensor",
+    "gathered_params", "halo", "initialize", "is_multi_host", "local_device_count",
+    "make_mesh", "process_summary", "replicate", "shard_batch", "shard_batch_arrays",
+    "shard_params", "shard_tensor", "split_bounds", "zero_partition_spec",
 ]

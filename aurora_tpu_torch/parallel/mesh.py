@@ -2,14 +2,18 @@
 
 * ``data``: the batch axis; each rank holds its slice of the batch, and the train steps
   average their gradients over it.
-* ``lat`` / ``lon``: the 2D split of the token grid, not ported yet (ROADMAP A4b): such a
-  mesh is built and factorised, and entering it raises.
+* ``lat`` / ``lon``: the 2D split of the pixel and token grids; each rank holds its block
+  (:mod:`~aurora_tpu_torch.parallel.sharding`), and the backbone moves thin halos between
+  blocks (:mod:`~aurora_tpu_torch.parallel.halo`). The forward and the roll-outs run under
+  it; the train steps do not yet.
 
 A :class:`Mesh` is the ranks of the process group arranged in that shape, with one process
 group for each line of ranks along an axis of size above 1 (made when the mesh is built,
-by every rank alike). Entering it (``with mesh:``, the counterpart of
-``with jax.set_mesh(mesh)``) makes it the mesh that the model and the train steps run
-under. A single process gets a 1 x 1 x 1 mesh that needs no process group.
+by every rank alike). The ``lat`` and ``lon`` lines are rings, as ``jnp.roll`` wraps on
+every axis: :meth:`Mesh.neighbours` gives a rank's previous and next rank on each.
+Entering a mesh (``with mesh:``, the counterpart of ``with jax.set_mesh(mesh)``) makes it
+the mesh that the model and the train steps run under. A single process gets a 1 x 1 x 1
+mesh that needs no process group.
 """
 
 from __future__ import annotations
@@ -36,7 +40,8 @@ class Mesh:
     """Ranks in a ``(data, lat, lon)`` array. ``shape``: ``{axis: size}``; ``rank``: this
     process's rank; ``coords``: its ``{axis: index}`` (None for a rank outside the mesh);
     ``device``: the device this rank computes on; :meth:`group`: the process group of this
-    rank's line along an axis (None for an axis of size 1)."""
+    rank's line along an axis (None for an axis of size 1); :meth:`neighbours`: its ring
+    neighbours on that line."""
 
     def __init__(self, ranks: np.ndarray, device: Optional[str] = None):
         self.ranks = np.asarray(ranks, dtype=np.int64)
@@ -69,12 +74,25 @@ class Mesh:
             raise RuntimeError(f"rank {self.rank} is not in {self}")
         return self.coords[axis]
 
+    @property
+    def spatial(self) -> bool:
+        """True when the mesh splits the grid (``lat`` or ``lon`` above 1)."""
+        return self.shape["lat"] > 1 or self.shape["lon"] > 1
+
+    def line(self, axis: str) -> list[int]:
+        """The ranks of this rank's line along ``axis``, in axis order."""
+        a = MESH_AXES.index(axis)
+        at = [self.axis_index(x) for x in MESH_AXES]
+        at[a] = slice(None)
+        return [int(r) for r in self.ranks[tuple(at)]]
+
+    def neighbours(self, axis: str) -> tuple[int, int]:
+        """The (previous, next) ranks of this rank on its ring along ``axis`` (itself on an
+        axis of size 1)."""
+        line, i = self.line(axis), self.axis_index(axis)
+        return line[(i - 1) % len(line)], line[(i + 1) % len(line)]
+
     def __enter__(self) -> "Mesh":
-        if self.shape["lat"] > 1 or self.shape["lon"] > 1:
-            raise NotImplementedError(
-                f"a mesh with lat = {self.shape['lat']}, lon = {self.shape['lon']}: the "
-                "(lat, lon) split of the token grid is not ported yet (ROADMAP A4b); use a "
-                "data-only mesh, make_mesh(data=n)")
         if self.size > 1 and (not _initialized() or self.coords is None):
             raise RuntimeError(f"{self} needs torch.distributed initialised with this rank in "
                                "it (aurora_tpu_torch.parallel.initialize)")

@@ -9,11 +9,18 @@ The layout specs of the JAX package, as tuples of axis names (None: whole):
 * Parameters: replicated, or under :func:`shard_params` (ZeRO over ``data``) each large
   tensor held as this rank's slice along the axis :func:`zero_partition_spec` picks.
 
-Only the ``data`` axis runs (ROADMAP A4b has the rest): a rank holds its slice of the
-batch, and :func:`constrain` is the identity. A model under :func:`shard_params` gathers its
-split parameters once before a forward (:func:`gathered_params`: ``Aurora.forward_core``,
-:func:`~aurora_tpu_torch.rollout.rollout` and the train steps enter it), and a train step
-averages its gradients over ``data`` with :func:`average_gradients`.
+A rank holds its slice of the batch over ``data`` and its block of the grid over ``lat``
+and ``lon`` (:func:`shard_tensor` cuts a tensor by its spec, :func:`gather_tensor` joins
+the blocks). **The rule for uneven extents** (GSPMD splits them implicitly; here it is
+written out): an extent ``n`` over ``k`` ranks is cut into blocks of ``ceil(n / k)``, the
+last ones shorter or empty (:func:`split_bounds`; 45 token rows over 2: 23 and 22). Every
+tensor of the batch, the predictions and the token grid between the backbone's blocks is
+held so. :func:`constrain` is the identity: a rank's block already has its layout.
+
+A model under :func:`shard_params` gathers its split parameters once before a forward
+(:func:`gathered_params`: ``Aurora.forward_core``, :func:`~aurora_tpu_torch.rollout.rollout`
+and the train steps enter it), and a train step averages its gradients over ``data`` with
+:func:`average_gradients`.
 
 Every collective moves flat buckets of at most :data:`BUCKET_BYTES`, not one tensor at a
 time; gloo takes CUDA tensors in each of them, so ranks that share one card run over gloo.
@@ -22,6 +29,7 @@ time; gloo takes CUDA tensors in each of them, so ranks that share one card run 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 from typing import Optional
 
 import numpy as np
@@ -40,12 +48,18 @@ __all__ = [
     "constrain",
     "data_mesh",
     "gather_batch",
+    "gather_tensor",
     "gathered_params",
+    "global_grid",
     "global_mean",
     "replicate",
+    "shard_batch",
     "shard_batch_arrays",
     "shard_leading",
     "shard_params",
+    "shard_tensor",
+    "spatial_mesh",
+    "split_bounds",
     "zero_partition_spec",
 ]
 
@@ -58,9 +72,45 @@ BUCKET_BYTES = 256 << 20  # the largest flat buffer one collective moves
 
 
 def constrain(x, spec):
-    """The identity: under a data-only mesh every rank holds whole token grids of its batch
-    slice, and no other mesh can be entered yet."""
+    """The identity: every rank already holds its block of ``x`` in the layout of ``spec``
+    (its slice over ``data``, its block over ``lat`` and ``lon``)."""
     return x
+
+
+def split_bounds(n: int, k: int) -> list[tuple[int, int]]:
+    """The port's rule for an extent ``n`` over ``k`` ranks: ``[start, end)`` of each rank's
+    block, blocks of ``ceil(n / k)`` in rank order, the last ones shorter (or empty)."""
+    b = -(-n // k)
+    return [(min(i * b, n), min((i + 1) * b, n)) for i in range(k)]
+
+
+def spatial_mesh() -> Optional[Mesh]:
+    """The entered mesh when it splits the grid (``lat`` or ``lon`` above 1), else None."""
+    mesh = current_mesh()
+    return mesh if mesh is not None and mesh.spatial else None
+
+
+def global_grid(h: int, w: int, mesh: Mesh) -> tuple[int, int]:
+    """The whole grid ``(H, W)`` of which this rank holds an ``h x w`` block: the blocks'
+    extents gathered over the ``lat`` and ``lon`` lines (raises where they do not follow
+    :func:`split_bounds`, as a batch cut by :func:`shard_batch_arrays` does)."""
+    out = []
+    for n, axis in ((h, "lat"), (w, "lon")):
+        k = mesh.shape[axis]
+        if k == 1:
+            out.append(n)
+            continue
+        every = torch.empty(k, dtype=torch.int64, device=mesh.device)
+        dist.all_gather_into_tensor(every, torch.tensor([n], dtype=torch.int64,
+                                                        device=mesh.device),
+                                    group=mesh.group(axis))
+        sizes = every.tolist()
+        total = sum(sizes)
+        if sizes != [b - a for a, b in split_bounds(total, k)]:
+            raise ValueError(f"blocks of {sizes} along {axis} are not the split of {total} "
+                             "(shard_batch_arrays cuts a batch so)")
+        out.append(total)
+    return tuple(out)
 
 
 def zero_partition_spec(shape, data_size: int, min_size: int = 2**16) -> tuple:
@@ -141,40 +191,111 @@ def global_mean(x: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
 # ------------------------------------------------------------------ batches
 
 
+def shard_tensor(x, spec: tuple, mesh: Mesh) -> torch.Tensor:
+    """This rank's block of the whole tensor ``x`` under ``spec`` (one axis name or None per
+    dimension): the batch axis cut into equal slices over ``data``, ``lat`` and ``lon`` by
+    :func:`split_bounds`; on the mesh's device, contiguous."""
+    x = torch.as_tensor(x)
+    if len(spec) != x.dim():
+        raise ValueError(f"spec {spec} for a tensor of shape {tuple(x.shape)}")
+    for dim, axis in enumerate(spec):
+        if axis is None or mesh.shape[axis] == 1:
+            continue
+        k, i = mesh.shape[axis], mesh.axis_index(axis)
+        n = x.shape[dim]
+        if axis == "data":
+            if n % k:
+                raise ValueError(f"batch {n} is not a multiple of data = {k}")
+            a, b = i * (n // k), (i + 1) * (n // k)
+        else:
+            a, b = split_bounds(n, k)[i]
+        x = x.narrow(dim, a, b - a)
+    return x.to(mesh.device).contiguous()
+
+
+def _gather_line(x: torch.Tensor, dim: int, mesh: Mesh, axis: str) -> torch.Tensor:
+    """The blocks of ``x`` along ``dim`` over this rank's ``axis`` line, joined in rank
+    order (the data axis: equal slices; lat / lon: :func:`split_bounds` blocks, padded to
+    the longest for the all-gather and cut back)."""
+    k = mesh.shape[axis]
+    if k == 1:
+        return x
+    x = x.contiguous()
+    sizes = torch.tensor([x.shape[dim]], dtype=torch.int64, device=x.device)
+    every = torch.empty(k, dtype=torch.int64, device=x.device)
+    dist.all_gather_into_tensor(every, sizes, group=mesh.group(axis))
+    sizes = every.tolist()
+    m = max(sizes)
+    if x.shape[dim] < m:
+        pad = list(x.shape)
+        pad[dim] = m - x.shape[dim]
+        x = torch.cat([x, x.new_zeros(pad)], dim=dim)
+    whole = x.new_empty(k * x.numel())
+    dist.all_gather_into_tensor(whole, x.reshape(-1), group=mesh.group(axis))
+    parts = whole.view(k, *x.shape).unbind(0)
+    return torch.cat([p.narrow(dim, 0, n) for p, n in zip(parts, sizes)], dim=dim)
+
+
+def gather_tensor(x: torch.Tensor, spec: tuple, mesh: Optional[Mesh] = None) -> torch.Tensor:
+    """The whole tensor of which each rank holds its block ``x`` under ``spec``: the blocks
+    all-gathered over each split axis of the mesh (default: the entered one) and joined in
+    rank order. ``x`` itself without such a mesh."""
+    mesh = mesh or current_mesh()
+    if mesh is None:
+        return x
+    for dim, axis in enumerate(spec):
+        if axis is not None:
+            x = _gather_line(x, dim, mesh, axis)
+    return x
+
+
+def _batch_spec(x, lead: bool) -> tuple:
+    """A batch tensor's spec: the leading axis over ``data`` (``lead``), the last two over
+    ``lat`` and ``lon``, the rest whole."""
+    n = x.dim() if isinstance(x, torch.Tensor) else np.ndim(x)
+    if n < 2 or (lead and n < 3):
+        raise ValueError(f"a batch tensor of {n} dimensions has no (lat, lon) grid")
+    return (("data",) if lead else ()) + (None,) * (n - 2 - lead) + ("lat", "lon")
+
+
 def shard_batch_arrays(surf: dict, static: dict, atmos: dict, mesh: Mesh):
-    """This rank's part of the batch dicts, on its device: the surface and atmospheric
-    fields cut to its slice of the batch axis, the static fields whole."""
-    d, i = mesh.shape["data"], mesh.axis_index("data")
+    """This rank's part of the batch dicts, on its device: the surface (:data:`SURF_SPEC`)
+    and atmospheric (:data:`ATMOS_SPEC`) fields cut to its slice of the batch axis and its
+    (lat, lon) block of the grid, the static fields (:data:`STATIC_SPEC`) to its block. A
+    grid split over (lat, lon) must be cropped to the patch size first (``Batch.crop``)."""
+    return ({k: shard_tensor(v, SURF_SPEC, mesh) for k, v in surf.items()},
+            {k: shard_tensor(v, STATIC_SPEC, mesh) for k, v in static.items()},
+            {k: shard_tensor(v, ATMOS_SPEC, mesh) for k, v in atmos.items()})
 
-    def cut(v):
-        v = torch.as_tensor(v)
-        if v.shape[0] % d:
-            raise ValueError(f"batch {v.shape[0]} is not a multiple of data = {d}")
-        n = v.shape[0] // d
-        return v.narrow(0, i * n, n).to(mesh.device).contiguous()
 
-    return ({k: cut(v) for k, v in surf.items()},
-            {k: torch.as_tensor(v).to(mesh.device) for k, v in static.items()},
-            {k: cut(v) for k, v in atmos.items()})
+def shard_batch(batch, mesh: Mesh):
+    """This rank's part of a :class:`~aurora_tpu_torch.batch.Batch`
+    (:func:`shard_batch_arrays`); its metadata (the whole grid's ``lat`` / ``lon``) as it
+    is. Crop the batch to the patch size before (``batch.crop(patch_size)``)."""
+    surf, static, atmos = shard_batch_arrays(batch.surf_vars, batch.static_vars,
+                                             batch.atmos_vars, mesh)
+    return dataclasses.replace(batch, surf_vars=surf, static_vars=static, atmos_vars=atmos)
 
 
 def gather_batch(tensors, mesh: Optional[Mesh] = None):
-    """The whole batch of a prediction that each rank holds a slice of: every tensor of a
-    dict (or one tensor) all-gathered along its leading axis over ``data``, in rank order.
-    Without a data mesh, the input itself."""
+    """The whole batch of what each rank holds a part of: a dict of tensors, one tensor, or
+    a :class:`~aurora_tpu_torch.batch.Batch` (its variables, static ones too). Each tensor's
+    leading axis is all-gathered over ``data`` and its last two axes over ``lat`` and
+    ``lon``, joined in rank order (:func:`gather_tensor`); a Batch's static fields over
+    ``lat`` and ``lon`` only. Without a mesh, the input itself."""
     mesh = mesh or current_mesh()
-    if mesh is None or mesh.shape["data"] == 1:
+    if mesh is None or mesh.size == 1:
         return tensors
     if isinstance(tensors, torch.Tensor):
-        return gather_batch({"x": tensors}, mesh)["x"]
-    g, d = mesh.group("data"), mesh.shape["data"]
-    out = {}
-    for k, v in tensors.items():
-        v = v.contiguous()
-        whole = torch.empty((d * v.shape[0], *v.shape[1:]), dtype=v.dtype, device=v.device)
-        dist.all_gather_into_tensor(whole, v, group=g)
-        out[k] = whole
-    return out
+        return gather_tensor(tensors, _batch_spec(tensors, True), mesh)
+    if isinstance(tensors, dict):
+        return {k: gather_tensor(v, _batch_spec(v, True), mesh) for k, v in tensors.items()}
+    return dataclasses.replace(
+        tensors, surf_vars=gather_batch(tensors.surf_vars, mesh),
+        atmos_vars=gather_batch(tensors.atmos_vars, mesh),
+        static_vars={k: gather_tensor(torch.as_tensor(v).to(mesh.device), _batch_spec(v, False),
+                                      mesh)
+                     for k, v in tensors.static_vars.items()})
 
 
 def replicate(tree, mesh: Mesh):

@@ -2,7 +2,8 @@
 aurora/rollout.py:14-49): every prediction is appended to the history, which drops its
 oldest step, and fed back.
 
-* :func:`rollout` yields each prediction as it is made, one ``Aurora.forward`` per step.
+* :func:`rollout` yields each prediction as it is made, one ``Aurora.forward`` per step
+  (under a ``(lat, lon)`` mesh the rank's block of it).
 * :func:`rollout_scan` runs the whole roll-out and returns the predictions, kept on the
   model's device or, with ``host_offload=True``, shipped to page-locked host memory while
   the next step computes.
@@ -20,6 +21,7 @@ import torch
 
 from aurora_tpu_torch.batch import Batch
 from aurora_tpu_torch.model.aurora import Aurora
+from aurora_tpu_torch.parallel.sharding import gather_batch, spatial_mesh
 
 __all__ = ["rollout", "rollout_scan", "ship_to_host"]
 
@@ -28,7 +30,7 @@ def rollout(model: Aurora, batch: Batch, steps: int) -> Generator[Batch, None, N
     """Roll the model out for ``steps`` steps, yielding the prediction after each step."""
     # The batch in its model form before the history is concatenated.
     batch = model.batch_transform_hook(batch)
-    batch = batch.crop(model.cfg.patch_size)
+    batch = model.crop(batch)
     # Each prediction carries the caller's (cropped) static fields, as ``forward`` returns
     # them. The model reads the device copies, uploaded once here in its dtype, as
     # ``forward`` would upload them: its own ``Batch.to`` is then a no-op.
@@ -59,8 +61,14 @@ def rollout_scan(model: Aurora, batch: Batch, steps: int,
     ``host_offload=False`` keeps every prediction on the model's device.
     ``host_offload=True`` ships each one to the host as :func:`ship_to_host` does and
     returns NumPy arrays: the device then holds one step's working set and the prediction
-    in flight, for any number of steps."""
+    in flight, for any number of steps.
+
+    Under a ``(lat, lon)`` mesh each prediction is fed back as the rank's block, and nothing
+    is gathered between steps; ``host_offload=True`` gathers each prediction once, to ship
+    the whole grid to the host (:func:`~aurora_tpu_torch.parallel.gather_batch`)."""
     preds = rollout(model, batch, steps)
+    if host_offload and spatial_mesh() is not None:
+        preds = (gather_batch(p) for p in preds)
     return ship_to_host(preds, steps, model.device) if host_offload else list(preds)
 
 

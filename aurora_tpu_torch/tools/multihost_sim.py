@@ -1,20 +1,21 @@
-"""Real multi-process execution of the model over the mesh's data axis (counterpart of
-``tools/multihost_sim.py``).
+"""Real multi-process execution of the model over a ``(data, lat, lon)`` mesh of ranks
+(counterpart of ``tools/multihost_sim.py``).
 
-The launcher starts ``--data`` worker processes, each one rank of a process group brought up
-by :func:`aurora_tpu_torch.parallel.initialize` over a ``FileStore`` in a temporary folder
-(no fixed port: runs side by side do not collide), and meanwhile runs the same work in its
-own process on the whole batch. Each worker builds ``AuroraSmallPretrained(use_lora=True)``
-in float32 with the same weights (seeded from ``--seed`` on its device, or ``--params``, a
-``save_params`` file), takes its slice of the batch (the JAX tool's draws, batch 2, on the
-device's layout, :data:`LAYOUTS`; ``shard_batch_arrays``) and, under ``make_mesh(data=N)``:
+The launcher starts one worker process a rank, each brought up by
+:func:`aurora_tpu_torch.parallel.initialize` over a ``FileStore`` in a temporary folder (no
+fixed port: runs side by side do not collide), and meanwhile runs the same work in its own
+process on the whole batch. Each worker builds the same model with the same weights (seeded
+from ``--seed`` on its device, or ``--params``, a ``save_params`` file).
 
-1. runs ``forward_core`` and a one-step ``rollout`` and gathers each prediction
-   (``gather_batch``);
-2. takes one LoRA train step (``adamw(1e-4, trainable=lora_mask)``, zero targets), then one
-   K = 2 roll-out train step;
-3. from the same weights, takes one full fine-tune step under ``shard_params`` (ZeRO over
-   ``data``) and gathers the updated parameters.
+**The data axis** (``--data N``, ``lat = lon = 1``): ``AuroraSmallPretrained(use_lora=True)``
+in float32, each rank on its slice of the batch (the JAX tool's draws, batch 2, on the
+device's layout, :data:`LAYOUTS`; ``shard_batch_arrays``), under ``make_mesh(data=N)``:
+
+1. ``forward_core`` and a one-step ``rollout``, each prediction gathered (``gather_batch``);
+2. one LoRA train step (``adamw(1e-4, trainable=lora_mask)``, zero targets), then one K = 2
+   roll-out train step;
+3. from the same weights, one full fine-tune step under ``shard_params`` (ZeRO over
+   ``data``), the updated parameters gathered.
 
 The launcher holds each against its one-process run: the forward, the LoRA step's averaged
 gradients and the full step's ``encoder.surf_token_embeds.weights.2t`` (the JAX test's
@@ -27,20 +28,35 @@ rounding noise moves either way when the sums are taken in another order (the wo
 over all of them is printed beside, and so is the full step's worst parameter). Beside each
 gradient check it prints what the check would read had rank 0 skipped the average (its own
 gradient, recorded as the backward accumulates it, against the one-process gradient): the
-reading of a fault, which the bound must lie far below. It prints one JSON line and exits
-non-zero on a failed check.
+reading of a fault, which the bound must lie far below.
 
-The ranks run on the card (every rank on the one card, over gloo: NCCL refuses two ranks on
-one device) unless ``--device cpu`` asks for the CPU. The batch's layout follows the device:
-the JAX tool's 4 levels at 33 x 64 on the CPU, 13 levels at 121 x 240 on the card, whose
-level aggregation kernel takes 13 levels and whose window kernels take whole 144-token
-windows, which the smallest stage of a 33 x 64 grid cannot hold. The JAX tool's default
-layout, ``lat=2, lon=4``, splits the token grid: that waits for ROADMAP A4b, and ``--lat`` /
-``--lon`` above 1 say so.
+**The (lat, lon) split** (``--lat`` or ``--lon`` above 1; without ``--data``, ``--lat`` and
+``--lon`` the JAX tool's layout, ``data=1, lat=2, lon=4``): the forward only, the train steps
+under such a mesh not being ported yet. On each grid of ``--grids`` (pixels, cropped to the
+patch; default the layout's), each rank takes its block of the batch (``shard_batch``), runs
+``Aurora.forward``, a 2-step ``rollout`` and, unless ``--no-scan``, a
+``rollout_scan(host_offload=True)`` (which gathers each step once), and gathers the
+predictions (``gather_batch``); the launcher holds them against its one-process run within
+:data:`FORWARD_TOL` max-rel, and prints what the blocks saw (:func:`geometry`): grids
+over-padded (``extra``), patch merges of an odd block, uneven splits, shifted windows on each
+split axis, pixel grids the mesh does not split into whole patches, and the halo bytes each
+rank sent per block. ``--config production`` runs the main path's model instead (the 1.3 B
+model with the production knobs, ``tools.perf_breakdown.build_model``) on its seeded batch
+(``numpy_batch``, batch 1, 13 levels; default grid 721 x 1440), held within
+:data:`PRODUCTION_TOL` mean-rel per variable (its bf16 backbone).
 
-Usage: ``python -m aurora_tpu_torch.tools.multihost_sim [--data 2] [--device cpu|cuda]
-[--seed S] [--params FILE] [--depths D] [--save FILE]``; ``--depths`` cuts every stage to
-``D`` blocks, ``--save`` writes every result (``torch.save``).
+It prints one JSON line and exits non-zero on a failed check. The ranks run on the card
+(every rank on the one card, over gloo: NCCL refuses two ranks on one device) unless
+``--device cpu`` asks for the CPU. The small model's batch follows the device: the JAX
+tool's 4 levels at 33 x 64 on the CPU, 13 levels at 121 x 240 on the card, whose level
+aggregation kernel takes 13 levels and whose window kernels take whole 144-token windows,
+which the smallest stage of a 33 x 64 grid cannot hold.
+
+Usage: ``python -m aurora_tpu_torch.tools.multihost_sim [--data N] [--lat A] [--lon O]
+[--device cpu|cuda] [--seed S] [--params FILE] [--depths D] [--width D] [--dtype float64]
+[--config small|production] [--grids HxW,...] [--no-scan] [--save FILE]``;
+``--depths`` cuts every stage to ``D`` blocks, ``--width`` sets the small model's
+``embed_dim``, ``--save`` writes every result (``torch.save``).
 """
 
 from __future__ import annotations
@@ -62,9 +78,10 @@ import torch
 from aurora_tpu_torch.model.aurora import resolve_device
 from aurora_tpu_torch.training import AdamW
 
-__all__ = ["FORWARD_TOL", "LAYOUTS", "LOSS_TOL", "PARAM_TOL", "ROLLOUT_GRAD_TOL",
-           "RecordingAdamW", "collect", "compare", "make_inputs", "ready_host", "release",
-           "result", "run", "spawn_workers", "main"]
+__all__ = ["FORWARD_TOL", "LAYOUTS", "LOSS_TOL", "PARAM_TOL", "PRODUCTION_TOL",
+           "ROLLOUT_GRAD_TOL", "SPATIAL_STEPS", "RecordingAdamW", "collect", "compare",
+           "compare_spatial", "geometry", "make_inputs", "ready_host", "release", "result",
+           "run", "run_spatial", "spawn_workers", "main"]
 
 B = 2
 # The batch's pressure levels and grid by device type: the JAX tool's 4 levels at 33 x 64 on
@@ -76,6 +93,12 @@ LAYOUTS = {"cpu": ((100, 250, 500, 850), (33, 64)),
 LR = 1e-4
 FORWARD_TOL = PARAM_TOL = 1e-5  # max-rel, the JAX tool's and tests/test_parallel.py's
 LOSS_TOL = 1e-6  # relative
+# A (lat, lon) run of the production model (bf16 backbone) against the one-process run: mean
+# relative error per variable, the bar of every bf16 route against its plain run. A rounding
+# that differs anywhere in the bf16 backbone (a cuBLAS or cuDNN product whose algorithm goes
+# by the block's shape) lifts the winds and humidity to the bf16 noise floor, ~5e-3 (PERF.md).
+PRODUCTION_TOL = 1e-2
+SPATIAL_STEPS = 2  # roll-out steps of a (lat, lon) run
 # The roll-out step's gradients (max-rel). Readings (PERF.md; ``--seed`` 0-2): at most 1.12e-5
 # on the card and 1.10e-5 on the CPU, against 5.5e-2 or more where rank 0 skips the average.
 ROLLOUT_GRAD_TOL = 1e-4
@@ -85,11 +108,14 @@ ROLLOUT_K = 2  # steps of the roll-out train step
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
-def make_inputs(device_type: str = "cpu", seed: int = 0):
+def make_inputs(device_type: str = "cpu", seed: int = 0, grid=None, batch: int = B):
     """The JAX tool's batch (``tests/conftest.py::make_batch(H=33, W=64, B=2,
     dtype=np.float32)``: the same draws in the same order), as a port :class:`Batch`, on the
-    layout of ``device_type`` (:data:`LAYOUTS`)."""
+    layout of ``device_type`` (:data:`LAYOUTS`), or on ``grid`` ``(H, W)`` with ``batch``
+    elements."""
     LEVELS, (H, W) = LAYOUTS[device_type]
+    if grid is not None:
+        H, W = grid
     from aurora_tpu_torch.batch import Batch, Metadata
     from aurora_tpu_torch.normalisation import NORMALISATION_STATS, level_to_str
 
@@ -107,28 +133,31 @@ def make_inputs(device_type: str = "cpu", seed: int = 0):
         return out
 
     return Batch(
-        surf_vars={k: torch.from_numpy(sample(k, (B, 2, H, W)))
+        surf_vars={k: torch.from_numpy(sample(k, (batch, 2, H, W)))
                    for k in ("2t", "10u", "10v", "msl")},
         static_vars={k: torch.from_numpy(np.abs(sample(k, (H, W)))) for k in ("lsm", "z", "slt")},
-        atmos_vars={k: torch.from_numpy(sample_atmos(k, (B, 2, len(LEVELS), H, W)))
+        atmos_vars={k: torch.from_numpy(sample_atmos(k, (batch, 2, len(LEVELS), H, W)))
                     for k in ("z", "u", "v", "t", "q")},
         metadata=Metadata(lat=np.linspace(90, -90, H), lon=np.linspace(0, 360, W, endpoint=False),
-                          time=tuple(datetime(2020, 6, 1, 12) for _ in range(B)),
+                          time=tuple(datetime(2020, 6, 1, 12) for _ in range(batch)),
                           atmos_levels=LEVELS, rollout_step=0),
     )
 
 
-def build(device, params: Optional[str], depths: Optional[int], seed: int = 0):
-    """The model every rank builds: ``AuroraSmallPretrained(use_lora=True)`` in float32,
-    its weights from ``params`` or seeded from ``seed`` on ``device`` (N(0, 0.02), LayerNorms
-    at 1 and 0, FiLM and LoRA ``B`` at N(0, 0.05))."""
+def build(device, params: Optional[str], depths: Optional[int], seed: int = 0,
+          width: Optional[int] = None, dtype: torch.dtype = torch.float32):
+    """The model every rank builds: ``AuroraSmallPretrained(use_lora=True)`` in ``dtype``
+    (``embed_dim`` ``width`` if given), its weights from ``params`` or seeded from ``seed``
+    on ``device`` (N(0, 0.02), LayerNorms at 1 and 0, FiLM and LoRA ``B`` at N(0, 0.05))."""
     from aurora_tpu_torch.checkpoint import restore_params
     from aurora_tpu_torch.model.aurora import AuroraSmallPretrained
     from aurora_tpu_torch.model.nn import LayerNorm
 
     cut = {} if depths is None else dict(encoder_depths=(depths,) * 3,
                                           decoder_depths=(depths,) * 3)
-    model = AuroraSmallPretrained(device=device, seed=None, use_lora=True, **cut)
+    if width is not None:
+        cut["embed_dim"] = width
+    model = AuroraSmallPretrained(device=device, dtype=dtype, seed=None, use_lora=True, **cut)
     if params is not None:
         return restore_params(params, like=model)
     norms = {f"{m}.{k}" for m, mod in model.named_modules() if isinstance(mod, LayerNorm)
@@ -142,6 +171,121 @@ def build(device, params: Optional[str], depths: Optional[int], seed: int = 0):
             gate = ("modulation" in name and name.endswith("weight")) or name.endswith(".B")
             p.copy_(torch.randn(p.shape, generator=g, device=device) * (0.05 if gate else 0.02))
     return model
+
+
+def _grids(args, device_type: str) -> list[tuple[int, int]]:
+    if args.grids:
+        return [tuple(int(n) for n in g.split("x")) for g in args.grids.split(",")]
+    if args.config == "production":
+        return [(721, 1440)]
+    return [LAYOUTS[device_type][1]]
+
+
+def build_spatial(device, args):
+    """The model of the (lat, lon) runs: the small model (:func:`build`, in ``--dtype``) or,
+    with ``--config production``, the main path's 1.3 B model as
+    ``tools.perf_breakdown.build_model`` seeds it."""
+    if args.config == "production":
+        from aurora_tpu_torch.tools.perf_breakdown import build_model, production_config
+
+        return build_model(production_config(), device, seed=args.seed)
+    return build(device, args.params, args.depths, args.seed, args.width,
+                 getattr(torch, args.dtype))
+
+
+def spatial_config(args):
+    """The config of :func:`build_spatial`'s model."""
+    from aurora_tpu_torch.model.aurora import AuroraSmallPretrained
+    from aurora_tpu_torch.tools.perf_breakdown import production_config
+
+    if args.config == "production":
+        return production_config()
+    cut = {} if args.depths is None else dict(encoder_depths=(args.depths,) * 3,
+                                               decoder_depths=(args.depths,) * 3)
+    if args.width is not None:
+        cut["embed_dim"] = args.width
+    return AuroraSmallPretrained.default_config().replace(use_lora=True, **cut)
+
+
+def spatial_inputs(cfg, device_type: str, args, grid):
+    """The batch of a (lat, lon) run on ``grid``, cropped to the patch: the main path's
+    (``numpy_batch``) with ``--config production``, else the JAX tool's draws with
+    ``data`` elements (as float64 with ``--dtype float64``)."""
+    if args.config == "production":
+        from aurora_tpu_torch.tools.perf_breakdown import numpy_batch
+
+        batch = numpy_batch(cfg, *grid, seed=args.seed)
+    else:
+        batch = make_inputs(device_type, args.seed, grid, batch=args.data)
+        if args.dtype == "float64":
+            batch = batch.astype(torch.float64)
+    return batch.crop(cfg.patch_size)
+
+
+def _host(pred) -> dict:
+    return {k: torch.as_tensor(v).detach().cpu()
+            for k, v in {**pred.surf_vars, **pred.atmos_vars}.items()}
+
+
+def run_spatial(device, mesh, args, inputs: Optional[dict] = None) -> dict:
+    """The forward, a SPATIAL_STEPS-step roll-out and (unless ``--no-scan``) the host-offload
+    ``rollout_scan`` on each grid, on this rank's block under ``mesh`` (a (lat, lon) mesh)
+    or on the whole batch without one. Returns per grid the whole predictions (gathered
+    under the mesh, on the host), the seconds of each step (synchronised), the launches and
+    :func:`~aurora_tpu_torch.parallel.halo.report`. ``inputs``: batches made ahead, by
+    grid."""
+    import contextlib
+
+    from aurora_tpu_torch.ops import _lib
+    from aurora_tpu_torch.parallel import gather_batch, halo, shard_batch
+    from aurora_tpu_torch.rollout import rollout, rollout_scan
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+
+    t0 = time.perf_counter()
+    model = build_spatial(device, args)
+    sync()
+    out: dict = {"build_s": time.perf_counter() - t0, "grids": {}, "config": args.config}
+    scope = mesh if mesh is not None else contextlib.nullcontext()
+    if mesh is not None:  # training under the mesh raises before it computes anything
+        try:
+            with mesh, torch.enable_grad():
+                model.forward_core({}, {}, {}, None, 0, ())
+        except NotImplementedError:
+            out["refuses_training"] = True
+    for grid in _grids(args, device.type):
+        batch = (inputs or {}).get(grid)
+        if batch is None:
+            batch = spatial_inputs(model.cfg, device.type, args, grid)
+        part = shard_batch(batch, mesh) if mesh is not None else batch
+        halo.reset_stats()
+        _lib.reset_launches()
+        res: dict = {"grid": list(batch.spatial_shape)}
+        with scope, torch.no_grad():
+            t = time.perf_counter()
+            fwd = model(part)
+            sync()
+            res["forward_s"] = time.perf_counter() - t
+            res["forward"] = _host(gather_batch(fwd) if mesh is not None else fwd)
+            del fwd
+            res["rollout"], res["step_s"] = [], []
+            t = time.perf_counter()
+            for pred in rollout(model, part, SPATIAL_STEPS):
+                sync()
+                res["step_s"].append(time.perf_counter() - t)
+                res["rollout"].append(_host(gather_batch(pred) if mesh is not None else pred))
+                del pred
+                t = time.perf_counter()
+            res["launches"] = {k: v for k, v in _lib.LAUNCHES.items() if v}
+            res["halo"] = halo.report()
+            if not args.no_scan:
+                res["scan"] = [_host(p) for p in rollout_scan(model, part, SPATIAL_STEPS,
+                                                              host_offload=True)]
+        out["grids"]["x".join(map(str, res["grid"]))] = res
+    out["seconds"] = time.perf_counter() - t0
+    return out
 
 
 class RecordingAdamW(AdamW):
@@ -263,16 +407,19 @@ def run(device, mesh=None, params: Optional[str] = None, depths: Optional[int] =
 
 
 def spawn_workers(n: int, folder: str, device: str, params: Optional[str] = None,
-                  depths: Optional[int] = None, seed: int = 0,
-                  hold: bool = False) -> list[subprocess.Popen]:
+                  depths: Optional[int] = None, seed: int = 0, hold: bool = False,
+                  extra: tuple = ()) -> list[subprocess.Popen]:
     """Start ``n`` worker processes on ``device`` ("cpu" or "cuda") whose process group
     meets in a ``FileStore`` under ``folder``; each writes ``rank<i>.pt`` there
     (:func:`collect`). With ``hold`` each makes its host side ready (:func:`ready_host`) and
-    then waits for :func:`release` before it touches the device."""
+    then waits for :func:`release` before it touches the device. ``n`` ranks of the data
+    axis, or with ``extra`` the layout and options of a (lat, lon) run (``("--lat", "2",
+    ...)``, ``n`` the product of the axes)."""
     env = dict(os.environ, OMP_NUM_THREADS=os.environ.get("OMP_NUM_THREADS", "2"))
     store = os.path.join(folder, "store")
     cmd = [sys.executable, "-m", "aurora_tpu_torch.tools.multihost_sim", "--role", "worker",
-           "--data", str(n), "--store", store, "--device", device, "--seed", str(seed)]
+           "--store", store, "--device", device, "--seed", str(seed)]
+    cmd += list(extra) if extra else ["--data", str(n)]
     cmd += ["--params", params] if params else []
     cmd += ["--depths", str(depths)] if depths else []
     cmd += ["--hold"] if hold else []
@@ -313,25 +460,41 @@ def worker(rank: int, n: int, store: str, args) -> None:
     from aurora_tpu_torch.parallel import initialize, make_mesh, process_summary, replicate
 
     torch.set_num_threads(int(os.environ.get("OMP_NUM_THREADS", "2")))
+    spatial = args.lat > 1 or args.lon > 1
+    inputs = None
     if args.hold:  # until released; a worker whose launcher is gone stops
-        ready_host()
+        if not spatial:  # the train steps' optimiser
+            ready_host()
+        else:  # the batches on the host, made while held
+            cfg = spatial_config(args)
+            inputs = {g: spatial_inputs(cfg, args.device, args, g)
+                      for g in _grids(args, args.device)}
         go, parent = os.path.join(os.path.dirname(store), "go"), os.getppid()
         while not os.path.exists(go):
             if os.getppid() != parent:
                 raise SystemExit("multihost_sim worker: the launcher is gone")
             time.sleep(0.05)
     initialize(coordinator_address=f"file://{store}", num_processes=n, process_id=rank)
-    mesh = make_mesh(data=n, device=args.device)
-    out = run(mesh.device, mesh, args.params, args.depths, args.seed)
+    mesh = make_mesh(data=args.data, lat=args.lat, lon=args.lon, device=args.device)
+    if spatial:
+        out = run_spatial(mesh.device, mesh, args, inputs)
+        out["launches"] = {k: v for k, v in _lib.LAUNCHES.items() if v}
+        if rank:  # the gathered predictions are the same on every rank; the first keeps them
+            for g in out["grids"].values():
+                for key in ("forward", "rollout", "scan"):
+                    g.pop(key, None)
+    else:
+        out = run(mesh.device, mesh, args.params, args.depths, args.seed)
+        # ``replicate`` broadcasts the first rank's values: every rank ends with rank 0's.
+        mine = torch.full((4,), float(rank), device=mesh.device)
+        out["replicated"] = replicate({"x": mine}, mesh)["x"].tolist()
+        out["launches"] = {k: v for k, v in _lib.LAUNCHES.items() if v}
+        if rank:  # the whole results are the same on every rank; the first one keeps them
+            out = {k: out[k] for k in ("split", "summary", "backend", "seconds", "full_loss",
+                                       "launches", "replicated") if k in out}
     out["summary"] = process_summary()
-    # ``replicate`` broadcasts the first rank's values: every rank ends with rank 0's.
-    mine = torch.full((4,), float(rank), device=mesh.device)
-    out["replicated"] = replicate({"x": mine}, mesh)["x"].tolist()
-    out["launches"] = {k: v for k, v in _lib.LAUNCHES.items() if v}
     out["backend"] = torch.distributed.get_backend()
-    if rank:  # the whole results are the same on every rank; the first one keeps them
-        out = {k: out[k] for k in ("split", "summary", "backend", "seconds", "full_loss",
-                                   "launches", "replicated")}
+    out["coords"] = mesh.coords
     torch.save(out, os.path.join(os.path.dirname(store), f"rank{rank}.pt"))
     torch.distributed.barrier()
     torch.distributed.destroy_process_group()
@@ -408,12 +571,109 @@ def result(ref: dict, ranks: list[dict], device: str, seconds: float) -> dict:
                              rank0=ranks[0]["seconds"]))
 
 
+def _mean_rel(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.double(), b.double()
+    return float((a - b).abs().mean() / (b.abs().mean() + 1e-30))
+
+
+def geometry(reports: list[dict], mesh_shape: dict) -> dict:
+    """What the ranks' blocks saw on one grid (their ``halo.report()``): the stages whose
+    grid was over-padded (``extra``), the patch merges of a block of odd extent, the grids
+    split unevenly (blocks of unequal extent), the shifted blocks whose halo crossed the
+    ``lat`` and the ``lon`` lines, the encoders run whole (a pixel grid the mesh does not
+    split into whole patches), and the bytes each rank sent per shifted block (the most)
+    and over the run."""
+    seen = [dict(s, rank=i) for i, r in enumerate(reports) for s in r["seen"]]
+    blocks = [s for s in seen if s["kind"] == "block"]
+    la, lo = mesh_shape["lat"], mesh_shape["lon"]
+
+    def uneven(n, k):
+        from aurora_tpu_torch.parallel.sharding import split_bounds
+
+        return len({b - a for a, b in split_bounds(n, k)}) > 1
+
+    shifted = [s for s in blocks if any(s["shift"])]
+    return dict(
+        overpadded=sorted({(tuple(s["res"]), tuple(s["extra"])) for s in blocks
+                           if any(s["extra"])}),
+        odd_merges=sorted({(tuple(s["res"]), tuple(s["rows"])) for s in seen
+                           if s["kind"] == "merge" and s["odd"]}),
+        uneven=sorted({tuple(s["res"]) for s in blocks
+                       if uneven(s["res"][1], la) or uneven(s["res"][2], lo)}),
+        shifted_lat=la > 1 and any(s["shift"][1] for s in shifted),
+        shifted_lon=lo > 1 and any(s["shift"][2] for s in shifted),
+        encoder_whole=any(s["kind"] == "encoder" and not s["local"] for s in seen),
+        encoder_local=any(s["kind"] == "encoder" and s["local"] for s in seen),
+        shifted_block_bytes=max((s["bytes"] for s in shifted), default=0),
+        block_bytes=[sorted({(tuple(s["res"]), tuple(s["shift"]), s["bytes"]) for s in blocks
+                             if s["rank"] == i}) for i in range(len(reports))],
+        bytes_sent=[r["bytes_sent"] for r in reports],
+        largest_sent=max(r["largest_sent"] for r in reports),
+        collectives=[r["collectives"] for r in reports],
+    )
+
+
+def compare_spatial(ref: dict, ranks: list[dict], mesh_shape: dict,
+                    production: bool = False) -> dict:
+    """The checks of a (lat, lon) run: per grid, the gathered forward, each roll-out step
+    and each host-offload step against the one-process run (max-rel within
+    :data:`FORWARD_TOL`, mean-rel beside it; the production model: mean-rel per variable
+    within :data:`PRODUCTION_TOL`), every rank's launches, and :func:`geometry`."""
+    got = ranks[0]
+    out, ok = {}, True
+    for key, want in ref["grids"].items():
+        g = got["grids"][key]
+        parts = [("forward", want["forward"], g["forward"])]
+        parts += [(f"rollout {i + 1}", w, h) for i, (w, h) in
+                  enumerate(zip(want["rollout"], g["rollout"]))]
+        parts += [(f"scan {i + 1}", w, h) for i, (w, h) in
+                  enumerate(zip(want.get("scan", []), g.get("scan", [])))]
+        max_rel = {n: max(_max_rel(h[k], w[k]) for k in w) for n, w, h in parts}
+        mean_rel = {n: max(_mean_rel(h[k], w[k]) for k in w) for n, w, h in parts}
+        shapes = all(h[k].shape == w[k].shape for _, w, h in parts for k in w)
+        steps_ok = len(g["rollout"]) == len(want["rollout"])
+        if production:
+            worst = max(_mean_rel(h[k], w[k]) for _, w, h in parts for k in w)
+            grid_ok = shapes and steps_ok and worst <= PRODUCTION_TOL
+        else:
+            grid_ok = shapes and steps_ok and max(max_rel.values()) <= FORWARD_TOL
+        ok = ok and grid_ok
+        out[key] = dict(max_rel=max_rel, mean_rel=mean_rel, ok=grid_ok,
+                        geometry=geometry([r["grids"][key]["halo"] for r in ranks], mesh_shape),
+                        launches_per_rank=[r["grids"][key]["launches"] for r in ranks],
+                        step_s_per_rank=[r["grids"][key]["step_s"] for r in ranks],
+                        forward_s_per_rank=[r["grids"][key]["forward_s"] for r in ranks],
+                        reference_step_s=want["step_s"])
+    return dict(grids=out, ok=ok)
+
+
+def result_spatial(ref: dict, ranks: list[dict], mesh_shape: dict, device: str,
+                   seconds: float) -> dict:
+    """The tool's JSON line of a (lat, lon) run."""
+    production = ref.get("config") == "production"
+    tol = dict(mean_rel=PRODUCTION_TOL) if production else dict(forward=FORWARD_TOL)
+    return dict(metric="multihost_sim", processes=len(ranks), mesh=mesh_shape, device=device,
+                backend=ranks[0]["backend"], process_summary=ranks[0]["summary"],
+                tol=tol, **compare_spatial(ref, ranks, mesh_shape, production),
+                seconds=dict(total=seconds, reference=ref["seconds"],
+                             ranks=[r["seconds"] for r in ranks]))
+
+
+def layout(args) -> tuple[int, int, int]:
+    """``(data, lat, lon)`` of the arguments: the JAX tool's ``(1, 2, 4)`` when none is
+    given, else 1 for each not given."""
+    given = (args.data, args.lat, args.lon)
+    if all(v is None for v in given):
+        return 1, 2, 4
+    return tuple(1 if v is None else v for v in given)
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--role", default="launcher", choices=["launcher", "worker"])
-    ap.add_argument("--data", type=int, default=2, help="processes, one a rank of data")
-    ap.add_argument("--lat", type=int, default=1)
-    ap.add_argument("--lon", type=int, default=1)
+    ap.add_argument("--data", type=int, default=None, help="ranks of the batch axis")
+    ap.add_argument("--lat", type=int, default=None, help="ranks of the grid's rows")
+    ap.add_argument("--lon", type=int, default=None, help="ranks of the grid's columns")
     ap.add_argument("--rank", type=int, default=0)
     ap.add_argument("--store", default="")
     ap.add_argument("--hold", action="store_true")
@@ -422,14 +682,16 @@ def main(argv=None) -> dict:
     ap.add_argument("--seed", type=int, default=0, help="of the weights and the batch")
     ap.add_argument("--params", default=None, help="a save_params file of the model")
     ap.add_argument("--depths", type=int, default=None, help="blocks in every stage")
+    ap.add_argument("--width", type=int, default=None, help="the small model's embed_dim")
+    ap.add_argument("--dtype", default="float32", choices=["float32", "float64"])
+    ap.add_argument("--config", default="small", choices=["small", "production"])
+    ap.add_argument("--grids", default=None, help="pixel grids HxW,... of a (lat, lon) run")
+    ap.add_argument("--no-scan", action="store_true", help="no host-offload rollout_scan")
     ap.add_argument("--save", default=None, help="write every result to this file")
     args = ap.parse_args(argv)
-    if args.lat > 1 or args.lon > 1:
-        ap.error(f"lat = {args.lat}, lon = {args.lon} split the token grid, which is not "
-                 "ported yet (ROADMAP A4b; the JAX tool's default layout is lat=2, lon=4): "
-                 "run the data axis, --data N")
+    args.data, args.lat, args.lon = layout(args)
     if args.role == "worker":
-        worker(args.rank, args.data, args.store, args)
+        worker(args.rank, args.data * args.lat * args.lon, args.store, args)
         return {}
     return launch(args)
 
@@ -437,24 +699,49 @@ def main(argv=None) -> dict:
 def launch(args) -> dict:
     t0 = time.perf_counter()
     device = resolve_device(args.device)
+    spatial = args.lat > 1 or args.lon > 1
+    if spatial:
+        print(f"multihost_sim: lat = {args.lat}, lon = {args.lon}: the forward and the "
+              "roll-outs only (the train steps under a (lat, lon) mesh are not ported yet)",
+              file=sys.stderr, flush=True)
     if device.type == "cuda":
         from aurora_tpu_torch.ops import _lib
 
         _lib.build()  # once, before the workers load the libraries
+    n = args.data * args.lat * args.lon
+    extra = () if not spatial else tuple(_worker_flags(args))
     with tempfile.TemporaryDirectory(prefix="multihost_sim_") as folder:
-        procs = spawn_workers(args.data, folder, device.type, args.params, args.depths,
-                              args.seed)
+        procs = spawn_workers(n, folder, device.type, args.params, args.depths, args.seed,
+                              extra=extra)
         try:
-            ref = run(device, None, args.params, args.depths, args.seed)
+            if spatial:
+                ref = run_spatial(device, None, args)
+            else:
+                ref = run(device, None, args.params, args.depths, args.seed)
         finally:
             ranks = collect(procs, folder)
-    res = result(ref, ranks, device.type, time.perf_counter() - t0)
+    seconds = time.perf_counter() - t0
+    if spatial:
+        shape = dict(data=args.data, lat=args.lat, lon=args.lon)
+        res = result_spatial(ref, ranks, shape, device.type, seconds)
+    else:
+        res = result(ref, ranks, device.type, seconds)
     if args.save:
         torch.save(dict(result=res, reference=ref, rank0=ranks[0]), args.save)
     print(json.dumps(res), flush=True)
     if not res["ok"]:
         raise SystemExit(f"multihost_sim: a check failed: {json.dumps(res)}")
     return res
+
+
+def _worker_flags(args) -> list[str]:
+    """The options a (lat, lon) run passes on to its workers."""
+    out = ["--data", str(args.data), "--lat", str(args.lat), "--lon", str(args.lon),
+           "--dtype", args.dtype, "--config", args.config]
+    out += ["--width", str(args.width)] if args.width else []
+    out += ["--grids", args.grids] if args.grids else []
+    out += ["--no-scan"] if args.no_scan else []
+    return out
 
 
 if __name__ == "__main__":

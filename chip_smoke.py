@@ -74,7 +74,8 @@ Phases, each printing one JSON line; any failure raises and the script exits non
    autograd node the kernel's ``Function``; the backward's and plain autograd's times at the
    main path's shape, where the chunk plans cut into several chunks, and the last timed
    result of each held to the other by the same measure and bound. Then the production
-   model's LoRA train step at 721 x 1440 as ``tools.train_bench`` runs it (``remat`` at the
+   model's LoRA train step at 721 x 1440 and two blocks per backbone stage (its full-depth
+   time is ``tools.train_bench``'s) as ``tools.train_bench`` runs it (``remat`` at the
    JAX recipe's scope "full"; a warm-up and 1 timed step) and a K = 2 roll-out train step
    with ``lora_mode="all"`` (2 updates): every
    LoRA parameter a finite, non-zero gradient and moved (in the roll-out each step's bank, bank
@@ -217,6 +218,18 @@ Phases, each printing one JSON line; any failure raises and the script exits non
    gradients within the tool's ``ROLLOUT_GRAD_TOL``, the losses within 1e-6 relative, the
    full fine-tune step under ``shard_params`` (its probe within 1e-5, each rank's AdamW
    moments of a split parameter half of it), every rank launching K1-K4; then a one-rank NCCL group and one all-reduce;
+7c. lat_lon: four ranks of ``tools.multihost_sim --config production`` under
+   ``make_mesh(data=1, lat=2, lon=2)`` (one gloo group, all on the one card), started held
+   once the build is done and released with the parallel phase's ranks (the two phases
+   overlap on the card, after every timed phase), each with the main route's 1.3 B
+   production model (the same seeded weights) on its block of the same 720 x 1440 batch:
+   ``Aurora.forward`` and a 2-step ``rollout``, every prediction gathered (``gather_batch``)
+   and held to the main route's one-process steps 1-2, kept on the host, within 1e-2 mean
+   relative error per variable; every rank launching K1-K4; the blocks seeing the second
+   stage's over-pad by (0, 6, 12), its odd 45 rows at the merge, the third stage's uneven
+   rows, halos over both lines and the first stage's shifted blocks sending 4 x 2,211,840
+   bytes a rank; each rank's step times (four ranks sharing one card: not a scaling figure)
+   and halo bytes per block;
 8. the seconds of each phase, then the kernels summary line, one entry per kernel (K1-K8:
    times per forward step, each shape's time times its launches per step on the route that
    runs it, ``launches`` the count over that route's roll-out, and the backward's
@@ -235,7 +248,7 @@ Phases, each printing one JSON line; any failure raises and the script exits non
    line, and the last line ``{"ok": true, "device": {...}}``.
 
 The phases run in the order 1, 2, 3, 4, 6, 5b, 5c, routes W, P, X and
-S, the main route with its breakdown, roll-outs and drivers, 7, 7b, 8: those that queue
+S, the main route with its breakdown, roll-outs and drivers, 7, 7b, 7c, 8: those that queue
 most of the references' CPU halves first, so that the host thread's queue drains beside the
 main route's long phases and the tools.
 
@@ -1689,6 +1702,11 @@ def run_route(name: str, steps: int, ref_grid: tuple[int, int], batch, refs: _De
                 raise AssertionError(f"route {name} step {i} {k}: non-finite values")
         if pred.metadata.rollout_step != i + 1:
             raise AssertionError("roll-out step not advanced")
+    if name == "main":  # the lat_lon phase's reference: the one-process steps, on the host
+        from aurora_tpu_torch.tools.multihost_sim import SPATIAL_STEPS
+
+        KEPT["main"] = [{k: v.cpu() for k, v in {**p.surf_vars, **p.atmos_vars}.items()}
+                        for p in preds[:SPATIAL_STEPS]]
     del preds
     emit(dict(phase="end_to_end", route=name, **knobs,
               depths=(cfg.encoder_depths, cfg.decoder_depths),
@@ -2525,18 +2543,19 @@ def _frozen_snapshot(model) -> dict:
 
 
 def run_train_step_phase() -> dict:
-    """The production model's LoRA train step at full width, as ``tools.train_bench`` runs
-    it (``remat`` at the JAX recipe's scope "full"): a warm-up step, then TRAIN_STEPS timed;
-    every LoRA parameter a finite, non-zero gradient at every step, and moved; every frozen
-    parameter its bits; the losses finite; each step's launches the derived count; peak
-    memory under 80 GB."""
+    """The production model's LoRA train step at full width and two blocks a backbone stage
+    (the second shifted; the step at full depth is ``tools.train_bench``'s), as
+    ``tools.train_bench`` runs it (``remat`` at the JAX recipe's scope "full"): a warm-up
+    step, then TRAIN_STEPS timed; every LoRA parameter a finite, non-zero gradient at every
+    step, and moved; every frozen parameter its bits; the losses finite; each step's launches
+    the derived count; peak memory under 80 GB."""
     import torch
 
     from aurora_tpu_torch.tools import train_bench
     from aurora_tpu_torch.training import make_train_step
 
     t0 = time.perf_counter()
-    cfg = train_bench.train_config()
+    cfg = train_bench.train_config().replace(**TWO_BLOCKS)
     model = train_bench.build(cfg, "cuda", "lora")
     (surf, static, atmos, batch), (tgt_s, tgt_a) = train_bench.inputs(model, 721, 1440)
     enc = model.prepare_encodings(batch, torch.float32)
@@ -2552,14 +2571,15 @@ def run_train_step_phase() -> dict:
         torch.device("cuda"))
     _check_train(model, opt, lora0, frozen, row, train_bench.expected_launches(cfg, lora=True),
                  dict(phase="train", part="LoRA train step", grid="721x1440 (720x1440)",
+                      depths=(cfg.encoder_depths, cfg.decoder_depths),
                       remat_scope=cfg.remat_scope, seconds=time.perf_counter() - t0))
     return model, (surf, static, atmos, enc, levels, tgt_s, tgt_a)
 
 
 def run_stochastic_step_phase(model, inputs) -> dict:
-    """The LoRA train step of the production model at full width and depth with stochastic
-    depth (``drop_path`` STO_DROP_PATH, ``drop_rate`` 0: the LoRA train step's model with the
-    knob set) on its inputs, one step at 721 x 1440 with a generator: its launches as
+    """The LoRA train step of the production model at full width and two blocks a stage with
+    stochastic depth (``drop_path`` STO_DROP_PATH, ``drop_rate`` 0: the LoRA train step's model
+    with the knob set) on its inputs, one step at 721 x 1440 with a generator: its launches as
     ``expected_launches(stochastic=True)`` derives them (K1 in every shifted block, K2 and K3
     only in the two blocks at rate 0), every LoRA parameter a finite, non-zero gradient and
     moved, the frozen ones their bits, peak memory under 80 GB. A block whose attention
@@ -3001,6 +3021,122 @@ def run_parallel(started) -> dict:
         raise AssertionError(f"parallel: checks {res['ok']}, ranks that launched no kernel "
                              f"{idle}, backend {res['backend']}, NCCL {nccl}")
     return res
+
+
+# ------------------------------------------------------------------------------ lat_lon
+
+LAT_LON = dict(data=1, lat=2, lon=2)  # the mesh of the lat_lon phase's ranks
+KEPT: dict = {}  # {"main": the main route's first predictions, the lat_lon phase's reference}
+# What the ranks' blocks must see on the 720 x 1440 grid (swin3d.py:1146-1175): the second
+# stage's 90 x 180 token grid over-padded by (0, 6, 12); its 45 rows a rank odd at the merge
+# into the third stage; the third stage's 45 rows split unevenly; a shifted block of the
+# first stage sending 3 rows and 6 columns of a 90 x 180 block of 512 bf16 features, in and out
+# (4 x 2,211,840 bytes a rank).
+LAT_LON_GEOMETRY = dict(overpadded=((4, 90, 180), (0, 6, 12)),
+                        odd_merge=((4, 90, 180), (45, 90)), uneven=(4, 45, 90),
+                        stage1_shifted_bytes=4 * 4 * 3 * 180 * 512 * 2)
+
+
+def start_lat_lon():
+    """Start the lat_lon phase's ranks held (``tools.multihost_sim --config production``,
+    one a rank of LAT_LON): each imports and makes the main path's 721 x 1440 batch on the
+    host, then waits, touching the card only once :func:`run_lat_lon` releases it."""
+    import tempfile
+
+    from aurora_tpu_torch.tools import multihost_sim
+
+    folder = tempfile.mkdtemp(prefix="chip_smoke_lat_lon_")
+    flags = ["--data", str(LAT_LON["data"]), "--lat", str(LAT_LON["lat"]), "--lon",
+             str(LAT_LON["lon"]), "--config", "production", "--no-scan"]
+    n = LAT_LON["data"] * LAT_LON["lat"] * LAT_LON["lon"]
+    procs = multihost_sim.spawn_workers(n, folder, "cuda", hold=True, extra=flags)
+    _CHILDREN.extend(procs)
+    return procs, folder
+
+
+def release_lat_lon(started) -> float:
+    """Let the lat_lon phase's held ranks go on (after every timed phase); returns when."""
+    import torch
+
+    from aurora_tpu_torch.tools import multihost_sim
+
+    torch.cuda.empty_cache()
+    multihost_sim.release(started[1])
+    return time.perf_counter()
+
+
+def run_lat_lon(started, released: float) -> dict:
+    """The (lat, lon) split on the card: the ranks started by :func:`start_lat_lon` (one gloo
+    group, every rank on the one card), each with the main route's 1.3 B production model
+    (the same seeded weights and batch) on its block of the 720 x 1440 grid under
+    ``make_mesh(data=1, lat=2, lon=2)``: ``Aurora.forward`` and the tool's 2-step
+    ``rollout``, each prediction gathered (``gather_batch``). Held against the main route's
+    one-process steps (KEPT, on the host): the forward and the roll-out's step 1 against step
+    1, step 2 against step 2, mean relative error per variable within the tool's
+    PRODUCTION_TOL (1e-2, the bf16 bar). Every rank must have launched K1-K4, and the blocks
+    must have seen LAT_LON_GEOMETRY. Prints each rank's step times (four ranks sharing one
+    card: not a scaling figure) and the halo bytes each rank sent per block. The ranks ran beside the parallel phase's (released with them by
+    :func:`release_lat_lon`)."""
+    import shutil
+
+    import torch
+
+    from aurora_tpu_torch.tools import multihost_sim
+
+    procs, folder = started
+    want = KEPT.pop("main")
+    t0 = time.perf_counter()
+    try:
+        ranks = multihost_sim.collect(procs, folder, timeout=300)
+    finally:
+        shutil.rmtree(folder, ignore_errors=True)
+    released_s = time.perf_counter() - released
+    key = "720x1440"
+    got = ranks[0]["grids"][key]
+    parts = [("forward", want[0], got["forward"])]
+    parts += [(f"rollout {i + 1}", w, g) for i, (w, g) in enumerate(zip(want, got["rollout"]))]
+    errs, shapes_ok = {}, len(got["rollout"]) == multihost_sim.SPATIAL_STEPS
+    for what, w, g in parts:
+        shapes_ok = shapes_ok and sorted(w) == sorted(g) and all(
+            g[k].shape == w[k].shape and torch.isfinite(g[k]).all() for k in w)
+        errs[what] = {k: _mean_rel(g[k], w[k]) for k in w}
+    worst = {what: max(e.values()) for what, e in errs.items()}
+    max_rel = {what: max(float((g[k].double() - w[k].double()).abs().max()
+                               / w[k].double().abs().max()) for k in w) for what, w, g in parts}
+    geo = multihost_sim.geometry([r["grids"][key]["halo"] for r in ranks], LAT_LON)
+    need = ("roll3d", "window_attention", "mlp_adaln_residual", "perceiver_core")
+    launches = [r["grids"][key]["launches"] for r in ranks]
+    idle = [i for i, n in enumerate(launches) if not all(n.get(k) for k in need)]
+    expect = LAT_LON_GEOMETRY
+    stage1 = [sorted({b for res, sh, b in blocks if tuple(res) == (4, 180, 360) and any(sh[1:])})
+              for blocks in geo["block_bytes"]]
+    seen_ok = (expect["overpadded"] in geo["overpadded"]
+               and expect["odd_merge"] in geo["odd_merges"] and expect["uneven"] in geo["uneven"]
+               and geo["shifted_lat"] and geo["shifted_lon"] and geo["encoder_local"]
+               and not geo["encoder_whole"]
+               and all(b == [expect["stage1_shifted_bytes"]] for b in stage1))
+    emit(dict(phase="lat_lon", mesh=LAT_LON, processes=len(ranks), backend=ranks[0]["backend"],
+              model="Aurora(use_lora=True) 1.3 B, production knobs (main route)",
+              grid="721x1440 (720x1440 after crop)", steps=multihost_sim.SPATIAL_STEPS,
+              mean_rel_worst=worst, mean_rel=errs, max_rel=max_rel,
+              tol=multihost_sim.PRODUCTION_TOL,
+              against="the main route's one-process roll-out on the card (steps 1-2)",
+              geometry={k: geo[k] for k in ("overpadded", "odd_merges", "uneven", "shifted_lat",
+                                            "shifted_lon", "encoder_local", "encoder_whole")},
+              halo_bytes_per_block=geo["block_bytes"], halo_bytes_sent=geo["bytes_sent"],
+              halo_collectives=geo["collectives"], stage1_shifted_block_bytes=stage1,
+              step_s_per_rank=[r["grids"][key]["step_s"] for r in ranks],
+              forward_s_per_rank=[r["grids"][key]["forward_s"] for r in ranks],
+              build_s_per_rank=[r["build_s"] for r in ranks],
+              step_s_label="four ranks sharing one card, beside the parallel phase's two ranks "
+                           "and its one-process run: not a scaling figure",
+              launches_per_rank=launches, released_to_collected_s=released_s,
+              seconds=time.perf_counter() - t0))
+    if (not shapes_ok or max(worst.values()) > multihost_sim.PRODUCTION_TOL or idle
+            or not seen_ok or ranks[0]["backend"] != "gloo"):
+        raise AssertionError(f"lat_lon: errors {worst}, shapes {shapes_ok}, ranks that "
+                             f"launched no kernel {idle}, geometry {geo}")
+    return dict(launches=launches, mean_rel=worst)
 
 
 # ------------------------------------------------------------------------------ tools
@@ -3810,6 +3946,9 @@ def main() -> int:
         lines = (_lib.BUILD_DIR / f"lib{n}.ptxas.txt").read_text().splitlines()
         ptxas[n] = [ln.strip() for ln in lines if "registers" in ln or "spill" in ln]
     emit(dict(phase="build", seconds=secs, ptxas=ptxas))
+    # The lat_lon phase's ranks start once the build is done (their imports and host batches
+    # beside nvcc lengthened it by ~5 s), held until that phase.
+    lat_lon = start_lat_lon()
 
     seconds = {"build": secs}
     mark = time.perf_counter()
@@ -3858,8 +3997,13 @@ def main() -> int:
     del batch
     launches["tools"] = run_tools()
     lap("tools")
+    # The lat_lon ranks go with the parallel phase's: both hold only their checks, and the
+    # two phases overlap on the card.
+    released = release_lat_lon(lat_lon)
     run_parallel(parallel)
     lap("parallel")
+    run_lat_lon(lat_lon, released)
+    lap("lat_lon")
     # The CPU halves of the references, queued on the host thread since the train phase.
     waited = refs.close()
     lap("references (waiting for the host thread)")

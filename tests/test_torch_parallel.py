@@ -3,6 +3,8 @@
 
 * ``auto_mesh`` factorises as the JAX package's for 1-8 devices, the grids None, (180,
   360), (450, 900) and (113, 225), and batch 1, 2 and 4;
+* eight processes enter a ``lat=2, lon=4`` mesh and move a token grid's blocks through the
+  halo (``tests/test_torch_lat_lon.py`` holds the model under a ``(lat, lon)`` mesh);
 * ``zero_partition_spec`` places every leaf of the LARGE LoRA tree as the JAX package's at
   data = 2, 4 and 8 (the JAX shapes from ``jax.eval_shape``, the port's from a model on the
   ``meta`` device, matched by ``convert.py``'s path rule);
@@ -96,13 +98,68 @@ def test_zero_partition_spec_places_the_large_tree_as_jax(data):
     assert split >= 300
 
 
-def test_a_lat_lon_mesh_is_built_but_not_entered():
-    mesh = make_mesh(data=1, lat=2, lon=4, devices=range(8), device="cpu")
-    assert mesh.shape == {"data": 1, "lat": 2, "lon": 4}
-    with pytest.raises(NotImplementedError, match="A4b"):
-        with mesh:
-            pass
-    with pytest.raises(SystemExit):
+_ENTER_PROBE = """
+import sys
+
+import torch
+
+from aurora_tpu_torch.model.swin3d import pad_3d
+from aurora_tpu_torch.parallel import (TOKENS_5D_SPEC, gather_tensor, halo, initialize,
+                                       make_mesh, shard_tensor)
+
+rank, store, out = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+initialize(coordinator_address=f"file://{store}", num_processes=8, process_id=rank)
+mesh = make_mesh(data=1, lat=2, lon=4, device="cpu")
+x = torch.arange(2 * 13 * 22 * 3, dtype=torch.float64).reshape(1, 2, 13, 22, 3)
+res = {}
+with mesh:
+    local = shard_tensor(x, TOKENS_5D_SPEC, mesh)
+    geo = halo.window_geometry((2, 13, 22), (2, 6, 12), (1, 3, 6), mesh)
+    xp = halo.enter_windows(local, geo, mesh)
+    want = pad_3d(torch.roll(x, (-1, -3, -6), (1, 2, 3)), geo.pad, geo.extra)
+    i, j = mesh.axis_index("lat"), mesh.axis_index("lon")
+    m = geo.block
+    res["enter"] = torch.equal(xp, want[:, :, i * m[0]:(i + 1) * m[0], j * m[1]:(j + 1) * m[1]])
+    res["leave"] = torch.equal(halo.leave_windows(xp, geo, mesh), local)
+    res["gather"] = torch.equal(gather_tensor(local, TOKENS_5D_SPEC, mesh), x)
+    res["lon_line"], res["lon_neighbours"] = mesh.line("lon"), mesh.neighbours("lon")
+    res["lat_neighbours"] = mesh.neighbours("lat")
+torch.save(res, f"{out}/r{rank}.pt")
+torch.distributed.barrier()
+torch.distributed.destroy_process_group()
+"""
+
+
+def test_a_lat_lon_mesh_is_entered_and_the_tool_accepts_it(tmp_path, monkeypatch):
+    """Eight gloo processes enter ``make_mesh(lat=2, lon=4)``: each rank's block of a 13 x 22
+    token grid (rows 7 / 6, columns 6 / 6 / 6 / 4), rolled by half a window and over-padded
+    to window x mesh multiples by the halo moves, is the block of the whole grid rolled and
+    padded in one process, and moves back; the blocks gather to the grid; the lon line is a
+    ring of four. ``multihost_sim`` takes ``--lat 2 --lon 4`` (its default layout) and gets as
+    far as the device, which without a card it refuses."""
+    script = tmp_path / "probe.py"
+    script.write_text(_ENTER_PROBE)
+    env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=ROOT)
+    procs = [subprocess.Popen([sys.executable, str(script), str(r), str(tmp_path / "store"),
+                               str(tmp_path)], cwd=ROOT, env=env) for r in range(8)]
+    try:
+        rcs = [p.wait(timeout=120) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    assert rcs == [0] * 8
+    for r in range(8):
+        res = torch.load(tmp_path / f"r{r}.pt", weights_only=False)
+        assert res["enter"] and res["leave"] and res["gather"], (r, res)
+        i, j = divmod(r, 4)
+        assert res["lon_line"] == [4 * i + n for n in range(4)]
+        assert res["lon_neighbours"] == (4 * i + (j - 1) % 4, 4 * i + (j + 1) % 4)
+        assert res["lat_neighbours"] == ((r + 4) % 8, (r + 4) % 8)
+    args = multihost_sim.main.__globals__["argparse"].Namespace(data=None, lat=None, lon=None)
+    assert multihost_sim.layout(args) == (1, 2, 4)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="No CUDA device"):
         multihost_sim.main(["--lat", "2", "--lon", "4"])
 
 
