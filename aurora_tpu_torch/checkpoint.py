@@ -21,6 +21,7 @@ step). The leaves are numpy arrays: nothing here needs JAX.
 from __future__ import annotations
 
 import re
+import sys
 from typing import Mapping
 
 import numpy as np
@@ -469,18 +470,106 @@ def load_checkpoint(model, repo=None, name=None, revision=None, dtype=np.float32
     return load_torch_checkpoint(path, model.cfg, dtype=dtype, strict=strict)
 
 
+def _mesh_of(model: torch.nn.Module):
+    """The mesh a model trains over (the ZeRO placement's, else the entered one), or None."""
+    from aurora_tpu_torch.parallel.sharding import train_mesh
+
+    return train_mesh(model)
+
+
+def _writer(mesh) -> bool:
+    """Whether this rank writes a file saved under ``mesh``: the mesh's first rank."""
+    return mesh is None or mesh.rank == int(mesh.ranks.ravel()[0])
+
+
+def _written(mesh) -> None:
+    """Every rank of ``mesh`` waits until the writer's file is complete."""
+    if mesh is not None:
+        import torch.distributed as dist
+
+        from aurora_tpu_torch.parallel.mesh import MESH_AXES
+
+        dist.barrier(group=mesh.group(MESH_AXES))
+
+
+def _interned(tree):
+    """``tree`` with its string keys interned, so that ``torch.save`` pickles two equal
+    trees to the same bytes whatever objects their keys were."""
+    if isinstance(tree, dict):
+        return {sys.intern(k) if isinstance(k, str) else k: _interned(v)
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_interned(v) for v in tree)
+    return tree
+
+
+def _split(model: torch.nn.Module) -> dict:
+    """``{name: axis}`` of the ZeRO-split parameters of ``model`` (empty without)."""
+    zp = getattr(model, "_zero_placement", None)
+    return {} if zp is None else {n: ax for n, (ax, _) in zp.split.items()}
+
+
+def _whole_state_dict(model: torch.nn.Module) -> dict:
+    """``model.state_dict()`` with every ZeRO slice gathered into its whole tensor."""
+    from aurora_tpu_torch.parallel.sharding import gathered_params
+
+    if not _split(model):
+        return model.state_dict()
+    with gathered_params(model):
+        return dict(model.state_dict())
+
+
+def _slices(model: torch.nn.Module, sd: dict) -> dict:
+    """A one-process ``state_dict`` cut to this rank's ZeRO slices."""
+    split = _split(model)
+    if not split:
+        return sd
+    zp = model._zero_placement
+    d, i = zp.mesh.shape["data"], zp.mesh.axis_index("data")
+    return {k: v.chunk(d, dim=split[k])[i].contiguous() if k in split else v
+            for k, v in sd.items()}
+
+
+def _optimizer_slots(model: torch.nn.Module, optimizer) -> dict:
+    """``{index in the optimiser's parameters: split axis}`` of its ZeRO-split parameters."""
+    split = _split(model)
+    index = {id(p): i for i, p in enumerate(getattr(optimizer, "params", []))}
+    return {index[id(p)]: split[n] for n, p in model.named_parameters()
+            if n in split and id(p) in index}
+
+
+def _map_moments(state: dict, slots: dict, fn) -> dict:
+    """``optimizer.state_dict()`` of :class:`~aurora_tpu_torch.training.AdamW` with ``fn(t,
+    axis)`` applied to the moments and the accumulated gradient of each split slot."""
+    if not slots:
+        return state
+    adam = dict(state["adamw"])
+    adam["state"] = {i: ({k: fn(v, slots[i]) if k != "step" else v for k, v in st.items()}
+                         if i in slots else st) for i, st in adam["state"].items()}
+    acc = [fn(a, slots[i]) if i in slots else a for i, a in enumerate(state["acc"])]
+    return dict(state, adamw=adam, acc=acc)
+
+
 def save_params(model: torch.nn.Module, path) -> None:
-    """Save a model's parameters (its ``state_dict``) with ``torch.save``."""
-    torch.save(model.state_dict(), path)
+    """Save a model's parameters (its ``state_dict``) with ``torch.save``. Under a mesh
+    (``shard_params``' placement, or an entered mesh that splits anything) the ZeRO slices
+    are gathered and the mesh's first rank writes the one-process file; every rank returns
+    once it is written."""
+    mesh = _mesh_of(model)
+    sd = _whole_state_dict(model)
+    if _writer(mesh):
+        torch.save(sd, path)
+    _written(mesh)
 
 
 def restore_params(path, like: torch.nn.Module | None = None):
     """Read parameters saved by :func:`save_params`. With ``like``, load them into that model
-    (on its device, in its dtypes) and return it; otherwise return the state dict."""
+    (on its device, in its dtypes; under ``shard_params``' placement each rank its slices)
+    and return it; otherwise return the state dict."""
     sd = torch.load(path, map_location="cpu", weights_only=True)
     if like is None:
         return sd
-    like.load_state_dict(sd)
+    like.load_state_dict(_slices(like, sd))
     return like
 
 
@@ -489,16 +578,37 @@ def save_train_state(path, model: torch.nn.Module, optimizer, step: int = 0) -> 
     ``torch.save`` (the counterpart of ``aurora_tpu/checkpoint.py:497-536``, whose Orbax
     format is not carried over). ``optimizer``: the bound optimiser of
     :func:`aurora_tpu_torch.training.adamw` (AdamW moments, the accumulated gradient of a
-    ``MultiSteps`` cycle and its count), or any object with ``state_dict``."""
-    torch.save({"params": model.state_dict(), "opt_state": optimizer.state_dict(),
-                "step": int(step)}, path)
+    ``MultiSteps`` cycle and its count), or any object with ``state_dict``.
+
+    Under a mesh the ZeRO slices of the parameters, their moments and accumulated gradients
+    are gathered over ``data`` and the mesh's first rank writes: the file is the one-process
+    file of the same state (string keys interned, so the same state gives the same bytes)."""
+    from aurora_tpu_torch.parallel.sharding import gather_tensor
+
+    mesh = _mesh_of(model)
+    slots = _optimizer_slots(model, optimizer)
+    with torch.no_grad():
+        params = _whole_state_dict(model)
+        opt_state = _map_moments(optimizer.state_dict(), slots, lambda t, ax: gather_tensor(
+            t, tuple("data" if a == ax else None for a in range(t.dim())), mesh))
+    if _writer(mesh):
+        torch.save(_interned({"params": params, "opt_state": opt_state, "step": int(step)}),
+                   path)
+    _written(mesh)
 
 
 def restore_train_state(path, model: torch.nn.Module, optimizer) -> int:
     """Load a state saved by :func:`save_train_state` into ``model`` and ``optimizer`` (built
     as for the save, the optimiser bound to the model); returns the step. The tensors land on
-    the model's device, in its dtypes."""
+    the model's device, in its dtypes; under ``shard_params``' placement each rank takes its
+    slices of the parameters, their moments and accumulated gradients."""
     state = torch.load(path, map_location="cpu", weights_only=True)
-    model.load_state_dict(state["params"])
+    model.load_state_dict(_slices(model, state["params"]))
+    split = _split(model)
+    if split:
+        zp = model._zero_placement
+        d, i = zp.mesh.shape["data"], zp.mesh.axis_index("data")
+        state["opt_state"] = _map_moments(state["opt_state"], _optimizer_slots(model, optimizer),
+                                          lambda t, ax: t.chunk(d, dim=ax)[i].contiguous())
     optimizer.load_state_dict(state["opt_state"])
     return int(state["step"])

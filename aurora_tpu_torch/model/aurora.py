@@ -408,17 +408,12 @@ class Aurora(nn.Module):
         ``enc`` holds the whole grid's encodings. The encoder and decoder run on the rank's
         block where the pixel grid splits into whole patches (:mod:`~aurora_tpu_torch.model.
         spmd`), else whole on every rank; the backbone on the rank's block of the token grid.
-        It serves only: with a key or with gradients it raises (the train steps under such a
-        mesh are not ported yet)."""
+        Gradients flow through every move between the blocks (the train steps run under such
+        a mesh), and a key's masks are each rank's part of the one-process draw."""
         if generator is not None:
             if key is not None:
                 raise ValueError("pass a generator or a key, not both")
             key = draw_key(generator)
-        if spatial_mesh() is not None and (key is not None or (
-                torch.is_grad_enabled() and any(p.requires_grad for p in self.parameters()))):
-            raise NotImplementedError(
-                "training under a (lat, lon) mesh is not ported yet (A4c): run the forward "
-                "under torch.no_grad(), without a generator or key")
         mesh = data_mesh(self)
         if mesh is not None:
             local = next(iter(surf.values())).shape[0]
@@ -460,7 +455,8 @@ class Aurora(nn.Module):
                              atmos_levels)
         else:
             encode = encoder_apply_sharded if local else encoder_apply_whole
-            x = encode(self.encoder, surf_t, static_exp, atmos_t, enc, atmos_levels, grid, mesh)
+            x = checkpointed(outer, encode, self.encoder, surf_t, static_exp, atmos_t, enc,
+                             atmos_levels, grid, mesh)
         if cfg.autocast:
             x = checkpointed(outer, self.backbone, x.to(torch.bfloat16), enc.lead_time,
                              rollout_step, patch_res, key)
@@ -475,12 +471,13 @@ class Aurora(nn.Module):
                 patch_res, H, W, atmos_levels,
             )
         elif local:
-            surf_pred, atmos_pred = decoder_apply_sharded(
-                self.decoder, x, tuple(surf_t), tuple(atmos_t), enc.levels_dec, atmos_levels)
+            surf_pred, atmos_pred = checkpointed(
+                outer, decoder_apply_sharded, self.decoder, x, tuple(surf_t), tuple(atmos_t),
+                enc.levels_dec, atmos_levels)
         else:
-            surf_pred, atmos_pred = decoder_apply_whole(
-                self.decoder, x, tuple(surf_t), tuple(atmos_t), enc.levels_dec, atmos_levels,
-                grid, mesh)
+            surf_pred, atmos_pred = checkpointed(
+                outer, decoder_apply_whole, self.decoder, x, tuple(surf_t), tuple(atmos_t),
+                enc.levels_dec, atmos_levels, grid, mesh)
 
         if cfg.variant == "air_pollution":
             surf_pred, atmos_pred = _pollution_post_decoder(

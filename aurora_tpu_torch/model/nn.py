@@ -33,6 +33,7 @@ from torch import nn
 
 __all__ = [
     "DrawKey",
+    "DrawPart",
     "acc_dtype",
     "checkpointed",
     "draw_key",
@@ -156,30 +157,73 @@ def keep_mask(shape: tuple[int, ...], keep: float, seed: int, path: tuple[int, .
     return torch.rand(shape, generator=gen, device=device) < keep
 
 
+@dataclasses.dataclass(frozen=True)
+class DrawPart:
+    """A rank's part of a block's one-process draws under a mesh: of the one-process tokens
+    ``(B d, C H W)`` of the ``grid`` ``(C, H, W)``, the batch rows ``[i B, (i + 1) B)`` and
+    the rows and columns ``block`` (``((a, b), (c, e))``) of the grid. A mask is drawn in
+    the one-process shape (the same ``(seed, path)`` the same bits) and the rank takes its
+    elements; a whole-grid draw of ``(B d, C H W, F)`` uniform floats on every rank (at 720 x
+    1440, the hidden layer's of the first stage: 2.1 GB in float32 for a batch of one)."""
+
+    B: int
+    d: int
+    i: int
+    grid: tuple[int, int, int]
+    block: tuple[tuple[int, int], tuple[int, int]]
+
+    def tokens(self, f: int) -> tuple[int, int, int]:
+        C, H, W = self.grid
+        return self.B * self.d, C * H * W, f
+
+    def take_tokens(self, mask: torch.Tensor) -> torch.Tensor:
+        C, H, W = self.grid
+        (a, b), (c, e) = self.block
+        f = mask.shape[-1]
+        mask = mask[self.i * self.B:(self.i + 1) * self.B].reshape(self.B, C, H, W, f)
+        return mask[:, :, a:b, c:e].reshape(self.B, -1, f)
+
+    def take_flags(self, mask: torch.Tensor) -> torch.Tensor:
+        return mask[self.i * self.B:(self.i + 1) * self.B]
+
+
 def _keep_scalar(keep: float, x: torch.Tensor) -> torch.Tensor:
     return torch.tensor(keep, dtype=x.dtype, device=x.device)
 
 
-def dropout(x: torch.Tensor, rate: float, key: Optional[DrawKey]) -> torch.Tensor:
+def dropout(x: torch.Tensor, rate: float, key: Optional[DrawKey],
+            part: Optional[DrawPart] = None) -> torch.Tensor:
     """Inverted dropout (``aurora_tpu/model/nn.py:142-149``): each element kept with
     probability ``1 - rate`` and divided by it, in ``x.dtype``. The identity without a key or
-    at rate 0."""
+    at rate 0. ``part``: ``x`` is a rank's tokens ``(B, L, F)`` under a mesh, which take
+    their elements of the one-process draw."""
     if key is None or rate == 0.0:
         return x
     keep = 1.0 - rate
-    mask = keep_mask(tuple(x.shape), keep, key.seed, key.path, x.device)
+    if part is None:
+        mask = keep_mask(tuple(x.shape), keep, key.seed, key.path, x.device)
+    else:
+        mask = part.take_tokens(keep_mask(part.tokens(x.shape[-1]), keep, key.seed, key.path,
+                                          x.device)).reshape(x.shape)
     return torch.where(mask, x / _keep_scalar(keep, x), torch.zeros((), dtype=x.dtype,
                                                                        device=x.device))
 
 
-def drop_path(x: torch.Tensor, rate: float, key: Optional[DrawKey]) -> torch.Tensor:
+def drop_path(x: torch.Tensor, rate: float, key: Optional[DrawKey],
+              part: Optional[DrawPart] = None) -> torch.Tensor:
     """Stochastic depth (``aurora_tpu/model/nn.py:152-167``): the whole branch of a batch
     element dropped with probability ``rate`` (one flag per element), the survivors divided
-    by ``1 - rate`` in ``x.dtype``. The identity without a key or at rate 0."""
+    by ``1 - rate`` in ``x.dtype``. The identity without a key or at rate 0. ``part``: under
+    a mesh, the rank's batch elements take their flags of the one-process draw."""
     if key is None or rate == 0.0:
         return x
     keep = 1.0 - rate
-    mask = keep_mask((x.shape[0],) + (1,) * (x.ndim - 1), keep, key.seed, key.path, x.device)
+    rest = (1,) * (x.ndim - 1)
+    if part is None:
+        mask = keep_mask((x.shape[0],) + rest, keep, key.seed, key.path, x.device)
+    else:
+        mask = part.take_flags(keep_mask((part.B * part.d,) + rest, keep, key.seed, key.path,
+                                         x.device))
     return x * mask.to(x.dtype) / _keep_scalar(keep, x)
 
 

@@ -23,7 +23,8 @@ output, and ``drop_path`` on both branches. The fused tails would add a branch t
 residual inside a kernel before it could be dropped. The rate rises linearly from 0 to
 ``drop_path`` over the encoder's blocks; the decoder's stages take the same ramp's slices by
 their depths (``swin3d.py:1724-1733``). Blocks at rate 0 with ``drop_rate`` 0 keep their
-kernels.
+kernels. Under an entered mesh a rank's masks are its elements of the one-process draw
+(:class:`~aurora_tpu_torch.model.nn.DrawPart`): its batch rows and its block of the grid.
 
 LoRA is folded into the weights a kernel reads (the qkv of K2/K6, the proj of an in-kernel
 or K5 tail), as the JAX package folds it; every plain projection adds the side path. The
@@ -41,7 +42,8 @@ multiples (``extra``), so that every rank's block of the padded grid is whole wi
 takes the roll, pad and crop as :mod:`~aurora_tpu_torch.parallel.halo` moves (thin halo
 strips over the lines of the mesh); K2 runs on the rank's windows with its slice of the
 global group ids, K3 on its tokens; the patch merge brings a 2 x 2 cell that an odd block's
-edge cuts to one rank first. The backbone then takes and returns 5D tokens.
+edge cuts to one rank first. The backbone then takes and returns 5D tokens. Every move is
+differentiable (its backward the transpose move), so the train steps run under the mesh.
 
 With ``remat`` each block is rematerialised in the backward, and under ``remat_scope``
 "full" and "no_outer" each stage too (``aurora_tpu/model/swin3d.py:1585-1586``,
@@ -50,6 +52,7 @@ With ``remat`` each block is rematerialised in the backward, and under ``remat_s
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import numpy as np
@@ -62,6 +65,7 @@ from aurora_tpu_torch.model.lora import LoRA, lora_apply, lora_weight_delta
 from aurora_tpu_torch.model.nn import (
     AdaptiveLayerNorm,
     DrawKey,
+    DrawPart,
     LayerNorm,
     Linear,
     MLP,
@@ -89,6 +93,7 @@ from aurora_tpu_torch.ops.window_attention import (
     window_reverse,
 )
 from aurora_tpu_torch.parallel import halo
+from aurora_tpu_torch.parallel.mesh import current_mesh
 from aurora_tpu_torch.parallel.sharding import spatial_mesh
 
 __all__ = [
@@ -97,6 +102,7 @@ __all__ = [
     "WindowAttention",
     "maybe_adjust_windows",
     "mesh_kernel_alignment",
+    "overpadded",
     "pad_3d",
     "crop_3d",
     "drop_path_rates",
@@ -132,6 +138,29 @@ def crop_3d(x: torch.Tensor, pad: tuple[int, int, int],
     left, right, top, bottom, front, back = three_sided_padding(*pad)
     return x[:, front : C - back - extra[0], top : H - bottom - extra[1],
              left : W - right - extra[2], :]
+
+
+_OVERPAD: list = []  # the (lat, lon) geometry whose over-pad a one-process block applies
+
+
+@contextlib.contextmanager
+def overpadded(lat: int, lon: int):
+    """Inside, a block in one process over-pads its grid as a rank's block under a ``(lat,
+    lon)`` mesh does (whole pad-only windows to window x mesh multiples, ``extra``): the
+    geometry's cost on one device, ``tools.overpad_bench``'s measure. The outputs do not
+    change (the pad-only windows are cropped)."""
+    _OVERPAD.append((int(lat), int(lon)))
+    try:
+        yield
+    finally:
+        _OVERPAD.pop()
+
+
+def _overpad_extra(H: int, W: int, pad, ws) -> tuple[int, int, int]:
+    if not _OVERPAD:
+        return (0, 0, 0)
+    la, lo = _OVERPAD[-1]
+    return (0, (-(H + pad[1])) % (ws[1] * la), (-(W + pad[2])) % (ws[2] * lo))
 
 
 def mesh_kernel_alignment(mesh_shape: dict, Cp: int, Hp: int, Wp: int, ws) -> bool:
@@ -253,12 +282,12 @@ class SwinBlock(nn.Module):
             rows = (C, b - a, c1 - c0)
         assert tuple(x.shape[1:4]) == rows, f"Wrong grid: {x.shape} vs {res}"
         stochastic = key is not None and (dp_rate > 0.0 or self.cfg.drop_rate > 0.0)
-        if stochastic and mesh is not None:
-            raise NotImplementedError("stochastic blocks under a (lat, lon) mesh: the train "
-                                      "steps under such a mesh are not ported yet (A4c)")
         if stochastic:
             k_dp1, k_dp2, k_proj, k_hid, k_out = (key.fold(j) for j in range(5))
             aimpl, mimpl = "xla", "xla"
+            dmesh = current_mesh()
+            part = (None if dmesh is None or dmesh.size == 1
+                    else _draw_part(B, (C, H, W), rows, dmesh))
         else:
             # Under a mesh the JAX package routes a block whose windows or rows do not
             # split evenly to XLA (``swin3d.py:1178-1230``: the MLP at stage 3's uneven
@@ -277,8 +306,12 @@ class SwinBlock(nn.Module):
             if shifted:
                 x = roll3d(x, (-ss[0], -ss[1], -ss[2]))
             pad = ((-C) % ws[0], (-H) % ws[1], (-W) % ws[2])
-            groups = window_group_ids(C, H, W, ws, ss) if shifted else None
-            xp = pad_3d(x, pad)
+            extra = _overpad_extra(H, W, pad, ws)
+            groups = None
+            if shifted:
+                groups = (window_group_ids(C, H, W, ws, ss, True, extra) if any(extra)
+                          else window_group_ids(C, H, W, ws, ss))
+            xp = pad_3d(x, pad, extra)
         else:
             geo = halo.window_geometry(res, ws, ss, mesh)
             if not mesh_kernel_alignment(mesh.shape, *geo.padded, ws):
@@ -306,7 +339,7 @@ class SwinBlock(nn.Module):
                       project=not fuse_attn_tail, tail=tail)
             xp = window_reverse(out, ws, Cp, Hp, Wp)
         if mesh is None:
-            x = crop_3d(xp, pad).contiguous()
+            x = crop_3d(xp, pad, extra).contiguous()
             if shifted:
                 x = roll3d(x, ss)
         else:
@@ -325,9 +358,10 @@ class SwinBlock(nn.Module):
             )
         elif stochastic:
             # Dropout after proj, on the un-windowed tokens: crop and roll commute with an
-            # element-wise draw (``swin3d.py:1326-1330``).
-            x = dropout(x, self.cfg.drop_rate, k_proj)
-            x = shortcut + drop_path(self.norm1(x, c), dp_rate, k_dp1)
+            # element-wise draw (``swin3d.py:1326-1330``). Under a mesh the rank's tokens
+            # take their elements of the one-process draw.
+            x = dropout(x, self.cfg.drop_rate, k_proj, part)
+            x = shortcut + drop_path(self.norm1(x, c), dp_rate, k_dp1, part)
         else:
             x = shortcut + self.norm1(x, c)
 
@@ -339,9 +373,9 @@ class SwinBlock(nn.Module):
             )
         elif stochastic:
             rate = self.cfg.drop_rate
-            hidden = dropout(gelu(m.fc1(x)), rate, k_hid)
-            y = dropout(m.fc2(hidden), rate, k_out)
-            x = x + drop_path(self.norm2(y, c), dp_rate, k_dp2)
+            hidden = dropout(gelu(m.fc1(x)), rate, k_hid, part)
+            y = dropout(m.fc2(hidden), rate, k_out, part)
+            x = x + drop_path(self.norm2(y, c), dp_rate, k_dp2, part)
         else:
             if mimpl == "pallas":
                 y = mlp_fused(x, m.fc1.weight, m.fc1.bias, m.fc2.weight, m.fc2.bias)
@@ -349,6 +383,16 @@ class SwinBlock(nn.Module):
                 y = m(x)
             x = x + self.norm2(y, c)
         return x.reshape(shape)
+
+
+def _draw_part(B: int, res: tuple[int, int, int], rows: tuple[int, int, int], mesh) -> DrawPart:
+    """The part of a stochastic block's one-process draws that this rank takes under
+    ``mesh``: batch rows ``[i B, (i + 1) B)`` of ``B d`` (``d`` the ``data`` degree) and its
+    ``(lat, lon)`` block of the ``res`` grid."""
+    (a, b), (c0, c1) = halo.local_extents(res[1:], mesh)
+    assert rows == (res[0], b - a, c1 - c0), (rows, res)
+    return DrawPart(B, mesh.shape["data"], mesh.axis_index("data"), tuple(res),
+                    ((a, b), (c0, c1)))
 
 
 class PatchMerge(nn.Module):

@@ -6,9 +6,9 @@ blocks of the token grid (:mod:`~aurora_tpu_torch.parallel.halo`).
 
 The data axis: each rank holds its slice of the batch, the ZeRO-split parameters are
 gathered once before a forward, and the train steps average their gradients over ``data``.
-The ``(lat, lon)`` split: each rank holds its block of the grid, the forward and the
-roll-outs run on it, thin halos move between blocks (the train steps under such a mesh are
-not ported yet).
+The ``(lat, lon)`` split: each rank holds its block of the grid, the forward, the roll-outs
+and the train steps run on it, thin halos move between blocks (and their gradients back, in
+the backward), and the train steps sum their gradients over the ``(lat, lon)`` plane.
 
 Serving under a ``(lat, lon)`` mesh, one process a rank::
 

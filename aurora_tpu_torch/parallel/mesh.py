@@ -4,13 +4,14 @@
   average their gradients over it.
 * ``lat`` / ``lon``: the 2D split of the pixel and token grids; each rank holds its block
   (:mod:`~aurora_tpu_torch.parallel.sharding`), and the backbone moves thin halos between
-  blocks (:mod:`~aurora_tpu_torch.parallel.halo`). The forward and the roll-outs run under
-  it; the train steps do not yet.
+  blocks (:mod:`~aurora_tpu_torch.parallel.halo`). The forward, the roll-outs and the train
+  steps run under it; a train step sums its gradients over the ``(lat, lon)`` plane.
 
 A :class:`Mesh` is the ranks of the process group arranged in that shape, with one process
-group for each line of ranks along an axis of size above 1 (made when the mesh is built,
-by every rank alike). The ``lat`` and ``lon`` lines are rings, as ``jnp.roll`` wraps on
-every axis: :meth:`Mesh.neighbours` gives a rank's previous and next rank on each.
+group for each line of ranks along an axis of size above 1, for each ``(lat, lon)`` plane
+and for the whole mesh (made when the mesh is built, by every rank alike). The ``lat`` and
+``lon`` lines are rings, as ``jnp.roll`` wraps on every axis: :meth:`Mesh.neighbours` gives
+a rank's previous and next rank on each.
 Entering a mesh (``with mesh:``, the counterpart of ``with jax.set_mesh(mesh)``) makes it
 the mesh that the model and the train steps run under. A single process gets a 1 x 1 x 1
 mesh that needs no process group.
@@ -25,9 +26,10 @@ import torch.distributed as dist
 
 from aurora_tpu_torch.parallel.distributed import rank_device
 
-__all__ = ["MESH_AXES", "Mesh", "auto_mesh", "current_mesh", "make_mesh"]
+__all__ = ["MESH_AXES", "Mesh", "SPATIAL", "auto_mesh", "current_mesh", "make_mesh"]
 
 MESH_AXES = ("data", "lat", "lon")
+SPATIAL = ("lat", "lon")  # the grid's axes: a rank's (lat, lon) plane is its group
 
 _ENTERED: list["Mesh"] = []
 
@@ -53,20 +55,38 @@ class Mesh:
         self.device = rank_device(device)
         self._groups: dict = {}
         if _initialized() and self.size > 1:
-            # Every rank makes every group, in the same order (``new_group`` is collective).
-            for a, axis in enumerate(MESH_AXES):
-                if self.shape[axis] == 1:
+            # Every rank makes every group, in the same order (``new_group`` is collective):
+            # the lines of each axis, then the (lat, lon) planes and the whole mesh where
+            # they are not one of those.
+            made: dict = {}
+            for axes in (("data",), ("lat",), ("lon",), SPATIAL, MESH_AXES):
+                split = tuple(a for a in axes if self.shape[a] > 1)
+                if not split:
                     continue
-                lines = np.moveaxis(self.ranks, a, -1).reshape(-1, self.shape[axis])
+                if split in made:
+                    self._groups[axes] = made[split]
+                    continue
+                idx = [MESH_AXES.index(a) for a in split]
+                rest = [i for i in range(3) if i not in idx]
+                n = int(np.prod([self.ranks.shape[i] for i in idx]))
+                lines = np.transpose(self.ranks, rest + idx).reshape(-1, n)
+                mine = None
                 for line in lines:
                     g = dist.new_group([int(r) for r in line])
                     if self.rank in line:
-                        self._groups[axis] = g
+                        mine = g
+                made[split] = self._groups[axes] = mine
+            for axis in MESH_AXES:
+                if (axis,) in self._groups:
+                    self._groups[axis] = self._groups.pop((axis,))
 
     def __repr__(self) -> str:
         return f"Mesh({self.shape}, ranks={self.ranks.ravel().tolist()}, device={self.device})"
 
-    def group(self, axis: str):
+    def group(self, axis):
+        """The process group of this rank's line along ``axis`` (a name), or of its plane
+        over several axes (:data:`SPATIAL`, :data:`MESH_AXES`: the whole mesh); None where
+        no axis of them is above 1."""
         return self._groups.get(axis)
 
     def axis_index(self, axis: str) -> int:

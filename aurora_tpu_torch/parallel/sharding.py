@@ -19,8 +19,13 @@ held so. :func:`constrain` is the identity: a rank's block already has its layou
 
 A model under :func:`shard_params` gathers its split parameters once before a forward
 (:func:`gathered_params`: ``Aurora.forward_core``, :func:`~aurora_tpu_torch.rollout.rollout`
-and the train steps enter it), and a train step averages its gradients over ``data`` with
-:func:`average_gradients`.
+and the train steps enter it), and a train step reduces its gradients with
+:func:`average_gradients`: summed over the ``(lat, lon)`` plane, where each rank's gradient
+is its block's share, and averaged over ``data``.
+
+The moves between layouts carry gradients: :func:`gather_tensor`'s backward reduce-scatters
+each rank's gradient of the whole tensor (summed over the line, the rank keeping its block),
+and :func:`shard_tensor`'s (a slice) fills the rest with zeros.
 
 Every collective moves flat buckets of at most :data:`BUCKET_BYTES`, not one tensor at a
 time; gloo takes CUDA tensors in each of them, so ranks that share one card run over gloo.
@@ -36,7 +41,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from aurora_tpu_torch.parallel.mesh import Mesh, current_mesh
+from aurora_tpu_torch.parallel.mesh import MESH_AXES, SPATIAL, Mesh, current_mesh
 
 __all__ = [
     "ATMOS_SPEC",
@@ -60,6 +65,7 @@ __all__ = [
     "shard_tensor",
     "spatial_mesh",
     "split_bounds",
+    "train_mesh",
     "zero_partition_spec",
 ]
 
@@ -104,6 +110,7 @@ def global_grid(h: int, w: int, mesh: Mesh) -> tuple[int, int]:
         dist.all_gather_into_tensor(every, torch.tensor([n], dtype=torch.int64,
                                                         device=mesh.device),
                                     group=mesh.group(axis))
+        _count("grid", 8)
         sizes = every.tolist()
         total = sum(sizes)
         if sizes != [b - a for a, b in split_bounds(total, k)]:
@@ -156,6 +163,24 @@ def _acc(dtype: torch.dtype) -> torch.dtype:
     return torch.float64 if dtype == torch.float64 else torch.float32
 
 
+def _count(kind: str, nbytes: int) -> None:
+    """Count a collective in :data:`~aurora_tpu_torch.parallel.halo.STATS` (``by_kind``)."""
+    from aurora_tpu_torch.parallel import halo
+
+    halo.count(kind, nbytes)
+
+
+def train_mesh(model: Optional[torch.nn.Module] = None) -> Optional[Mesh]:
+    """The mesh a train step reduces its gradients and its loss over: the one ``model``'s
+    parameters were placed on (:func:`shard_params`), else the entered one; None when
+    neither splits anything (``data``, ``lat`` and ``lon`` all 1)."""
+    placement = getattr(model, "_zero_placement", None)
+    mesh = placement.mesh if placement is not None else current_mesh()
+    if mesh is None or mesh.size == 1:
+        return None
+    return mesh
+
+
 def data_mesh(model: Optional[torch.nn.Module] = None) -> Optional[Mesh]:
     """The mesh a call runs its data axis over: the one ``model``'s parameters were placed
     on (:func:`shard_params`), else the entered one; None when either is absent or its
@@ -180,11 +205,13 @@ def shard_leading(x, mesh: Optional[Mesh], local: int):
 
 
 def global_mean(x: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
-    """The mean of a per-rank scalar over ``data`` (``x`` itself without a mesh)."""
-    if mesh is None:
+    """A per-rank scalar summed over each ``(lat, lon)`` plane (a rank's loss is its block's
+    share) and averaged over ``data``; ``x`` itself without a mesh."""
+    if mesh is None or mesh.size == 1:
         return x
     t = x.detach().to(_acc(x.dtype)).reshape(1).clone()
-    dist.all_reduce(t, group=mesh.group("data"))
+    dist.all_reduce(t, group=mesh.group(MESH_AXES))
+    _count("loss", t.numel() * t.element_size())
     return (t / mesh.shape["data"]).reshape(x.shape).to(x.dtype)
 
 
@@ -213,27 +240,67 @@ def shard_tensor(x, spec: tuple, mesh: Mesh) -> torch.Tensor:
     return x.to(mesh.device).contiguous()
 
 
-def _gather_line(x: torch.Tensor, dim: int, mesh: Mesh, axis: str) -> torch.Tensor:
-    """The blocks of ``x`` along ``dim`` over this rank's ``axis`` line, joined in rank
-    order (the data axis: equal slices; lat / lon: :func:`split_bounds` blocks, padded to
-    the longest for the all-gather and cut back)."""
+def _gather_sizes(n: int, mesh: Mesh, axis: str, device) -> list[int]:
+    """The extent ``n`` of every rank's block along ``axis``'s line, in rank order."""
     k = mesh.shape[axis]
-    if k == 1:
-        return x
-    x = x.contiguous()
-    sizes = torch.tensor([x.shape[dim]], dtype=torch.int64, device=x.device)
-    every = torch.empty(k, dtype=torch.int64, device=x.device)
-    dist.all_gather_into_tensor(every, sizes, group=mesh.group(axis))
-    sizes = every.tolist()
-    m = max(sizes)
+    every = torch.empty(k, dtype=torch.int64, device=device)
+    dist.all_gather_into_tensor(every, torch.tensor([n], dtype=torch.int64, device=device),
+                                group=mesh.group(axis))
+    _count("gather:sizes", 8)
+    return every.tolist()
+
+
+def _gather_forward(x: torch.Tensor, dim: int, mesh: Mesh, axis: str, sizes: list[int]):
+    k, m = mesh.shape[axis], max(sizes)
     if x.shape[dim] < m:
         pad = list(x.shape)
         pad[dim] = m - x.shape[dim]
         x = torch.cat([x, x.new_zeros(pad)], dim=dim)
     whole = x.new_empty(k * x.numel())
     dist.all_gather_into_tensor(whole, x.reshape(-1), group=mesh.group(axis))
+    _count("gather", x.numel() * x.element_size())
     parts = whole.view(k, *x.shape).unbind(0)
     return torch.cat([p.narrow(dim, 0, n) for p, n in zip(parts, sizes)], dim=dim)
+
+
+class _GatherLine(torch.autograd.Function):
+    """The all-gather of the blocks along a line; its backward is the reduce-scatter: each
+    rank's gradient of the whole tensor summed over the line, the rank keeping its block."""
+
+    @staticmethod
+    def forward(ctx, x, dim, mesh, axis, sizes):
+        ctx.args = (dim, mesh, axis, sizes)
+        return _gather_forward(x, dim, mesh, axis, sizes)
+
+    @staticmethod
+    def backward(ctx, g):
+        dim, mesh, axis, sizes = ctx.args
+        k, m, i = mesh.shape[axis], max(sizes), mesh.axis_index(axis)
+        parts = []
+        for p in g.split(sizes, dim=dim):
+            if p.shape[dim] < m:
+                pad = list(p.shape)
+                pad[dim] = m - p.shape[dim]
+                p = torch.cat([p, p.new_zeros(pad)], dim=dim)
+            parts.append(p)
+        rows = torch.stack(parts).contiguous()
+        out = g.new_empty(rows[0].numel())
+        dist.reduce_scatter_tensor(out, rows.reshape(-1), group=mesh.group(axis))
+        _count("gather_T", rows.numel() * rows.element_size())
+        return out.view(rows.shape[1:]).narrow(dim, 0, sizes[i]), None, None, None, None
+
+
+def _gather_line(x: torch.Tensor, dim: int, mesh: Mesh, axis: str) -> torch.Tensor:
+    """The blocks of ``x`` along ``dim`` over this rank's ``axis`` line, joined in rank
+    order (the data axis: equal slices; lat / lon: :func:`split_bounds` blocks, padded to
+    the longest for the all-gather and cut back). Differentiable (:class:`_GatherLine`)."""
+    if mesh.shape[axis] == 1:
+        return x
+    x = x.contiguous()
+    sizes = _gather_sizes(x.shape[dim], mesh, axis, x.device)
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _GatherLine.apply(x, dim, mesh, axis, sizes)
+    return _gather_forward(x, dim, mesh, axis, sizes)
 
 
 def gather_tensor(x: torch.Tensor, spec: tuple, mesh: Optional[Mesh] = None) -> torch.Tensor:
@@ -388,6 +455,7 @@ def gathered_params(model: torch.nn.Module):
                     flat = torch.cat([params[n].data.reshape(-1) for n in bucket])
                     whole = torch.empty(d * flat.numel(), dtype=dtype, device=flat.device)
                     dist.all_gather_into_tensor(whole, flat, group=g)
+                    _count("zero:all_gather", flat.numel() * flat.element_size())
                     whole = whole.view(d, -1)
                     off = 0
                     for n in bucket:
@@ -407,16 +475,20 @@ def gathered_params(model: torch.nn.Module):
 
 
 def average_gradients(model: torch.nn.Module, mesh: Optional[Mesh] = None) -> None:
-    """Average the gradients of ``model``'s parameters over ``data`` in float32 (float64 for
-    float64 gradients): the whole ones all-reduced, the ZeRO-split ones (whole inside
-    :func:`gathered_params`) reduce-scattered to this rank's slice, which the parameter
-    takes when the gathered context ends. One flat collective a bucket. A no-op without a
-    data mesh."""
-    mesh = mesh or data_mesh(model)
-    if mesh is None:
+    """Reduce the gradients of ``model``'s parameters in float32 (float64 for float64
+    gradients): summed over each ``(lat, lon)`` plane (a rank's gradient is its block's
+    share of the loss's) and averaged over ``data``. The whole ones are all-reduced over the
+    mesh; the ZeRO-split ones (whole inside :func:`gathered_params`) are summed over the
+    plane, then reduce-scattered over ``data`` to this rank's slice, which the parameter
+    takes when the gathered context ends. One flat collective a bucket (two for the split
+    ones under a plane of more than one rank). A no-op without a mesh that splits anything
+    (:func:`train_mesh`)."""
+    mesh = mesh or train_mesh(model)
+    if mesh is None or mesh.size == 1:
         return
     zp = getattr(model, "_zero_placement", None)
     split = zp.split if zp is not None and zp.gathered is not None else {}
+    everyone, plane = mesh.group(MESH_AXES), mesh.group(SPATIAL)
     g, d = mesh.group("data"), mesh.shape["data"]
     i = mesh.axis_index("data")
     whole, parts = [], []
@@ -428,8 +500,10 @@ def average_gradients(model: torch.nn.Module, mesh: Optional[Mesh] = None) -> No
         for bucket in _buckets(whole, lambda it: it[1].numel() * 4):
             acc = _acc(bucket[0][1].grad.dtype)
             flat = torch.cat([p.grad.reshape(-1).to(acc) for _, p in bucket])
-            dist.all_reduce(flat, group=g)
-            flat /= d
+            dist.all_reduce(flat, group=everyone)
+            _count("grad:all_reduce", flat.numel() * flat.element_size())
+            if d > 1:
+                flat /= d
             off = 0
             for _, p in bucket:
                 p.grad.copy_(flat[off:off + p.numel()].view(p.shape))
@@ -439,8 +513,12 @@ def average_gradients(model: torch.nn.Module, mesh: Optional[Mesh] = None) -> No
             rows = torch.cat([
                 torch.stack([c.reshape(-1) for c in p.grad.to(acc).chunk(d, dim=split[n][0])])
                 for n, p in bucket], dim=1)  # (d, sum of slice sizes): row r is rank r's
+            if plane is not None:
+                dist.all_reduce(rows, group=plane)
+                _count("grad:plane_sum", rows.numel() * rows.element_size())
             out = torch.empty(rows.shape[1], dtype=acc, device=rows.device)
             dist.reduce_scatter_tensor(out, rows.reshape(-1), group=g)
+            _count("grad:reduce_scatter", rows.numel() * rows.element_size())
             out /= d
             off = 0
             for n, p in bucket:

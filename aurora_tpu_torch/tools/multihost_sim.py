@@ -98,7 +98,7 @@ LOSS_TOL = 1e-6  # relative
 # that differs anywhere in the bf16 backbone (a cuBLAS or cuDNN product whose algorithm goes
 # by the block's shape) lifts the winds and humidity to the bf16 noise floor, ~5e-3 (PERF.md).
 PRODUCTION_TOL = 1e-2
-SPATIAL_STEPS = 2  # roll-out steps of a (lat, lon) run
+SPATIAL_STEPS = 2  # roll-out steps of a (lat, lon) run's serving half, by default
 # The roll-out step's gradients (max-rel). Readings (PERF.md; ``--seed`` 0-2): at most 1.12e-5
 # on the card and 1.10e-5 on the CPU, against 5.5e-2 or more where rank 0 skips the average.
 ROLLOUT_GRAD_TOL = 1e-4
@@ -228,7 +228,7 @@ def _host(pred) -> dict:
 
 
 def run_spatial(device, mesh, args, inputs: Optional[dict] = None) -> dict:
-    """The forward, a SPATIAL_STEPS-step roll-out and (unless ``--no-scan``) the host-offload
+    """The forward, a ``--steps``-step roll-out and (unless ``--no-scan``) the host-offload
     ``rollout_scan`` on each grid, on this rank's block under ``mesh`` (a (lat, lon) mesh)
     or on the whole batch without one. Returns per grid the whole predictions (gathered
     under the mesh, on the host), the seconds of each step (synchronised), the launches and
@@ -249,12 +249,6 @@ def run_spatial(device, mesh, args, inputs: Optional[dict] = None) -> dict:
     sync()
     out: dict = {"build_s": time.perf_counter() - t0, "grids": {}, "config": args.config}
     scope = mesh if mesh is not None else contextlib.nullcontext()
-    if mesh is not None:  # training under the mesh raises before it computes anything
-        try:
-            with mesh, torch.enable_grad():
-                model.forward_core({}, {}, {}, None, 0, ())
-        except NotImplementedError:
-            out["refuses_training"] = True
     for grid in _grids(args, device.type):
         batch = (inputs or {}).get(grid)
         if batch is None:
@@ -272,7 +266,7 @@ def run_spatial(device, mesh, args, inputs: Optional[dict] = None) -> dict:
             del fwd
             res["rollout"], res["step_s"] = [], []
             t = time.perf_counter()
-            for pred in rollout(model, part, SPATIAL_STEPS):
+            for pred in rollout(model, part, args.steps):
                 sync()
                 res["step_s"].append(time.perf_counter() - t)
                 res["rollout"].append(_host(gather_batch(pred) if mesh is not None else pred))
@@ -281,7 +275,7 @@ def run_spatial(device, mesh, args, inputs: Optional[dict] = None) -> dict:
             res["launches"] = {k: v for k, v in _lib.LAUNCHES.items() if v}
             res["halo"] = halo.report()
             if not args.no_scan:
-                res["scan"] = [_host(p) for p in rollout_scan(model, part, SPATIAL_STEPS,
+                res["scan"] = [_host(p) for p in rollout_scan(model, part, args.steps,
                                                               host_offload=True)]
         out["grids"]["x".join(map(str, res["grid"]))] = res
     out["seconds"] = time.perf_counter() - t0
@@ -309,28 +303,219 @@ class RecordingAdamW(AdamW):
         super().step()
 
 
-def run(device, mesh=None, params: Optional[str] = None, depths: Optional[int] = None,
-        seed: int = 0) -> dict:
-    """The forward, the LoRA step and the full fine-tune step on this rank's slice under
-    ``mesh`` (a data mesh), or on the whole batch without one. Returns what the launcher
-    compares: the whole forward, the losses, the updated parameters (whole) and, under the
-    mesh, the size of each split parameter and of its AdamW moments on this rank."""
-    import contextlib
+STOCHASTIC = dict(drop_path=0.2, drop_rate=0.1)  # the knobs of the stochastic LoRA step
+TRAIN_STEPS = ("forward", "lora", "rollout", "stochastic", "full")
 
-    from aurora_tpu_torch.parallel import gather_batch, gathered_params, shard_batch_arrays
+
+def _sync(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def recipe(config: str) -> dict:
+    """The train steps' recipe of a config: the small model's (the JAX tool's: zero
+    targets, ``adamw(1e-4)``, the LoRA step's loss weighted by the cosine of latitude) or
+    the production model's (``tools.train_bench``'s: persistence targets, ``adamw(3e-4)``,
+    the plain loss)."""
+    if config == "production":
+        return dict(lr=3e-4, targets="persistence", lat_weighted=False)
+    return dict(lr=LR, targets="zeros", lat_weighted=True)
+
+
+def train_steps(device, mesh, model, batch, which, seed: int = 0, config: str = "small",
+                rebuild=None, ckpt: Optional[str] = None) -> dict:
+    """The train steps ``which`` (of :data:`TRAIN_STEPS`, in that order, each from where the
+    last left the model) on this rank's part of ``batch`` (whole and cropped) under
+    ``mesh`` (its slice of the batch over ``data``, its block of the grid over ``lat`` and
+    ``lon``), or on the whole batch without one, with :func:`recipe`'s targets, loss and
+    learning rate:
+
+    * ``forward``: ``forward_core`` without gradients (its predictions this rank's part);
+    * ``lora``: ``make_train_step`` with ``adamw(trainable=lora_mask)``;
+    * ``rollout``: a ROLLOUT_K-step ``make_rollout_train_step``, LoRA only;
+    * ``stochastic``: the LoRA step with :data:`STOCHASTIC`'s knobs and a generator seeded
+      with ``seed`` (beside it the deterministic loss at the same weights);
+    * ``full``: from the weights the model had on entry, every parameter trained, under
+      ``shard_params`` where the mesh splits ``data``; then, with ``ckpt``, the training
+      state saved there (``save_train_state``, and the parameters by ``save_params``) and
+      restored into ``rebuild()`` placed alike.
+
+    Returns per step its loss, the gradients the optimiser applied (reduced over the mesh)
+    and this rank's own before any reduction, the updated trainable parameters (the full
+    step's whole), its seconds, launches and :func:`~aurora_tpu_torch.parallel.halo.report`."""
+    import contextlib
+    from functools import partial
+
+    from aurora_tpu_torch.checkpoint import (
+        restore_params,
+        restore_train_state,
+        save_params,
+        save_train_state,
+    )
+    from aurora_tpu_torch.ops import _lib
+    from aurora_tpu_torch.parallel import gathered_params, halo, shard_batch_arrays
     from aurora_tpu_torch.parallel import shard_params
-    from aurora_tpu_torch.rollout import rollout
+    from aurora_tpu_torch.parallel.sharding import global_mean, train_mesh
+    from aurora_tpu_torch.training.train import _local_targets
     from aurora_tpu_torch.training import (
         adamw,
         lora_mask,
+        mae_loss,
         make_rollout_train_step,
         make_train_step,
     )
 
+    rc = recipe(config)
+    dtype = model.compute_dtype
+    enc_dtype = torch.float32 if dtype == torch.bfloat16 else dtype
+    enc = model.prepare_encodings(batch, enc_dtype)
+    levels = tuple(float(x) for x in batch.metadata.atmos_levels)
+    whole = batch.to(device, dtype)
+    if mesh is not None:
+        surf, static, atmos = shard_batch_arrays(whole.surf_vars, whole.static_vars,
+                                                 whole.atmos_vars, mesh)
+    else:
+        surf, static, atmos = whole.surf_vars, whole.static_vars, whole.atmos_vars
+    if rc["targets"] == "zeros":
+        tgt_s = {k: torch.zeros_like(v[:, -1]) for k, v in whole.surf_vars.items()}
+        tgt_a = {k: torch.zeros_like(v[:, -1]) for k, v in whole.atmos_vars.items()}
+    else:
+        tgt_s = {k: v[:, -1] for k, v in whole.surf_vars.items()}
+        tgt_a = {k: v[:, -1] for k, v in whole.atmos_vars.items()}
+    weights = torch.cos(torch.deg2rad(torch.as_tensor(np.asarray(batch.metadata.lat),
+                                                      dtype=torch.float64))).to(device, dtype)
+    lora_loss = partial(mae_loss, lat_weights=weights) if rc["lat_weighted"] else mae_loss
+    names = {p: n for n, p in model.named_parameters()}
+    init = {n: p.detach().clone() for n, p in model.named_parameters()}
+    scope = mesh if mesh is not None else contextlib.nullcontext()
+    out: dict = {}
+    if mesh is not None:
+        out["coords"] = dict(mesh.coords, shape=dict(mesh.shape))
+
+    def timed(name, call):
+        halo.reset_stats()
+        before = dict(_lib.LAUNCHES)
+        _sync(device)
+        t = time.perf_counter()
+        loss = float(call())
+        _sync(device)
+        out[name] = dict(loss=loss, seconds=time.perf_counter() - t, halo=halo.report(),
+                         launches={k: v - before[k] for k, v in _lib.LAUNCHES.items()
+                                   if v != before[k]})
+        return out[name]
+
+    def recorded(name, opt):
+        out[name].update(grads={names[p]: g for p, g in opt.grads.items()},
+                         local_grads={names[p]: g for p, g in opt.local.items()},
+                         params={names[p]: p.detach().cpu().clone() for p in opt.grads})
+
+    with scope:
+        if "forward" in which:
+            def forward():
+                with torch.no_grad():
+                    ps, pa = model.forward_core(surf, static, atmos, enc, 0, levels)
+                out["predictions"] = {k: v.cpu() for k, v in {**ps, **pa}.items()}
+                return 0.0
+
+            timed("forward", forward)
+        if "lora" in which:
+            opt = RecordingAdamW(rc["lr"], 0.0, 1, lora_mask)
+            step = make_train_step(model, opt, levels, loss_fn=lora_loss)
+            timed("lora", lambda: step(surf, static, atmos, enc, 0, tgt_s, tgt_a))
+            recorded("lora", opt)
+        if "rollout" in which:
+            opt = RecordingAdamW(rc["lr"], 0.0, 1, lora_mask)
+            step = make_rollout_train_step(model, opt, levels, ROLLOUT_K)
+            abs_t = torch.stack([model.step_encodings(
+                [t + i * model.cfg.timestep for t in batch.metadata.time], enc_dtype)[0]
+                for i in range(ROLLOUT_K)])
+            timed("rollout", lambda: step(
+                surf, static, atmos, enc, abs_t, 0,
+                {k: torch.stack([v] * ROLLOUT_K) for k, v in tgt_s.items()},
+                {k: torch.stack([v] * ROLLOUT_K) for k, v in tgt_a.items()}))
+            recorded("rollout", opt)
+        if "stochastic" in which:
+            with torch.no_grad():  # the deterministic loss at the same weights, beside it
+                ps, pa = model.forward_core(surf, static, atmos, enc, 0, levels)
+                mesh_t = train_mesh(model)
+                det = float(global_mean(mae_loss(ps, pa, *_local_targets(
+                    mesh_t, surf, tgt_s, tgt_a, 0)), mesh_t))
+            model.set_knobs(**STOCHASTIC)
+            opt = RecordingAdamW(rc["lr"], 0.0, 1, lora_mask)
+            step = make_train_step(model, opt, levels)
+            gen = torch.Generator(device=device).manual_seed(seed)
+            timed("stochastic", lambda: step(surf, static, atmos, enc, 0, tgt_s, tgt_a,
+                                             generator=gen))
+            recorded("stochastic", opt)
+            out["stochastic"]["deterministic_loss"] = det
+            model.set_knobs(**dict.fromkeys(STOCHASTIC, 0.0))
+        if "full" in which:
+            with torch.no_grad():
+                for n, p in model.named_parameters():
+                    p.copy_(init[n])
+                    p.requires_grad_(True)
+            out["probe_init"] = init[PROBE].cpu() if PROBE in init else None
+            if mesh is not None:
+                shard_params(model, mesh)
+            opt = adamw(rc["lr"])
+            step = make_train_step(model, opt, levels)
+            timed("full", lambda: step(surf, static, atmos, enc, 0, tgt_s, tgt_a))
+            zp = getattr(model, "_zero_placement", None)
+            if zp is not None:
+                params = dict(model.named_parameters())
+                out["split"] = {n: dict(param=int(np.prod(shape)), slice=params[n].numel(),
+                                        moments=[opt.opt.state[params[n]][m].numel()
+                                                 for m in ("exp_avg", "exp_avg_sq")])
+                                for n, (ax, shape) in zp.split.items()}
+            with gathered_params(model):
+                out["full"]["params"] = {n: p.detach().cpu().clone()
+                                         for n, p in model.named_parameters()}
+            if ckpt is not None:
+                save_train_state(ckpt, model, opt, step=1)
+                save_params(model, ckpt + ".params")
+                again = rebuild()
+                if mesh is not None:
+                    shard_params(again, mesh)
+                opt2 = adamw(rc["lr"]).init(again)
+                step_no = restore_train_state(ckpt, again, opt2)
+                same = _same_state(model, opt, again, opt2)
+                with torch.no_grad():
+                    for p in again.parameters():
+                        p.zero_()
+                restore_params(ckpt + ".params", like=again)
+                out["checkpoint"] = dict(step=step_no, bits_equal=same and all(
+                    torch.equal(p, q) for p, q in zip(model.parameters(), again.parameters())))
+    return out
+
+
+def _same_state(model, opt, other, other_opt) -> bool:
+    """Whether two models and their bound AdamW hold the same bits (each rank its slices)."""
+    a, b = dict(model.named_parameters()), dict(other.named_parameters())
+    if sorted(a) != sorted(b) or not all(torch.equal(a[n], b[n]) for n in a):
+        return False
+    for p, q in zip(opt.params, other_opt.params, strict=True):
+        sa, sb = opt.opt.state[p], other_opt.opt.state[q]
+        if sorted(sa) != sorted(sb) or not all(torch.equal(torch.as_tensor(sa[k]),
+                                                           torch.as_tensor(sb[k])) for k in sa):
+            return False
+    return True
+
+
+def run(device, mesh=None, params: Optional[str] = None, depths: Optional[int] = None,
+        seed: int = 0) -> dict:
+    """The forward, the LoRA step, the roll-out step and the full fine-tune step on this
+    rank's slice under ``mesh`` (a data mesh), or on the whole batch without one
+    (:func:`train_steps`, the small model's recipe). Returns what the launcher compares:
+    the whole forward, the losses, the gradients, the updated parameters (whole) and, under
+    the mesh, the size of each split parameter and of its AdamW moments on this rank."""
+    import contextlib
+
+    from aurora_tpu_torch.parallel import gather_batch, shard_batch_arrays
+    from aurora_tpu_torch.rollout import rollout
+
     t0 = time.perf_counter()
     times = {}
     model = build(device, params, depths, seed)
-    init = {n: p.detach().clone() for n, p in model.named_parameters()}
     batch = make_inputs(device.type, seed).crop(model.cfg.patch_size)
     enc = model.prepare_encodings(batch, torch.float32)
     atmos_levels = tuple(float(x) for x in batch.metadata.atmos_levels)
@@ -340,10 +525,6 @@ def run(device, mesh=None, params: Optional[str] = None, depths: Optional[int] =
                                                  whole.atmos_vars, mesh)
     else:
         surf, static, atmos = whole.surf_vars, whole.static_vars, whole.atmos_vars
-    Hc, Wc = batch.spatial_shape
-    tgt_s = {k: torch.zeros((B, Hc, Wc), device=device) for k in model.cfg.surf_vars}
-    tgt_a = {k: torch.zeros((B, len(atmos_levels), Hc, Wc), device=device)
-             for k in model.cfg.atmos_vars}
     scope = mesh if mesh is not None else contextlib.nullcontext()
     out: dict = {}
     with scope:
@@ -355,54 +536,130 @@ def run(device, mesh=None, params: Optional[str] = None, depths: Optional[int] =
         pred = next(rollout(model, part, 1))
         out["rollout_forward"] = {k: v.cpu() for k, v in gather_batch(
             {**pred.surf_vars, **pred.atmos_vars}).items()}
-        times["forward"] = time.perf_counter() - t0
-
-        opt = RecordingAdamW(LR, 0.0, 1, lora_mask)
-        step = make_train_step(model, opt, atmos_levels)
-        out["lora_loss"] = float(step(surf, static, atmos, enc, 0, tgt_s, tgt_a))
-        names = {p: n for n, p in model.named_parameters()}
-        out["lora_grads"] = {names[p]: g for p, g in opt.grads.items()}
-        out["lora_local_grads"] = {names[p]: g for p, g in opt.local.items()}
-        out["lora_params"] = {names[p]: p.detach().cpu().clone() for p in opt.grads}
-        times["lora_step"] = time.perf_counter() - t0
-
-        # A K = 2 roll-out step of the LoRA model from where the LoRA step left it.
-        opt = RecordingAdamW(LR, 0.0, 1, lora_mask)
-        step = make_rollout_train_step(model, opt, atmos_levels, ROLLOUT_K)
-        abs_t = torch.stack([model.step_encodings(
-            [t + i * model.cfg.timestep for t in batch.metadata.time], torch.float32)[0]
-            for i in range(ROLLOUT_K)])
-        out["rollout_loss"] = float(step(
-            surf, static, atmos, enc, abs_t, 0,
-            {k: torch.stack([v] * ROLLOUT_K) for k, v in tgt_s.items()},
-            {k: torch.stack([v] * ROLLOUT_K) for k, v in tgt_a.items()}))
-        out["rollout_grads"] = {names[p]: g for p, g in opt.grads.items()}
-        out["rollout_local_grads"] = {names[p]: g for p, g in opt.local.items()}
-        times["rollout_step"] = time.perf_counter() - t0
-
-        with torch.no_grad():
-            for n, p in model.named_parameters():
-                p.copy_(init[n])
-                p.requires_grad_(True)
-        out["probe_init"] = init[PROBE].cpu()
-        del init
-        if mesh is not None:
-            shard_params(model, mesh)
-        opt = adamw(LR)
-        step = make_train_step(model, opt, atmos_levels)
-        out["full_loss"] = float(step(surf, static, atmos, enc, 0, tgt_s, tgt_a))
-        zp = getattr(model, "_zero_placement", None)
-        if zp is not None:
-            params = dict(model.named_parameters())
-            out["split"] = {n: dict(param=int(np.prod(shape)), slice=params[n].numel(),
-                                    moments=[opt.opt.state[params[n]][m].numel()
-                                             for m in ("exp_avg", "exp_avg_sq")])
-                            for n, (ax, shape) in zp.split.items()}
-        with gathered_params(model):
-            out["full_params"] = {n: p.detach().cpu().clone()
-                                  for n, p in model.named_parameters()}
-        times["full_step"] = time.perf_counter() - t0
+    times["forward"] = time.perf_counter() - t0
+    steps = train_steps(device, mesh, model, batch, ("lora", "rollout", "full"), seed)
+    for name in ("lora", "rollout"):
+        out[f"{name}_loss"] = steps[name]["loss"]
+        out[f"{name}_grads"] = steps[name]["grads"]
+        out[f"{name}_local_grads"] = steps[name]["local_grads"]
+    out["lora_params"] = steps["lora"]["params"]
+    out["full_loss"] = steps["full"]["loss"]
+    out["full_params"] = steps["full"]["params"]
+    out["probe_init"] = steps["probe_init"]
+    if "split" in steps:
+        out["split"] = steps["split"]
+    times.update({f"{k}_step": steps[k]["seconds"] for k in ("lora", "rollout", "full")})
     out["seconds"] = times
+    return out
+
+
+def train_jobs(args) -> dict[str, list[str]]:
+    """``--train`` as ``{config: [steps]}``: entries ``step`` (of ``--config``) or
+    ``config:step``, in :data:`TRAIN_STEPS` order."""
+    jobs: dict = {}
+    for item in (args.train or "").split(","):
+        if not item:
+            continue
+        config, _, step = item.rpartition(":")
+        config = config or args.config
+        if step not in TRAIN_STEPS or config not in ("small", "production"):
+            raise ValueError(f"--train {item}: steps {TRAIN_STEPS}, configs small, production")
+        jobs.setdefault(config, []).append(step)
+    return {c: [t for t in TRAIN_STEPS if t in steps] for c, steps in jobs.items()}
+
+
+def build_train(device, args, config: str):
+    """The model of a config's train steps: the small model as :func:`build` makes it (in
+    ``--dtype``, rematerialised at ``--remat``'s scope), or the production model as
+    ``tools.train_bench`` builds its LoRA recipe (``remat`` at "full"; seeded from
+    ``--seed``; ``--train-depths`` blocks a stage)."""
+    if config == "production":
+        from aurora_tpu_torch.tools import train_bench
+
+        d = args.train_depths
+        cut = {} if d is None else dict(encoder_depths=(d,) * 3, decoder_depths=(d,) * 3)
+        return train_bench.build(train_bench.train_config().replace(**cut), device, "lora",
+                                 seed=args.seed)
+    model = build(device, args.params, args.depths, args.seed, args.width,
+                  getattr(torch, args.dtype))
+    if args.remat != "none":
+        model.set_knobs(remat=True, remat_scope=args.remat)
+    return model
+
+
+def train_grids(args, config: str, device_type: str) -> list[tuple[int, int]]:
+    """The grids of a config's train steps: ``--grids`` for ``--config``'s, else the
+    config's default (721 x 1440 for the production model, the device's layout for the
+    small one)."""
+    if config == args.config and args.grids:
+        return _grids(args, device_type)
+    return [(721, 1440)] if config == "production" else [LAYOUTS[device_type][1]]
+
+
+def train_inputs(args, config: str, device_type: str, grid) -> "Batch":  # noqa: F821
+    """The whole batch of a config's train steps on ``grid``, cropped to the patch: the main
+    path's (``numpy_batch``, batch 1) for the production model, the JAX tool's draws (batch
+    2, as float64 with ``--dtype float64``) for the small one."""
+    if config == "production":
+        from aurora_tpu_torch.tools import train_bench
+        from aurora_tpu_torch.tools.perf_breakdown import numpy_batch
+
+        cfg = train_bench.train_config()
+        return numpy_batch(cfg, *grid, seed=args.seed).crop(cfg.patch_size)
+    batch = make_inputs(device_type, args.seed, grid, batch=B)
+    if args.dtype == "float64":
+        batch = batch.astype(torch.float64)
+    return batch.crop(4)
+
+
+def _grid_key(batch) -> str:
+    return "x".join(str(n) for n in batch.spatial_shape)
+
+
+def run_spatial_train(device, mesh, args, folder: str, inputs: Optional[dict] = None) -> dict:
+    """The train half of a ``(lat, lon)`` run (:func:`train_jobs`): per config, the LoRA,
+    roll-out and stochastic steps on each of its grids under the mesh's ``(lat, lon)`` plane
+    (``make_mesh(1, lat, lon)``; with ``data`` above 1 the planes take the grids in turn),
+    then the full step on its first grid under the whole mesh, ``shard_params`` placing the
+    parameters over ``data``, its training state saved in ``folder`` and restored under the
+    mesh. Without a mesh (the launcher's reference) the same steps on the whole batch, in one
+    process. ``inputs``: batches made ahead, by (config, grid)."""
+    from aurora_tpu_torch.parallel import make_mesh
+
+    if mesh is None:
+        planes, g, D = [None], 0, 1
+    else:
+        D, A, O = (mesh.shape[a] for a in ("data", "lat", "lon"))
+        planes = [mesh] if D == 1 else [
+            make_mesh(1, A, O, devices=range(i * A * O, (i + 1) * A * O), device=args.device)
+            for i in range(D)]
+        g = mesh.axis_index("data")
+    out: dict = {}
+    if device.type == "cuda":  # what the serving half cached goes back to the card
+        torch.cuda.empty_cache()
+    for config, steps in train_jobs(args).items():
+        res = out[config] = {"grids": {}}
+        grids = train_grids(args, config, device.type)
+        batches = [(inputs or {}).get((config, grid)) for grid in grids]
+        batches = [b if b is not None else train_inputs(args, config, device.type, grid)
+                   for b, grid in zip(batches, grids)]
+        plane_steps = [t for t in steps if t != "full"]
+        for i, batch in enumerate(batches):
+            if plane_steps and i % D == g:
+                model = build_train(device, args, config)
+                res["grids"][_grid_key(batch)] = train_steps(
+                    device, planes[g], model, batch, plane_steps, args.seed, config)
+                del model
+                if device.type == "cuda":
+                    torch.cuda.empty_cache()
+        if "full" in steps:
+            model = build_train(device, args, config)
+            ckpt = None if mesh is None else os.path.join(folder, f"train_state_{config}.pt")
+            res["full"] = train_steps(device, mesh, model, batches[0], ("full",), args.seed,
+                                      config, rebuild=lambda: build_train(device, args, config),
+                                      ckpt=ckpt)
+            res["full"]["grid"] = _grid_key(batches[0])
+            res["full"]["ckpt"] = ckpt
     return out
 
 
@@ -461,14 +718,15 @@ def worker(rank: int, n: int, store: str, args) -> None:
 
     torch.set_num_threads(int(os.environ.get("OMP_NUM_THREADS", "2")))
     spatial = args.lat > 1 or args.lon > 1
-    inputs = None
+    inputs = train_in = None
     if args.hold:  # until released; a worker whose launcher is gone stops
-        if not spatial:  # the train steps' optimiser
-            ready_host()
-        else:  # the batches on the host, made while held
+        ready_host()  # the train steps' optimiser
+        if spatial:  # the batches on the host, made while held
             cfg = spatial_config(args)
-            inputs = {g: spatial_inputs(cfg, args.device, args, g)
-                      for g in _grids(args, args.device)}
+            inputs = {} if args.no_serve else {g: spatial_inputs(cfg, args.device, args, g)
+                                               for g in _grids(args, args.device)}
+            train_in = {(c, g): train_inputs(args, c, args.device, g) for c in train_jobs(args)
+                        for g in train_grids(args, c, args.device)}
         go, parent = os.path.join(os.path.dirname(store), "go"), os.getppid()
         while not os.path.exists(go):
             if os.getppid() != parent:
@@ -477,7 +735,10 @@ def worker(rank: int, n: int, store: str, args) -> None:
     initialize(coordinator_address=f"file://{store}", num_processes=n, process_id=rank)
     mesh = make_mesh(data=args.data, lat=args.lat, lon=args.lon, device=args.device)
     if spatial:
-        out = run_spatial(mesh.device, mesh, args, inputs)
+        out = {"grids": {}} if args.no_serve else run_spatial(mesh.device, mesh, args, inputs)
+        if train_jobs(args):
+            out["train"] = run_spatial_train(mesh.device, mesh, args, os.path.dirname(store),
+                                             train_in)
         out["launches"] = {k: v for k, v in _lib.LAUNCHES.items() if v}
         if rank:  # the gathered predictions are the same on every rank; the first keeps them
             for g in out["grids"].values():
@@ -648,15 +909,178 @@ def compare_spatial(ref: dict, ranks: list[dict], mesh_shape: dict,
 
 
 def result_spatial(ref: dict, ranks: list[dict], mesh_shape: dict, device: str,
-                   seconds: float) -> dict:
-    """The tool's JSON line of a (lat, lon) run."""
+                   seconds: float, checkpoints: Optional[dict] = None) -> dict:
+    """The tool's JSON line of a (lat, lon) run: the serving half's checks
+    (:func:`compare_spatial`) and the train half's (:func:`compare_train`, with the
+    one-process restores of the saved states, ``checkpoints``)."""
     production = ref.get("config") == "production"
     tol = dict(mean_rel=PRODUCTION_TOL) if production else dict(forward=FORWARD_TOL)
-    return dict(metric="multihost_sim", processes=len(ranks), mesh=mesh_shape, device=device,
-                backend=ranks[0]["backend"], process_summary=ranks[0]["summary"],
-                tol=tol, **compare_spatial(ref, ranks, mesh_shape, production),
-                seconds=dict(total=seconds, reference=ref["seconds"],
-                             ranks=[r["seconds"] for r in ranks]))
+    serve = compare_spatial(ref, ranks, mesh_shape, production)
+    out = dict(metric="multihost_sim", processes=len(ranks), mesh=mesh_shape, device=device,
+               backend=ranks[0]["backend"], process_summary=ranks[0]["summary"],
+               tol=tol, **serve,
+               seconds=dict(total=seconds, reference=ref.get("seconds"),
+                            ranks=[r.get("seconds") for r in ranks]))
+    if "train" in ref:
+        train = compare_train(ref["train"], ranks, mesh_shape)
+        train["checkpoint_one_process"] = checkpoints or {}
+        train["tol"] = dict(small=TRAIN_TOL, production=PRODUCTION_TRAIN_TOL,
+                            resolved=RESOLVED)
+        out["train"] = train
+        out["ok"] = serve["ok"] and train["ok"] and all(
+            c["ok"] for c in (checkpoints or {}).values())
+    return out
+
+
+TRAIN_TOL = dict(loss=LOSS_TOL, lora=PARAM_TOL, stochastic=PARAM_TOL,
+                 rollout=ROLLOUT_GRAD_TOL, probe=PARAM_TOL)  # the small model's, max-rel
+# The production model's LoRA step (bf16 backbone) against one process: the loss relative
+# and the concatenated LoRA gradient relative L2, the train phase's card-against-CPU bar.
+PRODUCTION_TRAIN_TOL = dict(loss=1e-2, grads=5e-2)
+
+
+def _masked_max_rel(got: dict, want: dict) -> float:
+    """Max-rel over the elements whose reference gradient is resolved (``|g| >= RESOLVED``)."""
+    out = 0.0
+    for k, w in want.items():
+        m = w.abs() >= RESOLVED
+        if m.any():
+            out = max(out, _max_rel(got[k][m], w[m]))
+    return out
+
+
+def _rel_l2(got: dict, want: dict) -> float:
+    a = torch.cat([got[k].double().flatten() for k in want])
+    b = torch.cat([want[k].double().flatten() for k in want])
+    return float((a - b).norm() / b.norm())
+
+
+def compare_step(want: dict, got: dict, step: str, production: bool = False) -> dict:
+    """One train step of a rank against the one-process step: the loss, the gradients (the
+    reduced ones, and this rank's own as the backward left it: what a check would read had
+    it skipped the sums), the updated parameters where the gradient is resolved."""
+    loss = abs(got["loss"] - want["loss"]) / abs(want["loss"])
+    row = dict(loss=got["loss"], loss_ref=want["loss"], loss_rel=loss,
+               seconds=got["seconds"], bytes_sent=got["halo"]["bytes_sent"],
+               collectives=got["halo"]["collectives"], launches=got["launches"])
+    if step == "full":
+        full = {k: _max_rel(got["params"][k], want["params"][k]) for k in want["params"]}
+        row.update(param_max_rel=max(full.values()), param_mean_rel=max(
+            _mean_rel(got["params"][k], want["params"][k]) for k in want["params"]))
+        if PROBE in full:
+            row["probe_max_rel"] = full[PROBE]
+        row["ok"] = loss <= TRAIN_TOL["loss"] and full.get(PROBE, 0.0) <= TRAIN_TOL["probe"]
+        return row
+    g, w = got["grads"], want["grads"]
+    row.update(grad_max_rel=max(_max_rel(g[k], w[k]) for k in w),
+               grad_mean_rel=max(_mean_rel(g[k], w[k]) for k in w),
+               grad_resolved_max_rel=_masked_max_rel(g, w),
+               grad_rel_l2=_rel_l2(g, w),
+               unreduced_grad_max_rel=max(_max_rel(got["local_grads"][k], w[k]) for k in w),
+               unreduced_grad_rel_l2=_rel_l2(got["local_grads"], w),
+               param_max_rel=max(_max_rel(got["params"][k] * (w[k].abs() >= RESOLVED),
+                                          want["params"][k] * (w[k].abs() >= RESOLVED))
+                                 for k in w),
+               param_mean_rel=max(_mean_rel(got["params"][k], want["params"][k]) for k in w))
+    if production:
+        row["ok"] = (loss <= PRODUCTION_TRAIN_TOL["loss"]
+                     and row["grad_rel_l2"] <= PRODUCTION_TRAIN_TOL["grads"])
+    else:
+        tol = TRAIN_TOL[step]
+        grads = row["grad_max_rel"] if step == "rollout" else row["grad_resolved_max_rel"]
+        row["ok"] = loss <= TRAIN_TOL["loss"] and grads <= tol and (
+            step == "rollout" or row["param_max_rel"] <= PARAM_TOL)
+    return row
+
+
+def compare_forward(want: dict, got: list[dict], ref_row: dict, production: bool) -> dict:
+    """The train half's forward on each rank of a plane (its block of the predictions)
+    against the one-process predictions cut to that block."""
+    from aurora_tpu_torch.parallel.sharding import split_bounds
+
+    worst = 0.0
+    for g in got:
+        at = g["coords"]
+        for k, w in want.items():
+            (a, b), (c, e) = (split_bounds(w.shape[d], at["shape"][x])[at[x]]
+                              for d, x in ((-2, "lat"), (-1, "lon")))
+            err = (_mean_rel if production else _max_rel)(g["predictions"][k],
+                                                          w[..., a:b, c:e])
+            worst = max(worst, err)
+    tol = PRODUCTION_TOL if production else FORWARD_TOL
+    return dict(err=worst, measure="mean_rel" if production else "max_rel", tol=tol,
+                ok=worst <= tol, seconds=[g["forward"]["seconds"] for g in got],
+                collectives=[g["forward"]["halo"]["collectives"] for g in got])
+
+
+def compare_train(ref: dict, ranks: list[dict], mesh_shape: dict) -> dict:
+    """The train half of a ``(lat, lon)`` run against the one-process run: each step on
+    each grid from the first rank of the plane that ran it (:func:`compare_step`), the
+    full step from the first rank, every rank's launches of K1-K4 in each step, and the
+    checkpoint's restore on every rank bit for bit."""
+    D = mesh_shape["data"]
+    per = len(ranks) // D
+    out, ok = {}, True
+    for config, want in ref.items():
+        prod = config == "production"
+        res = out[config] = {}
+        for i, (key, w) in enumerate(want["grids"].items()):
+            lead = (i % D) * per
+            got = ranks[lead]["train"][config]["grids"][key]
+            res[key] = {t: compare_step(w[t], got[t], t, prod) for t in TRAIN_STEPS
+                        if t in w and t != "forward"}
+            if "forward" in w:
+                res[key]["forward"] = compare_forward(
+                    w["predictions"], [r["train"][config]["grids"][key] for r in
+                                       ranks[lead:lead + per]], w["forward"], prod)
+            res[key]["launches_per_rank"] = {
+                t: [r["train"][config]["grids"][key][t]["launches"]
+                    for r in ranks[lead:lead + per]] for t in res[key]}
+            ok = ok and all(v["ok"] for t, v in res[key].items() if t != "launches_per_rank")
+        if "full" in want:
+            got = ranks[0]["train"][config]["full"]
+            row = res["full"] = compare_step(want["full"]["full"], got["full"], "full", prod)
+            row["grid"] = got["grid"]
+            row["checkpoint_restored_on_every_rank"] = all(
+                r["train"][config]["full"].get("checkpoint", {}).get("bits_equal")
+                for r in ranks)
+            split = [r["train"][config]["full"].get("split", {}) for r in ranks]
+            row["moments_are_slices"] = all(
+                s["slice"] * D == s["param"] and all(m == s["slice"] for m in s["moments"])
+                for r in split for s in r.values())
+            row["split_params"] = len(split[0])
+            ok = ok and row["ok"] and row["checkpoint_restored_on_every_rank"] and \
+                row["moments_are_slices"] and (D == 1 or row["split_params"] > 0)
+    return dict(configs=out, ok=ok)
+
+
+def checkpoint_one_process(args, device, config: str, ranks: list[dict]) -> dict:
+    """The training state the ranks saved (``save_train_state`` under the mesh) restored
+    into one process: its parameters, and those of their ``save_params`` file, equal the
+    ranks' gathered ones bit for bit, and saved again from the one process the file is the
+    same, byte for byte."""
+    from aurora_tpu_torch.checkpoint import restore_train_state, save_train_state
+    from aurora_tpu_torch.training import adamw
+
+    full = ranks[0]["train"][config]["full"]
+    path = full["ckpt"]
+    model = build_train(device, args, config)
+    opt = adamw(recipe(config)["lr"]).init(model)
+    step = restore_train_state(path, model, opt)
+    want = full["full"]["params"]
+    params_equal = all(torch.equal(p.detach().cpu(), want[n])
+                       for n, p in model.named_parameters())
+    saved = torch.load(path + ".params", map_location="cpu", weights_only=True)
+    params_equal = params_equal and sorted(saved) == sorted(model.state_dict()) and all(
+        torch.equal(saved[n], want[n]) for n in want)
+    # The same name in another folder: ``torch.save`` names the archive's root after the file.
+    os.makedirs(os.path.join(os.path.dirname(path), "one_process"), exist_ok=True)
+    again = os.path.join(os.path.dirname(path), "one_process", os.path.basename(path))
+    save_train_state(again, model, opt, step)
+    with open(path, "rb") as f, open(again, "rb") as g:
+        same_bytes = f.read() == g.read()
+    return dict(step=step, params_equal=params_equal, file_bytes_equal=same_bytes,
+                ok=params_equal and same_bytes and step == 1)
 
 
 def layout(args) -> tuple[int, int, int]:
@@ -686,10 +1110,22 @@ def main(argv=None) -> dict:
     ap.add_argument("--dtype", default="float32", choices=["float32", "float64"])
     ap.add_argument("--config", default="small", choices=["small", "production"])
     ap.add_argument("--grids", default=None, help="pixel grids HxW,... of a (lat, lon) run")
+    ap.add_argument("--steps", type=int, default=SPATIAL_STEPS,
+                    help="roll-out steps of a (lat, lon) run's serving half")
     ap.add_argument("--no-scan", action="store_true", help="no host-offload rollout_scan")
+    ap.add_argument("--no-serve", action="store_true",
+                    help="a (lat, lon) run without its serving half")
+    ap.add_argument("--train", default="",
+                    help="a (lat, lon) run's train steps, [config:]step,... of "
+                         f"{','.join(TRAIN_STEPS)} (default: none)")
+    ap.add_argument("--remat", default="full", choices=["full", "no_outer", "blocks", "none"],
+                    help="the small model's remat scope in a (lat, lon) run's train steps")
+    ap.add_argument("--train-depths", type=int, default=None,
+                    help="blocks in every stage of the production model's train steps")
     ap.add_argument("--save", default=None, help="write every result to this file")
     args = ap.parse_args(argv)
     args.data, args.lat, args.lon = layout(args)
+
     if args.role == "worker":
         worker(args.rank, args.data * args.lat * args.lon, args.store, args)
         return {}
@@ -700,34 +1136,38 @@ def launch(args) -> dict:
     t0 = time.perf_counter()
     device = resolve_device(args.device)
     spatial = args.lat > 1 or args.lon > 1
-    if spatial:
-        print(f"multihost_sim: lat = {args.lat}, lon = {args.lon}: the forward and the "
-              "roll-outs only (the train steps under a (lat, lon) mesh are not ported yet)",
-              file=sys.stderr, flush=True)
     if device.type == "cuda":
         from aurora_tpu_torch.ops import _lib
 
         _lib.build()  # once, before the workers load the libraries
     n = args.data * args.lat * args.lon
     extra = () if not spatial else tuple(_worker_flags(args))
+    checkpoints = {}
     with tempfile.TemporaryDirectory(prefix="multihost_sim_") as folder:
         procs = spawn_workers(n, folder, device.type, args.params, args.depths, args.seed,
                               extra=extra)
         try:
             if spatial:
-                ref = run_spatial(device, None, args)
+                ref = {"grids": {}} if args.no_serve else run_spatial(device, None, args)
+                if train_jobs(args):
+                    ref["train"] = run_spatial_train(device, None, args, folder)
             else:
                 ref = run(device, None, args.params, args.depths, args.seed)
         finally:
             ranks = collect(procs, folder)
+        if spatial:
+            for config, steps in train_jobs(args).items():
+                if "full" in steps:
+                    checkpoints[config] = checkpoint_one_process(args, device, config, ranks)
     seconds = time.perf_counter() - t0
     if spatial:
         shape = dict(data=args.data, lat=args.lat, lon=args.lon)
-        res = result_spatial(ref, ranks, shape, device.type, seconds)
+        res = result_spatial(ref, ranks, shape, device.type, seconds, checkpoints)
     else:
         res = result(ref, ranks, device.type, seconds)
     if args.save:
-        torch.save(dict(result=res, reference=ref, rank0=ranks[0]), args.save)
+        torch.save(dict(result=res, reference=ref, rank0=ranks[0],
+                        ranks=ranks if spatial else None), args.save)
     print(json.dumps(res), flush=True)
     if not res["ok"]:
         raise SystemExit(f"multihost_sim: a check failed: {json.dumps(res)}")
@@ -737,10 +1177,14 @@ def launch(args) -> dict:
 def _worker_flags(args) -> list[str]:
     """The options a (lat, lon) run passes on to its workers."""
     out = ["--data", str(args.data), "--lat", str(args.lat), "--lon", str(args.lon),
-           "--dtype", args.dtype, "--config", args.config]
+           "--dtype", args.dtype, "--config", args.config, "--train", args.train or "",
+           "--steps", str(args.steps)]
     out += ["--width", str(args.width)] if args.width else []
     out += ["--grids", args.grids] if args.grids else []
+    out += ["--train-depths", str(args.train_depths)] if args.train_depths else []
+    out += ["--remat", args.remat]
     out += ["--no-scan"] if args.no_scan else []
+    out += ["--no-serve"] if args.no_serve else []
     return out
 
 

@@ -54,7 +54,7 @@ from aurora_tpu_torch.tools.perf_breakdown import (
 )
 from aurora_tpu_torch.training import adamw, lora_mask, make_train_step
 
-__all__ = ["build", "check_launches", "expected_launches", "inputs", "launch_mismatches",
+__all__ = ["block_runs", "build", "check_launches", "expected_launches", "inputs", "launch_mismatches",
            "main", "run_steps", "step_generator", "train_config"]
 
 
@@ -96,6 +96,20 @@ def step_generator(cfg: AuroraConfig, device) -> Optional[torch.Generator]:
     return None
 
 
+def block_runs(cfg: AuroraConfig, stage: int, block: int, depth: int, stages: int,
+               body: int = 0) -> int:
+    """The forward passes of block ``block`` of backbone stage ``stage`` (of ``stages``,
+    encoder then decoder; ``depth`` blocks in it) in one update: its forward, one more in a
+    roll-out step's replay (``body``), and the replays of the rematerialised regions around
+    it (:func:`expected_launches` says which)."""
+    runs = 1 + body
+    if cfg.remat:
+        runs += 1
+        runs += cfg.remat_scope in ("full", "no_outer") and block < depth - 1
+        runs += cfg.remat_scope == "full" and stage < stages - 1
+    return runs
+
+
 def expected_launches(cfg: AuroraConfig, lora: bool, K: int = 0,
                       stochastic: bool = False) -> dict[str, int]:
     """The kernel launches of one update on the card, from the code: a single-step train
@@ -133,11 +147,7 @@ def expected_launches(cfg: AuroraConfig, lora: bool, K: int = 0,
         for s, rates in enumerate(stages):
             depth = len(rates)
             for i in range(depth):
-                runs = 1 + body
-                if remat:
-                    runs += 1
-                    runs += scope in ("full", "no_outer") and i < depth - 1
-                    runs += scope == "full" and s < len(stages) - 1
+                runs = block_runs(cfg, s, i, depth, len(stages), body)
                 if not (stochastic and (rates[i] > 0 or cfg.drop_rate > 0)):
                     n["window_attention"] += runs
                     n["mlp_adaln_residual"] += runs

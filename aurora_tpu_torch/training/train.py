@@ -16,13 +16,17 @@ every rematerialised region, and each mask derives from that seed and its place 
 masks. The roll-out step folds each step's index into the seed, as the JAX step folds it
 into its key. Without a generator a step is deterministic.
 
-Under a data mesh (an entered :class:`~aurora_tpu_torch.parallel.Mesh` with ``data`` above
-1, or a model placed by :func:`~aurora_tpu_torch.parallel.shard_params`), the counterpart of
-the JAX steps' SPMD run: each rank gathers its ZeRO-split parameters once, takes the loss on
-its slice of the batch (the inputs its slice, the targets and time encodings its slice or
-the whole batch's), runs the backward, averages the trainable gradients over ``data`` in
-float32 (one flat collective a bucket, the split ones reduce-scattered to its slice), runs
-AdamW on what it holds and returns the mean loss over ``data``. Without one nothing of this
+Under a mesh (an entered :class:`~aurora_tpu_torch.parallel.Mesh` that splits ``data``,
+``lat`` or ``lon``, or a model placed by :func:`~aurora_tpu_torch.parallel.shard_params`),
+the counterpart of the JAX steps' SPMD run: each rank gathers its ZeRO-split parameters
+once, takes the loss on its part of the batch (the inputs its slice of the batch and its
+``(lat, lon)`` block of the grid; the targets and time encodings its part or the whole
+batch's, cut here), runs the backward (through the halo moves' transposes under a ``(lat,
+lon)`` split), sums the trainable gradients over the ``(lat, lon)`` plane and averages them
+over ``data`` in float32 (one flat collective a bucket, the split ones reduce-scattered to
+its slice), runs AdamW on what it holds and returns the whole loss. Under a ``(lat, lon)``
+split :func:`mae_loss` gives each rank its block's share of the loss, and the stochastic
+knobs' masks are each rank's part of the one-process draw. Without a mesh nothing of this
 runs.
 """
 
@@ -37,10 +41,13 @@ from aurora_tpu_torch.model.aurora import full_f32_products
 from aurora_tpu_torch.model.nn import checkpointed, draw_key
 from aurora_tpu_torch.parallel.sharding import (
     average_gradients,
-    data_mesh,
     gathered_params,
+    global_grid,
     global_mean,
     shard_leading,
+    spatial_mesh,
+    split_bounds,
+    train_mesh,
 )
 
 __all__ = [
@@ -144,27 +151,61 @@ def adamw(lr: float = 3e-4, weight_decay: float = 0.0, accum_steps: int = 1,
 
 def mae_loss(pred_surf, pred_atmos, tgt_surf, tgt_atmos, lat_weights=None) -> torch.Tensor:
     """Mean absolute error over all variables, optionally latitude-weighted (``lat_weights``
-    of shape ``(H,)``), each variable's mean counting once."""
+    of shape ``(H,)``), each variable's mean counting once.
+
+    Under a ``(lat, lon)`` mesh the fields are the rank's block of the grid and the result
+    is the rank's share of the loss: each variable's sum over the block divided by the
+    whole grid's count (blocks are uneven, so a mean of the blocks' means would be wrong),
+    which the train steps sum over the plane; ``lat_weights`` are the whole grid's, cut to
+    the rank's rows."""
+    mesh = spatial_mesh()
+    if mesh is not None:
+        h, w = next(iter({**pred_surf, **pred_atmos}.values())).shape[-2:]
+        H, W = global_grid(h, w, mesh)
+        if lat_weights is not None:
+            if lat_weights.shape[0] != H:
+                raise ValueError(f"lat_weights of {lat_weights.shape[0]} rows for a grid of "
+                                 f"{H}: pass the whole grid's")
+            a, b = split_bounds(H, mesh.shape["lat"])[mesh.axis_index("lat")]
+            lat_weights = lat_weights[a:b]
+
+    def mean(err):
+        if mesh is None:
+            return err.mean()
+        return err.sum() / (err.numel() // (h * w) * H * W)
+
     total, count = 0.0, 0
     for preds, tgts in ((pred_surf, tgt_surf), (pred_atmos, tgt_atmos)):
         for k, p in preds.items():
             err = (p - tgts[k]).abs()
             if lat_weights is not None:
                 err = err * lat_weights[:, None]
-            total = total + err.mean()
+            total = total + mean(err)
             count += 1
     return total / count
 
 
 def _local_targets(mesh, surf, tgt_surf, tgt_atmos, axis: int):
-    """The targets cut to this rank's slice of the batch (their ``axis``) where they hold
-    the whole batch; as they are without a data mesh."""
+    """The targets cut to this rank's part: its slice of the batch (their ``axis``) where
+    they hold the whole batch, and its ``(lat, lon)`` block of the grid (their last two
+    axes, by :func:`~aurora_tpu_torch.parallel.sharding.split_bounds`) where they hold the
+    whole grid; as they are without a mesh."""
     if mesh is None:
         return tgt_surf, tgt_atmos
-    local = next(iter(surf.values())).shape[0]
+    first = next(iter(surf.values()))
+    local, (h, w) = first.shape[0], first.shape[-2:]
 
     def cut(v):
-        return shard_leading(v.movedim(axis, 0), mesh, local).movedim(0, axis)
+        if mesh.shape["data"] > 1:
+            v = shard_leading(v.movedim(axis, 0), mesh, local).movedim(0, axis)
+        for dim, n, name in ((-2, h, "lat"), (-1, w, "lon")):
+            if v.shape[dim] != n:
+                a, b = split_bounds(v.shape[dim], mesh.shape[name])[mesh.axis_index(name)]
+                if b - a != n:
+                    raise ValueError(f"targets of {v.shape[dim]} along {name}: neither this "
+                                     f"rank's block ({n}) nor the whole grid's")
+                v = v.narrow(dim, a, n)
+        return v
 
     return ({k: cut(v) for k, v in tgt_surf.items()},
             {k: cut(v) for k, v in tgt_atmos.items()})
@@ -184,7 +225,7 @@ def make_train_step(model, optimizer: AdamW, atmos_levels, loss_fn=mae_loss):
 
     def train_step(surf, static, atmos, enc, rollout_step, tgt_surf, tgt_atmos,
                    generator: Optional[torch.Generator] = None):
-        mesh = data_mesh(model)
+        mesh = train_mesh(model)
         tgt_surf, tgt_atmos = _local_targets(mesh, surf, tgt_surf, tgt_atmos, 0)
         with gathered_params(model), full_f32_products():
             pred_surf, pred_atmos = model.forward_core(surf, static, atmos, enc,
@@ -234,7 +275,7 @@ def make_rollout_train_step(model, optimizer: AdamW, atmos_levels, steps: int,
                 "pass dyn_steps of shape (steps, B, 6)."
             )
         root = None if generator is None else draw_key(generator)
-        mesh = data_mesh(model)
+        mesh = train_mesh(model)
         tgt_surf_steps, tgt_atmos_steps = _local_targets(mesh, surf, tgt_surf_steps,
                                                          tgt_atmos_steps, 1)
         with gathered_params(model), full_f32_products():

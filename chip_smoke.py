@@ -11,7 +11,7 @@ Phases, each printing one JSON line; any failure raises and the script exits non
    against its plain PyTorch version on the same inputs, with CUDA-event times of the
    kernel, the plain version and the library call where one computes the same function
    (``torch.roll`` for K1, ``F.scaled_dot_product_attention`` with the -100/0 mask for
-   K7, ``torch.matmul`` for K12), median of 10 runs after 2 warm-up runs (the plain
+   K7, ``torch.matmul`` for K12), median of REPS (5) runs after 2 warm-up runs (the plain
    version: of 3 after 1), and the bound
    max(flops / peak, bytes / 3.35 TB/s) (K4: of the folded work its kernels do, with the
    bound of the TPU kernel's work beside it). Roll (both signs of the shift) and the
@@ -223,13 +223,20 @@ Phases, each printing one JSON line; any failure raises and the script exits non
    once the build is done and released with the parallel phase's ranks (the two phases
    overlap on the card, after every timed phase), each with the main route's 1.3 B
    production model (the same seeded weights) on its block of the same 720 x 1440 batch:
-   ``Aurora.forward`` and a 2-step ``rollout``, every prediction gathered (``gather_batch``)
-   and held to the main route's one-process steps 1-2, kept on the host, within 1e-2 mean
+   ``Aurora.forward`` and a 1-step ``rollout``, every prediction gathered (``gather_batch``)
+   and held to the main route's one-process step 1, kept on the host, within 1e-2 mean
    relative error per variable; every rank launching K1-K4; the blocks seeing the second
    stage's over-pad by (0, 6, 12), its odd 45 rows at the merge, the third stage's uneven
    rows, halos over both lines and the first stage's shifted blocks sending 4 x 2,211,840
    bytes a rank; each rank's step times (four ranks sharing one card: not a scaling figure)
-   and halo bytes per block;
+   and halo bytes per block; then, on the same ranks, (a) the train phase's bf16 LoRA step
+   (two blocks a stage, remat "full", its 720 x 1440 batch) held to that phase's first step
+   kept on the host (loss 1e-2 relative, the lat / lon-summed LoRA gradient 5e-2 relative L2)
+   and (b) the float32 small model's LoRA and K = 2 roll-out steps on the parallel phase's
+   121 x 240 batch of 2, held to that phase's one-process run (losses 1e-6 relative, LoRA
+   gradients 1e-5 max-rel where |g| >= 1e-6, roll-out gradients 1e-4), every rank launching
+   K1-K4 in each, with each rank's step time, halo bytes and what the gradient check reads
+   had rank 0 skipped the plane's sum;
 8. the seconds of each phase, then the kernels summary line, one entry per kernel (K1-K8:
    times per forward step, each shape's time times its launches per step on the route that
    runs it, ``launches`` the count over that route's roll-out, and the backward's
@@ -276,7 +283,7 @@ SCAN_STEPS, SHORT_STEPS = 3, 2
 # Bound on the mean relative difference between the three roll-outs if a kernel turns out
 # not to give the same bits from run to run (they are expected to be equal).
 SCAN_AGREE_TOL = 1e-3
-REPS = 10  # timed runs per kernel and shape, after 2 warm-up runs
+REPS = 5  # timed runs per kernel and shape, after 2 warm-up runs
 # The 1.3 B model's backbone stages on the 720 x 1440 grid: (C, H, W, D, heads, blocks a step).
 F32_STAGES = ((4, 180, 360, 512, 8, 12), (4, 90, 180, 1024, 16, 20), (4, 45, 90, 2048, 32, 16))
 # Timed runs of each plain version (10-100x a kernel's time; their spread matters little
@@ -1703,10 +1710,8 @@ def run_route(name: str, steps: int, ref_grid: tuple[int, int], batch, refs: _De
         if pred.metadata.rollout_step != i + 1:
             raise AssertionError("roll-out step not advanced")
     if name == "main":  # the lat_lon phase's reference: the one-process steps, on the host
-        from aurora_tpu_torch.tools.multihost_sim import SPATIAL_STEPS
-
         KEPT["main"] = [{k: v.cpu() for k, v in {**p.surf_vars, **p.atmos_vars}.items()}
-                        for p in preds[:SPATIAL_STEPS]]
+                        for p in preds[:LAT_LON_STEPS]]
     del preds
     emit(dict(phase="end_to_end", route=name, **knobs,
               depths=(cfg.encoder_depths, cfg.decoder_depths),
@@ -2566,9 +2571,14 @@ def run_train_step_phase() -> dict:
     frozen = _frozen_snapshot(model)
     tgt_s = {k: v[0] for k, v in tgt_s.items()}
     tgt_a = {k: v[0] for k, v in tgt_a.items()}
-    row = train_bench.run_steps(
-        lambda i: step(surf, static, atmos, enc, i % 3, tgt_s, tgt_a), TRAIN_STEPS,
-        torch.device("cuda"))
+    def update(i):
+        loss = step(surf, static, atmos, enc, i % 3, tgt_s, tgt_a)
+        if i == 0:  # the lat_lon phase's reference: the first step, before its update
+            KEPT["train"] = dict(loss=float(loss), grads={
+                n: g.detach().float().cpu() for n, g in opt.grads.items()})
+        return loss
+
+    row = train_bench.run_steps(update, TRAIN_STEPS, torch.device("cuda"))
     _check_train(model, opt, lora0, frozen, row, train_bench.expected_launches(cfg, lora=True),
                  dict(phase="train", part="LoRA train step", grid="721x1440 (720x1440)",
                       depths=(cfg.encoder_depths, cfg.decoder_depths),
@@ -3008,6 +3018,7 @@ def run_parallel(started) -> dict:
     try:
         try:
             ref = multihost_sim.run(torch.device("cuda"))
+            KEPT["parallel"] = ref  # the lat_lon phase's small-model train reference
         finally:
             ranks = multihost_sim.collect(procs, folder)
         nccl = nccl_one_rank(folder)
@@ -3026,7 +3037,22 @@ def run_parallel(started) -> dict:
 # ------------------------------------------------------------------------------ lat_lon
 
 LAT_LON = dict(data=1, lat=2, lon=2)  # the mesh of the lat_lon phase's ranks
-KEPT: dict = {}  # {"main": the main route's first predictions, the lat_lon phase's reference}
+# The one-process references of the lat_lon phase, kept on the host: "main" the main route's
+# first predictions, "train" the train phase's first LoRA step (loss, gradients before the
+# update), "parallel" the parallel phase's one-process run (the small model's LoRA and
+# roll-out steps).
+KEPT: dict = {}
+# The lat_lon ranks' train steps after their serving checks: the train phase's bf16 LoRA step
+# (two blocks a stage, remat "full", its 720 x 1440 batch and persistence targets) and the
+# parallel phase's float32 small-model LoRA and K = 2 roll-out steps (its batch of 2 at
+# 121 x 240), each on the rank's block.
+LAT_LON_TRAIN = "production:lora,small:lora,small:rollout"
+LAT_LON_TRAIN_DEPTHS = 2
+LAT_LON_STEPS = 1  # the serving roll-out's steps on the lat_lon ranks
+# The small model's steps against the parallel phase's one process: the data-parallel checks'
+# bounds (multihost_sim): losses relative, LoRA gradients max-rel where |g| >= RESOLVED,
+# roll-out gradients max-rel.
+LAT_LON_SMALL_TOL = dict(loss=1e-6, lora=1e-5, rollout=1e-4)
 # What the ranks' blocks must see on the 720 x 1440 grid (swin3d.py:1146-1175): the second
 # stage's 90 x 180 token grid over-padded by (0, 6, 12); its 45 rows a rank odd at the merge
 # into the third stage; the third stage's 45 rows split unevenly; a shifted block of the
@@ -3047,7 +3073,9 @@ def start_lat_lon():
 
     folder = tempfile.mkdtemp(prefix="chip_smoke_lat_lon_")
     flags = ["--data", str(LAT_LON["data"]), "--lat", str(LAT_LON["lat"]), "--lon",
-             str(LAT_LON["lon"]), "--config", "production", "--no-scan"]
+             str(LAT_LON["lon"]), "--config", "production", "--no-scan", "--steps",
+             str(LAT_LON_STEPS), "--train", LAT_LON_TRAIN, "--train-depths",
+             str(LAT_LON_TRAIN_DEPTHS), "--remat", "none"]
     n = LAT_LON["data"] * LAT_LON["lat"] * LAT_LON["lon"]
     procs = multihost_sim.spawn_workers(n, folder, "cuda", hold=True, extra=flags)
     _CHILDREN.extend(procs)
@@ -3069,14 +3097,15 @@ def run_lat_lon(started, released: float) -> dict:
     """The (lat, lon) split on the card: the ranks started by :func:`start_lat_lon` (one gloo
     group, every rank on the one card), each with the main route's 1.3 B production model
     (the same seeded weights and batch) on its block of the 720 x 1440 grid under
-    ``make_mesh(data=1, lat=2, lon=2)``: ``Aurora.forward`` and the tool's 2-step
+    ``make_mesh(data=1, lat=2, lon=2)``: ``Aurora.forward`` and a LAT_LON_STEPS-step
     ``rollout``, each prediction gathered (``gather_batch``). Held against the main route's
     one-process steps (KEPT, on the host): the forward and the roll-out's step 1 against step
-    1, step 2 against step 2, mean relative error per variable within the tool's
+    1, mean relative error per variable within the tool's
     PRODUCTION_TOL (1e-2, the bf16 bar). Every rank must have launched K1-K4, and the blocks
     must have seen LAT_LON_GEOMETRY. Prints each rank's step times (four ranks sharing one
-    card: not a scaling figure) and the halo bytes each rank sent per block. The ranks ran beside the parallel phase's (released with them by
-    :func:`release_lat_lon`)."""
+    card: not a scaling figure) and the halo bytes each rank sent per block. The ranks ran
+    beside the parallel phase's (released with them by :func:`release_lat_lon`). Then their
+    train steps (:func:`lat_lon_train`)."""
     import shutil
 
     import torch
@@ -3087,7 +3116,7 @@ def run_lat_lon(started, released: float) -> dict:
     want = KEPT.pop("main")
     t0 = time.perf_counter()
     try:
-        ranks = multihost_sim.collect(procs, folder, timeout=300)
+        ranks = multihost_sim.collect(procs, folder, timeout=600)
     finally:
         shutil.rmtree(folder, ignore_errors=True)
     released_s = time.perf_counter() - released
@@ -3095,7 +3124,7 @@ def run_lat_lon(started, released: float) -> dict:
     got = ranks[0]["grids"][key]
     parts = [("forward", want[0], got["forward"])]
     parts += [(f"rollout {i + 1}", w, g) for i, (w, g) in enumerate(zip(want, got["rollout"]))]
-    errs, shapes_ok = {}, len(got["rollout"]) == multihost_sim.SPATIAL_STEPS
+    errs, shapes_ok = {}, len(got["rollout"]) == LAT_LON_STEPS
     for what, w, g in parts:
         shapes_ok = shapes_ok and sorted(w) == sorted(g) and all(
             g[k].shape == w[k].shape and torch.isfinite(g[k]).all() for k in w)
@@ -3117,10 +3146,10 @@ def run_lat_lon(started, released: float) -> dict:
                and all(b == [expect["stage1_shifted_bytes"]] for b in stage1))
     emit(dict(phase="lat_lon", mesh=LAT_LON, processes=len(ranks), backend=ranks[0]["backend"],
               model="Aurora(use_lora=True) 1.3 B, production knobs (main route)",
-              grid="721x1440 (720x1440 after crop)", steps=multihost_sim.SPATIAL_STEPS,
+              grid="721x1440 (720x1440 after crop)", steps=LAT_LON_STEPS,
               mean_rel_worst=worst, mean_rel=errs, max_rel=max_rel,
               tol=multihost_sim.PRODUCTION_TOL,
-              against="the main route's one-process roll-out on the card (steps 1-2)",
+              against="the main route's one-process roll-out on the card (step 1)",
               geometry={k: geo[k] for k in ("overpadded", "odd_merges", "uneven", "shifted_lat",
                                             "shifted_lon", "encoder_local", "encoder_whole")},
               halo_bytes_per_block=geo["block_bytes"], halo_bytes_sent=geo["bytes_sent"],
@@ -3136,7 +3165,83 @@ def run_lat_lon(started, released: float) -> dict:
             or not seen_ok or ranks[0]["backend"] != "gloo"):
         raise AssertionError(f"lat_lon: errors {worst}, shapes {shapes_ok}, ranks that "
                              f"launched no kernel {idle}, geometry {geo}")
-    return dict(launches=launches, mean_rel=worst)
+    train = lat_lon_train(ranks)
+    return dict(launches=launches, mean_rel=worst, train=train)
+
+
+def lat_lon_train(ranks: list) -> dict:
+    """The lat_lon ranks' train steps (LAT_LON_TRAIN) against the one-process steps kept on
+    the host: (a) the bf16 LoRA step of the train phase's model, the loss within
+    TRAIN_LOSS_TOL relative and the concatenated LoRA gradient (summed over the lat / lon
+    plane) within TRAIN_GRAD_TOL relative L2; (b) the float32 small model's LoRA and K = 2
+    roll-out steps of the parallel phase, within LAT_LON_SMALL_TOL. Every rank must have
+    launched K1-K4 in each step, as many as one process launches in it
+    (``train_bench.expected_launches``). Prints each rank's step seconds and halo bytes, and
+    what the gradient checks read had rank 0 skipped the plane's sum (its own gradient)."""
+    from aurora_tpu_torch.tools import multihost_sim as ms
+
+    import argparse
+
+    from aurora_tpu_torch.tools import train_bench
+
+    need = ("roll3d", "window_attention", "mlp_adaln_residual", "perceiver_core")
+    rows, bad = [], []
+    # Each rank launches what one process launches in the same step (remat "full" for the
+    # production model, none for the small one, as the parallel phase runs it).
+    prod = train_bench.train_config().replace(**TWO_BLOCKS)
+    small = ms.spatial_config(argparse.Namespace(depths=None, width=None, config="small"))
+    expected_launches = {
+        ("production", "lora"): train_bench.expected_launches(prod, lora=True),
+        ("small", "lora"): train_bench.expected_launches(small, lora=True),
+        ("small", "rollout"): train_bench.expected_launches(small, lora=True, K=ms.ROLLOUT_K)}
+    expected_launches = {k: {n: c for n, c in v.items() if c}
+                         for k, v in expected_launches.items()}
+    par = KEPT.pop("parallel")
+    wants = {("production", "lora"): KEPT.pop("train"),
+             ("small", "lora"): dict(loss=par["lora_loss"], grads=par["lora_grads"]),
+             ("small", "rollout"): dict(loss=par["rollout_loss"], grads=par["rollout_grads"])}
+    for (config, step), want in wants.items():
+        grids = ranks[0]["train"][config]["grids"]
+        key = next(iter(grids))
+        got = grids[key][step]
+        per_rank = [r["train"][config]["grids"][key][step] for r in ranks]
+        loss = abs(got["loss"] - want["loss"]) / abs(want["loss"])
+        w = want["grads"]
+        if config == "production":
+            grad = ms._rel_l2(got["grads"], w)
+            fault = ms._rel_l2(got["local_grads"], w)
+            tol = (TRAIN_LOSS_TOL, TRAIN_GRAD_TOL)
+            measure = "rel_l2"
+        else:
+            grad = (ms._masked_max_rel(got["grads"], w) if step == "lora"
+                    else max(ms._max_rel(got["grads"][k], w[k]) for k in w))
+            fault = max(ms._max_rel(got["local_grads"][k], w[k]) for k in w)
+            tol = (LAT_LON_SMALL_TOL["loss"], LAT_LON_SMALL_TOL[step])
+            measure = "max_rel where |g| >= 1e-6" if step == "lora" else "max_rel"
+        expected = expected_launches[config, step]
+        idle = [i for i, r in enumerate(per_rank)
+                if not all(r["launches"].get(k) for k in need)
+                or {k: v for k, v in r["launches"].items() if v} != expected]
+        row = dict(phase="lat_lon", part=f"{config} {step} step", grid=key,
+                   loss=got["loss"], loss_one_process=want["loss"], loss_rel_err=loss,
+                   grad_err=grad, grad_measure=measure, tol=tol,
+                   skipped_plane_sum_grad_err=fault,
+                   step_s_per_rank=[r["seconds"] for r in per_rank],
+                   halo_bytes_sent_per_rank=[r["halo"]["bytes_sent"] for r in per_rank],
+                   collectives_per_rank=[r["halo"]["collectives"] for r in per_rank],
+                   by_kind_rank0=got["halo"]["by_kind"],
+                   launches_per_rank=[r["launches"] for r in per_rank],
+                   expected_launches=expected,
+                   step_s_label="four ranks sharing one card, beside the parallel phase's ranks "
+                                "and its one-process run: not a scaling figure")
+        emit(row)
+        rows.append(row)
+        if idle or not (loss <= tol[0] and grad <= tol[1]) or not fault > 10 * tol[1]:
+            bad.append(f"{config} {step}: loss {loss}, gradient {grad} (skipped sum {fault}), "
+                       f"ranks whose launches differ from one process's {idle}")
+    if bad:
+        raise AssertionError(f"lat_lon train: {bad}")
+    return dict(rows=rows)
 
 
 # ------------------------------------------------------------------------------ tools

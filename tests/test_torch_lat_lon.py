@@ -249,7 +249,7 @@ def test_the_blocks_saw_every_case(sim):
     assert aligned["encoder_local"] and not aligned["encoder_whole"]
     assert whole["encoder_whole"] and not whole["encoder_local"]
     assert ((4, 5, 12), (0, 5, 12)) in aligned["overpadded"]
-    assert sim["rank0"]["refuses_training"] and sim["result"]["processes"] == 4
+    assert "refuses_training" not in sim["rank0"] and sim["result"]["processes"] == 4
 
 
 def _moved(cur, blocks):
