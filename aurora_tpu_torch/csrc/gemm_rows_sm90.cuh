@@ -14,6 +14,7 @@
 //                       (aurora_tpu/model/swin3d.py:573-577)                 (qkv)
 //       EPI_ROUND       y = bf16(acc), no bias                              (K4's v)
 //       EPI_STATS       the same, with EPI_BIAS_STATS's statistics          (K4's out-projection)
+//       EPI_QKV_STATS   EPI_QKV's value with EPI_BIAS_STATS's statistics    (K4's, with bout)
 //     y leaves through each warp's swizzled staging (GemmRing::store_warp_tile).
 //   ln_rows_kernel<Res, TILE>: a warp a row, out (holding y) = bf16(x + LN(y) (scale_bias +
 //     scale[f]) + shift[f]) in place, f = (row_base + row) / rows_per_batch, x the row's
@@ -39,7 +40,8 @@ constexpr int ROWS_THREADS = 384;  // consumers 0-255, producer warpgroup 256-38
 constexpr size_t ROWS_GEMM_SMEM = 1024 + RowsRing::STAGES * RowsRing::STAGE_BYTES +
                                   RowsRing::CONSUMER_WARPS * RowsRing::OUT_WARP_BYTES +
                                   RowsRing::BAR_BYTES;
-enum { EPI_BIAS = 0, EPI_BIAS_STATS = 1, EPI_QKV = 2, EPI_ROUND = 3, EPI_STATS = 4 };
+enum { EPI_BIAS = 0, EPI_BIAS_STATS = 1, EPI_QKV = 2, EPI_ROUND = 3, EPI_STATS = 4,
+       EPI_QKV_STATS = 5 };
 
 // One product's schedule over a chunk of `rows` rows: pieces of 64 rows (the last ragged),
 // paired into tiles; unit u is column tile u % n_tiles of tile u / n_tiles, whose warpgroup
@@ -75,9 +77,10 @@ __device__ __forceinline__ void produce_units(const CUtensorMap* map_a, const CU
   }
 }
 
-// out: (rows, N) bf16. bias: (N,) f32, bf16 for EPI_QKV, unused (null) for EPI_ROUND and
-// EPI_STATS. EPI_BIAS_STATS and EPI_STATS: also stats[row * n_tiles + column tile] = (mean,
-// centred sum of squares) of the row's 256 rounded values in the tile.
+// out: (rows, N) bf16. bias: (N,) f32, bf16 for EPI_QKV and EPI_QKV_STATS, unused (null) for
+// EPI_ROUND and EPI_STATS. EPI_BIAS_STATS, EPI_STATS and EPI_QKV_STATS: also stats[row *
+// n_tiles + column tile] = (mean, centred sum of squares) of the row's 256 rounded values in
+// the tile.
 template <int EPI>
 __global__ void __launch_bounds__(ROWS_THREADS, 1) gemm_bias_kernel(
     const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_w,
@@ -116,7 +119,7 @@ __global__ void __launch_bounds__(ROWS_THREADS, 1) gemm_bias_kernel(
 #pragma unroll
       for (int j = 0; j < 32; ++j) {
         const int n = n0 + 8 * j + 2 * tq;
-        if constexpr (EPI == EPI_QKV) {
+        if constexpr (EPI == EPI_QKV || EPI == EPI_QKV_STATS) {
           const float2 b =
               __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
                   static_cast<const bf16*>(bias) + n));
@@ -137,7 +140,7 @@ __global__ void __launch_bounds__(ROWS_THREADS, 1) gemm_bias_kernel(
           acc[4 * j + 3] = bf16r(acc[4 * j + 3] + b.y);
         }
       }
-      if constexpr (EPI == EPI_BIAS_STATS || EPI == EPI_STATS) {
+      if constexpr (EPI == EPI_BIAS_STATS || EPI == EPI_STATS || EPI == EPI_QKV_STATS) {
         float s0 = 0.f, s1 = 0.f;
 #pragma unroll
         for (int j = 0; j < 32; ++j) {

@@ -258,7 +258,8 @@ __device__ __forceinline__ void mma_step(float (&acc)[64], const uint32_t (&hi)[
 }
 
 // out: (groups per, ld) f32, its first n_store columns written; bias: (N,) f32 (not read under
-// EPI_PLAIN); sq: (groups per, n_sq) f32, the sums of squares of the tiles from n_store on.
+// EPI_PLAIN); sq: (groups per, n_sq) f32, the sums of squares of the tiles from n_store on (of
+// A W + bias under EPI_BIAS).
 // map_a: A as (groups, rows, K) in boxes of BK x 128 rows x 1 group; map_w: the split W^T
 // (2 N, K) in boxes of BK x 128 rows.
 template <int EPI>
@@ -351,6 +352,16 @@ __global__ void __launch_bounds__(THREADS, 1) gemm_tf32x3_kernel(
     const bool w0 = r0 < s.per, w1 = r0 + 8 < s.per;
     const long long o = (long long)un.g * s.per + r0;  // row r0's row of out (and of sq)
     if (n0 >= s.n_store) {
+      if constexpr (EPI == EPI_BIAS) {
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j) {
+          const float2 bj = *reinterpret_cast<const float2*>(bias + n0 + 8 * j + 2 * t);
+          sum[4 * j] += bj.x;
+          sum[4 * j + 1] += bj.y;
+          sum[4 * j + 2] += bj.x;
+          sum[4 * j + 3] += bj.y;
+        }
+      }
       // Each row's sum of squares over the tile: a thread's 32 values of each of its two rows,
       // then the quad's four threads (t = 0..3) of the row.
       float q0 = 0.f, q1 = 0.f;
@@ -451,7 +462,7 @@ inline int launch_split(const float* w, float* ws, int K, int N, cudaStream_t st
 // up to map_rows of a group may be read, rows from `per` on are never stored), W given as its
 // split ws (2 N, K). Output row g per + r: its columns 0..n_store-1 EPI(A W + bias) into out
 // (row stride ld), and for each 128-column tile from n_store on the row's sum of squares of
-// A W over the tile into sq (row stride (N - n_store) / 128). K % BK == 0, N and n_store
+// A W (+ bias under EPI_BIAS) over the tile into sq (row stride (N - n_store) / 128). K % BK == 0, N and n_store
 // multiples of 128, a, ws, out 16-byte aligned, ld and group_stride multiples of 4. One block
 // an SM for the first min(units, SMs).
 template <int EPI>

@@ -10,6 +10,9 @@
 //   v = bf16(bf16(ctx) Wv); o[q, h] = sum over k, in level order, of bf16(w v), each
 //   partial sum rounded (resampler.py:204-206)
 //   out[q] = bf16(LN(bf16(o[q] Wout)) ln1_w + ln1_b + queries[q])
+// With the bias inputs (resampler.py:125-134): k = ctx Wk + bk (f32); v = bf16(v + bv) and
+// the out-projection bf16(bf16(o[q] Wout) + bout), bv and bout bf16, each added after the
+// rounding as the TPU kernel adds them.
 //
 // The logits fold. k and the logits must stay f32 (bf16 q/k cost 2e-1 end to end,
 // aurora_tpu/model/perceiver.py:145-152), but k itself is needed only through the logits:
@@ -58,6 +61,10 @@
 //   5. ln_rows_kernel<PeriodicResidual>: ln1_w as the gain (scale_bias 0, one FiLM row for
 //      all rows), ln1_b as the shift, the f32 query of the row (period Q) as the residual, in
 //      place in out.
+// The bias inputs (perceiver_bias.cuh): with bk, bias_fold_kernel after launch 0 writes the
+// logits' bias cb (Q h) and, with ln_k, the centred bk (inner); the mix adds cb to each raw
+// logit, sumsq_kernel adds the centred bk to each column of ctx Wc before squaring it. bv
+// turns launch 2's epilogue into EPI_QKV, bout launch 4's into EPI_QKV_STATS.
 // Scratch, all allocated by the wrapper for the largest chunk: ctx hi (and lo), v, the
 // logits, the sums of squares (ln_k), o and the statistics. Every pointer 16-byte aligned.
 //
@@ -67,6 +74,7 @@
 // scratch holds.
 #include "common.cuh"
 #include "gemm_rows_sm90.cuh"
+#include "perceiver_bias.cuh"
 
 namespace {
 
@@ -275,13 +283,13 @@ __global__ void __launch_bounds__(256) logits_kernel(
 }
 
 // With ln_k, after launch 1: sq (R, inner / 256) f32, each row's sum of squares of ctx Wc
-// per 256-column tile, ctx Wc as hi Wc_hi + lo Wc_hi + hi Wc_lo on the ring: K step ks takes
-// A from ctx lo in the middle third of the 3 D / 64 steps and from ctx hi otherwise, at k
-// (ks mod D / 64) 64, and w3 at k ks 64.
+// (+ bc, the centred bk, where bc is not null) per 256-column tile, ctx Wc as hi Wc_hi + lo
+// Wc_hi + hi Wc_lo on the ring: K step ks takes A from ctx lo in the middle third of the 3 D /
+// 64 steps and from ctx hi otherwise, at k (ks mod D / 64) 64, and w3 at k ks 64.
 __global__ void __launch_bounds__(ROWS_THREADS, 1) sumsq_kernel(
     const __grid_constant__ CUtensorMap map_hi, const __grid_constant__ CUtensorMap map_lo,
-    const __grid_constant__ CUtensorMap map_w, float* __restrict__ sq, int d_steps,
-    const Sched s) {
+    const __grid_constant__ CUtensorMap map_w, const float* __restrict__ bc,
+    float* __restrict__ sq, int d_steps, const Sched s) {
   using Ring = RowsRing;
   extern __shared__ unsigned char raw[];
   const uint32_t tiles = (sm90::smem_u32(raw) + 1023u) & ~1023u;
@@ -314,6 +322,16 @@ __global__ void __launch_bounds__(ROWS_THREADS, 1) sumsq_kernel(
       const int p = 2 * (u / s.n_tiles) + wg, nt = u % s.n_tiles;
       Ring::consume_tile(acc, tiles, bars, pos, s.k_steps, wg, lane == 0);
       if (p >= s.pieces) continue;
+      if (bc) {
+#pragma unroll
+        for (int j = 0; j < 32; ++j) {
+          const float2 b = *reinterpret_cast<const float2*>(bc + nt * Ring::BN + 8 * j + 2 * tq);
+          acc[4 * j] += b.x;
+          acc[4 * j + 1] += b.y;
+          acc[4 * j + 2] += b.x;
+          acc[4 * j + 3] += b.y;
+        }
+      }
       float s0 = 0.f, s1 = 0.f;  // rows gq and gq + 8 of the warp's 16
 #pragma unroll
       for (int j = 0; j < 32; ++j) {
@@ -331,12 +349,14 @@ __global__ void __launch_bounds__(ROWS_THREADS, 1) sumsq_kernel(
   }
 }
 
-// Launch 3. v: (K Mc, inner) bf16; logits: (K Mc, Q heads) f32; with ln_k sq (K Mc, n_sq)
-// and cst (Q heads), else both null; o: (Mc, Q, inner) bf16.
+// Launch 3. v: (K Mc, inner) bf16; logits: (K Mc, Q heads) f32; cb (Q heads) f32, the logits'
+// bias (bk), or null; with ln_k sq (K Mc, n_sq) and cst (Q heads), else both null; o: (Mc, Q,
+// inner) bf16.
 template <int K, int DH>
 __global__ void __launch_bounds__(256) mix_kernel(
-    const bf16* __restrict__ v, const float* __restrict__ logits, const float* __restrict__ sq,
-    const float* __restrict__ cst, int Mc, int heads, int Q, int n_sq, bf16* __restrict__ o) {
+    const bf16* __restrict__ v, const float* __restrict__ logits, const float* __restrict__ cb,
+    const float* __restrict__ sq, const float* __restrict__ cst, int Mc, int heads, int Q,
+    int n_sq, bf16* __restrict__ o) {
   constexpr int G = DH / 8;  // threads a head
   const int inner = heads * DH, per_col = inner / 8, cols = 256 / per_col;
   const int tid = threadIdx.x, mi = tid / per_col, t = tid % per_col, h = t / G, g = t % G;
@@ -367,6 +387,7 @@ __global__ void __launch_bounds__(256) mix_kernel(
 #pragma unroll
     for (int kk = 0; kk < K; ++kk) {
       float x = logits[((long long)kk * Mc + m) * QH + col];
+      if (cb) x += cb[col];
       if (sq) x = rs[kk * cols + mi] * x + cst[col];
       l[kk] = x;
       mx = fmaxf(mx, x);
@@ -399,11 +420,12 @@ __global__ void __launch_bounds__(256) mix_kernel(
 }
 
 template <int K, int DH>
-int launch_mix(const bf16* v, const float* logits, const float* sq, const float* cst, int Mc,
-               int heads, int Q, int n_sq, bf16* o, cudaStream_t stream) {
+int launch_mix(const bf16* v, const float* logits, const float* cb, const float* sq,
+               const float* cst, int Mc, int heads, int Q, int n_sq, bf16* o,
+               cudaStream_t stream) {
   const int cols = 256 / (heads * DH / 8);
-  mix_kernel<K, DH><<<(Mc + cols - 1) / cols, 256, 0, stream>>>(v, logits, sq, cst, Mc, heads,
-                                                                Q, n_sq, o);
+  mix_kernel<K, DH><<<(Mc + cols - 1) / cols, 256, 0, stream>>>(v, logits, cb, sq, cst, Mc,
+                                                                heads, Q, n_sq, o);
   return (int)cudaGetLastError();
 }
 
@@ -411,9 +433,10 @@ int launch_mix(const bf16* v, const float* logits, const float* sq, const float*
 
 // ctx: (K, M, D) f32; wk: (D, inner) f32; wv: (D, inner) bf16 and wout: (inner, D_out) bf16,
 // both as stored; qh: (Q, inner) f32; ln_w, ln_b: (D_out,) f32; qres: (Q, D_out) f32;
-// lnk_w, lnk_b: (inner,) f32, or both null (no ln_k). Scratch: wb (D, NLP) f32, NLP = Q heads
-// rounded up to 64; with ln_k cst (Q heads) f32 and w3 (3 D, inner) bf16; for Mc columns
-// ctxb (K Mc, D) bf16, with ln_k ctxlo (K Mc, D) bf16 and sq (K Mc, inner / 256) f32, v
+// lnk_w, lnk_b: (inner,) f32, or both null (no ln_k); bk (inner,) f32, bv (inner,) bf16 and
+// bout (D_out,) bf16, each or null. Scratch: wb (D, NLP) f32, NLP = Q heads rounded up to 64;
+// with ln_k cst (Q heads) f32 and w3 (3 D, inner) bf16; with bk kb (Q heads + inner) f32; for
+// Mc columns ctxb (K Mc, D) bf16, with ln_k ctxlo (K Mc, D) bf16 and sq (K Mc, inner / 256) f32, v
 // (K Mc, inner) bf16, logits (K Mc, Q heads) f32, o (Mc, Q, inner) bf16, stats
 // (Mc Q, D_out / 256) float2.
 // out: (M, Q, D_out) bf16. The columns go in chunks of Mc. Takes (K, dh) in {(13, 32),
@@ -424,9 +447,10 @@ int launch_mix(const bf16* v, const float* logits, const float* sq, const float*
 extern "C" int perceiver_core(const float* ctx, const float* wk, const void* wv,
                               const float* qh, const void* wout, const float* ln_w,
                               const float* ln_b, const float* qres, const float* lnk_w,
-                              const float* lnk_b, float* wb, float* cst, void* w3, void* ctxb,
-                              void* ctxlo, void* v, float* logits, float* sq, void* o,
-                              float* stats, void* out, int K,
+                              const float* lnk_b, const float* bk, const void* bv,
+                              const void* bout, float* wb, float* cst, float* kb, void* w3,
+                              void* ctxb, void* ctxlo, void* v, float* logits, float* sq,
+                              void* o, float* stats, void* out, int K,
                               int M, int Mc, int D, int heads, int dh, int Q, int D_out,
                               float scale, float eps, cudaStream_t stream) {
   const int inner = heads * dh, QH = Q * heads, NLP = (QH + 63) / 64 * 64, n_sq = inner / 256;
@@ -435,15 +459,21 @@ extern "C" int perceiver_core(const float* ctx, const float* wk, const void* wv,
       (D_out != 256 && D_out != 512 && D_out != 1024 && D_out != 2048) ||
       (long long)K * Mc > 65535ll * LG_BM ||
       (long long)Mc * Q > (1 << 24) ||
-      (lnk_w == nullptr) != (lnk_b == nullptr))
+      (lnk_w == nullptr) != (lnk_b == nullptr) || (bk != nullptr && kb == nullptr))
     return (int)cudaErrorInvalidValue;
   int err;
   cudaError_t e;
+  // With bk: the logits' bias (Q heads) and, with ln_k, the centred bk (inner) in kb.
+  const float* cb = bk ? kb : nullptr;
+  const float* bc = bk && lnk_w ? kb + QH : nullptr;
   if (RUN & 1) {
     fold_kernel<<<D, 256, inner * sizeof(double), stream>>>(wk, qh, lnk_w, lnk_b, D, inner, dh,
                                                            QH, heads, NLP, scale, wb, cst,
                                                            static_cast<bf16*>(w3));
     if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+    if (bk && (err = launch_bias_fold(bk, nullptr, lnk_w, qh, inner, dh, QH, heads, QH, scale,
+                                      kb, kb + QH, nullptr, stream)))
+      return err;
   }
   bf16* ob = static_cast<bf16*>(out);
   for (int m0 = 0; m0 < M; m0 += Mc) {
@@ -466,7 +496,7 @@ extern "C" int perceiver_core(const float* ctx, const float* wk, const void* wv,
         cudaFuncSetAttribute(sumsq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)ROWS_GEMM_SMEM);
         sumsq_kernel<<<s3.units < sms ? s3.units : sms, ROWS_THREADS, ROWS_GEMM_SMEM, stream>>>(
-            map_hi, map_lo, map_w3, sq, D / 64, s3);
+            map_hi, map_lo, map_w3, bc, sq, D / 64, s3);
         if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
       }
     }
@@ -474,17 +504,20 @@ extern "C" int perceiver_core(const float* ctx, const float* wk, const void* wv,
       CUtensorMap map_c, map_wv;
       if ((e = RowsRing::make_map_a(&map_c, ctxb, R, D, R)) != cudaSuccess) return (int)e;
       if ((e = RowsRing::make_map_w(&map_wv, wv, D, inner)) != cudaSuccess) return (int)e;
-      err = launch_gemm_bias<EPI_ROUND>(map_c, map_wv, nullptr, static_cast<bf16*>(v), nullptr,
-                                        inner, make_sched(R, D, inner), stream);
+      const Sched sv = make_sched(R, D, inner);
+      err = bv ? launch_gemm_bias<EPI_QKV>(map_c, map_wv, bv, static_cast<bf16*>(v), nullptr,
+                                           inner, sv, stream)
+               : launch_gemm_bias<EPI_ROUND>(map_c, map_wv, nullptr, static_cast<bf16*>(v),
+                                             nullptr, inner, sv, stream);
       if (err) return err;
     }
     if (RUN & 4) {
       const float* sqp = lnk_w ? sq : nullptr;
       const float* cp = lnk_w ? cst : nullptr;
-      err = kd13 ? launch_mix<13, 32>(static_cast<const bf16*>(v), logits, sqp, cp, mc, heads, Q,
-                                      n_sq, static_cast<bf16*>(o), stream)
-                 : launch_mix<3, 64>(static_cast<const bf16*>(v), logits, sqp, cp, mc, heads, Q,
-                                     n_sq, static_cast<bf16*>(o), stream);
+      err = kd13 ? launch_mix<13, 32>(static_cast<const bf16*>(v), logits, cb, sqp, cp, mc, heads,
+                                      Q, n_sq, static_cast<bf16*>(o), stream)
+                 : launch_mix<3, 64>(static_cast<const bf16*>(v), logits, cb, sqp, cp, mc, heads,
+                                     Q, n_sq, static_cast<bf16*>(o), stream);
       if (err) return err;
     }
     if (RUN & 8) {
@@ -492,9 +525,10 @@ extern "C" int perceiver_core(const float* ctx, const float* wk, const void* wv,
       if ((e = RowsRing::make_map_a(&map_o, o, rows, inner, rows)) != cudaSuccess) return (int)e;
       if ((e = RowsRing::make_map_w(&map_wout, wout, inner, D_out)) != cudaSuccess) return (int)e;
       bf16* oc = ob + (long long)m0 * Q * D_out;
-      err = launch_gemm_bias<EPI_STATS>(map_o, map_wout, nullptr, oc,
-                                        reinterpret_cast<float2*>(stats), D_out,
-                                        make_sched(rows, inner, D_out), stream);
+      float2* st = reinterpret_cast<float2*>(stats);
+      const Sched so = make_sched(rows, inner, D_out);
+      err = bout ? launch_gemm_bias<EPI_QKV_STATS>(map_o, map_wout, bout, oc, st, D_out, so, stream)
+                 : launch_gemm_bias<EPI_STATS>(map_o, map_wout, nullptr, oc, st, D_out, so, stream);
       if (err) return err;
       // The chunk starts at a column, so its row r is query r % Q; one FiLM row for all.
       ln_rows_kernel<<<(rows + 7) / 8, 256, 0, stream>>>(

@@ -9,6 +9,8 @@
 //   v = ctx Wv; o[q, h] = sum over k, in level order, of w v (each product and partial sum
 //   rounded once, as the plain version's separate multiply and add)
 //   out[q] = LN(o[q] Wout) ln1_w + ln1_b + queries[q]
+// With the bias inputs (resampler.py:125-134): k = ctx Wk + bk, v = ctx Wv + bv, o[q] Wout +
+// bout.
 //
 // The fold, as in the bf16 form (resampler.cu): k enters only through the logits, so
 // logits = ctx Wkq with Wkq[c, (q, h)] = scale sum_d Wk[c, h dh + d] qh[q, h, d]; with ln_k,
@@ -43,6 +45,10 @@
 //   6. ln_rows_f32_kernel<PeriodicF32> (gemm_f32.cuh): ln1_w as the gain (scale_bias 0, one
 //      FiLM row for all rows), ln1_b as the shift, the query of the row (period Q) as the
 //      residual, in place.
+// The bias inputs (perceiver_bias.cuh): with bk or bv, bias_fold_kernel after launch 0 writes
+// one bias row over W_ctx's columns, bvec (NT) = [bv | cb | the centred bk (ln_k only)], and
+// launch 3 runs as EPI_BIAS: v + bv and the raw logits + cb are stored, the centred bk is added
+// to ctx Wc before the squares. With bout launch 5 runs as EPI_BIAS. The FFMA build takes none.
 // The logit columns past Q h are zeros in W_ctx: the ring computes NLP of which Q h are real
 // (48 of 128 at the aggregation, 208 of 256 at the de-aggregation, 24 of 128 at the small
 // model's D = 256): 0.42, 0.12 and 0.27 ms of three-part time a call. (A 64-column tile would
@@ -65,6 +71,7 @@
 // -DABLATE_ONLY_ROWS (6).
 #include "gemm_f32.cuh"
 #include "gemm_tf32x3_sm90.cuh"
+#include "perceiver_bias.cuh"
 
 namespace {
 
@@ -242,8 +249,9 @@ int launch_mix_f32(const float* v, int ldv, const float* logits, int ldl, const 
 
 // ctx: (K, M, D) f32; wk, wv: (D, inner) f32 and wout: (inner, D_out) f32, all as stored; qh:
 // (Q, inner) f32; ln_w, ln_b: (D_out,) f32; qres: (Q, D_out) f32; lnk_w, lnk_b: (inner,) f32,
-// or both null (no ln_k). NLP = Q heads rounded up to 128, NS = inner + NLP, NT = NS (+ inner
-// with ln_k). Scratch: with ln_k cst (Q heads) f32; for Mc columns vl (K Mc, NS), with ln_k sq
+// or both null (no ln_k); bk, bv (inner,) and bout (D_out,) f32, each or null. NLP = Q heads
+// rounded up to 128, NS = inner + NLP, NT = NS (+ inner with ln_k). Scratch: with ln_k cst (Q
+// heads) f32; with bk or bv bvec (NT) f32; for Mc columns vl (K Mc, NS), with ln_k sq
 // (K Mc, inner / 128), o (Mc, Q, inner), all f32; wsplit, 2 NT D + 2 D_out inner f32: W_ctx^T's
 // hi and lo (2 NT, D), then Wout^T's (2 D_out, inner), written and read by this call. out: (M,
 // Q, D_out) f32. The columns go in chunks of Mc. Takes (K, dh) in {(13, 32), (3, 64)}, D % 64
@@ -253,23 +261,27 @@ int launch_mix_f32(const float* v, int ldv, const float* logits, int ldl, const 
 extern "C" int perceiver_core_f32(const float* ctx, const float* wk, const float* wv,
                                   const float* qh, const float* wout, const float* ln_w,
                                   const float* ln_b, const float* qres, const float* lnk_w,
-                                  const float* lnk_b, float* cst, float* vl, float* sq, float* o,
-                                  float* out, int K, int M, int Mc, int D, int heads, int dh,
-                                  int Q, int D_out, float scale, float eps, float* wsplit,
-                                  cudaStream_t stream) {
+                                  const float* lnk_b, const float* bk, const float* bv,
+                                  const float* bout, float* cst, float* bvec, float* vl,
+                                  float* sq, float* o, float* out, int K, int M, int Mc, int D,
+                                  int heads, int dh, int Q, int D_out, float scale, float eps,
+                                  float* wsplit, cudaStream_t stream) {
   const int inner = heads * dh, QH = Q * heads, NLP = (QH + 127) / 128 * 128, n_sq = inner / 128;
   const bool kd13 = K == 13 && dh == 32, kd3 = K == 3 && dh == 64, ln_k = lnk_w != nullptr;
   if ((!kd13 && !kd3) || M <= 0 || Mc <= 0 || D <= 0 || D % 64 || inner % 256 || inner > 2048 ||
       (D_out != 256 && D_out != 512 && D_out != 1024 && D_out != 2048) ||
-      (long long)Mc * Q > (1 << 24) || (lnk_w == nullptr) != (lnk_b == nullptr))
+      (long long)Mc * Q > (1 << 24) || (lnk_w == nullptr) != (lnk_b == nullptr) ||
+      ((bk || bv) && bvec == nullptr))
     return (int)cudaErrorInvalidValue;
   const int NS = inner + NLP, NT = NS + (ln_k ? inner : 0);
+  const bool ctx_bias = bk || bv;
   const long long lo_ctx = (long long)NT * D;  // W_ctx^T's lo parts, floats after its hi
   float* ws_ctx = wsplit;
   float* ws_out = wsplit + 2 * lo_ctx;
   int err = 0;
   const size_t fold_smem = inner * sizeof(double);
 #ifdef RESAMPLER_F32_FFMA
+  if (ctx_bias || bout) return (int)cudaErrorInvalidValue;
   // As stored: Wkq (D, NLP) and Wc (D, inner) in the split scratch's room.
   float* wb = wsplit;
   float* wc = wsplit + (long long)D * NLP;
@@ -287,6 +299,10 @@ extern "C" int perceiver_core_f32(const float* ctx, const float* wk, const float
         cst, ws_ctx + (long long)NS * D, lo_ctx);
     if ((err = (int)cudaGetLastError())) return err;
     if ((err = tf32x3::launch_split_to(wv, ws_ctx, ws_ctx + lo_ctx, D, inner, stream)))
+      return err;
+    if (ctx_bias && (err = launch_bias_fold(bk, bv, lnk_w, qh, inner, dh, QH, heads, NLP, scale,
+                                            bvec + inner, ln_k ? bvec + NS : nullptr, bvec,
+                                            stream)))
       return err;
   }
   if (runs(3) && (err = tf32x3::launch_split(wout, ws_out, inner, D_out, stream))) return err;
@@ -313,10 +329,16 @@ extern "C" int perceiver_core_f32(const float* ctx, const float* wk, const float
     const float* v = vl;
     const float* logits = vl + inner;
     const int ldv = NS, ldl = NS;
-    if (runs(1) && (err = tf32x3::launch_gemm_grouped<tf32x3::EPI_PLAIN>(
-                        ctx + (long long)m0 * D, K, mc, M - m0, (long long)M * D, ws_ctx, nullptr,
-                        vl, NS, NS, sq, D, NT, stream)))
-      return err;
+    if (runs(1)) {
+      const float* c0 = ctx + (long long)m0 * D;
+      err = ctx_bias ? tf32x3::launch_gemm_grouped<tf32x3::EPI_BIAS>(
+                           c0, K, mc, M - m0, (long long)M * D, ws_ctx, bvec, vl, NS, NS, sq, D,
+                           NT, stream)
+                     : tf32x3::launch_gemm_grouped<tf32x3::EPI_PLAIN>(
+                           c0, K, mc, M - m0, (long long)M * D, ws_ctx, nullptr, vl, NS, NS, sq,
+                           D, NT, stream);
+      if (err) return err;
+    }
 #endif
     if (runs(2)) {
       const float* sqp = ln_k ? sq : nullptr;
@@ -333,8 +355,11 @@ extern "C" int perceiver_core_f32(const float* ctx, const float* wk, const float
                         f32k::Rows{o, inner}, wout, nullptr, oc, rows, inner, D_out, stream)))
       return err;
 #else
-    if (runs(3) && (err = tf32x3::launch_gemm<tf32x3::EPI_PLAIN>(o, ws_out, nullptr, oc, rows,
-                                                                 inner, D_out, stream)))
+    if (runs(3) && (err = bout ? tf32x3::launch_gemm<tf32x3::EPI_BIAS>(o, ws_out, bout, oc, rows,
+                                                                       inner, D_out, stream)
+                               : tf32x3::launch_gemm<tf32x3::EPI_PLAIN>(o, ws_out, nullptr, oc,
+                                                                        rows, inner, D_out,
+                                                                        stream)))
       return err;
 #endif
     // The chunk starts at a column, so its row r is query r % Q; one FiLM row for all.

@@ -19,6 +19,14 @@ With ``lnk = (weight, bias)`` (the ``ln_k`` of ``stabilise_level_agg``,
 LayerNorm over the whole ``inner`` axis, all heads together, with eps fixed at 1e-5 (not
 ``ln_eps``) and an f32 affine, before the logits.
 
+The bias inputs ``bk``, ``bv``, ``bout`` (``resampler.py:125-134``; the JAX resampler passes
+them when the tree holds ``to_kv`` / ``to_out`` biases, which no config creates): ``bk`` is
+added to the f32 k, ``bv`` to v and ``bout`` to the out-projection, each after its product's
+rounding, in v's and the output's dtype. The kernels fold ``bk`` once a call
+(``csrc/perceiver_bias.cuh``): without ``lnk`` it adds one constant a (query, head) to the
+logits, with ``lnk`` the centred ``bk`` enters k's sums of squares as well. ``bv`` and
+``bout`` go into the epilogues of the v product and the out-projection.
+
 Kernel (``csrc/resampler.cu``), six launches behind one wrapper call (one count in
 ``LAUNCHES``), on the shared Hopper headers:
 
@@ -96,10 +104,10 @@ __all__ = [
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 PERCEIVER_SCRATCH_BYTES = 512 << 20  # the most a call allocates for one chunk's scratch
 # csrc/resampler.cu::perceiver_core
-_PERCEIVER_CORE_ARGS = [_P] * 21 + [_I] * 8 + [_F, _F, _P]
-# csrc/resampler_f32.cu::perceiver_core_f32: the inputs, the scratch and out (15 pointers),
+_PERCEIVER_CORE_ARGS = [_P] * 25 + [_I] * 8 + [_F, _F, _P]
+# csrc/resampler_f32.cu::perceiver_core_f32: the inputs, the scratch and out (19 pointers),
 # then the bf16 entry's sizes and scalars, with the weights' split scratch before the stream
-_PERCEIVER_CORE_F32_ARGS = [_P] * 15 + _PERCEIVER_CORE_ARGS[-11:-1] + [_P, _P]
+_PERCEIVER_CORE_F32_ARGS = [_P] * 19 + _PERCEIVER_CORE_ARGS[-11:-1] + [_P, _P]
 
 
 def _ln_affine(y: torch.Tensor, w: torch.Tensor, b: torch.Tensor, eps: float):
@@ -122,14 +130,17 @@ def perceiver_core_plain(
     ln_eps: float = 1e-5,
     value_bf16: bool = False,
     lnk: Optional[tuple] = None,
+    bk: Optional[torch.Tensor] = None,
+    bv: Optional[torch.Tensor] = None,
+    bout: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Plain version of :func:`perceiver_core`."""
     return _perceiver(ctx, wk, wv, qh, wout, ln1_w, ln1_b, queries, scale, ln_eps, value_bf16,
-                      *(lnk or (None, None)), fast=False)
+                      *(lnk or (None, None)), bk, bv, bout, fast=False)
 
 
 def _perceiver(ctx, wk, wv, qh, wout, ln1_w, ln1_b, queries, scale, ln_eps, value_bf16,
-               lnk_w, lnk_b, fast: bool) -> torch.Tensor:
+               lnk_w, lnk_b, bk, bv, bout, fast: bool) -> torch.Tensor:
     K, M, D = ctx.shape
     Q, h, dh = qh.shape
     inner = h * dh
@@ -139,9 +150,13 @@ def _perceiver(ctx, wk, wv, qh, wout, ln1_w, ln1_b, queries, scale, ln_eps, valu
     vdt = torch.bfloat16 if value_bf16 else dt
     x2 = ctx.reshape(K * M, D)
     k = matmul_acc(x2, wk.to(dt), fast)
+    if bk is not None:  # f32 (f64 in float64), added to the f32 k (resampler.py:125, :167)
+        k = k + bk.to(acc)
     if lnk_w is not None:
         k = _ln_affine(k, lnk_w.to(acc), lnk_b.to(acc), 1e-5)
     v = matmul_acc(x2.to(vdt), wv.to(vdt), fast).to(vdt)
+    if bv is not None:  # in v's dtype: under value_bf16 a bf16 sum, rounded (:128, :179)
+        v = v + bv.to(vdt)
     logits = torch.einsum("kmhd,qhd->kmqh", k.reshape(K, M, h, dh), qh.to(acc)) * scale
     w = torch.softmax(logits, dim=0).to(vdt)  # (K, M, Q, h)
     v4 = v.reshape(K, M, 1, h, dh)
@@ -149,15 +164,17 @@ def _perceiver(ctx, wk, wv, qh, wout, ln1_w, ln1_b, queries, scale, ln_eps, valu
     for kk in range(1, K):
         o = o + w[kk][..., None] * v4[kk]
     attn = matmul_acc(o.reshape(M * Q, inner), wout.to(out_dt), fast).to(out_dt)
+    if bout is not None:  # in the output dtype, after the rounding (:134, :212)
+        attn = attn + bout.to(out_dt)
     ln = _ln_affine(attn.to(acc), ln1_w.to(acc), ln1_b.to(acc), ln_eps)
     return (ln.reshape(M, Q, -1) + queries.to(acc)[None]).to(out_dt)
 
 
 def _perceiver_core_grad(ctx, wk, wv, qh, wout, ln1_w, ln1_b, queries, scale, ln_eps,
-                         value_bf16, lnk_w, lnk_b, part=None):
+                         value_bf16, lnk_w, lnk_b, bk=None, bv=None, bout=None, part=None):
     """What the backward of :func:`perceiver_core` differentiates (one chunk of columns)."""
     return _perceiver(ctx, wk, wv, qh, wout, ln1_w, ln1_b, queries, scale, ln_eps, value_bf16,
-                      lnk_w, lnk_b, fast=True)
+                      lnk_w, lnk_b, bk, bv, bout, fast=True)
 
 
 def check_perceiver_shape(
@@ -236,8 +253,19 @@ def perceiver_column_chunks(
     return [(m0, min(cols, M - m0)) for m0 in range(0, M, cols)]
 
 
+def _bias_operands(bk, bv, bout, inner: int, D_out: int, v_dtype, out_dtype) -> dict:
+    """The bias inputs that are given, as the kernels take them: ``bk`` f32, ``bv`` in
+    ``v_dtype`` and ``bout`` in ``out_dtype`` (``aurora_tpu/ops/resampler.py:125-134``)."""
+    ops = {}
+    for name, b, dt, n in (("bk", bk, torch.float32, inner), ("bv", bv, v_dtype, inner),
+                           ("bout", bout, out_dtype, D_out)):
+        if b is not None:
+            ops[name] = (b.to(dt).contiguous(), (n,))
+    return ops
+
+
 def _perceiver_core_call(fn, ctx, wk, wv, qh, wout, ln1_w, ln1_b, queries, scale, ln_eps,
-                         value_bf16, lnk) -> torch.Tensor:
+                         value_bf16, lnk, bk=None, bv=None, bout=None) -> torch.Tensor:
     """Run ``fn`` (``perceiver_core`` of ``csrc/resampler.cu``, or an ablated copy): the fold,
     then launches 1-5 chunk by chunk of columns. Allocates the scratch; the weights go as
     stored (a cast only to bf16 / f32 where they are stored otherwise)."""
@@ -259,6 +287,7 @@ def _perceiver_core_call(fn, ctx, wk, wv, qh, wout, ln1_w, ln1_b, queries, scale
     if lnk is not None:
         ops.update(lnk_w=(lnk[0].to(f32).contiguous(), (inner,)),
                    lnk_b=(lnk[1].to(f32).contiguous(), (inner,)))
+    ops.update(_bias_operands(bk, bv, bout, inner, D_out, bf, bf))
     # The tensor maps' bases and the kernels' 16-byte loads and stores need 16-byte
     # alignment; fresh allocations and parameters have it, a view may not.
     if ctx.data_ptr() % 16:
@@ -275,7 +304,8 @@ def _perceiver_core_call(fn, ctx, wk, wv, qh, wout, ln1_w, ln1_b, queries, scale
 
     scratch = dict(
         wb=new(D, -(-QH // 64) * 64, dtype=f32), cst=new(QH, dtype=f32, when=ln_k),
-        w3=new(3 * D, inner, when=ln_k), ctxb=new(K * mc, D), ctxlo=new(K * mc, D, when=ln_k),
+        kb=new(QH + inner, dtype=f32, when=bk is not None), w3=new(3 * D, inner, when=ln_k),
+        ctxb=new(K * mc, D), ctxlo=new(K * mc, D, when=ln_k),
         v=new(K * mc, inner), logits=new(K * mc, QH, dtype=f32),
         sq=new(K * mc, inner // 256, dtype=f32, when=ln_k), o=new(mc, Q, inner),
         stats=new(mc * Q, D_out // 256, 2, dtype=f32),
@@ -284,7 +314,7 @@ def _perceiver_core_call(fn, ctx, wk, wv, qh, wout, ln1_w, ln1_b, queries, scale
     ptr = {k: t.data_ptr() for k, (t, _) in ops.items()}
     err = fn(
         ctx.data_ptr(), *(ptr[k] for k in ("wk", "wv", "qh", "wout", "ln1_w", "ln1_b", "queries")),
-        ptr.get("lnk_w"), ptr.get("lnk_b"),
+        *(ptr.get(k) for k in ("lnk_w", "lnk_b", "bk", "bv", "bout")),
         *(None if t is None else t.data_ptr() for t in scratch.values()), out.data_ptr(),
         K, M, mc, D, h, dh, Q, D_out, float(scale), float(ln_eps), _lib.stream(ctx),
     )
@@ -293,7 +323,8 @@ def _perceiver_core_call(fn, ctx, wk, wv, qh, wout, ln1_w, ln1_b, queries, scale
 
 
 def _perceiver_core_f32_call(fn, ctx, wk, wv, qh, wout, ln1_w, ln1_b, queries, scale, ln_eps,
-                             lnk, wsplit=None, vl=None) -> torch.Tensor:
+                             lnk, wsplit=None, vl=None, bk=None, bv=None,
+                             bout=None) -> torch.Tensor:
     """Run ``fn`` (``perceiver_core_f32`` of ``csrc/resampler_f32.cu``, or an ablated copy):
     the fold and the weights' split, then launches 3-6 chunk by chunk of columns, all in f32.
     Allocates the scratch: the weights' split, :func:`perceiver_split_bytes` (or ``wsplit``,
@@ -318,6 +349,7 @@ def _perceiver_core_f32_call(fn, ctx, wk, wv, qh, wout, ln1_w, ln1_b, queries, s
     if lnk is not None:
         ops.update(lnk_w=(lnk[0].to(f32).contiguous(), (inner,)),
                    lnk_b=(lnk[1].to(f32).contiguous(), (inner,)))
+    ops.update(_bias_operands(bk, bv, bout, inner, D_out, f32, f32))
     # The tensor maps' bases and the kernels' 16-byte loads and stores need 16-byte alignment.
     if ctx.data_ptr() % 16:
         raise ValueError("perceiver_core: the context must be 16-byte aligned")
@@ -339,13 +371,14 @@ def _perceiver_core_f32_call(fn, ctx, wk, wv, qh, wout, ln1_w, ln1_b, queries, s
     if vl is None:
         vl = new(K * mc, NS)
     _lib.require(vl, "vl", f32, (K * mc, NS))
-    scratch = dict(cst=new(QH, when=ln_k), vl=vl, sq=new(K * mc, inner // 128, when=ln_k),
-                   o=new(mc, Q, inner))
+    scratch = dict(cst=new(QH, when=ln_k),
+                   bvec=new(NS + (inner if ln_k else 0), when=bk is not None or bv is not None),
+                   vl=vl, sq=new(K * mc, inner // 128, when=ln_k), o=new(mc, Q, inner))
     out = new(M, Q, D_out)
     ptr = {k: t.data_ptr() for k, (t, _) in ops.items()}
     err = fn(
         ctx.data_ptr(), *(ptr[k] for k in ("wk", "wv", "qh", "wout", "ln1_w", "ln1_b", "queries")),
-        ptr.get("lnk_w"), ptr.get("lnk_b"),
+        *(ptr.get(k) for k in ("lnk_w", "lnk_b", "bk", "bv", "bout")),
         *(None if t is None else t.data_ptr() for t in scratch.values()), out.data_ptr(),
         K, M, mc, D, h, dh, Q, D_out, float(scale), float(ln_eps), wsplit.data_ptr(),
         _lib.stream(ctx),
@@ -368,13 +401,19 @@ def perceiver_core(
     ln_eps: float = 1e-5,
     value_bf16: bool = False,
     lnk: Optional[tuple] = None,
+    bk: Optional[torch.Tensor] = None,
+    bv: Optional[torch.Tensor] = None,
+    bout: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Shared-query cross-attention core.
 
     ``ctx``: ``(K, M, D)`` k-major context; ``wk``/``wv``: ``(D, inner)`` (the halves of
     ``to_kv``); ``qh``: ``(Q, h, dh)`` projected queries; ``wout``: ``(inner, D_out)``;
     ``queries``: ``(Q, D_out)``, the residual added after ``ln1``; ``lnk``: the
-    ``(inner,)`` weight and bias of the stabilising ``ln_k``, or None. Returns
+    ``(inner,)`` weight and bias of the stabilising ``ln_k``, or None; ``bk``/``bv``
+    ``(inner,)`` and ``bout`` ``(D_out,)``: the biases of ``to_kv`` (split) and ``to_out``,
+    each or None, with the JAX kernel's dtypes (``bk`` added to the f32 k, ``bv`` in v's dtype,
+    ``bout`` in the output dtype, each after the rounding of its product). Returns
     ``(M, Q, D_out)``, bf16 under ``value_bf16``, else in the context dtype.
 
     CPU tensors take :func:`perceiver_core_plain`; CUDA tensors launch the kernels, which
@@ -384,10 +423,11 @@ def perceiver_core(
     if ctx.device.type == "cpu":
         return perceiver_core_plain(
             ctx, wk, wv, qh, wout, ln1_w, ln1_b, queries,
-            scale=scale, ln_eps=ln_eps, value_bf16=value_bf16, lnk=lnk,
+            scale=scale, ln_eps=ln_eps, value_bf16=value_bf16, lnk=lnk, bk=bk, bv=bv, bout=bout,
         )
+    biases = (bk, bv, bout)  # passed on only where one is given
     args = (ctx, wk, wv, qh, wout, ln1_w, ln1_b, queries, scale, ln_eps, value_bf16,
-            *(lnk or (None, None)))
+            *(lnk or (None, None)), *(biases if any(b is not None for b in biases) else ()))
     if ad.needs_grad(*args):
         return _perceiver_core_differentiable(*args)
     return _perceiver_core_launch(*args)
@@ -407,14 +447,15 @@ def _perceiver_core_differentiable(*args):
 
 
 def _perceiver_core_launch(ctx, wk, wv, qh, wout, ln1_w, ln1_b, queries, scale, ln_eps,
-                           value_bf16, lnk_w, lnk_b):
+                           value_bf16, lnk_w, lnk_b, bk=None, bv=None, bout=None):
     lnk = None if lnk_w is None else (lnk_w, lnk_b)
+    biases = dict(bk=bk, bv=bv, bout=bout)
     if value_bf16:
         fn = _lib.kernel("resampler", "perceiver_core", _PERCEIVER_CORE_ARGS)
         out = _perceiver_core_call(fn, ctx, wk, wv, qh, wout, ln1_w, ln1_b, queries, scale,
-                                   ln_eps, value_bf16, lnk)
+                                   ln_eps, value_bf16, lnk, **biases)
     else:
         fn = _lib.kernel("resampler_f32", "perceiver_core_f32", _PERCEIVER_CORE_F32_ARGS)
         out = _perceiver_core_f32_call(fn, ctx, wk, wv, qh, wout, ln1_w, ln1_b, queries, scale,
-                                       ln_eps, lnk)
+                                       ln_eps, lnk, **biases)
     return _lib.count_launch("perceiver_core", out)

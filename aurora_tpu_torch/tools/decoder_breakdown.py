@@ -13,6 +13,8 @@ shapes the step gives them:
                                   :mod:`~aurora_tpu_torch.tools.kernel_ablate` makes them),
                                   each on what the scratch holds
     K3 MLP half                   the MLP, LayerNorm and residual on K4's result
+    layer i (per column)          with ``dec_depth`` > 1, each deeper resampler layer on the
+                                  float32 latents: the generic per-column attention, then K3
   fused atmos head GEMM           the stacked heads of the 5 variables as the decoder runs
                                   them on the de-aggregation's output
   unpatchify (13 levels)          patch pixels to fields
@@ -47,7 +49,11 @@ import torch
 from aurora_tpu_torch.model.aurora import Aurora
 from aurora_tpu_torch.model.config import AuroraConfig
 from aurora_tpu_torch.model.decoder import _head_linear, _stack_heads, unpatchify
-from aurora_tpu_torch.model.perceiver import shared_query_core_args, shared_query_mlp
+from aurora_tpu_torch.model.perceiver import (
+    mlp_half,
+    perceiver_layer_apply,
+    shared_query_core_args,
+)
 from aurora_tpu_torch.ops import resampler
 from aurora_tpu_torch.tools import card_line, report
 from aurora_tpu_torch.tools.perf_breakdown import LEVELS, time_parts, tool_args, tool_model
@@ -108,8 +114,17 @@ def decoder_parts(model: Aurora, inputs: dict,
         fn.argtypes, fn.restype = resampler._PERCEIVER_CORE_ARGS, ctypes.c_int
         parts[f"  K4 [{tag}]"] = lambda fn=fn: resampler._perceiver_core_call(
             fn, *args, kw["scale"], kw["ln_eps"], kw["value_bf16"], kw["lnk"])
+    parts["  K3 MLP half"] = lambda: mlp_half(dec.level_decoder.layers[0], lat,
+                                              cfg.perceiver_ln_eps)
+    # The deeper layers (dec_depth > 1) on float32 latents and the M-major context.
+    deeper = dec.level_decoder.layers[1:]
+    if len(deeper):
+        lat_f32 = i["lat"].float().reshape(L, -1, D)
+        c_m = i["ctx"].reshape(Cp, L, D).transpose(0, 1)
+    for n, layer in enumerate(deeper, 1):
+        parts[f"  layer {n} (per column)"] = lambda layer=layer: perceiver_layer_apply(
+            layer, lat_f32, c_m, dec.level_decoder.num_heads, cfg.perceiver_ln_eps)
     parts.update({
-        "  K3 MLP half": lambda: shared_query_mlp(dec.level_decoder, lat, cfg.perceiver_ln_eps),
         "fused atmos head GEMM": lambda: _head_linear(i["lat"], *_stack_heads(dec.atmos_heads,
                                                                               atmos)),
         "unpatchify (13 levels)": lambda: unpatchify(i["xa"], len(atmos), H, W, P),

@@ -9,6 +9,8 @@ shapes the step gives them, against the whole encoder:
   surf patch embed (7ch)      the surface patch embedding (4 surface + 3 static variables)
   atmos patch embed (13 lvl)  the atmospheric patch embedding of the 13 levels
   level aggregation           13 levels to the latent levels: K4, then K3 (the MLP half)
+    layer i (per column)      with ``enc_depth`` > 1, each deeper resampler layer on the
+                              float32 latents: the generic per-column attention, then K3
   surf MLP chain              x + LN(MLP(x)) of the surface level
   pos+scale adds              the position and scale embeddings added to every level
 
@@ -32,6 +34,7 @@ import torch
 from aurora_tpu_torch.model.aurora import Aurora
 from aurora_tpu_torch.model.config import AuroraConfig
 from aurora_tpu_torch.model.encoder import EncoderEncodings
+from aurora_tpu_torch.model.perceiver import perceiver_layer_apply
 from aurora_tpu_torch.tools import card_line, report
 from aurora_tpu_torch.tools.perf_breakdown import LEVELS, time_parts, tool_args, tool_model
 
@@ -82,6 +85,11 @@ def encoder_parts(model: Aurora, inputs: dict) -> dict[str, Callable[[], object]
         "pos+scale adds": lambda: (i["x4"] + E.pos_embed(i["enc"].pos.to(dtype))[None, None]
                                    + E.scale_embed(i["enc"].scale.to(dtype))[None, None]),
     }
+    # The deeper layers (enc_depth > 1): the latent levels per column against the levels.
+    lat, c_m = i["x4"][0, 1:].transpose(0, 1), i["xa"][0].transpose(0, 1)
+    for n, layer in enumerate(E.level_agg.layers[1:], 1):
+        parts[f"  layer {n} (per column)"] = lambda layer=layer: perceiver_layer_apply(
+            layer, lat, c_m, E.level_agg.num_heads, cfg.perceiver_ln_eps)
     return {k: torch.no_grad()(f) for k, f in parts.items()}
 
 

@@ -40,9 +40,11 @@ predictions (``gather_batch``); the launcher holds them against its one-process 
 :data:`FORWARD_TOL` max-rel, and prints what the blocks saw (:func:`geometry`): grids
 over-padded (``extra``), patch merges of an odd block, uneven splits, shifted windows on each
 split axis, pixel grids the mesh does not split into whole patches, and the halo bytes each
-rank sent per block. ``--config production`` runs the main path's model instead (the 1.3 B
-model with the production knobs, ``tools.perf_breakdown.build_model``) on its seeded batch
-(``numpy_batch``, batch 1, 13 levels; default grid 721 x 1440), held within
+rank sent per block. With ``--deep-params FILE`` (a ``save_params`` file of the small model
+with ``enc_depth = dec_depth = 2``) the run adds that model's forward on the first grid, held
+to its one-process forward as the others. ``--config production`` runs the main path's model
+instead (the 1.3 B model with the production knobs, ``tools.perf_breakdown.build_model``) on
+its seeded batch (``numpy_batch``, batch 1, 13 levels; default grid 721 x 1440), held within
 :data:`PRODUCTION_TOL` mean-rel per variable (its bf16 backbone).
 
 It prints one JSON line and exits non-zero on a failed check. The ranks run on the card
@@ -54,7 +56,8 @@ which the smallest stage of a 33 x 64 grid cannot hold.
 
 Usage: ``python -m aurora_tpu_torch.tools.multihost_sim [--data N] [--lat A] [--lon O]
 [--device cpu|cuda] [--seed S] [--params FILE] [--depths D] [--width D] [--dtype float64]
-[--config small|production] [--grids HxW,...] [--no-scan] [--save FILE]``;
+[--config small|production] [--grids HxW,...] [--no-scan] [--deep-params FILE]
+[--save FILE]``;
 ``--depths`` cuts every stage to ``D`` blocks, ``--width`` sets the small model's
 ``embed_dim``, ``--save`` writes every result (``torch.save``).
 """
@@ -105,6 +108,7 @@ ROLLOUT_GRAD_TOL = 1e-4
 RESOLVED = 1e-6  # the least |gradient| whose AdamW update the parameter check compares
 PROBE = "encoder.surf_token_embeds.weights.2t"
 ROLLOUT_K = 2  # steps of the roll-out train step
+DEEP_DEPTH = 2  # enc_depth = dec_depth of ``--deep-params``'s model
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
@@ -145,10 +149,12 @@ def make_inputs(device_type: str = "cpu", seed: int = 0, grid=None, batch: int =
 
 
 def build(device, params: Optional[str], depths: Optional[int], seed: int = 0,
-          width: Optional[int] = None, dtype: torch.dtype = torch.float32):
+          width: Optional[int] = None, dtype: torch.dtype = torch.float32,
+          resampler_depth: Optional[int] = None):
     """The model every rank builds: ``AuroraSmallPretrained(use_lora=True)`` in ``dtype``
-    (``embed_dim`` ``width`` if given), its weights from ``params`` or seeded from ``seed``
-    on ``device`` (N(0, 0.02), LayerNorms at 1 and 0, FiLM and LoRA ``B`` at N(0, 0.05))."""
+    (``embed_dim`` ``width`` if given; ``enc_depth = dec_depth = resampler_depth`` if given),
+    its weights from ``params`` or seeded from ``seed`` on ``device`` (N(0, 0.02), LayerNorms
+    at 1 and 0, FiLM and LoRA ``B`` at N(0, 0.05))."""
     from aurora_tpu_torch.checkpoint import restore_params
     from aurora_tpu_torch.model.aurora import AuroraSmallPretrained
     from aurora_tpu_torch.model.nn import LayerNorm
@@ -157,6 +163,8 @@ def build(device, params: Optional[str], depths: Optional[int], seed: int = 0,
                                           decoder_depths=(depths,) * 3)
     if width is not None:
         cut["embed_dim"] = width
+    if resampler_depth is not None:
+        cut.update(enc_depth=resampler_depth, dec_depth=resampler_depth)
     model = AuroraSmallPretrained(device=device, dtype=dtype, seed=None, use_lora=True, **cut)
     if params is not None:
         return restore_params(params, like=model)
@@ -278,6 +286,17 @@ def run_spatial(device, mesh, args, inputs: Optional[dict] = None) -> dict:
                 res["scan"] = [_host(p) for p in rollout_scan(model, part, args.steps,
                                                               host_offload=True)]
         out["grids"]["x".join(map(str, res["grid"]))] = res
+    if args.deep_params:
+        # The small model with resamplers of depth DEEP_DEPTH: one forward on the first grid.
+        del model
+        deep = build(device, args.deep_params, args.depths, args.seed, args.width,
+                     getattr(torch, args.dtype), resampler_depth=DEEP_DEPTH)
+        batch = spatial_inputs(deep.cfg, device.type, args, _grids(args, device.type)[0])
+        part = shard_batch(batch, mesh) if mesh is not None else batch
+        with scope, torch.no_grad():
+            fwd = deep(part)
+            out["deep"] = dict(grid=list(batch.spatial_shape), depth=DEEP_DEPTH,
+                               forward=_host(gather_batch(fwd) if mesh is not None else fwd))
     out["seconds"] = time.perf_counter() - t0
     return out
 
@@ -744,6 +763,7 @@ def worker(rank: int, n: int, store: str, args) -> None:
             for g in out["grids"].values():
                 for key in ("forward", "rollout", "scan"):
                     g.pop(key, None)
+            out.get("deep", {}).pop("forward", None)
     else:
         out = run(mesh.device, mesh, args.params, args.depths, args.seed)
         # ``replicate`` broadcasts the first rank's values: every rank ends with rank 0's.
@@ -905,7 +925,17 @@ def compare_spatial(ref: dict, ranks: list[dict], mesh_shape: dict,
                         step_s_per_rank=[r["grids"][key]["step_s"] for r in ranks],
                         forward_s_per_rank=[r["grids"][key]["forward_s"] for r in ranks],
                         reference_step_s=want["step_s"])
-    return dict(grids=out, ok=ok)
+    res = dict(grids=out)
+    if "deep" in ref:
+        w, h = ref["deep"]["forward"], got["deep"]["forward"]
+        deep = dict(grid=ref["deep"]["grid"], depth=ref["deep"]["depth"],
+                    max_rel=max(_max_rel(h[k], w[k]) for k in w),
+                    mean_rel=max(_mean_rel(h[k], w[k]) for k in w))
+        deep["ok"] = (sorted(h) == sorted(w) and all(h[k].shape == w[k].shape for k in w)
+                      and deep["max_rel"] <= FORWARD_TOL)
+        ok = ok and deep["ok"]
+        res["deep"] = deep
+    return dict(res, ok=ok)
 
 
 def result_spatial(ref: dict, ranks: list[dict], mesh_shape: dict, device: str,
@@ -1122,6 +1152,9 @@ def main(argv=None) -> dict:
                     help="the small model's remat scope in a (lat, lon) run's train steps")
     ap.add_argument("--train-depths", type=int, default=None,
                     help="blocks in every stage of the production model's train steps")
+    ap.add_argument("--deep-params", default=None,
+                    help="a save_params file of the small model with enc_depth = dec_depth = "
+                         f"{DEEP_DEPTH}: a (lat, lon) run adds its forward on the first grid")
     ap.add_argument("--save", default=None, help="write every result to this file")
     args = ap.parse_args(argv)
     args.data, args.lat, args.lon = layout(args)
@@ -1185,6 +1218,7 @@ def _worker_flags(args) -> list[str]:
     out += ["--remat", args.remat]
     out += ["--no-scan"] if args.no_scan else []
     out += ["--no-serve"] if args.no_serve else []
+    out += ["--deep-params", args.deep_params] if args.deep_params else []
     return out
 
 

@@ -55,6 +55,7 @@ from aurora_tpu_torch.tools.perf_breakdown import (
 from aurora_tpu_torch.training import adamw, lora_mask, make_train_step
 
 __all__ = ["block_runs", "build", "check_launches", "expected_launches", "inputs", "launch_mismatches",
+           "resampler_launches",
            "main", "run_steps", "step_generator", "train_config"]
 
 
@@ -110,6 +111,16 @@ def block_runs(cfg: AuroraConfig, stage: int, block: int, depth: int, stages: in
     return runs
 
 
+def resampler_launches(cfg: AuroraConfig) -> dict[str, int]:
+    """The launches of one forward of the level aggregation and the de-aggregations: each
+    resampler launches K4 once (layer 0) and K3 once a layer (layer 0's MLP half and each
+    deeper layer's), so ``enc_depth`` K3 in the encoder and ``dec_depth`` in each
+    de-aggregation (two with ``separate_perceiver``)."""
+    decoders = 2 if cfg.separate_perceiver else 1
+    return {"perceiver_core": 1 + decoders,
+            "mlp_adaln_residual": cfg.enc_depth + decoders * cfg.dec_depth}
+
+
 def expected_launches(cfg: AuroraConfig, lora: bool, K: int = 0,
                       stochastic: bool = False) -> dict[str, int]:
     """The kernel launches of one update on the card, from the code: a single-step train
@@ -119,7 +130,8 @@ def expected_launches(cfg: AuroraConfig, lora: bool, K: int = 0,
     Each forward pass of a Swin block launches K2 and K3 once and, in a shifted block (odd
     index), K1 twice; a stochastic block (a generator, and its stochastic-depth rate or
     ``drop_rate`` above 0) runs plain attention and a plain MLP and launches K1 only; the
-    level aggregation and de-aggregation launch K4 and K3 once each.
+    level aggregation and de-aggregation launch K4 once each and K3 once a resampler layer
+    (``enc_depth``, ``dec_depth``).
     The backward of every roll launches K1 once more (``roll3d_bwd``: the first block of a
     stage is unshifted, so every roll's input needs a gradient). A rematerialised region runs
     its forward again in the backward, inside the replays of the regions around it, and each
@@ -156,9 +168,10 @@ def expected_launches(cfg: AuroraConfig, lora: bool, K: int = 0,
                     n["roll3d_bwd"] += 2
         full = remat and scope == "full"
         encoder_grad = not lora or step > 0
-        for runs in (1 + body + (full and encoder_grad), 1 + body + full):  # encoder, decoder
+        for runs, depth in ((1 + body + (full and encoder_grad), cfg.enc_depth),
+                            (1 + body + full, cfg.dec_depth)):  # encoder, decoder
             n["perceiver_core"] += runs
-            n["mlp_adaln_residual"] += runs
+            n["mlp_adaln_residual"] += runs * depth
     return n
 
 

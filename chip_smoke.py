@@ -12,7 +12,7 @@ Phases, each printing one JSON line; any failure raises and the script exits non
    kernel, the plain version and the library call where one computes the same function
    (``torch.roll`` for K1, ``F.scaled_dot_product_attention`` with the -100/0 mask for
    K7, ``torch.matmul`` for K12), median of REPS (5) runs after 2 warm-up runs (the plain
-   version: of 3 after 1), and the bound
+   version: its check's own call, once), and the bound
    max(flops / peak, bytes / 3.35 TB/s) (K4: of the folded work its kernels do, with the
    bound of the TPU kernel's work beside it). Roll (both signs of the shift) and the
    shared-memory probe must be exact. K2-K6 with their tail and K9 add a
@@ -48,7 +48,7 @@ Phases, each printing one JSON line; any failure raises and the script exits non
    products (TF32 off): K1 the same bits, K2, K3, K5, K6, K7 and K8 within 9e-5 by the
    branch measure less one float32 ulp (no residual: over the largest output), K4 within
    1e-4, and the plain version with TF32 products must fail the same bound by the same
-   measure (``tf32_control_err``); timed over 3 runs, the plain versions over 1 (K7 also
+   measure (``tf32_control_err``); timed over 3 runs, the plain versions once (K7 also
    ``F.scaled_dot_product_attention`` in float32 on the same masked windows). Float32 K3,
    K8, K4 and K5, and K2's and K6's qkv and proj, take each product as three TF32 products of
    split operands: their bound is that work at the TF32 peak (K2/K6's core at the FFMA pipes'
@@ -59,7 +59,9 @@ Phases, each printing one JSON line; any failure raises and the script exits non
    and K4's Wv and Wout (K4 also prints the error of its last chunk's logits against a
    float64 product, ``logits_rel_err``; float32 K4 also at the air-pollution model's
    de-aggregation, (3, 45000, 1024) Q 13, and with ``ln_k`` at the aggregation, the wave
-   model's one launch a step). K6 on
+   model's one launch a step). K4 with its bias inputs (``bk``, ``bv``, ``bout``; no config
+   creates them, so no path launches them) at the aggregation's (13, 64800, 512) Q 3,
+   without and with ``ln_k``, in bf16 values (1e-2) and in float32 (1e-4). K6 on
    ``window_partition(xp)``, reversed, must give float32 K2's bits; in float32 garbage in
    stage 3's pad tokens may move a real token by a rounding (the plain version's too),
    within 1e-6 of the branch (K2, K6) or of the output (K7);
@@ -71,9 +73,10 @@ Phases, each printing one JSON line; any failure raises and the script exits non
    (FiLM at unit gain): max ``|Δ|`` over max ``|reference gradient|`` (at least 1e-3 of the
    call's largest, for a gradient that is zero in exact arithmetic), less one bf16 ulp for a
    bf16 gradient, within the forward's bounds (roll exact, bf16 6e-3, K4 1e-2), the output's
-   autograd node the kernel's ``Function``; the backward's and plain autograd's times at the
-   main path's shape, where the chunk plans cut into several chunks, and the last timed
-   result of each held to the other by the same measure and bound. Then the production
+   autograd node the kernel's ``Function``; the backward's and plain autograd's times (the
+   latter one call) at the main path's shape, where the chunk plans cut into several chunks,
+   and the last timed result of each held to the other by the same measure and bound. Then
+   the production
    model's LoRA train step at 721 x 1440 and two blocks per backbone stage (its full-depth
    time is ``tools.train_bench``'s) as ``tools.train_bench`` runs it (``remat`` at the
    JAX recipe's scope "full"; a warm-up and 1 timed step) and a K = 2 roll-out train step
@@ -118,9 +121,9 @@ Phases, each printing one JSON line; any failure raises and the script exits non
    its route.
    After the main route's roll-out, the breakdown: ``perf_breakdown``, ``encoder_breakdown``
    and ``decoder_breakdown`` as a user runs them, in process, on the main route's model at
-   720 x 1440 (2 timed repetitions of each part; one JSON line per row, with the launches
-   of one call of its part); the level
-   aggregation and de-aggregation must have launched K4 and K3, the backbone K1-K3. Then the
+   720 x 1440 (one timed run of each part after 2 warm-ups; one JSON line per row, with the
+   launches of one call of its part); the level aggregation and de-aggregation must have
+   launched K4 and K3, the backbone K1-K3. Then the
    roll-outs, on the same model, as ``tools.bench`` measures them: ``rollout``,
    ``rollout_scan`` and ``rollout_scan(host_offload=True)``, 3 steps each from one
    721 x 1440 batch of host arrays (step times, peak memory, steps per second, the idle share
@@ -163,6 +166,16 @@ Phases, each printing one JSON line; any failure raises and the script exits non
    config (float32, no LoRA), seeded, gates opened: one step at full depth over the same
    batch (launches the main route's, all float32), and its config at two blocks a stage on
    121 x 240 against the port's CPU run within 1e-4;
+5d. deep_resampler: the 1.3 B model (D = 512) with resamplers of depth 2 (``enc_depth =
+   dec_depth = 2``) at two blocks a backbone stage, with the production knobs and in
+   ``Aurora``'s default config (float32), seeded, gates opened: one roll-out step each over
+   the 721 x 1440 batch (counts set to 0 just before), launches per step as
+   ``tools.train_bench.resampler_launches`` derives them (K3 two more than at depth 1, K4
+   as many; under the production knobs the deeper layers' two K3 launches float32, the rest
+   bf16), the outputs finite, float32, of the grid's shapes, peak memory; with the production
+   knobs also layer 1 of the aggregation and of the de-aggregation alone at 64800 columns
+   (``deeper_layer_ms``); then the same model on 121 x 240 against the port's CPU run, mean
+   relative error per variable <= 1e-2 (bf16) and <= 1e-4 (float32);
 5c. small:
    ``AuroraSmallPretrained`` (D = 256) twice, in its default config
    (``AuroraSmallPretrained()``, float32) and with the production knobs (bf16), seeded
@@ -204,7 +217,9 @@ Phases, each printing one JSON line; any failure raises and the script exits non
    process, at the full 0.25 degree token grid: ``backbone_ablate`` with every variant,
    ``gemm_probe`` and ``smem_probe`` (counts set to 0 just before); K9-K13 must each have
    launched, and the backbones under ``attention_impl`` "pallas" and "pallas_windowed" must
-   agree within the bf16 block bound;
+   agree within the bf16 block bound; then ``kernel_slate``'s four rows (the patch
+   embeddings in float32, the patch merge and split in bf16, at 720 x 1440 against their
+   floors; no kernel of the port, no launch);
 7b. parallel: ``tools.multihost_sim``'s two ranks, started beside the build and held there
    once their host side is ready (imports, the optimiser's first-step imports), released after
    every timed phase, so that nothing timed shares the card with them (one gloo group over a
@@ -246,7 +261,8 @@ Phases, each printing one JSON line; any failure raises and the script exits non
    of the mode the train step runs; K9-K13: the sum over one sweep of the tool's cases,
    ``launches`` the count over the tools phase; K2 and K6 carry their no-tail mode under
    ``no_tail``, K4 its ``ln_k`` form under ``ln_k`` (launches: route S's aggregation; in
-   float32 the wave model's) and the bound of the TPU kernel's work under
+   float32 the wave model's), its bias forms under ``bias`` and ``ln_k, bias`` (launches 0)
+   and the bound of the TPU kernel's work under
    ``bound_of_tpu_work_ms``; K2, K6, K3, K8 and K4 the small model's D = 256 shapes
    under ``d256`` by mode, times per small-model step (K5 on route X); K1-K8 their float32
    forms under ``f32`` by mode, times per step of the float32 model at 48 blocks on the
@@ -254,7 +270,7 @@ Phases, each printing one JSON line; any failure raises and the script exits non
    with the small model's float32 D = 256 shapes under ``f32`` ``d256``), the ``nvidia-smi``
    line, and the last line ``{"ok": true, "device": {...}}``.
 
-The phases run in the order 1, 2, 3, 4, 6, 5b, 5c, routes W, P, X and
+The phases run in the order 1, 2, 3, 4, 6, 5b, 5d, 5c, routes W, P, X and
 S, the main route with its breakdown, roll-outs and drivers, 7, 7b, 7c, 8: those that queue
 most of the references' CPU halves first, so that the host thread's queue drains beside the
 main route's long phases and the tools.
@@ -286,9 +302,6 @@ SCAN_AGREE_TOL = 1e-3
 REPS = 5  # timed runs per kernel and shape, after 2 warm-up runs
 # The 1.3 B model's backbone stages on the 720 x 1440 grid: (C, H, W, D, heads, blocks a step).
 F32_STAGES = ((4, 180, 360, 512, 8, 12), (4, 90, 180, 1024, 16, 20), (4, 45, 90, 2048, 32, 16))
-# Timed runs of each plain version (10-100x a kernel's time; their spread matters little
-# beside that), after the check's own call and one warm-up run.
-PLAIN_REPS = 3
 LEVELS = (50, 100, 150, 200, 250, 300, 400, 500, 600, 700, 850, 925, 1000)
 TOL = {
     "roll3d": 0.0, "window_attention": 6e-3, "mlp_adaln_residual": 6e-3, "perceiver_core": 1e-2,
@@ -308,9 +321,10 @@ TOL_F32 = {"roll3d": 0.0, "window_attention": 9e-5, "mlp_adaln_residual": 9e-5,
 # Card vs the port's CPU run of a float32 model (the facades' default config), mean relative
 # error per output variable.
 F32_REF_TOL = 1e-4
-# Timed runs of the float32 kernels (up to ~0.2 s each at the de-aggregation's MLP) and of
-# their plain versions, after 2 and 1 warm-up runs.
-REPS_F32, PLAIN_REPS_F32 = 3, 1
+# Timed runs of the float32 kernels (up to ~0.2 s each at the de-aggregation's MLP), after 2
+# warm-up runs. A plain version's time is its check's own call (``once_ms``): 10-100x a
+# kernel's, it is no yardstick, and timed repetitions of it held no check.
+REPS_F32 = 3
 ATTN_SRC = "aurora_tpu_torch/csrc/window_attention.cu"
 PROBES_SRC = "aurora_tpu_torch/csrc/probes.cu"
 ATTN5D_SRC = "aurora_tpu_torch/csrc/attn5d_direct.cu"
@@ -394,6 +408,18 @@ def emit(obj) -> None:
 
 def log(*a) -> None:
     print(*a, file=sys.stderr, flush=True)
+
+
+def once_ms(fn):
+    """``(ms, fn())``: one call of ``fn`` between two CUDA events."""
+    import torch
+
+    s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    s.record()
+    out = fn()
+    e.record()
+    e.synchronize()
+    return s.elapsed_time(e), out
 
 
 def cuda_ms(fn, reps: int = REPS, warmup: int = 2) -> float:
@@ -584,6 +610,8 @@ def kernel_cases():
     for M, per_step in ((64800, 1), (1800, 0)):
         for label, K, D, h, Q in (("agg", 13, 512, 16, 3), ("de-agg", 3, 1024, 16, 13)):
             yield from perceiver_cases(rn, label, K, M, D, h, Q, per_step)
+    # K4's bias inputs at the aggregation's shape, without and with ln_k (on no path).
+    yield from perceiver_cases(rn, "agg", 13, 64800, 512, 16, 3, 0, biases=True)
     yield from small_cases(rn)
     yield from f32_cases(rn)
     yield from probe_cases(rn)
@@ -730,6 +758,8 @@ def f32_cases(rn):
     # towards the 1.3 B model's step.
     for c in perceiver_cases(rn, "de-agg", 3, 45000, 1024, 16, 13, 0, f32=True):
         yield dict(c, label=c["label"].replace("f32 ", "f32 AirPollution: ", 1))
+    # K4's bias inputs in float32 at the aggregation's shape, without and with ln_k.
+    yield from perceiver_cases(rn, "agg", 13, 64800, 512, 16, 3, 0, f32=True, biases=True)
     # The small model (D = 256) in float32: K2 2 + 2 a step with the tail (main route), K5 4
     # (route X); its routes W and P are not driven.
     C, H, W, D, heads = 4, 180, 360, 256, 4
@@ -932,13 +962,15 @@ def mlp_fused_case(rn, label, rows, D, per_step, f32=False, small=False):
     )
 
 
-def perceiver_cases(rn, label, K, M, D, h, Q, per_step, f32=False):
+def perceiver_cases(rn, label, K, M, D, h, Q, per_step, f32=False, biases=False):
     """K4 on the (de-)aggregation's shapes; with ln_k for the aggregation (route S; in
     float32 the wave model's default config). The bound is that of the folded work the
     kernels do (f32 logits from (D, Q h) weights; the v product and the out-projection in
     bf16, with ln_k also the product with the centred weights in three bf16 parts; with
     ``f32``, the float32 form, all of it in f32 and ln_k's product once); the bound of the
-    TPU kernel's work (the f32 k projection, logits from k) beside it."""
+    TPU kernel's work (the f32 k projection, logits from k) beside it. With ``biases``, the
+    same cases with ``bk``, ``bv`` and ``bout`` instead (modes "bias" and "ln_k, bias"; no
+    config creates them, so no path launches them)."""
     import torch
 
     from aurora_tpu_torch.ops import resampler
@@ -961,6 +993,11 @@ def perceiver_cases(rn, label, K, M, D, h, Q, per_step, f32=False):
     lnks = [None]
     if label == "agg":
         lnks.append((1 + rn(inner, std=0.1, dtype=fp), rn(inner, std=0.1, dtype=fp)))
+    # The biases of to_kv (split) and to_out, as large as the values they are added to.
+    b = dict(bk=rn(inner, std=0.5, dtype=fp), bv=rn(inner, std=0.5, dtype=fp),
+             bout=rn(D, std=0.5, dtype=fp)) if biases else {}
+    if biases:
+        nb += (2 * inner + D) * 4
     for lnk in lnks:
         # The TPU kernel's work: the f32 k projection and logits from k; ln_k adds ~8 f32
         # operations per value of k.
@@ -979,17 +1016,20 @@ def perceiver_cases(rn, label, K, M, D, h, Q, per_step, f32=False):
             bound = bound_ms(flops_bf16=vo + split, flops_f32=logits, nbytes=nb)
             tpu_bound = bound_ms(flops_bf16=vo, flops_f32=tpu, nbytes=nb)[0]
             bounds = None
+        mode = ", ".join(m for m, on in (("ln_k", lnk is not None), ("bias", biases)) if on)
         yield case(
             "perceiver_core",
             ("f32 " if f32 else "") + f"{label} ctx ({K},{M},{D}) Q {Q}"
-            + (", ln_k" if lnk else ""),
-            per_step, mode="ln_k" if lnk is not None else None, f32=f32,
-            kernel=lambda lnk=lnk: resampler.perceiver_core(**a, **kw, lnk=lnk),
-            plain=full_f32(lambda lnk=lnk: resampler.perceiver_core_plain(**a, **kw, lnk=lnk)),
+            + (", ln_k" if lnk else "") + (", bk bv bout" if biases else ""),
+            per_step, mode=mode or None, f32=f32,
+            kernel=lambda lnk=lnk: resampler.perceiver_core(**a, **kw, lnk=lnk, **b),
+            plain=full_f32(lambda lnk=lnk: resampler.perceiver_core_plain(**a, **kw, lnk=lnk,
+                                                                           **b)),
             check="branch", residual=a["queries"][None], bound=bound, bounds=bounds,
-            extra=lambda b=tpu_bound, lnk=lnk: dict(
-                bound_of_tpu_work_ms=b,
-                **(perceiver_split_bits_equal(a, dh**-0.5, lnk) if f32 else {})),
+            extra=lambda tb=tpu_bound, lnk=lnk: dict(
+                bound_of_tpu_work_ms=tb,
+                **(perceiver_split_bits_equal(a, dh**-0.5, lnk) if f32 and not biases
+                   else {})),
         )
 
 
@@ -1451,13 +1491,13 @@ def run_kernel_phases() -> dict:
 
     summary: dict = {}
     bits_key, bits_ref = None, None  # the output the next cases of one key must equal
+    t_case = time.perf_counter()  # a case's seconds include making its inputs
     for case in kernel_cases():
         name = case["name"]
         tol = (TOL_F32 if case["f32"] else TOL)[name]
-        reps, plain_reps = (REPS_F32, PLAIN_REPS_F32) if case["f32"] else (REPS, PLAIN_REPS)
+        reps = REPS_F32 if case["f32"] else REPS
         got = case["kernel"]()
-        want = case["plain"]()
-        torch.cuda.synchronize()
+        plain_ms, want = once_ms(case["plain"])
         if got.shape != want.shape or got.dtype != want.dtype:
             raise AssertionError(f"{name} {case['label']}: {got.shape}/{got.dtype} vs "
                                  f"{want.shape}/{want.dtype}")
@@ -1506,7 +1546,6 @@ def run_kernel_phases() -> dict:
         else:
             ms = cuda_ms(case["kernel"], reps)
         del want
-        plain_ms = cuda_ms(case["plain"], plain_reps, warmup=1)
         lib_ms = cuda_ms(case["library"]) if case["library"] else None
         b, by = case["bound"]
         more["of_bound"] = b / ms
@@ -1517,10 +1556,11 @@ def run_kernel_phases() -> dict:
                    dtype="float32" if case["f32"] else "bfloat16", ok=bool(ok),
                    max_abs_err=err, rel_err=rel, check=case["check"], tol=tol, ms=ms,
                    plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b, bound_by=by,
-                   per_step=case["per_step"], **more)
+                   per_step=case["per_step"], **more, seconds=time.perf_counter() - t_case)
         if case["small"]:
             row["model"] = "AuroraSmallPretrained (D = 256)"
         emit(row)
+        t_case = time.perf_counter()
         if not ok:
             raise AssertionError(f"{name} {case['label']}: max abs err {err}, relative error "
                                  f"{rel} (bound {tol}) {more}")
@@ -1642,14 +1682,20 @@ def defer_reference(refs: _Deferred, what: str, model, batch, cfg, t0: float, ro
 
 
 # The launches a step that do not follow the backbone's depth: K4 and K3 in the level
-# aggregation and de-aggregation.
+# aggregation and de-aggregation (resamplers of depth 1).
 _PERCEIVER = {"perceiver_core": 2, "mlp_adaln_residual": 2}
 
 
-def route_launches(counts: dict, blocks: int) -> dict:
+def route_launches(counts: dict, blocks: int, cfg=None) -> dict:
     """A route's launches a step (``ROUTES``, at the 1.3 B model's 48 blocks) at ``blocks``
-    Swin blocks (half of them shifted at every depth)."""
-    return {k: (n - _PERCEIVER.get(k, 0)) * blocks // 48 + _PERCEIVER.get(k, 0)
+    Swin blocks (half of them shifted at every depth); with ``cfg``, its resamplers' launches
+    as ``tools.train_bench.resampler_launches`` derives them from its depths."""
+    per = _PERCEIVER
+    if cfg is not None:
+        from aurora_tpu_torch.tools.train_bench import resampler_launches
+
+        per = resampler_launches(cfg)
+    return {k: (n - _PERCEIVER.get(k, 0)) * blocks // 48 + per.get(k, 0)
             for k, n in counts.items()}
 
 
@@ -1773,7 +1819,7 @@ BREAKDOWN_KERNELS = {
 }
 
 
-BREAKDOWN_STEPS = 2  # the timed repetitions of each part of the breakdown tools
+BREAKDOWN_STEPS = 1  # the timed repetitions of each part of the breakdown tools
 
 
 def run_breakdown(model) -> None:
@@ -2387,8 +2433,9 @@ def run_grad_phases() -> dict:
             del out
             torch.cuda.empty_cache()
             ref = plain(*targs)
+            # Plain autograd's time is its check's own call: no yardstick, timed once.
             times["plain_bwd_ms"] = time_ms(lambda: kept.update(want=grads(ref, tleaves, g)),
-                                            dev, BWD_REPS, warmup=1)
+                                            dev, 1, warmup=0)
             times["bwd_shape"] = label.split("timed ")[-1]
             del ref, targs, tleaves, g
             times["bwd_rel_err"] = grad_errs(kept["got"], kept["want"], name)
@@ -2486,8 +2533,7 @@ def run_f32_grad_phases() -> dict:
                 torch.cuda.empty_cache()
                 ref = plain(*targs)
                 times["plain_bwd_ms"] = time_ms(
-                    lambda: kept.update(want=grads(ref, tleaves, g)), dev, BWD_REPS_F32,
-                    warmup=1)
+                    lambda: kept.update(want=grads(ref, tleaves, g)), dev, 1, warmup=0)
             times["bwd_shape"] = label.split("timed ")[-1]
             del ref, targs, tleaves, g
             times["bwd_rel_err"] = grad_rel_l2(kept["got"], kept["want"])
@@ -3252,7 +3298,7 @@ def run_tools() -> dict:
     ``backbone_ablate`` patches ``swin3d``'s functions while it times for its own thread's
     calls only, so the CPU references on the host thread go on beside it."""
     from aurora_tpu_torch.ops import _lib
-    from aurora_tpu_torch.tools import backbone_ablate, gemm_probe, smem_probe
+    from aurora_tpu_torch.tools import backbone_ablate, gemm_probe, kernel_slate, smem_probe
 
     _lib.reset_launches()
     t0 = time.perf_counter()
@@ -3260,6 +3306,12 @@ def run_tools() -> dict:
     gemm = gemm_probe.main([])
     smem = smem_probe.main([])
     launches = dict(_lib.LAUNCHES)
+    # The patch embeddings and the patch merge / split against their floors (PyTorch's
+    # convolution and products: no kernel of the port, no launch).
+    slate = kernel_slate.main([])
+    bad = [r for r in slate if not (0 < r["ms"] < float("inf")) or r["launches"]]
+    if len(slate) != 4 or bad or dict(_lib.LAUNCHES) != launches:
+        raise AssertionError(f"kernel_slate: rows {slate}")
     # cuBLAS alone per forward step: each stage's GEMM time times its blocks per step.
     blocks = {0: 12, 1: 20, 2: 16}
     g = {(r["stage"], r["gemm"]): r["ms"] for r in ablate if "gemm" in r}
@@ -3272,7 +3324,10 @@ def run_tools() -> dict:
     emit(dict(phase="tools", seconds=time.perf_counter() - t0, launches=launches,
               cublas_gemms_ms_per_step=per_step, attn5d_check=check,
               results=dict(backbone_ablate=len(ablate), gemm_probe=len(gemm),
-                           smem_probe=len(smem)), smem_probe=smem[-1]))
+                           smem_probe=len(smem), kernel_slate=len(slate)), smem_probe=smem[-1],
+              kernel_slate=[{k: r[k] for k in ("label", "ms", "bound_ms", "bound_by", "of_floor",
+                                               "flops_counted", "bytes_counted")}
+                            for r in slate]))
     missing = [k for k in TOOL_KERNELS if launches[k] == 0]
     if missing:
         raise AssertionError(f"tools: kernels never launched: {missing}")
@@ -3464,6 +3519,7 @@ def run_variant(name: str, manifest: dict, steps: int, refs: _Deferred) -> dict:
     may_nan = set(cfg.density_channel_surf_vars)
     launches = {}
     for form, config, _, dtype in VARIANT_FORMS:
+        t_form = time.perf_counter()
         if form == "bf16":
             t0 = time.perf_counter()
             model = production_copy(model)
@@ -3499,7 +3555,8 @@ def run_variant(name: str, manifest: dict, steps: int, refs: _Deferred) -> dict:
                   **info, steps=steps, step_s=r["step_s"], peak_mem_gib=r["peak_mem_gib"],
                   launches_per_step=r["launches_per_step"][-1], expected_per_step=expected,
                   launches_by_dtype=by_dtype, launches=launches[form],
-                  nan_points={k: v for k, v in r["nan_points"].items() if v}))
+                  nan_points={k: v for k, v in r["nan_points"].items() if v},
+                  seconds=time.perf_counter() - t_form))
         if bad:
             raise AssertionError(f"variant {name}, {form}: {bad}")
 
@@ -3529,6 +3586,7 @@ def run_variant(name: str, manifest: dict, steps: int, refs: _Deferred) -> dict:
     models = {"f32": model, "bf16": production_copy(model)}
     del model
     runs = []
+    t_card = time.perf_counter()
     for form, _, tol, dtype in VARIANT_FORMS:
         model = models.pop(form)
         before = dict(_lib.LAUNCHES)
@@ -3543,6 +3601,8 @@ def run_variant(name: str, manifest: dict, steps: int, refs: _Deferred) -> dict:
         runs.append((form, tol, ref_launches, got.to("cpu"), model.to("cpu")))
         torch.cuda.empty_cache()
     del model
+    emit(dict(phase="variant", variant=name, part="references' card half",
+              seconds=time.perf_counter() - t0, forward_s=time.perf_counter() - t_card))
 
     def compare():  # on the host thread (refs)
         bad = []
@@ -3582,9 +3642,12 @@ def run_variants(steps: int, refs: _Deferred) -> dict:
     launches}}``."""
     manifests = json.loads(open(MANIFESTS).read())
     t0 = time.perf_counter()
-    out = {name: run_variant(name, manifests[facade], steps, refs)
-           for name, (facade, *_rest) in VARIANT_RUNS.items()}
-    emit(dict(phase="variants", seconds=time.perf_counter() - t0))
+    out, each = {}, {}
+    for name, (facade, *_rest) in VARIANT_RUNS.items():
+        t = time.perf_counter()
+        out[name] = run_variant(name, manifests[facade], steps, refs)
+        each[name] = time.perf_counter() - t
+    emit(dict(phase="variants", seconds=time.perf_counter() - t0, seconds_by_variant=each))
     return out
 
 
@@ -3861,7 +3924,8 @@ def run_f32(batch, refs: _Deferred) -> dict:
     preds = line.pop("preds")
     launches = line["launches"]
     emit(dict(phase="f32", model="Aurora()", config="default (float32 all through)",
-              init_s=init_s, **line))
+              init_s=init_s, **line, seconds=time.perf_counter() - t0))
+    t0 = time.perf_counter()
 
     work = os.path.abspath(F32_DIR)
     shutil.rmtree(work, ignore_errors=True)
@@ -3879,6 +3943,8 @@ def run_f32(batch, refs: _Deferred) -> dict:
         shutil.rmtree(work, ignore_errors=True)
     del model, preds
     torch.cuda.empty_cache()
+    emit(dict(phase="f32", part="serving (the artifact, the server, one served step)",
+              seconds=time.perf_counter() - t0))
 
     # The routes: the default config at two blocks per backbone stage (the second shifted, so
     # K1 and the masked attention run), seeded on the card: one model whose route knobs are
@@ -3918,6 +3984,8 @@ def run_f32(batch, refs: _Deferred) -> dict:
         models[own].set_knobs(**first[0])
         defer_reference(refs, what, models.pop(own), small, cfg2, t0, first[1], F32_REF_TOL,
                         more=more)
+    emit(dict(phase="f32", part="references' card half (routes main, W, P, X, S)",
+              seconds=time.perf_counter() - t0))
     out["f32pretrained"] = run_f32_pretrained(batch, refs)
     emit(dict(phase="f32", seconds=time.perf_counter() - t_phase))
     return out
@@ -3949,7 +4017,7 @@ def run_f32_pretrained(batch, refs: _Deferred) -> dict:
         raise AssertionError(f"AuroraPretrained(): {model.cfg} != {cfg}")
     line = f32_rollout(model, batch, F32_PRETRAINED_STEPS, expected, "AuroraPretrained()")
     emit(dict(phase="f32", model="AuroraPretrained()", config="default (float32 all through)",
-              init_s=init_s, **line))
+              init_s=init_s, **line, seconds=time.perf_counter() - t0))
     del model
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -3997,6 +4065,139 @@ def run_f32_route(model, route: str, batch, blocks: int) -> dict:
     return line["launches"]
 
 
+# ------------------------------------------------------------------------------ deep resamplers
+
+DEEP = dict(enc_depth=2, dec_depth=2)  # the deep_resampler phase's resampler depths
+DEEP_STEPS = 1  # its roll-out steps at 721 x 1440, in each form
+# form: (config's name, reference bound (mean relative error per output variable)).
+DEEP_FORMS = {"bf16": ("production knobs (bf16 backbone and (de-)aggregation values)", 1e-2),
+              "f32": ("default (float32 all through)", F32_REF_TOL)}
+
+
+def deeper_layer_ms(model) -> dict:
+    """Layer 1 of the aggregation and of the de-aggregation alone (``perceiver_layer_apply``:
+    the per-column attention in plain float32 products, then K3 in float32, as in either form)
+    at the 720 x 1440 grid's 64800 columns, on random float32 latents and an M-major context:
+    CUDA-event medians of 2 runs after a warm-up run, TF32 off."""
+    import torch
+
+    from aurora_tpu_torch.model.nn import full_f32_products
+    from aurora_tpu_torch.model.perceiver import perceiver_layer_apply
+
+    cfg, M = model.cfg, 180 * 360
+    g = torch.Generator(device="cuda").manual_seed(2)
+    out = {}
+    for name, p, Q, K in (("encoder", model.encoder.level_agg, cfg.latent_levels - 1,
+                           len(LEVELS)),
+                          ("decoder", model.decoder.level_decoder, len(LEVELS),
+                           cfg.latent_levels - 1)):
+        D = p.layers[1].ln1.weight.shape[0]
+        lat = torch.randn(M, Q, D, generator=g, device="cuda")
+        ctx = torch.randn(K, M, D, generator=g, device="cuda").transpose(0, 1)
+        with torch.no_grad(), full_f32_products():
+            out[name] = cuda_ms(lambda: perceiver_layer_apply(
+                p.layers[1], lat, ctx, p.num_heads, cfg.perceiver_ln_eps), reps=2, warmup=1)
+        del lat, ctx
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_deep_resampler(batch, refs: _Deferred) -> dict:
+    """The 1.3 B model (D = 512) with resamplers of depth 2 (``DEEP``), at two blocks a
+    backbone stage, in each of ``DEEP_FORMS``: with the production knobs and in ``Aurora``'s
+    default config (float32 all through); seeded weights, gates opened. Each form rolls out
+    ``DEEP_STEPS`` step over the 721 x 1440 ``batch`` (counts set to 0 just before): the
+    launches a step must be the main route's at 12 blocks with the resamplers' from
+    ``tools.train_bench.resampler_launches`` (K3 two more a step than at depth 1, K4 as
+    many), and under the production knobs the deeper layers' two K3 launches float32 (their
+    latents are float32), every other K3 bf16; the outputs finite, float32, of the grid's
+    shapes; peak memory; with the production knobs also the deeper layers alone
+    (``deeper_layer_ms``). Then the same model on 121 x 240 against the port's CPU run (its
+    CPU half queued on ``refs``). Returns each form's launches."""
+    import torch
+
+    from aurora_tpu_torch import Aurora, rollout
+    from aurora_tpu_torch.ops import _lib
+    from aurora_tpu_torch.tools.perf_breakdown import build_model, numpy_batch, production_config
+
+    t_phase = time.perf_counter()
+    small = numpy_batch(production_config(), 121, 240, seed=1)
+    out = {}
+    for form, (config, tol) in DEEP_FORMS.items():
+        t_form = time.perf_counter()
+        base = production_config() if form == "bf16" else Aurora.default_config()
+        cfg = base.replace(**TWO_BLOCKS, **DEEP)
+        blocks = sum(cfg.encoder_depths) + sum(cfg.decoder_depths)
+        counts = ROUTES["main"][1]
+        expected = {k: route_launches(counts, blocks, cfg).get(k, 0) for k in _lib.LAUNCHES}
+        at_depth1 = route_launches(counts, blocks)
+        if (expected["mlp_adaln_residual"] - at_depth1["mlp_adaln_residual"] != 2
+                or expected["perceiver_core"] != at_depth1["perceiver_core"]):
+            raise AssertionError(f"deep_resampler: derived launches {expected} vs depth 1 "
+                                 f"{at_depth1}")
+        t0 = time.perf_counter()
+        model = build_model(cfg, "cuda")
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        if form == "f32":
+            line = f32_rollout(model, batch, DEEP_STEPS, expected, "deep_resampler float32")
+        else:
+            torch.cuda.reset_peak_memory_stats()
+            _lib.reset_launches()
+            step_s, per_step = [], []
+            with _KernelCalls() as calls:
+                t_prev = time.perf_counter()
+                before = dict(_lib.LAUNCHES)
+                for pred in rollout(model, batch, steps=DEEP_STEPS):
+                    torch.cuda.synchronize()
+                    step_s.append(time.perf_counter() - t_prev)
+                    per_step.append({k: _lib.LAUNCHES[k] - before[k] for k in _lib.LAUNCHES})
+                    before, last = dict(_lib.LAUNCHES), pred
+                    t_prev = time.perf_counter()
+            by_dtype = calls.by_dtype()
+            bad = [f"step {i}: launches {n}" for i, n in enumerate(per_step) if n != expected]
+            f32_k3 = by_dtype.get("float32", {})
+            if f32_k3 != {"mlp_adaln_residual": 2 * DEEP_STEPS}:
+                bad.append(f"float32 launches {f32_k3}: the deeper layers' K3 only")
+            for k, v in {**last.surf_vars, **last.atmos_vars}.items():
+                shape = (1, 1, 720, 1440) if k in last.surf_vars else (1, 1, len(LEVELS), 720,
+                                                                       1440)
+                if (tuple(v.shape) != shape or v.dtype != torch.float32
+                        or not torch.isfinite(v).all()):
+                    bad.append(f"{k}: {tuple(v.shape)} {v.dtype}")
+            if bad:
+                raise AssertionError(f"deep_resampler bf16: {bad}")
+            line = dict(grid="721x1440 (720x1440 after crop)", levels=13,
+                        params=sum(p.numel() for p in model.parameters()), steps=DEEP_STEPS,
+                        step_s=step_s,
+                        peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+                        launches_per_step=per_step[-1], launches=dict(_lib.LAUNCHES),
+                        launches_by_dtype=by_dtype)
+            del last
+        out[form] = line["launches"]
+        if form == "bf16":  # the deeper layers are float32 in both forms: timed once
+            line["deeper_layer_ms"] = deeper_layer_ms(model)
+        emit(dict(phase="deep_resampler", form=form, config=config, width=cfg.embed_dim,
+                  enc_depth=cfg.enc_depth, dec_depth=cfg.dec_depth,
+                  depths=(cfg.encoder_depths, cfg.decoder_depths), init_s=init_s,
+                  expected_launches_per_step={k: n for k, n in expected.items() if n},
+                  launches_per_step_at_depth_1={k: n for k, n in at_depth1.items() if n},
+                  **line, seconds=time.perf_counter() - t_form))
+        # The same model on 121 x 240 against the port's CPU run.
+        t0 = time.perf_counter()
+        got = model(small)
+        torch.cuda.synchronize()
+        row = dict(phase="reference", model="deep_resampler", form=form, config=config,
+                   grid="121x240", enc_depth=cfg.enc_depth, dec_depth=cfg.dec_depth,
+                   depths=(cfg.encoder_depths, cfg.decoder_depths), got=got)
+        defer_reference(refs, f"deep_resampler {form} reference", model, small, cfg, t0, row,
+                        tol)
+        del model
+        torch.cuda.empty_cache()
+    emit(dict(phase="deep_resampler", seconds=time.perf_counter() - t_phase))
+    return out
+
+
 # ------------------------------------------------------------------------------ main
 
 
@@ -4027,6 +4228,11 @@ def main() -> int:
     def ahead():
         try:
             build_variants("resampler", K4_PARTS)
+            # The drivers phase's native regrid library (g++), built here off its path.
+            from aurora_tpu_torch import native
+
+            if not native.available():
+                raise RuntimeError("the native regrid library did not build")
         except Exception as e:  # raised again below, on the main thread
             failed.append(e)
 
@@ -4090,6 +4296,8 @@ def main() -> int:
     batch = numpy_batch(production_config(), 721, 1440)
     launches.update(run_f32(batch, refs))
     lap("f32")
+    launches["deep"] = run_deep_resampler(batch, refs)
+    lap("deep_resampler")
     launches["small"] = run_small(refs)
     lap("small")
     for route in (*(r for r in ROUTES if r != "main"), "main"):
@@ -4152,6 +4360,9 @@ def main() -> int:
         if (name, "ln_k") in summary:
             # K4 with ln_k is route S's aggregation: one of its two K4 launches a step.
             e["ln_k"] = entry(summary[name, "ln_k"], launches["S"][name] // 2)
+        for mode in ("bias", "ln_k, bias"):  # K4's bias inputs: no config creates them
+            if (name, mode) in summary:
+                e[mode] = entry(summary[name, mode], 0)
         # The small model's D = 256 shapes: times per step of the small model (its launches at
         # D = 256, SMALL_D256 / SMALL_X_D256), launches the count over that model's roll-out on
         # the route that runs the kernel (all widths; modes it does not run: 0); in bf16 (the
@@ -4173,7 +4384,7 @@ def main() -> int:
         # route that runs the form (HOME_F32), launches the count over that route's float32
         # roll-out (the main route's at full depth, W's, P's and X's at two blocks a stage;
         # forms no float32 route runs: 0).
-        for mode in (None, "tail", "no tail", "ln_k"):
+        for mode in (None, "tail", "no tail", "ln_k", "bias", "ln_k, bias"):
             if ("f32", name, mode) in summary:
                 home_f32 = HOME_F32.get((name, mode))
                 n = launches[home_f32][name] if home_f32 else 0

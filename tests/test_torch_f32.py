@@ -197,12 +197,14 @@ def test_k4_reaches_the_entry_of_its_form(entries, value_bf16, with_lnk):
     assert args[0] == a["ctx"].data_ptr()
     assert (args[1], args[2], args[4]) == (a["wk"].data_ptr(), a["wv"].data_ptr(),
                                            a["wout"].data_ptr())  # the weights as stored
-    # lnk_w, cst and sq only with ln_k; the split scratch before the stream
-    assert (args[8] is None) == (not with_lnk) and (args[10] is None) == (not with_lnk)
-    assert (args[12] is None) == (not with_lnk)
-    assert args[14] == out.data_ptr()
-    assert args[15:23] == (13, 200, 200, 512, 16, 32, 3, 512)
-    assert args[25] is not None and args[26] == 0
+    # lnk_w, cst and sq only with ln_k; no bias (bk, bv, bout) given, so none and no bias row;
+    # the split scratch before the stream
+    assert (args[8] is None) == (not with_lnk) and (args[13] is None) == (not with_lnk)
+    assert (args[16] is None) == (not with_lnk)
+    assert args[10:13] == (None, None, None) and args[14] is None
+    assert args[18] == out.data_ptr()
+    assert args[19:27] == (13, 200, 200, 512, 16, 32, 3, 512)
+    assert args[29] is not None and args[30] == 0
     assert _lib.LAUNCHES["perceiver_core"] == 1
     assert _lib.LAUNCHES_BY == {("perceiver_core", "float32", 512): 1}
 

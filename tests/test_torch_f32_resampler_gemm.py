@@ -299,6 +299,6 @@ def test_f32_arguments_are_the_bf16_ones_and_the_scratch():
     bf, f32 = mlp._LINEAR_ARGS, mlp._LINEAR_F32_ARGS
     assert f32[:-2] == bf[:-1] and f32[-2:] == [P, P]  # the scratch, then the stream
     bf, f32 = resampler._PERCEIVER_CORE_ARGS, resampler._PERCEIVER_CORE_F32_ARGS
-    # pointers (inputs, the chunk's scratch, out), the bf16 entry's sizes and scalars, then
-    # the weights' split scratch and the stream
-    assert f32[:15] == [P] * 15 and f32[15:25] == bf[-11:-1] and f32[25:] == [P, P]
+    # pointers (inputs with the three biases, the chunk's scratch with the bias row, out), the
+    # bf16 entry's sizes and scalars, then the weights' split scratch and the stream
+    assert f32[:19] == [P] * 19 and f32[19:29] == bf[-11:-1] and f32[29:] == [P, P]

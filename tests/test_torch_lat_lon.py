@@ -5,7 +5,8 @@
   ``AuroraSmallPretrained(use_lora=True)`` at widths 64 and two blocks a stage) on two pixel
   grids: 40 x 96 (tokens 10 x 24, split into whole patches) and 44 x 96 (11 x 24 tokens; the
   mesh does not split 44 rows into whole patches of 4 over 2, so the encoder and decoder run
-  whole). Its gathered forward, 2-step ``rollout`` and host-offload ``rollout_scan`` equal the
+  whole), with the same model at ``enc_depth = dec_depth = 2`` (``--deep-params``) adding a
+  forward on the first grid, equal to its one-process forward. Its gathered forward, 2-step ``rollout`` and host-offload ``rollout_scan`` equal the
   one-process port's and ``aurora_tpu``'s forward and ``rollout`` under
   ``make_mesh(data=1, lat=2, lon=2)`` on the virtual CPU devices (mean-rel 1e-8 per
   variable), and the blocks saw every case: a grid over-padded (``extra``), a patch merge of
@@ -186,12 +187,17 @@ def sim(tmp_path_factory):
     jm, params, tm = seeded_matched_variant(JaxSmall, PortSmall, dtype=jnp.float64, **ARCH)
     save_params(tm, folder / "params.pt")
     del tm
+    deep = multihost_sim.build("cpu", None, 2, seed=1, width=64, dtype=torch.float64,
+                               resampler_depth=2)
+    save_params(deep, folder / "deep.pt")
+    del deep
     env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=ROOT)
     proc = subprocess.Popen(
         [sys.executable, "-m", "aurora_tpu_torch.tools.multihost_sim", "--device", "cpu",
          "--lat", "2", "--lon", "2", "--depths", "2", "--width", "64", "--dtype", "float64",
          "--grids", ",".join(f"{h}x{w}" for h, w in GRIDS.values()), "--params",
-         str(folder / "params.pt"), "--save", str(folder / "out.pt")],
+         str(folder / "params.pt"), "--deep-params", str(folder / "deep.pt"), "--save",
+         str(folder / "out.pt")],
         cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
     try:
         jax_out = {name: _jax_under_mesh(jm, params, grid) for name, grid in GRIDS.items()}
@@ -236,6 +242,18 @@ def test_forward_and_rollout_match_jax_under_the_mesh(sim, name):
         for k in w:
             assert g[k].shape == w[k].shape, k
             assert mean_rel(g[k], w[k]) <= TOL, (k, mean_rel(g[k], w[k]))
+
+
+def test_depth2_resamplers_forward_matches_the_one_process_port(sim):
+    """The columns are independent: the encoder's and decoder's deeper resampler layers run
+    on each rank's block with no halo of their own."""
+    ref, got = sim["reference"]["deep"], sim["rank0"]["deep"]
+    assert ref["depth"] == got["depth"] == 2 and ref["grid"] == got["grid"] == [40, 96]
+    assert sorted(ref["forward"]) == sorted(got["forward"])
+    for k, w in ref["forward"].items():
+        assert got["forward"][k].shape == w.shape, k
+        assert mean_rel(got["forward"][k], w) <= TOL, (k, mean_rel(got["forward"][k], w))
+    assert sim["result"]["deep"]["ok"]
 
 
 def test_the_blocks_saw_every_case(sim):

@@ -53,10 +53,29 @@ def fold_logit_weights(wk: torch.Tensor, qh: torch.Tensor, scale: float, lnk=Non
     return wkq, wc, const
 
 
-def _sums_of_squares(x, wc):
-    """Each row's sum of squares of ``x @ wc``, as K4 computes it: in f32, the product in
-    three bf16 parts (``x`` and ``wc`` each a bf16 value plus a bf16 remainder: hi hi + lo hi +
-    hi lo), summed per 256-column tile, then over the tiles; in float64 the exact product."""
+def fold_bias(bk: torch.Tensor, qh: torch.Tensor, scale: float, lnk=None) -> tuple:
+    """K4's fold of ``bk`` (``csrc/perceiver_bias.cuh``): sums in float64, rounded to float32
+    (kept in float64 for float64 inputs). Returns ``(cb, bc)``: ``cb (Q h,)`` the logits' bias,
+    added to the raw logits ``ctx @ wkq`` (with ``lnk`` before ``rstd``), and ``bc (inner,)``
+    the centred ``bk`` (with ``lnk``; else None), added to ``ctx @ wc`` before the squares."""
+    dt = torch.float64 if bk.dtype == torch.float64 else torch.float32
+    f64 = torch.float64
+    Q, h, dh = qh.shape
+    b = bk.to(f64)
+    bc = None
+    if lnk is not None:
+        b = b - b.mean()
+        bc = b.to(dt)
+        b = b * lnk[0].to(f64)
+    cb = scale * torch.einsum("hd,qhd->qh", b.reshape(h, dh), qh.to(f64))
+    return cb.reshape(Q * h).to(dt), bc
+
+
+def _sums_of_squares(x, wc, bc=None):
+    """Each row's sum of squares of ``x @ wc`` (+ ``bc``), as K4 computes it: in f32, the
+    product in three bf16 parts (``x`` and ``wc`` each a bf16 value plus a bf16 remainder: hi
+    hi + lo hi + hi lo), summed per 256-column tile, then over the tiles; in float64 the exact
+    product."""
     if x.dtype == torch.float64:
         s = x @ wc
     else:
@@ -64,6 +83,8 @@ def _sums_of_squares(x, wc):
         hi, w_hi = x.to(bf).float(), wc.to(bf).float()
         lo, w_lo = (x - hi).to(bf).float(), (wc - w_hi).to(bf).float()
         s = hi @ w_hi + lo @ w_hi + hi @ w_lo
+    if bc is not None:
+        s = s + bc
     tile = 256 if s.shape[-1] % 256 == 0 else s.shape[-1]
     return s.square().reshape(s.shape[0], -1, tile).sum(-1).sum(-1, keepdim=True)
 
@@ -83,12 +104,19 @@ def perceiver_core_mirror(
     value_bf16: bool = False,
     lnk=None,
     cap: int = resampler.PERCEIVER_SCRATCH_BYTES,
+    bk=None,
+    bv=None,
+    bout=None,
 ) -> torch.Tensor:
     """``perceiver_core_plain``'s function computed the way K4's kernels compute it: chunk by
     chunk of columns; logits from the folded weights (with ``lnk``, ``rstd`` from the sums of
     squares of :func:`_sums_of_squares`); v from the rounded context; the
     level-order mix; the out-projection rounded; LayerNorm from the mean and centred sum of
-    squares of each 256-column tile, merged exactly; the f32 query residual of period Q."""
+    squares of each 256-column tile, merged exactly; the f32 query residual of period Q. With
+    ``bk``: the logits' bias of :func:`fold_bias` (with ``lnk`` also the centred ``bk`` in the
+    sums of squares); ``bv`` and ``bout`` added to the rounded v and out-projection in their
+    dtypes and rounded again (the epilogues ``EPI_QKV`` / ``EPI_QKV_STATS``; in float32 one
+    rounding of the sum)."""
     K, M, D = ctx.shape
     Q, h, dh = qh.shape
     inner, D_out = h * dh, wout.shape[1]
@@ -96,21 +124,29 @@ def perceiver_core_mirror(
     acc = acc_dtype(dt)
     out_dt = vdt = torch.bfloat16 if value_bf16 else dt
     wkq, wc, const = fold_logit_weights(wk, qh, scale, lnk)
+    cb, bc = fold_bias(bk, qh, scale, lnk) if bk is not None else (None, None)
     tile = 256 if D_out % 256 == 0 else D_out
     out = torch.empty(M, Q, D_out, dtype=out_dt)
     chunks = resampler.perceiver_column_chunks(M, K, D, inner, Q, h, D_out, lnk is not None, cap)
     for m0, mc in chunks:
         x = ctx[:, m0:m0 + mc].reshape(K * mc, D).to(acc)
         logits = x @ wkq.to(acc)  # (K mc, Q h)
+        if cb is not None:
+            logits = logits + cb.to(acc)
         if lnk is not None:
-            rstd = torch.rsqrt(_sums_of_squares(x, wc.to(acc)) / inner + 1e-5)
-            logits = rstd * logits + const.to(acc)
-        v = (x.to(vdt).to(acc) @ wv.to(vdt).to(acc)).to(vdt).reshape(K, mc, 1, h, dh)
+            sq = _sums_of_squares(x, wc.to(acc), None if bc is None else bc.to(acc))
+            logits = torch.rsqrt(sq / inner + 1e-5) * logits + const.to(acc)
+        v = (x.to(vdt).to(acc) @ wv.to(vdt).to(acc)).to(vdt)
+        if bv is not None:
+            v = (v.to(acc) + bv.to(vdt).to(acc)).to(vdt)
+        v = v.reshape(K, mc, 1, h, dh)
         w = torch.softmax(logits.reshape(K, mc, Q, h), dim=0).to(vdt)
         o = w[0][..., None] * v[0]
         for kk in range(1, K):
             o = o + w[kk][..., None] * v[kk]
         y = (o.reshape(mc * Q, inner).to(acc) @ wout.to(out_dt).to(acc)).to(out_dt).to(acc)
+        if bout is not None:
+            y = (y + bout.to(out_dt).to(acc)).to(out_dt).to(acc)
         yt = y.reshape(mc * Q, D_out // tile, tile)
         mean_t = yt.sum(-1) * (1.0 / tile)
         m2_t = (yt - mean_t[..., None]).square().sum(-1)
