@@ -58,6 +58,7 @@ from aurora_tpu_torch.parallel.sharding import (
     spatial_mesh,
 )
 from aurora_tpu_torch.posencoding import pos_scale_enc_cached
+from aurora_tpu_torch.utils.profiling import span
 
 __all__ = [
     "Aurora",
@@ -374,9 +375,10 @@ class Aurora(nn.Module):
         """All Fourier encodings, computed on the host in float64 (rounded to ``dtype``): the
         grid's constants from the model's device copy, the step's own made anew."""
         md = batch.metadata
-        absolute_time, dynamic = self.step_encodings(md.time, dtype)
-        return EncoderEncodings(**self.grid_encodings(md, dtype), absolute_time=absolute_time,
-                                dynamic_scalars=dynamic)
+        with span("aurora:encodings"):
+            absolute_time, dynamic = self.step_encodings(md.time, dtype)
+            return EncoderEncodings(**self.grid_encodings(md, dtype),
+                                    absolute_time=absolute_time, dynamic_scalars=dynamic)
 
     def forward_core(self, surf, static, atmos, enc: EncoderEncodings, rollout_step: int,
                      atmos_levels, generator: Optional[torch.Generator] = None,
@@ -450,34 +452,36 @@ class Aurora(nn.Module):
         elif cfg.variant == "wave":
             surf_t = _wave_pre_encoder(surf_t, cfg)
 
-        if mesh is None:
-            x = checkpointed(outer, self.encoder, surf_t, static_exp, atmos_t, enc,
-                             atmos_levels)
-        else:
-            encode = encoder_apply_sharded if local else encoder_apply_whole
-            x = checkpointed(outer, encode, self.encoder, surf_t, static_exp, atmos_t, enc,
-                             atmos_levels, grid, mesh)
+        with span("aurora:encoder"):
+            if mesh is None:
+                x = checkpointed(outer, self.encoder, surf_t, static_exp, atmos_t, enc,
+                                 atmos_levels)
+            else:
+                encode = encoder_apply_sharded if local else encoder_apply_whole
+                x = checkpointed(outer, encode, self.encoder, surf_t, static_exp, atmos_t, enc,
+                                 atmos_levels, grid, mesh)
         if cfg.autocast:
-            x = checkpointed(outer, self.backbone, x.to(torch.bfloat16), enc.lead_time,
-                             rollout_step, patch_res, key)
-            x = x.to(torch.float32)
-        else:
+            x = x.to(torch.bfloat16)
+        with span("aurora:backbone"):
             x = checkpointed(outer, self.backbone, x, enc.lead_time, rollout_step, patch_res,
                              key)
+        if cfg.autocast:
+            x = x.to(torch.float32)
         # The decoder's variables are the hook-supplemented ones.
-        if mesh is None:
-            surf_pred, atmos_pred = checkpointed(
-                outer, self.decoder, x, tuple(surf_t), tuple(atmos_t), enc.levels_dec,
-                patch_res, H, W, atmos_levels,
-            )
-        elif local:
-            surf_pred, atmos_pred = checkpointed(
-                outer, decoder_apply_sharded, self.decoder, x, tuple(surf_t), tuple(atmos_t),
-                enc.levels_dec, atmos_levels)
-        else:
-            surf_pred, atmos_pred = checkpointed(
-                outer, decoder_apply_whole, self.decoder, x, tuple(surf_t), tuple(atmos_t),
-                enc.levels_dec, atmos_levels, grid, mesh)
+        with span("aurora:decoder"):
+            if mesh is None:
+                surf_pred, atmos_pred = checkpointed(
+                    outer, self.decoder, x, tuple(surf_t), tuple(atmos_t), enc.levels_dec,
+                    patch_res, H, W, atmos_levels,
+                )
+            elif local:
+                surf_pred, atmos_pred = checkpointed(
+                    outer, decoder_apply_sharded, self.decoder, x, tuple(surf_t),
+                    tuple(atmos_t), enc.levels_dec, atmos_levels)
+            else:
+                surf_pred, atmos_pred = checkpointed(
+                    outer, decoder_apply_whole, self.decoder, x, tuple(surf_t), tuple(atmos_t),
+                    enc.levels_dec, atmos_levels, grid, mesh)
 
         if cfg.variant == "air_pollution":
             surf_pred, atmos_pred = _pollution_post_decoder(
@@ -527,7 +531,8 @@ class Aurora(nn.Module):
         batch = self.crop(batch)
         dtype = self.compute_dtype
         enc = self.prepare_encodings(batch, torch.float32 if dtype == torch.bfloat16 else dtype)
-        b = batch.to(self.device, dtype)
+        with span("aurora:upload"):
+            b = batch.to(self.device, dtype)
         surf_pred, atmos_pred = self.forward_core(
             b.surf_vars, b.static_vars, b.atmos_vars, enc,
             batch.metadata.rollout_step, tuple(batch.metadata.atmos_levels),

@@ -95,6 +95,7 @@ from aurora_tpu_torch.ops.window_attention import (
 from aurora_tpu_torch.parallel import halo
 from aurora_tpu_torch.parallel.mesh import current_mesh
 from aurora_tpu_torch.parallel.sharding import spatial_mesh
+from aurora_tpu_torch.utils.profiling import span
 
 __all__ = [
     "Backbone",
@@ -560,18 +561,23 @@ class Backbone(nn.Module):
         c = self.time_mlp(lt)
         skips = []
         for i, layer in enumerate(self.encoder_layers):
-            x = self._run_layer(layer, x, c, all_enc_res[i], cfg.encoder_num_heads[i],
-                                rollout_step, enc_rates[i], None if key is None else key.fold(i))
+            with span(f"aurora:backbone.enc{i}"):
+                x = self._run_layer(layer, x, c, all_enc_res[i], cfg.encoder_num_heads[i],
+                                    rollout_step, enc_rates[i],
+                                    None if key is None else key.fold(i))
             skips.append(x)
             if layer.downsample is not None:
-                x = layer.downsample(x, all_enc_res[i])
+                with span(f"aurora:backbone.merge{i}"):
+                    x = layer.downsample(x, all_enc_res[i])
         for i, layer in enumerate(self.decoder_layers):
             index = n_dec - i - 1
-            x = self._run_layer(layer, x, c, all_enc_res[index], cfg.decoder_num_heads[i],
-                                rollout_step, dec_rates[i],
-                                None if key is None else key.fold(100 + i))
+            with span(f"aurora:backbone.dec{i}"):
+                x = self._run_layer(layer, x, c, all_enc_res[index], cfg.decoder_num_heads[i],
+                                    rollout_step, dec_rates[i],
+                                    None if key is None else key.fold(100 + i))
             if layer.upsample is not None:
-                x = layer.upsample(x, all_enc_res[index], padded_outs[index - 1])
+                with span(f"aurora:backbone.split{i}"):
+                    x = layer.upsample(x, all_enc_res[index], padded_outs[index - 1])
             if 0 < i < n_dec - 1:
                 x = x + skips[index - 1]
             elif i == n_dec - 1:

@@ -6,18 +6,20 @@ loaded with ``ctypes``. All sources compile in parallel, once, at the first laun
 kernel (or at :func:`build`). Nothing here runs when a module is imported: the CPU tests
 import every kernel module on machines without ``nvcc`` or a card.
 
-Every wrapper adds one to its entry in :data:`LAUNCHES` (through :func:`count_launch`) where
-it launches its kernel and nowhere else, so a run can show that its main path went through
-the kernels. A forward call counts once under its wrapper's key whether or not it records a
-gradient; K1's launch in a backward counts under ``roll3d_bwd``. :data:`LAUNCHES_BY` tallies
-the same launches by key, output dtype and output row width, which tell a float32 model's
-launches from a bf16 one's; :func:`reset_launches` leaves it, so it is read as the
-difference over a run.
+Every wrapper's launch function is decorated by :func:`launch`, which adds one to its key in
+:data:`LAUNCHES` for each call and nowhere else, so a run can show that its main path went
+through the kernels, and names the call's span ``aurora:k.<key>``
+(:func:`aurora_tpu_torch.utils.profiling.span`). A forward call counts once under its
+wrapper's key whether or not it records a gradient; K1's launch in a backward counts under
+``roll3d_bwd``. :data:`LAUNCHES_BY` tallies the same launches by key, output dtype and output
+row width, which tell a float32 model's launches from a bf16 one's; :func:`reset_launches`
+leaves it, so it is read as the difference over a run.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 import shutil
 import subprocess
@@ -27,8 +29,10 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["LAUNCHES", "LAUNCHES_BY", "count_launch", "reset_launches", "build", "kernel",
-           "check", "stream", "require"]
+from aurora_tpu_torch.utils.profiling import PREFIX, span
+
+__all__ = ["LAUNCHES", "LAUNCHES_BY", "launch", "reset_launches", "build", "kernel", "check",
+           "stream", "require"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -69,12 +73,31 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def count_launch(key: str, out: torch.Tensor) -> torch.Tensor:
-    """Count one launch of ``key`` that wrote ``out``; returns ``out``."""
-    LAUNCHES[key] += 1
-    at = (key, str(out.dtype).removeprefix("torch."), out.shape[-1])
-    LAUNCHES_BY[at] = LAUNCHES_BY.get(at, 0) + 1
-    return out
+def launch(key: str):
+    """Decorator of a wrapper's launch function, which returns the tensor its kernels wrote:
+    each call runs whole (operand casts and copies included) inside the span
+    ``aurora:k.<key>`` and counts one launch of ``key`` in :data:`LAUNCHES` and, by the
+    returned tensor's dtype and row width, in :data:`LAUNCHES_BY`. The decorated function
+    carries ``key`` as ``launch_key``, after which
+    :func:`~aurora_tpu_torch.ops.ad.kernel_with_plain_grad` names its gradient's span."""
+    if key not in LAUNCHES:
+        raise KeyError(f"no launch counter {key!r}; known: {sorted(LAUNCHES)}")
+    name = f"{PREFIX}k.{key}"
+
+    def decorate(fn):
+        @functools.wraps(fn)
+        def launched(*args, **kwargs):
+            with span(name):
+                out = fn(*args, **kwargs)
+            LAUNCHES[key] += 1
+            at = (key, str(out.dtype).removeprefix("torch."), out.shape[-1])
+            LAUNCHES_BY[at] = LAUNCHES_BY.get(at, 0) + 1
+            return out
+
+        launched.launch_key = key
+        return launched
+
+    return decorate
 
 
 def _nvcc() -> str:

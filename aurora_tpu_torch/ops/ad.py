@@ -22,10 +22,13 @@ by slice, those of the whole inputs (the weights) summed over the chunks in f32.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Callable, Optional
 
 import torch
+
+from aurora_tpu_torch.utils.profiling import PREFIX, span
 
 __all__ = ["GRAD_CHUNK_BYTES", "Chunks", "chunk_bounds", "kernel_with_plain_grad",
            "needs_grad"]
@@ -68,11 +71,12 @@ def _acc(dtype: torch.dtype) -> torch.dtype:
 
 class _KernelGrad(torch.autograd.Function):
     """Forward: ``kernel(*args)`` under ``no_grad``, the tensor inputs saved. Backward:
-    ``torch.autograd.grad`` of ``grad_fn(*args, part=...)`` recomputed on them."""
+    ``torch.autograd.grad`` of ``grad_fn(*args, part=...)`` recomputed on them, inside the
+    span ``name`` where one is given."""
 
     @staticmethod
-    def forward(ctx, kernel, grad_fn, chunks, *args):
-        ctx.grad_fn, ctx.chunks = grad_fn, chunks
+    def forward(ctx, kernel, grad_fn, chunks, name, *args):
+        ctx.grad_fn, ctx.chunks, ctx.name = grad_fn, chunks, name
         ctx.args = [None if isinstance(a, torch.Tensor) else a for a in args]
         ctx.tensors = [i for i, a in enumerate(args) if isinstance(a, torch.Tensor)]
         ctx.save_for_backward(*(args[i] for i in ctx.tensors))
@@ -84,11 +88,12 @@ class _KernelGrad(torch.autograd.Function):
         args = list(ctx.args)
         for i, t in zip(ctx.tensors, ctx.saved_tensors):
             args[i] = t
-        want = [i for i in ctx.tensors if ctx.needs_input_grad[3 + i]]
+        want = [i for i in ctx.tensors if ctx.needs_input_grad[4 + i]]
         grads: list = [None] * len(args)
         if want:
-            _backward(ctx.grad_fn, ctx.chunks, args, want, g, grads)
-        return (None, None, None, *grads)
+            with contextlib.nullcontext() if ctx.name is None else span(ctx.name):
+                _backward(ctx.grad_fn, ctx.chunks, args, want, g, grads)
+        return (None, None, None, None, *grads)
 
 
 def _backward(grad_fn, chunks: Optional[Chunks], args: list, want: list, g, grads: list):
@@ -143,8 +148,14 @@ def kernel_with_plain_grad(
     and get no gradient (a constant tensor is detached at the call site). With
     ``chunks`` the backward calls ``grad_fn`` once a chunk, on the sliced inputs, with
     ``part`` the chunk's ``slice`` along the sliced axes (for a function that must cut a
-    constant of its own to the chunk, such as a window mask)."""
+    constant of its own to the chunk, such as a window mask).
+
+    A ``kernel`` decorated by :func:`aurora_tpu_torch.ops._lib.launch` names the backward's
+    span (all chunks, recompute and ``autograd.grad``) ``aurora:grad.<its key>``."""
+    key = getattr(kernel, "launch_key", None)
+    name = None if key is None else f"{PREFIX}grad.{key}"
+
     def f(*args):
-        return _KernelGrad.apply(kernel, grad_fn, chunks, *args)
+        return _KernelGrad.apply(kernel, grad_fn, chunks, name, *args)
 
     return f

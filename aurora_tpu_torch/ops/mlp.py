@@ -360,6 +360,7 @@ def _mlp_adaln_residual_differentiable(*args):
                                      chunks=_row_chunks(x, len(args), w1.shape[1]))(*args)
 
 
+@_lib.launch("mlp_adaln_residual")
 def _mlp_adaln_residual_launch(x, w1, b1, w2, b2, shift, scale, scale_bias, ln_eps):
     B, L, D = x.shape
     ops = _mlp_operands(x, w1, b1, w2, b2)
@@ -369,7 +370,7 @@ def _mlp_adaln_residual_launch(x, w1, b1, w2, b2, shift, scale, scale_bias, ln_e
     out = torch.empty_like(x)
     _mlp_rows(_mlp_rows_entry(x), x.view(B * L, D), ops, out.view(B * L, D),
               (shf, scf, scale_bias, L, ln_eps))
-    return _lib.count_launch("mlp_adaln_residual", out)
+    return out
 
 
 def _mlp_rows_entry(x: torch.Tensor):
@@ -404,13 +405,14 @@ def _mlp_fused_differentiable(*args):
     return ad.kernel_with_plain_grad(_mlp_fused_launch, _mlp_fused_grad, chunks=chunks)(*args)
 
 
+@_lib.launch("mlp_fused")
 def _mlp_fused_launch(x, w1, b1, w2, b2):
     D = x.shape[-1]
     ops = _mlp_operands(x, w1, b1, w2, b2)
     _same_device(x, w1=ops[0], b1=ops[1], w2=ops[2], b2=ops[3])
     out = torch.empty_like(x)
     _mlp_rows(_mlp_rows_entry(x), x.view(-1, D), ops, out.view(-1, D))
-    return _lib.count_launch("mlp_fused", out)
+    return out
 
 
 def linear_adaln_residual(
@@ -445,6 +447,7 @@ def _linear_adaln_residual_differentiable(*args):
                                      chunks=chunks)(*args)
 
 
+@_lib.launch("linear_adaln_residual")
 def _linear_adaln_residual_launch(x, w, b, shortcut, shift, scale, scale_bias):
     B, L, D = x.shape
     f32 = x.dtype == torch.float32
@@ -466,7 +469,7 @@ def _linear_adaln_residual_launch(x, w, b, shortcut, shift, scale, scale_bias):
     _same_device(x, shortcut=shortcut, **ops)
     out = torch.empty_like(x)
     _linear_adaln_residual_call(_linear_entry(x), x, ops, shortcut, scale_bias, out)
-    return _lib.count_launch("linear_adaln_residual", out)
+    return out
 
 
 def _linear_entry(x: torch.Tensor):

@@ -151,6 +151,12 @@ def gemm_blocked(a: torch.Tensor, w: torch.Tensor, MB: int) -> torch.Tensor:
         raise ValueError(f"gemm_blocked: a {tuple(a.shape)}, w {tuple(w.shape)}, MB={MB}")
     if a.device.type == "cpu":
         return gemm_blocked_plain(a, w)
+    return _gemm_blocked_launch(a, w, MB)
+
+
+@_lib.launch("gemm_blocked")
+def _gemm_blocked_launch(a: torch.Tensor, w: torch.Tensor, MB: int) -> torch.Tensor:
+    (M, K), N = a.shape, w.shape[1]
     _lib.require(a, "a", torch.bfloat16)
     _lib.require(w, "w", torch.bfloat16, (K, N))
     pieces_per_block, _, units = gemm_blocked_schedule(M, K, N, MB)
@@ -159,7 +165,7 @@ def gemm_blocked(a: torch.Tensor, w: torch.Tensor, MB: int) -> torch.Tensor:
     err = fn(a.data_ptr(), w.data_ptr(), out.data_ptr(), M, K, N, MB, pieces_per_block, units,
              _lib.stream(a))
     _lib.check(err, "gemm_blocked")
-    return _lib.count_launch("gemm_blocked", out)
+    return out
 
 
 # ------------------------------------------------------------------------------ K13
@@ -193,13 +199,18 @@ def smem_probe(x: torch.Tensor, nbytes: int) -> torch.Tensor:
         raise ValueError(f"smem_probe: x must be (8, 128), got {tuple(x.shape)}")
     if x.device.type == "cpu":
         return smem_probe_plain(x)
+    return _smem_probe_launch(x, nbytes)
+
+
+@_lib.launch("smem_probe")
+def _smem_probe_launch(x: torch.Tensor, nbytes: int) -> torch.Tensor:
     _lib.require(x, "x", torch.float32)
     out = torch.empty_like(x)
     fn = _lib.kernel("probes", "smem_probe", [_P, _P, _I, _P])
     err = fn(x.data_ptr(), out.data_ptr(), int(nbytes), _lib.stream(x))
     if err != 0:
         raise SharedMemoryRefused(int(nbytes), err)
-    return _lib.count_launch("smem_probe", out)
+    return out
 
 
 def empty_launch(device: torch.device) -> None:
@@ -298,9 +309,13 @@ def mlp_t(x, w1, b1, w2, b2, sh, sc, R: int, ln_eps: float = 1e-5) -> torch.Tens
         raise ValueError(f"mlp_t: the row block R={R} must divide L={L}")
     if x.device.type == "cpu":
         return mlp_t_plain(x, w1, b1, w2, b2, sh, sc, ln_eps)
-    out = _mlp_t_call(_lib.kernel("mlp_t", "mlp_t", _MLP_T_ARGS), x, w1, b1, w2, b2, sh, sc, R,
-                      ln_eps)
-    return _lib.count_launch("mlp_t", out)
+    return _mlp_t_launch(x, w1, b1, w2, b2, sh, sc, R, ln_eps)
+
+
+@_lib.launch("mlp_t")
+def _mlp_t_launch(x, w1, b1, w2, b2, sh, sc, R, ln_eps):
+    return _mlp_t_call(_lib.kernel("mlp_t", "mlp_t", _MLP_T_ARGS), x, w1, b1, w2, b2, sh, sc, R,
+                       ln_eps)
 
 
 _MLP_T_ARGS = [_P] * 10 + [_I] * 5 + [_F, _P]
@@ -406,9 +421,13 @@ def attn_probe(xw, wqkv, bqkv, num_heads: int, mode: str) -> torch.Tensor:
         raise ValueError(f"attn_probe mode must be one of {ATTN_PROBE_MODES}, got {mode!r}")
     if xw.device.type == "cpu":
         return attn_probe_plain(xw, wqkv, bqkv, num_heads, mode)
-    out = _attn_probe_call(_lib.kernel("attn_probe", "attn_probe", _ATTN_PROBE_ARGS), xw, wqkv,
-                           bqkv, num_heads, mode)
-    return _lib.count_launch("attn_probe", out)
+    return _attn_probe_launch(xw, wqkv, bqkv, num_heads, mode)
+
+
+@_lib.launch("attn_probe")
+def _attn_probe_launch(xw, wqkv, bqkv, num_heads, mode):
+    return _attn_probe_call(_lib.kernel("attn_probe", "attn_probe", _ATTN_PROBE_ARGS), xw, wqkv,
+                            bqkv, num_heads, mode)
 
 
 _ATTN_PROBE_ARGS = [_P] * 5 + [_I] * 4 + [_P]
@@ -524,9 +543,13 @@ def attn5d_direct(x5, wqkv, bqkv, ws, num_heads: int, mode: str) -> torch.Tensor
         raise ValueError(f"padded grid {(Cp, Hp, Wp)} is not a multiple of the window {ws}")
     if x5.device.type == "cpu":
         return attn5d_direct_plain(x5, wqkv, bqkv, ws, num_heads, mode)
-    out = _attn5d_direct_call(_lib.kernel("attn5d_direct", "attn5d_direct", _ATTN5D_ARGS), x5,
-                              wqkv, bqkv, ws, num_heads, mode)
-    return _lib.count_launch("attn5d_direct", out)
+    return _attn5d_direct_launch(x5, wqkv, bqkv, ws, num_heads, mode)
+
+
+@_lib.launch("attn5d_direct")
+def _attn5d_direct_launch(x5, wqkv, bqkv, ws, num_heads, mode):
+    return _attn5d_direct_call(_lib.kernel("attn5d_direct", "attn5d_direct", _ATTN5D_ARGS), x5,
+                               wqkv, bqkv, ws, num_heads, mode)
 
 
 _ATTN5D_ARGS = [_P] * 5 + [_I] * 10 + [_P]

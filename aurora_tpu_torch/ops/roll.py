@@ -66,6 +66,10 @@ class _Roll(torch.autograd.Function):
 
 def _roll3d_launch(x: torch.Tensor, shifts, key: str) -> torch.Tensor:
     """One launch of the kernel on ``x``, counted under ``LAUNCHES[key]``."""
+    return _LAUNCHES[key](x, shifts)
+
+
+def _roll3d_call(x: torch.Tensor, shifts) -> torch.Tensor:
     B, C, H, W, D = x.shape
     _lib.require(x, "x", x.dtype)
     row_bytes = D * x.element_size()
@@ -76,4 +80,7 @@ def _roll3d_launch(x: torch.Tensor, shifts, key: str) -> torch.Tensor:
     fn = _lib.kernel("roll", "roll3d", [_P, _P] + [_I] * 8 + [_P])
     err = fn(x.data_ptr(), out.data_ptr(), B, C, H, W, row_bytes, s0, s1, s2, _lib.stream(x))
     _lib.check(err, "roll3d")
-    return _lib.count_launch(key, out)
+    return out
+
+
+_LAUNCHES = {key: _lib.launch(key)(_roll3d_call) for key in ("roll3d", "roll3d_bwd")}

@@ -394,10 +394,9 @@ def _window_attention_entry(x: torch.Tensor):
 
 
 def _launch_window_attention(x, *args, what: str) -> torch.Tensor:
-    """K2 or K6 (arguments as :func:`_window_attention_call`), counted in ``LAUNCHES``: bf16
-    or f32 tokens (its callers check)."""
-    out = _window_attention_call(_window_attention_entry(x), x, *args, what)
-    return _lib.count_launch(what, out)
+    """K2 or K6 (arguments as :func:`_window_attention_call`): bf16 or f32 tokens (its
+    callers check)."""
+    return _window_attention_call(_window_attention_entry(x), x, *args, what)
 
 
 def window_attention_tail(
@@ -446,6 +445,7 @@ def _token_dtype(x: torch.Tensor) -> torch.dtype:
     return torch.float32 if x.dtype == torch.float32 else torch.bfloat16
 
 
+@_lib.launch("window_attention")
 def _window_attention_tail_launch(xp, wqkv, bqkv, groups, ws, num_heads, wproj, bproj, shift,
                                   scale, ln_eps):
     _lib.require(xp, "xp", _token_dtype(xp))
@@ -489,6 +489,7 @@ def _window_attention_windowed_differentiable(*args):
                                      chunks=chunks)(*args)
 
 
+@_lib.launch("window_attention_windowed")
 def _window_attention_windowed_launch(xw, wqkv, bqkv, groups, num_heads, wproj, bproj, shift,
                                       scale, ln_eps):
     _lib.require(xw, "xw", _token_dtype(xw))
@@ -525,6 +526,7 @@ def _sdpa_windows_differentiable(qkv, groups, num_heads):
                                      chunks=chunks)(qkv, groups, num_heads)
 
 
+@_lib.launch("sdpa_windows")
 def _sdpa_windows_launch(qkv, groups, num_heads):
     _lib.require(qkv, "qkv", _token_dtype(qkv))
     B, nW, D = check_sdpa_windows_shape(tuple(qkv.shape), num_heads)
@@ -541,4 +543,4 @@ def _sdpa_windows_launch(qkv, groups, num_heads):
         B, nW, D, num_heads, _lib.stream(qkv),
     )
     _lib.check(err, "sdpa_windows")
-    return _lib.count_launch("sdpa_windows", out)
+    return out

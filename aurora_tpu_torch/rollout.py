@@ -22,6 +22,7 @@ import torch
 from aurora_tpu_torch.batch import Batch
 from aurora_tpu_torch.model.aurora import Aurora
 from aurora_tpu_torch.parallel.sharding import gather_batch, spatial_mesh
+from aurora_tpu_torch.utils.profiling import span
 
 __all__ = ["rollout", "rollout_scan", "ship_to_host"]
 
@@ -35,7 +36,8 @@ def rollout(model: Aurora, batch: Batch, steps: int) -> Generator[Batch, None, N
     # them. The model reads the device copies, uploaded once here in its dtype, as
     # ``forward`` would upload them: its own ``Batch.to`` is then a no-op.
     static = batch.static_vars
-    batch = batch.to(model.device, model.compute_dtype)
+    with span("aurora:rollout.upload"):
+        batch = batch.to(model.device, model.compute_dtype)
     for _ in range(steps):
         pred = model(batch)
         yield dataclasses.replace(pred, static_vars=dict(static))
@@ -105,12 +107,14 @@ def ship_to_host(preds: Iterable[Batch], steps: int, device: torch.device) -> li
             done = torch.cuda.Event()
             done.record(stream)
             if in_flight is not None:
-                in_flight[0].synchronize()
+                with span("aurora:ship.wait"):
+                    in_flight[0].synchronize()
             in_flight = (done, pred)
         shipped.append(dataclasses.replace(pred, surf_vars={}, atmos_vars={}))
         del pred, groups
     if in_flight is not None:
-        in_flight[0].synchronize()
+        with span("aurora:ship.wait"):
+            in_flight[0].synchronize()
     return [dataclasses.replace(p, surf_vars={k: v[i].numpy() for k, v in host[0].items()},
                                 atmos_vars={k: v[i].numpy() for k, v in host[1].items()})
             for i, p in enumerate(shipped)]

@@ -1,4 +1,5 @@
-"""The port's benchmark entry: one roll-out of one configuration, step by step, on the card.
+"""A roll-out timing tool: one roll-out of one configuration, step by step, on the card. (The
+port's benchmark is ``python3 -m benchmark.run``.)
 
 Counterpart of ``bench.py:77-234`` (the production model's roll-out: grid points per second
 and roll-out steps per second) and ``tools/rollout_scan_bench.py`` (``rollout_scan`` with
@@ -19,7 +20,7 @@ and without host offload). One configuration and one kind of roll-out per run:
     (``rollout_scan(host_offload=True)``: each prediction shipped to pinned host memory).
 ``--steps`` (default 6), ``--device cpu`` (else the card), ``--H``/``--W`` (the grid).
 
-Three roll-outs of ``--steps`` steps from the same batch, after the kernels are built:
+Two roll-outs of ``--steps`` steps from the same batch, after the kernels are built:
 
 1. timed: a ``torch.cuda.synchronize()`` ends every step; each step's host-clock time and
    kernel launches (``ops._lib.LAUNCHES``), and the peak device memory
@@ -29,20 +30,12 @@ Three roll-outs of ``--steps`` steps from the same batch, after the kernels are 
 2. free-running: one synchronise after the 1st step and one at the end; roll-out steps
    per second and grid points per second (``bench.py``'s metric: grid points of the
    cropped grid times steps, over the window) over the steps between, so a stall in the
-   window counts;
-3. profiled: ``torch.profiler`` (CPU and CUDA activities) over the 2nd and 3rd steps, each
-   ended by a synchronise, as the output says (``idle_share_under``): the launch latency
-   at a step's start counts as idle, which a free-running roll-out would partly hide. A
-   step's idle share is one minus the union of the device's
-   kernel, memcpy and memset intervals within the step's window (host clock, from its
-   start to the end of its synchronise), over the window. A trace with no device activity
-   fails the run: an idle share is never printed from an empty trace.
+   window counts.
 
 The last line is one JSON object with every number, the card's name and power limit
 (``nvidia-smi --query-gpu=name,power.limit``) and ``"device"``. On the CPU (``--device
 cpu``: every kernel's plain version) the step times are host times of the CPU run, labelled
-``"device": "cpu"``, and the device metrics (peak memory, idle share) are null. Nothing is
-written to disk.
+``"device": "cpu"``, and the peak device memory is null. Nothing is written to disk.
 
 Usage: ``python -m aurora_tpu_torch.tools.bench [--config main] [--rollout loop]
 [--steps 6] [--device cpu] [--H 721 --W 1440]``. ``main(argv, model=...)`` takes a model
@@ -54,8 +47,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import os
-import tempfile
 import time
 from datetime import datetime
 from typing import Callable, Optional
@@ -86,8 +77,6 @@ CONFIGS = {  # name: (facade, H, W); main is the production config's plain model
 }
 ROLLOUTS = ("loop", "scan", "scan_offload")
 STEADY_FROM = 2  # the first steady step (1-based)
-PROFILED_STEPS = (2, 3)  # the steps the profiled roll-out traces (1-based)
-DEVICE_WORK = ("kernel", "gpu_memcpy", "gpu_memset")  # trace categories of device activity
 
 
 def build(config: str, device: torch.device, H: Optional[int] = None, W: Optional[int] = None,
@@ -172,74 +161,15 @@ def free_running(model: Aurora, batch: Batch, kind: str, steps: int) -> Optional
     return (steps - 1) / (time.perf_counter() - start[0])
 
 
-def idle_shares(events: list[dict], windows: list[tuple[float, float]]) -> list[float]:
-    """Per window ``(start, end)`` (µs), one minus the union of the device's kernel, memcpy
-    and memset intervals inside it, over its length. ``events`` are a Chrome trace's."""
-    busy = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
-                  if e.get("cat") in DEVICE_WORK and e.get("ph") == "X")
-    if not busy:
-        raise RuntimeError("the profiler recorded no device activity (no kernel, memcpy or "
-                           "memset in the trace): the idle share is not measured")
-    shares = []
-    for a, b in windows:
-        covered, reach = 0.0, a
-        for s, e in busy:
-            s, e = max(s, reach), min(e, b)
-            if e > s:
-                covered += e - s
-                reach = e
-        shares.append(1.0 - covered / (b - a))
-    return shares
-
-
-def profiled(model: Aurora, batch: Batch, kind: str) -> list[float]:
-    """Roll-out 3: the device's idle share in each of ``PROFILED_STEPS`` (the 2nd and the
-    3rd), from a ``torch.profiler`` trace of them (CPU and CUDA activities)."""
-    from torch.profiler import ProfilerActivity, profile, record_function
-
-    dev = model.device
-    last = PROFILED_STEPS[-1]
-    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-    window = []  # the open record_function range of the step under way
-
-    def after_step(i):
-        _sync(dev)
-        if window:
-            window.pop().__exit__(None, None, None)
-        done = i + 1
-        if done == last:
-            prof.stop()
-            return
-        if done == 1:
-            prof.start()
-        window.append(record_function(f"bench step {done + 1}"))
-        window[-1].__enter__()
-
-    run_rollout(model, batch, kind, last, after_step)
-    with tempfile.TemporaryDirectory() as d:
-        path = os.path.join(d, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            events = json.load(f)["traceEvents"]
-    names = [f"bench step {s}" for s in PROFILED_STEPS]
-    spans = {e["name"]: (e["ts"], e["ts"] + e["dur"]) for e in events
-             if e.get("cat") == "user_annotation" and e.get("name") in names}
-    missing = [n for n in names if n not in spans]
-    if missing:
-        raise RuntimeError(f"the profiler trace lacks the step windows {missing}")
-    return idle_shares(events, [spans[n] for n in names])
-
-
 def measure(model: Aurora, batch: Batch, kind: str, steps: int,
             config: str = "main") -> tuple[dict, list[Batch]]:
-    """The three roll-outs of ``kind`` over ``batch``; returns the result row and the timed
-    roll-out's predictions. On the CPU the device metrics are None."""
+    """The two roll-outs of ``kind`` over ``batch``; returns the result row and the timed
+    roll-out's predictions. On the CPU the peak device memory is None."""
     dev = model.device
     row, preds = timed(model, batch, kind, steps)
     steady = row["step_s"][STEADY_FROM - 1:]
     median = float(np.median(steady)) if steady else None
     Hc, Wc = preds[-1].spatial_shape
-    shares = profiled(model, batch, kind) if dev.type == "cuda" else None
     per_s = free_running(model, batch, kind, steps)
     out = dict(
         metric="aurora_rollout", config=config, rollout=kind, device=dev.type,
@@ -250,10 +180,6 @@ def measure(model: Aurora, batch: Batch, kind: str, steps: int,
         grid_points_per_s=Hc * Wc * per_s if per_s else None, unit="grid_points/s",
         rollout_steps_per_s=per_s,
         peak_mem_gib=row["peak_mem_gib"],
-        idle_share_steps=list(PROFILED_STEPS) if shares else None,
-        idle_share_under="a synchronise after every step" if shares else None,
-        idle_share_per_step=shares,
-        idle_share=float(np.mean(shares)) if shares else None,
         launches_per_step=row["launches_per_step"],
     )
     return out, preds

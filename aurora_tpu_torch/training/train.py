@@ -49,6 +49,7 @@ from aurora_tpu_torch.parallel.sharding import (
     split_bounds,
     train_mesh,
 )
+from aurora_tpu_torch.utils.profiling import span
 
 __all__ = [
     "AdamW",
@@ -228,13 +229,17 @@ def make_train_step(model, optimizer: AdamW, atmos_levels, loss_fn=mae_loss):
         mesh = train_mesh(model)
         tgt_surf, tgt_atmos = _local_targets(mesh, surf, tgt_surf, tgt_atmos, 0)
         with gathered_params(model), full_f32_products():
-            pred_surf, pred_atmos = model.forward_core(surf, static, atmos, enc,
-                                                       int(rollout_step), levels,
-                                                       generator=generator)
-            loss = loss_fn(pred_surf, pred_atmos, tgt_surf, tgt_atmos)
-            loss.backward()
+            with span("aurora:train.forward"):
+                pred_surf, pred_atmos = model.forward_core(surf, static, atmos, enc,
+                                                           int(rollout_step), levels,
+                                                           generator=generator)
+            with span("aurora:train.loss"):
+                loss = loss_fn(pred_surf, pred_atmos, tgt_surf, tgt_atmos)
+            with span("aurora:train.backward"):
+                loss.backward()
             average_gradients(model, mesh)
-        optimizer.step()
+        with span("aurora:train.adamw"):
+            optimizer.step()
         return global_mean(loss.detach(), mesh)
 
     return train_step
@@ -259,9 +264,11 @@ def make_rollout_train_step(model, optimizer: AdamW, atmos_levels, steps: int,
     levels = tuple(atmos_levels)
 
     def body(surf_c, atmos_c, static, enc_i, step, tgt_s, tgt_a, key):
-        pred_s, pred_a = model.forward_core(surf_c, static, atmos_c, enc_i, step, levels,
-                                            key=key)
-        loss_i = loss_fn(pred_s, pred_a, tgt_s, tgt_a)
+        with span("aurora:train.forward"):
+            pred_s, pred_a = model.forward_core(surf_c, static, atmos_c, enc_i, step, levels,
+                                                key=key)
+        with span("aurora:train.loss"):
+            loss_i = loss_fn(pred_s, pred_a, tgt_s, tgt_a)
         surf_n = {k: torch.cat([v[:, 1:], pred_s[k][:, None]], dim=1) for k, v in surf_c.items()}
         atmos_n = {k: torch.cat([v[:, 1:], pred_a[k][:, None]], dim=1)
                    for k, v in atmos_c.items()}
@@ -290,9 +297,11 @@ def make_rollout_train_step(model, optimizer: AdamW, atmos_levels, steps: int,
                                                    int(rollout_step0) + i, tgt_s, tgt_a, key)
                 losses.append(loss_i)
             loss = torch.stack(losses).mean()
-            loss.backward()
+            with span("aurora:train.backward"):
+                loss.backward()
             average_gradients(model, mesh)
-        optimizer.step()
+        with span("aurora:train.adamw"):
+            optimizer.step()
         return global_mean(loss.detach(), mesh)
 
     return train_step

@@ -126,10 +126,10 @@ Phases, each printing one JSON line; any failure raises and the script exits non
    launched K4 and K3, the backbone K1-K3. Then the
    roll-outs, on the same model, as ``tools.bench`` measures them: ``rollout``,
    ``rollout_scan`` and ``rollout_scan(host_offload=True)``, 3 steps each from one
-   721 x 1440 batch of host arrays (step times, peak memory, steps per second, the idle share
-   of two steady steps from ``torch.profiler``); launches per step as the main route's; the
-   three the same bits step by step (or within 1e-3 mean relative); the host-offload peak
-   within one prediction of a 2-step host-offload roll-out's; the caller's arrays unchanged.
+   721 x 1440 batch of host arrays (step times, peak memory, steps per second); launches per
+   step as the main route's; the three the same bits step by step (or within 1e-3 mean
+   relative); the host-offload peak within one prediction of a 2-step host-offload
+   roll-out's; the caller's arrays unchanged.
    Then the drivers, on the same model: a 721 x 1440 initial condition written with
    ``Batch.to_netcdf`` (the land-sea mask 0 around the tracker's first fix), the
    command-line ``forecast`` (``aurora_tpu_torch.cli.main``, 2 steps, ``--track``) with its
@@ -1854,8 +1854,8 @@ def run_breakdown(model) -> None:
 
 def run_rollouts(model) -> None:
     """The port's three roll-outs on the main route's model, as ``tools.bench`` measures
-    them (``bench.measure``: every step's time, launches and peak memory, steps per second,
-    the idle share of two steady steps), each of SCAN_STEPS steps from one 721 x 1440 batch
+    them (``bench.measure``: every step's time, launches and peak memory, steps per second),
+    each of SCAN_STEPS steps from one 721 x 1440 batch
     of host arrays: ``rollout``, ``rollout_scan`` and ``rollout_scan(host_offload=True)``.
     Launches per step as ``ROUTES["main"]``; the three agree step by step (the same bits, or
     within SCAN_AGREE_TOL mean relative); the host-offload roll-out's peak memory exceeds a
@@ -1875,7 +1875,7 @@ def run_rollouts(model) -> None:
     for kind in bench.ROLLOUTS:
         _lib.reset_launches()
         row, preds = bench.measure(model, batch, kind, SCAN_STEPS)
-        row["launches"] = dict(_lib.LAUNCHES)  # over its timed, profiled and free-running runs
+        row["launches"] = dict(_lib.LAUNCHES)  # over its timed and free-running runs
         preds = [p.to_numpy() for p in preds]
         torch.cuda.empty_cache()
         rows[kind] = row

@@ -148,7 +148,7 @@ def test_cuda_branch_makes_no_transposed_weight_copy(fn):
             elif isinstance(node, ast.Call) and isinstance(node.func, ast.Name):
                 names.add(node.func.id)
     assert not names & TRANSPOSES, names & TRANSPOSES
-    assert {"kernel", "count_launch", "contiguous"} <= names
+    assert {"kernel", "launch", "contiguous"} <= names
 
 
 def test_old_probe_kernels_are_gone_and_only_k11_includes_the_old_body():

@@ -234,7 +234,7 @@ def test_cuda_branch_reaches_no_library_product(fn):
               "fold_logit_weights", "linear_adaln_residual_plain", "mlp_t_plain",
               "attn_probe_plain", "attn5d_direct_plain"}
     assert not names & banned, names & banned
-    assert "kernel" in names and "count_launch" in names
+    assert "kernel" in names and "launch" in names
 
 
 # ------------------------------------------------------------------------------ K3 / K8
