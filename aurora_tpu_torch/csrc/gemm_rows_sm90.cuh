@@ -212,6 +212,22 @@ struct PeriodicResidual {
   }
 };
 
+// (mean, 1 / sqrt(variance + eps)) of a row of D values from its D / TILE tiles' (mean,
+// centred sum of squares) at st, merged exactly (equal counts).
+template <int TILE>
+__device__ __forceinline__ float2 merge_row_stats(const float2* st, int D, float eps) {
+  const int n_tiles = D / TILE;
+  float mean = 0.f;
+  for (int i = 0; i < n_tiles; ++i) mean += st[i].x;
+  mean /= n_tiles;
+  float m2 = 0.f;
+  for (int i = 0; i < n_tiles; ++i) {
+    const float d = st[i].x - mean;
+    m2 += st[i].y + (float)TILE * d * d;
+  }
+  return make_float2(mean, rsqrtf(m2 / D + eps));
+}
+
 // A warp a row: out (holding y) = bf16(x + LN(y) * gain + shift) in place, x from `res`.
 // The statistics come per TILE columns of a row: 256 (fc2 and proj tiles), or 128 (K9's
 // feature tiles, mlp_t.cu).
@@ -222,17 +238,8 @@ __global__ void __launch_bounds__(256) ln_rows_kernel(
     long long row_base, long long rows_per_batch, int D, float eps) {
   const int row = blockIdx.x * 8 + (threadIdx.x >> 5), lane = threadIdx.x & 31;
   if (row >= rows) return;
-  const int n_tiles = D / TILE;
-  const float2* st = stats + (long long)row * n_tiles;
-  float mean = 0.f;
-  for (int i = 0; i < n_tiles; ++i) mean += st[i].x;
-  mean /= n_tiles;
-  float m2 = 0.f;
-  for (int i = 0; i < n_tiles; ++i) {
-    const float d = st[i].x - mean;
-    m2 += st[i].y + (float)TILE * d * d;
-  }
-  const float rstd = rsqrtf(m2 / D + eps);
+  const float2 mr = merge_row_stats<TILE>(stats + (long long)row * (D / TILE), D, eps);
+  const float mean = mr.x, rstd = mr.y;
   const long long film = ((row_base + row) / rows_per_batch) * D;
   for (int c = 0; c < D / 256; ++c) {
     const int n = 256 * c + 8 * lane;

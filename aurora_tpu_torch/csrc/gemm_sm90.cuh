@@ -36,6 +36,9 @@
 //      (n) x 64 k, 128-byte rows under the swizzle, as the K-major A: stride offset 1024,
 //      a k16 step adds 32 bytes, transpose bit clear.
 // The producer of those forms is produce_step_wa; the caller loads B's part of the stage.
+// mlp_grad.cu (K3's input gradient) takes GemmRing<S, false, false>: the tokens K-major as
+// A, and as B a weight W (N, K) as stored, so that its products run through W^T: produce_step
+// loads B as one box of BN n x 64 k (make_map_wk); the descriptors are the K-major B above.
 //
 // Ring protocol: full[s] (1 arrival + the stage's bytes) and empty[s] (one arrival per
 // consumer warp, after the warp's wgmma reading the stage have completed). The producer
@@ -198,9 +201,13 @@ struct GemmRing {
     mbar_arrive_expect_tx(bar, 2 * a_box_bytes + B_BYTES);
     tma_load_3d(a, map_a, bar, ka, row0[0], block[0]);
     tma_load_3d(a + A_BOX_BYTES, map_a, bar, ka, row0[1], block[1]);
+    if constexpr (B_MN) {
 #pragma unroll
-    for (int j = 0; j < BN / 64; ++j)
-      tma_load_2d(a + A_BYTES + j * B_BOX_BYTES, map_b, bar, n0 + 64 * j, kb);
+      for (int j = 0; j < BN / 64; ++j)
+        tma_load_2d(a + A_BYTES + j * B_BOX_BYTES, map_b, bar, n0 + 64 * j, kb);
+    } else {  // one box of BN n x 64 k of a weight (N, K) as stored (make_map_wk)
+      tma_load_2d(a + A_BYTES, map_b, bar, kb, n0);
+    }
 #endif
     pos.advance();
   }
@@ -323,6 +330,15 @@ struct GemmRing {
     const uint64_t dims[2] = {(uint64_t)N, (uint64_t)K};
     const uint64_t strides[1] = {(uint64_t)N * 2};
     const uint32_t box[2] = {64, BK};
+    return make_map_bf16(map, w, 2, dims, strides, box);
+  }
+  // Host: the tensor map of W, (N, K) bf16 as stored (K contiguous), as the K-major B
+  // operand of the !B_MN forms: boxes of 64 k x BN n, so that the product runs through W^T
+  // with no transposed copy.
+  static cudaError_t make_map_wk(CUtensorMap* map, const void* w, int N, int K) {
+    const uint64_t dims[2] = {(uint64_t)K, (uint64_t)N};
+    const uint64_t strides[1] = {(uint64_t)K * 2};
+    const uint32_t box[2] = {BK, BN};
     return make_map_bf16(map, w, 2, dims, strides, box);
   }
   static uint32_t a_box_bytes(int MB) { return (uint32_t)(MB < 64 ? MB : 64) * BK * 2; }

@@ -11,9 +11,10 @@ Every wrapper's launch function is decorated by :func:`launch`, which adds one t
 through the kernels, and names the call's span ``aurora:k.<key>``
 (:func:`aurora_tpu_torch.utils.profiling.span`). A forward call counts once under its
 wrapper's key whether or not it records a gradient; K1's launch in a backward counts under
-``roll3d_bwd``. :data:`LAUNCHES_BY` tallies the same launches by key, output dtype and output
-row width, which tell a float32 model's launches from a bf16 one's; :func:`reset_launches`
-leaves it, so it is read as the difference over a run.
+``roll3d_bwd``, K3's hand-written input gradient under ``mlp_adaln_residual_grad``.
+:data:`LAUNCHES_BY` tallies the same launches by key, output dtype and output row width, which
+tell a float32 model's launches from a bf16 one's; :func:`reset_launches` leaves it, so it is
+read as the difference over a run.
 """
 
 from __future__ import annotations
@@ -37,7 +38,8 @@ __all__ = ["LAUNCHES", "LAUNCHES_BY", "launch", "reset_launches", "build", "kern
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("roll", "window_attention", "mlp", "resampler", "probes", "gemm", "sdpa", "mlp_t",
-           "attn_probe", "attn5d_direct", "window_attention_f32", "mlp_f32", "resampler_f32")
+           "attn_probe", "attn5d_direct", "window_attention_f32", "mlp_f32", "resampler_f32",
+           "mlp_grad")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
@@ -48,6 +50,7 @@ LAUNCHES: dict[str, int] = {
     "roll3d_bwd": 0,  # K1 launched by the backward of a roll (the shifts negated)
     "window_attention": 0,
     "mlp_adaln_residual": 0,
+    "mlp_adaln_residual_grad": 0,  # K3's hand-written input gradient, launched by a backward
     "perceiver_core": 0,
     "linear_adaln_residual": 0,
     "window_attention_windowed": 0,

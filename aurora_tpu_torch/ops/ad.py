@@ -8,7 +8,12 @@ pairs a Pallas kernel with its XLA reference: the forward launches the kernel an
 inputs; the backward recomputes the plain math on detached copies of them and takes
 ``torch.autograd.grad`` of it, for the inputs whose gradient is asked for only. The two
 forwards differ by rounding, which does not matter to a gradient. The JAX package has no
-backward kernel, so neither has the port; the backward's products are PyTorch's.
+backward kernel; the port's plain backward runs PyTorch's products.
+
+A kernel may also bring a hand-written backward of its first argument's gradient
+(``input_grad``), which the backward takes in place of the plain one where that gradient is
+the only one asked for and the backward accepts the call: K3's (``ops/mlp.py``, in bf16), which
+LoRA training asks of every backbone block. Every other call keeps the plain backward.
 
 Under LoRA-only training nothing upstream of the backbone asks for a gradient, so the
 encoder's kernels never enter this module, and the decoder's compute the gradient of their
@@ -70,13 +75,14 @@ def _acc(dtype: torch.dtype) -> torch.dtype:
 
 
 class _KernelGrad(torch.autograd.Function):
-    """Forward: ``kernel(*args)`` under ``no_grad``, the tensor inputs saved. Backward:
-    ``torch.autograd.grad`` of ``grad_fn(*args, part=...)`` recomputed on them, inside the
-    span ``name`` where one is given."""
+    """Forward: ``kernel(*args)`` under ``no_grad``, the tensor inputs saved. Backward, inside
+    the span ``name`` where one is given: ``input_grad(g, *args)`` where only the first
+    argument asks for a gradient and ``input_grad`` returns one; otherwise
+    ``torch.autograd.grad`` of ``grad_fn(*args, part=...)`` recomputed on them."""
 
     @staticmethod
-    def forward(ctx, kernel, grad_fn, chunks, name, *args):
-        ctx.grad_fn, ctx.chunks, ctx.name = grad_fn, chunks, name
+    def forward(ctx, kernel, grad_fn, chunks, name, input_grad, *args):
+        ctx.grad_fn, ctx.chunks, ctx.name, ctx.input_grad = grad_fn, chunks, name, input_grad
         ctx.args = [None if isinstance(a, torch.Tensor) else a for a in args]
         ctx.tensors = [i for i, a in enumerate(args) if isinstance(a, torch.Tensor)]
         ctx.save_for_backward(*(args[i] for i in ctx.tensors))
@@ -88,12 +94,15 @@ class _KernelGrad(torch.autograd.Function):
         args = list(ctx.args)
         for i, t in zip(ctx.tensors, ctx.saved_tensors):
             args[i] = t
-        want = [i for i in ctx.tensors if ctx.needs_input_grad[4 + i]]
+        want = [i for i in ctx.tensors if ctx.needs_input_grad[5 + i]]
         grads: list = [None] * len(args)
         if want:
             with contextlib.nullcontext() if ctx.name is None else span(ctx.name):
-                _backward(ctx.grad_fn, ctx.chunks, args, want, g, grads)
-        return (None, None, None, None, *grads)
+                if want == [0] and ctx.input_grad is not None:
+                    grads[0] = ctx.input_grad(g, *args)
+                if grads[0] is None:
+                    _backward(ctx.grad_fn, ctx.chunks, args, want, g, grads)
+        return (None, None, None, None, None, *grads)
 
 
 def _backward(grad_fn, chunks: Optional[Chunks], args: list, want: list, g, grads: list):
@@ -139,6 +148,7 @@ def kernel_with_plain_grad(
     kernel: Callable[..., torch.Tensor],
     grad_fn: Callable[..., torch.Tensor],
     chunks: Optional[Chunks] = None,
+    input_grad: Optional[Callable[..., Optional[torch.Tensor]]] = None,
 ) -> Callable[..., torch.Tensor]:
     """A differentiable call of ``kernel``: ``f(*args)`` launches ``kernel(*args)`` and is
     differentiated as ``grad_fn(*args, part=None)``.
@@ -150,12 +160,18 @@ def kernel_with_plain_grad(
     ``part`` the chunk's ``slice`` along the sliced axes (for a function that must cut a
     constant of its own to the chunk, such as a window mask).
 
+    ``input_grad``: a hand-written backward of the first argument's gradient alone, called as
+    ``input_grad(g, *args)`` (``g`` the output's gradient) where no other input asks for one;
+    it returns that gradient, or None for a call it does not take, which then goes to the
+    plain backward.
+
     A ``kernel`` decorated by :func:`aurora_tpu_torch.ops._lib.launch` names the backward's
-    span (all chunks, recompute and ``autograd.grad``) ``aurora:grad.<its key>``."""
+    span (all chunks, recompute and ``autograd.grad``, or ``input_grad``)
+    ``aurora:grad.<its key>``."""
     key = getattr(kernel, "launch_key", None)
     name = None if key is None else f"{PREFIX}grad.{key}"
 
     def f(*args):
-        return _KernelGrad.apply(kernel, grad_fn, chunks, name, *args)
+        return _KernelGrad.apply(kernel, grad_fn, chunks, name, input_grad, *args)
 
     return f

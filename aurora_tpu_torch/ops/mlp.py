@@ -65,10 +65,19 @@ copy) and the product and row kernels of ``csrc/gemm_rows_sm90.cuh``:
 
 Gradients (:mod:`aurora_tpu_torch.ops.ad`, the counterpart of the JAX package's
 ``kernel_with_xla_grad`` at ``mlp.py:302-314``, ``:445-536``, ``:629-645``): under grad mode a
-call whose inputs require a gradient launches the kernels and saves its inputs; the backward
-differentiates the plain math with bf16 products (:func:`aurora_tpu_torch.model.nn.matmul_acc`
-with ``fast``), chunk of rows by chunk of rows so that the f32 hidden layer of a chunk stays
-under ``ad.GRAD_CHUNK_BYTES``, the weights' gradients summed over the chunks in f32.
+call whose inputs require a gradient launches the kernels and saves its inputs. Where K3's
+tokens are bf16 and only they ask for a gradient (LoRA training: the weights frozen, the FiLM
+from frozen layers), the backward is hand-written (``csrc/mlp_grad.cu``; the JAX package has
+none): five launches a chunk of rows (:func:`mlp_row_chunks`), fc1 recomputed with its rounded
+pre-activations stored beside the GELU, fc2 recomputed with the LayerNorm statistics, a row
+kernel for the LayerNorm's and FiLM's backward, then ``dy W2^T`` times GELU's derivative and
+``dpre W1^T`` plus the residual's gradient, both products reading the weights as stored
+(:func:`mlp_adaln_residual_input_grad_plain` is its arithmetic in PyTorch; its bound, four
+products of ``2 * rows * D * Hd`` bf16 flops, 2.2 ms a backbone call). Every other backward
+(K8, K5, float32 tokens, a weight's or the FiLM's gradient) differentiates the plain math with
+bf16 products (:func:`aurora_tpu_torch.model.nn.matmul_acc` with ``fast``), chunk of rows by
+chunk of rows so that the f32 hidden layer of a chunk stays under ``ad.GRAD_CHUNK_BYTES``, the
+weights' gradients summed over the chunks in f32.
 
 Times in PERF.md.
 """
@@ -76,6 +85,7 @@ Times in PERF.md.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -90,6 +100,7 @@ __all__ = [
     "linear_adaln_residual",
     "linear_adaln_residual_plain",
     "mlp_adaln_residual",
+    "mlp_adaln_residual_input_grad_plain",
     "mlp_adaln_residual_plain",
     "mlp_fused",
     "mlp_fused_plain",
@@ -107,6 +118,8 @@ _MLP_ROWS_F32_ARGS = _MLP_ROWS_ARGS[:-1] + [_P, _P]
 # weight's split scratch before the stream
 _LINEAR_ARGS = [_P] * 6 + [_F, _P, _P, _I, _L, _I, _F, _P]
 _LINEAR_F32_ARGS = _LINEAR_ARGS[:-1] + [_P, _P]
+# csrc/mlp_grad.cu::mlp_rows_input_grad
+_MLP_GRAD_ARGS = [_P] * 7 + [_F] + [_P] * 5 + [_I, _L, _L, _I, _I, _F, _P]
 
 
 def film_layernorm_residual(
@@ -190,6 +203,51 @@ def _mlp_adaln_residual_grad(x, w1, b1, w2, b2, shift, scale, scale_bias, ln_eps
     """What the backward of :func:`mlp_adaln_residual` differentiates."""
     y = _mlp(x, w1, b1, w2, b2, fast=True)
     return film_layernorm_residual(y, x, shift, scale, scale_bias, ln_eps)
+
+
+def mlp_adaln_residual_input_grad_plain(
+    g: torch.Tensor,
+    x: torch.Tensor,
+    w1: torch.Tensor,
+    b1: torch.Tensor,
+    w2: torch.Tensor,
+    b2: torch.Tensor,
+    scale: torch.Tensor,
+    scale_bias: float = 0.0,
+    ln_eps: float = 1e-5,
+    cap: int = MLP_SCRATCH_BYTES,
+) -> torch.Tensor:
+    """The gradient of :func:`mlp_adaln_residual` at ``g`` with respect to ``x`` alone
+    (``x``, ``g``: ``(B, L, D)``), in the five steps of K3's hand-written backward
+    (``csrc/mlp_grad.cu``), over the chunks of rows that :func:`mlp_row_chunks` gives for
+    ``cap``: fc1 recomputed (``pre``, rounded), its GELU; fc2 recomputed (``y``, rounded); the
+    LayerNorm's and FiLM's backward (``dy``, rounded); ``dy W2^T`` times GELU's derivative at
+    ``pre`` (``dpre``, rounded); ``dpre W1^T + g`` (rounded once). Products and the rest in f32
+    (f64 for f64 tokens, where nothing is rounded)."""
+    B, L, D = x.shape
+    dt, acc = x.dtype, acc_dtype(x.dtype)
+    Hd = w1.shape[1]
+    w1, w2 = w1.to(dt), w2.to(dt)
+    b1, b2 = b1.to(acc), b2.to(acc)
+    gain = scale_bias + scale.to(acc).reshape(B, D)
+    xs, gs = x.reshape(B * L, D), g.reshape(B * L, D)
+    dx = torch.empty_like(xs)
+    for r0, rows in mlp_row_chunks(B * L, Hd, cap):
+        part = slice(r0, r0 + rows)
+        gr = gs[part].to(acc)
+        pre = (matmul_acc(xs[part], w1) + b1).to(dt).to(acc)
+        hid = torch.nn.functional.gelu(pre).to(dt)
+        y = (matmul_acc(hid, w2) + b2).to(dt).to(acc)
+        mean = y.mean(-1, keepdim=True)
+        rstd = torch.rsqrt((y - mean).square().mean(-1, keepdim=True) + ln_eps)
+        n = (y - mean) * rstd
+        dn = gr * gain[torch.arange(r0, r0 + rows, device=x.device) // L]
+        dy = rstd * (dn - dn.mean(-1, keepdim=True) - n * (dn * n).mean(-1, keepdim=True))
+        gelu_grad = (0.5 * (1 + torch.erf(pre * 0.5**0.5))
+                     + pre * torch.exp(-0.5 * pre * pre) * (2 * math.pi) ** -0.5)
+        dpre = (matmul_acc(dy.to(dt), w2.t()) * gelu_grad).to(dt)
+        dx[part] = (matmul_acc(dpre, w1.t()) + gr).to(dt)
+    return dx.reshape(B, L, D)
 
 
 def linear_adaln_residual_plain(
@@ -357,7 +415,53 @@ def mlp_adaln_residual(
 def _mlp_adaln_residual_differentiable(*args):
     x, w1 = args[:2]
     return ad.kernel_with_plain_grad(_mlp_adaln_residual_launch, _mlp_adaln_residual_grad,
-                                     chunks=_row_chunks(x, len(args), w1.shape[1]))(*args)
+                                     chunks=_row_chunks(x, len(args), w1.shape[1]),
+                                     input_grad=_mlp_adaln_residual_input_grad)(*args)
+
+
+def _mlp_adaln_residual_input_grad(g, x, w1, b1, w2, b2, shift, scale, scale_bias, ln_eps):
+    """The backward of :func:`mlp_adaln_residual` where only ``x`` asks for a gradient: K3's
+    hand-written input gradient on bf16 tokens; None on float32 tokens, which keep the plain
+    backward."""
+    if x.dtype != torch.bfloat16:
+        return None
+    return _mlp_adaln_residual_grad_launch(g, x, w1, b1, w2, b2, scale, scale_bias, ln_eps)
+
+
+@_lib.launch("mlp_adaln_residual_grad")
+def _mlp_adaln_residual_grad_launch(g, x, w1, b1, w2, b2, scale, scale_bias, ln_eps):
+    """``csrc/mlp_grad.cu::mlp_rows_input_grad`` chunk by chunk over the rows of ``x``, ``g``:
+    ``(B, L, D)`` bf16, into a new ``dx``. Allocates the scratch of the largest chunk: the
+    pre-activations (then ``dpre``) and the hidden, ``rows * Hd`` bf16 each (at most
+    ``MLP_SCRATCH_BYTES``), fc2's output (then ``dy``), ``rows * D`` bf16, its statistics."""
+    B, L, D = x.shape
+    ops = _mlp_operands(x, w1, b1, w2, b2)
+    Hd = ops[0].shape[1]
+    scf = scale.to(torch.float32).reshape(B, D).contiguous()
+    g = g.contiguous()
+    if g.data_ptr() % 16:  # the kernels' 16-byte copies
+        g = g.clone()
+    _lib.require(g, "g", torch.bfloat16, (B, L, D))
+    _same_device(x, w1=ops[0], b1=ops[1], w2=ops[2], b2=ops[3], scale=scf, g=g)
+    dx = torch.empty_like(x)
+    chunks = mlp_row_chunks(B * L, Hd)
+    most = chunks[0][1]
+
+    def scratch(n, dtype=torch.bfloat16):
+        return torch.empty(n, dtype=dtype, device=x.device)
+
+    pre, hid, y = scratch(most * Hd), scratch(most * Hd), scratch(most * D)
+    stats = scratch(most * (D // 256) * 2, torch.float32)
+    fn = _lib.kernel("mlp_grad", "mlp_rows_input_grad", _MLP_GRAD_ARGS)
+    for r0, rows in chunks:
+        at = 2 * r0 * D  # bytes to the chunk's first row of x, g and dx
+        err = fn(
+            x.data_ptr() + at, *(t.data_ptr() for t in ops), g.data_ptr() + at, scf.data_ptr(),
+            float(scale_bias), pre.data_ptr(), hid.data_ptr(), y.data_ptr(), stats.data_ptr(),
+            dx.data_ptr() + at, rows, r0, L, D, Hd, float(ln_eps), _lib.stream(x),
+        )
+        _lib.check(err, "mlp_rows_input_grad")
+    return dx
 
 
 @_lib.launch("mlp_adaln_residual")

@@ -147,13 +147,19 @@ def expected_launches(cfg: AuroraConfig, lora: bool, K: int = 0,
     * a roll-out step (``K`` > 0) is one region: its replay runs the whole step once more
       (its last saved tensor is the loss's). From the second step on the encoder's input,
       the history, holds a prediction and needs a gradient.
+
+    A LoRA update's backward launches K3's hand-written input gradient
+    (``mlp_adaln_residual_grad``) once for each K3 call of each step whose tokens are bf16 (the
+    backbone's under ``autocast``; the first resampler layer's under ``agg_bf16`` /
+    ``deagg_bf16``) and need a gradient, replays or not: only the tokens ask for one. A full
+    fine-tune's backward asks for the weights' too and launches none.
     """
     remat, scope = cfg.remat, cfg.remat_scope
     enc_rates, dec_rates = drop_path_rates(cfg.backbone)
     stages = enc_rates + dec_rates
     steps = max(K, 1)
     n = dict.fromkeys(("roll3d", "window_attention", "mlp_adaln_residual", "perceiver_core",
-                       "roll3d_bwd"), 0)
+                       "roll3d_bwd", "mlp_adaln_residual_grad"), 0)
     for step in range(steps):
         body = int(K > 0)
         for s, rates in enumerate(stages):
@@ -163,15 +169,18 @@ def expected_launches(cfg: AuroraConfig, lora: bool, K: int = 0,
                 if not (stochastic and (rates[i] > 0 or cfg.drop_rate > 0)):
                     n["window_attention"] += runs
                     n["mlp_adaln_residual"] += runs
+                    n["mlp_adaln_residual_grad"] += int(lora and cfg.autocast)
                 if i % 2:
                     n["roll3d"] += 2 * runs
                     n["roll3d_bwd"] += 2
         full = remat and scope == "full"
         encoder_grad = not lora or step > 0
-        for runs, depth in ((1 + body + (full and encoder_grad), cfg.enc_depth),
-                            (1 + body + full, cfg.dec_depth)):  # encoder, decoder
+        for runs, depth, bf16, grad in (
+                (1 + body + (full and encoder_grad), cfg.enc_depth, cfg.agg_bf16, encoder_grad),
+                (1 + body + full, cfg.dec_depth, cfg.deagg_bf16, True)):  # encoder, decoder
             n["perceiver_core"] += runs
             n["mlp_adaln_residual"] += runs * depth
+            n["mlp_adaln_residual_grad"] += int(lora and grad and bf16)
     return n
 
 

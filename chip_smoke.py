@@ -69,7 +69,9 @@ Phases, each printing one JSON line; any failure raises and the script exits non
    the host thread, overlaps the rest): K1-K8's gradients through their ``Function`` (the
    kernel forward, the backward of the plain math with bf16 products) against autograd of
    the plain versions on the card, every differentiable input, on inputs cut to a few
-   thousand rows, windows or columns
+   thousand rows, windows or columns, and K3 once more with its tokens alone asking for a
+   gradient (LoRA training), which its hand-written input gradient (``csrc/mlp_grad.cu``)
+   takes, launched once, with the bound of its four products
    (FiLM at unit gain): max ``|Δ|`` over max ``|reference gradient|`` (at least 1e-3 of the
    call's largest, for a gradient that is zero in exact arithmetic), less one bf16 ulp for a
    bf16 gradient, within the forward's bounds (roll exact, bf16 6e-3, K4 1e-2), the output's
@@ -257,7 +259,8 @@ Phases, each printing one JSON line; any failure raises and the script exits non
    runs it, ``launches`` the count over that route's roll-out, and the backward's
    ``grad_err`` (the worst over the cut shapes and ``bwd_shape``), ``bwd_ms``,
    ``plain_bwd_ms`` and ``bwd_rel_err`` (each input's error) at ``bwd_shape``, one call at
-   the main path's shape, and the same keys for the float32 backward in the ``f32`` entry
+   the main path's shape (K3's input gradient the same keys and ``bound_ms`` under
+   ``input_grad``), and the same keys for the float32 backward in the ``f32`` entry
    of the mode the train step runs; K9-K13: the sum over one sweep of the tool's cases,
    ``launches`` the count over the tools phase; K2 and K6 carry their no-tail mode under
    ``no_tail``, K4 its ``ln_k`` form under ``ln_k`` (launches: route S's aggregation; in
@@ -2241,6 +2244,9 @@ BWD_REPS_F32 = 1  # timed float32 backward runs per kernel, after one warm-up ru
 # the loss (relative) and the concatenated LoRA gradient (relative L2).
 F32_TRAIN_LOSS_TOL, F32_TRAIN_GRAD_TOL = 1e-4, 1e-3
 PARALLEL_DATA = 2  # ranks of the parallel phase, all on the one card over gloo
+# The label of K3's case with the tokens alone asking for a gradient, which its hand-written
+# input gradient (csrc/mlp_grad.cu) takes in bf16.
+X_ALONE = "x alone (the input gradient)"
 
 
 def grad_cases(rn, dtype=None):
@@ -2346,6 +2352,15 @@ def grad_cases(rn, dtype=None):
     yield ("mlp_adaln_residual", "(1,4096,512) hidden 2048; timed (1,259200,512)",
            mlp.mlp_adaln_residual, mlp.mlp_adaln_residual_plain,
            lambda full: (*mlp_args(full), *film()), True)
+    if dtype == torch.bfloat16:  # LoRA training: the weights and the FiLM frozen
+
+        def x_alone(full):
+            x, *rest = (*mlp_args(full), *film())
+            return (x, *(t.detach() for t in rest))
+
+        yield ("mlp_adaln_residual",
+               f"{X_ALONE}, (1,4096,512) hidden 2048; timed (1,259200,512)",
+               mlp.mlp_adaln_residual, mlp.mlp_adaln_residual_plain, x_alone, True)
     yield ("mlp_fused", "(1,4096,512) hidden 2048; timed (1,259200,512)",
            mlp.mlp_fused, mlp.mlp_fused_plain, mlp_args, True)
     yield ("linear_adaln_residual", "(1,4096,512); timed (1,259200,512)",
@@ -2414,6 +2429,10 @@ def run_grad_phases() -> dict:
         want = grads(plain(*args), leaves, g)
         torch.cuda.synchronize()
         launched = {k: v - before[k] for k, v in _lib.LAUNCHES.items() if v != before[k]}
+        x_alone = label.startswith(X_ALONE)
+        if launched.get("mlp_adaln_residual_grad", 0) != int(x_alone):
+            raise AssertionError(f"grad {name} {label}: K3's input gradient launched "
+                                 f"{launched.get('mlp_adaln_residual_grad', 0)} times")
         errs = grad_errs(got, want, name)
         finite = all(bool(torch.isfinite(a.float()).all()) for a in got)
         tol = GRAD_TOL.get(name, 6e-3)
@@ -2437,6 +2456,9 @@ def run_grad_phases() -> dict:
             times["plain_bwd_ms"] = time_ms(lambda: kept.update(want=grads(ref, tleaves, g)),
                                             dev, 1, warmup=0)
             times["bwd_shape"] = label.split("timed ")[-1]
+            if x_alone:  # the bound of its four products, 2 rows D Hd flops each
+                rows, D = targs[0].shape[1:]
+                times["bound_ms"] = 4 * 2 * rows * D * targs[1].shape[1] / 989e12 * 1e3
             del ref, targs, tleaves, g
             times["bwd_rel_err"] = grad_errs(kept["got"], kept["want"], name)
             finite = finite and all(bool(torch.isfinite(a.float()).all()) for a in kept["got"])
@@ -2450,8 +2472,11 @@ def run_grad_phases() -> dict:
             raise AssertionError(f"grad {name} {label}: errors {errs}, at the timed shape "
                                  f"{times.get('bwd_rel_err')} (bound {tol}), finite {finite}")
         s = out_summary.setdefault(name, dict(grad_err=0.0))
-        s.update(times)
-        s["grad_err"] = max(s["grad_err"], worst)
+        if x_alone:
+            s["input_grad"] = dict(times, grad_err=worst)
+        else:
+            s.update(times)
+            s["grad_err"] = max(s["grad_err"], worst)
     emit(dict(phase="grad", seconds=time.perf_counter() - t0))
     return out_summary
 

@@ -353,6 +353,10 @@ def test_train_step_launches_at_depth_2(monkeypatch):
                                 "--mode", "lora"], model=model)
     want = dict(out["expected_launches"])
     want.pop("roll3d_bwd")
+    # K3's input gradient: every block and the decoder's first layer (the deeper layers run
+    # in float32).
+    blocks = sum(tiny.encoder_depths + tiny.decoder_depths)
+    assert want.pop("mlp_adaln_residual_grad") == blocks + 1
     assert {k: v // 2 for k, v in counts.items()} == want
     at_depth1 = train_bench.expected_launches(cfg.replace(enc_depth=1, dec_depth=1), lora=True)
     # LoRA: the encoder runs once, the decoder twice (its replay under remat "full").

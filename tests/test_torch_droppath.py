@@ -300,6 +300,8 @@ def test_expected_launches_of_a_stochastic_step_are_the_wrappers_calls(scope, dr
     assert want == train_bench.expected_launches(cfg, lora=True, stochastic=True)
     depths = TINY.encoder_depths + TINY.decoder_depths
     assert want.pop("roll3d_bwd") == 2 * sum(d // 2 for d in depths)
+    # K3's input gradient: the blocks that keep K3 and the decoder's perceiver.
+    assert want.pop("mlp_adaln_residual_grad") == (2 if drop_rate == 0 else 0) + 1
     got = {k: v // 2 for k, v in counts.items()}
     got["window_attention"] = got.pop("window_attention_tail", 0)
     got["mlp_adaln_residual"] = got.get("mlp_adaln_residual", 0)

@@ -203,7 +203,7 @@ def test_f32_expected_launches_are_the_wrappers_calls(K, mode, scope, monkeypatc
     """The tools with ``--default-config`` on the CPU (depths of 2 and 4 a stage): the
     forward calls of each kernel wrapper in a timed update (a warm-up and one timed update,
     counted together and halved) equal ``expected_launches`` but ``roll3d_bwd``, and every
-    call takes float32 tokens."""
+    call takes float32 tokens, so no backward launches K3's hand-written input gradient."""
     counts, dtypes = collections.Counter(), set()
     for module, name in [(swin3d, "roll3d"), (swin3d, "window_attention_tail"),
                          (swin3d, "mlp_adaln_residual"), (perceiver, "perceiver_core"),
@@ -227,6 +227,7 @@ def test_f32_expected_launches_are_the_wrappers_calls(K, mode, scope, monkeypatc
     want = dict(out["expected_launches"])
     depths = TINY.encoder_depths + TINY.decoder_depths
     assert want.pop("roll3d_bwd") == 2 * sum(d // 2 for d in depths) * max(K, 1)
+    assert want.pop("mlp_adaln_residual_grad") == 0
     assert {k: v // 2 for k, v in counts.items()} == want
     assert dtypes == {F32} and out["config"] == "default"
     assert all(np.isfinite(out["losses"]))

@@ -15,6 +15,12 @@ model's ``forward_core``) on the CPU in float64.
   the JAX package's ``forward_core`` + ``mae_loss`` (mean relative error <= 1e-8), a full
   fine-tune and LoRA-only (the base frozen: no gradient computed for it), on routes main, W,
   P and X.
+* K3's hand-written input gradient: its arithmetic in PyTorch
+  (``mlp_adaln_residual_input_grad_plain``) against autograd of the form the plain backward
+  differentiates, in float64 (1e-12) and bf16 (the card's bf16 bar), over FiLM batches and
+  chunks; which backward a call takes (bf16 tokens alone asking for a gradient: the
+  hand-written one, once, inside the gradient's span; float32 tokens, a weight's or the FiLM's
+  gradient: the plain one).
 * ``make_train_step``: the parameters after two AdamW steps of a full fine-tune, and after
   two updates of a LoRA-only step with ``accum_steps=2`` (four calls, ``optax.MultiSteps``),
   against the JAX step's arithmetic (the jitted value-and-gradient above, the frozen leaves'
@@ -41,9 +47,10 @@ from aurora_tpu.training.train import lora_mask as j_lora_mask
 from aurora_tpu.training.train import mae_loss as j_mae_loss
 from aurora_tpu_torch.convert import params_from_numpy
 from aurora_tpu_torch.model.config import AuroraConfig
-from aurora_tpu_torch.ops import ad, mlp, resampler, roll, window_attention
+from aurora_tpu_torch.ops import _lib, ad, mlp, resampler, roll, window_attention
 from aurora_tpu_torch.ops.masks import window_group_ids
 from aurora_tpu_torch.training import adamw, lora_mask, mae_loss, make_train_step
+from aurora_tpu_torch.utils.profiling import recorded, span
 from tests.conftest import make_batch
 from tests.test_torch_support import mean_rel, seeded_matched_models, torch_batch, tree_name
 
@@ -140,6 +147,37 @@ def test_no_function_without_grad_mode_or_a_tensor_that_needs_one():
     assert not ad.needs_grad(x.detach(), 3)
     with torch.no_grad():
         assert not ad.needs_grad(x)
+
+
+@pytest.mark.parametrize("asked,hand_written", [
+    ("x", "taken"), ("x", "declined"), ("x and w", "taken")])
+def test_a_hand_written_input_grad_is_taken_only_for_the_first_argument_alone(asked,
+                                                                               hand_written):
+    """``input_grad`` gives the gradient where only the first argument asks for one and it
+    returns one; otherwise (another input asks too, or it returns None) the plain backward
+    runs, as without it."""
+    rng = np.random.default_rng(3)
+    x, w, b = _leaves(rng, (10, 6), (6, 5), (5,))
+    b.requires_grad_(False)
+    if asked == "x":
+        w.requires_grad_(False)
+    calls = []
+
+    def input_grad(g, x_, w_, b_):
+        calls.append(g.shape)
+        return None if hand_written == "declined" else torch.full_like(x_, 7.0)
+
+    out = ad.kernel_with_plain_grad(_stand_in, _math, input_grad=input_grad)(x, w, b)
+    g = torch.from_numpy(rng.standard_normal((10, 5)))
+    out.backward(g)
+    want = torch.autograd.grad(_math(x, w, b), [x, w][:1 + (asked != "x")], g)
+    assert calls == ([(10, 5)] if asked == "x" else [])
+    if asked == "x" and hand_written == "taken":
+        assert torch.equal(x.grad, torch.full_like(x, 7.0))
+    else:
+        torch.testing.assert_close(x.grad, want[0], rtol=1e-13, atol=1e-13)
+    if asked != "x":
+        torch.testing.assert_close(w.grad, want[1], rtol=1e-13, atol=1e-13)
 
 
 @pytest.mark.parametrize("n,step", [(10, 3), (10, 10), (10, 40), (7, 1)])
@@ -325,6 +363,127 @@ def test_cuda_branch_goes_through_the_function_under_grad(name):
             if isinstance(node, ast.Call) and isinstance(node.func, ast.Name):
                 called.add(node.func.id)
     assert not called & set(grads), called & set(grads)
+
+
+# ------------------------------------------------- K3's hand-written input gradient
+
+BF16_GRAD_TOL = 6e-3  # chip_smoke.py's bar of a bf16 gradient: the forward's, less one ulp
+
+
+def _bf16_err(got, want) -> float:
+    """max |got - want| less one bf16 ulp of the larger, over max |want| (chip_smoke.py's
+    measure of a bf16 gradient: both sides round it to bf16)."""
+    a, b = got.double(), want.double()
+    mant, exp = torch.frexp(torch.maximum(a.abs(), b.abs()))
+    ulp = torch.where(mant > 0, torch.ldexp(torch.ones_like(a), exp - 8), 0.0)
+    return ((a - b).abs() - ulp).clamp_min(0).max().item() / b.abs().max().item()
+
+
+def _k3_inputs(rng, B, dtype, L=200, D=16, Hd=64):
+    """K3's inputs at a small width: tokens, weights and the output's gradient in ``dtype``,
+    biases and per-batch FiLM ``(B, D)`` in f32 (f64 for f64)."""
+    f = torch.float64 if dtype == torch.float64 else torch.float32
+
+    def t(*shape, std=1.0, dt=f):
+        return (torch.from_numpy(rng.standard_normal(shape)) * std).to(dt)
+
+    return dict(x=t(B, L, D, dt=dtype), w1=t(D, Hd, std=0.3, dt=dtype), b1=t(Hd),
+                w2=t(Hd, D, std=0.3, dt=dtype), b2=t(D), shift=t(B, D),
+                scale=t(B, D, std=0.3)), t(B, L, D, dt=dtype)
+
+
+@pytest.mark.parametrize("chunks", ["one chunk", "several chunks"])
+@pytest.mark.parametrize("B", [1, 2])
+@pytest.mark.parametrize("scale_bias", [0.0, 1.0])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.bfloat16], ids=["f64", "bf16"])
+def test_k3_input_grad_plain_equals_autograd(dtype, scale_bias, B, chunks):
+    """``mlp_adaln_residual_input_grad_plain`` (the five steps of ``csrc/mlp_grad.cu``) against
+    ``torch.autograd.grad`` of ``_mlp_adaln_residual_grad`` with respect to the tokens: 1e-12 in
+    float64, the bf16 bar in bf16 (which rounds the hidden layer's gradient once less), with a
+    FiLM row per batch and chunks of 128 rows that cross the batches' boundary."""
+    rng = np.random.default_rng(int(scale_bias) + 2 * B + 4 * (chunks == "one chunk"))
+    a, g = _k3_inputs(rng, B, dtype)
+    x = a["x"].requires_grad_()
+    out = mlp._mlp_adaln_residual_grad(x, a["w1"], a["b1"], a["w2"], a["b2"], a["shift"],
+                                       a["scale"], scale_bias, 1e-5)
+    want, = torch.autograd.grad(out, x, g)
+    Hd = a["w1"].shape[1]
+    cap = mlp.MLP_SCRATCH_BYTES if chunks == "one chunk" else 2 * Hd * 128
+    assert len(mlp.mlp_row_chunks(B * 200, Hd, cap)) == (1 if chunks == "one chunk" else
+                                                         -(-B * 200 // 128))
+    got = mlp.mlp_adaln_residual_input_grad_plain(g, x.detach(), a["w1"], a["b1"], a["w2"],
+                                                  a["b2"], a["scale"], scale_bias, 1e-5, cap)
+    assert got.dtype == dtype and got.shape == x.shape
+    if dtype == torch.float64:
+        torch.testing.assert_close(got, want, rtol=1e-12, atol=1e-12 * want.abs().max().item())
+    else:
+        assert _bf16_err(got, want) <= BF16_GRAD_TOL
+
+
+def _k3_backward(monkeypatch, dtype, asks):
+    """K3's differentiable path on the CPU (the kernel forward replaced by the plain version,
+    the hand-written backward's launch by its plain arithmetic, each under its launch key),
+    the inputs named in ``asks`` asking for a gradient; one backward inside a profiler
+    session. Returns the inputs, the gradients, the stand-in's calls and what was
+    recorded."""
+    monkeypatch.setattr(_lib, "LAUNCHES", dict(_lib.LAUNCHES, mlp_adaln_residual_grad=0))
+    monkeypatch.setattr(_lib, "LAUNCHES_BY", {})
+    monkeypatch.setattr(mlp, "_mlp_adaln_residual_launch",
+                        _lib.launch("mlp_adaln_residual")(mlp.mlp_adaln_residual_plain))
+    assert mlp._mlp_adaln_residual_grad_launch.launch_key == "mlp_adaln_residual_grad"
+    calls = []
+
+    @_lib.launch("mlp_adaln_residual_grad")
+    def stand_in(g, x, w1, b1, w2, b2, scale, scale_bias, ln_eps):
+        calls.append(x.dtype)
+        return mlp.mlp_adaln_residual_input_grad_plain(g, x, w1, b1, w2, b2, scale,
+                                                       scale_bias, ln_eps)
+
+    monkeypatch.setattr(mlp, "_mlp_adaln_residual_grad_launch", stand_in)
+    a, g = _k3_inputs(np.random.default_rng(7), 2, dtype)
+    for name in asks:
+        a[name].requires_grad_()
+    args = (a["x"], a["w1"], a["b1"], a["w2"], a["b2"], a["shift"], a["scale"], 1.0, 1e-5)
+    leaves = [a[n] for n in asks]
+    with torch.autograd.profiler.profile():
+        with span("aurora:train.backward"):
+            out = mlp._mlp_adaln_residual_differentiable(*args)
+            got = torch.autograd.grad(out, leaves, g)
+    return args, leaves, g, got, calls, recorded()
+
+
+def test_k3_bf16_tokens_alone_take_the_hand_written_backward(monkeypatch):
+    """bf16 tokens, alone asking for a gradient (LoRA training): the backward launches K3's
+    input gradient once, inside ``aurora:grad.mlp_adaln_residual``, and returns its result."""
+    args, leaves, g, got, calls, rec = _k3_backward(monkeypatch, torch.bfloat16, ["x"])
+    assert calls == [torch.bfloat16]
+    assert _lib.LAUNCHES["mlp_adaln_residual_grad"] == 1
+    assert rec["aurora:k.mlp_adaln_residual_grad"].calls == 1
+    assert rec["aurora:grad.mlp_adaln_residual"].calls == 1
+    parents = {(r.name, None if r.parent is None else rec.records[r.parent].name)
+               for r in rec.records}
+    assert ("aurora:k.mlp_adaln_residual_grad", "aurora:grad.mlp_adaln_residual") in parents
+    x, w1, b1, w2, b2, shift, scale, scale_bias, eps = args
+    want = mlp.mlp_adaln_residual_input_grad_plain(g, x.detach(), w1, b1, w2, b2, scale,
+                                                   scale_bias, eps)
+    assert torch.equal(got[0], want)
+
+
+@pytest.mark.parametrize("dtype,asks", [
+    (torch.float32, ["x"]), (torch.bfloat16, ["x", "w1"]), (torch.bfloat16, ["x", "b2"]),
+    (torch.bfloat16, ["x", "scale"]), (torch.bfloat16, ["x", "shift"])],
+    ids=["float32 tokens", "fc1's weight", "fc2's bias", "FiLM scale", "FiLM shift"])
+def test_k3_other_backwards_keep_the_plain_path(monkeypatch, dtype, asks):
+    """float32 tokens, or a weight's or the FiLM's gradient asked for beside the tokens' (the
+    float32 model's training, a full fine-tune): no launch of the hand-written backward; every
+    gradient is autograd's of the plain form, chunk by chunk as before."""
+    args, leaves, g, got, calls, rec = _k3_backward(monkeypatch, dtype, asks)
+    assert calls == [] and _lib.LAUNCHES["mlp_adaln_residual_grad"] == 0
+    assert "aurora:k.mlp_adaln_residual_grad" not in rec
+    assert rec["aurora:grad.mlp_adaln_residual"].calls == 1
+    want = torch.autograd.grad(mlp._mlp_adaln_residual_grad(*args), leaves, g)
+    for a, e in zip(got, want):
+        torch.testing.assert_close(a, e, rtol=1e-5, atol=1e-5 * e.abs().max().item())
 
 
 # ------------------------------------------------------------------------------ the model

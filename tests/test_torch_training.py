@@ -301,8 +301,10 @@ _KEYS = {"roll3d": "roll3d", "window_attention_tail": "window_attention",
 def test_expected_launches_are_the_wrappers_calls(K, mode, scope, remat, monkeypatch):
     """The tools on the CPU (depths of 2 and 4 a stage): the forward calls of each kernel
     wrapper in a timed update (a warm-up and one timed update, counted together and halved)
-    equal ``expected_launches`` but ``roll3d_bwd``, which the plain version has no launch
-    for."""
+    equal ``expected_launches`` but ``roll3d_bwd`` and ``mlp_adaln_residual_grad``, which the
+    plain versions have no launch for: K3's hand-written input gradient once for each K3 call
+    of a LoRA step (every block, the decoder's and, from a roll-out's second step, the
+    encoder's perceiver), none in a full fine-tune."""
     counts = collections.Counter()
     for module, name in [(swin3d, "roll3d"), (swin3d, "window_attention_tail"),
                          (swin3d, "mlp_adaln_residual"), (perceiver, "perceiver_core"),
@@ -325,6 +327,8 @@ def test_expected_launches_are_the_wrappers_calls(K, mode, scope, remat, monkeyp
     want = dict(out["expected_launches"])
     depths = TINY.encoder_depths + TINY.decoder_depths
     assert want.pop("roll3d_bwd") == 2 * sum(d // 2 for d in depths) * max(K, 1)
+    k3_grads = (sum(depths) + 1) * max(K, 1) + max(K - 1, 0) if mode == "lora" else 0
+    assert want.pop("mlp_adaln_residual_grad") == k3_grads
     assert {k: v // 2 for k, v in counts.items()} == want
     assert all(np.isfinite(out["losses"])) and out["device"] == "cpu"
 
